@@ -1,0 +1,18 @@
+"""dmlc_tpu_torch — the PyTorch / NVIDIA H100 port of dmlc_tpu.
+
+The JAX package ``dmlc_tpu`` is the reference; this package imports none of
+it (nor JAX) and keeps its own copies of the host layers it needs. Its main
+path so far: ``create_parser`` (libsvm, byte-range shards, native or numpy
+parse) -> ``DeviceIter`` (dense or ELL batches, pinned staging, async
+copies) -> ``LinearLearner`` (SGD; the ELL margin on the hand-written CUDA
+kernel ``csrc/ell_matvec.cu``) -> ``fit`` / ``accuracy``.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without a card the default raises ``DMLCError``.
+"""
+
+from dmlc_tpu_torch.data import DeviceIter, create_parser
+from dmlc_tpu_torch.models import LinearLearner
+from dmlc_tpu_torch.utils.check import DMLCError
+
+__all__ = ["DMLCError", "DeviceIter", "LinearLearner", "create_parser"]

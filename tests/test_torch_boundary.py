@@ -1,0 +1,94 @@
+"""The port's import boundary and its device rule.
+
+- ``dmlc_tpu_torch`` and every submodule import with ``jax``, ``optax`` and
+  ``dmlc_tpu`` blocked (a subprocess: this test process already imported
+  jax through conftest.py).
+- No module of the port, and not ``chip_smoke.py``, imports any of them
+  (an AST scan).
+- Entry points run on the card unless the caller asks for the CPU: without
+  ``device=`` they raise on a host without CUDA.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import dmlc_tpu_torch
+from dmlc_tpu_torch import DMLCError, DeviceIter, LinearLearner
+from dmlc_tpu_torch.ops.ell_matvec import ell_matvec_auto
+from dmlc_tpu_torch.ops.sparse import EllBatch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(dmlc_tpu_torch.__file__)
+FORBIDDEN = ("jax", "jaxlib", "optax", "dmlc_tpu")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_forbidden_imports_in_sources():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(path, n) for n in names if _forbidden(n)]
+    assert not offenders
+
+
+def test_every_submodule_imports_without_jax():
+    script = (
+        "import sys, pkgutil, importlib\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import dmlc_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(dmlc_tpu_torch.__path__, 'dmlc_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'optax', 'dmlc_tpu')\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15
+
+
+def test_default_device_is_the_card(tmp_path):
+    path = tmp_path / "d.libsvm"
+    path.write_text("1 0:1\n")
+    if torch.cuda.is_available():
+        assert LinearLearner(num_col=3).params.weight.is_cuda
+        return
+    with pytest.raises(DMLCError, match="device='cpu'"):
+        LinearLearner(num_col=3)
+    with pytest.raises(DMLCError, match="device='cpu'"):
+        DeviceIter(dmlc_tpu_torch.create_parser(str(path)), num_col=3, batch_size=4)
+    # the CPU runs when asked for
+    assert LinearLearner(num_col=3, device="cpu").params.weight.device.type == "cpu"
+
+
+def test_kernel_route_refuses_cpu_tensors():
+    w = torch.zeros(4)
+    batch = EllBatch(torch.zeros((2, 3), dtype=torch.int32), torch.zeros((2, 3)), None, None)
+    with pytest.raises(DMLCError, match="CUDA"):
+        ell_matvec_auto(w, batch, use_kernel=True)
