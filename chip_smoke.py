@@ -18,7 +18,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    time limit) -> create_parser -> DeviceIter(ell) -> LinearLearner ->
    fit(2 epochs) -> accuracy, with the K1 launch count of that run, and the
    first 20 step losses held against the same batches on the CPU;
-4. one epoch of the dense layout on the same corpus.
+4. one epoch of the dense layout on the same corpus;
+5. kernel K2 (``csrc/widen_span.cu``) against its plain PyTorch version,
+   bit for bit, at the shapes the warm epochs give it (HIGGS packed dense
+   8192x30 and the dense path's 8192x31, f32 and bf16; ELL values 8192x28;
+   a lane-aligned 8192x1024; an odd 1000x7 whose bytes are no multiple of
+   16), each from a 64-byte-aligned and from an unaligned start, with its
+   device time beside the plain version's, the one PyTorch call computing
+   the same function (``seg.view(dtype).reshape(rows, cols).clone()``) and
+   the bytes bound;
+6. the warm main path: ``create_parser(snapshot=)`` -> ``DeviceIter(ell,
+   device_decode=True)`` -> ``fit(3 epochs)`` -> ``accuracy``: epoch 1 is
+   cold and writes the snapshot, epochs 2-3 and the accuracy pass decode
+   each batch on the card through K2 (and step through K1), with per-epoch
+   rows/s, stall share and the snapshot and decode counters, and a
+   profiled window of steps fed by a warm device-decode epoch; then a cold
+   plus a warm device-decode epoch of packed dense f32, and of packed dense
+   bf16; the first 8 warm device-decode batches of each are held against
+   the host-decode warm path's, byte for byte.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -51,6 +68,17 @@ K1_SHAPES = [  # (name, B, K, W)
     ("odd", 1000, 7, 101),
 ]
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
+K2_SHAPES = [  # (name, rows, cols, dtype)
+    ("higgs_dense_f32", 8192, 30, "float32"),     # 28 features + label + weight
+    ("higgs_dense_bf16", 8192, 30, "bfloat16"),
+    ("dense_path_f32", 8192, 31, "float32"),      # the dense learner's 29 + 2
+    ("dense_path_bf16", 8192, 31, "bfloat16"),
+    ("ell_values", 8192, 28, "float32"),          # the warm ELL path's segment
+    ("lane_aligned", 8192, 1024, "float32"),      # a shape the TPU kernel took
+    ("odd_f32", 1000, 7, "float32"),
+    ("odd_bf16", 1000, 7, "bfloat16"),
+]
+K2_MAIN = "ell_values"
 
 
 def emit(obj) -> None:
@@ -295,7 +323,7 @@ def compare_first_losses(path: str, device, steps: int = 20) -> dict:
     return {"steps": len(pairs), "max_rel_diff": rel, "losses": pairs}
 
 
-def step_times(path: str, device, window: int = 40) -> dict:
+def step_times(path: str, device, window: int = 40, snapshot=None) -> dict:
     """Where an ELL step's time goes.
 
     On a batch already on the card: the step must not synchronise the host
@@ -303,15 +331,18 @@ def step_times(path: str, device, window: int = 40) -> dict:
     (CUDA events, queued behind a spin) and its wall time per step in a
     loop of 50 that ends in a synchronise. Then ``window`` steps fed by a
     DeviceIter under ``torch.profiler``: device time by kernel per step and
-    the share of the window's wall time in which the device was busy."""
+    the share of the window's wall time in which the device was busy. With
+    a published ``snapshot`` the feed is its warm device-decode epoch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
 
     model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
-    it = DeviceIter(create_parser(path, 0, 1, "libsvm"), num_col=model.device_num_col(),
-                    batch_size=BATCH, layout="ell", max_nnz=HIGGS_COLS, device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snapshot),
+                    num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device,
+                    device_decode=snapshot is not None)
     batch = next(it)
     model.step(batch)
     torch.cuda.synchronize()
@@ -340,7 +371,10 @@ def step_times(path: str, device, window: int = 40) -> dict:
             model.step(b)
         torch.cuda.synchronize()
         window_s = time.monotonic() - t0
+    state = it.stats()["snapshot_state"]
     it.close()
+    if state != ("warm" if snapshot is not None else None):
+        raise AssertionError(f"the profiled window's snapshot state is {state}")
     per_kernel: dict = {}
     spans = []
     for evt in prof.events():
@@ -354,7 +388,8 @@ def step_times(path: str, device, window: int = 40) -> dict:
             busy_us += end - max(start, reach)
             reach = end
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    return {"phase": "step", "step_device_ms": dev_ms, "step_wall_ms": wall_ms,
+    return {"phase": "step" if snapshot is None else "step_warm",
+            "step_device_ms": dev_ms, "step_wall_ms": wall_ms,
             "fed_window_steps": window, "fed_window_s": window_s,
             "fed_device_busy_share": busy_us / 1e6 / window_s,
             "profiled_device_ms_per_step": busy_us / 1e3 / window,
@@ -376,6 +411,200 @@ def run_dense_epoch(path: str, device) -> dict:
            "bytes_to_device": it.bytes_to_device}
     it.close()
     return out
+
+
+# ---------------- phase 5: kernel K2 against its plain version ----------------
+
+def phase_k2(seed: int) -> list:
+    """K2 on segments laid out as the snapshot spans lay them out (64 bytes
+    into a u8 span) and from an unaligned start (1 byte in: the scalar
+    loop), bit-exact against the plain version and the source values."""
+    import torch
+
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows_out = []
+    for name, rows, cols, dtype_name in K2_SHAPES:
+        dt = getattr(torch, dtype_name)
+        iv = torch.int32 if dt == torch.float32 else torch.int16
+        vals = (torch.randn(rows, cols, generator=gen, device=dev) * 1e3).to(dt)
+        vals.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), -0.0, -1e-30]).to(dt)
+        raw = vals.view(torch.uint8).reshape(-1)
+        nbytes = raw.numel()
+        segs = {}
+        for off in (64, 1):
+            span = torch.zeros(nbytes + 128, dtype=torch.uint8, device=dev)
+            span[off: off + nbytes] = raw
+            segs[off] = span[off: off + nbytes]
+        for off, seg in segs.items():
+            out = dd.widen_span_cuda(seg, rows, cols, dt)
+            plain = dd.widen_span_plain(seg, rows, cols, dt)
+            torch.cuda.synchronize()
+            if not (torch.equal(out.view(iv), plain.view(iv))
+                    and torch.equal(out.view(iv), vals.view(iv))):
+                raise AssertionError(f"K2 {name} (offset {off}) differs from its plain version")
+        seg = segs[64]
+        out, plain = dd.widen_span_cuda(seg, rows, cols, dt), dd.widen_span_plain(seg, rows, cols, dt)
+        finite = torch.isfinite(plain.float())
+        err = float((out.float() - plain.float())[finite].abs().max())
+        ms = device_ms(lambda: dd.widen_span_cuda(seg, rows, cols, dt))
+        unaligned_ms = device_ms(lambda: dd.widen_span_cuda(segs[1], rows, cols, dt))
+        plain_ms = device_ms(lambda: dd.widen_span_plain(seg, rows, cols, dt))
+        # a view alone costs the device nothing: the one PyTorch call that
+        # makes the same fresh [rows, cols] tensor is the view's clone
+        library_ms = device_ms(lambda: seg.view(dt).reshape(rows, cols).clone())
+        bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "k2", "shape": name, "rows": rows, "cols": cols,
+               "dtype": dtype_name, "bytes": nbytes, "bit_exact": True,
+               "unaligned_bit_exact": True, "max_abs_err": err,
+               "ms": ms, "unaligned_ms": unaligned_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "bound_share": bound_ms / ms}
+        emit(row)
+        rows_out.append(row)
+    return rows_out
+
+
+# ---------------- phase 6: the warm main path ----------------
+
+WARM_KEYS = ("stall_seconds", "bytes_to_device", "convert_seconds",
+             "snapshot_write_seconds", "snapshot_read_seconds",
+             "device_decode_seconds", "device_decode_bytes")
+
+
+def _epoch_logger(it, phase: str, out: list):
+    """A ``fit`` log_fn recording each epoch's deltas of ``WARM_KEYS``."""
+    prev = {k: 0 for k in WARM_KEYS}
+
+    def log(epoch, loss, nb, secs):
+        now = it.stats()
+        d = {k: now[k] - prev[k] for k in WARM_KEYS}
+        prev.update({k: now[k] for k in WARM_KEYS})
+        rec = {"phase": phase, "epoch": epoch, "loss": loss, "batches": nb,
+               "warm": d["device_decode_bytes"] > 0, "wall_s": secs,
+               "rows_per_s": nb * BATCH / secs,
+               "stall_share": d["stall_seconds"] / secs,
+               **{k: d[k] for k in WARM_KEYS}}
+        emit(rec)
+        out.append(rec)
+    return log
+
+
+def _check_warm_epochs(epochs: list, first_cold: bool = True) -> int:
+    """Epoch 1 cold, the rest warm with a convert delta of exactly 0.
+    Returns the warm batches."""
+    for e in epochs:
+        if not np.isfinite(e["loss"]):
+            raise AssertionError(f"{e['phase']}: non-finite loss {e['loss']}")
+        if e["warm"] != (e["epoch"] > 0 or not first_cold):
+            raise AssertionError(f"{e['phase']} epoch {e['epoch']}: warm={e['warm']}")
+        if e["warm"] and e["convert_seconds"] != 0.0:
+            raise AssertionError(f"{e['phase']} epoch {e['epoch']}: a warm epoch "
+                                 f"converted for {e['convert_seconds']} s")
+    return sum(e["batches"] for e in epochs if e["warm"])
+
+
+def run_warm_ell(path: str, snap: str, device) -> dict:
+    """The warm main path: create_parser(snapshot=) -> DeviceIter(ell,
+    device_decode=True) -> fit(3) -> accuracy, with both kernels' counts
+    zeroed just before and read just after."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+    from dmlc_tpu_torch.ops import device_decode as dd
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    model = LinearLearner(num_col=HIGGS_COLS, layout="ell", learning_rate=0.3,
+                          device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap),
+                    num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device,
+                    device_decode=True)
+    epochs: list = []
+    k1.launches = dd.launches = 0
+    model.fit(it, epochs=3, log_fn=_epoch_logger(it, "warm_ell", epochs))
+    before = it.stats()
+    t0 = time.monotonic()
+    acc = model.accuracy(it)
+    acc_s = time.monotonic() - t0
+    k1_launches, k2_launches = k1.launches, dd.launches
+    after = it.stats()
+    it.close()
+    acc_warm = after["device_decode_bytes"] > before["device_decode_bytes"]
+    warm_batches = _check_warm_epochs(epochs) + (HIGGS_ROWS // BATCH if acc_warm else 0)
+    out = {"phase": "warm_ell", "accuracy": acc, "accuracy_s": acc_s,
+           "accuracy_warm": acc_warm,
+           "accuracy_convert_seconds": after["convert_seconds"] - before["convert_seconds"],
+           "k2_launches": k2_launches, "k2_launches_needed": warm_batches,
+           "k1_launches": k1_launches,
+           "k1_launches_needed": sum(e["batches"] for e in epochs) + HIGGS_ROWS // BATCH,
+           "snapshot_bytes": os.path.getsize(snap)}
+    emit(out)
+    if not acc_warm or out["accuracy_convert_seconds"] != 0.0:
+        raise AssertionError(f"the accuracy pass was not a warm device-decode pass: {out}")
+    if k2_launches < warm_batches:
+        raise AssertionError(f"K2 launched {k2_launches} times for {warm_batches} warm batches")
+    if k1_launches < out["k1_launches_needed"]:
+        raise AssertionError(f"K1 launched {k1_launches} times, "
+                             f"the path needs {out['k1_launches_needed']}")
+    if not acc > 0.9:
+        raise AssertionError(f"warm ELL accuracy {acc} <= 0.9")
+    return {**out, "epochs": epochs}
+
+
+def run_warm_dense(path: str, snap: str, device, x_dtype: str) -> dict:
+    """A cold and a warm device-decode epoch of packed dense batches."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    phase = f"warm_dense_{x_dtype}"
+    model = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap),
+                    num_col=model.device_num_col(), batch_size=BATCH, layout="dense",
+                    drop_remainder=True, device=device, x_dtype=x_dtype,
+                    pack_aux=True, device_decode=True)
+    epochs: list = []
+    dd.launches = 0
+    model.fit(it, epochs=2, log_fn=_epoch_logger(it, phase, epochs))
+    k2_launches = dd.launches
+    it.close()
+    warm_batches = _check_warm_epochs(epochs)
+    out = {"phase": phase, "k2_launches": k2_launches,
+           "k2_launches_needed": warm_batches, "snapshot_bytes": os.path.getsize(snap)}
+    emit(out)
+    if k2_launches < warm_batches:
+        raise AssertionError(f"{phase}: K2 launched {k2_launches} times for "
+                             f"{warm_batches} warm batches")
+    if not epochs[-1]["loss"] < np.log(2):
+        raise AssertionError(f"{phase}: warm epoch loss {epochs[-1]['loss']}")
+    return {**out, "epochs": epochs}
+
+
+def compare_warm_routes(path: str, snap: str, device, n: int = 8, **kw) -> dict:
+    """The first ``n`` warm batches through device decode (K2) against the
+    same batches through the host-decode warm path, byte for byte."""
+    import torch
+
+    from dmlc_tpu_torch import DeviceIter, create_parser
+
+    iters = [DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap),
+                        batch_size=BATCH, drop_remainder=True, device=device,
+                        device_decode=dec, **kw) for dec in (True, False)]
+    pairs = list(zip(range(n), *iters))
+    states = [it.stats()["snapshot_state"] for it in iters]
+    for it in iters:
+        it.close()
+    if states != ["warm", "warm"] or len(pairs) != n:
+        raise AssertionError(f"warm route comparison ran {len(pairs)} batches, states {states}")
+    for i, a, b in pairs:
+        ta = [a.packed] if hasattr(a, "packed") else list(a)
+        tb = [b.packed] if hasattr(b, "packed") else list(b)
+        for x, y in zip(ta, tb):
+            if not (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.view(torch.uint8), y.view(torch.uint8))):
+                raise AssertionError(f"warm batch {i}: device decode differs from host decode")
+    return {"phase": "warm_routes", "layout": kw.get("layout"),
+            "x_dtype": kw.get("x_dtype", "float32"), "batches_equal": n}
 
 
 def main() -> int:
@@ -401,8 +630,9 @@ def main() -> int:
                cuda=torch.version.cuda, device_name=torch.cuda.get_device_name(0))
     emit(env)
 
-    # phase 2 (these launches are comparisons, not the main path's)
+    # phases 2 and 5 (these launches are comparisons, not the main path's)
     k1_rows = phase_k1(args.seed)
+    k2_rows = phase_k2(args.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = os.path.join(tmp, "higgs_shaped.libsvm")
@@ -445,16 +675,42 @@ def main() -> int:
         if not (np.isfinite(dense["loss"]) and dense["loss"] < np.log(2)):
             raise AssertionError(f"dense epoch loss {dense['loss']}")
 
-    main_shape = k1_rows[0]
+        # phase 6: the warm paths, each with its counts zeroed just before
+        ell_snap = os.path.join(tmp, "ell.snapshot")
+        warm_ell = run_warm_ell(path, ell_snap, dev)
+        emit(compare_warm_routes(path, ell_snap, dev, num_col=HIGGS_COLS,
+                                 layout="ell", max_nnz=HIGGS_COLS))
+        warm_step = step_times(path, dev, snapshot=ell_snap)
+        warm_epoch = warm_ell["epochs"][-1]
+        warm_step["device_busy_share_est"] = (
+            warm_step["step_device_ms"] * warm_epoch["batches"] / 1e3 / warm_epoch["wall_s"])
+        emit(warm_step)
+        warm_dense = []
+        for x_dtype in ("float32", "bfloat16"):
+            snap = os.path.join(tmp, f"dense_{x_dtype}.snapshot")
+            warm_dense.append(run_warm_dense(path, snap, dev, x_dtype))
+            emit(compare_warm_routes(path, snap, dev, num_col=HIGGS_COLS + 1,
+                                     layout="dense", x_dtype=x_dtype, pack_aux=True))
+
+    k1_main = k1_rows[0]
+    k2_main = next(r for r in k2_rows if r["shape"] == K2_MAIN)
     emit({"kernels": [{
         "name": "ell_matvec", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:122",
-        "launches": launches,
+        "launches": launches + warm_ell["k1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"]}]})
+        "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+        "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
+        "library_ms": k1_main["library_ms"]}, {
+        "name": "widen_span", "route": "cuda",
+        "source": "dmlc_tpu_torch/csrc/widen_span.cu",
+        "replaces": "dmlc_tpu/ops/device_decode.py:168",
+        "launches": warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense),
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
+        "library_ms": k2_main["library_ms"]}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,11 @@ it (nor JAX) and keeps its own copies of the host layers it needs. Its main
 path so far: ``create_parser`` (libsvm, byte-range shards, native or numpy
 parse) -> ``DeviceIter`` (dense or ELL batches, pinned staging, async
 copies) -> ``LinearLearner`` (SGD; the ELL margin on the hand-written CUDA
-kernel ``csrc/ell_matvec.cu``) -> ``fit`` / ``accuracy``.
+kernel ``csrc/ell_matvec.cu``) -> ``fit`` / ``accuracy``. With
+``create_parser(..., snapshot=path)`` the first epoch writes its batches
+to a snapshot file and later epochs serve them from it; with
+``DeviceIter(device_decode=True)`` each served batch crosses as raw bytes
+and is decoded on the card (``csrc/widen_span.cu``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card the default raises ``DMLCError``.

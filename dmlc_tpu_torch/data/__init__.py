@@ -1,8 +1,9 @@
-"""Data layer of the port: row blocks, the libsvm parser, the device feed."""
+"""Data layer of the port: row blocks, the libsvm parser, the device feed
+(with the snapshot store and its device-decode tier)."""
 
-from dmlc_tpu_torch.data.device import DeviceIter
+from dmlc_tpu_torch.data.device import DeviceIter, PackedDenseBatch
 from dmlc_tpu_torch.data.parsers import LibSVMParser, Parser, ThreadedParser, create_parser
 from dmlc_tpu_torch.data.row_block import RowBlock, RowBlockContainer
 
-__all__ = ["DeviceIter", "LibSVMParser", "Parser", "RowBlock",
+__all__ = ["DeviceIter", "LibSVMParser", "PackedDenseBatch", "Parser", "RowBlock",
            "RowBlockContainer", "ThreadedParser", "create_parser"]

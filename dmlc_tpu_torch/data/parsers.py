@@ -19,7 +19,8 @@ import numpy as np
 
 from dmlc_tpu_torch import native
 from dmlc_tpu_torch.data.row_block import RowBlock
-from dmlc_tpu_torch.io.input_split import LineSplitter
+from dmlc_tpu_torch.io.block_cache import source_signature
+from dmlc_tpu_torch.io.input_split import DEFAULT_CHUNK_BYTES, LineSplitter
 from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io.uri import URISpec
 from dmlc_tpu_torch.utils.check import DMLCError, check
@@ -329,7 +330,8 @@ class ThreadedParser(Parser):
 
 
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
-                  type_: str = "auto", engine: str = "auto") -> Parser:
+                  type_: str = "auto", engine: str = "auto",
+                  snapshot: Optional[str] = None) -> Parser:
     """Parser factory — analog of dmlc::Parser::Create (src/data.cc:62-85).
 
     ``type_='auto'`` resolves from the URI's ``format=`` argument and
@@ -337,6 +339,14 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     arguments (``?indexing_mode=1``) flow into the parser, which parses
     ahead on its own thread (:class:`ThreadedParser`). ``engine`` as in
     :class:`LibSVMParser`.
+
+    ``snapshot`` arms the snapshot store: the parser carries
+    ``snapshot_path`` (suffixed ``.split<N>.part<K>`` for one of several
+    parts) and ``snapshot_signature``, the source key a snapshot is bound
+    to, which a :class:`~dmlc_tpu_torch.data.device.DeviceIter` over it
+    picks up. The signature equals the JAX package's for the same corpus
+    and settings, so a snapshot written by either package opens in the
+    other.
     """
     spec = URISpec(uri)
     if type_ == "auto":
@@ -345,4 +355,15 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
         raise DMLCError(f"unknown parser format {type_!r}; dmlc_tpu_torch "
                         "parses 'libsvm'")
     split = LineSplitter(spec.uri, part_index, num_parts)
-    return ThreadedParser(LibSVMParser(split, spec.args, engine=engine))
+    parser = ThreadedParser(LibSVMParser(split, spec.args, engine=engine))
+    if snapshot is not None:
+        if num_parts != 1:
+            snapshot = f"{snapshot}.split{num_parts}.part{part_index}"
+        # the engine is left out: every engine emits the same blocks
+        args = {k: v for k, v in spec.args.items() if k != "engine"}
+        parser.snapshot_path = snapshot
+        parser.snapshot_signature = source_signature(
+            spec.uri, part_index, num_parts, format=type_, args=args,
+            index_dtype=np.dtype(np.uint64).str, chunk_bytes=DEFAULT_CHUNK_BYTES,
+            split={})
+    return parser

@@ -1,0 +1,236 @@
+"""Snapshot store: post-convert, device-layout batches on disk.
+
+Own copy of the JAX package's ``io/snapshot.py`` (format ``DMLCSN01``,
+pinned by ``tests/data/snapshot_v1.golden``), trimmed to sequential
+serving. A cold epoch of :class:`~dmlc_tpu_torch.data.device.DeviceIter`
+shadow-writes the batches it ships; warm epochs read them back from an
+mmap with no parse and no convert::
+
+    [header]   magic "DMLCSN01" + u32 LE version + 4 zero pad bytes
+    [segments] per batch, its positional arrays (a0, a1, ...): 64-byte
+               aligned starts, raw little-endian C-order bytes, one crc32
+               per batch
+    [footer]   utf-8 JSON (sort_keys): {"version", "signature",
+               "geometry", "rows", "batches": [{"kind", "pos", "end",
+               "rows", "crc", "resume", "arrays": {name: [dtype_str,
+               abs_offset, nbytes]}, "shapes": {name: [dims...]}}, ...]}
+    [tail]     u64 footer_offset + u64 footer_len + u32 footer_crc LE
+               + magic "DMLCSN01"
+
+A batch is ``(kind, arr0, arr1, ...)``: ``("dense_packed", xp)``,
+``("dense", x, y, w)``, ``("ell", indices, values, label, weight)`` or
+``("dense_packed_q8", q8, scale)``. Staleness is two-keyed: the source
+``signature`` and the batch ``geometry``; a mismatch in either drops the
+file at open (:func:`open_snapshot`) instead of serving wrong batches.
+Every read verifies the batch's crc32 and raises
+:class:`~dmlc_tpu_torch.utils.check.CacheCorruptionError` on a mismatch.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import zlib
+from typing import List, Optional
+
+import numpy as np
+
+from dmlc_tpu_torch.io import block_cache as _bc
+from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
+from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
+
+SNAPSHOT_MAGIC = b"DMLCSN01"
+SNAPSHOT_VERSION = 1
+
+# positional segment names: batch arrays are stored in tuple order
+MAX_BATCH_ARRAYS = 8
+SNAPSHOT_SEGMENT_NAMES = tuple(f"a{i}" for i in range(MAX_BATCH_ARRAYS))
+
+
+class SnapshotWriter:
+    """Streams checksummed device-layout batches to a staging file;
+    :meth:`finish` writes the footer and publishes it at ``path``."""
+
+    def __init__(self, path: str, signature: Optional[dict] = None,
+                 geometry: Optional[dict] = None):
+        self.path = path
+        self._sig = signature or {}
+        self._geom = _bc._normalize(geometry or {})
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self.tmp_path = _bc.stage_path(path)
+        self._f = open(self.tmp_path, "wb")
+        self._f.write(_bc.container_header(SNAPSHOT_MAGIC, SNAPSHOT_VERSION))
+        self._entries: List[dict] = []
+        self._rows = 0
+
+    def add_batch(self, kind: str, arrays, rows: int,
+                  resume: Optional[dict] = None) -> None:
+        """Append one batch: ``arrays`` is the positional tuple behind
+        ``kind`` (numpy arrays or CPU tensors, 2-D allowed: shapes are
+        recorded); ``resume`` is stored as the batch's resume annotation."""
+        check(self._f is not None, "SnapshotWriter: writer already finished/aborted")
+        check(len(arrays) <= MAX_BATCH_ARRAYS,
+              f"SnapshotWriter: batch carries {len(arrays)} arrays (max {MAX_BATCH_ARRAYS})")
+        segments = {SNAPSHOT_SEGMENT_NAMES[i]: a.reshape(-1) for i, a in enumerate(arrays)}
+        pos = _bc._pad_to(self._f, _bc._ALIGN)
+        end, crc, arr_meta = _bc.write_segments(self._f, segments, SNAPSHOT_SEGMENT_NAMES)
+        self._entries.append({
+            "kind": str(kind), "pos": pos, "end": end, "rows": int(rows),
+            "crc": crc, "resume": _bc._normalize(resume) if resume is not None else None,
+            "arrays": arr_meta,
+            "shapes": {SNAPSHOT_SEGMENT_NAMES[i]: list(a.shape) for i, a in enumerate(arrays)},
+        })
+        self._rows += int(rows)
+
+    def finish(self) -> None:
+        """Write footer and tail, fsync, atomically publish at ``path``."""
+        check(self._f is not None, "SnapshotWriter: writer already finished/aborted")
+        footer = {"version": SNAPSHOT_VERSION, "signature": self._sig,
+                  "geometry": self._geom, "rows": self._rows,
+                  "batches": self._entries}
+        f, self._f = self._f, None
+        _bc.finish_container(f, self.tmp_path, self.path, footer, SNAPSHOT_MAGIC)
+
+    def abort(self) -> None:
+        """Drop the partial staging file (an interrupted cold pass)."""
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+            _bc.remove_quietly(self.tmp_path)
+
+
+class SnapshotReader:
+    """mmap-backed reader: batches decode to zero-copy read-only numpy
+    views in their stored shapes (bfloat16 segments as ``uint16`` words).
+    Views alias the mmap, and :meth:`close` tolerates views still alive."""
+
+    def __init__(self, path: str, signature: Optional[dict] = None,
+                 geometry: Optional[dict] = None):
+        self.path = path
+        self._file, self._mm, footer = _bc.open_container(
+            path, SNAPSHOT_MAGIC, SNAPSHOT_VERSION, f"snapshot {path}")
+        try:
+            self.signature = footer.get("signature") or {}
+            self.geometry = footer.get("geometry") or {}
+            self.rows = int(footer.get("rows", 0))
+            self._batches = footer["batches"]
+            if signature is not None and self.signature != _bc._normalize(signature):
+                raise DMLCError(f"snapshot {path}: source signature mismatch (stale snapshot)")
+            if geometry is not None and self.geometry != _bc._normalize(geometry):
+                raise DMLCError(f"snapshot {path}: batch geometry mismatch "
+                                f"(stored {self.geometry})")
+        except Exception:
+            self.close()
+            raise
+
+    @property
+    def num_batches(self) -> int:
+        return len(self._batches)
+
+    def resume(self, i: int) -> Optional[dict]:
+        return self._batches[i]["resume"]
+
+    def batch_nbytes(self, i: int) -> int:
+        e = self._batches[i]
+        return int(e["end"]) - int(e["pos"])
+
+    def layout(self, i: int):
+        """Batch ``i``'s span layout (offsets relative to its ``pos``)."""
+        e = self._batches[i]
+        return _bc.span_layout(e["arrays"], e.get("shapes"), base=int(e["pos"]))
+
+    def _verified(self, i: int) -> memoryview:
+        e = self._batches[i]
+        span = memoryview(self._mm)[int(e["pos"]): int(e["end"])]
+        if zlib.crc32(span) & 0xFFFFFFFF != int(e["crc"]):
+            span.release()
+            raise CacheCorruptionError(f"snapshot {self.path}: crc mismatch on batch {i}")
+        return span
+
+    def load_batch(self, i: int) -> tuple:
+        """Batch ``i`` as ``(kind, arr0, arr1, ...)``: read-only views over
+        the mmap in the stored shapes. Raises :class:`CacheCorruptionError`
+        on a crc mismatch."""
+        self._verified(i).release()
+        e = self._batches[i]
+        segments = _bc.read_segments(self._mm, e["arrays"])
+        shapes = e.get("shapes") or {}
+        out = []
+        for name in SNAPSHOT_SEGMENT_NAMES:
+            if name not in segments:
+                break
+            arr = segments[name]
+            shape = shapes.get(name)
+            if shape is not None and len(shape) != 1:
+                arr = arr.reshape(shape)
+            out.append(arr)
+        return (e["kind"], *out)
+
+    def batch_span(self, i: int) -> tuple:
+        """Batch ``i`` as its raw container bytes: ``(kind, span, layout)``
+        with ``span`` the verbatim ``[pos, end)`` u8 view over the mmap and
+        ``layout`` its :meth:`layout` — the device-decode tier's input.
+        crc semantics as :meth:`load_batch`."""
+        span = np.asarray(self._verified(i))
+        return self._batches[i]["kind"], span, self.layout(i)
+
+    def close(self) -> None:
+        mm = getattr(self, "_mm", None)
+        if mm is not None:
+            try:
+                mm.close()
+                self._mm = None
+            except BufferError:  # views still alive: GC reclaims the map
+                pass
+        f = getattr(self, "_file", None)
+        if f is not None:
+            self._file = None
+            f.close()
+
+
+def open_snapshot(path: str, signature: Optional[dict] = None,
+                  geometry: Optional[dict] = None) -> Optional[SnapshotReader]:
+    """Open a published snapshot, or None when it is missing or must be
+    rebuilt (unreadable, wrong version, signature or geometry mismatch):
+    a stale file is removed, so the caller runs a cold pass."""
+    if not os.path.exists(path):
+        return None
+    try:
+        return SnapshotReader(path, signature=signature, geometry=geometry)
+    except DMLCError:
+        _bc.remove_quietly(path)
+        return None
+
+
+class SnapshotIter:
+    """A snapshot's batches in stored order, read ahead on
+    one thread (a :class:`~dmlc_tpu_torch.io.threaded_iter.ThreadedIter`),
+    so the read (mmap fault + crc) of batch N+1 overlaps the use of batch
+    N.
+
+    ``next()`` returns ``(host_batch, resume, nbytes)`` with ``host_batch =
+    (kind, *arrays)``, or None at the end. ``raw=True`` is the
+    device-decode feed: ``host_batch`` is ``("device_span", span, layout,
+    kind)``, the batch's verbatim bytes.
+    """
+
+    def __init__(self, reader: SnapshotReader, raw: bool = False):
+        self.reader = reader
+        self._raw = raw
+        self._iter = ThreadedIter.from_factory(self._items, max_capacity=2)
+
+    def _items(self):
+        reader = self.reader
+        for i in range(reader.num_batches):
+            if self._raw:
+                kind, span, layout = reader.batch_span(i)
+                batch = ("device_span", span, layout, kind)
+            else:
+                batch = reader.load_batch(i)
+            yield batch, reader.resume(i), reader.batch_nbytes(i)
+
+    def next(self):
+        return self._iter.next()
+
+    def destroy(self) -> None:
+        self._iter.destroy()

@@ -6,7 +6,8 @@ The PyTorch counterpart of the JAX package's ``models/linear.py`` for the
 - the ell margin goes through :func:`~dmlc_tpu_torch.ops.ell_matvec.
   ell_matvec_auto` — kernel K1 for the 1-D table on a CUDA device, the
   plain gather for CPU tensors and for the softmax objective's 2-D table;
-- the dense margin is a plain ``x @ w``;
+- the dense margin is a plain ``x @ w``, with a bfloat16 ``x`` widened
+  to float32 first;
 - updates are ``torch.optim.SGD`` in place, and after every step the
   padding sink ``weight[-1]`` is pinned back to 0 so ELL pad slots stay
   inert.
@@ -96,7 +97,9 @@ class LinearLearner(TrainLoopMixin):
         if self.layout == "ell":
             return ell_matvec_auto(w, batch) + b, batch.label, batch.weight
         x, label, weight = batch
-        return x @ w + b, label, weight
+        # a bfloat16 batch widens to the weight's float32 first, as JAX's
+        # type promotion does for `x @ w` (bf16 -> f32 is exact)
+        return x.to(w.dtype) @ w + b, label, weight
 
     def _pred_from_margin(self, margin: torch.Tensor) -> torch.Tensor:
         if self.num_class > 1:

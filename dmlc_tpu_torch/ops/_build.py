@@ -31,7 +31,8 @@ from dmlc_tpu_torch.utils.check import DMLCError
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-KERNEL_SOURCES = [os.path.join(CSRC_DIR, "ell_matvec.cu")]
+KERNEL_SOURCES = [os.path.join(CSRC_DIR, name)
+                  for name in ("ell_matvec.cu", "widen_span.cu")]
 KERNEL_LIB = "libdmlc_torch_kernels.so"
 
 _kernels: Optional[ctypes.CDLL] = None
@@ -135,6 +136,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmlc_ell_matvec_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    lib.dmlc_widen_span.restype = ctypes.c_int
+    lib.dmlc_widen_span.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p]
     lib.dmlc_cuda_error_string.restype = ctypes.c_char_p
     lib.dmlc_cuda_error_string.argtypes = [ctypes.c_int]
     kernel_build_seconds, kernel_build_log = seconds, log

@@ -1,8 +1,8 @@
 """Error type, CHECK helper and logger for the PyTorch port.
 
 Own copy of the JAX package's ``utils/check.py`` (the port imports nothing
-of it), trimmed to what the port uses: :class:`DMLCError`, :func:`check`
-and :func:`get_logger`.
+of it), trimmed to what the port uses: :class:`DMLCError`,
+:class:`CacheCorruptionError`, :func:`check` and :func:`get_logger`.
 """
 
 from __future__ import annotations
@@ -14,6 +14,12 @@ import sys
 
 class DMLCError(RuntimeError):
     """Raised by failed checks — analog of ``dmlc::Error`` (logging.h:29)."""
+
+
+class CacheCorruptionError(DMLCError):
+    """An on-disk container failed its integrity check (a batch's crc32
+    does not match). The owner drops the file; the next pass rebuilds it
+    from the source."""
 
 
 _LOGGER: logging.Logger | None = None

@@ -8,6 +8,8 @@
 - The whole slice, libsvm file -> create_parser -> DeviceIter(ell) ->
   fit(2) -> accuracy, gives the same epoch losses and accuracy within 1e-5
   in both packages.
+- A bfloat16 dense batch gives the reference's losses (rtol 1e-5) over
+  three steps: the margin widens ``x`` to float32 first.
 
 The port runs on ``device="cpu"`` here, where the ell margin takes the
 plain gather (kernel K1 runs on the card only).
@@ -158,3 +160,26 @@ def test_whole_slice_matches_reference(tmp_path):
     assert [nb for _, nb in tl] == [nb for _, nb in jl] == [10, 10]
     np.testing.assert_allclose([x for x, _ in tl], [x for x, _ in jl], rtol=TOL, atol=TOL)
     assert abs(tacc - jacc) <= TOL and tacc > 0.8
+
+
+def test_bf16_dense_margin_matches_reference():
+    """A bfloat16 dense batch (as DeviceIter(x_dtype='bfloat16') ships it)
+    widens to float32 before the margin, as JAX's type promotion does:
+    three steps on the same batch give the reference's losses."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(B, NUM_COL + 1)).astype(np.float32)
+    x[:, -1] = 0.0
+    x16 = x.astype(ml_dtypes.bfloat16)
+    label = rng.integers(0, 2, size=B).astype(np.float32)
+    weight = np.ones(B, np.float32)
+    ref = JaxLinearLearner(NUM_COL, layout="dense", learning_rate=0.3)
+    port = LinearLearner(NUM_COL, layout="dense", learning_rate=0.3, device="cpu")
+    jb = (jnp.asarray(x16), jnp.asarray(label), jnp.asarray(weight))
+    tb = (torch.from_numpy(x16.view(np.int16)).view(torch.bfloat16),
+          torch.from_numpy(label), torch.from_numpy(weight))
+    want = [float(ref.step(jb)) for _ in range(3)]
+    got = [float(port.step(tb)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=TOL)
+    assert got[0] != got[2]  # the steps moved the weights
