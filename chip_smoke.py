@@ -8,16 +8,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. environment: the card, torch/CUDA versions, the build times of the CUDA
    kernel library and the native parser (both built here from the
    checkout's sources), and the parse engine in use;
-2. kernel K1 (``csrc/ell_matvec.cu``) against its plain PyTorch version at
-   the shapes the JAX package cares about — values with rtol 1e-5 / atol
-   1e-4, gradients through autograd — with its device time beside the plain
-   version's, ``F.embedding_bag``'s (the one PyTorch call computing the same
-   function) and the bytes bound;
+2. kernel K1 (``csrc/ell_matvec.cu``) and its ``dw`` kernel
+   (``csrc/ell_matvec_dw.cu``) against their plain PyTorch versions at the
+   shapes the JAX package cares about and a large HIGGS-shaped batch —
+   values with rtol 1e-5 / atol 1e-4, ``dw`` within 1e-4 + 1e-5 of each
+   slot's absolute sum and bit-identical over two launches, gradients
+   through autograd — with device times beside the plain versions',
+   ``F.embedding_bag``'s and ``index_add_``'s (the one PyTorch call for
+   each) and the bytes bounds; both K1 routes forced, with a sweep of lanes
+   a row and table places; with ``--parent DIR`` also the parent commit's
+   K1, built from ``DIR``, timed in turns with this one;
 3. the main path at full width: a HIGGS-shaped libsvm corpus (28 dense
    features; UCI dataset 280, 11,000,000 rows, cut to 2**20 rows for the
    time limit) -> create_parser -> DeviceIter(ell) -> LinearLearner ->
-   fit(2 epochs) -> accuracy, with the K1 launch count of that run, and the
-   first 20 step losses held against the same batches on the CPU;
+   fit(2 epochs) -> accuracy, with the K1 and ``dw`` launch counts of that
+   run, the first 20 step losses held against the same batches on the CPU,
+   and those 20 steps run twice on the card, bit-identical; the step's
+   kernels hold no scatter-add;
 4. one epoch of the dense layout on the same corpus;
 5. kernel K2 (``csrc/widen_span.cu``) against its plain PyTorch version,
    bit for bit, at the shapes the warm epochs give it (HIGGS packed dense
@@ -35,7 +42,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    profiled window of steps fed by a warm device-decode epoch; then a cold
    plus a warm device-decode epoch of packed dense f32, and of packed dense
    bf16; the first 8 warm device-decode batches of each are held against
-   the host-decode warm path's, byte for byte.
+   the host-decode warm path's, byte for byte; and healing: a byte flipped
+   in a warm batch of a small snapshot, the warm device-decode epoch equal
+   to the cold one byte for byte after one pipeline restart.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -66,6 +75,7 @@ K1_SHAPES = [  # (name, B, K, W)
     ("tpu_band", 8192, 64, 2049),     # the old TPU kernel's band
     ("kdd_like", 8192, 16, (1 << 20) + 1),
     ("odd", 1000, 7, 101),
+    ("higgs_large", 1 << 18, 28, 29),  # 58.7 MB of idx + val: bytes dominate
 ]
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
 K2_SHAPES = [  # (name, rows, cols, dtype)
@@ -156,26 +166,100 @@ def device_ms(fn, iters: int = 50, repeats: int = 5, warmup: int = 10,
     return statistics.median(runs)
 
 
-def k1_bound_ms(idx, b: int, k: int) -> tuple:
-    """Least time for the work: each input byte read once (idx, val, and
-    the table words this batch touches), the output written once; or the
-    2*B*K fp32 operations at the card's fp32 rate."""
-    import torch
-
-    touched = int(torch.unique(idx).numel())
-    nbytes = b * k * 8 + b * 4 + touched * 4
+def bound(nbytes: int, ops: int) -> tuple:
+    """The least time for the work, ``(ms, "bytes" or "operations")``: the
+    bytes at the card's memory rate or the fp32 operations at its fp32
+    rate, whichever takes longer."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * b * k / FP32_FLOPS * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_k1(seed: int) -> list:
+def k1_bound_ms(idx, b: int, k: int) -> tuple:
+    """K1: each input byte read once (idx, val, and the table words this
+    batch touches), the output written once; 2*B*K fp32 operations."""
+    import torch
+
+    touched = int(torch.unique(idx).numel())
+    return bound(b * k * 8 + b * 4 + touched * 4, 2 * b * k)
+
+
+def dw_bound_ms(b: int, k: int, w: int) -> tuple:
+    """K1's dw: idx, val and g read once, dw written once; 2*B*K fp32
+    operations."""
+    return bound(b * k * 8 + b * 4 + w * 4, 2 * b * k)
+
+
+def k1_route(table, idx, val, route: int, lanes: int = 0, table_mode: int = 0):
+    """``(run, out)``: ``run()`` launches K1 into ``out`` on the route asked
+    for (1 persistent, 2 one pass), with ``lanes`` lanes a row (0 picks) and
+    the table where ``table_mode`` puts it (0 picks, 2 L2), bypassing the
+    wrapper and its launch count."""
+    import torch
+
+    from dmlc_tpu_torch.ops import _build
+
+    lib = _build.load_kernels()
+    (b, k), w = idx.shape, table.shape[0]
+    out = torch.empty(b, device=idx.device)
+
+    def run():
+        rc = lib.dmlc_ell_matvec_f32_route(
+            table.data_ptr(), idx.data_ptr(), val.data_ptr(), out.data_ptr(), b, k, w,
+            route, lanes, table_mode, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"K1 route {route}: {lib.dmlc_cuda_error_string(rc).decode()}")
+    return run, out
+
+
+def load_parent_k1(parent: str):
+    """The parent commit's K1, built from ``parent``'s
+    ``dmlc_tpu_torch/csrc/ell_matvec.cu`` into a library of its own, for an
+    A/B in one run: ``lib.dmlc_ell_matvec_f32(w, idx, val, out, B, K, W,
+    stream)``, the C interface both commits share."""
+    import ctypes
+
+    from dmlc_tpu_torch.ops import _build
+
+    src = os.path.join(parent, "dmlc_tpu_torch", "csrc", "ell_matvec.cu")
+    out_dir = tempfile.mkdtemp(prefix="k1_parent_")
+    lib_path = os.path.join(out_dir, "libk1_parent.so")
+    subprocess.run([_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib_path,
+                    src], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(lib_path)
+    lib.dmlc_ell_matvec_f32.restype = ctypes.c_int
+    lib.dmlc_ell_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def parent_k1_fn(lib, table, idx, val):
+    """``(run, out)`` for the parent's K1 on these inputs."""
+    import torch
+
+    (b, k), w = idx.shape, table.shape[0]
+    out = torch.empty(b, device=idx.device)
+
+    def run():
+        rc = lib.dmlc_ell_matvec_f32(table.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                                     out.data_ptr(), b, k, w,
+                                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"the parent's K1 failed to launch: {rc}")
+    return run, out
+
+
+def phase_k1(seed: int, parent=None) -> list:
     import torch
     import torch.nn.functional as F
 
+    from dmlc_tpu_torch.ops import _build
     from dmlc_tpu_torch.ops import ell_matvec as k1
     from dmlc_tpu_torch.ops.sparse import EllBatch, ell_matvec
 
+    if _build.load_kernels().dmlc_ell_dw_max_table() != k1.DW_MAX_TABLE:
+        raise AssertionError("DW_MAX_TABLE differs from the dw kernel's own limit")
     dev = torch.device("cuda", torch.cuda.current_device())
     rows = []
     for i, (name, b, k, w) in enumerate(K1_SHAPES):
@@ -186,22 +270,61 @@ def phase_k1(seed: int) -> list:
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, rtol=K1_RTOL, atol=K1_ATOL)
         err = float((out - ref).abs().max())
-        # gradients: kernel forward + hand-written backward against autograd
-        # through the plain version, for the cotangent g
+        repeatable_fwd = torch.equal(out, k1.ell_matvec_cuda(table, idx, val))
+        # idx and val 4 bytes past a 16-byte boundary: no vectors, no staging
+        idx_u = torch.empty(b * k + 1, dtype=torch.int32, device=dev)[1:].view(b, k)
+        val_u = torch.empty(b * k + 1, device=dev)[1:].view(b, k)
+        idx_u.copy_(idx)
+        val_u.copy_(val)
+        torch.testing.assert_close(k1.ell_matvec_cuda(table, idx_u, val_u), ref,
+                                   rtol=K1_RTOL, atol=K1_ATOL)
+        # both routes forced, and a sweep of lanes a row and table places
+        # (the numbers the route rule in csrc/ell_matvec.cu was set from)
+        sweep = {}
+        for route, route_name in ((1, "persistent"), (2, "one_pass")):
+            for lanes in (0, 1, 4, 8):
+                for table_mode, table_name in ((0, "auto"), (2, "l2")):
+                    run, forced_out = k1_route(table, idx, val, route, lanes, table_mode)
+                    run()
+                    torch.testing.assert_close(forced_out, ref, rtol=K1_RTOL, atol=K1_ATOL)
+                    sweep[f"{route_name}/L{lanes or 'auto'}/{table_name}"] = device_ms(run)
+        persistent_ms = sweep["persistent/Lauto/auto"]
+        one_pass_ms = sweep["one_pass/Lauto/auto"]
         g = torch.randn(b, generator=torch.Generator(device=dev).manual_seed(seed + 100 + i),
                         device=dev)
+        # dw on its route against the plain version (index_add_), and twice
+        route = k1.dw_route(w)
+        if route == "cuda":
+            def dw_fn():
+                return k1.ell_matvec_dw_cuda(idx, val, g, w)
+        else:
+            def dw_fn():
+                return k1.ell_matvec_grads(table, idx, val, g, need_dval=False)[0]
+        dw, dw_again = dw_fn(), dw_fn()
+        dw_plain = k1.ell_matvec_grads(table, idx, val, g, need_dval=False)[0]
+        torch.cuda.synchronize()
+        dw_repeatable = torch.equal(dw, dw_again)
+        if route == "cuda" and not (dw_repeatable and repeatable_fwd):
+            raise AssertionError(f"K1 {name}: two launches differ (forward repeatable "
+                                 f"{repeatable_fwd}, dw repeatable {dw_repeatable})")
+        # dw sums up to B*K products per table slot, the plain version in
+        # atomic (run-to-run) order: allow 1e-5 of the slot's absolute sum
+        scale = torch.zeros_like(table).index_add_(
+            0, idx.long().flatten(), (val * g[:, None]).abs().flatten())
+        tol = K1_ATOL + K1_RTOL * scale
+        dw_kernel_err = (dw - dw_plain).abs()
+        if bool((dw_kernel_err > tol).any()):
+            raise AssertionError(f"K1 {name}: dw differs by up to {float(dw_kernel_err.max())}")
+        # gradients through autograd: the kernels' backward against autograd
+        # through the plain version
         tw, tv = table.clone().requires_grad_(), val.clone().requires_grad_()
         (k1.EllMatvec.apply(tw, idx, tv) * g).sum().backward()
         rw, rv = table.clone().requires_grad_(), val.clone().requires_grad_()
         (ell_matvec(rw, EllBatch(idx, rv, None, None)) * g).sum().backward()
         torch.testing.assert_close(tv.grad, rv.grad, rtol=K1_RTOL, atol=K1_ATOL)
-        # dw sums up to B*K products per table slot in atomic (run-to-run)
-        # order on both sides: allow 1e-5 of the slot's absolute sum
-        scale = torch.zeros_like(table).index_add_(
-            0, idx.long().flatten(), (val * g[:, None]).abs().flatten())
         dw_err = (tw.grad - rw.grad).abs()
-        if bool((dw_err > K1_ATOL + K1_RTOL * scale).any()):
-            raise AssertionError(f"K1 {name}: dw differs by up to {float(dw_err.max())}")
+        if bool((dw_err > tol).any()):
+            raise AssertionError(f"K1 {name}: autograd dw differs by up to {float(dw_err.max())}")
         # embedding_bag computes the same function in one PyTorch call
         lib_out = F.embedding_bag(idx, table[:, None], per_sample_weights=val,
                                   mode="sum")[:, 0]
@@ -210,14 +333,47 @@ def phase_k1(seed: int) -> list:
         plain_ms = device_ms(lambda: ell_matvec(table, batch))
         library_ms = device_ms(lambda: F.embedding_bag(
             idx, table[:, None], per_sample_weights=val, mode="sum"))
+        ab = {}
+        if parent is not None:
+            # the parent's kernel and this one in turns: P C C P
+            p_run, p_out = parent_k1_fn(parent, table, idx, val)
+            p_run()
+            torch.testing.assert_close(p_out, ref, rtol=K1_RTOL, atol=K1_ATOL)
+            kernel = lambda: k1.ell_matvec_cuda(table, idx, val)  # noqa: E731
+            order = [device_ms(f) for f in (p_run, kernel, kernel, p_run)]
+            ab = {"parent_ms_runs": [order[0], order[3]], "change_ms_runs": order[1:3]}
         bound_ms, bound_by = k1_bound_ms(idx, b, k)
+        # dw: the route's time, the plain version's, and index_add_ alone
+        # on precomputed int64 indices and products (the one PyTorch call)
+        dw_ms = device_ms(dw_fn)
+        dw_plain_ms = device_ms(lambda: k1.ell_matvec_grads(table, idx, val, g,
+                                                            need_dval=False))
+        flat_idx, prod = idx.long().flatten(), (val * g[:, None]).flatten()
+        acc = torch.zeros_like(table)
+        dw_library_ms = device_ms(lambda: acc.index_add_(0, flat_idx, prod))
+        dw_bound, dw_bound_by = dw_bound_ms(b, k, w)
         row = {"phase": "k1", "shape": name, "B": b, "K": k, "W": w,
                "max_abs_err": err, "dw_max_abs_err": float(dw_err.max()),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "dw_kernel_max_abs_err": float(dw_kernel_err.max()),
+               "repeatable": repeatable_fwd,
+               "ms": ms, "persistent_ms": persistent_ms, "one_pass_ms": one_pass_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_share": bound_ms / ms}
+               "bound_share": bound_ms / ms,
+               "dw_route": route, "dw_repeatable": dw_repeatable,
+               "dw_ms": dw_ms, "dw_plain_ms": dw_plain_ms,
+               "dw_library_ms": dw_library_ms, "dw_bound_ms": dw_bound,
+               "dw_bound_by": dw_bound_by, "dw_bound_share": dw_bound / dw_ms, **ab,
+               "route_sweep_ms": sweep}
         emit(row)
         rows.append(row)
+    # rows wider than a stage holds (K > 192: the unstaged route), a table
+    # too wide for shared memory, and a ragged last tile; values only
+    for b, k, w in ((300, 257, 29), (1001, 5, 5000), (77, 3, 7)):
+        table, idx, val = k1_inputs(b, k, w, seed, dev)
+        torch.testing.assert_close(k1.ell_matvec_cuda(table, idx, val),
+                                   ell_matvec(table, EllBatch(idx, val, None, None)),
+                                   rtol=K1_RTOL, atol=K1_ATOL)
     return rows
 
 
@@ -304,6 +460,8 @@ def run_main_path(path: str, device, epochs: int = 2) -> dict:
 def compare_first_losses(path: str, device, steps: int = 20) -> dict:
     """The first ``steps`` step losses on ``device`` against the same
     batches stepped through the port on the CPU (plain route)."""
+    import torch
+
     from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
     from dmlc_tpu_torch.ops.sparse import EllBatch
 
@@ -313,14 +471,33 @@ def compare_first_losses(path: str, device, steps: int = 20) -> dict:
                     num_col=dev_model.device_num_col(), batch_size=BATCH,
                     layout="ell", max_nnz=HIGGS_COLS, drop_remainder=True,
                     device=device)
-    pairs = []
+    pairs, dev_losses = [], []
     for _, batch in zip(range(steps), it):
         dev_loss = dev_model.step(batch)
         cpu_loss = cpu_model.step(EllBatch(*(t.cpu() for t in batch)))
+        dev_losses.append(dev_loss)
         pairs.append((float(dev_loss), float(cpu_loss)))
     it.close()
     rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
-    return {"steps": len(pairs), "max_rel_diff": rel, "losses": pairs}
+    return {"steps": len(pairs), "max_rel_diff": rel, "losses": pairs,
+            "card_losses": torch.stack(dev_losses),
+            "card_weight": dev_model.params.weight.detach().clone()}
+
+
+def card_trajectory(path: str, device, steps: int = 20):
+    """The first ``steps`` step losses and the final weight on ``device``
+    alone, as :func:`compare_first_losses` steps them there."""
+    import torch
+
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm"), num_col=model.device_num_col(),
+                    batch_size=BATCH, layout="ell", max_nnz=HIGGS_COLS,
+                    drop_remainder=True, device=device)
+    losses = [model.step(batch) for _, batch in zip(range(steps), it)]
+    it.close()
+    return torch.stack(losses), model.params.weight.detach().clone()
 
 
 def step_times(path: str, device, window: int = 40, snapshot=None) -> dict:
@@ -521,8 +698,9 @@ def run_warm_ell(path: str, snap: str, device) -> dict:
                     max_nnz=HIGGS_COLS, drop_remainder=True, device=device,
                     device_decode=True)
     epochs: list = []
-    k1.launches = dd.launches = 0
+    k1.launches = k1.dw_launches = dd.launches = 0
     model.fit(it, epochs=3, log_fn=_epoch_logger(it, "warm_ell", epochs))
+    dw_launches = k1.dw_launches
     before = it.stats()
     t0 = time.monotonic()
     acc = model.accuracy(it)
@@ -538,12 +716,17 @@ def run_warm_ell(path: str, snap: str, device) -> dict:
            "k2_launches": k2_launches, "k2_launches_needed": warm_batches,
            "k1_launches": k1_launches,
            "k1_launches_needed": sum(e["batches"] for e in epochs) + HIGGS_ROWS // BATCH,
+           "dw_launches": dw_launches,
+           "dw_launches_needed": sum(e["batches"] for e in epochs),
            "snapshot_bytes": os.path.getsize(snap)}
     emit(out)
     if not acc_warm or out["accuracy_convert_seconds"] != 0.0:
         raise AssertionError(f"the accuracy pass was not a warm device-decode pass: {out}")
     if k2_launches < warm_batches:
         raise AssertionError(f"K2 launched {k2_launches} times for {warm_batches} warm batches")
+    if dw_launches < out["dw_launches_needed"]:
+        raise AssertionError(f"the dw kernel launched {dw_launches} times for "
+                             f"{out['dw_launches_needed']} warm ELL steps")
     if k1_launches < out["k1_launches_needed"]:
         raise AssertionError(f"K1 launched {k1_launches} times, "
                              f"the path needs {out['k1_launches_needed']}")
@@ -607,9 +790,70 @@ def compare_warm_routes(path: str, snap: str, device, n: int = 8, **kw) -> dict:
             "x_dtype": kw.get("x_dtype", "float32"), "batches_equal": n}
 
 
+SCATTER_KERNELS = ("indexFunc", "index_add", "scatter")
+
+
+def check_no_scatter(step: dict) -> None:
+    """No scatter-add kernel among a step's top kernels: dw is the hand
+    kernel's (``index_add_`` shows as ``indexFuncLargeIndex``)."""
+    names = [name for name, _ in step["top_kernels_ms_per_step"]]
+    found = [n for n in names if any(s in n for s in SCATTER_KERNELS)]
+    if found:
+        raise AssertionError(f"{step['phase']}: scatter kernels in the step: {found}")
+
+
+def run_healing(tmp: str, device, seed: int, rows: int = 8 * BATCH) -> dict:
+    """A corrupt warm batch heals mid-epoch: a small HIGGS-shaped snapshot
+    (8 batches) written by a cold device-decode ELL epoch, one byte flipped
+    in batch 3's span, then a warm device-decode epoch that must equal the
+    cold one byte for byte with one pipeline restart."""
+    import torch
+
+    from dmlc_tpu_torch import DeviceIter, create_parser
+    from dmlc_tpu_torch.io.snapshot import SnapshotReader
+
+    path = os.path.join(tmp, "healing.libsvm")
+    snap = os.path.join(tmp, "healing.snapshot")
+    write_higgs_corpus(path, rows, seed + 1)
+
+    def epoch(it):
+        return [[t.cpu().view(torch.uint8) for t in batch] for batch in it]
+
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap),
+                    num_col=HIGGS_COLS, batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device,
+                    device_decode=True)
+    cold = epoch(it)
+    it.reset()
+    reader = SnapshotReader(snap)
+    pos = reader._batches[3]["pos"] + 100
+    reader.close()
+    with open(snap, "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0x01]))
+    healed = epoch(it)
+    stats = it.stats()
+    it.close()
+    equal = len(healed) == len(cold) and all(
+        len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        for a, b in zip(healed, cold))
+    out = {"phase": "healing", "batches": len(healed),
+           "pipeline_restarts": stats["resilience"]["pipeline_restarts"],
+           "snapshot_removed": not os.path.exists(snap), "bytes_equal_cold": equal}
+    if not (equal and out["pipeline_restarts"] == 1 and out["snapshot_removed"]
+            and len(cold) == rows // BATCH):
+        raise AssertionError(f"a corrupt warm batch did not heal: {out}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: phase 2 also times its K1 "
+                         "beside this one's, in turns")
     args = ap.parse_args()
 
     import torch
@@ -631,7 +875,7 @@ def main() -> int:
     emit(env)
 
     # phases 2 and 5 (these launches are comparisons, not the main path's)
-    k1_rows = phase_k1(args.seed)
+    k1_rows = phase_k1(args.seed, load_parent_k1(args.parent) if args.parent else None)
     k2_rows = phase_k2(args.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -643,28 +887,38 @@ def main() -> int:
                          "for the time limit; 28 features as published"})
 
         # phase 3: the counts are zeroed just before the main path
-        k1.launches = 0
+        k1.launches = k1.dw_launches = 0
         main_path = run_main_path(path, dev)
-        launches = k1.launches
+        launches, dw_launches = k1.launches, k1.dw_launches
         need = main_path["steps"] + main_path["accuracy_batches"]
         emit({"phase": "main_path", "accuracy": main_path["accuracy"],
               "fit_s": main_path["fit_s"], "accuracy_s": main_path["accuracy_s"],
               "parse_engine": main_path["engine"], "k1_launches": launches,
-              "k1_launches_needed": need})
+              "k1_launches_needed": need, "dw_launches": dw_launches,
+              "dw_launches_needed": main_path["steps"]})
         if launches < need:
             raise AssertionError(f"K1 launched {launches} times, main path needs {need}")
+        if dw_launches < main_path["steps"]:
+            raise AssertionError(f"the dw kernel launched {dw_launches} times for "
+                                 f"{main_path['steps']} steps")
         if not main_path["accuracy"] > 0.9:
             raise AssertionError(f"accuracy {main_path['accuracy']} <= 0.9")
         if not all(np.isfinite(e["loss"]) for e in main_path["epochs"]):
             raise AssertionError("non-finite epoch loss")
 
         first = compare_first_losses(path, dev)
+        again_losses, again_weight = card_trajectory(path, dev)
+        repeatable = (torch.equal(first["card_losses"], again_losses)
+                      and torch.equal(first["card_weight"], again_weight))
         emit({"phase": "first_losses_vs_cpu", "steps": first["steps"],
-              "max_rel_diff": first["max_rel_diff"]})
+              "max_rel_diff": first["max_rel_diff"], "card_bit_identical_twice": repeatable})
         if first["steps"] != 20 or not first["max_rel_diff"] <= 1e-4:
-            raise AssertionError(f"first 20 losses differ from the CPU route: {first}")
+            raise AssertionError(f"first 20 losses differ from the CPU route: {first['losses']}")
+        if not repeatable:
+            raise AssertionError("two 20-step runs on the card differ")
 
         step = step_times(path, dev)
+        check_no_scatter(step)
         step["device_busy_share_est"] = (
             step["step_device_ms"] * main_path["steps"] / 1e3 / main_path["fit_s"])
         emit(step)
@@ -685,6 +939,8 @@ def main() -> int:
         warm_step["device_busy_share_est"] = (
             warm_step["step_device_ms"] * warm_epoch["batches"] / 1e3 / warm_epoch["wall_s"])
         emit(warm_step)
+        check_no_scatter(warm_step)
+        emit(run_healing(tmp, dev, args.seed))
         warm_dense = []
         for x_dtype in ("float32", "bfloat16"):
             snap = os.path.join(tmp, f"dense_{x_dtype}.snapshot")
@@ -703,6 +959,15 @@ def main() -> int:
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
+        "name": "ell_matvec_dw", "route": "cuda",
+        "source": "dmlc_tpu_torch/csrc/ell_matvec_dw.cu",
+        "replaces": "dmlc_tpu/ops/pallas_sparse.py:191",
+        "launches": dw_launches + warm_ell["dw_launches"],
+        "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
+                           if r["dw_route"] == "cuda"),
+        "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
+        "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
+        "library_ms": k1_main["dw_library_ms"]}, {
         "name": "widen_span", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/widen_span.cu",
         "replaces": "dmlc_tpu/ops/device_decode.py:168",

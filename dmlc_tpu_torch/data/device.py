@@ -46,11 +46,21 @@ epoch's shadow write, and ``snapshot_read_seconds`` a warm epoch's reads
 (crc included) and copies into staging. A warm epoch adds nothing to
 ``convert_seconds``.
 
+**Healing.** A warm batch that fails its crc32 removes the file. Within the
+restart budget (:mod:`dmlc_tpu_torch.io.resilience`: ``max_attempts - 1``
+restarts an epoch, ``DMLC_RETRY_MAX_ATTEMPTS``, default 4) the epoch then
+goes on cold from the batch after the last one delivered, as the JAX
+package's does: the warm feed and the batches in flight are dropped, the
+source restarts with no shadow writer (a pass joined mid-epoch cannot
+write a whole snapshot), and its first ``batches_fed`` batches are
+discarded unconverted. ``stats()["resilience"]["pipeline_restarts"]``
+counts the restarts; past the budget the ``CacheCorruptionError``
+propagates. The next epoch runs cold and writes the snapshot anew.
+
 On a CPU device the same pipeline runs without pinning, streams or events
 (the copy is synchronous). Not ported yet: the bcoo layout, the block
 cache, snapshot plan order (``snapshot_shuffle_seed``), mesh placement,
-autotuning and checkpoint ``state_dict`` (so a warm batch that fails its
-crc removes the file and raises, where the JAX package heals mid-epoch).
+autotuning and checkpoint ``state_dict``.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ import torch
 
 from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.data.row_block import RowBlock, RowBlockContainer
+from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io import snapshot as _snapshot
 from dmlc_tpu_torch.io.block_cache import remove_quietly, torch_dtype
 from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
@@ -280,6 +291,14 @@ class DeviceIter:
         self._snap_reader: Optional[_snapshot.SnapshotReader] = None
         self._snap_writer: Optional[_snapshot.SnapshotWriter] = None
         self._snap_serving = False  # the current producer is the warm feed
+        # healing: the restart budget (read once, as the JAX package reads
+        # its policy), this epoch's restarts, the cold batches a restarted
+        # source discards, and whether a cold pass may shadow-write
+        self._max_attempts = _resilience.max_attempts_from_env()
+        self.pipeline_restarts = 0
+        self.pipeline_giveups = 0
+        self._cold_skip = 0
+        self._shadow_write = True
         self.stall_seconds = 0.0
         self.batches_fed = 0
         self.bytes_to_device = 0
@@ -375,9 +394,14 @@ class DeviceIter:
 
     def _host_batches(self) -> Iterator[_Slot]:
         kind = self._cold_kind()
+        skip = self._cold_skip  # batches a restarted epoch already delivered
         t0, wait0 = get_time(), self.source_wait_seconds
         for block in rebatch_blocks(self._blocks(), self.batch_size,
                                     self.drop_remainder):
+            if skip:
+                skip -= 1
+                t0, wait0 = get_time(), self.source_wait_seconds
+                continue
             arrays = self._convert(block)
             t_acquire = get_time()
             slot = self._ring.acquire()
@@ -474,7 +498,8 @@ class DeviceIter:
                 self._host = self._warm_feed()
                 self._snap_serving = True
             else:
-                if self.snapshot_path is not None and self._snap_writer is None:
+                if (self.snapshot_path is not None and self._snap_writer is None
+                        and self._shadow_write):
                     # cold epoch: shadow-write what it ships, publish at its end
                     self._snap_writer = _snapshot.SnapshotWriter(
                         self.snapshot_path, signature=self._snap_sig,
@@ -507,9 +532,12 @@ class DeviceIter:
             try:
                 slot = self._host_iter().next()
             except CacheCorruptionError:
-                if self._snap_serving:
-                    self._invalidate_snapshot()
-                raise
+                if not self._snap_serving:
+                    raise
+                self._invalidate_snapshot()
+                if not self._restart_cold():
+                    raise
+                continue
             if slot is None:
                 # a complete cold pass publishes its shadow snapshot here
                 self._finish_snapshot_writer()
@@ -548,11 +576,13 @@ class DeviceIter:
             segs = _device_decode.decode_span(out[0], layout)
             batch = self._wrap(kind, [segs[name] for name, *_ in layout])
             self.device_decode_seconds += get_time() - t_decode
+        # counted as delivered before the refill, which may restart the
+        # epoch cold after this batch
+        self.batches_fed += 1
         # issue the replacement copy before handing the batch out; a wait
         # on the producer here holds the consumer up as much as one above
         self._fill()
         self.stall_seconds += get_time() - t0
-        self.batches_fed += 1
         return batch
 
     # ---------------- epochs and the snapshot's life ----------------
@@ -578,6 +608,19 @@ class DeviceIter:
         self._drop_snap_reader()
         remove_quietly(self.snapshot_path)
 
+    def _restart_cold(self) -> bool:
+        """Re-arm the epoch cold at the batch after the last one delivered
+        (a warm batch failed its crc and the file is gone). Returns False,
+        and restarts nothing, once the epoch's restart budget is spent."""
+        if not _resilience.restart_allowed(self.pipeline_restarts, self._max_attempts):
+            self.pipeline_giveups += 1
+            return False
+        self.pipeline_restarts += 1
+        self._teardown()  # the warm feed and the batches in flight
+        self._cold_skip = self.batches_fed
+        self._shadow_write = False
+        return True
+
     def _teardown(self) -> None:
         self._inflight.clear()
         if self._host is not None:
@@ -594,6 +637,10 @@ class DeviceIter:
         self._teardown()
         self._abort_snapshot_writer()
         self.batches_fed = 0
+        self.pipeline_restarts = 0  # a fresh budget an epoch
+        self.pipeline_giveups = 0
+        self._cold_skip = 0
+        self._shadow_write = True
 
     def close(self) -> None:
         self._teardown()
@@ -615,4 +662,6 @@ class DeviceIter:
                 "snapshot_read_seconds": self.snapshot_read_seconds,
                 "device_decode": self.device_decode,
                 "device_decode_bytes": self.device_decode_bytes,
-                "device_decode_seconds": self.device_decode_seconds}
+                "device_decode_seconds": self.device_decode_seconds,
+                "resilience": {"pipeline_restarts": self.pipeline_restarts,
+                               "pipeline_giveups": self.pipeline_giveups}}

@@ -32,7 +32,9 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 KERNEL_SOURCES = [os.path.join(CSRC_DIR, name)
-                  for name in ("ell_matvec.cu", "widen_span.cu")]
+                  for name in ("ell_matvec.cu", "ell_matvec_dw.cu", "widen_span.cu")]
+# included by the sources: a change rebuilds the library too
+KERNEL_HEADERS = [os.path.join(CSRC_DIR, "k1_tiles.cuh")]
 KERNEL_LIB = "libdmlc_torch_kernels.so"
 
 _kernels: Optional[ctypes.CDLL] = None
@@ -127,7 +129,8 @@ def load_kernels() -> ctypes.CDLL:
     global _kernels, kernel_build_seconds, kernel_build_log
     if _kernels is not None:
         return _kernels
-    path, seconds, log = ensure_built(KERNEL_LIB, KERNEL_SOURCES, _kernel_commands)
+    path, seconds, log = ensure_built(KERNEL_LIB, KERNEL_SOURCES + KERNEL_HEADERS,
+                                      _kernel_commands)
     try:
         lib = ctypes.CDLL(path)
     except OSError as exc:
@@ -136,6 +139,18 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmlc_ell_matvec_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    lib.dmlc_ell_matvec_dw_f32.restype = ctypes.c_int
+    lib.dmlc_ell_matvec_dw_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
+        ctypes.c_void_p]
+    lib.dmlc_ell_dw_scratch_floats.restype = ctypes.c_int64
+    lib.dmlc_ell_dw_scratch_floats.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3
+    lib.dmlc_ell_dw_max_table.restype = ctypes.c_int64
+    lib.dmlc_ell_dw_max_table.argtypes = []
+    lib.dmlc_ell_matvec_f32_route.restype = ctypes.c_int
+    lib.dmlc_ell_matvec_f32_route.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.dmlc_widen_span.restype = ctypes.c_int
     lib.dmlc_widen_span.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,

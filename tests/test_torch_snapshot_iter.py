@@ -17,8 +17,9 @@ where K2's route takes its plain version):
   included).
 
 Also: a reset mid-epoch publishes nothing, a non-bf16-exact label refuses
-to pack, a crc mismatch removes the file and raises, and a geometry change
-makes the next epoch cold.
+to pack, a crc mismatch removes the file and heals the epoch cold, byte for
+byte as the JAX package heals it (or raises with no restart budget), and a
+geometry change makes the next epoch cold.
 """
 
 import os
@@ -30,6 +31,7 @@ import torch
 from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
 from dmlc_tpu_torch.data import DeviceIter, PackedDenseBatch, create_parser
+from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.snapshot import SnapshotReader
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError
 
@@ -197,27 +199,100 @@ def test_bf16_aux_must_be_exact(tmp_path):
     it.close()
 
 
-@pytest.mark.parametrize("device_decode", [False, True])
-def test_crc_mismatch_drops_the_snapshot(tmp_path, device_decode):
-    corpus, snap = _corpus(tmp_path), str(tmp_path / "c.snapshot")
-    _drain(_port_iter(corpus, snap))
+def _flip_byte_in_batch(snap: str, batch: int) -> None:
     reader = SnapshotReader(snap)
-    pos = reader._batches[3]["pos"] + 100
+    pos = reader._batches[batch]["pos"] + 100
     reader.close()
     with open(snap, "r+b") as f:
         f.seek(pos)
         byte = f.read(1)
         f.seek(pos)
         f.write(bytes([byte[0] ^ 0x01]))
+
+
+@pytest.mark.parametrize("device_decode,max_attempts", [
+    pytest.param(False, None, id="False"),
+    pytest.param(True, None, id="True"),
+    pytest.param(False, "1", id="False-no_restart"),
+    pytest.param(True, "1", id="True-no_restart"),
+])
+def test_crc_mismatch_drops_the_snapshot(tmp_path, monkeypatch, device_decode, max_attempts):
+    corpus, snap = _corpus(tmp_path), str(tmp_path / "c.snapshot")
+    first = _port_iter(corpus, snap)
+    cold = _drain(first)
+    first.close()
+    _flip_byte_in_batch(snap, 3)
+    if max_attempts is None:
+        monkeypatch.delenv("DMLC_RETRY_MAX_ATTEMPTS", raising=False)
+    else:
+        monkeypatch.setenv("DMLC_RETRY_MAX_ATTEMPTS", max_attempts)
     it = _port_iter(corpus, snap, device_decode=device_decode)
-    with pytest.raises(CacheCorruptionError, match="crc mismatch on batch 3"):
-        for _ in it:
-            pass
+    if max_attempts == "1":
+        # no restart allowed: the error propagates as it always did
+        with pytest.raises(CacheCorruptionError, match="crc mismatch on batch 3"):
+            for _ in it:
+                pass
+        assert it.stats()["resilience"] == {"pipeline_restarts": 0, "pipeline_giveups": 1}
+    else:
+        jax_snap = str(tmp_path / "jax.snapshot")
+        with open(snap, "rb") as src, open(jax_snap, "wb") as dst:
+            dst.write(src.read())
+        # the epoch heals: cold from the batch after the last one delivered
+        healed = [_batch_bytes(b) for b in it]
+        s = it.stats()
+        assert len(healed) == ROWS // BATCH and healed == cold
+        assert s["resilience"] == {"pipeline_restarts": 1, "pipeline_giveups": 0}
+        # the JAX package heals the same corrupted file to the same bytes
+        jax_it = _jax_iter(corpus, jax_snap, device_decode=device_decode)
+        jax_healed = [_batch_bytes(b) for b in jax_it]
+        jax_restarts = jax_it.stats()["resilience"]["pipeline_restarts"]
+        jax_it.close()
+        assert jax_restarts == 1 and jax_healed == healed
     assert not os.path.exists(snap)
     it.reset()
-    assert len(_drain(it)) == ROWS // BATCH  # a cold epoch writes it anew
+    assert _drain(it) == cold  # a cold epoch writes it anew
     assert os.path.exists(snap)
+    assert it.stats()["resilience"]["pipeline_restarts"] == 0
     it.close()
+
+
+@pytest.mark.parametrize("batch", [0, 1, ROWS // BATCH - 1])
+def test_crc_mismatch_heals_at_any_batch(tmp_path, monkeypatch, batch):
+    """The first, an early and the last batch corrupt: the healed epoch
+    equals the cold one, with one restart, on the host-decode route."""
+    monkeypatch.delenv("DMLC_RETRY_MAX_ATTEMPTS", raising=False)
+    corpus, snap = _corpus(tmp_path), str(tmp_path / "c.snapshot")
+    first = _port_iter(corpus, snap, layout="ell", max_nnz=NUM_COL)
+    cold = _drain(first)
+    first.close()
+    _flip_byte_in_batch(snap, batch)
+    it = _port_iter(corpus, snap, layout="ell", max_nnz=NUM_COL)
+    assert [_batch_bytes(b) for b in it] == cold
+    assert it.stats()["resilience"]["pipeline_restarts"] == 1
+    it.close()
+
+
+@pytest.mark.parametrize("env,restarts", [(None, 3), ("", 3), ("4", 3), ("2", 1),
+                                          ("1", 0), ("0", 0)])
+def test_restart_budget_follows_the_jax_rule(monkeypatch, env, restarts):
+    """``DMLC_RETRY_MAX_ATTEMPTS`` allows ``max_attempts - 1`` restarts, as
+    the JAX package's ``RetryPolicy.from_env`` and ``restart_verdict`` do."""
+    from dmlc_tpu.io.resilience import RetryPolicy, restart_verdict
+    from dmlc_tpu.utils.check import CacheCorruptionError as JaxCacheCorruptionError
+
+    if env is None:
+        monkeypatch.delenv("DMLC_RETRY_MAX_ATTEMPTS", raising=False)
+    else:
+        monkeypatch.setenv("DMLC_RETRY_MAX_ATTEMPTS", env)
+    attempts = resilience.max_attempts_from_env()
+    assert attempts == RetryPolicy.from_env().max_attempts
+    allowed = [used for used in range(6) if resilience.restart_allowed(used, attempts)]
+    assert allowed == list(range(restarts))
+    policy = RetryPolicy.from_env()
+    exc = JaxCacheCorruptionError("crc mismatch")
+    jax_allowed = [used for used in range(6)
+                   if restart_verdict(policy, used, exc) == "restart"]
+    assert jax_allowed == allowed
 
 
 def test_geometry_change_runs_cold(tmp_path):

@@ -8,11 +8,13 @@ function and its port:
   against the Pallas kernel ``ell_matvec_pallas`` run in interpret mode,
   and against the JAX gather for 2-D tables: rtol 1e-5, atol 1e-5 (float32
   sums taken in another order);
-- K1's backward (dw, dval) against ``jax.grad`` through the Pallas custom
-  VJP: same tolerance.
+- K1's gradient, the plain ``ell_matvec_grads`` (the CPU route, and the
+  reference of the ``dw`` kernel), against ``jax.grad`` through the Pallas
+  custom VJP run in interpret mode: same tolerance;
+- the ``dw`` route by table width, and the kernels' refusal of CPU tensors.
 
-Kernel K1 itself runs only on the card (chip_smoke.py holds it against the
-plain version there).
+The kernels themselves run only on the card (chip_smoke.py holds them
+against the plain versions there).
 """
 
 import jax
@@ -26,7 +28,10 @@ from dmlc_tpu.ops import sparse as jsparse
 from dmlc_tpu.ops.pallas_sparse import _ell_matvec_pallas_ad, ell_matvec_pallas
 from dmlc_tpu_torch.data.row_block import RowBlock
 from dmlc_tpu_torch.ops import sparse
-from dmlc_tpu_torch.ops.ell_matvec import ell_matvec_auto, ell_matvec_backward
+from dmlc_tpu_torch.ops.ell_matvec import (DW_MAX_TABLE, dw_route, ell_matvec_auto,
+                                           ell_matvec_cuda, ell_matvec_dw_cuda,
+                                           ell_matvec_grads)
+from dmlc_tpu_torch.utils.check import DMLCError
 
 RTOL = ATOL = 1e-5
 
@@ -129,7 +134,8 @@ def test_ell_matvec_2d_table_matches_jax_gather(k):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("b,k,w", [(64, 7, 29), (64, 64, 65)])
+@pytest.mark.parametrize("b,k,w", [(64, 7, 29), (64, 64, 65), (128, 28, 29),
+                                   (64, 3, 1001), (192, 33, 97)])
 def test_ell_matvec_grads_match_pallas_vjp(b, k, w):
     rng = np.random.default_rng(7 * k)
     table, idx, val = _ell_inputs(rng, b, k, w)
@@ -139,9 +145,9 @@ def test_ell_matvec_grads_match_pallas_vjp(b, k, w):
         return jnp.sum(_ell_matvec_pallas_ad(tw, jnp.asarray(idx), tv, True) * g)
 
     jdw, jdval = jax.grad(f, argnums=(0, 1))(jnp.asarray(table), jnp.asarray(val))
-    # the kernel's backward formula, as EllMatvec.backward applies it
-    dw, dval = ell_matvec_backward(torch.from_numpy(table), torch.from_numpy(idx),
-                                   torch.from_numpy(val), torch.from_numpy(g))
+    # the plain gradient: the CPU route, and the dw kernel's reference
+    dw, dval = ell_matvec_grads(torch.from_numpy(table), torch.from_numpy(idx),
+                                torch.from_numpy(val), torch.from_numpy(g))
     np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(dval.numpy(), np.asarray(jdval), rtol=RTOL, atol=ATOL)
     # autograd through the plain route agrees with the hand-written backward
@@ -151,3 +157,31 @@ def test_ell_matvec_grads_match_pallas_vjp(b, k, w):
     (out * torch.from_numpy(g)).sum().backward()
     np.testing.assert_allclose(tw.grad.numpy(), dw.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(tv.grad.numpy(), dval.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_ell_matvec_grads_without_dval():
+    rng = np.random.default_rng(11)
+    table, idx, val = _ell_inputs(rng, 32, 5, 17)
+    g = torch.from_numpy(rng.normal(size=32).astype(np.float32))
+    args = (torch.from_numpy(table), torch.from_numpy(idx), torch.from_numpy(val), g)
+    dw, dval = ell_matvec_grads(*args, need_dval=False)
+    assert dval is None
+    assert torch.equal(dw, ell_matvec_grads(*args)[0])
+
+
+@pytest.mark.parametrize("table_size,route", [
+    (1, "cuda"), (29, "cuda"), (2049, "cuda"), (DW_MAX_TABLE, "cuda"),
+    (DW_MAX_TABLE + 1, "index_add"), ((1 << 20) + 1, "index_add"),
+])
+def test_dw_route_by_table_width(table_size, route):
+    assert DW_MAX_TABLE >= 2049
+    assert dw_route(table_size) == route
+
+
+def test_kernels_refuse_cpu_tensors():
+    idx = torch.zeros((4, 3), dtype=torch.int32)
+    val, g = torch.zeros((4, 3)), torch.zeros(4)
+    with pytest.raises(DMLCError, match="CUDA"):
+        ell_matvec_dw_cuda(idx, val, g, 5)
+    with pytest.raises(DMLCError, match="CUDA"):
+        ell_matvec_cuda(torch.zeros(5), idx, val)
