@@ -15,9 +15,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    slot's absolute sum and bit-identical over two launches, gradients
    through autograd — with device times beside the plain versions',
    ``F.embedding_bag``'s and ``index_add_``'s (the one PyTorch call for
-   each) and the bytes bounds; both K1 routes forced, with a sweep of lanes
-   a row and table places; with ``--parent DIR`` also the parent commit's
-   K1, built from ``DIR``, timed in turns with this one;
+   each) and the bytes bounds; ``dw`` also from unaligned inputs, which
+   take its warp-bin route, timed beside the tile route; values only at
+   shapes that reach K1's other branches (its persistent route with a
+   ragged last tile, rows wider than a stage, unaligned inputs); with
+   ``--parent DIR`` also the parent commit's K1, built from ``DIR``, timed
+   in turns with this one;
 3. the main path at full width: a HIGGS-shaped libsvm corpus (28 dense
    features; UCI dataset 280, 11,000,000 rows, cut to 2**20 rows for the
    time limit) -> create_parser -> DeviceIter(ell) -> LinearLearner ->
@@ -190,39 +193,16 @@ def dw_bound_ms(b: int, k: int, w: int) -> tuple:
     return bound(b * k * 8 + b * 4 + w * 4, 2 * b * k)
 
 
-def k1_route(table, idx, val, route: int, lanes: int = 0, table_mode: int = 0):
-    """``(run, out)``: ``run()`` launches K1 into ``out`` on the route asked
-    for (1 persistent, 2 one pass), with ``lanes`` lanes a row (0 picks) and
-    the table where ``table_mode`` puts it (0 picks, 2 L2), bypassing the
-    wrapper and its launch count."""
-    import torch
-
-    from dmlc_tpu_torch.ops import _build
-
-    lib = _build.load_kernels()
-    (b, k), w = idx.shape, table.shape[0]
-    out = torch.empty(b, device=idx.device)
-
-    def run():
-        rc = lib.dmlc_ell_matvec_f32_route(
-            table.data_ptr(), idx.data_ptr(), val.data_ptr(), out.data_ptr(), b, k, w,
-            route, lanes, table_mode, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise AssertionError(f"K1 route {route}: {lib.dmlc_cuda_error_string(rc).decode()}")
-    return run, out
-
-
-def load_parent_k1(parent: str):
+def load_parent_k1(parent: str, out_dir: str):
     """The parent commit's K1, built from ``parent``'s
-    ``dmlc_tpu_torch/csrc/ell_matvec.cu`` into a library of its own, for an
-    A/B in one run: ``lib.dmlc_ell_matvec_f32(w, idx, val, out, B, K, W,
-    stream)``, the C interface both commits share."""
+    ``dmlc_tpu_torch/csrc/ell_matvec.cu`` into a library of its own under
+    ``out_dir``, for an A/B in one run: ``lib.dmlc_ell_matvec_f32(w, idx,
+    val, out, B, K, W, stream)``, the C interface both commits share."""
     import ctypes
 
     from dmlc_tpu_torch.ops import _build
 
     src = os.path.join(parent, "dmlc_tpu_torch", "csrc", "ell_matvec.cu")
-    out_dir = tempfile.mkdtemp(prefix="k1_parent_")
     lib_path = os.path.join(out_dir, "libk1_parent.so")
     subprocess.run([_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib_path,
@@ -278,18 +258,6 @@ def phase_k1(seed: int, parent=None) -> list:
         val_u.copy_(val)
         torch.testing.assert_close(k1.ell_matvec_cuda(table, idx_u, val_u), ref,
                                    rtol=K1_RTOL, atol=K1_ATOL)
-        # both routes forced, and a sweep of lanes a row and table places
-        # (the numbers the route rule in csrc/ell_matvec.cu was set from)
-        sweep = {}
-        for route, route_name in ((1, "persistent"), (2, "one_pass")):
-            for lanes in (0, 1, 4, 8):
-                for table_mode, table_name in ((0, "auto"), (2, "l2")):
-                    run, forced_out = k1_route(table, idx, val, route, lanes, table_mode)
-                    run()
-                    torch.testing.assert_close(forced_out, ref, rtol=K1_RTOL, atol=K1_ATOL)
-                    sweep[f"{route_name}/L{lanes or 'auto'}/{table_name}"] = device_ms(run)
-        persistent_ms = sweep["persistent/Lauto/auto"]
-        one_pass_ms = sweep["one_pass/Lauto/auto"]
         g = torch.randn(b, generator=torch.Generator(device=dev).manual_seed(seed + 100 + i),
                         device=dev)
         # dw on its route against the plain version (index_add_), and twice
@@ -315,6 +283,19 @@ def phase_k1(seed: int, parent=None) -> list:
         dw_kernel_err = (dw - dw_plain).abs()
         if bool((dw_kernel_err > tol).any()):
             raise AssertionError(f"K1 {name}: dw differs by up to {float(dw_kernel_err.max())}")
+        # dw from the unaligned copies: the warp-bin route wherever the tile
+        # route would take the aligned inputs (it needs 16-byte starts), so
+        # its time here sits beside the tile route's at the same shape
+        dw_unaligned_ms = None
+        if route == "cuda":
+            dw_u = k1.ell_matvec_dw_cuda(idx_u, val_u, g, w)
+            dw_u_again = k1.ell_matvec_dw_cuda(idx_u, val_u, g, w)
+            torch.cuda.synchronize()
+            if not torch.equal(dw_u, dw_u_again) or bool(((dw_u - dw_plain).abs() > tol).any()):
+                raise AssertionError(f"K1 {name}: dw from unaligned inputs differs from the plain "
+                                     f"version or between two launches")
+            dw_kernel_err = torch.maximum(dw_kernel_err, (dw_u - dw_plain).abs())
+            dw_unaligned_ms = device_ms(lambda: k1.ell_matvec_dw_cuda(idx_u, val_u, g, w))
         # gradients through autograd: the kernels' backward against autograd
         # through the plain version
         tw, tv = table.clone().requires_grad_(), val.clone().requires_grad_()
@@ -356,20 +337,23 @@ def phase_k1(seed: int, parent=None) -> list:
                "max_abs_err": err, "dw_max_abs_err": float(dw_err.max()),
                "dw_kernel_max_abs_err": float(dw_kernel_err.max()),
                "repeatable": repeatable_fwd,
-               "ms": ms, "persistent_ms": persistent_ms, "one_pass_ms": one_pass_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_share": bound_ms / ms,
                "dw_route": route, "dw_repeatable": dw_repeatable,
                "dw_ms": dw_ms, "dw_plain_ms": dw_plain_ms,
-               "dw_library_ms": dw_library_ms, "dw_bound_ms": dw_bound,
-               "dw_bound_by": dw_bound_by, "dw_bound_share": dw_bound / dw_ms, **ab,
-               "route_sweep_ms": sweep}
+               "dw_library_ms": dw_library_ms, "dw_unaligned_ms": dw_unaligned_ms,
+               "dw_bound_ms": dw_bound, "dw_bound_by": dw_bound_by,
+               "dw_bound_share": dw_bound / dw_ms, **ab}
         emit(row)
         rows.append(row)
-    # rows wider than a stage holds (K > 192: the unstaged route), a table
-    # too wide for shared memory, and a ragged last tile; values only
-    for b, k, w in ((300, 257, 29), (1001, 5, 5000), (77, 3, 7)):
+    # values only: one pass with 32 lanes a row (K > 64), a table too wide
+    # for shared memory, a part-filled warp; the persistent route (B >
+    # 65,536) staged with a ragged last tile (17 rows of 7 words, no
+    # multiple of 16 bytes) and a staged table, and unstaged (K > 64) with
+    # the table in L2
+    for b, k, w in ((300, 257, 29), (1001, 5, 5000), (77, 3, 7), (70_001, 7, 101),
+                    (65_600, 72, 5000)):
         table, idx, val = k1_inputs(b, k, w, seed, dev)
         torch.testing.assert_close(k1.ell_matvec_cuda(table, idx, val),
                                    ell_matvec(table, EllBatch(idx, val, None, None)),
@@ -874,11 +858,12 @@ def main() -> int:
                cuda=torch.version.cuda, device_name=torch.cuda.get_device_name(0))
     emit(env)
 
-    # phases 2 and 5 (these launches are comparisons, not the main path's)
-    k1_rows = phase_k1(args.seed, load_parent_k1(args.parent) if args.parent else None)
-    k2_rows = phase_k2(args.seed)
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # phases 2 and 5 (these launches are comparisons, not the main path's)
+        parent = load_parent_k1(args.parent, tmp) if args.parent else None
+        k1_rows = phase_k1(args.seed, parent)
+        k2_rows = phase_k2(args.seed)
+
         path = os.path.join(tmp, "higgs_shaped.libsvm")
         t0 = time.monotonic()
         corpus = write_higgs_corpus(path, HIGGS_ROWS, args.seed)

@@ -28,15 +28,17 @@
 //   stays resident; so is, on the one-pass route, a table of at most
 //   kTableL1Bytes (the main path's 29 words), which L1 keeps after the
 //   first gathers: staging it only added a round trip.
-// - Two routes, by batch size (chip_smoke.py times both, with L and the
-//   table's place swept, at every K1 shape it runs):
+// - Two routes, by batch size alone (PERF.md quotes the sweep of routes,
+//   L and table places that set the rule):
 //   - One pass (B <= kOnePassMaxRows, the main path's 8192 rows): every
 //     warp takes exactly one tile, L = 8 (fewer when a row has fewer
 //     groups), rows read straight from device memory, each L-lane group
 //     over one row's contiguous bytes. At these sizes the kernel sits near
 //     the launch floor, and the shortest chain of dependent steps wins.
-//   - Persistent, asynchronous and double-buffered (larger batches: 58.7
-//     MB at 262,144 x 28). A few blocks per SM (the SM count is read from
+//   - Persistent, asynchronous and double-buffered (B > kOnePassMaxRows:
+//     58.7 MB at 262,144 x 28; no batch of the main path is that large,
+//     and at that size the sweep found it 1.4% behind the one-pass
+//     route). A few blocks per SM (the SM count is read from
 //     the device), each warp walking tiles warp, warp + all warps, ... A
 //     tile's idx and val rows are contiguous, so lane 0 brings each into
 //     the warp's own shared memory with one cp.async.bulk apiece,
@@ -95,8 +97,8 @@ __device__ __forceinline__ void fma_slot(float& acc, const float* table, uint32_
   if (u < table_size) acc = fmaf(gather<kTableSmem>(table, u), v, acc);
 }
 
-// Lanes that share a row (a power of two), from chip_smoke.py's route
-// sweep. One pass: enough lanes for a row's groups (see for_row_groups), at
+// Lanes that share a row (a power of two), from the route sweep PERF.md
+// quotes. One pass: enough lanes for a row's groups (see for_row_groups), at
 // most 8. Persistent: 1 up to K = 32 (lane r sums row r alone); wider rows
 // K / 8 rounded up. At most 32 either way.
 int lanes_per_row(int64_t num_k, bool one_pass) {
@@ -257,18 +259,13 @@ cudaError_t launch(Kernel kernel, int variant, int dev, unsigned int grid, int t
 
 }  // namespace
 
-// route: 0 picks by batch size; 1 asks for the persistent route (staged
-// where it can be) and 2 for the one-pass route. lanes: the lanes a row (a
-// power of two up to 32), 0 picks. table: 0 picks, 2 gathers it through
-// L2. chip_smoke.py times the choices.
-extern "C" int dmlc_ell_matvec_f32_route(const float* w, const int32_t* idx,
-                                         const float* val, float* out,
-                                         int64_t num_rows, int64_t num_k,
-                                         int64_t table_size, int route, int lanes,
-                                         int table, cudaStream_t stream) {
+extern "C" int dmlc_ell_matvec_f32(const float* w, const int32_t* idx,
+                                   const float* val, float* out,
+                                   int64_t num_rows, int64_t num_k,
+                                   int64_t table_size, cudaStream_t stream) {
   if (num_rows <= 0) return static_cast<int>(cudaSuccess);
   if (num_k < 0 || num_k > 0x7fffffffLL / 32 || table_size < 0 ||
-      table_size > 0xffffffffLL || lanes < 0 || lanes > 32 || (lanes & (lanes - 1)) != 0) {
+      table_size > 0xffffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_k == 0 || table_size == 0) {
@@ -280,13 +277,13 @@ extern "C" int dmlc_ell_matvec_f32_route(const float* w, const int32_t* idx,
   const int sms = sm_count(dev);
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(val)) & 15) == 0;
-  const bool one_pass = route == 2 || (route == 0 && num_rows <= kOnePassMaxRows);
+  const bool one_pass = num_rows <= kOnePassMaxRows;
   const bool vec = num_k % 4 == 0 && aligned;
   // a table of a few hundred words stays in L1 once gathered: staging it
   // would only add a round trip before the first gather
-  const bool table_smem = table_size * 4 <= kTableSmemBytes && table != 2 &&
+  const bool table_smem = table_size * 4 <= kTableSmemBytes &&
                           (!one_pass || table_size * 4 > kTableL1Bytes);
-  if (lanes == 0) lanes = lanes_per_row(num_k, one_pass);
+  const int lanes = lanes_per_row(num_k, one_pass);
   const int tile_rows = 32 / lanes;
   const int64_t num_tiles = (num_rows + tile_rows - 1) / tile_rows;
   // bulk copies need 16-byte starts and sizes: aligned arrays, and tiles
@@ -317,14 +314,6 @@ extern "C" int dmlc_ell_matvec_f32_route(const float* w, const int32_t* idx,
   rc = launch(kernels[variant], variant, dev, g, t, smem, stream, w, idx, val, out, num_rows,
               k, ws, __builtin_ctz(static_cast<unsigned>(lanes)), num_tiles);
   return static_cast<int>(rc);
-}
-
-extern "C" int dmlc_ell_matvec_f32(const float* w, const int32_t* idx,
-                                   const float* val, float* out,
-                                   int64_t num_rows, int64_t num_k,
-                                   int64_t table_size, cudaStream_t stream) {
-  return dmlc_ell_matvec_f32_route(w, idx, val, out, num_rows, num_k, table_size, 0, 0, 0,
-                                   stream);
 }
 
 extern "C" const char* dmlc_cuda_error_string(int code) {

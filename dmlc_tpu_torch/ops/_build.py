@@ -146,11 +146,6 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmlc_ell_dw_scratch_floats.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3
     lib.dmlc_ell_dw_max_table.restype = ctypes.c_int64
     lib.dmlc_ell_dw_max_table.argtypes = []
-    lib.dmlc_ell_matvec_f32_route.restype = ctypes.c_int
-    lib.dmlc_ell_matvec_f32_route.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
     lib.dmlc_widen_span.restype = ctypes.c_int
     lib.dmlc_widen_span.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
