@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``dmlc_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -20,7 +20,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    shapes that reach K1's other branches (its persistent route with a
    ragged last tile, rows wider than a stage, unaligned inputs); with
    ``--parent DIR`` also the parent commit's K1, built from ``DIR``, timed
-   in turns with this one;
+   in turns with this one (P C C P);
 3. the main path at full width: a HIGGS-shaped libsvm corpus (28 dense
    features; UCI dataset 280, 11,000,000 rows, cut to 2**20 rows for the
    time limit) -> create_parser -> DeviceIter(ell) -> LinearLearner ->
@@ -29,27 +29,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and those 20 steps run twice on the card, bit-identical; the step's
    kernels hold no scatter-add;
 4. one epoch of the dense layout on the same corpus;
-5. kernel K2 (``csrc/widen_span.cu``) against its plain PyTorch version,
-   bit for bit, at the shapes the warm epochs give it (HIGGS packed dense
-   8192x30 and the dense path's 8192x31, f32 and bf16; ELL values 8192x28;
-   a lane-aligned 8192x1024; an odd 1000x7 whose bytes are no multiple of
-   16), each from a 64-byte-aligned and from an unaligned start, with its
-   device time beside the plain version's, the one PyTorch call computing
-   the same function (``seg.view(dtype).reshape(rows, cols).clone()``) and
-   the bytes bound;
+5. kernel K2 (``csrc/widen_span.cu``), one launch a warm batch, against
+   its plain PyTorch version (``decode_batch_plain``), bit for bit, on a
+   batch of each kind a snapshot stores at the main path's widths (ELL
+   8192x28; packed dense 8192x31 f32, bf16 with its widened label and
+   weight, and int8 with its scale row; unpacked dense 8192x29 f32 and
+   bf16), laid out as a snapshot lays them out (64-byte-aligned segments)
+   and from an unaligned start, one launch counted a batch; with its device
+   time beside the plain version's, the one PyTorch call computing the same
+   decode where there is one (a slab's ``clone``, q8's promoting multiply),
+   the bytes bound and the host's dispatch time; with ``--parent DIR`` also
+   the parent commit's route (a launch of its K2 a float segment, then
+   torch's cast and multiply or ``.to(float32)``), built from ``DIR`` and
+   timed in turns with this one. Then K2 on one segment
+   (``widen_span_cuda``) at the shapes of earlier slices (HIGGS packed
+   dense 8192x30 and 8192x31, f32 and bf16; ELL values 8192x28; a
+   lane-aligned 8192x1024; an odd 1000x7), from aligned and unaligned
+   starts, beside ``seg.view(dtype).reshape(rows, cols).clone()``;
 6. the warm main path: ``create_parser(snapshot=)`` -> ``DeviceIter(ell,
    device_decode=True)`` -> ``fit(3 epochs)`` -> ``accuracy``: epoch 1 is
    cold and writes the snapshot, epochs 2-3 and the accuracy pass decode
-   each batch on the card through K2 (and step through K1), with per-epoch
-   rows/s, stall share and the snapshot and decode counters, and a
-   profiled window of steps fed by a warm device-decode epoch; then a cold
-   plus a warm device-decode epoch of packed dense f32, and of packed dense
-   bf16; the first 8 warm device-decode batches of each are held against
-   the host-decode warm path's, byte for byte; and healing: a byte flipped
-   in a warm batch of a small snapshot, the warm device-decode epoch equal
-   to the cold one byte for byte after one pipeline restart.
+   each batch on the card in exactly one K2 launch (and step through K1),
+   with per-epoch rows/s, stall share, decode dispatch a batch and the
+   snapshot and decode counters, and a profiled window of steps fed by a
+   warm device-decode epoch; then a cold plus a warm device-decode epoch of
+   packed dense f32, bf16 and int8 (``snapshot_quant="int8"``), each with
+   exactly one K2 launch a warm batch; the first 8 warm device-decode
+   batches of each held against the host-decode warm path's, byte for byte
+   (``x``, ``y`` and ``w`` too); one warm bf16 and one warm int8 batch's
+   decode under ``torch.profiler``, where K2 must be the one kernel; and
+   healing: a byte flipped in a warm batch of a small snapshot, the warm
+   device-decode epoch equal to the cold one byte for byte after one
+   pipeline restart.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+The ``torch.profiler`` windows run last, the decode's first: the steps'
+windows of phases 3 and 6 (``step``, ``step_warm``) follow it. Then a
+``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -91,7 +106,15 @@ K2_SHAPES = [  # (name, rows, cols, dtype)
     ("odd_f32", 1000, 7, "float32"),
     ("odd_bf16", 1000, 7, "bfloat16"),
 ]
-K2_MAIN = "ell_values"
+K2_KINDS = [  # (name, batch kind): a warm batch of each kind a snapshot stores
+    ("ell", "ell"),                              # the warm main path's
+    ("dense_packed_f32", "dense_packed"),        # 29 + label + weight columns
+    ("dense_packed_bf16", "dense_packed"),
+    ("dense_packed_q8", "dense_packed_q8"),
+    ("dense_f32", "dense"),
+    ("dense_bf16", "dense"),
+]
+K2_MAIN = "ell"
 
 
 def emit(obj) -> None:
@@ -193,25 +216,39 @@ def dw_bound_ms(b: int, k: int, w: int) -> tuple:
     return bound(b * k * 8 + b * 4 + w * 4, 2 * b * k)
 
 
-def load_parent_k1(parent: str, out_dir: str):
-    """The parent commit's K1, built from ``parent``'s
-    ``dmlc_tpu_torch/csrc/ell_matvec.cu`` into a library of its own under
-    ``out_dir``, for an A/B in one run: ``lib.dmlc_ell_matvec_f32(w, idx,
-    val, out, B, K, W, stream)``, the C interface both commits share."""
+def load_parent_libs(parent: str, out_dir: str) -> dict:
+    """The parent commit's K1 and K2, each built from ``parent``'s
+    ``dmlc_tpu_torch/csrc/`` into a library of its own under ``out_dir``
+    (two ``nvcc`` at once), for an A/B in one run. The C interfaces are the
+    parent's: ``dmlc_ell_matvec_f32(w, idx, val, out, B, K, W, stream)``
+    and ``dmlc_widen_span(seg, out, rows, cols, itemsize, stream)``, one
+    launch a float segment."""
     import ctypes
 
     from dmlc_tpu_torch.ops import _build
 
-    src = os.path.join(parent, "dmlc_tpu_torch", "csrc", "ell_matvec.cu")
-    lib_path = os.path.join(out_dir, "libk1_parent.so")
-    subprocess.run([_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib_path,
-                    src], check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(lib_path)
-    lib.dmlc_ell_matvec_f32.restype = ctypes.c_int
-    lib.dmlc_ell_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
+    procs = {}
+    for name in ("ell_matvec", "widen_span"):
+        src = os.path.join(parent, "dmlc_tpu_torch", "csrc", name + ".cu")
+        lib_path = os.path.join(out_dir, f"lib{name}_parent.so")
+        procs[name] = (lib_path, subprocess.Popen(
+            [_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib_path, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (lib_path, proc) in procs.items():
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the parent's {name}.cu failed to build:\n{err[-4000:]}")
+        libs[name] = ctypes.CDLL(lib_path)
+    libs["ell_matvec"].dmlc_ell_matvec_f32.restype = ctypes.c_int
+    libs["ell_matvec"].dmlc_ell_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    libs["widen_span"].dmlc_widen_span.restype = ctypes.c_int
+    libs["widen_span"].dmlc_widen_span.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.c_void_p]
-    return lib
+    return libs
 
 
 def parent_k1_fn(lib, table, idx, val):
@@ -576,10 +613,11 @@ def run_dense_epoch(path: str, device) -> dict:
 
 # ---------------- phase 5: kernel K2 against its plain version ----------------
 
-def phase_k2(seed: int) -> list:
-    """K2 on segments laid out as the snapshot spans lay them out (64 bytes
-    into a u8 span) and from an unaligned start (1 byte in: the scalar
-    loop), bit-exact against the plain version and the source values."""
+def k2_segments(seed: int) -> list:
+    """K2 on one segment (a one-entry plan, :func:`widen_span_cuda`) at
+    ``K2_SHAPES``, laid out as the snapshot spans lay them out (64 bytes
+    into a u8 span) and from an unaligned start (1 byte in: loads from
+    bytes), bit-exact against the plain version and the source values."""
     import torch
 
     from dmlc_tpu_torch.ops import device_decode as dd
@@ -628,6 +666,222 @@ def phase_k2(seed: int) -> list:
     return rows_out
 
 
+def k2_arrays(name: str, gen, dev) -> list:
+    """A warm batch of kind ``name`` (``K2_KINDS``) at the main path's
+    widths, on the card: float slabs with NaN, infinities and -0.0 in them
+    (in the bf16 aux columns too), q8 with a scale row."""
+    import torch
+
+    b, nc = BATCH, HIGGS_COLS + 1
+
+    def slab(cols):
+        a = torch.randn(b, cols, generator=gen, device=dev) * 1e3
+        a[:3, -2:] = torch.tensor([float("nan"), float("inf"), -0.0], device=dev)[:, None]
+        a.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), -0.0, -1e-30], device=dev)
+        return a
+
+    def col():
+        return torch.randn(b, generator=gen, device=dev)
+
+    if name == "ell":
+        idx = torch.randint(0, nc, (b, HIGGS_COLS), generator=gen, device=dev, dtype=torch.int32)
+        return [idx, slab(HIGGS_COLS), col(), torch.ones(b, device=dev)]
+    if name == "dense_packed_q8":
+        q = torch.randint(-127, 128, (b, nc + 2), generator=gen, device=dev, dtype=torch.int8)
+        scale = torch.rand(nc + 2, generator=gen, device=dev) * 3
+        scale[0] = 1.0
+        return [q, scale]
+    dt = torch.bfloat16 if name.endswith("bf16") else torch.float32
+    if name.startswith("dense_packed"):
+        return [slab(nc + 2).to(dt)]
+    return [slab(nc).to(dt), col(), torch.ones(b, device=dev)]
+
+
+def k2_span(arrays: list, shift: int):
+    """``arrays`` laid out as a snapshot batch lays them out (each segment
+    64-byte aligned within the span), in a u8 span that starts ``shift``
+    bytes into its allocation; returns ``(span, layout)``."""
+    import torch
+
+    names = {torch.float32: "<f4", torch.bfloat16: "bfloat16", torch.int32: "<i4",
+             torch.int8: "|i1"}
+    layout, parts, end = [], [], 0
+    for i, a in enumerate(arrays):
+        raw = a.contiguous().view(torch.uint8).reshape(-1)
+        off = -(-end // 64) * 64
+        layout.append((f"a{i}", names[a.dtype], off, raw.numel(), tuple(a.shape)))
+        parts.append((off, raw))
+        end = off + raw.numel()
+    base = torch.zeros(end + 64, dtype=torch.uint8, device=arrays[0].device)
+    span = base[shift: shift + end]
+    for off, raw in parts:
+        span[off: off + raw.numel()] = raw
+    return span, tuple(layout)
+
+
+def batch_tensors(batch) -> list:
+    """Every tensor a consumer can take from a decoded batch: a packed
+    batch's slab and its ``x``, ``y`` and ``w``, or the tuple's members."""
+    if hasattr(batch, "packed"):
+        return [batch.packed, *batch]
+    return list(batch)
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (NaN payloads included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    iv = {4: torch.int32, 2: torch.int16, 1: torch.uint8}[a.element_size()]
+    return torch.equal(a.view(iv), b.view(iv))
+
+
+def k2_moved_bytes(plan) -> int:
+    """The bytes K2 must move for ``plan``: each input read once (a q8
+    slab's scale row too), each output written once (a bf16 slab's aux
+    columns too); views move nothing."""
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    total = 0
+    for op in plan.table.ops[: plan.table.count]:
+        n = op.rows * op.cols
+        if op.op == dd.OP_DEQUANT_Q8:
+            total += n + 4 * op.cols + 4 * n
+        elif op.op == dd.OP_BF16_AUX:
+            total += 2 * n * 2 + 2 * op.rows * 4
+        else:
+            total += 2 * n * (4 if op.op == dd.OP_COPY4 else 2)
+    return total
+
+
+def parent_k2_route(lib, span, layout, kind: str, num_col: int):
+    """The parent's decode of one batch, as its ``DeviceIter`` issued it:
+    a launch of its K2 for each 2-D float segment, views for the rest, then
+    torch's ``q.to(float32) * scale`` for a q8 batch and ``.to(float32)``
+    of a packed batch's label and weight. Returns the batch's tensors as
+    :func:`batch_tensors` lists them."""
+    import torch
+
+    dtypes = {"<f4": torch.float32, "bfloat16": torch.bfloat16, "<i4": torch.int32,
+              "|i1": torch.int8}
+    stream = torch.cuda.current_stream().cuda_stream
+    segs = []
+    for _, dtype_str, off, nbytes, shape in layout:
+        dt, seg = dtypes[dtype_str], span[off: off + nbytes]
+        if len(shape) == 2 and dt in (torch.float32, torch.bfloat16):
+            out = torch.empty(shape, dtype=dt, device=span.device)
+            rc = lib.dmlc_widen_span(seg.data_ptr(), out.data_ptr(), shape[0], shape[1],
+                                     seg.numel() // (shape[0] * shape[1]), stream)
+            if rc != 0:
+                raise AssertionError(f"the parent's K2 failed to launch: {rc}")
+            segs.append(out)
+        else:
+            segs.append(seg.view(dt).view(shape))
+    if kind == "dense_packed_q8":
+        segs = [segs[0].to(torch.float32) * segs[1]]
+    if kind.startswith("dense_packed"):
+        p = segs[0]
+        return [p, p[:, :num_col], p[:, num_col].to(torch.float32),
+                p[:, num_col + 1].to(torch.float32)]
+    return segs
+
+
+def k2_kinds(seed: int, parent=None) -> list:
+    """K2 on a warm batch of each kind (``K2_KINDS``), one launch for the
+    whole span, against :func:`decode_batch_plain` bit for bit, from a
+    64-byte-aligned and an unaligned start, with one launch counted per
+    call. Device times: the kernel (aligned and not), the plain version
+    (its lazy widening included), the one PyTorch call computing the same
+    decode where there is one, and with ``parent`` the parent's route in
+    turns with this one, P C C P; and the host's dispatch time of a
+    decode."""
+    import torch
+
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    rows_out = []
+    for name, kind in K2_KINDS:
+        arrays = k2_arrays(name, gen, dev)
+        nc = HIGGS_COLS + 1
+        spans = {shift: k2_span(arrays, shift) for shift in (0, 1)}
+        for shift, (span, layout) in spans.items():
+            before = dd.launches
+            got = batch_tensors(dd.decode_batch_cuda(span, layout, kind, nc))
+            want = batch_tensors(dd.decode_batch_plain(span, layout, kind, nc))
+            torch.cuda.synchronize()
+            if dd.launches != before + 1:
+                raise AssertionError(f"K2 {name}: {dd.launches - before} launches for one batch")
+            if len(got) != len(want) or not all(same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K2 {name} (start {shift}) differs from decode_batch_plain")
+        span, layout = spans[0]
+        plan = dd.plan_for(kind, layout, nc)
+        got = batch_tensors(dd.decode_batch_cuda(span, layout, kind, nc))
+        want = batch_tensors(dd.decode_batch_plain(span, layout, kind, nc))
+        finite = [torch.isfinite(w.float()) for w in want]
+        err = max(float((g.float() - w.float())[f].abs().max()) for g, w, f in zip(got, want, finite))
+
+        def kernel():
+            return dd.decode_batch_cuda(span, layout, kind, nc)
+
+        ms = device_ms(kernel)
+        unaligned_ms = device_ms(lambda: dd.decode_batch_cuda(*spans[1], kind, nc))
+        plain_ms = device_ms(lambda: batch_tensors(dd.decode_batch_plain(span, layout, kind, nc)))
+        # the one PyTorch call that computes the same decode: a slab's clone
+        # (the views cost the device nothing), q8's promoting multiply; a
+        # bf16 packed slab with its widened aux takes no single call
+        library = None
+        if kind == "dense_packed_q8":
+            q, scale = arrays
+
+            def library():
+                return q * scale
+        elif name != "dense_packed_bf16":
+            _, dtype_str, off, nbytes, shape = layout[0 if kind != "ell" else 1]
+            seg, dt = span[off: off + nbytes], arrays[0 if kind != "ell" else 1].dtype
+
+            def library():
+                return seg.view(dt).reshape(shape).clone()
+        if library is not None and not same_bits(library(), got[0 if kind != "ell" else 1]):
+            raise AssertionError(f"K2 {name}: the library call computes another function")
+        library_ms = device_ms(library) if library is not None else None
+        ab = {}
+        if parent is not None:
+            p_tensors = parent_k2_route(parent, span, layout, kind, nc)
+            if not all(same_bits(a, b) for a, b in zip(p_tensors, got)):
+                raise AssertionError(f"K2 {name}: the parent's route decodes other bits")
+            p_run = lambda: parent_k2_route(parent, span, layout, kind, nc)  # noqa: E731
+            order = [device_ms(f) for f in (p_run, kernel, kernel, p_run)]
+            ab = {"parent_ms_runs": [order[0], order[3]], "change_ms_runs": order[1:3]}
+        # the host's side of one decode: the dispatch DeviceIter counts
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                kernel()
+            host.append((time.perf_counter() - t0) / 200 * 1e3)
+        torch.cuda.synchronize()
+        nbytes = k2_moved_bytes(plan)
+        bound_ms, bound_by = bound(nbytes, 0)
+        row = {"phase": "k2_kind", "kind": name, "batch_kind": kind,
+               "segments": [list(s[1:]) for s in layout], "entries": plan.table.count,
+               "blocks": plan.table.blocks, "bytes": nbytes, "bit_exact": True,
+               "unaligned_bit_exact": True, "max_abs_err": err, "ms": ms,
+               "unaligned_ms": unaligned_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "host_dispatch_ms": statistics.median(host), **ab}
+        emit(row)
+        rows_out.append(row)
+    return rows_out
+
+
+def phase_k2(seed: int, parent=None) -> dict:
+    return {"kinds": k2_kinds(seed, parent), "segments": k2_segments(seed)}
+
+
 # ---------------- phase 6: the warm main path ----------------
 
 WARM_KEYS = ("stall_seconds", "bytes_to_device", "convert_seconds",
@@ -647,6 +901,7 @@ def _epoch_logger(it, phase: str, out: list):
                "warm": d["device_decode_bytes"] > 0, "wall_s": secs,
                "rows_per_s": nb * BATCH / secs,
                "stall_share": d["stall_seconds"] / secs,
+               "decode_dispatch_ms_per_batch": d["device_decode_seconds"] / nb * 1e3,
                **{k: d[k] for k in WARM_KEYS}}
         emit(rec)
         out.append(rec)
@@ -706,8 +961,9 @@ def run_warm_ell(path: str, snap: str, device) -> dict:
     emit(out)
     if not acc_warm or out["accuracy_convert_seconds"] != 0.0:
         raise AssertionError(f"the accuracy pass was not a warm device-decode pass: {out}")
-    if k2_launches < warm_batches:
-        raise AssertionError(f"K2 launched {k2_launches} times for {warm_batches} warm batches")
+    if k2_launches != warm_batches:
+        raise AssertionError(f"K2 launched {k2_launches} times for {warm_batches} warm batches "
+                             f"(one a batch)")
     if dw_launches < out["dw_launches_needed"]:
         raise AssertionError(f"the dw kernel launched {dw_launches} times for "
                              f"{out['dw_launches_needed']} warm ELL steps")
@@ -719,17 +975,24 @@ def run_warm_ell(path: str, snap: str, device) -> dict:
     return {**out, "epochs": epochs}
 
 
-def run_warm_dense(path: str, snap: str, device, x_dtype: str) -> dict:
-    """A cold and a warm device-decode epoch of packed dense batches."""
+WARM_DENSE = {  # phase name: DeviceIter's packed dense options
+    "warm_dense_float32": {"x_dtype": "float32"},
+    "warm_dense_bfloat16": {"x_dtype": "bfloat16"},
+    "warm_dense_q8": {"x_dtype": "float32", "snapshot_quant": "int8"},
+}
+
+
+def run_warm_dense(path: str, snap: str, device, phase: str) -> dict:
+    """A cold and a warm device-decode epoch of packed dense batches, with
+    K2's count zeroed just before and read just after."""
     from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
     from dmlc_tpu_torch.ops import device_decode as dd
 
-    phase = f"warm_dense_{x_dtype}"
     model = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, device=device)
     it = DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap),
                     num_col=model.device_num_col(), batch_size=BATCH, layout="dense",
-                    drop_remainder=True, device=device, x_dtype=x_dtype,
-                    pack_aux=True, device_decode=True)
+                    drop_remainder=True, device=device, pack_aux=True, device_decode=True,
+                    **WARM_DENSE[phase])
     epochs: list = []
     dd.launches = 0
     model.fit(it, epochs=2, log_fn=_epoch_logger(it, phase, epochs))
@@ -739,9 +1002,9 @@ def run_warm_dense(path: str, snap: str, device, x_dtype: str) -> dict:
     out = {"phase": phase, "k2_launches": k2_launches,
            "k2_launches_needed": warm_batches, "snapshot_bytes": os.path.getsize(snap)}
     emit(out)
-    if k2_launches < warm_batches:
+    if k2_launches != warm_batches:
         raise AssertionError(f"{phase}: K2 launched {k2_launches} times for "
-                             f"{warm_batches} warm batches")
+                             f"{warm_batches} warm batches (one a batch)")
     if not epochs[-1]["loss"] < np.log(2):
         raise AssertionError(f"{phase}: warm epoch loss {epochs[-1]['loss']}")
     return {**out, "epochs": epochs}
@@ -749,9 +1012,8 @@ def run_warm_dense(path: str, snap: str, device, x_dtype: str) -> dict:
 
 def compare_warm_routes(path: str, snap: str, device, n: int = 8, **kw) -> dict:
     """The first ``n`` warm batches through device decode (K2) against the
-    same batches through the host-decode warm path, byte for byte."""
-    import torch
-
+    same batches through the host-decode warm path, byte for byte (a packed
+    batch's slab and its ``x``, ``y`` and ``w``)."""
     from dmlc_tpu_torch import DeviceIter, create_parser
 
     iters = [DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap),
@@ -764,14 +1026,65 @@ def compare_warm_routes(path: str, snap: str, device, n: int = 8, **kw) -> dict:
     if states != ["warm", "warm"] or len(pairs) != n:
         raise AssertionError(f"warm route comparison ran {len(pairs)} batches, states {states}")
     for i, a, b in pairs:
-        ta = [a.packed] if hasattr(a, "packed") else list(a)
-        tb = [b.packed] if hasattr(b, "packed") else list(b)
-        for x, y in zip(ta, tb):
-            if not (x.dtype == y.dtype and x.shape == y.shape
-                    and torch.equal(x.view(torch.uint8), y.view(torch.uint8))):
-                raise AssertionError(f"warm batch {i}: device decode differs from host decode")
+        ta, tb = batch_tensors(a), batch_tensors(b)
+        if len(ta) != len(tb) or not all(same_bits(x, y) for x, y in zip(ta, tb)):
+            raise AssertionError(f"warm batch {i}: device decode differs from host decode")
     return {"phase": "warm_routes", "layout": kw.get("layout"),
-            "x_dtype": kw.get("x_dtype", "float32"), "batches_equal": n}
+            "x_dtype": kw.get("x_dtype", "float32"),
+            "snapshot_quant": kw.get("snapshot_quant"), "batches_equal": n}
+
+
+def profile_decodes(snaps: dict, device, num_col: int, attempts: int = 3) -> dict:
+    """One warm batch's decode from each snapshot in ``snaps`` (``{name:
+    path}``; the spans already on the card), in one ``torch.profiler``
+    window, with ``x, y, w`` taken from each batch: between sentinel fills,
+    exactly one kernel must run for each batch, K2's (no cast, multiply or
+    widening kernel). The window starts with a pause, since kernels
+    launched right after the profiler starts can go unrecorded; a window
+    whose trace lacks a sentinel is taken again, at most ``attempts``
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_tpu_torch.io.snapshot import SnapshotReader
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    batches = {}
+    for name, snap in snaps.items():
+        reader = SnapshotReader(snap)
+        kind, raw, layout = reader.batch_span(0)
+        batches[name] = (torch.from_numpy(np.array(raw)).to(device), layout, kind)
+        reader.close()
+        tuple(dd.decode_batch(*batches[name], num_col))
+    sentinel = torch.empty(1, device=device)
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.5)
+            for batch in batches.values():
+                sentinel.fill_(1.0)
+                x, y, w = dd.decode_batch(*batch, num_col)
+            sentinel.fill_(2.0)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum("FillFunctor" in n for n in names) == len(batches) + 1:
+            break
+    else:
+        raise AssertionError(f"the profiler recorded the sentinels in none of {attempts} windows")
+    # the kernels between each pair of sentinels: one batch's decode
+    runs, run = [], None
+    for n in names:
+        if "FillFunctor" in n:
+            if run is not None:
+                runs.append(run)
+            run = []
+        elif run is not None:
+            run.append(n)
+    out = {"phase": "decode_profile", "kernels": dict(zip(batches, runs))}
+    if not all(len(r) == 1 and "decode_span" in r[0] for r in runs):
+        raise AssertionError(f"a warm batch's decode ran other kernels than K2's: {out}")
+    return out
 
 
 SCATTER_KERNELS = ("indexFunc", "index_add", "scatter")
@@ -836,8 +1149,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: phase 2 also times its K1 "
-                         "beside this one's, in turns")
+                    help="a checkout of the parent commit: phases 2 and 5 also time its "
+                         "K1 and its K2 route beside this one's, in turns")
     args = ap.parse_args()
 
     import torch
@@ -860,9 +1173,9 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # phases 2 and 5 (these launches are comparisons, not the main path's)
-        parent = load_parent_k1(args.parent, tmp) if args.parent else None
-        k1_rows = phase_k1(args.seed, parent)
-        k2_rows = phase_k2(args.seed)
+        parent = load_parent_libs(args.parent, tmp) if args.parent else {}
+        k1_rows = phase_k1(args.seed, parent.get("ell_matvec"))
+        k2_rows = phase_k2(args.seed, parent.get("widen_span"))
 
         path = os.path.join(tmp, "higgs_shaped.libsvm")
         t0 = time.monotonic()
@@ -902,12 +1215,6 @@ def main() -> int:
         if not repeatable:
             raise AssertionError("two 20-step runs on the card differ")
 
-        step = step_times(path, dev)
-        check_no_scatter(step)
-        step["device_busy_share_est"] = (
-            step["step_device_ms"] * main_path["steps"] / 1e3 / main_path["fit_s"])
-        emit(step)
-
         # phase 4
         dense = run_dense_epoch(path, dev)
         emit(dense)
@@ -919,22 +1226,31 @@ def main() -> int:
         warm_ell = run_warm_ell(path, ell_snap, dev)
         emit(compare_warm_routes(path, ell_snap, dev, num_col=HIGGS_COLS,
                                  layout="ell", max_nnz=HIGGS_COLS))
+        emit(run_healing(tmp, dev, args.seed))
+        warm_dense, snaps = [], {}
+        for phase, opts in WARM_DENSE.items():
+            snaps[phase] = os.path.join(tmp, f"{phase}.snapshot")
+            warm_dense.append(run_warm_dense(path, snaps[phase], dev, phase))
+            emit(compare_warm_routes(path, snaps[phase], dev, num_col=HIGGS_COLS + 1,
+                                     layout="dense", pack_aux=True, **opts))
+        # the profiler's windows: the decode's first (a window opened after
+        # others has recorded nothing now and then), then the steps'
+        emit(profile_decodes({p: snaps[p] for p in ("warm_dense_bfloat16", "warm_dense_q8")},
+                             dev, HIGGS_COLS + 1))
+        step = step_times(path, dev)
+        check_no_scatter(step)
+        step["device_busy_share_est"] = (
+            step["step_device_ms"] * main_path["steps"] / 1e3 / main_path["fit_s"])
+        emit(step)
         warm_step = step_times(path, dev, snapshot=ell_snap)
         warm_epoch = warm_ell["epochs"][-1]
         warm_step["device_busy_share_est"] = (
             warm_step["step_device_ms"] * warm_epoch["batches"] / 1e3 / warm_epoch["wall_s"])
         emit(warm_step)
         check_no_scatter(warm_step)
-        emit(run_healing(tmp, dev, args.seed))
-        warm_dense = []
-        for x_dtype in ("float32", "bfloat16"):
-            snap = os.path.join(tmp, f"dense_{x_dtype}.snapshot")
-            warm_dense.append(run_warm_dense(path, snap, dev, x_dtype))
-            emit(compare_warm_routes(path, snap, dev, num_col=HIGGS_COLS + 1,
-                                     layout="dense", x_dtype=x_dtype, pack_aux=True))
 
     k1_main = k1_rows[0]
-    k2_main = next(r for r in k2_rows if r["shape"] == K2_MAIN)
+    k2_main = next(r for r in k2_rows["kinds"] if r["kind"] == K2_MAIN)
     emit({"kernels": [{
         "name": "ell_matvec", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
@@ -957,7 +1273,7 @@ def main() -> int:
         "source": "dmlc_tpu_torch/csrc/widen_span.cu",
         "replaces": "dmlc_tpu/ops/device_decode.py:168",
         "launches": warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense),
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}]})

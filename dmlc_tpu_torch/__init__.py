@@ -9,7 +9,7 @@ kernel ``csrc/ell_matvec.cu``) -> ``fit`` / ``accuracy``. With
 ``create_parser(..., snapshot=path)`` the first epoch writes its batches
 to a snapshot file and later epochs serve them from it; with
 ``DeviceIter(device_decode=True)`` each served batch crosses as raw bytes
-and is decoded on the card (``csrc/widen_span.cu``).
+and is decoded on the card in one launch of ``csrc/widen_span.cu``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card the default raises ``DMLCError``.

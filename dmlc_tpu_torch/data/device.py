@@ -31,9 +31,10 @@ and later epochs serve them from the file with no parse and no convert:
   epoch;
 - ``device_decode=True``: each batch's raw container bytes go through one
   pinned u8 staging slot, cross as one async u8 copy, and
-  :func:`~dmlc_tpu_torch.ops.device_decode.decode_span` slices and types
-  them on the consumer's stream after the copy's event — its 2-D
-  float32/bfloat16 segments through kernel K2.
+  :func:`~dmlc_tpu_torch.ops.device_decode.decode_batch` turns them into
+  the batch on the consumer's stream after the copy's event, in one launch
+  of kernel K2 (float slabs copied, an int8 slab dequantized, a bfloat16
+  packed slab's label and weight widened to float32 in the same pass).
 
 Counters: ``stall_seconds`` is the consumer's time inside ``__next__``
 (waiting for the producer, issuing copies, and in device-decode epochs the
@@ -80,7 +81,8 @@ from dmlc_tpu_torch.io import snapshot as _snapshot
 from dmlc_tpu_torch.io.block_cache import remove_quietly, torch_dtype
 from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.ops import device_decode as _device_decode
-from dmlc_tpu_torch.ops.sparse import EllBatch, block_to_dense, block_to_ell
+from dmlc_tpu_torch.ops.device_decode import PackedDenseBatch  # noqa: F401 (re-exported)
+from dmlc_tpu_torch.ops.sparse import block_to_dense, block_to_ell
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
 from dmlc_tpu_torch.utils.timer import get_time
 
@@ -121,44 +123,6 @@ def _require_bf16_exact(packed_col: torch.Tensor, src: np.ndarray, what: str) ->
             f"bfloat16 aux packing: this batch's {what}s are not bf16-exact — "
             f"packing would silently corrupt them. Keep the {what}s "
             "float32-packable (pack_aux=False) or use x_dtype='float32'")
-
-
-class PackedDenseBatch:
-    """One ``[B, num_col + 2]`` device tensor: features in columns
-    ``[:num_col]``, label in column ``num_col``, weight in ``num_col + 1``.
-
-    ``x, y, w = batch`` works, as does ``batch[0]``; ``x`` is a view in the
-    packed dtype, while ``y`` and ``w`` are widened to float32
-    (:func:`~dmlc_tpu_torch.ops.device_decode.widen_f32`), so consumers see
-    the dtypes of the unpacked path.
-    """
-
-    __slots__ = ("packed", "num_col")
-
-    def __init__(self, packed: torch.Tensor, num_col: int):
-        self.packed = packed
-        self.num_col = int(num_col)
-
-    @property
-    def x(self) -> torch.Tensor:
-        return self.packed[:, : self.num_col]
-
-    @property
-    def y(self) -> torch.Tensor:
-        return _device_decode.widen_f32(self.packed[:, self.num_col])
-
-    @property
-    def w(self) -> torch.Tensor:
-        return _device_decode.widen_f32(self.packed[:, self.num_col + 1])
-
-    def __iter__(self):
-        return iter((self.x, self.y, self.w))
-
-    def __getitem__(self, i):
-        return (self.x, self.y, self.w)[i]
-
-    def __len__(self) -> int:
-        return 3
 
 
 class _Slot:
@@ -544,15 +508,6 @@ class DeviceIter:
                 return
             self._inflight.append(self._put(slot))
 
-    def _wrap(self, kind: str, out: List[torch.Tensor]):
-        if kind == "ell":
-            return EllBatch(*out)
-        if kind == "dense_packed":
-            return PackedDenseBatch(out[0], self.num_col)
-        if kind == "dense_packed_q8":
-            return PackedDenseBatch(_device_decode.dequant_q8(out[0], out[1]), self.num_col)
-        return tuple(out)  # "dense": (x, y, w)
-
     def __iter__(self):
         return self
 
@@ -569,12 +524,12 @@ class DeviceIter:
             for t in out:
                 t.record_stream(stream)
         if layout is None:
-            batch = self._wrap(kind, out)
+            batch = _device_decode.wrap_batch(kind, out, self.num_col)
         else:
-            # device decode, on the consumer's stream after the copy's event
+            # device decode, on the consumer's stream after the copy's event:
+            # one K2 launch for the whole batch
             t_decode = get_time()
-            segs = _device_decode.decode_span(out[0], layout)
-            batch = self._wrap(kind, [segs[name] for name, *_ in layout])
+            batch = _device_decode.decode_batch(out[0], layout, kind, self.num_col)
             self.device_decode_seconds += get_time() - t_decode
         # counted as delivered before the refill, which may restart the
         # epoch cold after this batch

@@ -146,10 +146,11 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmlc_ell_dw_scratch_floats.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3
     lib.dmlc_ell_dw_max_table.restype = ctypes.c_int64
     lib.dmlc_ell_dw_max_table.argtypes = []
-    lib.dmlc_widen_span.restype = ctypes.c_int
-    lib.dmlc_widen_span.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_void_p]
+    # (span, out, the plan's DmlcDecodeTable, stream), called with the GIL
+    # held: the launch returns in microseconds, and a GIL given up around it
+    # may go to the snapshot reader's thread for longer than that
+    lib.dmlc_decode_span = ctypes.PYFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p] * 4)(
+        ("dmlc_decode_span", lib))
     lib.dmlc_cuda_error_string.restype = ctypes.c_char_p
     lib.dmlc_cuda_error_string.argtypes = [ctypes.c_int]
     kernel_build_seconds, kernel_build_log = seconds, log

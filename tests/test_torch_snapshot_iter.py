@@ -1,13 +1,16 @@
 """The port's DeviceIter over the snapshot store, against dmlc_tpu's.
 
 On a 512-row, 6-column corpus at batch 64, for ELL, packed dense float32,
-packed dense bfloat16 and int8-quantized packed dense (``device="cpu"``,
-where K2's route takes its plain version):
+packed dense bfloat16, int8-quantized packed dense and unpacked dense
+float32 and bfloat16 (``device="cpu"``, where K2's route takes its plain
+version; a packed batch is compared as its slab and its ``x``, ``y`` and
+``w``):
 
 - a complete cold epoch publishes the snapshot, and the next epoch serves
   it (``snapshot_state == "warm"``);
 - a warm ``device_decode=True`` epoch adds exactly 0 to
-  ``convert_seconds`` and counts its raw span bytes;
+  ``convert_seconds`` and counts its raw span bytes; it decodes each batch
+  with one ``decode_batch`` call, on one plan built for the whole epoch;
 - its batches are byte-identical to the cold epoch's (the int8 path
   excepted: it stores a quantized copy) and to a host-decode warm epoch's;
 - a snapshot written by the JAX package, served by the port with
@@ -41,6 +44,8 @@ CASES = {
     "dense_f32": dict(layout="dense"),
     "dense_bf16": dict(layout="dense", x_dtype="bfloat16", pack_aux=True),
     "q8": dict(layout="dense", snapshot_quant="int8"),
+    "dense_unpacked_f32": dict(layout="dense", pack_aux=False),
+    "dense_unpacked_bf16": dict(layout="dense", x_dtype="bfloat16"),
 }
 
 
@@ -74,7 +79,7 @@ def _tensor_bytes(a) -> bytes:
 
 
 def _batch_bytes(batch):
-    arrays = [batch.packed] if hasattr(batch, "packed") else list(batch)
+    arrays = [batch.packed, *batch] if hasattr(batch, "packed") else list(batch)
     return [_tensor_bytes(a) for a in arrays]
 
 
@@ -118,6 +123,34 @@ def test_cold_then_warm_device_decode_epochs(tmp_path, case):
 
 
 @pytest.mark.parametrize("case", list(CASES))
+def test_warm_epoch_decodes_each_batch_once_on_one_plan(tmp_path, monkeypatch, case):
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    kw = CASES[case]
+    corpus, snap = _corpus(tmp_path), str(tmp_path / "c.snapshot")
+    it = _port_iter(corpus, snap, device_decode=True, **kw)
+    _drain(it)  # cold: writes the snapshot, decodes nothing
+    calls, built = [], []
+    decode_batch, plan_init = dd.decode_batch, dd.DecodePlan.__init__
+
+    def counting_decode(span, layout, kind, num_col):
+        calls.append(kind)
+        return decode_batch(span, layout, kind, num_col)
+
+    def counting_init(self, *args):
+        built.append(args[0])
+        plan_init(self, *args)
+
+    monkeypatch.setattr(dd, "_PLANS", {})
+    monkeypatch.setattr(dd, "decode_batch", counting_decode)
+    monkeypatch.setattr(dd.DecodePlan, "__init__", counting_init)
+    warm = [_batch_bytes(b) for b in it]
+    it.close()
+    assert len(warm) == len(calls) == ROWS // BATCH and len(set(calls)) == 1
+    assert built == calls[:1]  # one plan, for the first batch
+
+
+@pytest.mark.parametrize("case", list(CASES))
 def test_warm_batches_types(tmp_path, case):
     kw = CASES[case]
     corpus, snap = _corpus(tmp_path), str(tmp_path / "c.snapshot")
@@ -129,9 +162,12 @@ def test_warm_batches_types(tmp_path, case):
         assert batch.indices.dtype == torch.int32 and batch.values.dtype == torch.float32
         assert tuple(batch.values.shape) == (BATCH, NUM_COL)
         return
-    assert isinstance(batch, PackedDenseBatch)
+    if case.startswith("dense_unpacked"):
+        assert isinstance(batch, tuple)
+    else:
+        assert isinstance(batch, PackedDenseBatch)
     x, y, w = batch
-    want = torch.bfloat16 if case == "dense_bf16" else torch.float32
+    want = torch.bfloat16 if case.endswith("bf16") else torch.float32
     assert x.dtype == want and tuple(x.shape) == (BATCH, NUM_COL)
     assert y.dtype == w.dtype == torch.float32
     assert set(y.tolist()) <= {0.0, 1.0} and bool((w == 1.0).all())
