@@ -60,11 +60,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    decode under ``torch.profiler``, where K2 must be the one kernel; and
    healing: a byte flipped in a warm batch of a small snapshot, the warm
    device-decode epoch equal to the cold one byte for byte after one
-   pipeline restart.
+   pipeline restart;
+7. checkpoints on the main path: a cold ELL epoch checkpointed after 37
+   batches (the DeviceIter state through JSON, the parameters through
+   numpy), closed and resumed in a fresh pipeline by a seek of the split
+   (under 0.8 of the corpus read), to the uninterrupted epoch's weight and
+   bias exactly (``torch.equal``); on phase 6's snapshot, a warm checkpoint
+   and the cold one each resumed into a fresh warm device-decode pipeline:
+   the remaining batches bit-equal to the uninterrupted warm epoch's, one
+   K2 launch each, the same final weights; with the load time, the time to
+   the first batch and the restored epoch's rows/s;
+8. the bcoo layout: ``DeviceIter(layout="bcoo", batch_size=8192,
+   max_nnz=28)`` -> ``LinearLearner(layout="bcoo")``, the first 20 steps
+   under CUDA's sync debug mode "error" and within 1e-4 relative of the
+   same batches on the CPU, the first batch's dense form equal to the CPU
+   route's; a fresh epoch and an accuracy pass (above 0.9, one nnz shape
+   crossed), rows/s and stall share, the step's device time on a resident
+   batch beside the ELL step's, 20 of each step enqueued behind a device
+   spin without waiting for it (no host sync, also none inside a library),
+   and one epoch of natural blocks (``batch_size=None``) with a finite
+   loss.
 
 The ``torch.profiler`` windows run last, the decode's first: the steps'
-windows of phases 3 and 6 (``step``, ``step_warm``) follow it. Then a
-``{"kernels": [...]}`` line, the card's name and power limit as
+windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
+bcoo step's (``bcoo_step_profile``, device time by kernel). Then the
+run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
+the main paths of phases 3, 6 and 7), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -1145,6 +1166,304 @@ def run_healing(tmp: str, device, seed: int, rows: int = 8 * BATCH) -> dict:
     return out
 
 
+# ---------------- phase 7: checkpoint and resume ----------------
+
+CKPT_AT = 37  # batches before the checkpoint
+
+
+def _ell_pipeline(path: str, device, snapshot=None):
+    """(parser, learner, DeviceIter) of the ELL main path, fresh; with a
+    ``snapshot`` the warm device-decode feed."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    parser = create_parser(path, 0, 1, "libsvm", snapshot=snapshot)
+    model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(parser, num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device,
+                    device_decode=snapshot is not None)
+    return parser, model, it
+
+
+def _checkpoint(path: str, device, snapshot=None):
+    """Step the first ``CKPT_AT`` batches from a fresh learner and close:
+    the DeviceIter state through ``json`` and the parameters through
+    numpy, as a job would write them."""
+    from dmlc_tpu_torch.convert import linear_params_to_jax
+
+    _, model, it = _ell_pipeline(path, device, snapshot)
+    for _, batch in zip(range(CKPT_AT), it):
+        model.step(batch)
+    state = json.loads(json.dumps(it.state_dict()))
+    params = linear_params_to_jax(model.params)
+    it.close()
+    return state, params
+
+
+def _resume(path: str, device, state, params, snapshot=None, want=None) -> dict:
+    """A fresh parser, DeviceIter and learner: the parameters set, the
+    state loaded, the epoch finished. With ``want`` (the uninterrupted
+    epoch's batches from ``CKPT_AT`` on) each batch is held against it, bit
+    for bit."""
+    import torch
+
+    from dmlc_tpu_torch.convert import linear_params_from_jax
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    parser, model, it = _ell_pipeline(path, device, snapshot)
+    model.set_params(linear_params_from_jax(*params, device=device))
+    torch.cuda.synchronize()
+    k2_before = dd.launches
+    t0 = time.monotonic()
+    it.load_state(state)
+    t1 = time.monotonic()
+    n, first_s, equal = 0, None, want is not None
+    for batch in it:
+        if first_s is None:
+            first_s = time.monotonic() - t1
+        model.step(batch)
+        if want is not None:
+            equal = equal and n < len(want) and all(
+                same_bits(a, b) for a, b in zip(batch, want[n]))
+        n += 1
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    out = {"batches_after_restore": n, "load_state_s": t1 - t0, "first_batch_s": first_s,
+           "restored_rows_per_s": n * BATCH / (t2 - t1), "parser_bytes_read": parser.bytes_read,
+           "snapshot_state": it.stats()["snapshot_state"], "k2_launches": dd.launches - k2_before,
+           "weight": model.params.weight.detach().clone(),
+           "bias": model.params.bias.detach().clone()}
+    if want is not None:
+        out["batches_equal"] = equal and n == len(want)
+    it.close()
+    return out
+
+
+def run_checkpoint(path: str, snap: str, device, corpus_bytes: int) -> dict:
+    """Cold ELL: an uninterrupted epoch, then the same epoch checkpointed
+    after ``CKPT_AT`` batches, closed, and resumed in a fresh pipeline
+    (a seek); the final weight and bias must be ``torch.equal``. Warm
+    device decode on phase 6's snapshot: a warm checkpoint and the cold
+    one, each resumed into a fresh warm pipeline; the remaining batches
+    bit-equal to the uninterrupted warm epoch's, one K2 launch each, and
+    the final weights ``torch.equal`` to it (and to the cold epoch's: the
+    same batches)."""
+    import torch
+
+    _, model, it = _ell_pipeline(path, device)
+    t0 = time.monotonic()
+    batches = 0
+    for batch in it:
+        model.step(batch)
+        batches += 1
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    it.close()
+    ref_w, ref_b = model.params.weight.detach().clone(), model.params.bias.detach().clone()
+
+    cold_state, cold_params = _checkpoint(path, device)
+    cold = _resume(path, device, cold_state, cold_params)
+    cold_out = {k: v for k, v in cold.items() if k not in ("weight", "bias")}
+    cold_out.update(
+        state_kind=cold_state["kind"], state_batches=cold_state["batches"],
+        uninterrupted_epoch_s=cold_s, uninterrupted_rows_per_s=batches * BATCH / cold_s,
+        bytes_read_share=cold["parser_bytes_read"] / corpus_bytes,
+        weights_equal=bool(torch.equal(cold["weight"], ref_w)
+                           and torch.equal(cold["bias"], ref_b)))
+    emit({"phase": "checkpoint_cold_ell", **cold_out})
+
+    # the uninterrupted warm epoch, its batches kept on the card
+    _, model, it = _ell_pipeline(path, device, snap)
+    want = []
+    for i, batch in enumerate(it):
+        model.step(batch)
+        if i >= CKPT_AT:
+            want.append([t.clone() for t in batch])
+    warm_state_ok = it.stats()["snapshot_state"] == "warm"
+    it.close()
+    warm_w, warm_b = model.params.weight.detach().clone(), model.params.bias.detach().clone()
+    warm_state, warm_params = _checkpoint(path, device, snap)
+    warm_out = []
+    for name, state, params in (("warm_to_warm", warm_state, warm_params),
+                                ("cold_to_warm", cold_state, cold_params)):
+        r = _resume(path, device, state, params, snap, want)
+        rec = {k: v for k, v in r.items() if k not in ("weight", "bias")}
+        rec.update(phase="checkpoint_warm_ell", restore=name, state_kind=state["kind"],
+                   weights_equal=bool(torch.equal(r["weight"], warm_w)
+                                      and torch.equal(r["bias"], warm_b)))
+        emit(rec)
+        warm_out.append(rec)
+    cold_equals_warm = bool(torch.equal(ref_w, warm_w) and torch.equal(ref_b, warm_b))
+    out = {"cold": cold_out, "warm": warm_out, "warm_epoch_served_warm": warm_state_ok,
+           "cold_epoch_equals_warm_epoch": cold_equals_warm,
+           "k2_launches": sum(r["k2_launches"] for r in warm_out)}
+    rest = HIGGS_ROWS // BATCH - CKPT_AT
+    problems = []
+    if not (cold_out["weights_equal"] and cold_out["batches_after_restore"] == rest):
+        problems.append("the cold ELL restore did not finish the epoch to the same weights")
+    if cold_state["kind"] != "source" or not cold_out["bytes_read_share"] < 0.8:
+        problems.append("the cold ELL restore did not seek")
+    for r in warm_out:
+        if not (r["weights_equal"] and r["batches_equal"] and r["k2_launches"] == rest
+                and r["snapshot_state"] == "warm"):
+            problems.append(f"the {r['restore']} restore differs")
+    if not (warm_state_ok and cold_equals_warm):
+        problems.append("the warm epoch was not warm, or trained other weights than the cold")
+    if problems:
+        raise AssertionError(f"checkpoint: {problems}: {out}")
+    return out
+
+
+# ---------------- phase 8: the bcoo layout ----------------
+
+def _bcoo_pipeline(path: str, device, natural: bool = False):
+    """(learner, DeviceIter) of the bcoo path, fresh; ``natural`` ships the
+    parsed blocks as they come (``batch_size=None``)."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model = LinearLearner(HIGGS_COLS, layout="bcoo", learning_rate=0.3, device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm"), num_col=model.device_num_col(),
+                    batch_size=None if natural else BATCH, layout="bcoo",
+                    max_nnz=HIGGS_COLS, device=device)
+    return model, it
+
+
+def enqueue_behind_spin(step, calls: int = 20, spin_cycles: int = 1_000_000_000) -> dict:
+    """Whether ``step`` waits for the device: ``calls`` calls enqueued
+    behind a device-side spin of about half a second. A call that
+    synchronises the host (also inside a library, where CUDA's sync debug
+    mode cannot see it) waits for the spin, so its enqueue time is then at
+    least the spin's; without one the host is done long before, and the
+    stream is still busy."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(spin_cycles)
+    end.record()
+    torch.cuda.synchronize()
+    spin_s = start.elapsed_time(end) / 1e3
+    torch.cuda._sleep(spin_cycles)
+    t0 = time.monotonic()
+    for _ in range(calls):
+        step()
+    host_s = time.monotonic() - t0
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    return {"calls": calls, "host_s": host_s, "spin_s": spin_s, "stream_busy_after": busy,
+            "no_host_sync": busy and host_s < 0.5 * spin_s}
+
+
+def run_bcoo(path: str, device, steps: int = 20) -> dict:
+    """DeviceIter(bcoo) -> LinearLearner(bcoo): the first ``steps`` steps
+    on the card under CUDA's sync debug mode "error" and against the same
+    batches on the CPU, the first batch's dense form against the CPU
+    route's; then a fresh epoch and an accuracy pass (rows/s, stall
+    share, the nnz shapes crossed), the step's device time on a resident
+    batch beside the ELL step's on the same rows, both steps enqueued
+    behind a device spin (:func:`enqueue_behind_spin`: no host sync, also
+    none the debug mode cannot see), and one epoch of natural blocks
+    (``batch_size=None``)."""
+    import torch
+
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model, it = _bcoo_pipeline(path, device)
+    batches = [b for _, b in zip(range(steps), it)]
+    it.close()
+    torch.cuda.synchronize()
+    time.sleep(0.5)  # the producer idle: only the steps run in the window
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = [model.step(b) for b in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu_model = LinearLearner(HIGGS_COLS, layout="bcoo", learning_rate=0.3, device="cpu")
+    pairs = [(float(c), float(cpu_model.step(tuple(t.cpu() for t in b))))
+             for c, b in zip(card, batches)]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
+    cpu_it = DeviceIter(create_parser(path, 0, 1, "libsvm"), num_col=HIGGS_COLS,
+                        batch_size=BATCH, layout="bcoo", max_nnz=HIGGS_COLS, device="cpu")
+    cpu_first = next(cpu_it)
+    cpu_it.close()
+    x0, y0, w0 = batches[0]
+    dense_equal = bool(torch.equal(x0.to_dense().cpu(), cpu_first[0].to_dense())
+                       and torch.equal(y0.cpu(), cpu_first[1])
+                       and torch.equal(w0.cpu(), cpu_first[2]))
+    del batches, card
+
+    model, it = _bcoo_pipeline(path, device)
+    t0 = time.monotonic()
+    loss, nb = model.fit_epoch(it)
+    epoch_s = time.monotonic() - t0
+    stall = it.stall_seconds
+    acc = model.accuracy(it)
+    shapes = sorted(it.nnz_shapes)
+    # the step's device time on a resident batch, bcoo and ELL, same rows
+    bcoo_batch = next(it)
+    it.close()
+    _, ell_model, ell_it = _ell_pipeline(path, device)
+    ell_batch = next(ell_it)
+    ell_it.close()
+    for m, b in ((model, bcoo_batch), (ell_model, ell_batch)):
+        m.step(b)
+    torch.cuda.synchronize()
+    bcoo_ms = device_ms(lambda: model.step(bcoo_batch), iters=10)
+    ell_ms = device_ms(lambda: ell_model.step(ell_batch), iters=10)
+    bcoo_spin = enqueue_behind_spin(lambda: model.step(bcoo_batch))
+    ell_spin = enqueue_behind_spin(lambda: ell_model.step(ell_batch))
+    nat_model, nat_it = _bcoo_pipeline(path, device, natural=True)
+    t0 = time.monotonic()
+    nat_loss, nat_nb = nat_model.fit_epoch(nat_it)
+    nat_s = time.monotonic() - t0
+    nat_it.close()
+    out = {"phase": "bcoo", "first_steps": len(pairs), "max_rel_diff": rel,
+           "steps_under_sync_error": len(pairs), "first_batch_dense_equal_cpu": dense_equal,
+           "loss": loss, "batches": nb, "wall_s": epoch_s, "rows_per_s": nb * BATCH / epoch_s,
+           "stall_s": stall, "stall_share": stall / epoch_s, "accuracy": acc,
+           "nnz_shapes": shapes, "step_device_ms": bcoo_ms, "ell_step_device_ms": ell_ms,
+           "step_enqueue_behind_spin": bcoo_spin, "ell_step_enqueue_behind_spin": ell_spin,
+           "natural_loss": nat_loss, "natural_batches": nat_nb, "natural_wall_s": nat_s,
+           "natural_rows_per_s": HIGGS_ROWS / nat_s}
+    emit(out)
+    if not (len(pairs) == steps and rel <= 1e-4 and dense_equal):
+        raise AssertionError(f"bcoo: the first {steps} steps or batch differ from the CPU: {pairs}")
+    if not (bcoo_spin["no_host_sync"] and ell_spin["no_host_sync"]):
+        raise AssertionError(f"a step waited for the device: bcoo {bcoo_spin}, ELL {ell_spin}")
+    if not (acc > 0.9 and np.isfinite(loss) and len(shapes) == 1 and np.isfinite(nat_loss)
+            and nat_nb > 0):
+        raise AssertionError(f"bcoo epoch failed its checks: {out}")
+    return out
+
+
+def bcoo_step_profile(path: str, device, steps: int = 10) -> dict:
+    """Where a bcoo step's device time goes: ``steps`` steps on one
+    resident batch under ``torch.profiler``, device time by kernel a step.
+    A measurement, not a check: an empty trace is reported as such."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model, it = _bcoo_pipeline(path, device)
+    batch = next(it)
+    it.close()
+    model.step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.5)
+        for _ in range(steps):
+            model.step(batch)
+        torch.cuda.synchronize()
+    per_kernel: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[evt.name] = (per_kernel.get(evt.name, 0.0)
+                                    + evt.time_range.elapsed_us() / steps / 1e3)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"phase": "bcoo_step_profile", "steps": steps,
+            "device_ms_per_step": sum(per_kernel.values()),
+            "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1159,8 +1478,10 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dmlc_tpu_torch.ops import device_decode as dd
     from dmlc_tpu_torch.ops import ell_matvec as k1
 
+    t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False  # the dense margin in full fp32
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = smi_line()
@@ -1233,6 +1554,12 @@ def main() -> int:
             warm_dense.append(run_warm_dense(path, snaps[phase], dev, phase))
             emit(compare_warm_routes(path, snaps[phase], dev, num_col=HIGGS_COLS + 1,
                                      layout="dense", pack_aux=True, **opts))
+        # phase 7, its launches counted from 0
+        k1.launches = k1.dw_launches = dd.launches = 0
+        run_checkpoint(path, ell_snap, dev, corpus["bytes"])
+        ckpt_k1, ckpt_dw, ckpt_k2 = k1.launches, k1.dw_launches, dd.launches
+        # phase 8
+        run_bcoo(path, dev)
         # the profiler's windows: the decode's first (a window opened after
         # others has recorded nothing now and then), then the steps'
         emit(profile_decodes({p: snaps[p] for p in ("warm_dense_bfloat16", "warm_dense_q8")},
@@ -1248,14 +1575,16 @@ def main() -> int:
             warm_step["step_device_ms"] * warm_epoch["batches"] / 1e3 / warm_epoch["wall_s"])
         emit(warm_step)
         check_no_scatter(warm_step)
+        emit(bcoo_step_profile(path, dev))
 
+    emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
     k2_main = next(r for r in k2_rows["kinds"] if r["kind"] == K2_MAIN)
     emit({"kernels": [{
         "name": "ell_matvec", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:122",
-        "launches": launches + warm_ell["k1_launches"],
+        "launches": launches + warm_ell["k1_launches"] + ckpt_k1,
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -1263,7 +1592,7 @@ def main() -> int:
         "name": "ell_matvec_dw", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec_dw.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:191",
-        "launches": dw_launches + warm_ell["dw_launches"],
+        "launches": dw_launches + warm_ell["dw_launches"] + ckpt_dw,
         "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
                            if r["dw_route"] == "cuda"),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
@@ -1272,7 +1601,8 @@ def main() -> int:
         "name": "widen_span", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/widen_span.cu",
         "replaces": "dmlc_tpu/ops/device_decode.py:168",
-        "launches": warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense),
+        "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
+                     + ckpt_k2),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

@@ -3,9 +3,11 @@
 The JAX package ``dmlc_tpu`` is the reference; this package imports none of
 it (nor JAX) and keeps its own copies of the host layers it needs. Its main
 path so far: ``create_parser`` (libsvm, byte-range shards, native or numpy
-parse) -> ``DeviceIter`` (dense or ELL batches, pinned staging, async
-copies) -> ``LinearLearner`` (SGD; the ELL margin on the hand-written CUDA
-kernel ``csrc/ell_matvec.cu``) -> ``fit`` / ``accuracy``. With
+parse) -> ``DeviceIter`` (dense, ELL or sparse COO batches, pinned
+staging, async copies) -> ``LinearLearner`` (SGD; the ELL margin on the
+hand-written CUDA kernel ``csrc/ell_matvec.cu``) -> ``fit`` /
+``accuracy``, with mid-epoch checkpoints (``state_dict`` / ``load_state``,
+the JAX package's states). With
 ``create_parser(..., snapshot=path)`` the first epoch writes its batches
 to a snapshot file and later epochs serve them from it; with
 ``DeviceIter(device_decode=True)`` each served batch crosses as raw bytes

@@ -1,10 +1,11 @@
 """Async host->device batch pipeline — ``DeviceIter``.
 
 The PyTorch counterpart of the JAX package's ``data/device.py`` for the
-``dense`` and ``ell`` layouts. Parsed RowBlocks are rebatched to one fixed
-shape on the host, converted to the device layout on a producer thread into
-a ring of pinned staging buffers, and copied to the device ``prefetch``
-batches ahead of consumption:
+``dense``, ``ell`` and ``bcoo`` layouts. Parsed RowBlocks are rebatched to
+one fixed shape on the host (or, for bcoo, kept as they come), converted to
+the device layout on a producer thread into a ring of pinned staging
+buffers, and copied to the device ``prefetch`` batches ahead of
+consumption:
 
 - each batch is copied with ``.to(device, non_blocking=True)`` on a
   dedicated copy stream, and a per-batch ``torch.cuda.Event`` is recorded
@@ -47,21 +48,52 @@ epoch's shadow write, and ``snapshot_read_seconds`` a warm epoch's reads
 (crc included) and copies into staging. A warm epoch adds nothing to
 ``convert_seconds``.
 
+**Checkpoints.** :meth:`DeviceIter.state_dict` is the JAX package's state,
+key for key. Each batch carries the annotation of the last source block
+boundary it crossed, ``{"source": <the parser's state there>, "skip_rows":
+<rows of the batch past it>}``; a state is ``{"kind": "source", "batches":
+n, **annotation}`` once a delivered batch has one, else ``{"kind":
+"batches", "batches": n}``. :meth:`~DeviceIter.load_state` seeks the source
+for a ``source`` state and drops the rows into the block, or replays a
+``batches`` count on the producer, which skips that many batches without
+converting or copying them; the batches in flight at the checkpoint are
+dropped. With a snapshot the cold shadow write stores each batch's
+annotation as its ``resume`` entry, and a state of at most the stored
+batch count restores into warm serving at that batch (a cold state into a
+warm pipeline, a warm one into a cold pipeline, the same bytes); a larger
+one restores cold, aborting the shadow writer and serving cold until the
+next :meth:`~DeviceIter.reset`. A state taken in either package restores
+in the other.
+
 **Healing.** A warm batch that fails its crc32 removes the file. Within the
 restart budget (:mod:`dmlc_tpu_torch.io.resilience`: ``max_attempts - 1``
 restarts an epoch, ``DMLC_RETRY_MAX_ATTEMPTS``, default 4) the epoch then
-goes on cold from the batch after the last one delivered, as the JAX
-package's does: the warm feed and the batches in flight are dropped, the
-source restarts with no shadow writer (a pass joined mid-epoch cannot
-write a whole snapshot), and its first ``batches_fed`` batches are
-discarded unconverted. ``stats()["resilience"]["pipeline_restarts"]``
-counts the restarts; past the budget the ``CacheCorruptionError``
-propagates. The next epoch runs cold and writes the snapshot anew.
+goes on cold from the batch after the last one delivered, through
+``load_state(state_dict())`` as in the JAX package: a seek where the stored
+annotation allows, a replay by count otherwise.
+``stats()["resilience"]["pipeline_restarts"]`` counts the restarts; past
+the budget the ``CacheCorruptionError`` propagates. The next epoch runs
+cold and writes the snapshot anew.
+
+**bcoo.** ``layout="bcoo"`` batches are ``(x, label, weight)`` with ``x`` a
+torch sparse COO tensor ``[rows, num_col]`` on the device (pad scheme in
+:mod:`dmlc_tpu_torch.ops.sparse`): a fixed ``batch_size``, with nnz padded
+to multiples of ``nnz_bucket`` (planned in stream order, so the tail batch
+pads into a shape already emitted), or natural blocks (``batch_size=None``,
+rows rounded up to ``row_bucket``). A batch's coordinates, values, label
+and weight cross as one u8 span, pad slots included, so transfer sizes
+repeat; on the device ``x`` is built on views of the real entries only.
+Pad slots inside ``x`` would share a coordinate, and torch assumes unique
+coordinates in a tensor marked coalesced: ``to_dense`` then keeps one of
+the duplicates, not their sum. ``x`` is marked coalesced when its
+coordinates are in strict row-major order, so a product with it does not
+coalesce (a host sync) on the card. ``nnz_shapes`` collects the nnz
+capacities the delivered spans had. Snapshots store fixed shapes only and
+refuse bcoo.
 
 On a CPU device the same pipeline runs without pinning, streams or events
-(the copy is synchronous). Not ported yet: the bcoo layout, the block
-cache, snapshot plan order (``snapshot_shuffle_seed``), mesh placement,
-autotuning and checkpoint ``state_dict``.
+(the copy is synchronous). Not ported yet: the block cache, snapshot plan
+order (``snapshot_shuffle_seed``), mesh placement and autotuning.
 """
 
 from __future__ import annotations
@@ -82,13 +114,17 @@ from dmlc_tpu_torch.io.block_cache import remove_quietly, torch_dtype
 from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.ops import device_decode as _device_decode
 from dmlc_tpu_torch.ops.device_decode import PackedDenseBatch  # noqa: F401 (re-exported)
-from dmlc_tpu_torch.ops.sparse import block_to_dense, block_to_ell
+from dmlc_tpu_torch.ops.sparse import block_to_bcoo_host, block_to_dense, block_to_ell
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
 from dmlc_tpu_torch.utils.timer import get_time
 
 # converted batches the producer may hold ready ahead of the consumer
 _CONVERT_AHEAD = 2
 _X_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the derived bcoo nnz bucket's ceiling: the bucket is also a batch's worst
+# pad, and batch_size * max_nnz is a ceiling, not a density
+_NNZ_BUCKET_CAP = 512 * 1024
+_SPAN_ALIGN = 64
 
 
 def rebatch_blocks(blocks: Iterator[RowBlock], batch_size: int,
@@ -127,9 +163,11 @@ def _require_bf16_exact(packed_col: torch.Tensor, src: np.ndarray, what: str) ->
 
 class _Slot:
     """Pinned staging buffers and what the consumer needs to ship them:
-    the batch ``kind``, and for a raw span its ``layout`` and ``nbytes``."""
+    the batch ``kind``, its checkpoint annotation ``annot``, and for one u8
+    span (a raw snapshot span, a bcoo batch) its ``layout`` and
+    ``nbytes``."""
 
-    __slots__ = ("bufs", "event", "kind", "layout", "nbytes")
+    __slots__ = ("bufs", "event", "kind", "layout", "nbytes", "annot")
 
     def __init__(self, bufs: List[torch.Tensor]):
         self.bufs = bufs
@@ -137,6 +175,17 @@ class _Slot:
         self.kind = ""
         self.layout = None
         self.nbytes = 0
+        self.annot: Optional[dict] = None
+
+
+class _Skipped:
+    """A batch the producer skipped, unconverted, for a count restore;
+    it carries the batch's annotation only."""
+
+    __slots__ = ("annot",)
+
+    def __init__(self, annot: Optional[dict]):
+        self.annot = annot
 
 
 class _StagingRing:
@@ -173,17 +222,52 @@ class _StagingRing:
             self._free.put(slot)
 
 
+def _align(n: int) -> int:
+    return -(-n // _SPAN_ALIGN) * _SPAN_ALIGN
+
+
+def _bcoo_offsets(index_bytes: int, nnz: int, rows: int):
+    """Where a bcoo batch's segments lie in its span: coordinates ``[2,
+    nnz]`` (rows, then columns), values ``[nnz]`` f32, label and weight
+    ``[rows]`` f32, each 64-byte aligned. Returns the four offsets and the
+    span's size."""
+    o_val = _align(2 * nnz * index_bytes)
+    o_label = o_val + _align(4 * nnz)
+    o_weight = o_label + _align(4 * rows)
+    return o_val, o_label, o_weight, o_weight + 4 * rows
+
+
+def _row_major(block: RowBlock) -> bool:
+    """Whether the block's coordinates are unique and in row-major order:
+    columns strictly increasing within each row (rows ascend by
+    construction)."""
+    idx = block.index
+    if len(idx) < 2:
+        return True
+    out_of_order = np.diff(idx.astype(np.int64)) <= 0  # entry i + 1 vs entry i
+    starts = block.offset[1:-1]
+    starts = starts[(starts > 0) & (starts < len(idx))]
+    out_of_order[starts - 1] = False  # a row starts anywhere
+    return not bool(out_of_order.any())
+
+
 class DeviceIter:
-    """Prefetching host->device batch iterator for the ``dense`` and
-    ``ell`` layouts, with the snapshot store and its device-decode tier.
+    """Prefetching host->device batch iterator for the ``dense``, ``ell``
+    and ``bcoo`` layouts, with the snapshot store and its device-decode
+    tier, and mid-epoch checkpoints (module docstring).
 
     ``dense`` batches are :class:`PackedDenseBatch` with ``pack_aux`` (the
     default for ``x_dtype="float32"``), else ``(x [B, num_col], label [B],
     weight [B])``; ``ell`` batches are
     :class:`~dmlc_tpu_torch.ops.sparse.EllBatch` with ``[B, max_nnz]`` int32
-    indices (pad index ``num_col``) and float32 values. Every batch has
+    indices (pad index ``num_col``) and float32 values; ``bcoo`` batches are
+    ``(x, label, weight)`` with ``x`` a sparse COO tensor. Every batch has
     ``batch_size`` rows: the epoch's last partial batch is padded with
-    zero-weight rows, or dropped with ``drop_remainder``.
+    zero-weight rows, or dropped with ``drop_remainder``. ``batch_size=None``
+    (bcoo only) ships each parsed block as it comes, its rows rounded up to
+    ``row_bucket``. ``nnz_bucket`` rounds a bcoo batch's nnz up to its
+    multiples (default ``min(batch_size * max_nnz, 512 Ki)``, 4096 without
+    ``max_nnz``, 16384 for natural blocks; 0 keeps exact shapes).
 
     ``snapshot`` names the snapshot file (default: the source's
     ``snapshot_path``, stamped by ``create_parser(..., snapshot=)``, with its
@@ -198,7 +282,7 @@ class DeviceIter:
         self,
         source,
         num_col: int,
-        batch_size: int,
+        batch_size: Optional[int],
         layout: str = "dense",
         *,
         max_nnz: Optional[int] = None,
@@ -207,13 +291,17 @@ class DeviceIter:
         device=None,
         x_dtype: str = "float32",
         pack_aux: Optional[bool] = None,
+        nnz_bucket: Optional[int] = None,
+        row_bucket: int = 1024,
         snapshot: Optional[str] = None,
         snapshot_signature: Optional[dict] = None,
         snapshot_quant: Optional[str] = None,
         device_decode: bool = False,
     ):
-        check(layout in ("dense", "ell"), f"unknown layout {layout!r}")
-        check(batch_size is not None and batch_size > 0,
+        check(layout in ("dense", "ell", "bcoo"), f"unknown layout {layout!r}")
+        check(batch_size is not None or layout == "bcoo",
+              "batch_size=None (natural blocks) requires layout='bcoo'")
+        check(batch_size is None or batch_size > 0,
               "DeviceIter: batch_size must be a positive integer")
         check(layout != "ell" or (max_nnz is not None and max_nnz > 0),
               "DeviceIter: layout='ell' needs max_nnz (one fixed [B, K] shape)")
@@ -224,7 +312,7 @@ class DeviceIter:
         self.device = resolve_device(device)
         self.source = source
         self.num_col = int(num_col)
-        self.batch_size = int(batch_size)
+        self.batch_size = None if batch_size is None else int(batch_size)
         self.layout = layout
         self.max_nnz = None if max_nnz is None else int(max_nnz)
         self.prefetch = int(prefetch)
@@ -237,6 +325,17 @@ class DeviceIter:
             pack_aux = layout == "dense" and x_dtype == "float32"
         self.pack_aux = bool(pack_aux) and layout == "dense"
         self._aux_exact_check = self.pack_aux and x_dtype == "bfloat16"
+        # bcoo shape buckets (the JAX package's derivation)
+        if nnz_bucket is None:
+            if batch_size is not None and max_nnz:
+                nnz_bucket = min(int(batch_size) * int(max_nnz), _NNZ_BUCKET_CAP)
+            else:
+                nnz_bucket = 4096 if batch_size is not None else 16384
+        self.nnz_bucket = int(nnz_bucket)
+        self.row_bucket = int(row_bucket)
+        # nnz values fixed-batch bcoo batches emitted: the tail pads into it
+        self._emitted_nse: set = set()
+        self.nnz_shapes: set = set()  # nnz capacities of the bcoo spans delivered
         # snapshot store: the parser's stamp unless given here
         if snapshot is None:
             snapshot = getattr(source, "snapshot_path", None)
@@ -246,6 +345,9 @@ class DeviceIter:
         self._snap_sig = snapshot_signature
         self._snap_quant = snapshot_quant
         self.device_decode = bool(device_decode)
+        check(snapshot is None or layout != "bcoo",
+              "snapshot v1 stores fixed-geometry batches: layout 'dense' or "
+              "'ell', not 'bcoo'")
         check(snapshot_quant in (None, "int8"), f"unknown snapshot_quant {snapshot_quant!r}")
         check(snapshot_quant is None or (snapshot is not None and self.pack_aux),
               "snapshot_quant='int8' applies to snapshotted packed dense "
@@ -255,14 +357,21 @@ class DeviceIter:
         self._snap_reader: Optional[_snapshot.SnapshotReader] = None
         self._snap_writer: Optional[_snapshot.SnapshotWriter] = None
         self._snap_serving = False  # the current producer is the warm feed
+        self._shadow_write = True   # a cold pass from the epoch start may write
+        self._snap_suspend = False  # a cold restore owns the rest of the epoch
+        self._snap_pos0 = 0         # the warm feed's first batch (a restore)
+        # restore: what the next producer starts from — batches to skip
+        # (a count restore), rows to drop after a seek, and whether the
+        # source already stands at the resume position
+        self._skip_batches = 0
+        self._drop_rows = 0
+        self._seeked = False
+        self._last_resume: Optional[dict] = None  # the last delivered batch's
         # healing: the restart budget (read once, as the JAX package reads
-        # its policy), this epoch's restarts, the cold batches a restarted
-        # source discards, and whether a cold pass may shadow-write
+        # its policy) and this epoch's restarts
         self._max_attempts = _resilience.max_attempts_from_env()
         self.pipeline_restarts = 0
         self.pipeline_giveups = 0
-        self._cold_skip = 0
-        self._shadow_write = True
         self.stall_seconds = 0.0
         self.batches_fed = 0
         self.bytes_to_device = 0
@@ -294,12 +403,16 @@ class DeviceIter:
         return self._rings[spec]
 
     def _cold_kind(self) -> str:
-        if self.layout == "ell":
-            return "ell"
+        if self.layout != "dense":
+            return self.layout
         return "dense_packed" if self.pack_aux else "dense"
 
     def _cold_spec(self):
         B, f32 = self.batch_size, torch.float32
+        if self.layout == "bcoo":
+            # one u8 span a batch, grown in place when a batch needs more
+            rows = B or self.row_bucket or 1024
+            return [((_bcoo_offsets(4, self.nnz_bucket or 4096, rows)[-1],), torch.uint8)]
         if self.layout == "ell":
             K = self.max_nnz
             return [((B, K), torch.int32), ((B, K), f32), ((B,), f32), ((B,), f32)]
@@ -310,8 +423,9 @@ class DeviceIter:
 
     # ---------------- cold epochs (producer thread) ----------------
 
-    def _blocks(self) -> Iterator[RowBlock]:
-        self.source.before_first()
+    def _blocks(self, seeked: bool) -> Iterator[RowBlock]:
+        if not seeked:  # a seek-restored source already stands at the resume point
+            self.source.before_first()
         while True:
             t0 = get_time()
             blk = self.source.next_block()
@@ -320,22 +434,89 @@ class DeviceIter:
                 return
             yield blk
 
-    def _convert(self, block: RowBlock):
-        pad = self.batch_size if len(block) != self.batch_size else None
+    def _tracked_blocks(self, boundaries: deque, drop: int,
+                        seeked: bool) -> Iterator[RowBlock]:
+        """Source blocks after dropping the first ``drop`` rows (a seek
+        lands on a block boundary before the resume row), with ``(rows
+        since the stream start, annotation)`` appended to ``boundaries``
+        for every annotated block."""
+        rows = 0
+        for block in self._blocks(seeked):
+            # read before any drop-slice: the tail still ends where it points
+            annot = block.resume_state
+            if drop > 0:
+                if drop >= len(block):
+                    drop -= len(block)
+                    continue
+                block = block.slice(drop, len(block))
+                drop = 0
+            rows += len(block)
+            if annot is not None:
+                boundaries.append((rows, annot))
+            yield block
+
+    def _source_batches(self, drop: int, seeked: bool):
+        """``(batch block, annotation, bcoo nnz pad)`` in stream order: the
+        annotation of the last block boundary at or before the batch's end
+        (None before the first), and the nnz pad planned here, in order, so
+        the tail batch pads into a shape already emitted."""
+        if self.batch_size is None:  # natural blocks: no annotations
+            for block in self._blocks(seeked):
+                yield block, None, self._plan_bcoo_pad_nnz(block)
+            return
+        boundaries: deque = deque()
+        cur, emitted = None, 0
+        for block in rebatch_blocks(self._tracked_blocks(boundaries, drop, seeked),
+                                    self.batch_size, self.drop_remainder):
+            emitted += len(block)
+            while boundaries and boundaries[0][0] <= emitted:
+                cur = boundaries.popleft()
+            annot = None if cur is None else {"source": cur[1], "skip_rows": emitted - cur[0]}
+            pad_nnz = self._plan_bcoo_pad_nnz(block) if self.layout == "bcoo" else None
+            yield block, annot, pad_nnz
+
+    def _plan_bcoo_pad_nnz(self, block: RowBlock) -> Optional[int]:
+        """A bcoo batch's nnz pad: up to the bucket multiple; a fixed-batch
+        tail pads up to the smallest nnz full batches already emitted that
+        fits it, so an epoch adds no shape on its last batch."""
+        if not self.nnz_bucket:
+            return None
+        pad_nnz = -(-max(len(block.index), 1) // self.nnz_bucket) * self.nnz_bucket
+        if self.batch_size is not None:
+            if len(block) < self.batch_size:
+                fits = [s for s in self._emitted_nse if s >= pad_nnz]
+                if fits:
+                    pad_nnz = min(fits)
+            self._emitted_nse.add(pad_nnz)
+        return pad_nnz
+
+    def _convert(self, block: RowBlock, pad_nnz: Optional[int]):
+        if self.batch_size is not None:
+            pad = self.batch_size if len(block) != self.batch_size else None
+        else:  # natural blocks: round the rows up too
+            pad = -(-len(block) // self.row_bucket) * self.row_bucket if self.row_bucket else None
         if self.layout == "dense":
             return block_to_dense(block, self.num_col, pad_rows_to=pad)
         if len(block.index) and int(block.index.max()) >= self.num_col:
-            # the pad index num_col addresses the sink; anything above it
-            # would read outside the weight table
+            # ell's pad index num_col addresses the sink, and torch's sparse
+            # tensors mask nothing: a larger index would read outside the
+            # weight table
             raise DMLCError(
                 f"DeviceIter: feature index {int(block.index.max())} >= "
                 f"num_col {self.num_col}")
+        if self.layout == "bcoo":
+            return block_to_bcoo_host(block, self.num_col, pad_rows_to=pad,
+                                      pad_nnz_to=pad_nnz) + (len(block.index),
+                                                             _row_major(block))
         return tuple(block_to_ell(block, self.num_col, max_nnz=self.max_nnz,
                                   pad_rows_to=pad))
 
     def _pack(self, slot: _Slot, arrays) -> None:
         """Copy a converted batch into its staging slot; torch casts to a
         bfloat16 slot with round-to-nearest-even."""
+        if self.layout == "bcoo":
+            self._pack_bcoo(slot, arrays)
+            return
         if not self.pack_aux:
             for buf, arr in zip(slot.bufs, arrays):
                 buf.copy_(torch.from_numpy(arr))
@@ -349,30 +530,50 @@ class DeviceIter:
             _require_bf16_exact(packed[:, nc], y, "label")
             _require_bf16_exact(packed[:, nc + 1], w, "weight")
 
+    def _pack_bcoo(self, slot: _Slot, arrays) -> None:
+        """A bcoo batch into the slot's u8 span (:func:`_bcoo_offsets`),
+        the span grown first when the batch needs more bytes."""
+        coords, vals, label, weight, (rows, _), real_nnz, row_major = arrays
+        nnz, isz = len(vals), coords.dtype.itemsize
+        o_val, o_label, o_weight, nbytes = _bcoo_offsets(isz, nnz, rows)
+        if slot.bufs[0].numel() < nbytes:
+            # the ring handed the slot out after its last copy completed
+            slot.bufs[0] = torch.empty(max(nbytes, 2 * slot.bufs[0].numel()),
+                                       dtype=torch.uint8, pin_memory=self._cuda)
+        span = slot.bufs[0].numpy()
+        span[: 2 * nnz * isz].view(coords.dtype).reshape(2, nnz)[...] = coords.T
+        span[o_val: o_val + 4 * nnz].view(np.float32)[...] = vals
+        span[o_label: o_label + 4 * rows].view(np.float32)[...] = label
+        span[o_weight: nbytes].view(np.float32)[...] = weight
+        slot.layout = (isz, nnz, real_nnz, rows, row_major)
+        slot.nbytes = nbytes
+
     def _write_snapshot_batch(self, slot: _Slot) -> None:
         kind, arrays = slot.kind, slot.bufs
         if self._snap_quant == "int8":
             q, scale = _device_decode.quantize_int8(arrays[0].to(torch.float32).numpy())
             kind, arrays = "dense_packed_q8", (q, scale)
-        self._snap_writer.add_batch(kind, arrays, rows=self.batch_size)
+        self._snap_writer.add_batch(kind, arrays, rows=self.batch_size, resume=slot.annot)
 
-    def _host_batches(self) -> Iterator[_Slot]:
+    def _host_batches(self, skip: int, drop: int, seeked: bool) -> Iterator:
+        """The cold producer: each batch converted and packed into a
+        staging slot, after ``skip`` batches yielded unconverted as
+        :class:`_Skipped` (a count restore)."""
         kind = self._cold_kind()
-        skip = self._cold_skip  # batches a restarted epoch already delivered
         t0, wait0 = get_time(), self.source_wait_seconds
-        for block in rebatch_blocks(self._blocks(), self.batch_size,
-                                    self.drop_remainder):
+        for block, annot, pad_nnz in self._source_batches(drop, seeked):
             if skip:
                 skip -= 1
+                yield _Skipped(annot)
                 t0, wait0 = get_time(), self.source_wait_seconds
                 continue
-            arrays = self._convert(block)
+            arrays = self._convert(block, pad_nnz)
             t_acquire = get_time()
             slot = self._ring.acquire()
             if slot is None:  # the ring closed: the epoch is being torn down
                 return
             t_pack = get_time()
-            slot.kind, slot.layout = kind, None
+            slot.kind, slot.layout, slot.annot = kind, None, annot
             self._pack(slot, arrays)
             t_write = get_time()
             if self._snap_writer is not None:
@@ -409,13 +610,14 @@ class DeviceIter:
                 geometry=self._snapshot_geometry())
         return self._snap_reader is not None
 
-    def _warm_batches(self) -> Iterator[_Slot]:
-        """Each stored batch, read (crc included) and copied into a pinned
-        staging slot: the raw span into a u8 slot, or each segment view into
-        its typed buffer. The read and the copy count as snapshot read
-        time; the wait for a free slot does not."""
+    def _warm_batches(self, start: int) -> Iterator[_Slot]:
+        """Each stored batch from ``start`` on, read (crc included) and
+        copied into a pinned staging slot with its stored annotation: the
+        raw span into a u8 slot, or each segment view into its typed
+        buffer. The read and the copy count as snapshot read time; the
+        wait for a free slot does not."""
         reader = self._snap_reader
-        for i in range(reader.num_batches):
+        for i in range(start, reader.num_batches):
             t0 = get_time()
             if self.device_decode:
                 kind, span, layout = reader.batch_span(i)
@@ -436,11 +638,11 @@ class DeviceIter:
                 for buf, arr in zip(slot.bufs, arrays):
                     buf.view(torch.uint8).numpy()[...] = arr.view(np.uint8)
                 slot.layout = None
-            slot.kind = kind
+            slot.kind, slot.annot = kind, reader.resume(i)
             self.snapshot_read_seconds += (t_read - t0) + (get_time() - t_copy)
             yield slot
 
-    def _warm_feed(self) -> ThreadedIter:
+    def _warm_feed(self, start: int) -> ThreadedIter:
         """The warm epoch's producer: :meth:`_warm_batches` on one reader
         thread, so batch N+1's read overlaps the use of batch N."""
         reader = self._snap_reader
@@ -452,14 +654,17 @@ class DeviceIter:
             layout = reader.layout(0) if n else ()
             spec = [(shape, torch_dtype(dt)) for _, dt, _, _, shape in layout]
         self._ring = self._ring_for(spec)
-        return ThreadedIter.from_factory(self._warm_batches, max_capacity=_CONVERT_AHEAD)
+        return ThreadedIter.from_factory(lambda: self._warm_batches(start),
+                                         max_capacity=_CONVERT_AHEAD)
 
     # ---------------- device side (consumer thread) ----------------
 
     def _host_iter(self):
         if self._host is None:
-            if self.snapshot_path is not None and self._open_snapshot():
-                self._host = self._warm_feed()
+            if (self.snapshot_path is not None and not self._snap_suspend
+                    and self._open_snapshot()):
+                start, self._snap_pos0 = self._snap_pos0, 0
+                self._host = self._warm_feed(start)
                 self._snap_serving = True
             else:
                 if (self.snapshot_path is not None and self._snap_writer is None
@@ -468,9 +673,13 @@ class DeviceIter:
                     self._snap_writer = _snapshot.SnapshotWriter(
                         self.snapshot_path, signature=self._snap_sig,
                         geometry=self._snapshot_geometry())
+                skip, drop, seeked = self._skip_batches, self._drop_rows, self._seeked
+                self._skip_batches = self._drop_rows = 0
+                self._seeked = False
                 self._ring = self._ring_for(self._cold_spec())
-                self._host = ThreadedIter.from_factory(self._host_batches,
-                                                       max_capacity=_CONVERT_AHEAD)
+                self._host = ThreadedIter.from_factory(
+                    lambda: self._host_batches(skip, drop, seeked),
+                    max_capacity=_CONVERT_AHEAD)
         return self._host
 
     def _put(self, slot: _Slot):
@@ -485,11 +694,27 @@ class DeviceIter:
                 event.record(self._copy_stream)
         nbytes = sum(b.numel() * b.element_size() for b in bufs)
         self.bytes_to_device += nbytes
-        if slot.layout is not None:
+        if slot.layout is not None and slot.kind != "bcoo":
             self.device_decode_bytes += nbytes
-        entry = (out, event, slot.kind, slot.layout)
+        entry = (out, event, slot.kind, slot.layout, slot.annot)
         self._ring.release(slot, event)
         return entry
+
+    def _bcoo_batch(self, span: torch.Tensor, layout):
+        """``(x, label, weight)`` viewed from a bcoo batch's span on the
+        device, ``x`` on its real entries: one widening of the coordinates
+        to int64, no other work."""
+        isz, nnz, real, rows, row_major = layout
+        o_val, o_label, o_weight, nbytes = _bcoo_offsets(isz, nnz, rows)
+        idx_dtype = torch.int32 if isz == 4 else torch.int64
+        coords = span[: 2 * nnz * isz].view(idx_dtype).view(2, nnz)[:, :real]
+        x = torch.sparse_coo_tensor(
+            coords.to(torch.int64, memory_format=torch.contiguous_format),
+            span[o_val: o_val + 4 * real].view(torch.float32),
+            (rows, self.num_col), is_coalesced=row_major, check_invariants=False)
+        self.nnz_shapes.add(nnz)
+        return (x, span[o_label: o_label + 4 * rows].view(torch.float32),
+                span[o_weight: nbytes].view(torch.float32))
 
     def _fill(self) -> None:
         while len(self._inflight) < self.prefetch:
@@ -499,7 +724,7 @@ class DeviceIter:
                 if not self._snap_serving:
                     raise
                 self._invalidate_snapshot()
-                if not self._restart_cold():
+                if not self._heal():
                     raise
                 continue
             if slot is None:
@@ -517,7 +742,7 @@ class DeviceIter:
         if not self._inflight:
             self.stall_seconds += get_time() - t0
             raise StopIteration
-        out, event, kind, layout = self._inflight.popleft()
+        out, event, kind, layout, annot = self._inflight.popleft()
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -525,20 +750,84 @@ class DeviceIter:
                 t.record_stream(stream)
         if layout is None:
             batch = _device_decode.wrap_batch(kind, out, self.num_col)
+        elif kind == "bcoo":
+            batch = self._bcoo_batch(out[0], layout)
         else:
             # device decode, on the consumer's stream after the copy's event:
             # one K2 launch for the whole batch
             t_decode = get_time()
             batch = _device_decode.decode_batch(out[0], layout, kind, self.num_col)
             self.device_decode_seconds += get_time() - t_decode
-        # counted as delivered before the refill, which may restart the
-        # epoch cold after this batch
+        # counted as delivered before the refill, which may heal the epoch
+        # from this batch's state
         self.batches_fed += 1
+        self._last_resume = annot
         # issue the replacement copy before handing the batch out; a wait
         # on the producer here holds the consumer up as much as one above
         self._fill()
         self.stall_seconds += get_time() - t0
         return batch
+
+    # ---------------- checkpoints ----------------
+
+    def state_dict(self) -> dict:
+        """The resume point after the last delivered batch: a seek where
+        that batch carries a source annotation, else the batch count."""
+        if self._last_resume is not None:
+            return {"kind": "source", "batches": self.batches_fed, **self._last_resume}
+        return {"kind": "batches", "batches": self.batches_fed}
+
+    def load_state(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` (of either package): warm serving
+        at the state's batch when a snapshot holds it, else a seek of the
+        source or a replay of the count (module docstring)."""
+        if self.snapshot_path is not None:
+            if self._load_snapshot_state(state):
+                return
+            # the seeked source owns the rest of this epoch, and a pass
+            # joined mid-epoch cannot write a whole snapshot
+            self._abort_snapshot_writer()
+            self._shadow_write = False
+            self._snap_suspend = True
+        self._teardown()
+        if state.get("kind") == "source":
+            self.source.load_state(state["source"])
+            self._drop_rows = int(state["skip_rows"])
+            self._seeked = True
+            self._last_resume = {k: state[k] for k in ("source", "skip_rows")}
+            self.batches_fed = int(state["batches"])
+            return
+        n = int(state["batches"])
+        self._skip_batches, self._drop_rows, self._seeked = n, 0, False
+        self._last_resume = None
+        for _ in range(n):
+            skipped = self._host_iter().next()
+            if skipped is None:
+                break
+            # the replayed batch's annotation makes a later state a seek
+            self._last_resume = skipped.annot
+        self.batches_fed = n
+
+    def _load_snapshot_state(self, state: dict) -> bool:
+        """Restore into warm serving at batch ``n`` when the snapshot holds
+        it: snapshot batches are 1:1 with pipeline batches at one geometry,
+        so the delivered count is the warm position. False hands the state
+        to the cold machinery."""
+        kind, n = state.get("kind"), int(state.get("batches", 0))
+        if kind not in ("source", "batches") or not self._open_snapshot():
+            return False
+        if n > self._snap_reader.num_batches:
+            return False
+        self._teardown()
+        self._abort_snapshot_writer()
+        self._shadow_write = False
+        self._snap_suspend = False
+        self._snap_pos0 = self.batches_fed = n
+        if kind == "source":
+            self._last_resume = {k: state[k] for k in ("source", "skip_rows")}
+        else:
+            self._last_resume = self._snap_reader.resume(n - 1) if n else None
+        return True
 
     # ---------------- epochs and the snapshot's life ----------------
 
@@ -563,17 +852,16 @@ class DeviceIter:
         self._drop_snap_reader()
         remove_quietly(self.snapshot_path)
 
-    def _restart_cold(self) -> bool:
+    def _heal(self) -> bool:
         """Re-arm the epoch cold at the batch after the last one delivered
-        (a warm batch failed its crc and the file is gone). Returns False,
-        and restarts nothing, once the epoch's restart budget is spent."""
+        (a warm batch failed its crc and the file is gone), through the
+        checkpoint machinery. Returns False, and restarts nothing, once the
+        epoch's restart budget is spent."""
         if not _resilience.restart_allowed(self.pipeline_restarts, self._max_attempts):
             self.pipeline_giveups += 1
             return False
         self.pipeline_restarts += 1
-        self._teardown()  # the warm feed and the batches in flight
-        self._cold_skip = self.batches_fed
-        self._shadow_write = False
+        self.load_state(self.state_dict())
         return True
 
     def _teardown(self) -> None:
@@ -594,8 +882,11 @@ class DeviceIter:
         self.batches_fed = 0
         self.pipeline_restarts = 0  # a fresh budget an epoch
         self.pipeline_giveups = 0
-        self._cold_skip = 0
+        self._skip_batches = self._drop_rows = self._snap_pos0 = 0
+        self._seeked = False
+        self._last_resume = None
         self._shadow_write = True
+        self._snap_suspend = False
 
     def close(self) -> None:
         self._teardown()

@@ -9,6 +9,15 @@ Semantics matched to the reference: ``label[:weight] [qid:N] idx[:val]...``;
 ``#`` comments (libsvm_parser.h:67-84); missing values mean binary
 features; ``indexing_mode`` 1 means 1-based indices, 0 0-based, -1 the
 sklearn-style auto-detect per chunk (libsvm_parser.h:159-168).
+
+Checkpoints follow the JAX package's ``TextParserBase`` and
+``ThreadedParser``, key for key. Each non-empty block carries
+``resume_state = {"kind": "split", "split": <the split's position just
+after the block>, "chunks": n}``; :meth:`ThreadedParser.state_dict` is the
+last delivered block's annotation plus ``blocks``, or ``{"kind": "blocks",
+"blocks": n}`` before the first block of an epoch. ``load_state`` seeks the
+split for a ``split`` state and replays the count for the other kinds, so
+a state taken in either package restores in the other.
 """
 
 from __future__ import annotations
@@ -172,6 +181,8 @@ class LibSVMParser(Parser):
         self._native = engine == "auto" and native.available()
         self._fast_rejects = 0
         self._fast_saw_hit = False
+        self._chunks_in = 0  # chunks pulled this epoch
+        self._bytes = 0      # chunk bytes pulled, over the parser's life
 
     @property
     def engine(self) -> str:
@@ -183,12 +194,42 @@ class LibSVMParser(Parser):
             chunk = self.source.next_chunk()
             if chunk is None:
                 return None
+            self._bytes += len(chunk)
+            self._chunks_in += 1
             block = self.parse_chunk(chunk)
             if len(block) > 0:
+                # the position just AFTER this block: prefetching layers
+                # downstream checkpoint byte-exactly through it
+                block.resume_state = {"kind": "split",
+                                      "split": self.source.chunk_resume_state,
+                                      "chunks": self._chunks_in}
                 return block
 
     def before_first(self) -> None:
         self.source.before_first()
+        self._chunks_in = 0
+
+    def state_dict(self) -> dict:
+        """The split's position after the last chunk pulled (the split
+        is undecorated, so its live state is exact)."""
+        return {"kind": "split", "split": self.source.chunk_resume_state,
+                "chunks": self._chunks_in}
+
+    def load_state(self, state: dict) -> None:
+        """Seek for a ``split`` state; replay the chunk count, without
+        parsing, for a ``chunks`` state."""
+        if state.get("kind") == "split":
+            self.source.load_state(state["split"])
+        else:
+            self.before_first()
+            for _ in range(int(state["chunks"])):
+                if self.source.next_chunk() is None:
+                    break
+        self._chunks_in = int(state["chunks"])
+
+    @property
+    def bytes_read(self) -> int:
+        return self._bytes
 
     def close(self) -> None:
         self.source.close()
@@ -296,11 +337,18 @@ class LibSVMParser(Parser):
 
 class ThreadedParser(Parser):
     """Parse-ahead decorator — analog of ThreadedParser (parser.h:70-126,
-    ThreadedIter capacity 8). The producer thread starts on the first pull."""
+    ThreadedIter capacity 8). The producer thread starts on the first pull.
+
+    Its position runs ahead of delivery, so a checkpoint is the annotation
+    of the last block delivered. ``load_state`` stops the producer first;
+    the next pull starts a new one where the base now stands, without the
+    epoch reset a ``before_first`` would run."""
 
     def __init__(self, base: LibSVMParser):
         self.base = base
         self._iter: Optional[ThreadedIter] = None
+        self._delivered = 0
+        self._last_annot: Optional[dict] = None
 
     @property
     def engine(self) -> str:
@@ -312,33 +360,68 @@ class ThreadedParser(Parser):
                                       max_capacity=8)
         return self._iter
 
+    def _quiesce(self) -> None:
+        if self._iter is not None:
+            self._iter.destroy()
+            self._iter = None
+
     def _produce(self):
         block = self.base.next_block()
         return block is not None, block
 
     def next_block(self) -> Optional[RowBlock]:
-        return self._ensure_iter().next()
+        block = self._ensure_iter().next()
+        if block is not None:
+            self._delivered += 1
+            self._last_annot = block.resume_state
+        return block
 
     def before_first(self) -> None:
         self._ensure_iter().before_first()
+        self._delivered = 0
+        self._last_annot = None
+
+    def state_dict(self) -> dict:
+        if self._last_annot is not None:
+            return dict(self._last_annot, blocks=self._delivered)
+        return {"kind": "blocks", "blocks": self._delivered}
+
+    def load_state(self, state: dict) -> None:
+        self._quiesce()
+        if state.get("kind") == "split":
+            self.base.load_state(state)
+            self._delivered = int(state.get("blocks", 0))
+            self._last_annot = {k: v for k, v in state.items() if k != "blocks"}
+            return
+        n = int(state["blocks"])
+        self.base.before_first()
+        for _ in range(n):
+            if self.base.next_block() is None:
+                break
+        self._delivered = n
+        self._last_annot = None
+
+    @property
+    def bytes_read(self) -> int:
+        return self.base.bytes_read
 
     def close(self) -> None:
-        if self._iter is not None:
-            self._iter.destroy()
-            self._iter = None
+        self._quiesce()
         self.base.close()
 
 
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                   type_: str = "auto", engine: str = "auto",
-                  snapshot: Optional[str] = None) -> Parser:
+                  snapshot: Optional[str] = None,
+                  chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> Parser:
     """Parser factory — analog of dmlc::Parser::Create (src/data.cc:62-85).
 
     ``type_='auto'`` resolves from the URI's ``format=`` argument and
     defaults to libsvm, the one format this port parses so far. URI
     arguments (``?indexing_mode=1``) flow into the parser, which parses
     ahead on its own thread (:class:`ThreadedParser`). ``engine`` as in
-    :class:`LibSVMParser`.
+    :class:`LibSVMParser`. ``chunk_bytes`` is the split's chunk size (at
+    least 4096), which sets the blocks and enters the snapshot signature.
 
     ``snapshot`` arms the snapshot store: the parser carries
     ``snapshot_path`` (suffixed ``.split<N>.part<K>`` for one of several
@@ -354,7 +437,7 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     if type_ != "libsvm":
         raise DMLCError(f"unknown parser format {type_!r}; dmlc_tpu_torch "
                         "parses 'libsvm'")
-    split = LineSplitter(spec.uri, part_index, num_parts)
+    split = LineSplitter(spec.uri, part_index, num_parts, chunk_bytes=chunk_bytes)
     parser = ThreadedParser(LibSVMParser(split, spec.args, engine=engine))
     if snapshot is not None:
         if num_parts != 1:
@@ -364,6 +447,6 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
         parser.snapshot_path = snapshot
         parser.snapshot_signature = source_signature(
             spec.uri, part_index, num_parts, format=type_, args=args,
-            index_dtype=np.dtype(np.uint64).str, chunk_bytes=DEFAULT_CHUNK_BYTES,
+            index_dtype=np.dtype(np.uint64).str, chunk_bytes=int(chunk_bytes),
             split={})
     return parser

@@ -39,6 +39,9 @@ class RowBlock:
         # `hold` pins foreign buffer owners (the native core's malloc'd
         # results) for as long as this block's views are alive
         self.hold = hold
+        # the source's position just after this block, set by the parser
+        # that emitted it (a checkpoint annotation); slices do not carry it
+        self.resume_state: Optional[dict] = None
         self.offset = np.asarray(offset, dtype=np.int64)
         self.label = np.asarray(label, dtype=np.float32)
         self.index = np.asarray(index)

@@ -18,6 +18,11 @@ The partition invariant (input_split_base.cc:30-64, 196-199, 235-242):
 Every line is therefore owned by exactly one partition: no loss, no
 duplication. CRLF and blank lines pass through byte-identical; the
 parsers treat '\\r' as a line end and skip blank lines.
+
+Checkpoints: :meth:`LineSplitter.state_dict` is the JAX package's
+``kind="byte"`` state key for key (the global offset, the file pointer,
+the undelivered overflow and chunk tail in hex, the partition), so a
+position taken in either package seeks the other's splitter there.
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ class LineSplitter:
         self.file_ptr = 0
         self._fp: Optional[BinaryIO] = None
         self._overflow = b""
+        # a restored state's undelivered chunk tail, served before any read
+        self._pending = b""
         self._chunk_bytes = max(int(chunk_bytes), 4096)
         self.reset_partition(part_index, num_parts)
 
@@ -68,6 +75,7 @@ class LineSplitter:
         check(num_parts >= 1, f"num_parts must be >= 1, got {num_parts}")
         check(0 <= part_index < num_parts,
               f"part_index {part_index} out of range for {num_parts} parts")
+        self.part_index, self.num_parts = part_index, num_parts
         ntotal = self.file_offset[-1]
         nstep = (ntotal + num_parts - 1) // num_parts
         self.offset_begin = min(nstep * part_index, ntotal)
@@ -75,7 +83,7 @@ class LineSplitter:
         self.offset_curr = self.offset_begin
         if self.offset_begin == self.offset_end:
             self._close_fp()
-            self._overflow = b""
+            self._overflow = self._pending = b""
             return
         file_ptr = bisect_right(self.file_offset, self.offset_begin) - 1
         file_ptr_end = bisect_right(self.file_offset, self.offset_end) - 1
@@ -101,7 +109,7 @@ class LineSplitter:
         self._fp = self.fs.open_for_read(self.files[self.file_ptr].path)
         self._fp.seek(self.offset_begin - self.file_offset[self.file_ptr])
         self.offset_curr = self.offset_begin
-        self._overflow = b""
+        self._overflow = self._pending = b""
 
     # ---------------- reading ----------------
 
@@ -156,6 +164,9 @@ class LineSplitter:
         """The next chunk of whole lines, grown on demand for lines longer
         than the chunk size (Chunk::Load, input_split_base.cc:260-277);
         None at the end of the partition."""
+        if self._pending:  # a restored chunk tail first (ExtractNextChunk)
+            data, self._pending = self._pending, b""
+            return data
         size = self._chunk_bytes
         while True:
             data = self._read_chunk(size)
@@ -165,6 +176,56 @@ class LineSplitter:
                 size *= 2
                 continue
             return data
+
+    # ---------------- checkpoint / resume ----------------
+
+    @property
+    def chunk_resume_state(self) -> dict:
+        """The position just after the chunk :meth:`next_chunk` last
+        returned: on this undecorated split, the live state."""
+        return self.state_dict()
+
+    def state_dict(self) -> dict:
+        """Byte-exact resume point: the global offset and the undelivered
+        buffer tails (the JAX package's ``kind="byte"`` state)."""
+        return {
+            "kind": "byte",
+            "offset_curr": self.offset_curr,
+            # tells a position on a file's end (its join '\n' not yet
+            # injected) from the same offset at the next file's start
+            "file_ptr": self.file_ptr,
+            "overflow": self._overflow.hex(),
+            "chunk": self._pending.hex(),
+            "part_index": self.part_index,
+            "num_parts": self.num_parts,
+        }
+
+    def load_state(self, state: dict) -> None:
+        """Seek to a :meth:`state_dict` position (the same URI; the
+        recorded partition is re-applied when it differs)."""
+        check(state.get("kind") == "byte", "incompatible split state")
+        part, nparts = state.get("part_index"), state.get("num_parts")
+        if (part is not None and nparts is not None
+                and (part, nparts) != (self.part_index, self.num_parts)):
+            self.reset_partition(int(part), int(nparts))
+        off = int(state["offset_curr"])
+        check(self.offset_begin <= off <= self.offset_end,
+              f"state offset {off} outside partition "
+              f"[{self.offset_begin}, {self.offset_end})")
+        self._close_fp()
+        self.offset_curr = off
+        file_ptr = int(state.get("file_ptr", -1))
+        if not (0 <= file_ptr < len(self.files)
+                and self.file_offset[file_ptr] <= off <= self.file_offset[file_ptr + 1]):
+            file_ptr = min(bisect_right(self.file_offset, off) - 1, len(self.files) - 1)
+        self.file_ptr = file_ptr
+        if off < self.file_offset[-1] or off == self.file_offset[file_ptr + 1]:
+            # reopen the recorded file even when off sits on its end: the
+            # next _read then injects the pending join newline
+            self._fp = self.fs.open_for_read(self.files[file_ptr].path)
+            self._fp.seek(off - self.file_offset[file_ptr])
+        self._overflow = bytes.fromhex(state["overflow"])
+        self._pending = bytes.fromhex(state["chunk"])
 
     def _close_fp(self) -> None:
         if self._fp is not None:

@@ -1,16 +1,20 @@
 """Linear learners (logistic / least-squares / multinomial softmax).
 
 The PyTorch counterpart of the JAX package's ``models/linear.py`` for the
-``dense`` and ``ell`` layouts on one device:
+``dense``, ``ell`` and ``bcoo`` layouts on one device:
 
 - the ell margin goes through :func:`~dmlc_tpu_torch.ops.ell_matvec.
   ell_matvec_auto` — kernel K1 for the 1-D table on a CUDA device, the
   plain gather for CPU tensors and for the softmax objective's 2-D table;
-- the dense margin is a plain ``x @ w``, with a bfloat16 ``x`` widened
-  to float32 first;
-- updates are ``torch.optim.SGD`` in place, and after every step the
-  padding sink ``weight[-1]`` is pinned back to 0 so ELL pad slots stay
-  inert.
+- the dense margin is ``x @ w + b``, with a bfloat16 ``x`` widened to
+  float32 first; the bcoo margin is the sparse product
+  :func:`~dmlc_tpu_torch.ops.sparse.coo_matmul` of the COO batch and
+  ``w``, plus ``b`` (outside any kernel of the JAX package too: there it
+  is XLA's ``bcoo_dot_general``);
+- updates are ``torch.optim.SGD`` in place; for dense and ell, after every
+  step the padding sink ``weight[-1]`` is pinned back to 0 so ELL pad
+  slots stay inert. bcoo has no sink: ``weight_dim == num_col``, and its
+  batches hold their real entries only.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.models._loop import TrainLoopMixin
 from dmlc_tpu_torch.ops.ell_matvec import ell_matvec_auto
+from dmlc_tpu_torch.ops.sparse import coo_matmul
 from dmlc_tpu_torch.utils.check import check
 
 
@@ -50,7 +55,7 @@ def _loss_from_margin(margin, label, weight, objective: str, l2: float,
 class LinearLearner(TrainLoopMixin):
     """Logistic / least-squares / multinomial-softmax learner with SGD.
 
-    ``layout`` must match the DeviceIter layout ('dense' or 'ell');
+    ``layout`` must match the DeviceIter layout ('dense', 'ell' or 'bcoo');
     ``objective='softmax'`` needs ``num_class >= 2``. ``device=None`` means
     the CUDA device and raises on a host without one.
     """
@@ -58,7 +63,8 @@ class LinearLearner(TrainLoopMixin):
     def __init__(self, num_col: int, objective: str = "logistic",
                  layout: str = "dense", learning_rate: float = 0.1,
                  l2: float = 0.0, num_class: int = 1, device=None):
-        check(layout in ("dense", "ell"), "LinearLearner: layout must be dense|ell")
+        check(layout in ("dense", "ell", "bcoo"),
+              "LinearLearner: layout must be dense|ell|bcoo")
         check(objective in ("logistic", "squared", "softmax"),
               f"unknown objective {objective!r}")
         check((objective == "softmax") == (num_class > 1),
@@ -69,8 +75,8 @@ class LinearLearner(TrainLoopMixin):
         self.layout = layout
         self.l2 = float(l2)
         self.num_class = num_class
-        # num_col features + 1 padding sink
-        self.weight_dim = num_col + 1
+        # num_col features + 1 padding sink; bcoo batches need no sink
+        self.weight_dim = num_col if layout == "bcoo" else num_col + 1
         shape = (self.weight_dim, num_class) if num_class > 1 else (self.weight_dim,)
         self.params = LinearParams(
             weight=torch.zeros(shape, dtype=torch.float32, device=self.device,
@@ -82,7 +88,7 @@ class LinearLearner(TrainLoopMixin):
     def device_num_col(self) -> int:
         """The ``num_col`` a DeviceIter must use to feed this learner:
         dense batches are [B, weight_dim]; ell pads with weight_dim - 1,
-        the pinned-zero sink."""
+        the pinned-zero sink; bcoo takes the true column count."""
         return self.weight_dim - 1 if self.layout == "ell" else self.weight_dim
 
     @torch.no_grad()
@@ -97,6 +103,8 @@ class LinearLearner(TrainLoopMixin):
         if self.layout == "ell":
             return ell_matvec_auto(w, batch) + b, batch.label, batch.weight
         x, label, weight = batch
+        if self.layout == "bcoo":
+            return coo_matmul(x, w) + b, label, weight
         # a bfloat16 batch widens to the weight's float32 first, as JAX's
         # type promotion does for `x @ w` (bf16 -> f32 is exact)
         return x.to(w.dtype) @ w + b, label, weight
@@ -116,11 +124,13 @@ class LinearLearner(TrainLoopMixin):
         loss = self.loss_fn(batch)
         loss.backward()
         self.opt.step()
-        with torch.no_grad():
-            # keep the padding sink at zero so ELL gathers of pad slots are
-            # inert; zero_() on the view is a device fill, where assigning a
-            # Python float copies a host scalar over and stalls the host
-            self.params.weight[-1].zero_()
+        if self.layout != "bcoo":
+            with torch.no_grad():
+                # keep the padding sink at zero so ELL gathers of pad slots
+                # are inert; zero_() on the view is a device fill, where
+                # assigning a Python float copies a host scalar over and
+                # stalls the host
+                self.params.weight[-1].zero_()
         return loss.detach()
 
     @torch.no_grad()
