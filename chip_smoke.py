@@ -78,14 +78,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
    crossed), rows/s and stall share, the step's device time on a resident
    batch beside the ELL step's, 20 of each step enqueued behind a device
    spin without waiting for it (no host sync, also none inside a library),
-   and one epoch of natural blocks (``batch_size=None``) with a finite
-   loss.
+   the first 20 steps run twice and bit-identical (the gradient's row
+   scatter has no atomics), and one epoch of natural blocks
+   (``batch_size=None``) with a finite loss;
+9. ALS at ``examples/train_als.py``'s full size (4096 users, 512 items, 16
+   factors, 32 ratings a row, batch 512, reg 0.05): create_parser ->
+   DeviceIter(ell) -> AlsLearner -> fit(4 epochs) -> eval_loss, the epoch
+   losses finite and falling, the row scatter (``csrc/row_scatter.cu``)
+   launched for each step's gram and rhs (one buffer); 20 card steps and
+   ``finalize_items`` run twice, bit-identical, and within 1e-4 relative
+   of the same steps on the CPU; a checkpoint at batch 2 of epoch 2
+   resumed in fresh objects, the loss tail byte for byte; 20 steps
+   enqueued behind device spins (two groups of 10, inside the card's
+   launch queue); the step's device time and host wall.
+   Then the A/B of the routes for a row scatter (``index_add_``,
+   ``index_put_(accumulate=True)``, the kernel) at the ALS shapes, a
+   larger ALS shape, a 1-D table above ``DW_MAX_TABLE`` and phase 10's
+   shapes: bits over two runs, device time, enqueue behind a spin, the
+   kernel within 1e-4 + 1e-5 of each word's absolute sum of its plain
+   version;
+10. FM on phase 3's corpus (8 factors, Adam 0.05, batch 8192): 2 epochs on
+   ell and dense, 1 on bcoo, accuracy above 0.9, the row scatter's
+   launches counted; 20 card steps run twice and bit-identical and within
+   1e-4 relative of the CPU; 20 steps enqueued behind device spins (four
+   groups of 5); the step's device time beside the linear ELL step's.
 
 The ``torch.profiler`` windows run last, the decode's first: the steps'
 windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
-bcoo step's (``bcoo_step_profile``, device time by kernel). Then the
+bcoo step's (``bcoo_step_profile``, device time by kernel), the ALS and
+FM steps' (``step_profile``: device events and time by kernel a step), and
+how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6 and 7), the card's name and power limit as
+the main paths of phases 3, 6 and 7; the row scatter's on phases 9 and
+10), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -1327,15 +1352,23 @@ def _bcoo_pipeline(path: str, device, natural: bool = False):
     return model, it
 
 
-def enqueue_behind_spin(step, calls: int = 20, spin_cycles: int = 1_000_000_000) -> dict:
+def enqueue_behind_spin(step, calls: int = 20, spin_cycles: int = 1_000_000_000,
+                        group: int = None) -> dict:
     """Whether ``step`` waits for the device: ``calls`` calls enqueued
     behind a device-side spin of about half a second. A call that
     synchronises the host (also inside a library, where CUDA's sync debug
     mode cannot see it) waits for the spin, so its enqueue time is then at
     least the spin's; without one the host is done long before, and the
-    stream is still busy."""
+    stream is still busy.
+
+    The card queues about a thousand launches (``launch_queue_depth``: 1,000
+    enqueue behind a spin, 1,023 wait for it), so calls whose launches fill
+    that queue wait too, sync or not. With ``group`` the calls go in groups
+    of that many, each group behind a spin of its own, and the slowest
+    group counts."""
     import torch
 
+    group = group or calls
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1343,15 +1376,17 @@ def enqueue_behind_spin(step, calls: int = 20, spin_cycles: int = 1_000_000_000)
     end.record()
     torch.cuda.synchronize()
     spin_s = start.elapsed_time(end) / 1e3
-    torch.cuda._sleep(spin_cycles)
-    t0 = time.monotonic()
-    for _ in range(calls):
-        step()
-    host_s = time.monotonic() - t0
-    busy = not torch.cuda.current_stream().query()
-    torch.cuda.synchronize()
-    return {"calls": calls, "host_s": host_s, "spin_s": spin_s, "stream_busy_after": busy,
-            "no_host_sync": busy and host_s < 0.5 * spin_s}
+    host_s, busy = 0.0, True
+    for first in range(0, calls, group):
+        torch.cuda._sleep(spin_cycles)
+        t0 = time.monotonic()
+        for _ in range(min(group, calls - first)):
+            step()
+        host_s = max(host_s, time.monotonic() - t0)
+        busy = busy and not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+    return {"calls": calls, "group": group, "host_s": host_s, "spin_s": spin_s,
+            "stream_busy_after": busy, "no_host_sync": busy and host_s < 0.5 * spin_s}
 
 
 def run_bcoo(path: str, device, steps: int = 20) -> dict:
@@ -1378,6 +1413,13 @@ def run_bcoo(path: str, device, steps: int = 20) -> dict:
         card = [model.step(b) for b in batches]
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    # the same steps from a fresh learner: the same bits (the gradient's
+    # row scatter has no atomics)
+    again = LinearLearner(HIGGS_COLS, layout="bcoo", learning_rate=0.3, device=device)
+    card_again = [again.step(b) for b in batches]
+    repeatable = bool(torch.equal(torch.stack(card), torch.stack(card_again))
+                      and torch.equal(model.params.weight, again.params.weight)
+                      and torch.equal(model.params.bias, again.params.bias))
     cpu_model = LinearLearner(HIGGS_COLS, layout="bcoo", learning_rate=0.3, device="cpu")
     pairs = [(float(c), float(cpu_model.step(tuple(t.cpu() for t in b))))
              for c, b in zip(card, batches)]
@@ -1418,7 +1460,8 @@ def run_bcoo(path: str, device, steps: int = 20) -> dict:
     nat_s = time.monotonic() - t0
     nat_it.close()
     out = {"phase": "bcoo", "first_steps": len(pairs), "max_rel_diff": rel,
-           "steps_under_sync_error": len(pairs), "first_batch_dense_equal_cpu": dense_equal,
+           "steps_under_sync_error": len(pairs), "card_bit_identical_twice": repeatable,
+           "first_batch_dense_equal_cpu": dense_equal,
            "loss": loss, "batches": nb, "wall_s": epoch_s, "rows_per_s": nb * BATCH / epoch_s,
            "stall_s": stall, "stall_share": stall / epoch_s, "accuracy": acc,
            "nnz_shapes": shapes, "step_device_ms": bcoo_ms, "ell_step_device_ms": ell_ms,
@@ -1428,12 +1471,57 @@ def run_bcoo(path: str, device, steps: int = 20) -> dict:
     emit(out)
     if not (len(pairs) == steps and rel <= 1e-4 and dense_equal):
         raise AssertionError(f"bcoo: the first {steps} steps or batch differ from the CPU: {pairs}")
+    if not repeatable:
+        raise AssertionError("bcoo: two card runs of the first steps differ")
     if not (bcoo_spin["no_host_sync"] and ell_spin["no_host_sync"]):
         raise AssertionError(f"a step waited for the device: bcoo {bcoo_spin}, ELL {ell_spin}")
     if not (acc > 0.9 and np.isfinite(loss) and len(shapes) == 1 and np.isfinite(nat_loss)
             and nat_nb > 0):
         raise AssertionError(f"bcoo epoch failed its checks: {out}")
     return out
+
+
+def launch_queue_depth(counts=(500, 1000, 1023, 1024, 1100)) -> dict:
+    """How many launches the card queues behind a device spin before the
+    host waits: ``n`` one-element adds enqueued behind a half-second spin,
+    for each ``n`` in ``counts``."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    fits = {}
+    for n in counts:
+        x.add_(1)
+        fits[n] = enqueue_behind_spin(lambda: x.add_(1), calls=n)["no_host_sync"]
+    return {"phase": "launch_queue", "enqueued_without_waiting": fits}
+
+
+def step_profile(name: str, step, steps: int = 5) -> dict:
+    """Device events (kernels, copies, fills) a ``step`` issues and their
+    time, from ``steps`` steps under ``torch.profiler``. A measurement,
+    not a check: an empty trace is reported as such."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.5)
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    per_kernel: dict = {}
+    events = 0
+    for evt in prof.events():
+        # the optimizer's own range shows on the device too: not an event
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            events += 1
+            per_kernel[evt.name] = (per_kernel.get(evt.name, 0.0)
+                                    + evt.time_range.elapsed_us() / steps / 1e3)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"phase": "step_profile", "step": name, "device_events_per_step": events / steps,
+            "device_ms_per_step": sum(per_kernel.values()),
+            "top_kernels_ms_per_step": [[k[:80], ms] for k, ms in top]}
 
 
 def bcoo_step_profile(path: str, device, steps: int = 10) -> dict:
@@ -1462,6 +1550,405 @@ def bcoo_step_profile(path: str, device, steps: int = 10) -> dict:
     return {"phase": "bcoo_step_profile", "steps": steps,
             "device_ms_per_step": sum(per_kernel.values()),
             "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top]}
+
+
+# ---------------- phase 9: the route for row scatters ----------------
+
+ROW_SCATTER_SHAPES = [  # (name, B, K, D, row): B*K rows scattered into a [D, *row] table
+    ("als_gram", 512, 32, 513, (16, 16)),             # train_als.py's full size, [D+1, F, F]
+    ("als_rhs", 512, 32, 513, (16,)),                 # its [D+1, F] rhs
+    ("als_large_gram", 8192, 32, 65_537, (16, 16)),   # a 67 MB gram
+    ("als_large_rhs", 8192, 32, 65_537, (16,)),
+    ("wide_1d", 8192, 16, (1 << 20) + 1, ()),         # a 1-D table above DW_MAX_TABLE
+    ("fm_v", BATCH, HIGGS_COLS, HIGGS_COLS + 1, (8,)),  # phase 10's factor gradient
+    ("fm_w", BATCH, HIGGS_COLS, HIGGS_COLS + 1, ()),    # and its linear weights'
+]
+ROW_SCATTER_MAIN = "als_gram"
+
+
+def row_scatter_candidates() -> dict:
+    """The routes the A/B times: ``index_add_`` (float atomics),
+    ``index_put_(accumulate=True)`` (torch's sort-based kernel) and the
+    port's route (a stable sort and ``csrc/row_scatter.cu``)."""
+    import torch
+
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    def index_add(shape, idx, src):
+        return torch.zeros(shape, dtype=src.dtype, device=src.device).index_add_(0, idx, src)
+
+    def index_put(shape, idx, src):
+        return torch.zeros(shape, dtype=src.dtype, device=src.device).index_put_(
+            (idx,), src, accumulate=True)
+
+    def kernel(shape, idx, src):
+        return rs.row_scatter_add(shape, idx, src)
+
+    return {"index_add": index_add, "index_put": index_put, "row_scatter": kernel}
+
+
+def row_scatter_inputs(b: int, k: int, d: int, row: tuple, seed: int, device):
+    """``B*K`` int64 row ids in ``[0, D)``, a quarter of them the sink
+    ``D - 1`` with zero rows (an ELL batch's pad slots), and the rows."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(0, d - 1, (b * k,), generator=gen, device=device)
+    src = torch.randn((b * k, *row), generator=gen, device=device)
+    pad = torch.rand(b * k, generator=gen, device=device) < 0.25
+    idx[pad] = d - 1
+    src[pad] = 0.0
+    return idx, src
+
+
+def row_scatter_ab(seed: int) -> list:
+    """Each candidate route for a row scatter at ``ROW_SCATTER_SHAPES``:
+    its bits over two runs, its distance from ``index_add_``, its device
+    time (CUDA events behind a spin, median of 5), whether 20 calls enqueue
+    behind a half-second spin, and the bytes bound (``src`` and ``idx``
+    read once, the table written once). The kernel must agree with the
+    plain version (``index_add_``) within 1e-4 + 1e-5 of each word's
+    absolute sum and give the same bits twice, and its stable order by row
+    id (the counting sort up to 4,095 rows) must equal
+    ``torch.sort(stable=True)``'s, bit for bit."""
+    import torch
+
+    from dmlc_tpu_torch.ops import _build
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = []
+    for i, (name, b, k, d, row) in enumerate(ROW_SCATTER_SHAPES):
+        idx, src = row_scatter_inputs(b, k, d, row, seed + i, dev)
+        shape = (d, *row)
+        n_row = int(np.prod(row)) if row else 1
+        bound_ms, bound_by = bound(b * k * (8 + 4 * n_row) + d * n_row * 4, b * k * n_row)
+        plain = rs.row_scatter_add_plain(shape, idx, src)
+        tol = 1e-4 + 1e-5 * rs.row_scatter_add_plain(shape, idx, src.abs())
+        rec = {"phase": "row_scatter_ab", "shape": name, "B": b, "K": k, "D": d,
+               "row": list(row), "bound_ms": bound_ms, "bound_by": bound_by}
+        for cand, fn in row_scatter_candidates().items():
+            first, second = fn(shape, idx, src), fn(shape, idx, src)
+            torch.cuda.synchronize()
+            err = (first - plain).abs()
+            spin = enqueue_behind_spin(lambda: fn(shape, idx, src))
+            rec[cand] = {"bit_identical_twice": same_bits(first, second),
+                         "max_abs_diff_vs_plain": float(err.max()),
+                         "within_tol": bool((err <= tol).all()),
+                         "ms": device_ms(lambda: fn(shape, idx, src)),
+                         "no_host_sync": spin["no_host_sync"], "spin_host_s": spin["host_s"]}
+            del first, second
+        # the stable order by row id against torch's stable sort, bit for
+        # bit (the counting sort's route up to 4,095 rows)
+        counting = _build.load_kernels().dmlc_row_sort_counts(b * k, d) > 0
+        order, want = rs.stable_order(idx, d), torch.sort(idx.to(torch.int32), stable=True)
+        rec["sort"] = {"route": "counting" if counting else "torch.sort",
+                       "equal_to_torch_sort": all(torch.equal(x, y) for x, y in zip(order, want)),
+                       "ms": device_ms(lambda: rs.stable_order(idx, d)),
+                       "torch_sort_ms": device_ms(
+                           lambda: torch.sort(idx.to(torch.int32), stable=True))}
+        # the plain version (zeros and index_add_) and the one PyTorch call,
+        # index_add_ into a table already there
+        acc = torch.zeros(shape, device=dev)
+        rec["plain_ms"] = device_ms(lambda: rs.row_scatter_add_plain(shape, idx, src))
+        rec["library_ms"] = device_ms(lambda: acc.index_add_(0, idx, src))
+        emit(rec)
+        rows.append(rec)
+        kern = rec["row_scatter"]
+        if not (kern["bit_identical_twice"] and kern["within_tol"] and kern["no_host_sync"]
+                and rec["sort"]["equal_to_torch_sort"]):
+            raise AssertionError(f"row_scatter {name}: the kernel differs from its plain "
+                                 f"version, between two runs, or waited for the device: {kern}")
+    return rows
+
+
+# ---------------- phase 9: ALS ----------------
+
+ALS = {"users": 4096, "items": 512, "factors": 16, "per_row": 32, "batch": 512,
+       "reg": 0.05, "epochs": 4, "restore_epoch": 1, "restore_at": 2,
+       "chunk_bytes": 64 << 10}  # examples/train_als.py's full run
+
+
+def write_ratings_corpus(path: str, seed: int, rank: int = 4) -> dict:
+    """``examples/train_als.py``'s ``synthesize`` at its full size: one
+    libsvm row per user (label = user id, features = item:rating) from a
+    rank-4 model, written from ``seed`` with numpy."""
+    rng = np.random.default_rng(seed)
+    users, items, per_row = ALS["users"], ALS["items"], ALS["per_row"]
+    gt_u = rng.normal(size=(users, rank)).astype(np.float32)
+    gt_v = rng.normal(size=(items, rank)).astype(np.float32)
+    with open(path, "w") as f:
+        for uid in range(users):
+            cols = rng.choice(items, size=per_row, replace=False)
+            ratings = gt_u[uid] @ gt_v[cols].T
+            f.write(f"{uid} " + " ".join(f"{j}:{r:.6f}" for j, r in zip(cols, ratings)) + "\n")
+    return {"rows": users, "bytes": os.path.getsize(path)}
+
+
+def _als_pipeline(path: str, device):
+    """(learner, DeviceIter) of the ALS path, fresh, as a user builds them."""
+    from dmlc_tpu_torch import AlsLearner, DeviceIter, create_parser
+
+    model = AlsLearner(ALS["users"], ALS["items"], num_factors=ALS["factors"], reg=ALS["reg"],
+                       seed=0, device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm", chunk_bytes=ALS["chunk_bytes"]),
+                    num_col=model.device_num_col(), batch_size=ALS["batch"], layout="ell",
+                    max_nnz=ALS["per_row"], drop_remainder=True, device=device)
+    return model, it
+
+
+def _state_bits(state: dict) -> bytes:
+    return b"".join(np.ascontiguousarray(state[k]).tobytes() for k in sorted(state))
+
+
+def run_als(path: str, device, steps: int = 20) -> dict:
+    """create_parser -> DeviceIter(ell) -> AlsLearner -> fit(4 epochs) ->
+    eval_loss, with the row scatter's launches zeroed just before and read
+    just after; then ``steps`` card steps (cycling over one epoch's
+    batches) and ``finalize_items`` run twice from the same seed, bit for
+    bit, and against the same steps on the CPU: the losses, the normal
+    equations before the item solve and the items after it; each step's
+    scatter into the ``[D+1, F*F+F]`` normal equations against its plain
+    version on the same rows; a checkpoint at batch ``restore_at`` of epoch
+    ``restore_epoch + 1`` resumed in fresh objects, its loss tail, item
+    solve and the next epoch byte for byte; 20 steps enqueued behind a
+    device spin; the step's device time and host wall."""
+    import torch
+
+    from dmlc_tpu_torch import AlsLearner
+    from dmlc_tpu_torch.ops import row_scatter as rs
+    from dmlc_tpu_torch.ops.sparse import EllBatch
+
+    model, it = _als_pipeline(path, device)
+    epochs = []
+
+    def log(epoch, loss, nb, secs):
+        epochs.append({"epoch": epoch, "loss": loss, "batches": nb, "wall_s": secs,
+                       "rows_per_s": nb * ALS["batch"] / secs})
+
+    rs.launches = 0
+    t0 = time.monotonic()
+    model.fit(it, epochs=ALS["epochs"], log_fn=log)
+    fit_s = time.monotonic() - t0
+    mse = model.eval_loss(it)
+    launches = rs.launches
+    batches = [EllBatch(*(t.clone() for t in b)) for b in it]  # one epoch, resident
+    it.close()
+    steps_run = sum(e["batches"] for e in epochs)
+    scatter = {"max_abs_err": 0.0, "within_tol": True, "same_bits_as_step": True}
+
+    def trajectory(init_state=None, dev=device):
+        """The losses, the normal equations before the item solve, the
+        state after it and, on the CPU, each normal-equation word's absolute
+        sum. On the card each step's scatter is also held against its plain
+        version (launches that compare do not count)."""
+        m = AlsLearner(ALS["users"], ALS["items"], num_factors=ALS["factors"], reg=ALS["reg"],
+                       seed=0, device=dev)
+        if init_state is not None:
+            m.load_state_dict(init_state)
+        losses, abs_eq = [], torch.zeros_like(m._normal_eq)
+        for i in range(steps):
+            b = EllBatch(*(t.to(dev) for t in batches[i % len(batches)]))
+            before = m._normal_eq.clone()
+            losses.append(m.step(b))
+            ids, rows = m.normal_eq_rows(b, m.params.users[b.label.long()])
+            if dev == "cpu":
+                rs.row_scatter_add_plain_(abs_eq, ids, rows.abs())
+            else:
+                kern = rs.row_scatter_add_(before.clone(), ids, rows)
+                plain = rs.row_scatter_add_plain_(before.clone(), ids, rows)
+                tol = 1e-4 + 1e-5 * rs.row_scatter_add_plain_(before.abs(), ids, rows.abs())
+                err = (kern - plain).abs()
+                scatter["max_abs_err"] = max(scatter["max_abs_err"], float(err.max()))
+                scatter["within_tol"] &= bool((err <= tol).all())
+                scatter["same_bits_as_step"] &= same_bits(kern, m._normal_eq)
+        eq = m._normal_eq.clone()
+        m.finalize_items()
+        return (torch.stack(losses).cpu().numpy(), eq.cpu().numpy(), abs_eq.cpu().numpy(),
+                m.state_dict())
+
+    init = AlsLearner(ALS["users"], ALS["items"], num_factors=ALS["factors"], reg=ALS["reg"],
+                      seed=0, device=device).state_dict()
+    card_a, eq_a, _, state_a = trajectory()
+    card_b, eq_b, _, state_b = trajectory()
+    cpu, eq_cpu, abs_cpu, state_cpu = trajectory(init, "cpu")
+    repeatable = (card_a.tobytes() == card_b.tobytes() and eq_a.tobytes() == eq_b.tobytes()
+                  and _state_bits(state_a) == _state_bits(state_b))
+    rel = float(np.max(np.abs(card_a - cpu) / np.maximum(np.abs(cpu), 1e-12)))
+    # the normal equations within 1e-4 of each word's absolute sum (a
+    # dropped or doubled entry is some 1/640 of it), the items within
+    # rtol 1e-4 / atol 1e-5 of the CPU's, as the CPU parity tests hold them
+    eq_rel = float(np.max(np.abs(eq_a - eq_cpu) / (abs_cpu + 1e-5)))
+    items_diff = np.abs(state_a["items"] - state_cpu["items"])
+    items_ok = bool(np.all(items_diff <= 1e-5 + 1e-4 * np.abs(state_cpu["items"])))
+
+    # a checkpoint mid-epoch, resumed in fresh objects; both runs go on
+    # through the item solve and the next epoch
+    def rest_and_next_epoch(model, it, losses):
+        losses += [model.step(b) for b in it]
+        model.finalize_items()
+        it.reset()
+        losses += [model.step(b) for b in it]
+        it.close()
+        return torch.stack(losses).cpu().numpy(), model.state_dict()
+
+    model, it = _als_pipeline(path, device)
+    for _ in range(ALS["restore_epoch"]):
+        model.fit_epoch(it)
+    losses_a, ckpt = [], None
+    for batch in it:
+        losses_a.append(model.step(batch))
+        if len(losses_a) == ALS["restore_at"]:
+            ckpt = (model.state_dict(), json.loads(json.dumps(it.state_dict())))
+            break
+    losses_a, ckpt_state_a = rest_and_next_epoch(model, it, losses_a)
+    model, it = _als_pipeline(path, device)
+    model.load_state_dict(ckpt[0])
+    it.load_state(ckpt[1])
+    replay, ckpt_state_b = rest_and_next_epoch(model, it, [])
+    tail = losses_a[ALS["restore_at"]:]
+    epoch_len = ALS["users"] // ALS["batch"]
+
+    batch = batches[0]
+    model.step(batch)
+    torch.cuda.synchronize()
+    # some 50 launches a step: two groups of 10 stay well inside the queue
+    spin = enqueue_behind_spin(lambda: model.step(batch), group=10)
+    dev_ms = device_ms(lambda: model.step(batch), iters=10)
+    t0 = time.monotonic()
+    for _ in range(50):
+        model.step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) / 50 * 1e3
+    out = {"phase": "als", "epochs": epochs, "fit_s": fit_s, "eval_mse": mse,
+           "steps": steps_run, "row_scatter_launches": launches,
+           "row_scatter_launches_needed": steps_run,
+           "card_bit_identical_twice": repeatable, "first_steps": steps,
+           "max_rel_diff_vs_cpu": rel, "normal_eq_max_diff_over_abs_sum_vs_cpu": eq_rel,
+           "items_max_abs_diff_vs_cpu": float(items_diff.max()),
+           "items_within_tol_of_cpu": items_ok, "main_path_scatter_vs_plain": scatter,
+           "checkpoint_state_kind": ckpt[1]["kind"], "checkpoint_tail_steps": len(tail),
+           "checkpoint_tail_bytes_equal": tail.tobytes() == replay.tobytes(),
+           "checkpoint_final_state_bytes_equal":
+               _state_bits(ckpt_state_a) == _state_bits(ckpt_state_b),
+           "step_device_ms": dev_ms, "step_wall_ms": wall_ms, "step_enqueue_behind_spin": spin}
+    emit(out)
+    losses = [e["loss"] for e in epochs]
+    problems = []
+    if not (all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:]))
+            and np.isfinite(mse)):
+        problems.append("the epoch losses are not finite and falling")
+    if launches < steps_run:
+        problems.append("the main path's scatters did not all take the kernel")
+    if not repeatable:
+        problems.append("two card runs differ")
+    if not rel <= 1e-4:
+        problems.append("the card's losses differ from the CPU's")
+    if not (eq_rel <= 1e-4 and items_ok):
+        problems.append("the card's normal equations or items differ from the CPU's")
+    if not (scatter["within_tol"] and scatter["same_bits_as_step"]):
+        problems.append("a step's scatter differs from its plain version or from itself")
+    if not (out["checkpoint_tail_bytes_equal"] and out["checkpoint_final_state_bytes_equal"]
+            and len(tail) == 2 * epoch_len - ALS["restore_at"] and ckpt[1]["kind"] == "source"):
+        problems.append("the checkpoint did not replay the loss tail, item solve and next epoch")
+    if not spin["no_host_sync"]:
+        problems.append("a step waited for the device")
+    if problems:
+        raise AssertionError(f"als: {problems}: {out}")
+    return {**out, "step_fn": lambda: model.step(batch)}
+
+
+# ---------------- phase 10: FM ----------------
+
+FM_EPOCHS = {"ell": 2, "dense": 2, "bcoo": 1}
+
+
+def _fm_pipeline(path: str, device, layout: str, seed: int = 0):
+    """(learner, DeviceIter) of the FM path on the HIGGS-shaped corpus."""
+    from dmlc_tpu_torch import DeviceIter, FMLearner, create_parser
+
+    model = FMLearner(HIGGS_COLS, num_factors=8, layout=layout, learning_rate=0.05, seed=seed,
+                      device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm"), num_col=model.device_num_col(),
+                    batch_size=BATCH, layout=layout, max_nnz=HIGGS_COLS, drop_remainder=True,
+                    device=device)
+    return model, it
+
+
+def _fm_params_bits(model) -> bytes:
+    return b"".join(p.detach().cpu().numpy().tobytes() for p in model.params)
+
+
+def run_fm(path: str, device, layout: str, steps: int = 20) -> dict:
+    """FMLearner on ``layout``: fit(``FM_EPOCHS``) -> accuracy with the row
+    scatter's launches zeroed just before and read just after; ``steps``
+    card steps run twice from the same seed, bit for bit, and against the
+    same batches on the CPU; 20 steps enqueued behind a device spin; the
+    step's device time."""
+    import torch
+
+    from dmlc_tpu_torch import FMLearner
+    from dmlc_tpu_torch.convert import fm_params_from_jax, fm_params_to_jax
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    model, it = _fm_pipeline(path, device, layout)
+    rs.launches = 0
+    t0 = time.monotonic()
+    losses = []
+    model.fit(it, epochs=FM_EPOCHS[layout], log_fn=lambda e, loss, nb, s: losses.append(loss))
+    fit_s = time.monotonic() - t0
+    acc = model.accuracy(it)
+    launches = rs.launches
+    nb = HIGGS_ROWS // BATCH * FM_EPOCHS[layout]
+    batches = [b for _, b in zip(range(steps), it)]
+    it.close()
+
+    def trajectory(dev=device, init=None):
+        m = FMLearner(HIGGS_COLS, num_factors=8, layout=layout, learning_rate=0.05, seed=0,
+                      device=dev)
+        if init is not None:
+            m.set_params(fm_params_from_jax(*init, device=dev))
+        out = [m.step(tuple(t.to(dev) for t in b) if layout != "ell"
+                      else type(b)(*(t.to(dev) for t in b))) for b in batches]
+        return torch.stack(out).cpu().numpy(), m
+
+    card_a, m_a = trajectory()
+    card_b, m_b = trajectory()
+    init = fm_params_to_jax(FMLearner(HIGGS_COLS, num_factors=8, layout=layout, seed=0,
+                                      device=device).params)
+    cpu, _ = trajectory("cpu", init)
+    repeatable = (card_a.tobytes() == card_b.tobytes()
+                  and _fm_params_bits(m_a) == _fm_params_bits(m_b))
+    rel = float(np.max(np.abs(card_a - cpu) / np.maximum(np.abs(cpu), 1e-12)))
+    batch = batches[0]
+    m_a.step(batch)
+    torch.cuda.synchronize()
+    # 50-130 launches a step: groups of 5 stay well inside the launch queue
+    spin = enqueue_behind_spin(lambda: m_a.step(batch), group=5)
+    dev_ms = device_ms(lambda: m_a.step(batch), iters=10)
+    out = {"phase": "fm", "layout": layout, "epoch_losses": losses, "fit_s": fit_s,
+           "rows_per_s": nb * BATCH / fit_s, "accuracy": acc, "steps": nb,
+           "row_scatter_launches": launches, "card_bit_identical_twice": repeatable,
+           "first_steps": len(batches), "max_rel_diff_vs_cpu": rel, "step_device_ms": dev_ms,
+           "step_enqueue_behind_spin": spin}
+    emit(out)
+    problems = []
+    if not (acc > 0.9 and all(np.isfinite(losses))):
+        problems.append("accuracy <= 0.9 or a non-finite loss")
+    if not repeatable:
+        problems.append("two card runs differ")
+    if not (len(batches) == steps and rel <= 1e-4):
+        problems.append("the card's losses differ from the CPU's")
+    if not spin["no_host_sync"]:
+        problems.append("a step waited for the device")
+    # the ell gathers' gradients (w and V) and bcoo's three products' each
+    # scatter once a step; the dense path has none
+    need = {"ell": 2, "bcoo": 3, "dense": 0}[layout] * nb
+    if launches < need:
+        problems.append(f"the row scatter launched {launches} times, the path needs {need}")
+    if problems:
+        raise AssertionError(f"fm {layout}: {problems}: {out}")
+    return {**out, "row_scatter_launches_needed": need, "step_fn": lambda: m_a.step(batch)}
 
 
 def main() -> int:
@@ -1560,6 +2047,18 @@ def main() -> int:
         ckpt_k1, ckpt_dw, ckpt_k2 = k1.launches, k1.dw_launches, dd.launches
         # phase 8
         run_bcoo(path, dev)
+        # phase 9: ALS at examples/train_als.py's full size, then the A/B of
+        # the row scatter's routes; phase 10: FM on the HIGGS-shaped corpus.
+        # Each path's row-scatter launches are counted from 0
+        ratings = os.path.join(tmp, "ratings.libsvm")
+        emit({"phase": "ratings_corpus", **write_ratings_corpus(ratings, args.seed),
+              "reduced": "none: examples/train_als.py's full run (4096 users, 512 items, "
+                         "16 factors, 32 ratings a row, batch 512)"})
+        als = run_als(ratings, dev)
+        rs_rows = row_scatter_ab(args.seed)
+        fm = {layout: run_fm(path, dev, layout) for layout in FM_EPOCHS}
+        emit({"phase": "fm_vs_linear", "fm_step_device_ms": {
+            k: v["step_device_ms"] for k, v in fm.items()}})
         # the profiler's windows: the decode's first (a window opened after
         # others has recorded nothing now and then), then the steps'
         emit(profile_decodes({p: snaps[p] for p in ("warm_dense_bfloat16", "warm_dense_q8")},
@@ -1576,10 +2075,19 @@ def main() -> int:
         emit(warm_step)
         check_no_scatter(warm_step)
         emit(bcoo_step_profile(path, dev))
+        emit(step_profile("als", als.pop("step_fn")))
+        for layout, r in fm.items():
+            emit(step_profile(f"fm_{layout}", r.pop("step_fn")))
+        emit(launch_queue_depth())
+        step_ms = {"linear_ell": step["step_device_ms"],
+                   **{f"fm_{k}": v["step_device_ms"] for k, v in fm.items()},
+                   "als": als["step_device_ms"]}
+        emit({"phase": "step_device_ms", "steps": step_ms})
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
     k2_main = next(r for r in k2_rows["kinds"] if r["kind"] == K2_MAIN)
+    rs_main = next(r for r in rs_rows if r["shape"] == ROW_SCATTER_MAIN)
     emit({"kernels": [{
         "name": "ell_matvec", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
@@ -1606,7 +2114,17 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-        "library_ms": k2_main["library_ms"]}]})
+        "library_ms": k2_main["library_ms"]}, {
+        "name": "row_scatter", "route": "cuda",
+        "source": "dmlc_tpu_torch/csrc/row_scatter.cu",
+        "replaces": "dmlc_tpu/models/als.py:169",
+        "launches": als["row_scatter_launches"] + sum(
+            v["row_scatter_launches"] for v in fm.values()),
+        "max_abs_err": max([r["row_scatter"]["max_abs_diff_vs_plain"] for r in rs_rows]
+                           + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
+        "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],
+        "bound_ms": rs_main["bound_ms"], "bound_by": rs_main["bound_by"],
+        "library_ms": rs_main["library_ms"]}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

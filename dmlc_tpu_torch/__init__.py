@@ -11,14 +11,17 @@ the JAX package's states). With
 ``create_parser(..., snapshot=path)`` the first epoch writes its batches
 to a snapshot file and later epochs serve them from it; with
 ``DeviceIter(device_decode=True)`` each served batch crosses as raw bytes
-and is decoded on the card in one launch of ``csrc/widen_span.cu``.
+and is decoded on the card in one launch of ``csrc/widen_span.cu``. The
+``AlsLearner`` and ``FMLearner`` train on the same ``DeviceIter``; every
+row scatter-add of their steps gives the same bits on every run.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card the default raises ``DMLCError``.
 """
 
 from dmlc_tpu_torch.data import DeviceIter, create_parser
-from dmlc_tpu_torch.models import LinearLearner
+from dmlc_tpu_torch.models import AlsLearner, FMLearner, LinearLearner
 from dmlc_tpu_torch.utils.check import DMLCError
 
-__all__ = ["DMLCError", "DeviceIter", "LinearLearner", "create_parser"]
+__all__ = ["AlsLearner", "DMLCError", "DeviceIter", "FMLearner", "LinearLearner",
+           "create_parser"]

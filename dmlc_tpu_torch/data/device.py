@@ -115,6 +115,7 @@ from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.ops import device_decode as _device_decode
 from dmlc_tpu_torch.ops.device_decode import PackedDenseBatch  # noqa: F401 (re-exported)
 from dmlc_tpu_torch.ops.sparse import block_to_bcoo_host, block_to_dense, block_to_ell
+from dmlc_tpu_torch.utils import knobs as _knobs
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
 from dmlc_tpu_torch.utils.timer import get_time
 
@@ -273,7 +274,10 @@ class DeviceIter:
     ``snapshot_path``, stamped by ``create_parser(..., snapshot=)``, with its
     ``snapshot_signature``); ``snapshot_quant="int8"`` stores packed dense
     batches as int8 plus a per-column scale; ``device_decode=True`` decodes
-    warm batches on the device (module docstring). ``device=None`` means
+    warm batches on the device (module docstring). ``prefetch`` and
+    ``device_decode`` left at None read the environment knobs
+    ``DMLC_TPU_PREFETCH`` (default 2) and ``DMLC_TPU_DEVICE_DECODE``
+    (:mod:`dmlc_tpu_torch.utils.knobs`). ``device=None`` means
     the CUDA device and raises on a host without one; pass ``device="cpu"``
     for the CPU.
     """
@@ -286,7 +290,7 @@ class DeviceIter:
         layout: str = "dense",
         *,
         max_nnz: Optional[int] = None,
-        prefetch: int = 2,
+        prefetch: Optional[int] = None,
         drop_remainder: bool = False,
         device=None,
         x_dtype: str = "float32",
@@ -296,7 +300,7 @@ class DeviceIter:
         snapshot: Optional[str] = None,
         snapshot_signature: Optional[dict] = None,
         snapshot_quant: Optional[str] = None,
-        device_decode: bool = False,
+        device_decode: Optional[bool] = None,
     ):
         check(layout in ("dense", "ell", "bcoo"), f"unknown layout {layout!r}")
         check(batch_size is not None or layout == "bcoo",
@@ -305,7 +309,6 @@ class DeviceIter:
               "DeviceIter: batch_size must be a positive integer")
         check(layout != "ell" or (max_nnz is not None and max_nnz > 0),
               "DeviceIter: layout='ell' needs max_nnz (one fixed [B, K] shape)")
-        check(prefetch >= 1, "DeviceIter: prefetch must be >= 1")
         check(x_dtype in _X_DTYPES, f"unknown x_dtype {x_dtype!r}")
         check(x_dtype == "float32" or layout == "dense",
               "x_dtype='bfloat16' applies to the dense layout only")
@@ -315,7 +318,7 @@ class DeviceIter:
         self.batch_size = None if batch_size is None else int(batch_size)
         self.layout = layout
         self.max_nnz = None if max_nnz is None else int(max_nnz)
-        self.prefetch = int(prefetch)
+        self.prefetch = _knobs.prefetch(prefetch)
         self.drop_remainder = bool(drop_remainder)
         self.x_dtype = x_dtype
         # aux packing: label/weight as two trailing columns of x, one copy
@@ -344,7 +347,7 @@ class DeviceIter:
         self.snapshot_path = snapshot
         self._snap_sig = snapshot_signature
         self._snap_quant = snapshot_quant
-        self.device_decode = bool(device_decode)
+        self.device_decode = _knobs.device_decode(device_decode)
         check(snapshot is None or layout != "bcoo",
               "snapshot v1 stores fixed-geometry batches: layout 'dense' or "
               "'ell', not 'bcoo'")
@@ -352,7 +355,9 @@ class DeviceIter:
         check(snapshot_quant is None or (snapshot is not None and self.pack_aux),
               "snapshot_quant='int8' applies to snapshotted packed dense "
               "batches (layout='dense' with pack_aux)")
-        check(not self.device_decode or snapshot is not None,
+        # an explicit request needs a snapshot; the environment's arms the
+        # decode only where one is present, as in the JAX package
+        check(not device_decode or snapshot is not None,
               "device_decode=True decodes warm snapshot batches: it needs snapshot=")
         self._snap_reader: Optional[_snapshot.SnapshotReader] = None
         self._snap_writer: Optional[_snapshot.SnapshotWriter] = None
@@ -895,7 +900,11 @@ class DeviceIter:
         self.source.close()
 
     def stats(self) -> dict:
-        return {"batches_fed": self.batches_fed,
+        """The pipeline's counters. Keys the JAX package's ``stats()`` also
+        has carry its names and value types (``batches`` first; the port's
+        own ``batches_fed`` is the same count)."""
+        return {"batches": self.batches_fed,
+                "batches_fed": self.batches_fed,
                 "bytes_to_device": self.bytes_to_device,
                 "stall_seconds": self.stall_seconds,
                 "source_wait_seconds": self.source_wait_seconds,
@@ -904,6 +913,9 @@ class DeviceIter:
                 # shadow-writing; 'warm': serving the stored batches
                 "snapshot_state": (None if self.snapshot_path is None
                                    else "warm" if self._snap_serving else "cold"),
+                # the parse-once block cache of the source chain: None, as
+                # no port source has one yet
+                "cache_state": getattr(self.source, "cache_state", None),
                 "snapshot_write_seconds": self.snapshot_write_seconds,
                 "snapshot_read_seconds": self.snapshot_read_seconds,
                 "device_decode": self.device_decode,

@@ -411,17 +411,21 @@ class ThreadedParser(Parser):
 
 
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
-                  type_: str = "auto", engine: str = "auto",
-                  snapshot: Optional[str] = None,
+                  type_: str = "auto", index_dtype=np.uint64, threaded: bool = True,
+                  *, engine: str = "auto", snapshot: Optional[str] = None,
                   chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> Parser:
     """Parser factory — analog of dmlc::Parser::Create (src/data.cc:62-85).
 
-    ``type_='auto'`` resolves from the URI's ``format=`` argument and
-    defaults to libsvm, the one format this port parses so far. URI
-    arguments (``?indexing_mode=1``) flow into the parser, which parses
-    ahead on its own thread (:class:`ThreadedParser`). ``engine`` as in
-    :class:`LibSVMParser`. ``chunk_bytes`` is the split's chunk size (at
-    least 4096), which sets the blocks and enters the snapshot signature.
+    The positional parameters are the JAX package's: ``type_='auto'``
+    resolves from the URI's ``format=`` argument and defaults to libsvm,
+    the one format this port parses so far; ``index_dtype`` must be
+    ``np.uint64`` (the blocks' index type; another raises); ``threaded``
+    parses ahead on a thread of its own (:class:`ThreadedParser`), and
+    ``threaded=False`` returns the bare :class:`LibSVMParser`. URI
+    arguments (``?indexing_mode=1``) flow into the parser. The port's own
+    options are keyword-only: ``engine`` as in :class:`LibSVMParser`;
+    ``chunk_bytes`` is the split's chunk size (at least 4096), which sets
+    the blocks and enters the snapshot signature.
 
     ``snapshot`` arms the snapshot store: the parser carries
     ``snapshot_path`` (suffixed ``.split<N>.part<K>`` for one of several
@@ -437,8 +441,13 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     if type_ != "libsvm":
         raise DMLCError(f"unknown parser format {type_!r}; dmlc_tpu_torch "
                         "parses 'libsvm'")
+    if np.dtype(index_dtype) != np.dtype(np.uint64):
+        raise DMLCError(f"index_dtype {np.dtype(index_dtype)}: dmlc_tpu_torch "
+                        "parses uint64 indices only")
     split = LineSplitter(spec.uri, part_index, num_parts, chunk_bytes=chunk_bytes)
-    parser = ThreadedParser(LibSVMParser(split, spec.args, engine=engine))
+    parser = LibSVMParser(split, spec.args, engine=engine)
+    if threaded:
+        parser = ThreadedParser(parser)
     if snapshot is not None:
         if num_parts != 1:
             snapshot = f"{snapshot}.split{num_parts}.part{part_index}"

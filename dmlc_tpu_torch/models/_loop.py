@@ -9,6 +9,10 @@ Copy of the JAX package's ``models/_loop.py`` contracts in PyTorch idiom:
   device scalars and cross to the host once per epoch through
   :func:`host_scalar`, the loop's single sanctioned sync point (once per
   ``fit_epoch``, twice per ``accuracy``).
+* **The step-count cap.** ``fit_epoch(max_steps)``, ``fit(steps_per_epoch)``
+  and ``accuracy(max_steps)`` stop a pass after that many batches and
+  reset the iterator, as the JAX package's loop does: the SPMD contract in
+  which every process runs the same number of steps an epoch.
 
 Learners provide ``_step(batch) -> loss``, ``_margin(batch) -> (margin,
 label, weight)`` and ``_pred_from_margin(margin)``.
@@ -40,29 +44,33 @@ class TrainLoopMixin:
         pred = self._pred_from_margin(margin)
         return ((pred == label) * weight).sum(), weight.sum()
 
-    def fit_epoch(self, device_iter) -> Tuple[float, int]:
-        """One pass over a DeviceIter; returns (mean loss, batches)."""
+    def fit_epoch(self, device_iter, max_steps=None) -> Tuple[float, int]:
+        """One pass over a DeviceIter, at most ``max_steps`` batches;
+        returns (mean loss, batches)."""
         total, n = None, 0
         for batch in device_iter:
             loss = self.step(batch)
             total = loss if total is None else total + loss
             n += 1
+            if max_steps is not None and n >= max_steps:
+                break
         device_iter.reset()
         if n == 0:
             return 0.0, 0
         return host_scalar(total) / n, n
 
-    def fit(self, device_iter, epochs: int = 1, log_fn=None):
+    def fit(self, device_iter, epochs: int = 1, log_fn=None, steps_per_epoch=None):
         for epoch in range(epochs):
             t0 = get_time()
-            loss, nb = self.fit_epoch(device_iter)
+            loss, nb = self.fit_epoch(device_iter, max_steps=steps_per_epoch)
             if log_fn:
                 log_fn(epoch, loss, nb, get_time() - t0)
         return self
 
-    def accuracy(self, device_iter) -> float:
-        """Weighted accuracy over one pass, reduced on the device; the two
-        :func:`host_scalar` calls at the end are the pass's only syncs."""
+    def accuracy(self, device_iter, max_steps=None) -> float:
+        """Weighted accuracy over one pass (at most ``max_steps`` batches),
+        reduced on the device; the two :func:`host_scalar` calls at the end
+        are the pass's only syncs."""
         correct, total = None, None
         n = 0
         for batch in device_iter:
@@ -70,6 +78,8 @@ class TrainLoopMixin:
             correct = c if correct is None else correct + c
             total = t if total is None else total + t
             n += 1
+            if max_steps is not None and n >= max_steps:
+                break
         device_iter.reset()
         if n == 0:
             return 0.0

@@ -11,7 +11,9 @@ The PyTorch counterpart of the JAX package's ``models/linear.py`` for the
   :func:`~dmlc_tpu_torch.ops.sparse.coo_matmul` of the COO batch and
   ``w``, plus ``b`` (outside any kernel of the JAX package too: there it
   is XLA's ``bcoo_dot_general``);
-- updates are ``torch.optim.SGD`` in place; for dense and ell, after every
+- updates are ``torch.optim.SGD`` in place (or the optimizer an
+  ``optimizer=`` factory builds, the counterpart of the JAX learner's
+  optax transformation); for dense and ell, after every
   step the padding sink ``weight[-1]`` is pinned back to 0 so ELL pad
   slots stay inert. bcoo has no sink: ``weight_dim == num_col``, and its
   batches hold their real entries only.
@@ -19,7 +21,7 @@ The PyTorch counterpart of the JAX package's ``models/linear.py`` for the
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,16 +55,20 @@ def _loss_from_margin(margin, label, weight, objective: str, l2: float,
 
 
 class LinearLearner(TrainLoopMixin):
-    """Logistic / least-squares / multinomial-softmax learner with SGD.
+    """Logistic / least-squares / multinomial-softmax learner.
 
     ``layout`` must match the DeviceIter layout ('dense', 'ell' or 'bcoo');
-    ``objective='softmax'`` needs ``num_class >= 2``. ``device=None`` means
-    the CUDA device and raises on a host without one.
+    ``objective='softmax'`` needs ``num_class >= 2``. ``optimizer`` is a
+    factory ``params -> torch.optim.Optimizer``; ``None`` means
+    ``torch.optim.SGD(lr=learning_rate)``. ``device=None`` means the CUDA
+    device and raises on a host without one.
     """
 
     def __init__(self, num_col: int, objective: str = "logistic",
-                 layout: str = "dense", learning_rate: float = 0.1,
-                 l2: float = 0.0, num_class: int = 1, device=None):
+                 layout: str = "dense",
+                 optimizer: Optional[Callable[[list], torch.optim.Optimizer]] = None,
+                 learning_rate: float = 0.1, l2: float = 0.0, num_class: int = 1,
+                 device=None):
         check(layout in ("dense", "ell", "bcoo"),
               "LinearLearner: layout must be dense|ell|bcoo")
         check(objective in ("logistic", "squared", "softmax"),
@@ -83,7 +89,10 @@ class LinearLearner(TrainLoopMixin):
                                requires_grad=True),
             bias=torch.zeros(shape[1:], dtype=torch.float32, device=self.device,
                              requires_grad=True))
-        self.opt = torch.optim.SGD(list(self.params), lr=learning_rate)
+        if optimizer is None:
+            self.opt = torch.optim.SGD(list(self.params), lr=learning_rate)
+        else:
+            self.opt = optimizer(list(self.params))
 
     def device_num_col(self) -> int:
         """The ``num_col`` a DeviceIter must use to feed this learner:

@@ -32,7 +32,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 KERNEL_SOURCES = [os.path.join(CSRC_DIR, name)
-                  for name in ("ell_matvec.cu", "ell_matvec_dw.cu", "widen_span.cu")]
+                  for name in ("ell_matvec.cu", "ell_matvec_dw.cu", "widen_span.cu",
+                               "row_scatter.cu")]
 # included by the sources: a change rebuilds the library too
 KERNEL_HEADERS = [os.path.join(CSRC_DIR, "k1_tiles.cuh")]
 KERNEL_LIB = "libdmlc_torch_kernels.so"
@@ -151,6 +152,18 @@ def load_kernels() -> ctypes.CDLL:
     # may go to the snapshot reader's thread for longer than that
     lib.dmlc_decode_span = ctypes.PYFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p] * 4)(
         ("dmlc_decode_span", lib))
+    lib.dmlc_row_sort_counts.restype = ctypes.c_int64
+    lib.dmlc_row_sort_counts.argtypes = [ctypes.c_int64] * 2
+    # (idx, N, rows, counts, sorted, perm, stream)
+    lib.dmlc_row_sort.restype = ctypes.c_int
+    lib.dmlc_row_sort.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [
+        ctypes.c_void_p] * 4
+    lib.dmlc_row_scatter_chunks.restype = ctypes.c_int64
+    lib.dmlc_row_scatter_chunks.argtypes = [ctypes.c_int64]
+    # (sorted ids, perm, src, table, head, tail, N, R, D, accumulate, stream)
+    lib.dmlc_row_scatter_f32.restype = ctypes.c_int
+    lib.dmlc_row_scatter_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [
+        ctypes.c_int, ctypes.c_void_p]
     lib.dmlc_cuda_error_string.restype = ctypes.c_char_p
     lib.dmlc_cuda_error_string.argtypes = [ctypes.c_int]
     kernel_build_seconds, kernel_build_log = seconds, log

@@ -94,7 +94,10 @@ def ell_matvec_cuda(weights: torch.Tensor, indices: torch.Tensor,
 def dw_route(table_size: int) -> str:
     """How ``dw`` of a ``[table_size]`` table is computed on the card:
     ``"cuda"`` (the deterministic kernel) up to :data:`DW_MAX_TABLE` words,
-    ``"index_add"`` above, where the per-warp bins would not fit a block."""
+    ``"index_add"`` above, where the per-warp bins would not fit a block.
+    (The row-scatter kernel gives the same bits there too, but took twice
+    ``index_add_``'s time at 1,048,577 words on an H100, above the 1.2×
+    it was allowed: ``chip_smoke.py``'s ``row_scatter_ab``, PERF.md §6.)"""
     return "cuda" if table_size <= DW_MAX_TABLE else "index_add"
 
 

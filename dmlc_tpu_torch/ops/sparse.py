@@ -12,7 +12,11 @@ The host converters :func:`block_to_ell` and :func:`block_to_dense` are
 copies of the JAX package's (``dmlc_tpu/ops/sparse.py``) and emit the same
 bytes. :func:`ell_matvec` is the plain PyTorch version of kernel K1
 (``ops/ell_matvec.py``): the CPU route, and the reference the kernel is
-held against on the card. :func:`coo_matmul` is the bcoo product.
+held against on the card; the gradient of its 2-D gather is a row
+scatter (:mod:`dmlc_tpu_torch.ops.row_scatter`), the same bits on every
+run.
+:func:`coo_matmul` is the bcoo product, its weight gradient a row scatter
+too.
 
 **The bcoo pad scheme.** :func:`block_to_bcoo_host` pads the nnz dimension
 to a bucket so that batch shapes repeat. JAX pads with out-of-bounds
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.data.row_block import RowBlock
+from dmlc_tpu_torch.ops.row_scatter import gather_rows, row_scatter_add
 from dmlc_tpu_torch.utils.check import check
 
 
@@ -161,21 +166,25 @@ def ell_matvec(weights: torch.Tensor, batch: EllBatch) -> torch.Tensor:
     The batched analog of Row::SDot (data.h:146-161), in plain PyTorch.
     ``weights`` is [D+1]; the final slot is the padding sink (index=num_col)
     and must be 0. A 2-D table [D+1, C] broadcasts the values over the class
-    dim and returns [B, C].
+    dim and returns [B, C]; its gather's gradient is :func:`row_scatter_add`.
+    A 1-D table keeps indexing's own backward, the reference K1's ``dw``
+    kernel is held against.
     """
-    gathered = weights[batch.indices.long()]  # [B, K] or [B, K, C]
-    vals = batch.values if weights.dim() == 1 else batch.values[..., None]
-    return (gathered * vals).sum(dim=1)
+    if weights.dim() == 1:
+        return (weights[batch.indices.long()] * batch.values).sum(dim=1)
+    gathered = gather_rows(weights, batch.indices)  # [B, K, C]
+    return (gathered * batch.values[..., None]).sum(dim=1)
 
 
 class _CooMatmul(torch.autograd.Function):
     """``x @ w`` for a sparse COO ``x [R, D]`` and a dense ``w [D, C]``.
 
     Forward is torch's sparse product. The weight gradient ``x^T g`` is a
-    gather and an ``index_add_`` over the entries: torch's own backward
-    coalesces the transposed ``x``, which on CUDA sorts the entries and
-    reads their unique count back to the host, a sync in every step that
-    CUDA's sync debug mode does not see (it happens inside thrust)."""
+    gather and a :func:`row_scatter_add` over the entries (the same bits on
+    every run): torch's own backward coalesces the transposed ``x``, which
+    on CUDA sorts the entries and reads their unique count back to the
+    host, a sync in every step that CUDA's sync debug mode does not see (it
+    happens inside thrust)."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -186,8 +195,8 @@ class _CooMatmul(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         rows, cols = x._indices()
-        dw = torch.zeros((x.shape[1], g.shape[1]), dtype=g.dtype, device=g.device)
-        return None, dw.index_add_(0, cols, x._values()[:, None] * g[rows])
+        return None, row_scatter_add((x.shape[1], g.shape[1]), cols,
+                                     x._values()[:, None] * g[rows])
 
 
 def coo_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
