@@ -102,6 +102,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launches counted; 20 card steps run twice and bit-identical and within
    1e-4 relative of the CPU; 20 steps enqueued behind device spins (four
    groups of 5); the step's device time beside the linear ELL step's.
+11. data parallelism through ``dmlc_tpu_torch.parallel``: (a) in a child
+   process, a process group of one NCCL rank (``init_process_group`` is
+   called here, as ``init_from_env`` skips a one-worker job) ->
+   ``make_mesh()`` -> the ELL main path with ``mesh=``: one epoch and an
+   accuracy pass (above 0.9; K1 launched once a margin, ``dw`` once a
+   step), the first 20 steps bit-equal to the non-mesh learner's on the
+   same batches, 20 mesh steps enqueued behind device spins (groups of
+   10), the mesh step's device time beside the plain step's; (b) two NCCL
+   ranks tried on the one card with a 60 s timeout (the refusal or the
+   hang recorded), then two gloo ranks on it
+   (``init_from_env(backend="gloo")``), twice: 20 ELL ``LinearLearner`` and
+   ``FMLearner`` steps at 8192 rows a rank and one ALS epoch at phase 9's
+   size with the item solve, against the card's one-process run on the
+   same global batches (losses and parameters within 1e-5, items within
+   rtol 1e-4 / atol 1e-5), the parameters bit-identical across the ranks
+   and the two runs, and ``sync_min`` capping an epoch over uneven
+   shards. gloo stages CUDA collectives through the host, so its rows/s
+   is a gloo-on-one-card figure, and the spin check is (a)'s; (c) the
+   port's dry run ``dmlc_tpu_torch.entry.dryrun_multichip(2)`` on the card,
+   its default (gloo, as the two ranks share one card): the one-step legs
+   and a 20-step trajectory within 1e-4 of the one-process run, falling.
 
 The ``torch.profiler`` windows run last, the decode's first: the steps'
 windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
@@ -109,8 +130,8 @@ bcoo step's (``bcoo_step_profile``, device time by kernel), the ALS and
 FM steps' (``step_profile``: device events and time by kernel a step), and
 how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6 and 7; the row scatter's on phases 9 and
-10), the card's name and power limit as
+the main paths of phases 3, 6, 7 and 11; the row scatter's on phases 9,
+10 and 11), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -1951,12 +1972,416 @@ def run_fm(path: str, device, layout: str, steps: int = 20) -> dict:
     return {**out, "row_scatter_launches_needed": need, "step_fn": lambda: m_a.step(batch)}
 
 
+# ---------------- phase 11: data parallelism ----------------
+
+PAR = {"steps": 20, "ranks": 2, "child_timeout": 300, "nccl_timeout": 60,
+       "uneven_rows": 4096}
+
+
+def _par_ell(path: str, mesh, part: int, parts: int, device=None):
+    """(learner, DeviceIter) of the ELL path on one rank's part (a mesh's
+    device), or on ``device`` without a mesh."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, mesh=mesh, device=device)
+    it = DeviceIter(create_parser(path, part, parts, "libsvm"), num_col=model.device_num_col(),
+                    batch_size=BATCH, layout="ell", max_nnz=HIGGS_COLS, drop_remainder=True,
+                    mesh=mesh, shardings=model.batch_shardings(), device=device)
+    return model, it
+
+
+def _first_batches(it, n: int) -> list:
+    """The iterator's first ``n`` batches, copied, so a timed loop steps
+    and does not parse; the iterator is closed."""
+    from dmlc_tpu_torch.ops.sparse import EllBatch
+
+    out = [EllBatch(*(t.clone() for t in b)) for _, b in zip(range(n), it)]
+    it.close()
+    return out
+
+
+def _bits(tensors) -> str:
+    import hashlib
+
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                   for t in tensors)).hexdigest()
+
+
+def parallel_world1_child(path: str, out: str) -> None:
+    """Leg (a), in a process of its own: a process group of one rank.
+    ``init_from_env`` skips a one-worker job, as the JAX package does, so
+    this calls ``init_process_group`` itself; the learner's collectives are
+    issued all the same. The HIGGS-shaped main path with ``mesh=``: one
+    epoch and an accuracy pass with K1's and ``dw``'s launches counted; the
+    first 20 steps against the non-mesh learner on the same batches, bit
+    for bit; 20 mesh steps enqueued behind a device spin; the mesh step's
+    and the plain step's device time."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from dmlc_tpu_torch import LinearLearner
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.parallel import make_mesh
+    from dmlc_tpu_torch.parallel.launch import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, timeout=timedelta(seconds=60))
+    mesh = make_mesh()
+    model, it = _par_ell(path, mesh, 0, 1)
+    k1.launches = k1.dw_launches = 0
+    t0 = time.monotonic()
+    loss, nb = model.fit_epoch(it)
+    fit_s = time.monotonic() - t0
+    acc = model.accuracy(it)
+    launches, dw_launches = k1.launches, k1.dw_launches
+    it.close()
+    batches = _first_batches(_par_ell(path, None, 0, 1, device=mesh.device)[1], PAR["steps"])
+    plain = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=mesh.device)
+    meshed = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, mesh=mesh)
+    plain_losses = torch.stack([plain.step(b) for b in batches])
+    mesh_losses = torch.stack([meshed.step(b) for b in batches])
+    rec = {"phase": "parallel_world1", "backend": dist.get_backend(), "loss": loss,
+           "batches": nb, "fit_s": fit_s, "rows_per_s": nb * BATCH / fit_s, "accuracy": acc,
+           "k1_launches": launches, "k1_launches_needed": 2 * nb, "dw_launches": dw_launches,
+           "dw_launches_needed": nb,
+           "first_losses_bit_equal_to_plain": torch.equal(plain_losses, mesh_losses),
+           "params_bit_equal_to_plain": all(torch.equal(p, q) for p, q in
+                                            zip(plain.params, meshed.params))}
+    batch = batches[0]
+    torch.cuda.synchronize()
+    # a step's launches and its two all-reduces: groups of 10 stay well
+    # inside the card's launch queue
+    rec["step_enqueue_behind_spin"] = enqueue_behind_spin(lambda: meshed.step(batch), group=10)
+    rec["mesh_step_device_ms"] = device_ms(lambda: meshed.step(batch), iters=10)
+    rec["plain_step_device_ms"] = device_ms(lambda: plain.step(batch), iters=10)
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def parallel_nccl_pair_child(out_dir: str) -> None:
+    """Two NCCL ranks on one card: the job's rendezvous and one
+    all-reduce. NCCL is expected to refuse two ranks on one device."""
+    from datetime import timedelta
+
+    import torch
+
+    from dmlc_tpu_torch.parallel import init_from_env, make_mesh
+
+    contract = init_from_env(timeout=timedelta(seconds=PAR["nccl_timeout"]))
+    t = make_mesh().all_reduce_(torch.ones(4, device="cuda"))
+    torch.cuda.synchronize()
+    with open(os.path.join(out_dir, f"nccl_{contract.task_id}.json"), "w") as f:
+        json.dump({"sum": t.tolist()}, f)
+    torch.distributed.destroy_process_group()
+
+
+def parallel_pair_child(cfg_path: str) -> None:
+    """Leg (b), one of two ranks sharing the card through gloo (named: the
+    card's default, NCCL, refuses two ranks on one device). On this rank's
+    parts: 20 ELL ``LinearLearner`` and ``FMLearner`` steps, one ALS epoch
+    with the item solve, and ``sync_min`` over uneven shards, with K1's,
+    ``dw``'s and the row scatter's launches counted."""
+    from datetime import timedelta
+
+    import torch
+
+    from dmlc_tpu_torch import AlsLearner, DeviceIter, FMLearner, LinearLearner, create_parser
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.ops import row_scatter as rs
+    from dmlc_tpu_torch.parallel import host_shard_info, init_from_env, make_mesh, sync_min
+
+    cfg = json.load(open(cfg_path))
+    init_from_env(backend="gloo", device=cfg["device"], timeout=timedelta(seconds=120))
+    mesh = make_mesh(devices=cfg["device"])
+    rank, world = host_shard_info()
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    k1.launches = k1.dw_launches = rs.launches = 0
+
+    model, it = _par_ell(cfg["higgs"], mesh, rank, world)
+    batches = _first_batches(it, PAR["steps"])
+    # every rank steps as often (a shorter shard would leave its peer waiting)
+    if len(batches) != PAR["steps"]:
+        raise AssertionError(f"rank {rank}: {len(batches)} batches, {PAR['steps']} needed")
+    sync()
+    t0 = time.monotonic()
+    losses = torch.stack([model.step(b) for b in batches])
+    sync()
+    secs = time.monotonic() - t0
+    out["linear"] = {"losses": losses.tolist(), "bits": _bits(model.params),
+                     "global_rows_per_s": len(batches) * BATCH * world / secs}
+    fm = FMLearner(HIGGS_COLS, num_factors=8, layout="ell", learning_rate=0.05, seed=0,
+                   mesh=mesh)
+    fm_losses = torch.stack([fm.step(b) for b in batches])
+    out["fm"] = {"losses": fm_losses.tolist(), "bits": _bits(fm.params)}
+
+    als = AlsLearner(ALS["users"], ALS["items"], num_factors=ALS["factors"], reg=ALS["reg"],
+                     seed=0, mesh=mesh)
+    parser = create_parser(cfg["ratings"], rank, world, "libsvm", threaded=False,
+                           chunk_bytes=ALS["chunk_bytes"])
+    per_epoch = sync_min(sum(len(b) for b in parser) // ALS["batch"])
+    parser.close()
+    it = DeviceIter(create_parser(cfg["ratings"], rank, world, "libsvm",
+                                  chunk_bytes=ALS["chunk_bytes"]),
+                    num_col=als.device_num_col(), batch_size=ALS["batch"], layout="ell",
+                    max_nnz=ALS["per_row"], drop_remainder=True, mesh=mesh,
+                    shardings=als.batch_shardings())
+    als_loss, als_nb = als.fit_epoch(it, max_steps=per_epoch)
+    it.close()
+    out["als"] = {"loss": als_loss, "batches": als_nb, "bits": _bits(als.params)}
+    out["launches"] = {"k1": k1.launches, "dw": k1.dw_launches, "row_scatter": rs.launches}
+
+    parser = create_parser(cfg["uneven"], rank, world, "libsvm", threaded=False)
+    local = sum(len(b) for b in parser) // 64
+    parser.close()
+    cap = sync_min(local)
+    dense = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, mesh=mesh)
+    it = DeviceIter(create_parser(cfg["uneven"], rank, world, "libsvm"),
+                    num_col=dense.device_num_col(), batch_size=64, drop_remainder=True,
+                    mesh=mesh, shardings=dense.batch_shardings())
+    _, nb = dense.fit_epoch(it, max_steps=cap)
+    it.close()
+    out["uneven"] = {"local": local, "cap": cap, "steps": nb}
+    if rank == 0:
+        torch.save({"linear": [p.detach().cpu() for p in model.params],
+                    "fm": [p.detach().cpu() for p in fm.params],
+                    "items": als.params.items.cpu()},
+                   os.path.join(cfg["out"], "params.pt"))
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def write_uneven_corpus(path: str, rows: int, seed: int) -> None:
+    """Long rows first (28 features), short ones after (2): byte-range
+    shards hold unequal row counts."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(rows):
+            x = rng.normal(size=HIGGS_COLS)
+            cols = range(HIGGS_COLS) if i < rows // 2 else (0, 1)
+            f.write(f"{int(x[0] + x[1] > 0)} "
+                    + " ".join(f"{j}:{x[j]:.6f}" for j in cols) + "\n")
+
+
+def _world1_reference(cfg: dict, device) -> dict:
+    """The card's one-process run on the pair's global batches (each the
+    two ranks' batches concatenated in rank order): the linear and FM
+    losses and parameters after 20 steps, and the ALS items after one
+    epoch and its item solve."""
+    import torch
+
+    from dmlc_tpu_torch import AlsLearner, DeviceIter, FMLearner, LinearLearner, create_parser
+    from dmlc_tpu_torch.ops.sparse import EllBatch
+
+    def cat(parts):
+        return [EllBatch(*(torch.cat(ts) for ts in zip(*group))) for group in zip(*parts)]
+
+    world = PAR["ranks"]
+    batches = cat([_first_batches(_par_ell(cfg["higgs"], None, r, world, device)[1],
+                                  PAR["steps"]) for r in range(world)])
+    model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    losses = torch.stack([model.step(b) for b in batches])
+    fm = FMLearner(HIGGS_COLS, num_factors=8, layout="ell", learning_rate=0.05, seed=0,
+                   device=device)
+    fm_losses = torch.stack([fm.step(b) for b in batches])
+    parts = []
+    for r in range(world):
+        it = DeviceIter(create_parser(cfg["ratings"], r, world, "libsvm",
+                                      chunk_bytes=ALS["chunk_bytes"]),
+                        num_col=ALS["items"], batch_size=ALS["batch"], layout="ell",
+                        max_nnz=ALS["per_row"], drop_remainder=True, device=device)
+        parts.append([EllBatch(*(t.clone() for t in b)) for b in it])
+        it.close()
+    als = AlsLearner(ALS["users"], ALS["items"], num_factors=ALS["factors"], reg=ALS["reg"],
+                     seed=0, device=device)
+    als_batches = cat(parts)
+    for b in als_batches:
+        als.step(b)
+    als.finalize_items()
+    return {"linear": (losses.cpu(), [p.detach().cpu() for p in model.params]),
+            "fm": (fm_losses.cpu(), [p.detach().cpu() for p in fm.params]),
+            "items": als.params.items.cpu(), "als_batches": len(als_batches)}
+
+
+def _run_pair(cfg: dict, tmp: str, name: str):
+    """Leg (b)'s two gloo ranks, once: their JSON records and their
+    output directory."""
+    from dmlc_tpu_torch.parallel.launch import run_local
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "cfg.json")
+    with open(path, "w") as f:
+        json.dump({**cfg, "out": out}, f)
+    run_local([sys.executable, os.path.abspath(__file__), "--parallel-child", "pair", path],
+              PAR["ranks"], timeout=PAR["child_timeout"])
+    return ([json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(PAR["ranks"])],
+            out)
+
+
+def run_parallel(path: str, ratings: str, tmp: str, device, seed: int) -> dict:
+    """Phase 11: data parallelism through ``dmlc_tpu_torch.parallel``.
+    (a) a process group of one NCCL rank in a child process; (b) two
+    NCCL ranks tried on the one card (refusal or hang recorded), then two
+    gloo ranks on it, twice, against the card's one-process run on the
+    same global batches; (c) the dry-run entry point on the card. gloo
+    stages its collectives through the host, so the spin check is leg
+    (a)'s alone."""
+    import torch
+
+    from dmlc_tpu_torch.parallel.launch import run_local
+
+    res = {}
+    out = os.path.join(tmp, "world1.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--parallel-child",
+                           "world1", path, out], capture_output=True, text=True,
+                          timeout=PAR["child_timeout"])
+    if proc.returncode != 0:
+        raise AssertionError(f"parallel leg (a) failed: {proc.stderr[-3000:]}")
+    a = json.load(open(out))
+    emit(a)
+    check_world1(a)
+    res["world1"] = a
+
+
+    nccl_dir = os.path.join(tmp, "nccl_pair")
+    os.makedirs(nccl_dir, exist_ok=True)
+    t0 = time.monotonic()
+    try:
+        runs = run_local([sys.executable, os.path.abspath(__file__), "--parallel-child",
+                          "nccl_pair", nccl_dir], PAR["ranks"], timeout=PAR["nccl_timeout"],
+                         check=False)
+        failed = [r for r in runs if r.returncode != 0]
+        nccl = {"outcome": "refused" if failed else "ran",
+                "message": "" if not failed else failed[0].stderr.strip()[-600:]}
+    except TimeoutError as exc:
+        nccl = {"outcome": "hung", "message": str(exc)[-600:]}
+    nccl["seconds"] = time.monotonic() - t0
+    emit({"phase": "parallel_nccl_pair", **nccl})
+    res["nccl_pair"] = nccl
+
+    cfg = {"higgs": path, "ratings": ratings, "uneven": os.path.join(tmp, "uneven.libsvm"),
+           "device": str(device)}
+    write_uneven_corpus(cfg["uneven"], PAR["uneven_rows"], seed)
+    t0 = time.monotonic()
+    run1, out1 = _run_pair(cfg, tmp, "pair1")
+    pair_s = time.monotonic() - t0
+    run2, out2 = _run_pair(cfg, tmp, "pair2")
+    rec = check_pair(run1, run2, _world1_reference(cfg, device), out1)
+    rec["pair_run_s"] = pair_s
+    emit(rec)
+    res["pair"] = rec
+
+    # (c) the port's dry-run entry point as a user calls it: on the card by
+    # default; two ranks share this one card, so it names gloo
+    from dmlc_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.monotonic()
+    dry = dryrun_multichip(PAR["ranks"], timeout=PAR["child_timeout"])
+    dry = {"phase": "parallel_dryrun", "ranks": PAR["ranks"], "backend": dry["backend"],
+           "legs": dry["legs"], "first_loss": dry["trajectory"][0],
+           "last_loss": dry["trajectory"][-1],
+           "max_abs_diff_vs_single_process": float(np.max(np.abs(
+               np.array(dry["trajectory"]) - np.array(dry["single_process"])))),
+           "seconds": time.monotonic() - t0}
+    emit(dry)
+    if dry["backend"] != ("nccl" if torch.cuda.device_count() >= PAR["ranks"] else "gloo"):
+        raise AssertionError(f"parallel leg (c): unexpected backend: {dry}")
+    res["dryrun"] = dry
+    return res
+
+
+def check_world1(a: dict) -> None:
+    """Leg (a)'s gates."""
+    problems = []
+    if not a["accuracy"] > 0.9:
+        problems.append("accuracy <= 0.9")
+    if (a["k1_launches"], a["dw_launches"]) != (a["k1_launches_needed"], a["dw_launches_needed"]):
+        problems.append("K1 or dw launched other than once a margin / a step")
+    if not (a["first_losses_bit_equal_to_plain"] and a["params_bit_equal_to_plain"]):
+        problems.append("the world-1 mesh steps differ from the plain steps' bits")
+    if not a["step_enqueue_behind_spin"]["no_host_sync"]:
+        problems.append("a mesh step waited for the device")
+    if problems:
+        raise AssertionError(f"parallel leg (a): {problems}: {a}")
+
+
+def check_pair(run1: list, run2: list, ref: dict, out1: str) -> dict:
+    """Leg (b)'s record and gates: the pair's two runs against each other
+    and against the one-process run ``ref``."""
+    import torch
+
+    got = torch.load(os.path.join(out1, "params.pt"))
+    rec = {"phase": "parallel_pair", "backend": run1[0]["backend"], "ranks": PAR["ranks"],
+           "gloo_one_card_global_rows_per_s": run1[0]["linear"]["global_rows_per_s"],
+           "note": "gloo stages CUDA collectives through the host: rows/s is a gloo-on-"
+                   "one-card figure, not a scaling number; no spin check here"}
+    for leg in ("linear", "fm"):
+        losses = np.array(run1[0][leg]["losses"])
+        want, want_params = ref[leg]
+        rec[f"{leg}_max_rel_diff_vs_world1"] = float(np.max(
+            np.abs(losses - want.numpy()) / np.maximum(np.abs(want.numpy()), 1e-12)))
+        rec[f"{leg}_params_max_abs_diff_vs_world1"] = max(
+            float((g - w).abs().max()) for g, w in zip(got[leg], want_params))
+        rec[f"{leg}_bits_equal_across_ranks"] = len({r[leg]["bits"] for r in run1}) == 1
+        rec[f"{leg}_bits_equal_across_runs"] = (
+            [r[leg]["bits"] for r in run1] == [r[leg]["bits"] for r in run2]
+            and run1[0][leg]["losses"] == run2[0][leg]["losses"])
+    items_diff = (got["items"] - ref["items"]).abs()
+    rec["als_items_max_abs_diff_vs_world1"] = float(items_diff.max())
+    rec["als_items_within_tol"] = bool((items_diff <= 1e-5 + 1e-4 * ref["items"].abs()).all())
+    rec["als_batches"] = [r["als"]["batches"] for r in run1]
+    rec["als_bits_equal_across_ranks_and_runs"] = len(
+        {r["als"]["bits"] for r in run1 + run2}) == 1
+    rec["uneven"] = [r["uneven"] for r in run1]
+    rec["launches"] = {k: sum(r["launches"][k] for r in run1) for k in run1[0]["launches"]}
+    problems = []
+    for leg in ("linear", "fm"):
+        if not (rec[f"{leg}_max_rel_diff_vs_world1"] <= 1e-5
+                and rec[f"{leg}_params_max_abs_diff_vs_world1"] <= 1e-5):
+            problems.append(f"{leg}: the pair differs from the one-process run")
+        if not (rec[f"{leg}_bits_equal_across_ranks"] and rec[f"{leg}_bits_equal_across_runs"]):
+            problems.append(f"{leg}: bits differ across ranks or runs")
+    if not (rec["als_items_within_tol"] and rec["als_bits_equal_across_ranks_and_runs"]
+            and rec["als_batches"] == [ref["als_batches"]] * PAR["ranks"]):
+        problems.append("als: the pair's items differ from the one-process run's")
+    locals_ = [u["local"] for u in rec["uneven"]]
+    if not (len(set(locals_)) > 1
+            and all(u["cap"] == u["steps"] == min(locals_) for u in rec["uneven"])):
+        problems.append("sync_min did not cap the uneven shards' epochs")
+    steps = PAR["steps"] * PAR["ranks"]
+    if (rec["launches"]["k1"], rec["launches"]["dw"]) != (steps, steps):
+        problems.append("K1 or dw launched other than once a step on each rank")
+    if problems:
+        emit(rec)
+        raise AssertionError(f"parallel leg (b): {problems}: {rec}")
+    return rec
+
+
+def parallel_child(argv: list) -> int:
+    """``chip_smoke.py --parallel-child KIND ARGS...``: one process of
+    phase 11."""
+    kind = argv[0]
+    if kind == "world1":
+        parallel_world1_child(*argv[1:])
+    elif kind == "nccl_pair":
+        parallel_nccl_pair_child(*argv[1:])
+    else:
+        parallel_pair_child(*argv[1:])
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: phases 2 and 5 also time its "
                          "K1 and its K2 route beside this one's, in turns")
+    ap.add_argument("--parallel-child", nargs="+", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1965,6 +2390,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.parallel_child:
+        return parallel_child(args.parallel_child)
     from dmlc_tpu_torch.ops import device_decode as dd
     from dmlc_tpu_torch.ops import ell_matvec as k1
 
@@ -2059,6 +2486,10 @@ def main() -> int:
         fm = {layout: run_fm(path, dev, layout) for layout in FM_EPOCHS}
         emit({"phase": "fm_vs_linear", "fm_step_device_ms": {
             k: v["step_device_ms"] for k, v in fm.items()}})
+        # phase 11: data parallelism, its launches counted in its children
+        par = run_parallel(path, ratings, tmp, dev, args.seed)
+        par_k1 = par["world1"]["k1_launches"] + par["pair"]["launches"]["k1"]
+        par_dw = par["world1"]["dw_launches"] + par["pair"]["launches"]["dw"]
         # the profiler's windows: the decode's first (a window opened after
         # others has recorded nothing now and then), then the steps'
         emit(profile_decodes({p: snaps[p] for p in ("warm_dense_bfloat16", "warm_dense_q8")},
@@ -2092,7 +2523,7 @@ def main() -> int:
         "name": "ell_matvec", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:122",
-        "launches": launches + warm_ell["k1_launches"] + ckpt_k1,
+        "launches": launches + warm_ell["k1_launches"] + ckpt_k1 + par_k1,
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2100,7 +2531,7 @@ def main() -> int:
         "name": "ell_matvec_dw", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec_dw.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:191",
-        "launches": dw_launches + warm_ell["dw_launches"] + ckpt_dw,
+        "launches": dw_launches + warm_ell["dw_launches"] + ckpt_dw + par_dw,
         "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
                            if r["dw_route"] == "cuda"),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
@@ -2119,7 +2550,8 @@ def main() -> int:
         "source": "dmlc_tpu_torch/csrc/row_scatter.cu",
         "replaces": "dmlc_tpu/models/als.py:169",
         "launches": als["row_scatter_launches"] + sum(
-            v["row_scatter_launches"] for v in fm.values()),
+            v["row_scatter_launches"] for v in fm.values())
+        + par["pair"]["launches"]["row_scatter"],
         "max_abs_err": max([r["row_scatter"]["max_abs_diff_vs_plain"] for r in rs_rows]
                            + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
         "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],

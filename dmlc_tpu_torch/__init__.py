@@ -13,7 +13,11 @@ to a snapshot file and later epochs serve them from it; with
 ``DeviceIter(device_decode=True)`` each served batch crosses as raw bytes
 and is decoded on the card in one launch of ``csrc/widen_span.cu``. The
 ``AlsLearner`` and ``FMLearner`` train on the same ``DeviceIter``; every
-row scatter-add of their steps gives the same bits on every run.
+row scatter-add of their steps gives the same bits on every run. With
+``mesh=`` (:mod:`dmlc_tpu_torch.parallel`, on ``torch.distributed``:
+``init_from_env`` from the DMLC_* contract, ``make_mesh``, ``sync_min``)
+the three learners train data-parallel with the JAX package's
+global-batch semantics.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card the default raises ``DMLCError``.

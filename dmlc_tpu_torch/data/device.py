@@ -91,9 +91,19 @@ coalesce (a host sync) on the card. ``nnz_shapes`` collects the nnz
 capacities the delivered spans had. Snapshots store fixed shapes only and
 refuse bcoo.
 
+**Meshes.** With ``mesh=`` (:mod:`dmlc_tpu_torch.parallel`) this rank's
+pipeline feeds its slice of each global batch: ``batch_size`` is the
+rank's own row count, batches land on the mesh's device for this rank,
+and the global batch is the ranks' batches concatenated in rank order (the
+JAX package's ``make_array_from_process_local_data`` layout). As there,
+bcoo and snapshots are refused under a mesh, and dense batches ship
+unpacked (``pack_aux`` off). ``shardings`` (a learner's
+``batch_shardings()``) must split every array's rows over the data axis.
+
 On a CPU device the same pipeline runs without pinning, streams or events
 (the copy is synchronous). Not ported yet: the block cache, snapshot plan
-order (``snapshot_shuffle_seed``), mesh placement and autotuning.
+order (``snapshot_shuffle_seed``), feature-sharded placement and
+autotuning.
 """
 
 from __future__ import annotations
@@ -106,7 +116,6 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
-from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.data.row_block import RowBlock, RowBlockContainer
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io import snapshot as _snapshot
@@ -115,6 +124,7 @@ from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.ops import device_decode as _device_decode
 from dmlc_tpu_torch.ops.device_decode import PackedDenseBatch  # noqa: F401 (re-exported)
 from dmlc_tpu_torch.ops.sparse import block_to_bcoo_host, block_to_dense, block_to_ell
+from dmlc_tpu_torch.parallel.mesh import rank_device
 from dmlc_tpu_torch.utils import knobs as _knobs
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
 from dmlc_tpu_torch.utils.timer import get_time
@@ -279,7 +289,9 @@ class DeviceIter:
     ``DMLC_TPU_PREFETCH`` (default 2) and ``DMLC_TPU_DEVICE_DECODE``
     (:mod:`dmlc_tpu_torch.utils.knobs`). ``device=None`` means
     the CUDA device and raises on a host without one; pass ``device="cpu"``
-    for the CPU.
+    for the CPU. ``mesh`` / ``data_axis`` / ``shardings`` make this the
+    rank's slice of a data-parallel feed (module docstring); the device is
+    then the mesh's.
     """
 
     def __init__(
@@ -289,6 +301,9 @@ class DeviceIter:
         batch_size: Optional[int],
         layout: str = "dense",
         *,
+        mesh=None,
+        data_axis: str = "data",
+        shardings=None,
         max_nnz: Optional[int] = None,
         prefetch: Optional[int] = None,
         drop_remainder: bool = False,
@@ -312,7 +327,15 @@ class DeviceIter:
         check(x_dtype in _X_DTYPES, f"unknown x_dtype {x_dtype!r}")
         check(x_dtype == "float32" or layout == "dense",
               "x_dtype='bfloat16' applies to the dense layout only")
-        self.device = resolve_device(device)
+        check(layout != "bcoo" or (mesh is None and shardings is None),
+              "layout='bcoo' emits single-device batches; mesh/shardings "
+              "sharding is supported for 'dense' and 'ell' only")
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.shardings = tuple(shardings) if shardings is not None else None
+        self.device = rank_device(mesh, device, data_axis=data_axis, who="DeviceIter")
+        if mesh is not None and self.shardings is not None:
+            self._check_shardings(layout)
         self.source = source
         self.num_col = int(num_col)
         self.batch_size = None if batch_size is None else int(batch_size)
@@ -324,9 +347,10 @@ class DeviceIter:
         # aux packing: label/weight as two trailing columns of x, one copy
         # per dense batch. On by default for float32 (always lossless); a
         # bfloat16 pack is checked per batch to be exact
+        # mesh batches ship unpacked, as in the JAX package
         if pack_aux is None:
-            pack_aux = layout == "dense" and x_dtype == "float32"
-        self.pack_aux = bool(pack_aux) and layout == "dense"
+            pack_aux = layout == "dense" and mesh is None and x_dtype == "float32"
+        self.pack_aux = bool(pack_aux) and layout == "dense" and mesh is None
         self._aux_exact_check = self.pack_aux and x_dtype == "bfloat16"
         # bcoo shape buckets (the JAX package's derivation)
         if nnz_bucket is None:
@@ -348,6 +372,9 @@ class DeviceIter:
         self._snap_sig = snapshot_signature
         self._snap_quant = snapshot_quant
         self.device_decode = _knobs.device_decode(device_decode)
+        check(snapshot is None or (mesh is None and shardings is None),
+              "snapshot= serves single-put batches; mesh/shardings "
+              "pipelines are not snapshot-servable")
         check(snapshot is None or layout != "bcoo",
               "snapshot v1 stores fixed-geometry batches: layout 'dense' or "
               "'ell', not 'bcoo'")
@@ -393,6 +420,19 @@ class DeviceIter:
         self._ring: Optional[_StagingRing] = None  # the current producer's
         self._host: Optional[ThreadedIter] = None  # cold convert or warm read
         self._inflight: deque = deque()
+
+    def _check_shardings(self, layout: str) -> None:
+        """A learner's ``batch_shardings()`` must split every array of a
+        batch by rows over this mesh's data axis, and nothing else."""
+        want = 4 if layout == "ell" else 3
+        rows_split = all(
+            getattr(sh, "mesh", None) is self.mesh and len(sh.spec) >= 1
+            and sh.spec[0] == self.data_axis and not any(sh.spec[1:])
+            for sh in self.shardings)
+        check(len(self.shardings) == want and rows_split,
+              f"DeviceIter: shardings must be {want} row splits over the mesh's "
+              f"{self.data_axis!r} axis (a learner's batch_shardings()), got "
+              f"{self.shardings}")
 
     # ---------------- staging ----------------
 

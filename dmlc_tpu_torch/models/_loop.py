@@ -14,8 +14,17 @@ Copy of the JAX package's ``models/_loop.py`` contracts in PyTorch idiom:
   reset the iterator, as the JAX package's loop does: the SPMD contract in
   which every process runs the same number of steps an epoch.
 
+**Data parallelism** (``mesh=``): each rank steps on its slice of the
+global batch, and the learner keeps the JAX package's global-batch
+semantics with collectives of its own (:meth:`TrainLoopMixin.
+_global_mean_backward`): the loss is the weighted mean over the global
+batch on every rank, and the parameters stay replicated. ``accuracy``
+reduces its two partials over the ranks once, at the end of the pass,
+before its two host syncs.
+
 Learners provide ``_step(batch) -> loss``, ``_margin(batch) -> (margin,
-label, weight)`` and ``_pred_from_margin(margin)``.
+label, weight)``, ``_pred_from_margin(margin)``, ``layout``, ``mesh`` (None
+on one device) and ``data_axis``.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from typing import Tuple
 
 import torch
 
+from dmlc_tpu_torch.ops.sparse import EllBatch
+from dmlc_tpu_torch.parallel.mesh import Sharding
 from dmlc_tpu_torch.utils.timer import get_time
 
 
@@ -43,6 +54,46 @@ class TrainLoopMixin:
         margin, label, weight = self._margin(batch)
         pred = self._pred_from_margin(margin)
         return ((pred == label) * weight).sum(), weight.sum()
+
+    def batch_shardings(self):
+        """Batch placement for a DeviceIter feeding this learner (None
+        without a mesh): every array's rows split over the data axis."""
+        if self.mesh is None:
+            return None
+        row = Sharding(self.mesh, (self.data_axis, None))
+        vec = Sharding(self.mesh, (self.data_axis,))
+        if self.layout == "ell":
+            return EllBatch(indices=row, values=row, label=vec, weight=vec)
+        return (row, vec, vec)
+
+    def _sum_over_ranks(self, *parts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Device scalars summed over the mesh's ranks in one all-reduce;
+        as given without a mesh."""
+        if self.mesh is None:
+            return parts
+        return self.mesh.all_reduce_(torch.stack(parts)).unbind()
+
+    def _global_mean_backward(self, num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+        """Gradients of the (global) batch's weighted mean loss.
+
+        ``num`` is this rank's ``Σ per·w`` (with its graph) and ``den`` its
+        ``Σ w``. On a mesh, one 2-word SUM all-reduce gives the global
+        ``[S, D]``; this rank backpropagates ``num / max(D, 1)``; one SUM
+        all-reduce of every parameter's gradient, flat, sums them into the
+        global gradient. Not ``DistributedDataParallel``, which averages
+        the ranks' own means: that differs from the global weighted mean
+        whenever the ranks' weight sums differ (weighted rows, a short
+        last batch). Without a mesh there is no collective. Returns the
+        loss ``S / max(D, 1)``, a device scalar; no host sync."""
+        s, d = self._sum_over_ranks(num.detach(), den.detach())
+        total = torch.clamp(d, min=1.0)
+        (num / total).backward()
+        if self.mesh is not None:
+            params = list(self.params)
+            flat = self.mesh.all_reduce_(torch.cat([p.grad.reshape(-1) for p in params]))
+            for p, g in zip(params, flat.split([p.numel() for p in params])):
+                p.grad.copy_(g.view_as(p))
+        return s / total
 
     def fit_epoch(self, device_iter, max_steps=None) -> Tuple[float, int]:
         """One pass over a DeviceIter, at most ``max_steps`` batches;
@@ -69,8 +120,8 @@ class TrainLoopMixin:
 
     def accuracy(self, device_iter, max_steps=None) -> float:
         """Weighted accuracy over one pass (at most ``max_steps`` batches),
-        reduced on the device; the two :func:`host_scalar` calls at the end
-        are the pass's only syncs."""
+        reduced on the device (and, on a mesh, over the ranks once at the
+        end); the two :func:`host_scalar` calls are the pass's only syncs."""
         correct, total = None, None
         n = 0
         for batch in device_iter:
@@ -81,6 +132,17 @@ class TrainLoopMixin:
             if max_steps is not None and n >= max_steps:
                 break
         device_iter.reset()
+        return self._pass_ratio(n, correct, total)
+
+    def _pass_ratio(self, n: int, a, b) -> float:
+        """A pass's ``Σa / max(Σb, 1)`` from its two partial sums over
+        ``n`` batches, summed over the ranks in one all-reduce on a mesh;
+        the two :func:`host_scalar` calls are the pass's only syncs. A
+        rank that saw no batch adds zeros (it takes part all the same, or
+        its peers would wait for it)."""
         if n == 0:
-            return 0.0
-        return host_scalar(correct) / max(host_scalar(total), 1.0)
+            if self.mesh is None:
+                return 0.0
+            a = b = torch.zeros((), device=self.device)
+        a, b = self._sum_over_ranks(a, b)
+        return host_scalar(a) / max(host_scalar(b), 1.0)

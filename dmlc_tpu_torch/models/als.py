@@ -1,7 +1,6 @@
 """Alternating least squares fed by ``DeviceIter`` (ELL batches).
 
-The PyTorch counterpart of the JAX package's ``models/als.py`` on one
-device (no mesh yet):
+The PyTorch counterpart of the JAX package's ``models/als.py``:
 
 - **Data.** Each corpus row is one user's ratings in libsvm form: the
   label carries the user id, the ``item:rating`` features the observed
@@ -32,6 +31,25 @@ checkpoint (:meth:`state_dict` with ``DeviceIter.state_dict()``) replays
 the loss stream byte for byte. Host syncs: one per ``fit_epoch``, none in
 ``finalize_items``, two per ``eval_loss``.
 
+**Data parallelism** (``mesh=``): each rank solves the users of its slice
+of the global batch, and every table stays replicated after every step,
+as in the JAX package:
+
+- the users: each rank's ``(uid, u)`` rows are gathered to every rank in
+  rank order by one SUM all-reduce of a zeroed ``[world, B, 1 + F]``
+  float64 buffer in which each rank fills its own slot (exact: ids below
+  2**53, float32 factors, sums with zeros; one collective every backend
+  takes on every device), then ``index_copy_`` on every rank — so every
+  rank's batches must hold the same row count (``drop_remainder=True``);
+- the normal equations: the step's rows are scattered by the row-scatter
+  kernel into a fresh ``[D+1, F*F+F]`` buffer (``row_scatter_add``, zero
+  where no entry lands), which is SUM all-reduced and added to the
+  accumulator;
+- the loss: ``[Σ err²·w, Σ w]`` all-reduced, the global weighted MSE.
+
+``finalize_items`` then solves the same equations on every rank, and any
+rank's ``state_dict`` is the global state (no collective).
+
 The JAX package's ``jax.random`` init cannot be reproduced here: the item
 table starts from ``torch.Generator(device).manual_seed(seed)``, and a
 parity run loads the reference's initial state through
@@ -45,11 +63,10 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from dmlc_tpu_torch._device import resolve_device
-from dmlc_tpu_torch.models import _loop
 from dmlc_tpu_torch.models._loop import TrainLoopMixin
 from dmlc_tpu_torch.ops.ell_matvec import ell_matvec_auto
-from dmlc_tpu_torch.ops.row_scatter import row_scatter_add_
+from dmlc_tpu_torch.ops.row_scatter import row_scatter_add, row_scatter_add_
+from dmlc_tpu_torch.parallel.mesh import rank_device
 from dmlc_tpu_torch.utils.check import check
 
 STATE_KEYS = ("users", "items", "gram", "rhs")
@@ -70,14 +87,20 @@ class AlsLearner(TrainLoopMixin):
     (``DeviceIter(layout="ell", num_col=model.device_num_col(), ...)``).
     ``fit_epoch`` runs the user sweep and then :meth:`finalize_items`, so
     ``fit(epochs=N)`` runs N alternations. ``device=None`` means the CUDA
-    device and raises on a host without one."""
+    device and raises on a host without one; on a ``mesh``, the mesh's
+    device. ``mesh`` trains data-parallel over ``data_axis`` (module
+    docstring)."""
+
+    layout = "ell"  # the batches it takes
 
     def __init__(self, num_users: int, num_items: int, num_factors: int = 8,
                  reg: float = 0.1, init_scale: float = 0.1, seed: int = 0,
-                 device=None):
+                 mesh=None, data_axis: str = "data", device=None):
         check(num_users > 0 and num_items > 0 and num_factors > 0,
               "AlsLearner: num_users/num_items/num_factors must be positive")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.device = rank_device(mesh, device, data_axis=data_axis, who="AlsLearner")
         self.num_users = num_users
         self.num_items = num_items
         self.num_factors = num_factors
@@ -107,13 +130,40 @@ class AlsLearner(TrainLoopMixin):
         b = ell_matvec_auto(items, batch)            # [B, F]: V_uᵀ r_u
         a = torch.einsum("bkf,bkg->bfg", v_g, v_g) + self._reg_eye
         u = torch.linalg.solve_ex(a, b[..., None])[0][..., 0]   # [B, F]
-        users.index_copy_(0, batch.label.long(), u)
         wk = (idx != self.num_items) * w[:, None]                   # [B, K]
-        row_scatter_add_(self._normal_eq, *self.normal_eq_rows(batch, u, wk))
+        rows = self.normal_eq_rows(batch, u, wk)
         # weighted MSE of the freshly solved rows (pads are exact zeros on
         # both sides, so only the count needs the mask)
         err = torch.einsum("bkf,bf->bk", v_g, u) - vals
-        return torch.dot((err * err).reshape(-1), wk.reshape(-1)) / torch.clamp(wk.sum(), min=1.0)
+        num = torch.dot((err * err).reshape(-1), wk.reshape(-1))
+        users.index_copy_(0, *self._gather_users(batch.label, u))
+        self._add_normal_eq(*rows)
+        num, den = self._sum_over_ranks(num, wk.sum())
+        return num / torch.clamp(den, min=1.0)
+
+    def _add_normal_eq(self, ids: torch.Tensor, rows: torch.Tensor) -> None:
+        """Scatter-add a step's rows into the normal equations: in place
+        without a mesh; on a mesh into a zeroed buffer (zero where no
+        entry lands), summed over the ranks, then added."""
+        if self.mesh is None:
+            row_scatter_add_(self._normal_eq, ids, rows)
+        else:
+            self._normal_eq += self.mesh.all_reduce_(
+                row_scatter_add(self._normal_eq.shape, ids, rows))
+
+    def _gather_users(self, label: torch.Tensor, u: torch.Tensor):
+        """Every rank's ``(uid, u)`` rows of this step, in rank order (this
+        rank's own without a mesh): each rank fills its slot of a zeroed
+        float64 buffer and one SUM all-reduce fills the rest (module
+        docstring)."""
+        if self.mesh is None:
+            return label.long(), u
+        world, (rows, f) = self.mesh.size, u.shape
+        buf = torch.zeros((world, rows, 1 + f), dtype=torch.float64, device=self.device)
+        buf[self.mesh.rank, :, 0] = label
+        buf[self.mesh.rank, :, 1:] = u
+        flat = self.mesh.all_reduce_(buf).view(world * rows, 1 + f)
+        return flat[:, 0].long(), flat[:, 1:].to(u.dtype)
 
     def normal_eq_rows(self, batch, u: torch.Tensor, wk=None):
         """``(ids [B*K], rows [B*K, F*F + F])``: what a step with solved
@@ -157,7 +207,8 @@ class AlsLearner(TrainLoopMixin):
 
     def eval_loss(self, device_iter, max_steps=None) -> float:
         """Weighted MSE over one pass (at most ``max_steps`` batches); the
-        partial sums stay on the device, two host syncs in all."""
+        partial sums stay on the device (on a mesh, reduced over the ranks
+        once at the end), two host syncs in all."""
         se, wsum, n = None, None, 0
         for batch in device_iter:
             s, t = self._eval(batch)
@@ -167,9 +218,7 @@ class AlsLearner(TrainLoopMixin):
             if max_steps is not None and n >= max_steps:
                 break
         device_iter.reset()
-        if n == 0:
-            return 0.0
-        return _loop.host_scalar(se) / max(_loop.host_scalar(wsum), 1.0)
+        return self._pass_ratio(n, se, wsum)
 
     def state_dict(self) -> dict:
         """The whole training state as float32 numpy arrays, under the JAX

@@ -1,7 +1,6 @@
 """Second-order factorization machine fed by ``DeviceIter``.
 
-The PyTorch counterpart of the JAX package's ``models/fm.py`` on one
-device (no mesh yet):
+The PyTorch counterpart of the JAX package's ``models/fm.py``:
 
     margin(x) = w0 + <w, x> + 0.5 * Σ_f [ <V[:, f], x>² - <V[:, f]², x²> ]
 
@@ -21,6 +20,12 @@ Updates are ``torch.optim.Adam(lr=learning_rate)`` by default (β 0.9 /
 ``w[-1]`` and ``V[-1]`` is pinned to 0 after every step with a device
 fill; bcoo batches need no sink (``weight_dim == num_col``).
 
+With ``mesh=`` the dense and ell layouts train data-parallel as
+``LinearLearner`` does (``_loop.TrainLoopMixin._global_mean_backward``:
+the global batch's weighted mean loss, one flat all-reduce of the
+``w0``/``w``/``V`` gradients, the ``l2`` gradient added once after it),
+with Adam run identically on every rank; bcoo raises.
+
 The JAX package's ``jax.random`` init cannot be reproduced: ``V`` starts
 from ``torch.Generator(device).manual_seed(seed)``, and a parity run
 loads the reference's initial parameters through :meth:`FMLearner.set_params`
@@ -34,10 +39,10 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.models._loop import TrainLoopMixin
 from dmlc_tpu_torch.ops.row_scatter import gather_rows
 from dmlc_tpu_torch.ops.sparse import coo_matmul
+from dmlc_tpu_torch.parallel.mesh import rank_device
 from dmlc_tpu_torch.utils.check import check
 
 
@@ -84,18 +89,23 @@ class FMLearner(TrainLoopMixin):
     ``layout`` matches the DeviceIter layout ('dense', 'ell' or 'bcoo').
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer``; None
     means Adam at ``learning_rate``. ``device=None`` means the CUDA device
-    and raises on a host without one."""
+    and raises on a host without one; on a ``mesh``, the mesh's device.
+    ``mesh`` trains data-parallel over ``data_axis``."""
 
     def __init__(self, num_col: int, num_factors: int = 8, objective: str = "logistic",
                  layout: str = "dense",
                  optimizer: Optional[Callable[[list], torch.optim.Optimizer]] = None,
                  learning_rate: float = 0.05, init_scale: float = 0.01, l2: float = 0.0,
-                 seed: int = 0, device=None):
+                 seed: int = 0, mesh=None, data_axis: str = "data", device=None):
         check(layout in ("dense", "ell", "bcoo"), "FMLearner: layout must be dense|ell|bcoo")
+        check(layout != "bcoo" or mesh is None,
+              "layout='bcoo' is single-device (matches DeviceIter bcoo)")
         check(objective in ("logistic", "squared"),
               f"FMLearner: unknown objective {objective!r}")
         check(num_factors >= 1, "FMLearner: num_factors must be >= 1")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.device = rank_device(mesh, device, data_axis=data_axis, who="FMLearner")
         self.num_col = num_col
         self.num_factors = num_factors
         self.objective = objective
@@ -139,22 +149,22 @@ class FMLearner(TrainLoopMixin):
     def _pred_from_margin(self, margin: torch.Tensor) -> torch.Tensor:
         return (margin > 0).to(torch.float32)
 
-    def loss_fn(self, batch) -> torch.Tensor:
-        margin, label, weight = self._margin(batch)
+    def _per_example(self, margin, label) -> torch.Tensor:
         if self.objective == "logistic":
-            per = F.binary_cross_entropy_with_logits(margin, label, reduction="none")
-        else:
-            per = 0.5 * (margin - label) ** 2
-        loss = (per * weight).sum() / torch.clamp(weight.sum(), min=1.0)
-        if self.l2 > 0.0:
-            loss = loss + 0.5 * self.l2 * (torch.sum(self.params.w ** 2)
-                                           + torch.sum(self.params.v ** 2))
-        return loss
+            return F.binary_cross_entropy_with_logits(margin, label, reduction="none")
+        return 0.5 * (margin - label) ** 2
 
     def _step(self, batch) -> torch.Tensor:
         self.opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(batch)
-        loss.backward()
+        margin, label, weight = self._margin(batch)
+        per = self._per_example(margin, label)
+        loss = self._global_mean_backward((per * weight).sum(), weight.sum())
+        if self.l2 > 0.0:
+            # once, after any reduction (the same on every rank)
+            w, v = self.params.w.detach(), self.params.v.detach()
+            loss = loss + 0.5 * self.l2 * (torch.sum(w ** 2) + torch.sum(v ** 2))
+            self.params.w.grad.add_(w, alpha=self.l2)
+            self.params.v.grad.add_(v, alpha=self.l2)
         self.opt.step()
         if self.layout != "bcoo":
             with torch.no_grad():

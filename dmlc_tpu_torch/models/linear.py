@@ -17,6 +17,15 @@ The PyTorch counterpart of the JAX package's ``models/linear.py`` for the
   step the padding sink ``weight[-1]`` is pinned back to 0 so ELL pad
   slots stay inert. bcoo has no sink: ``weight_dim == num_col``, and its
   batches hold their real entries only.
+
+With ``mesh=`` (:mod:`dmlc_tpu_torch.parallel`) the dense and ell layouts
+train data-parallel: each rank steps on its slice of the global batch
+(K1 and its ``dw`` on every rank), the step's loss is the weighted mean
+over the global batch (``_loop.TrainLoopMixin._global_mean_backward``:
+one ``[S, D]`` all-reduce, one flat gradient all-reduce), the ``l2`` term
+and its gradient are added once after the reduction, and every rank runs
+the same optimizer step on the same gradient, so the parameters stay
+replicated. bcoo and feature sharding (``model_axis``) raise.
 """
 
 from __future__ import annotations
@@ -26,9 +35,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.models._loop import TrainLoopMixin
 from dmlc_tpu_torch.ops.ell_matvec import ell_matvec_auto
+from dmlc_tpu_torch.parallel.mesh import rank_device
 from dmlc_tpu_torch.ops.sparse import coo_matmul
 from dmlc_tpu_torch.utils.check import check
 
@@ -38,20 +47,19 @@ class LinearParams(NamedTuple):
     bias: torch.Tensor    # scalar, or [C]
 
 
-def _loss_from_margin(margin, label, weight, objective: str, l2: float,
-                      w: torch.Tensor) -> torch.Tensor:
+def _per_example(margin, label, objective: str) -> torch.Tensor:
     if objective == "logistic":
-        per = F.binary_cross_entropy_with_logits(margin, label, reduction="none")
-    elif objective == "squared":
-        per = 0.5 * (margin - label) ** 2
-    else:  # softmax: margin is [B, C]; labels are class ids in the float label
-        per = F.cross_entropy(margin, label.long(), reduction="none")
-    den = torch.clamp(weight.sum(), min=1.0)
-    loss = (per * weight).sum() / den
-    if l2 > 0.0:
-        # the padding sink is pinned to 0, so it adds nothing here
-        loss = loss + 0.5 * l2 * (w ** 2).sum()
-    return loss
+        return F.binary_cross_entropy_with_logits(margin, label, reduction="none")
+    if objective == "squared":
+        return 0.5 * (margin - label) ** 2
+    # softmax: margin is [B, C]; labels are class ids in the float label
+    return F.cross_entropy(margin, label.long(), reduction="none")
+
+
+def _loss_from_margin(margin, label, weight, objective: str) -> torch.Tensor:
+    """The batch's weighted mean loss, without ``l2``."""
+    per = _per_example(margin, label, objective)
+    return (per * weight).sum() / torch.clamp(weight.sum(), min=1.0)
 
 
 class LinearLearner(TrainLoopMixin):
@@ -61,21 +69,30 @@ class LinearLearner(TrainLoopMixin):
     ``objective='softmax'`` needs ``num_class >= 2``. ``optimizer`` is a
     factory ``params -> torch.optim.Optimizer``; ``None`` means
     ``torch.optim.SGD(lr=learning_rate)``. ``device=None`` means the CUDA
-    device and raises on a host without one.
+    device and raises on a host without one; on a ``mesh``, the mesh's
+    device. ``mesh`` trains data-parallel over ``data_axis`` (module
+    docstring); ``model_axis`` (feature sharding) is not ported yet.
     """
 
     def __init__(self, num_col: int, objective: str = "logistic",
                  layout: str = "dense",
                  optimizer: Optional[Callable[[list], torch.optim.Optimizer]] = None,
-                 learning_rate: float = 0.1, l2: float = 0.0, num_class: int = 1,
-                 device=None):
+                 learning_rate: float = 0.1, l2: float = 0.0, mesh=None,
+                 data_axis: str = "data", model_axis: Optional[str] = None,
+                 num_class: int = 1, device=None):
         check(layout in ("dense", "ell", "bcoo"),
               "LinearLearner: layout must be dense|ell|bcoo")
+        check(layout != "bcoo" or mesh is None,
+              "layout='bcoo' is single-device (matches DeviceIter bcoo)")
         check(objective in ("logistic", "squared", "softmax"),
               f"unknown objective {objective!r}")
         check((objective == "softmax") == (num_class > 1),
               "softmax objective iff num_class > 1")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.device = rank_device(mesh, device, data_axis=data_axis, model_axis=model_axis,
+                                  who="LinearLearner")
         self.num_col = num_col
         self.objective = objective
         self.layout = layout
@@ -123,15 +140,17 @@ class LinearLearner(TrainLoopMixin):
             return margin.argmax(dim=-1).to(torch.float32)
         return (margin > 0).to(torch.float32)
 
-    def loss_fn(self, batch) -> torch.Tensor:
-        margin, label, weight = self._margin(batch)
-        return _loss_from_margin(margin, label, weight, self.objective,
-                                 self.l2, self.params.weight)
-
     def _step(self, batch) -> torch.Tensor:
         self.opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(batch)
-        loss.backward()
+        margin, label, weight = self._margin(batch)
+        per = _per_example(margin, label, self.objective)
+        loss = self._global_mean_backward((per * weight).sum(), weight.sum())
+        if self.l2 > 0.0:
+            # once, after any reduction (the same on every rank); the
+            # padding sink is pinned to 0, so it adds nothing here
+            w = self.params.weight.detach()
+            loss = loss + 0.5 * self.l2 * (w ** 2).sum()
+            self.params.weight.grad.add_(w, alpha=self.l2)
         self.opt.step()
         if self.layout != "bcoo":
             with torch.no_grad():
