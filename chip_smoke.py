@@ -123,6 +123,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    port's dry run ``dmlc_tpu_torch.entry.dryrun_multichip(2)`` on the card,
    its default (gloo, as the two ranks share one card): the one-step legs
    and a 20-step trajectory within 1e-4 of the one-process run, falling.
+12. the block cache and the epoch planner: (a) ``examples/train_als.py``'s
+   local leg at its full size through the port's example
+   (``dmlc_tpu_torch.examples.train_als``): its ``main()`` as a user runs
+   it (the row scatter launched once a step, its restore line and
+   ``OK``), then its pieces: epoch 0 cold and publishing the cache, epochs
+   1-3 warm with ``cache_read`` time and no source byte read, the plan's
+   seed 0 and epoch in ``stats()``, each warm epoch's blocks in
+   ``EpochPlan(0, epoch, n).order``, falling losses, ``restore_check``'s
+   loss tail byte for byte from an ``epoch_plan`` source state, 20 warm
+   steps twice bit-identical, the spin check in groups of 10; (b) phase
+   3's corpus and ELL main path over the block cache with
+   ``shuffle_seed=1``, ``shuffle_window=4096``: a cold and two warm epochs
+   and an accuracy pass (above 0.9; K1 launched once a step and an
+   accuracy batch, ``dw`` once a step), rows/s, stall share, ``cache_read``
+   and convert seconds an epoch, no source byte read warm, the first 20
+   warm steps twice bit-identical, a checkpoint after 37 batches of warm
+   epoch 1 resumed in a fresh pipeline to ``torch.equal`` weights, a byte
+   flipped in a block healed by one rebuild with the stream unchanged, and
+   two ``pod_sharding`` hosts' blocks disjoint with the epoch as union; (c)
+   phase 6's ELL snapshot served with ``device_decode=True`` and
+   ``snapshot_shuffle_seed=2`` for two warm epochs: one K2 launch a warm
+   batch, each batch bit-equal to the stored batch at
+   ``block_permutation(2, epoch, n)[pos]``, and a ``unit="batch"`` state
+   resumed in a fresh pipeline to bit-equal batches and equal weights.
 
 The ``torch.profiler`` windows run last, the decode's first: the steps'
 windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
@@ -130,8 +154,8 @@ bcoo step's (``bcoo_step_profile``, device time by kernel), the ALS and
 FM steps' (``step_profile``: device events and time by kernel a step), and
 how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11; the row scatter's on phases 9,
-10 and 11), the card's name and power limit as
+the main paths of phases 3, 6, 7, 11 and 12; the row scatter's on phases
+9, 10, 11 and 12), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -2375,6 +2399,415 @@ def parallel_child(argv: list) -> int:
     return 0
 
 
+# ---------------- phase 12: the block cache and the epoch planner ----------------
+
+BC = {"batch": BATCH, "seed": 1, "window": 4096, "ckpt_at": CKPT_AT, "snap_seed": 2}
+
+
+def _plan_recorder(src, out: list):
+    """Wrap ``src.next_block`` (the DeviceIter's producer calls it) to
+    record ``(plan epoch, the block's first label)`` of each served block."""
+    inner = src.next_block
+
+    def next_block():
+        block = inner()
+        if block is not None:
+            out.append((src.plan_state["epoch"], float(block.label[0])))
+        return block
+
+    src.next_block = next_block
+
+
+def _base_bytes(src) -> int:
+    """The source bytes the block cache's parser chain has read (0 before
+    a cold pass built it)."""
+    return src._base.bytes_read if src._base is not None else 0
+
+
+def run_block_cache_als(tmp: str, device) -> dict:
+    """Phase 12 (a): ``dmlc_tpu_torch.examples.train_als``'s local leg at
+    its full size. First ``main([])`` as a user runs it (the row scatter's
+    launches counted from 0 around it, its lines checked); then the same
+    pieces (``synthesize``, ``_build``, ``restore_check``) with each epoch's
+    cache state, plan epoch, ``cache_read`` delta and source bytes, and
+    each warm epoch's block order held against ``EpochPlan(0, epoch, n)``;
+    20 warm steps run twice, bit for bit; the spin check in groups of 10."""
+    import contextlib
+    import io
+
+    import torch
+
+    from dmlc_tpu_torch.data.epoch import EpochPlan
+    from dmlc_tpu_torch.examples import train_als
+    from dmlc_tpu_torch.io.block_cache import BlockCacheReader
+    from dmlc_tpu_torch.ops import row_scatter as rs
+    from dmlc_tpu_torch.ops.sparse import EllBatch
+    from dmlc_tpu_torch.parallel import make_mesh
+
+    cfg = train_als.config(dryrun=False, world=1)
+    out_buf = io.StringIO()
+    rs.launches = 0
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out_buf):
+        train_als.main([])
+    main_s = time.monotonic() - t0
+    launches = rs.launches
+    lines = out_buf.getvalue().splitlines()
+    epoch_len = cfg["users"] // cfg["batch"]
+    # steps of the main run: its fit, its eval pass (no scatter), and
+    # restore_check's two pipelines (an epoch, the warm epoch, its replay)
+    need = (cfg["epochs"] + 2) * epoch_len + (epoch_len - cfg["restore_at"])
+
+    path = os.path.join(tmp, "als_bc.libsvm")
+    cache = os.path.join(tmp, "als.blockcache")
+    train_als.synthesize(path, cfg["users"], cfg["items"], cfg["per_row"])
+    mesh = make_mesh()
+    model, it = train_als._build(path, cache, cfg, mesh)
+    src = it.source
+    served: list = []
+    _plan_recorder(src, served)
+    epochs = []
+    prev = {"cache_read": 0.0, "base_bytes": 0}
+
+    def log(epoch, loss, nb, secs):
+        st = it.stats()
+        now = {"cache_read": src.stage_seconds()["cache_read"], "base_bytes": _base_bytes(src)}
+        epochs.append({"epoch": epoch, "loss": loss, "batches": nb, "wall_s": secs,
+                       "rows_per_s": nb * cfg["batch"] / secs,
+                       "cache_state": st["cache_state"], "plan_epoch": st["epoch"],
+                       "shuffle_seed": st["shuffle_seed"],
+                       "input_wait_s": st["input_wait_seconds"],
+                       "cache_read_s": now["cache_read"] - prev["cache_read"],
+                       "source_bytes": now["base_bytes"] - prev["base_bytes"]})
+        prev.update(now)
+
+    model.fit(it, epochs=cfg["epochs"], log_fn=log)
+    mse = model.eval_loss(it)
+    it.close()
+    reader = BlockCacheReader(cache)
+    first_labels = [float(reader.load_segments(i)["label"][0]) for i in range(reader.num_blocks)]
+    num_blocks = reader.num_blocks
+    reader.close()
+    orders_ok = True
+    for e in epochs[1:]:
+        got = [lab for ep, lab in served if ep == e["epoch"]]
+        want = [first_labels[i] for i in EpochPlan(0, e["epoch"], num_blocks).order]
+        orders_ok &= got == want
+    restore_steps = train_als.restore_check(path, cache, cfg, mesh)
+
+    def warm_steps(n: int = 20):
+        m, feed = train_als._build(path, cache, cfg, mesh)
+        losses = []
+        while len(losses) < n:
+            for batch in feed:
+                losses.append(m.step(batch))
+                if len(losses) == n:
+                    break
+            else:
+                m.finalize_items()
+                feed.reset()
+        feed.close()
+        return torch.stack(losses).cpu().numpy(), m.state_dict()
+
+    la, sa = warm_steps()
+    lb, sb = warm_steps()
+    repeatable = la.tobytes() == lb.tobytes() and _state_bits(sa) == _state_bits(sb)
+    m, feed = train_als._build(path, cache, cfg, mesh)
+    batch = EllBatch(*(t.clone() for t in next(iter(feed))))
+    feed.close()
+    m.step(batch)
+    torch.cuda.synchronize()
+    spin = enqueue_behind_spin(lambda: m.step(batch), group=10)
+    out = {"phase": "block_cache_als", "main_s": main_s, "main_lines": lines,
+           "row_scatter_launches": launches, "row_scatter_launches_needed": need,
+           "epochs": epochs, "eval_mse": mse, "num_blocks": num_blocks,
+           "warm_orders_equal_plan": orders_ok, "restore_steps": restore_steps,
+           "warm_steps_bit_identical_twice": repeatable, "step_enqueue_behind_spin": spin,
+           "reduced": "none: examples/train_als.py's full run"}
+    emit(out)
+    losses = [e["loss"] for e in epochs]
+    problems = []
+    if not (lines[-1] == "OK" and f"checkpoint/restore byte-identical over "
+            f"{epoch_len - cfg['restore_at']} steps" in lines):
+        problems.append("the example's main() did not print its restore line and OK")
+    if launches != need:
+        problems.append("the row scatter did not launch once a step")
+    if not (all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:]))):
+        problems.append("the epoch losses are not finite and falling")
+    for e in epochs:
+        warm = e["epoch"] > 0
+        if (e["cache_state"] != ("warm" if warm else "cold") or e["plan_epoch"] != e["epoch"]
+                or e["shuffle_seed"] != 0
+                or (warm and not (e["cache_read_s"] > 0 and e["source_bytes"] == 0))):
+            problems.append(f"epoch {e['epoch']}: cache state, plan or reads wrong")
+    if not orders_ok:
+        problems.append("a warm epoch's block order is not EpochPlan(0, epoch, n).order")
+    if restore_steps != epoch_len - cfg["restore_at"]:
+        problems.append("restore_check compared the wrong number of steps")
+    if not repeatable:
+        problems.append("20 warm steps run twice differ")
+    if not spin["no_host_sync"]:
+        problems.append("a step waited for the device")
+    if problems:
+        raise AssertionError(f"block_cache_als: {problems}: {out}")
+    return out
+
+
+def _bc_pipeline(path: str, cache: str, device, **kw):
+    """(parser, learner, DeviceIter) of the HIGGS main path over the planned
+    block cache, fresh."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    opts = dict(shuffle_seed=BC["seed"], shuffle_window=BC["window"])
+    opts.update(kw)
+    parser = create_parser(path, 0, 1, "libsvm", block_cache=cache, **opts)
+    model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(parser, num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device)
+    return parser, model, it
+
+
+def _values_key(values) -> bytes:
+    """A block's identity whatever its row order: its sorted values."""
+    return np.sort(np.asarray(values)).tobytes()
+
+
+def run_block_cache_higgs(path: str, tmp: str, device) -> dict:
+    """Phase 12 (b): the HIGGS main path over the planned block cache
+    (``shuffle_seed=1``, ``shuffle_window=4096``): a cold and two warm
+    epochs and an accuracy pass with K1's and ``dw``'s launches counted
+    from 0, each epoch's rows/s, stall share, ``cache_read`` and convert
+    seconds and source bytes; the first 20 warm steps run twice; a
+    checkpoint after 37 batches of warm epoch 1 resumed in a fresh
+    pipeline; a byte flipped in a block healed once with the stream
+    unchanged; two hosts' shards disjoint with the epoch as their union."""
+    import torch
+
+    from dmlc_tpu_torch import create_parser
+    from dmlc_tpu_torch.convert import linear_params_from_jax, linear_params_to_jax
+    from dmlc_tpu_torch.io import resilience
+    from dmlc_tpu_torch.io.block_cache import BlockCacheReader
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    cache = os.path.join(tmp, "higgs.blockcache")
+    parser, model, it = _bc_pipeline(path, cache, device)
+    epochs = []
+    keys = ("stall_seconds", "convert_seconds")
+    prev = {"stall_seconds": 0.0, "convert_seconds": 0.0, "cache_read": 0.0, "base_bytes": 0}
+
+    def log(epoch, loss, nb, secs):
+        st = it.stats()
+        now = {k: st[k] for k in keys}
+        now.update(cache_read=parser.stage_seconds()["cache_read"], base_bytes=_base_bytes(parser))
+        d = {k: now[k] - prev[k] for k in now}
+        prev.update(now)
+        rec = {"phase": "block_cache_higgs", "epoch": epoch, "loss": loss, "batches": nb,
+               "wall_s": secs, "rows_per_s": nb * BATCH / secs,
+               "stall_share": d["stall_seconds"] / secs, "cache_state": st["cache_state"],
+               "plan_epoch": st["epoch"], "cache_read_s": d["cache_read"],
+               "convert_s": d["convert_seconds"], "source_bytes": d["base_bytes"],
+               "input_wait_s": st["input_wait_seconds"]}
+        emit(rec)
+        epochs.append(rec)
+
+    k1.launches = k1.dw_launches = 0
+    model.fit(it, epochs=3, log_fn=log)
+    acc = model.accuracy(it)
+    launches, dw_launches = k1.launches, k1.dw_launches
+    it.close()
+    steps = sum(e["batches"] for e in epochs)
+    acc_batches = HIGGS_ROWS // BATCH
+    cache_bytes = os.path.getsize(cache)
+
+    def first_steps(n: int = 20):
+        _, m, feed = _bc_pipeline(path, cache, device)
+        losses = [m.step(b) for _, b in zip(range(n), feed)]
+        feed.close()
+        return torch.stack(losses), m.params.weight.detach().clone()
+
+    la, wa = first_steps()
+    lb, wb = first_steps()
+    repeatable = same_bits(la, lb) and same_bits(wa, wb)
+
+    # a checkpoint after CKPT_AT batches of warm epoch 1, resumed fresh
+    _, m, feed = _bc_pipeline(path, cache, device)
+    for b in feed:
+        m.step(b)
+    feed.reset()
+    state = params = None
+    for i, b in enumerate(feed):
+        m.step(b)
+        if i + 1 == BC["ckpt_at"]:
+            state = json.loads(json.dumps(feed.state_dict()))
+            params = linear_params_to_jax(m.params)
+    feed.close()
+    _, m2, feed = _bc_pipeline(path, cache, device, shuffle_seed=None, shuffle_window=0)
+    m2.set_params(linear_params_from_jax(*params, device=device))
+    feed.load_state(state)
+    rest = 0
+    for b in feed:
+        m2.step(b)
+        rest += 1
+    feed.close()
+    resumed = bool(torch.equal(m.params.weight, m2.params.weight)
+                   and torch.equal(m.params.bias, m2.params.bias))
+
+    # a flipped byte heals once, the stream unchanged
+    def epoch_batches():
+        _, _, feed = _bc_pipeline(path, cache, device)
+        out = [[t.clone() for t in b] for b in feed]
+        feed.close()
+        return out
+
+    clean = epoch_batches()
+    reader = BlockCacheReader(cache)
+    pos = int(reader._blocks[reader.num_blocks // 2]["pos"]) + 100
+    reader.close()
+    with open(cache, "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0x01]))
+    base = resilience.counters_snapshot()
+    healed = epoch_batches()
+    events = resilience.counters_delta(base)
+    heal_equal = len(healed) == len(clean) and all(
+        all(same_bits(x, y) for x, y in zip(a, b)) for a, b in zip(healed, clean))
+    del clean, healed
+
+    # two hosts' shards of the warm epoch
+    reader = BlockCacheReader(cache)
+    whole = sorted(_values_key(reader.load_segments(i)["value"])
+                   for i in range(reader.num_blocks))
+    reader.close()
+    shards = []
+    for host in range(2):
+        p = create_parser(path, 0, 1, "libsvm", block_cache=cache, shuffle_seed=BC["seed"],
+                          shuffle_window=BC["window"], pod_sharding=(host, 2))
+        shards.append([_values_key(b.value) for b in p])
+        p.close()
+    flat = shards[0] + shards[1]
+    shards_ok = len(set(flat)) == len(flat) and sorted(flat) == whole
+
+    out = {"phase": "block_cache_higgs", "accuracy": acc, "steps": steps,
+           "k1_launches": launches, "k1_launches_needed": steps + acc_batches,
+           "dw_launches": dw_launches, "dw_launches_needed": steps,
+           "cache_bytes": cache_bytes, "first_warm_steps_bit_identical_twice": repeatable,
+           "checkpoint_batches_after_restore": rest, "checkpoint_weights_equal": resumed,
+           "checkpoint_state_source": state["source"], "heal_events": events,
+           "heal_stream_equal": heal_equal, "shard_blocks": [len(s) for s in shards],
+           "shards_disjoint_union_is_epoch": shards_ok,
+           "reduced": "HIGGS (UCI 280) 11,000,000 rows cut to 1,048,576 for the time limit"}
+    emit(out)
+    problems = []
+    if not acc > 0.9:
+        problems.append(f"accuracy {acc} <= 0.9")
+    if launches != steps + acc_batches or dw_launches != steps:
+        problems.append("K1 or dw launch counts differ from the steps")
+    for e in epochs:
+        warm = e["epoch"] > 0
+        if (e["cache_state"] != ("warm" if warm else "cold") or e["plan_epoch"] != e["epoch"]
+                or (warm and not (e["source_bytes"] == 0 and e["cache_read_s"] > 0
+                                  and e["convert_s"] > 0))):
+            problems.append(f"epoch {e['epoch']}: cache state, plan or reads wrong")
+    if not repeatable:
+        problems.append("the first 20 warm steps run twice differ")
+    if not (resumed and rest == HIGGS_ROWS // BATCH - BC["ckpt_at"]
+            and state["kind"] == "source" and state["source"]["kind"] == "epoch_plan"
+            and state["source"]["epoch"] == 1):
+        problems.append("the warm checkpoint did not resume to the same weights")
+    if not (heal_equal and events.get("cache_rebuilds") == 1
+            and events.get("cache_corruptions") == 1):
+        problems.append("the flipped byte did not heal once with the stream unchanged")
+    if not shards_ok:
+        problems.append("the two hosts' shards are not disjoint with the epoch as union")
+    if problems:
+        raise AssertionError(f"block_cache_higgs: {problems}: {out}")
+    return {**out, "epochs": epochs}
+
+
+def run_shuffled_snapshot(path: str, snap: str, device) -> dict:
+    """Phase 12 (c): phase 6's ELL snapshot served warm with
+    ``device_decode=True`` and ``snapshot_shuffle_seed=2``: two warm epochs
+    stepped through LinearLearner, K1, ``dw`` and K2 counted from 0 around
+    them, each batch held bit for bit against the stored-order warm batch
+    at ``block_permutation(2, epoch, n)[pos]`` (read first, not counted);
+    a ``unit="batch"`` state taken after 37 batches of epoch 1 resumed in
+    a fresh pipeline: the remaining batches bit-equal and the final
+    weights ``torch.equal``."""
+    import torch
+
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+    from dmlc_tpu_torch.convert import linear_params_from_jax, linear_params_to_jax
+    from dmlc_tpu_torch.data.epoch import block_permutation
+    from dmlc_tpu_torch.ops import device_decode as dd
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    def pipeline(seed):
+        model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+        it = DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap),
+                        num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                        max_nnz=HIGGS_COLS, drop_remainder=True, device=device,
+                        device_decode=True, snapshot_shuffle_seed=seed)
+        return model, it
+
+    _, it = pipeline(None)
+    stored = [[t.clone() for t in b] for b in it]
+    it.close()
+    n = len(stored)
+    model, it = pipeline(BC["snap_seed"])
+    k1.launches = k1.dw_launches = dd.launches = 0
+    equal, warm, state, params, tail, walls = True, True, None, None, [], []
+    for ep in range(2):
+        order = block_permutation(BC["snap_seed"], ep, n)
+        t0 = time.monotonic()
+        for pos, batch in enumerate(it):
+            equal &= all(same_bits(a, b) for a, b in zip(batch, stored[order[pos]]))
+            model.step(batch)
+            if ep == 1 and pos + 1 == BC["ckpt_at"]:
+                state = json.loads(json.dumps(it.state_dict()))
+                params = linear_params_to_jax(model.params)
+            elif state is not None:
+                tail.append([t.clone() for t in batch])
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        warm &= it.stats()["snapshot_state"] == "warm"
+        it.reset()
+    k1_launches, dw_launches, k2_launches = k1.launches, k1.dw_launches, dd.launches
+    it.close()
+    model2, it = pipeline(None)
+    model2.set_params(linear_params_from_jax(*params, device=device))
+    it.load_state(state)
+    resumed = []
+    for b in it:
+        model2.step(b)
+        resumed.append([t.clone() for t in b])
+    it.close()
+    tail_equal = len(resumed) == len(tail) and all(
+        all(same_bits(x, y) for x, y in zip(a, b)) for a, b in zip(resumed, tail))
+    weights_equal = bool(torch.equal(model.params.weight, model2.params.weight)
+                         and torch.equal(model.params.bias, model2.params.bias))
+    out = {"phase": "shuffled_snapshot", "batches": 2 * n, "warm": warm,
+           "rows_per_s": [n * BATCH / w for w in walls],
+           "k2_launches": k2_launches, "k2_launches_needed": 2 * n,
+           "k1_launches": k1_launches, "dw_launches": dw_launches,
+           "batches_equal_stored_at_plan": equal, "state_source": state["source"],
+           "resumed_batches": len(resumed), "resumed_batches_equal": tail_equal,
+           "resumed_weights_equal": weights_equal}
+    emit(out)
+    problems = []
+    if not (warm and equal):
+        problems.append("a shuffled warm batch differs from the stored batch at its plan index")
+    if k2_launches != 2 * n or k1_launches != 2 * n or dw_launches != 2 * n:
+        problems.append("K2, K1 or dw did not launch once a warm batch")
+    if not (state["source"].get("unit") == "batch" and tail_equal and weights_equal
+            and len(resumed) == n - BC["ckpt_at"]):
+        problems.append("the unit='batch' state did not resume bit for bit")
+    if problems:
+        raise AssertionError(f"shuffled_snapshot: {problems}: {out}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2490,6 +2923,13 @@ def main() -> int:
         par = run_parallel(path, ratings, tmp, dev, args.seed)
         par_k1 = par["world1"]["k1_launches"] + par["pair"]["launches"]["k1"]
         par_dw = par["world1"]["dw_launches"] + par["pair"]["launches"]["dw"]
+        # phase 12: the block cache and the epoch planner, each leg with
+        # its launches counted from 0 around its main path
+        t12 = time.monotonic()
+        bc_als = run_block_cache_als(tmp, dev)
+        bc_higgs = run_block_cache_higgs(path, tmp, dev)
+        bc_snap = run_shuffled_snapshot(path, ell_snap, dev)
+        emit({"phase": "block_cache_total", "wall_s": time.monotonic() - t12})
         # the profiler's windows: the decode's first (a window opened after
         # others has recorded nothing now and then), then the steps'
         emit(profile_decodes({p: snaps[p] for p in ("warm_dense_bfloat16", "warm_dense_q8")},
@@ -2523,7 +2963,8 @@ def main() -> int:
         "name": "ell_matvec", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:122",
-        "launches": launches + warm_ell["k1_launches"] + ckpt_k1 + par_k1,
+        "launches": (launches + warm_ell["k1_launches"] + ckpt_k1 + par_k1
+                     + bc_higgs["k1_launches"] + bc_snap["k1_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2531,7 +2972,8 @@ def main() -> int:
         "name": "ell_matvec_dw", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec_dw.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:191",
-        "launches": dw_launches + warm_ell["dw_launches"] + ckpt_dw + par_dw,
+        "launches": (dw_launches + warm_ell["dw_launches"] + ckpt_dw + par_dw
+                     + bc_higgs["dw_launches"] + bc_snap["dw_launches"]),
         "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
                            if r["dw_route"] == "cuda"),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
@@ -2541,7 +2983,7 @@ def main() -> int:
         "source": "dmlc_tpu_torch/csrc/widen_span.cu",
         "replaces": "dmlc_tpu/ops/device_decode.py:168",
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
-                     + ckpt_k2),
+                     + ckpt_k2 + bc_snap["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -2551,7 +2993,7 @@ def main() -> int:
         "replaces": "dmlc_tpu/models/als.py:169",
         "launches": als["row_scatter_launches"] + sum(
             v["row_scatter_launches"] for v in fm.values())
-        + par["pair"]["launches"]["row_scatter"],
+        + par["pair"]["launches"]["row_scatter"] + bc_als["row_scatter_launches"],
         "max_abs_err": max([r["row_scatter"]["max_abs_diff_vs_plain"] for r in rs_rows]
                            + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
         "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],

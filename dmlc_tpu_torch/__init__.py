@@ -17,7 +17,9 @@ row scatter-add of their steps gives the same bits on every run. With
 ``mesh=`` (:mod:`dmlc_tpu_torch.parallel`, on ``torch.distributed``:
 ``init_from_env`` from the DMLC_* contract, ``make_mesh``, ``sync_min``)
 the three learners train data-parallel with the JAX package's
-global-batch semantics.
+global-batch semantics. ``create_parser(..., block_cache=path)`` parses
+once and serves later epochs from a columnar cache, in a seeded, resumable
+and pod-sharded order with ``shuffle_seed`` / ``pod_sharding``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card the default raises ``DMLCError``.

@@ -65,6 +65,22 @@ one restores cold, aborting the shadow writer and serving cold until the
 next :meth:`~DeviceIter.reset`. A state taken in either package restores
 in the other.
 
+**Shuffled snapshot epochs.** ``snapshot_shuffle_seed`` serves each warm
+snapshot epoch in the epoch planner's order over the stored batches,
+``block_permutation(seed, epoch, num_batches)``
+(:mod:`dmlc_tpu_torch.data.epoch`), the epoch advancing at each
+:meth:`~DeviceIter.reset` that follows a delivered batch. Such a batch's
+annotation is ``{"source": plan_state_dict(seed, 0, epoch, pos, 0, 1,
+unit="batch"), "skip_rows": 0}``, ``pos`` the plan position after it; a
+state of that shape restores the plan (seed and epoch included) at that
+position, and a snapshot that has vanished is first rebuilt by one silent
+cold pass (the same batches, byte for byte). A sequential state restored
+into a shuffled pipeline serves the rest of its epoch in stored order. A
+*block*-plan state (the block cache's ``epoch_plan``, no ``unit``) goes to
+the source, which replays its plan; the snapshot then sits out the rest of
+the epoch. A source whose ``plan_state`` has a seed is refused under
+``snapshot=``: the snapshot freezes one epoch's order.
+
 **Healing.** A warm batch that fails its crc32 removes the file. Within the
 restart budget (:mod:`dmlc_tpu_torch.io.resilience`: ``max_attempts - 1``
 restarts an epoch, ``DMLC_RETRY_MAX_ATTEMPTS``, default 4) the epoch then
@@ -101,8 +117,7 @@ unpacked (``pack_aux`` off). ``shardings`` (a learner's
 ``batch_shardings()``) must split every array's rows over the data axis.
 
 On a CPU device the same pipeline runs without pinning, streams or events
-(the copy is synchronous). Not ported yet: the block cache, snapshot plan
-order (``snapshot_shuffle_seed``), feature-sharded placement and
+(the copy is synchronous). Not ported yet: feature-sharded placement and
 autotuning.
 """
 
@@ -116,6 +131,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from dmlc_tpu_torch.data import epoch as _epoch
 from dmlc_tpu_torch.data.row_block import RowBlock, RowBlockContainer
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io import snapshot as _snapshot
@@ -284,7 +300,8 @@ class DeviceIter:
     ``snapshot_path``, stamped by ``create_parser(..., snapshot=)``, with its
     ``snapshot_signature``); ``snapshot_quant="int8"`` stores packed dense
     batches as int8 plus a per-column scale; ``device_decode=True`` decodes
-    warm batches on the device (module docstring). ``prefetch`` and
+    warm batches on the device; ``snapshot_shuffle_seed`` serves warm
+    snapshot epochs in a seeded order (module docstring). ``prefetch`` and
     ``device_decode`` left at None read the environment knobs
     ``DMLC_TPU_PREFETCH`` (default 2) and ``DMLC_TPU_DEVICE_DECODE``
     (:mod:`dmlc_tpu_torch.utils.knobs`). ``device=None`` means
@@ -316,6 +333,7 @@ class DeviceIter:
         snapshot_signature: Optional[dict] = None,
         snapshot_quant: Optional[str] = None,
         device_decode: Optional[bool] = None,
+        snapshot_shuffle_seed: Optional[int] = None,
     ):
         check(layout in ("dense", "ell", "bcoo"), f"unknown layout {layout!r}")
         check(batch_size is not None or layout == "bcoo",
@@ -371,6 +389,9 @@ class DeviceIter:
         self.snapshot_path = snapshot
         self._snap_sig = snapshot_signature
         self._snap_quant = snapshot_quant
+        self._snap_seed = None if snapshot_shuffle_seed is None else int(snapshot_shuffle_seed)
+        self._snap_epoch = 0            # advances at each reset() after a batch
+        self._snap_seq_restore = False  # a sequential state owns this epoch's rest
         self.device_decode = _knobs.device_decode(device_decode)
         check(snapshot is None or (mesh is None and shardings is None),
               "snapshot= serves single-put batches; mesh/shardings "
@@ -386,6 +407,13 @@ class DeviceIter:
         # decode only where one is present, as in the JAX package
         check(not device_decode or snapshot is not None,
               "device_decode=True decodes warm snapshot batches: it needs snapshot=")
+        check(snapshot is None
+              or (getattr(source, "plan_state", None) or {}).get("shuffle_seed") is None,
+              "snapshot= cannot combine with a source-side epoch "
+              "plan (shuffle_seed on the block cache): the snapshot "
+              "freezes one epoch's batch order — shuffle snapshot "
+              "epochs with snapshot_shuffle_seed= instead "
+              "(docs/data.md)")
         self._snap_reader: Optional[_snapshot.SnapshotReader] = None
         self._snap_writer: Optional[_snapshot.SnapshotWriter] = None
         self._snap_serving = False  # the current producer is the warm feed
@@ -405,6 +433,7 @@ class DeviceIter:
         self.pipeline_restarts = 0
         self.pipeline_giveups = 0
         self.stall_seconds = 0.0
+        self.input_wait_seconds = 0.0
         self.batches_fed = 0
         self.bytes_to_device = 0
         self.device_decode_bytes = 0
@@ -656,13 +685,18 @@ class DeviceIter:
         return self._snap_reader is not None
 
     def _warm_batches(self, start: int) -> Iterator[_Slot]:
-        """Each stored batch from ``start`` on, read (crc included) and
-        copied into a pinned staging slot with its stored annotation: the
-        raw span into a u8 slot, or each segment view into its typed
-        buffer. The read and the copy count as snapshot read time; the
-        wait for a free slot does not."""
+        """Each stored batch from position ``start`` on, in stored order or,
+        with ``snapshot_shuffle_seed``, in the epoch's plan order, read (crc
+        included) and copied into a pinned staging slot with its
+        annotation: the raw span into a u8 slot, or each segment view into
+        its typed buffer. The read and the copy count as snapshot read
+        time; the wait for a free slot does not."""
         reader = self._snap_reader
-        for i in range(start, reader.num_batches):
+        order, seed, epoch = None, self._snap_seed, self._snap_epoch
+        if seed is not None and not self._snap_seq_restore:
+            order = _epoch.block_permutation(seed, epoch, reader.num_batches)
+        for pos in range(start, reader.num_batches):
+            i = pos if order is None else int(order[pos])
             t0 = get_time()
             if self.device_decode:
                 kind, span, layout = reader.batch_span(i)
@@ -683,7 +717,10 @@ class DeviceIter:
                 for buf, arr in zip(slot.bufs, arrays):
                     buf.view(torch.uint8).numpy()[...] = arr.view(np.uint8)
                 slot.layout = None
-            slot.kind, slot.annot = kind, reader.resume(i)
+            slot.kind = kind
+            slot.annot = reader.resume(i) if order is None else {
+                "source": _epoch.plan_state_dict(seed, 0, epoch, pos + 1, 0, 1, unit="batch"),
+                "skip_rows": 0}
             self.snapshot_read_seconds += (t_read - t0) + (get_time() - t_copy)
             yield slot
 
@@ -788,6 +825,7 @@ class DeviceIter:
             self.stall_seconds += get_time() - t0
             raise StopIteration
         out, event, kind, layout, annot = self._inflight.popleft()
+        self.input_wait_seconds += get_time() - t0
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -856,9 +894,31 @@ class DeviceIter:
     def _load_snapshot_state(self, state: dict) -> bool:
         """Restore into warm serving at batch ``n`` when the snapshot holds
         it: snapshot batches are 1:1 with pipeline batches at one geometry,
-        so the delivered count is the warm position. False hands the state
-        to the cold machinery."""
+        so the delivered count is the warm position. A batch-plan state
+        (``unit="batch"`` under ``source``) adopts its plan and position,
+        rebuilding a vanished snapshot first. False hands the state to the
+        cold machinery: a block-plan state, which the source replays, or
+        a state the snapshot does not hold."""
         kind, n = state.get("kind"), int(state.get("batches", 0))
+        src = state.get("source") if kind == "source" else None
+        if isinstance(src, dict) and src.get("kind") == "epoch_plan":
+            if src.get("unit") != "batch":
+                return False
+            self._teardown()
+            self._abort_snapshot_writer()
+            self._shadow_write = False
+            self._snap_suspend = False
+            self._snap_seq_restore = False
+            seed = src.get("seed")
+            self._snap_seed = None if seed is None else int(seed)
+            self._snap_epoch = int(src.get("epoch", 0))
+            pos = int(src.get("pos", n))
+            if not self._open_snapshot():
+                self._rebuild_snapshot()
+            self._snap_pos0 = pos
+            self.batches_fed = n
+            self._last_resume = {"source": dict(src), "skip_rows": 0} if pos else None
+            return True
         if kind not in ("source", "batches") or not self._open_snapshot():
             return False
         if n > self._snap_reader.num_batches:
@@ -867,6 +927,8 @@ class DeviceIter:
         self._abort_snapshot_writer()
         self._shadow_write = False
         self._snap_suspend = False
+        # a position in the stored order: the rest of this epoch serves in it
+        self._snap_seq_restore = self._snap_seed is not None
         self._snap_pos0 = self.batches_fed = n
         if kind == "source":
             self._last_resume = {k: state[k] for k in ("source", "skip_rows")}
@@ -897,6 +959,27 @@ class DeviceIter:
         self._drop_snap_reader()
         remove_quietly(self.snapshot_path)
 
+    def _rebuild_snapshot(self) -> None:
+        """Rebuild a vanished snapshot in one silent cold pass: every batch
+        converted and written, none delivered. Parsing and packing are
+        deterministic, so the rebuilt batches are the lost ones, byte for
+        byte."""
+        self._drop_snap_reader()
+        remove_quietly(self.snapshot_path)
+        self._abort_snapshot_writer()
+        self._snap_writer = _snapshot.SnapshotWriter(
+            self.snapshot_path, signature=self._snap_sig, geometry=self._snapshot_geometry())
+        self._ring = self._ring_for(self._cold_spec())
+        try:
+            for slot in self._host_batches(0, 0, False):
+                self._ring.release(slot, None)  # written, never copied
+            self._finish_snapshot_writer()
+        except BaseException:
+            self._abort_snapshot_writer()
+            raise
+        check(self._open_snapshot(),
+              f"snapshot {self.snapshot_path}: rebuild did not publish a readable snapshot")
+
     def _heal(self) -> bool:
         """Re-arm the epoch cold at the batch after the last one delivered
         (a warm batch failed its crc and the file is gone), through the
@@ -921,7 +1004,11 @@ class DeviceIter:
     def reset(self) -> None:
         """New epoch: stop the producer; the next pull restarts the source,
         or serves the snapshot once a complete pass has published it. A
-        cold pass cut short here is not published."""
+        cold pass cut short here is not published. After a delivered batch
+        the snapshot plan's epoch advances."""
+        if self.batches_fed > 0:
+            self._snap_epoch += 1
+        self._snap_seq_restore = False
         self._teardown()
         self._abort_snapshot_writer()
         self.batches_fed = 0
@@ -942,7 +1029,15 @@ class DeviceIter:
     def stats(self) -> dict:
         """The pipeline's counters. Keys the JAX package's ``stats()`` also
         has carry its names and value types (``batches`` first; the port's
-        own ``batches_fed`` is the same count)."""
+        own ``batches_fed`` is the same count). ``input_wait_seconds`` is
+        the consumer's wait inside ``__next__`` for the batch it hands out
+        (the part of ``stall_seconds`` before the refill); the JAX package
+        adds sampled transfer landings to it, which the port does not
+        sample. ``shuffle_seed`` and ``epoch`` are the source's epoch plan
+        (None without one), ``snapshot_seed`` and ``snapshot_epoch`` the
+        snapshot plan's (None without a snapshot)."""
+        plan_state = getattr(self.source, "plan_state", None) or {}
+        snap = self.snapshot_path is not None
         return {"batches": self.batches_fed,
                 "batches_fed": self.batches_fed,
                 "bytes_to_device": self.bytes_to_device,
@@ -953,9 +1048,14 @@ class DeviceIter:
                 # shadow-writing; 'warm': serving the stored batches
                 "snapshot_state": (None if self.snapshot_path is None
                                    else "warm" if self._snap_serving else "cold"),
-                # the parse-once block cache of the source chain: None, as
-                # no port source has one yet
+                # the parse-once block cache of the source chain: None
+                # without one, else 'cold' or 'warm'
                 "cache_state": getattr(self.source, "cache_state", None),
+                "shuffle_seed": plan_state.get("shuffle_seed"),
+                "epoch": plan_state.get("epoch"),
+                "snapshot_seed": self._snap_seed if snap else None,
+                "snapshot_epoch": self._snap_epoch if snap else None,
+                "input_wait_seconds": self.input_wait_seconds,
                 "snapshot_write_seconds": self.snapshot_write_seconds,
                 "snapshot_read_seconds": self.snapshot_read_seconds,
                 "device_decode": self.device_decode,

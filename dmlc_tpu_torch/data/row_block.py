@@ -61,6 +61,36 @@ class RowBlock:
     def __len__(self) -> int:
         return len(self.label)
 
+    @property
+    def num_col(self) -> int:
+        """max feature id + 1 (0 for a block without features)."""
+        return int(self.index.max()) + 1 if len(self.index) else 0
+
+    # -- columnar segment round trip (io/block_cache.py format) --
+
+    def to_segments(self) -> dict:
+        """The block's arrays as the named columnar segments the block
+        cache serializes (:data:`dmlc_tpu_torch.io.block_cache.SEGMENT_NAMES`);
+        absent optional arrays map to None. The port's blocks carry no
+        ``field`` (libfm is not ported)."""
+        return {"offset": self.offset, "label": self.label, "weight": self.weight,
+                "qid": self.qid, "field": None, "index": self.index,
+                "value": self.value}
+
+    @staticmethod
+    def from_segments(segments: dict, hold=None) -> "RowBlock":
+        """Rebuild a block from :meth:`to_segments` output. The segment
+        dtypes are the block's, so mmap-backed views pass through
+        zero-copy; ``hold`` keeps their buffer owner (the reader's mmap)
+        alive for as long as the block's views are."""
+        check(segments.get("field") is None,
+              "RowBlock.from_segments: a 'field' segment (libfm blocks) is not "
+              "supported by dmlc_tpu_torch")
+        return RowBlock(offset=segments["offset"], label=segments["label"],
+                        index=segments["index"], value=segments.get("value"),
+                        weight=segments.get("weight"), qid=segments.get("qid"),
+                        hold=hold)
+
     def slice(self, begin: int, end: int) -> "RowBlock":
         """Sub-block of rows [begin, end) (RowBlock::Slice, data.h:216)."""
         check(0 <= begin <= end <= len(self), "RowBlock.slice: bad range")

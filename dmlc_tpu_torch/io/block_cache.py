@@ -1,9 +1,9 @@
-"""The DMLC segment container: header, segments, crc'd footer, tail.
+"""The DMLC segment container, and the parse-once block cache built on it.
 
-Own copy of the container machinery in the JAX package's
-``io/block_cache.py``, trimmed to what the snapshot store
-(:mod:`dmlc_tpu_torch.io.snapshot`) uses. The bytes on disk are the same,
-so a container written by either package opens in the other::
+Own copy of the JAX package's ``io/block_cache.py``: the container
+machinery the snapshot store (:mod:`dmlc_tpu_torch.io.snapshot`) shares,
+and the block cache's writer, reader and open helper. The bytes on disk are
+the same, so a container written by either package opens in the other::
 
     [header]   8-byte magic + u32 LE version + 4 zero pad bytes
     [segments] per record, its arrays: each start padded to 64-byte
@@ -13,17 +13,32 @@ so a container written by either package opens in the other::
     [tail]     u64 footer_offset + u64 footer_len + u32 footer_crc LE
                + the magic again
 
+The block cache (magic ``DMLCBC01``, pinned by
+``tests/data/blockcache_v1.golden``) stores parsed RowBlocks as the named
+segments :data:`SEGMENT_NAMES`, one record a block, each with its crc32
+over ``[pos, end)``, its row count and its resume annotation; its footer is
+``{"version", "signature", "num_col", "rows", "blocks": [{"pos", "end",
+"rows", "crc", "resume", "arrays": {name: [dtype_str, abs_offset,
+nbytes]}}, ...]}``. The pipeline half, ``BlockCacheIter``, lives in
+:mod:`dmlc_tpu_torch.data.parsers`. A cache is bound to a source
+signature (:func:`source_signature`); :func:`open_block_cache` returns
+None for a missing, unreadable or stale cache and removes the stale file,
+so the caller rebuilds. The JAX package's pre-encoded span paths
+(``add_block_encoded``, ``block_encoded``) serve its ``native-batch``
+engine and its data service, neither of which is ported, and are left
+out.
+
 bfloat16 without ``ml_dtypes``: a segment stored under the dtype string
 ``"bfloat16"`` reads on the host as ``uint16`` words (the same bytes), and
 the device side views them as ``torch.bfloat16``. The writer takes a
 ``torch.bfloat16`` tensor and stores it under that name, as the JAX writer
 stores an ``ml_dtypes`` array.
 
-Publishing is local: the writer streams to ``<path>.<pid>.<seq>.tmp``, and
+Publishing is local: a writer streams to ``<path>.<pid>.<seq>.tmp``, and
 :func:`finish_container` fsyncs it and moves it into place with
-``os.replace``, so a crash never leaves a torn file under ``path``. The
-JAX package's tiered artifact store (budgets, pins, manifest) is not
-ported.
+``os.replace``, so a crash never leaves a torn file under ``path``; a
+stale or corrupt file is removed. The JAX package's tiered artifact store
+(budgets, pins, manifest) is not ported.
 """
 
 from __future__ import annotations
@@ -34,18 +49,23 @@ import mmap
 import os
 import struct
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dmlc_tpu_torch.utils.check import DMLCError, check
+from dmlc_tpu_torch.io import resilience as _resilience
+from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
 
-CACHE_VERSION = 1  # the block-cache version source signatures carry
+BLOCK_CACHE_MAGIC = b"DMLCBC01"
+BLOCK_CACHE_VERSION = 1  # also the version source signatures carry
 _TAIL_FMT = "<QQI"  # footer offset, footer length, footer crc32
 _TAIL_LEN = struct.calcsize(_TAIL_FMT) + 8
 _ALIGN = 64
 _BF16 = "bfloat16"
+# a block's segments in their canonical order (fixed, so the layout is
+# deterministic); optional arrays are absent from a block's footer entry
+SEGMENT_NAMES = ("offset", "label", "weight", "qid", "field", "index", "value")
 
 # process-unique staging names: two writers of one path never share bytes
 _stage_seq = itertools.count()
@@ -85,7 +105,7 @@ def _host_bytes(arr) -> Tuple[bytes, str]:
     return arr.tobytes(), arr.dtype.str
 
 
-def write_segments(f, segments: Dict[str, object], names) -> tuple:
+def write_segments(f, segments: Dict[str, object], names=SEGMENT_NAMES) -> tuple:
     """Serialize the present ``names`` arrays (numpy arrays or CPU tensors)
     at ``f``'s current position: canonical order, each start padded to 64
     bytes, one crc32 over padding and payload. Returns ``(end, crc,
@@ -236,7 +256,7 @@ def source_signature(uri: str, part_index: int, num_parts: int, **config) -> dic
         else:
             files.append([part, None, None])
     return _normalize({
-        "cache_version": CACHE_VERSION,
+        "cache_version": BLOCK_CACHE_VERSION,
         "files": files,
         "partition": [int(part_index), int(num_parts)],
         "config": config,
@@ -248,3 +268,159 @@ def remove_quietly(path: str) -> None:
         os.remove(path)
     except OSError:
         pass
+
+
+# ---------------- the block cache: writer, reader, open helper ----------------
+
+
+class BlockCacheWriter:
+    """Streams checksummed columnar block segments to a staging file;
+    :meth:`finish` writes the footer and publishes it at ``path`` (fsync +
+    ``os.replace``)."""
+
+    def __init__(self, path: str, signature: Optional[dict] = None):
+        self.path = path
+        self._sig = signature or {}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        # a process-unique staging name: two writers of one path never
+        # share half-written bytes
+        self.tmp_path = stage_path(path)
+        self._f = open(self.tmp_path, "wb")
+        self._f.write(container_header(BLOCK_CACHE_MAGIC, BLOCK_CACHE_VERSION))
+        self._entries: List[dict] = []
+        self._num_col = 0
+        self._rows = 0
+        self._finished = False
+
+    def add_block(self, segments: Dict[str, Optional[np.ndarray]], rows: int,
+                  num_col: int = 0, resume: Optional[dict] = None) -> None:
+        """Append one block. ``segments`` maps :data:`SEGMENT_NAMES` to 1-D
+        arrays (None: absent); ``resume`` is the block's JSON-able resume
+        annotation (the position just after it), stored so warm epochs
+        re-attach the same checkpoint states."""
+        check(self._f is not None and not self._finished,
+              "BlockCacheWriter: writer already finished/aborted")
+        pos = _pad_to(self._f, _ALIGN)
+        end, crc, arrays = write_segments(self._f, segments)
+        # through JSON, so cold- and warm-served states compare equal
+        self._entries.append({
+            "pos": pos, "end": end, "rows": int(rows), "crc": crc,
+            "resume": json.loads(json.dumps(resume)) if resume is not None else None,
+            "arrays": arrays})
+        self._rows += int(rows)
+        self._num_col = max(self._num_col, int(num_col))
+
+    def finish(self) -> None:
+        """Write footer + tail, fsync, and publish at ``path``."""
+        check(self._f is not None and not self._finished,
+              "BlockCacheWriter: writer already finished/aborted")
+        footer = {"version": BLOCK_CACHE_VERSION, "signature": self._sig,
+                  "num_col": self._num_col, "rows": self._rows,
+                  "blocks": self._entries}
+        finish_container(self._f, self.tmp_path, self.path, footer, BLOCK_CACHE_MAGIC)
+        self._f = None
+        self._finished = True
+
+    def abort(self) -> None:
+        """Drop the staging file (an interrupted cold pass)."""
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+        remove_quietly(self.tmp_path)
+
+    def close(self) -> None:
+        if not self._finished:
+            self.abort()
+
+
+class BlockCacheReader:
+    """mmap-backed reader: a block's segments load as zero-copy read-only
+    numpy views.
+
+    The views alias the mmap: a block built on them keeps :attr:`hold`
+    (the mmap) alive, and :meth:`close` leaves an mmap with live views to
+    the garbage collector instead of closing it under them."""
+
+    def __init__(self, path: str, signature: Optional[dict] = None, verify: bool = True):
+        self.path = path
+        self.verify = verify
+        self._file, self._mm, footer = open_container(
+            path, BLOCK_CACHE_MAGIC, BLOCK_CACHE_VERSION, f"block cache {path}")
+        try:
+            self.signature = footer.get("signature") or {}
+            self.num_col = int(footer.get("num_col", 0))
+            self.rows = int(footer.get("rows", 0))
+            self._blocks = footer["blocks"]
+            if signature is not None and self.signature != _normalize(signature):
+                raise DMLCError(f"block cache {path}: source signature mismatch (stale cache)")
+        except Exception:
+            self.close()
+            raise
+
+    @property
+    def num_blocks(self) -> int:
+        return len(self._blocks)
+
+    @property
+    def hold(self):
+        """The buffer owner views must keep alive (the mmap)."""
+        return self._mm
+
+    def resume(self, i: int) -> Optional[dict]:
+        """Block ``i``'s stored resume annotation, or None."""
+        return self._blocks[i]["resume"]
+
+    def block_rows(self, i: int) -> int:
+        return int(self._blocks[i]["rows"])
+
+    def block_nbytes(self, i: int) -> int:
+        e = self._blocks[i]
+        return int(e["end"]) - int(e["pos"])
+
+    def load_segments(self, i: int, copy: bool = False) -> Dict[str, np.ndarray]:
+        """Block ``i`` as {name: zero-copy read-only numpy view}, its crc32
+        checked first (``verify``); ``copy=True`` copies the arrays into
+        process memory instead (no :attr:`hold` needed), so a permuted
+        read's page faults land in the caller's timed read. Raises
+        :class:`CacheCorruptionError` on a crc mismatch."""
+        entry = self._blocks[i]
+        if self.verify:
+            # a memoryview slice does not copy the span, as an mmap slice would
+            with memoryview(self._mm)[int(entry["pos"]): int(entry["end"])] as span:
+                ok = zlib.crc32(span) & 0xFFFFFFFF == int(entry["crc"])
+            if not ok:
+                raise CacheCorruptionError(f"block cache {self.path}: crc mismatch on block {i}")
+        segments = read_segments(self._mm, entry["arrays"])
+        if copy:
+            segments = {k: np.array(v) for k, v in segments.items()}
+        return segments
+
+    def close(self) -> None:
+        # an mmap with exported views cannot close (BufferError): the
+        # garbage collector reclaims it once the last view is gone
+        mm = getattr(self, "_mm", None)
+        if mm is not None:
+            try:
+                mm.close()
+                self._mm = None
+            except BufferError:
+                pass
+        f = getattr(self, "_file", None)
+        if f is not None:
+            self._file = None
+            f.close()
+
+
+def open_block_cache(path: str, signature: Optional[dict] = None,
+                     verify: bool = True) -> Optional[BlockCacheReader]:
+    """Open a published cache, or None when it is missing or must be
+    rebuilt (unreadable, another version, a signature mismatch): the stale
+    file is removed and a ``cache_invalidations`` event counted."""
+    if not os.path.exists(path):
+        return None
+    try:
+        return BlockCacheReader(path, signature=signature, verify=verify)
+    except DMLCError:
+        _resilience.record_event("cache_invalidations")
+        remove_quietly(path)
+        return None

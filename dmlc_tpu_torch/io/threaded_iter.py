@@ -4,13 +4,20 @@ Own copy of the JAX package's ``ThreadedIter``, trimmed to the core
 contract: one producer thread fills a bounded queue ahead of the consumer,
 ``before_first`` restarts the epoch, an exception in the producer is
 re-raised on the consumer side, and ``destroy`` joins the thread.
+
+:class:`OrderedWorkerPool` is the JAX package's pool of the same name,
+trimmed to what the block cache's plan-ordered reads use: one serial
+source of items, a work function run on a fixed number of threads, at
+most ``max_ahead`` items pulled ahead of delivery, delivery in source
+order. Its live ``resize`` (autotuning), source restarts and stall
+diagnostics are not ported.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Callable, Deque, Generic, Optional, Tuple, TypeVar
+from typing import Any, Callable, Deque, Dict, Generic, Optional, Tuple, TypeVar
 
 from dmlc_tpu_torch.utils.check import DMLCError
 
@@ -146,3 +153,106 @@ class ThreadedIter(Generic[T]):
             state["it"] = iterator_factory()
 
         return ThreadedIter(produce, before_first, max_capacity=max_capacity)
+
+
+class OrderedWorkerPool(Generic[T]):
+    """Serial pull, parallel work, delivery in pull order.
+
+    ``source_factory()`` gives the iterator of items, pulled one at a time
+    under a lock, each taking the next sequence number; ``work_fn(item)``
+    runs on ``num_workers`` threads at once; :meth:`next` hands the results
+    out strictly in sequence order, None at the end. At most ``max_ahead``
+    items are pulled and not yet delivered. A ``work_fn`` exception is
+    raised by :meth:`next` at its item's position (earlier items deliver
+    first), and the pool delivers nothing after it. :meth:`destroy` joins
+    the workers."""
+
+    def __init__(self, source_factory: Callable[[], Any], work_fn: Callable[[Any], T],
+                 num_workers: int = 2, max_ahead: int = 4):
+        self._source = source_factory()
+        self._work = work_fn
+        self._ahead = max(1, int(max_ahead))
+        self._lock = threading.Condition()
+        self._pull_lock = threading.Lock()
+        self._results: Dict[int, Tuple[str, Any]] = {}
+        self._seq = 0    # the next sequence number a pull takes
+        self._want = 0   # the next sequence number the consumer gets
+        self._produce_end = False
+        self._poisoned = False
+        self._src_exc: Optional[BaseException] = None
+        self._destroyed = False
+        self.num_workers = max(1, int(num_workers))
+        self._threads = [threading.Thread(target=self._worker_loop, daemon=True)
+                         for _ in range(self.num_workers)]
+        for t in self._threads:
+            t.start()
+
+    def _worker_loop(self) -> None:
+        while True:
+            with self._lock:
+                self._lock.wait_for(lambda: self._destroyed or self._produce_end
+                                    or (self._seq - self._want) < self._ahead)
+                if self._destroyed or self._produce_end:
+                    return
+            with self._pull_lock:
+                # another worker may have ended the stream while this one waited
+                if self._destroyed or self._produce_end:
+                    return
+                try:
+                    item = next(self._source)
+                except StopIteration:
+                    with self._lock:
+                        self._produce_end = True
+                        self._lock.notify_all()
+                    return
+                except BaseException as exc:  # noqa: BLE001 - rethrown on consumer
+                    with self._lock:
+                        self._src_exc = exc
+                        self._produce_end = True
+                        self._lock.notify_all()
+                    return
+                with self._lock:
+                    seq = self._seq
+                    self._seq += 1
+            try:  # the parallel stage, outside every lock
+                out = ("ok", self._work(item))
+            except BaseException as exc:  # noqa: BLE001 - rethrown in order
+                out = ("exc", exc)
+            with self._lock:
+                self._results[seq] = out
+                self._lock.notify_all()
+
+    def next(self) -> Optional[T]:
+        """The next result in source order; None at the end of the stream
+        (and after a work error was raised)."""
+        if self._destroyed:
+            raise DMLCError("OrderedWorkerPool: already destroyed")
+        if self._poisoned:
+            return None
+        with self._lock:
+            self._lock.wait_for(lambda: self._want in self._results
+                                or (self._produce_end and self._want >= self._seq))
+            if self._want in self._results:
+                kind, value = self._results.pop(self._want)
+                self._want += 1
+                self._lock.notify_all()  # the window opened: a worker may pull
+                if kind == "exc":
+                    self._produce_end = True
+                    self._poisoned = True
+                    raise value
+                return value
+            if self._src_exc is not None:
+                exc, self._src_exc = self._src_exc, None
+                raise exc
+            return None
+
+    def destroy(self) -> None:
+        """Stop and join the workers (a worker inside ``work_fn`` finishes
+        its item first)."""
+        if self._destroyed:
+            return
+        with self._lock:
+            self._destroyed = True
+            self._lock.notify_all()
+        for t in self._threads:
+            t.join()

@@ -1,8 +1,11 @@
-"""URI parsing + the dmlc URI sugar ``path?k=v`` (uri_spec.h:42-75).
+"""URI parsing + the dmlc URI sugar ``path?k=v#blockcache=p`` (uri_spec.h:42-75).
 
 Own copy of the JAX package's ``io/uri.py``, trimmed to local paths with
-``?key=value`` arguments: the ``#`` cache, block-cache, snapshot and service
-fragments are not part of this port yet and are rejected.
+``?key=value`` arguments and the ``#blockcache=<path>`` fragment, which
+names the parse-once block cache (``URISpec.block_cache``; the resolver in
+:func:`dmlc_tpu_torch.data.parsers.create_parser` qualifies it per part).
+The chunk cache-file, snapshot and service fragments are not part of this
+port yet and are rejected.
 """
 
 from __future__ import annotations
@@ -32,14 +35,23 @@ class URI:
 
 
 class URISpec:
-    """URI sugar: ``real_uri?k=v&k2=v2`` (uri_spec.h:42-75)."""
+    """URI sugar: ``real_uri?k=v&k2=v2#blockcache=path`` (uri_spec.h:42-75)."""
 
     def __init__(self, uri: str):
-        if "#" in uri:
-            raise DMLCError(
-                f"{uri!r}: '#' fragments (cache files, block cache, snapshot, "
-                "service) are not supported by dmlc_tpu_torch yet")
-        name_args = uri.split("?")
+        name_cache = uri.split("#")
+        self.block_cache: str | None = None
+        if len(name_cache) > 2:
+            raise DMLCError("only one `#` is allowed in file path for cachefile specification")
+        if len(name_cache) == 2:
+            cache = name_cache[1]
+            if not cache.startswith("blockcache="):
+                raise DMLCError(
+                    f"{uri!r}: '#' fragments other than '#blockcache=' (cache "
+                    "files, snapshot, service) are not supported by dmlc_tpu_torch yet")
+            self.block_cache = cache[len("blockcache="):]
+            if not self.block_cache:
+                raise DMLCError("empty path in `#blockcache=` URI suffix")
+        name_args = name_cache[0].split("?")
         self.args: Dict[str, str] = {}
         if len(name_args) == 2:
             for i, kv in enumerate(name_args[1].split("&")):

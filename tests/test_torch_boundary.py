@@ -27,9 +27,12 @@ from dmlc_tpu_torch.ops.sparse import EllBatch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(dmlc_tpu_torch.__file__)
 FORBIDDEN = ("jax", "jaxlib", "optax", "dmlc_tpu", "ml_dtypes")
-# the modules this slice adds, which the subprocess must import too
+# modules the port added by hand-picked slices, which the subprocess must
+# import too (the block cache, the snapshot store, the epoch planner, the ALS
+# example)
 SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot",
-                    "dmlc_tpu_torch.ops.device_decode")
+                    "dmlc_tpu_torch.ops.device_decode", "dmlc_tpu_torch.data.epoch",
+                    "dmlc_tpu_torch.examples.train_als")
 
 
 def _port_sources():
