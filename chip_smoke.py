@@ -28,7 +28,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    run, the first 20 step losses held against the same batches on the CPU,
    and those 20 steps run twice on the card, bit-identical; the step's
    kernels hold no scatter-add;
-4. one epoch of the dense layout on the same corpus;
+4. one epoch of the dense layout on the same corpus through the dense
+   emit (the parser's dense blocks, no CSR block), then one through the
+   CSR route (each block densified on the producer), rows/s and stall
+   share side by side;
 5. kernel K2 (``csrc/widen_span.cu``), one launch a warm batch, against
    its plain PyTorch version (``decode_batch_plain``), bit for bit, on a
    batch of each kind a snapshot stores at the main path's widths (ELL
@@ -147,6 +150,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    batch, each batch bit-equal to the stored batch at
    ``block_permutation(2, epoch, n)[pos]``, and a ``unit="batch"`` state
    resumed in a fresh pipeline to bit-equal batches and equal weights.
+13. the formats (``run_formats``): (a) a Criteo day-0 shaped csv
+    (BASELINE.json config 2: a label, 13 integer and 26 categorical
+    columns; 2**20 rows) through ``create_parser(?format=csv&label_column=0)``
+    and ``LinearLearner`` with Adam at 1e-3: a dense cold epoch through the
+    dense emit shadow-writing a snapshot and a warm ``device_decode=True``
+    epoch (one K2 launch a batch), an ELL epoch (``max_nnz=39``: K1 and
+    ``dw`` once a step), and a cold epoch on the numpy engine at 1 and 4
+    parse workers (rows/s, ``parse_parallelism_efficiency``); gates: the
+    first 8 dense-emit batches equal the CSR route's bit for bit, and on
+    dense and ELL 20 card steps twice bit-identical, within 1e-4 of the port
+    on the CPU and enqueued behind a device spin without a host sync; (b) a
+    KDD2012 track 2 shaped libfm (BASELINE.json config 4: ten
+    ``field:index:1`` tokens, 50,000,000 ids; 2**20 rows):
+    ``LinearLearner(bcoo)`` one epoch (a row scatter a step into the whole
+    table) and ``FMLearner(ell)``, 8 factors, Adam 0.05, 64 steps (two row
+    scatters a step on a ``[50,000,001, 8]`` table); gates: 20 steps twice
+    bit-identical on each, and the first 20 (linear) and 5 (FM) losses
+    within 1e-4 of the port on the CPU from the same initial state; (c)
+    ``tests/test_device.py``'s libfm XOR case, ``FMLearner(ell)`` above 0.9
+    accuracy.
 
 The ``torch.profiler`` windows run last, the decode's first: the steps'
 windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
@@ -154,8 +177,8 @@ bcoo step's (``bcoo_step_profile``, device time by kernel), the ALS and
 FM steps' (``step_profile``: device events and time by kernel a step), and
 how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7, 11 and 12; the row scatter's on phases
-9, 10, 11 and 12), the card's name and power limit as
+the main paths of phases 3, 6, 7, 11, 12 and 13; the row scatter's on
+phases 9-13), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -185,6 +208,7 @@ K1_SHAPES = [  # (name, B, K, W)
     ("kdd_like", 8192, 16, (1 << 20) + 1),
     ("odd", 1000, 7, 101),
     ("higgs_large", 1 << 18, 28, 29),  # 58.7 MB of idx + val: bytes dominate
+    ("criteo_csv", 8192, 39, 40),      # phase 13's csv ELL: K not a multiple of 4
 ]
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
 K2_SHAPES = [  # (name, rows, cols, dtype)
@@ -686,19 +710,27 @@ def step_times(path: str, device, window: int = 40, snapshot=None) -> dict:
 
 
 def run_dense_epoch(path: str, device) -> dict:
+    """One dense epoch through the dense emit (the parser's ``DenseBlock``s,
+    no CSR block), then one through the CSR route (``set_emit_dense``
+    hidden, each block densified on the producer), in the same run."""
     from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
 
-    model = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, device=device)
-    it = DeviceIter(create_parser(path, 0, 1, "libsvm"), num_col=model.device_num_col(),
-                    batch_size=BATCH, layout="dense", drop_remainder=True, device=device)
-    t0 = time.monotonic()
-    loss, nb = model.fit_epoch(it)
-    secs = time.monotonic() - t0
-    out = {"phase": "dense", "loss": loss, "batches": nb, "wall_s": secs,
-           "rows_per_s": nb * BATCH / secs, "stall_s": it.stall_seconds,
-           "stall_share": it.stall_seconds / secs,
-           "bytes_to_device": it.bytes_to_device}
-    it.close()
+    out = {"phase": "dense"}
+    for route in ("emit", "csr"):
+        model = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, device=device)
+        src = _Blocks(create_parser(path, 0, 1, "libsvm"), csr=route == "csr")
+        it = DeviceIter(src, num_col=model.device_num_col(), batch_size=BATCH,
+                        layout="dense", drop_remainder=True, device=device)
+        t0 = time.monotonic()
+        loss, nb = model.fit_epoch(it)
+        secs = time.monotonic() - t0
+        out[route] = {"loss": loss, "batches": nb, "wall_s": secs,
+                      "rows_per_s": nb * BATCH / secs, "stall_s": it.stall_seconds,
+                      "stall_share": it.stall_seconds / secs,
+                      "producer_convert_s": it.convert_seconds,
+                      "bytes_to_device": it.bytes_to_device, "block_kinds": src.kinds}
+        it.close()
+    out["loss"] = out["emit"]["loss"]
     return out
 
 
@@ -1607,6 +1639,8 @@ ROW_SCATTER_SHAPES = [  # (name, B, K, D, row): B*K rows scattered into a [D, *r
     ("wide_1d", 8192, 16, (1 << 20) + 1, ()),         # a 1-D table above DW_MAX_TABLE
     ("fm_v", BATCH, HIGGS_COLS, HIGGS_COLS + 1, (8,)),  # phase 10's factor gradient
     ("fm_w", BATCH, HIGGS_COLS, HIGGS_COLS + 1, ()),    # and its linear weights'
+    ("kdd_bcoo", BATCH, 10, 50_000_001, ()),   # phase 13's libfm: the bcoo gradient
+    ("kdd_fm_v", BATCH, 10, 50_000_001, (8,)),  # and FM's factor gradient
 ]
 ROW_SCATTER_MAIN = "als_gram"
 
@@ -2808,6 +2842,459 @@ def run_shuffled_snapshot(path: str, snap: str, device) -> dict:
     return out
 
 
+# ---------------- phase 13: the csv and libfm formats ----------------
+
+CRITEO_ROWS, CRITEO_INTS, CRITEO_CATS = 1 << 20, 13, 26
+CRITEO_COLS = CRITEO_INTS + CRITEO_CATS
+CRITEO_LR = 0.05
+CRITEO_RANGE = (1e3, 1e5)  # the integer columns' and the categorical ids' range
+KDD_ROWS, KDD_FIELDS, KDD_COLS = 1 << 20, 10, 50_000_000
+
+
+class _Blocks:
+    """A parser seen through: counts the blocks it hands out by kind, and
+    with ``csr=True`` hides ``set_emit_dense``, so a dense ``DeviceIter``
+    takes the CSR route (densified on its producer)."""
+
+    def __init__(self, parser, csr: bool = False):
+        self.parser, self.csr, self.kinds = parser, csr, {}
+
+    def next_block(self):
+        block = self.parser.next_block()
+        if block is not None:
+            kind = type(block).__name__
+            self.kinds[kind] = self.kinds.get(kind, 0) + 1
+        return block
+
+    def __getattr__(self, name):
+        if name == "set_emit_dense" and self.csr:
+            raise AttributeError(name)
+        return getattr(self.parser, name)
+
+
+class _Scaled:
+    """A dense or ELL ``DeviceIter`` seen through: each batch's feature
+    columns divided on the card by their range (:data:`CRITEO_RANGE`), the
+    feature scaling a user applies before a linear model. At the raw
+    magnitudes (up to 99,999) the first Adam step moves the margin by
+    thousands and the loss diverges. The kernels see the scaled batches
+    as they would any other."""
+
+    def __init__(self, it):
+        import torch
+
+        self.it = it
+        # one entry a column and one for ELL's pad id (num_col), whose values are 0
+        self.scale = torch.ones(it.num_col + 1, device=it.device)
+        self.scale[:CRITEO_INTS] = 1 / CRITEO_RANGE[0]
+        self.scale[CRITEO_INTS:CRITEO_COLS] = 1 / CRITEO_RANGE[1]
+
+    def __iter__(self):
+        from dmlc_tpu_torch.data.device import PackedDenseBatch
+        from dmlc_tpu_torch.ops.sparse import EllBatch
+
+        for b in self.it:
+            if hasattr(b, "packed"):
+                x = b.packed.clone()
+                x[:, :b.num_col] *= self.scale[:b.num_col]
+                yield PackedDenseBatch(x, b.num_col, b.aux)
+            else:
+                yield EllBatch(b.indices, b.values * self.scale[b.indices.long()],
+                               b.label, b.weight)
+
+    def __getattr__(self, name):
+        return getattr(self.it, name)
+
+
+def _fixed_width_rows(path: str, rows: int, width: int, fill, seed: int) -> None:
+    """Write ``rows`` lines of ``width`` bytes, built with numpy in bulk:
+    ``fill(rng, buf)`` sets the digits of a ``[n, width]`` u8 block."""
+    rng = np.random.default_rng(seed)
+    chunk = 1 << 16
+    with open(path, "wb") as f:
+        for start in range(0, rows, chunk):
+            buf = np.empty((min(chunk, rows - start), width), np.uint8)
+            fill(rng, buf)
+            f.write(buf.tobytes())
+
+
+def _digits(buf, col: int, values, ndigits: int) -> None:
+    for d in range(ndigits):
+        buf[:, col + d] = ord("0") + (values // 10 ** (ndigits - 1 - d)) % 10
+
+
+def write_criteo_csv(path: str, rows: int, seed: int) -> dict:
+    """A Criteo day-0 shaped csv (BASELINE.json config 2; the column layout
+    of benchmarks/bench_csv_prefetch.py): a label, 13 integer columns in
+    0-999 (three digits) and 26 categorical ids in 0-99,999 (five digits),
+    comma-separated; the label is 1 when the first two integers sum past
+    999."""
+    width = 2 + 4 * CRITEO_INTS + 6 * CRITEO_CATS
+
+    def fill(rng, buf):
+        n = len(buf)
+        ints = rng.integers(0, 1000, size=(n, CRITEO_INTS))
+        cats = rng.integers(0, 100_000, size=(n, CRITEO_CATS))
+        buf[:] = ord(",")
+        buf[:, 0] = ord("0") + (ints[:, 0] + ints[:, 1] > 999)
+        for j in range(CRITEO_INTS):
+            _digits(buf, 2 + 4 * j, ints[:, j], 3)
+        for j in range(CRITEO_CATS):
+            _digits(buf, 2 + 4 * CRITEO_INTS + 6 * j, cats[:, j], 5)
+        buf[:, -1] = ord("\n")
+
+    _fixed_width_rows(path, rows, width, fill, seed)
+    return {"rows": rows, "cols": 1 + CRITEO_COLS, "bytes": os.path.getsize(path)}
+
+
+def write_kdd_libfm(path: str, rows: int, seed: int) -> dict:
+    """A KDD2012 track 2 shaped libfm file (BASELINE.json config 4; the line
+    shape of benchmarks/bench_libfm_bcoo.py): ten ``field:index:1`` tokens
+    a row, field f in 0-9 and an index below 50,000,000 (eight digits); the
+    label is 1 when the first two indices sum to a multiple of 3."""
+    width = 2 + KDD_FIELDS * 13
+
+    def fill(rng, buf):
+        idx = rng.integers(0, KDD_COLS, size=(len(buf), KDD_FIELDS))
+        buf[:] = ord(" ")
+        buf[:, 0] = ord("0") + ((idx[:, 0] + idx[:, 1]) % 3 == 0)
+        for f in range(KDD_FIELDS):
+            col = 2 + 13 * f
+            buf[:, col] = ord("0") + f
+            buf[:, col + 1] = buf[:, col + 10] = ord(":")
+            _digits(buf, col + 2, idx[:, f], 8)
+            buf[:, col + 11] = ord("1")
+        buf[:, -1] = ord("\n")
+
+    _fixed_width_rows(path, rows, width, fill, seed)
+    return {"rows": rows, "fields": KDD_FIELDS, "num_col": KDD_COLS,
+            "bytes": os.path.getsize(path)}
+
+
+def _batch_to(batch, dev):
+    """A device batch of any layout, copied to ``dev``."""
+    from dmlc_tpu_torch.data.device import PackedDenseBatch
+
+    if hasattr(batch, "packed"):
+        return PackedDenseBatch(batch.packed.to(dev), batch.num_col)
+    return type(batch)(*(t.to(dev) for t in batch)) if hasattr(batch, "_fields") \
+        else tuple(t.to(dev) for t in batch)
+
+
+def _batch_tensors(batch) -> list:
+    return [batch.packed] if hasattr(batch, "packed") else list(batch)
+
+
+def _params_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(p, q) for p, q in zip(a.params, b.params))
+
+
+def _loss_gates(make_model, batches, cpu_steps: int, device, init=None) -> dict:
+    """``len(batches)`` steps on ``device`` twice from the same initial
+    state (loss and parameter bits), and the first ``cpu_steps`` against
+    the port on the CPU from that state: the largest relative loss
+    difference. The CPU side runs under ``use_deterministic_algorithms``:
+    by default the backward of a 1-D gather on the CPU (``index_put_``
+    with ``accumulate=True``) adds in parallel with atomics once it has
+    32,768 entries, so its bits change from run to run."""
+    import torch
+
+    card = []
+    for _ in range(2):
+        m = make_model(device)
+        if init is not None:
+            init(m)
+        losses = torch.stack([m.step(b) for b in batches])
+        card.append((losses, m))
+    (la, ma), (lb, mb) = card
+    repeatable = bool(torch.equal(la, lb)) and _params_equal(ma, mb)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cpu = make_model("cpu")
+        if init is not None:
+            init(cpu)
+        pairs = [(float(c), float(cpu.step(_batch_to(b, "cpu"))))
+                 for c, b in zip(la[:cpu_steps], batches)]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
+    return {"card_bit_identical_twice": repeatable, "cpu_steps": len(pairs),
+            "max_rel_diff_vs_cpu": rel, "first_losses": pairs[:3], "model": ma}
+
+
+def _csv_model(device, layout: str):
+    import torch
+
+    from dmlc_tpu_torch import LinearLearner
+
+    return LinearLearner(CRITEO_COLS, layout=layout, device=device,
+                         optimizer=lambda p: torch.optim.Adam(p, lr=CRITEO_LR))
+
+
+def _csv_pipeline(path: str, device, layout: str, snapshot=None, csr=False, **kw):
+    from dmlc_tpu_torch import DeviceIter, create_parser
+
+    model = _csv_model(device, layout)
+    src = _Blocks(create_parser(path + "?format=csv&label_column=0", snapshot=snapshot, **kw),
+                  csr=csr)
+    it = DeviceIter(src, num_col=model.device_num_col(), batch_size=BATCH, layout=layout,
+                    max_nnz=CRITEO_COLS, drop_remainder=True, device=device,
+                    device_decode=snapshot is not None)
+    return model, src, _Scaled(it)
+
+
+def _epoch_record(it, model, leg: str, max_steps=None) -> dict:
+    """One ``fit_epoch`` with its rows/s, stall share, the bytes decoded on
+    the card (a warm device-decode epoch's) and the source's parse width and
+    efficiency."""
+    keys = ("stall_seconds", "device_decode_bytes", "convert_seconds")
+    before = it.stats()
+    t0 = time.monotonic()
+    loss, nb = model.fit_epoch(it, max_steps=max_steps)
+    secs = time.monotonic() - t0
+    stats = it.stats()
+    delta = {k: stats[k] - before[k] for k in keys}
+    return {"leg": leg, "loss": loss, "batches": nb, "wall_s": secs,
+            "rows_per_s": nb * BATCH / secs, "stall_share": delta["stall_seconds"] / secs,
+            "producer_convert_s": delta["convert_seconds"],
+            "device_decode_bytes": delta["device_decode_bytes"],
+            "parse_workers": stats["parse_workers"],
+            "parse_parallelism_efficiency": stats["parse_parallelism_efficiency"]}
+
+
+def run_criteo_csv(path: str, tmp: str, device) -> dict:
+    """Phase 13 (a): the Criteo-shaped csv. ``layout="dense"`` through the
+    dense emit, a cold epoch shadow-writing a snapshot, then a warm epoch
+    with ``device_decode=True`` (K2 once a batch); ``layout="ell"`` one
+    epoch (K1 and ``dw`` once a step); the numpy engine at 1 and 4 parse
+    workers. Gates: the first 8 dense-emit batches equal the CSR route's
+    bit for bit; on dense and ell, 20 card steps twice bit-identical and
+    within 1e-4 of the port on the CPU, and enqueued behind a device spin
+    without a host sync; every epoch's loss below log 2. ``LinearLearner``
+    takes Adam at :data:`CRITEO_LR` over the scaled columns
+    (:class:`_Scaled`)."""
+    import torch
+
+    from dmlc_tpu_torch.ops import device_decode as dd
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    out: dict = {"phase": "formats_csv", "optimizer": f"Adam lr {CRITEO_LR}"}
+    legs = []
+    # the first 8 batches: the dense emit against the CSR route
+    emit_b, csr_b = [], []
+    for csr, sink in ((False, emit_b), (True, csr_b)):
+        _, src, it = _csv_pipeline(path, device, "dense", csr=csr)
+        sink.extend(b.packed.clone() for _, b in zip(range(8), it.it))
+        it.close()
+        sink.append(dict(src.kinds))
+    kinds_emit, kinds_csr = emit_b.pop(), csr_b.pop()
+    out["first8_dense_emit_equal_csr"] = len(emit_b) == 8 and all(
+        torch.equal(a, b) for a, b in zip(emit_b, csr_b))
+    out["block_kinds_emit_csr"] = [kinds_emit, kinds_csr]
+    del emit_b, csr_b
+    # dense: a cold epoch through the dense emit writing the snapshot, a warm
+    # device-decode epoch from it
+    snap = os.path.join(tmp, "criteo_dense.snapshot")
+    model, src, it = _csv_pipeline(path, device, "dense", snapshot=snap)
+    legs.append(_epoch_record(it, model, "dense_cold_emit"))
+    kinds = dict(src.kinds)
+    dd.launches = 0
+    legs.append(_epoch_record(it, model, "dense_warm_device_decode"))
+    out["k2_launches"], warm_batches = dd.launches, legs[-1]["batches"]
+    it.close()
+    out["dense_cold_block_kinds"] = kinds
+    # ell: one epoch, K1 and dw counted around it
+    model, _, it = _csv_pipeline(path, device, "ell")
+    k1.launches = k1.dw_launches = 0
+    legs.append(_epoch_record(it, model, "ell_cold"))
+    out["k1_launches"], out["dw_launches"] = k1.launches, k1.dw_launches
+    ell_steps = legs[-1]["batches"]
+    it.close()
+    # the numpy engine, one cold epoch at each width
+    for workers in (1, 4):
+        model, _, it = _csv_pipeline(path, device, "dense", engine="python",
+                                     parse_workers=workers)
+        legs.append(_epoch_record(it, model, f"dense_python_w{workers}"))
+        it.close()
+    out["legs"] = legs
+    # the gates on 20 resident batches of each layout
+    for layout in ("dense", "ell"):
+        _, _, it = _csv_pipeline(path, device, layout)
+        batches = [b for _, b in zip(range(20), it)]
+        it.close()
+        gates = _loss_gates(lambda dev: _csv_model(dev, layout), batches, 20, device)
+        m = gates.pop("model")
+        m.step(batches[0])
+        torch.cuda.synchronize()
+        gates["step_enqueue_behind_spin"] = enqueue_behind_spin(lambda: m.step(batches[0]))
+        out[f"{layout}_gates"] = gates
+        del batches, m
+    emit(out)
+    problems = []
+    if not out["first8_dense_emit_equal_csr"]:
+        problems.append("the dense emit's first 8 batches differ from the CSR route's")
+    if kinds_emit.get("RowBlock") or kinds.get("RowBlock") or not kinds.get("DenseBlock"):
+        problems.append(f"the dense emit handed out CSR blocks: {kinds_emit}, {kinds}")
+    if not legs[1]["device_decode_bytes"] or out["k2_launches"] != warm_batches:
+        problems.append(f"K2 launched {out['k2_launches']} times for {warm_batches} warm batches")
+    if out["k1_launches"] < ell_steps or out["dw_launches"] < ell_steps:
+        problems.append(f"K1/dw launched {out['k1_launches']}/{out['dw_launches']} times for "
+                        f"{ell_steps} steps")
+    if not all(np.isfinite(leg["loss"]) and leg["loss"] < np.log(2) for leg in legs):
+        problems.append(f"an epoch loss not below log 2: {[leg['loss'] for leg in legs]}")
+    for layout in ("dense", "ell"):
+        g = out[f"{layout}_gates"]
+        if not (g["card_bit_identical_twice"] and g["cpu_steps"] == 20
+                and g["max_rel_diff_vs_cpu"] <= 1e-4
+                and g["step_enqueue_behind_spin"]["no_host_sync"]):
+            problems.append(f"{layout}: {g}")
+    if problems:
+        raise AssertionError(f"formats csv: {problems}")
+    return out
+
+
+def _kdd_model(device, kind: str):
+    import torch
+
+    from dmlc_tpu_torch import FMLearner, LinearLearner
+
+    if kind == "bcoo":
+        return LinearLearner(KDD_COLS, layout="bcoo", device=device)
+    return FMLearner(KDD_COLS, num_factors=8, layout="ell", seed=0, device=device,
+                     optimizer=lambda p: torch.optim.Adam(p, lr=0.05))
+
+
+def _kdd_pipeline(path: str, device, kind: str):
+    from dmlc_tpu_torch import DeviceIter, create_parser
+
+    model = _kdd_model(device, kind)
+    it = DeviceIter(create_parser(path + "?format=libfm"), num_col=model.device_num_col(),
+                    batch_size=BATCH, layout=kind, max_nnz=KDD_FIELDS, device=device)
+    return model, it
+
+
+def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
+    """Phase 13 (b): the KDD2012-shaped libfm. ``LinearLearner(bcoo)`` over
+    50,000,000 columns, one epoch (its gradient a row scatter a step into
+    the whole table); ``FMLearner(ell)``, 8 factors, Adam 0.05,
+    ``fm_steps`` steps on the ``[50,000,001, 8]`` table (two row scatters a
+    step); each leg's step device time on a resident batch. Gates: 20 steps
+    twice bit-identical on each leg; the losses against the port on the CPU
+    from the same initial state, the first 20 (linear) and 5 (FM) within
+    1e-4."""
+    import torch
+
+    from dmlc_tpu_torch.convert import fm_params_from_jax, fm_params_to_jax
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    out: dict = {"phase": "formats_libfm"}
+    model, it = _kdd_pipeline(path, device, "bcoo")
+    rs.launches = 0
+    rec = _epoch_record(it, model, "linear_bcoo")
+    rec["row_scatter_launches"] = rs.launches
+    rec["nnz_shapes"] = sorted(it.nnz_shapes)
+    batches = [b for _, b in zip(range(20), it)]
+    it.close()
+    rec["step_device_ms"] = device_ms(lambda: model.step(batches[0]), iters=10)
+    del model
+    gates = _loss_gates(lambda dev: _kdd_model(dev, "bcoo"), batches, 20, device)
+    gates.pop("model")
+    out["linear_bcoo"] = {**rec, **gates}
+    del batches
+    torch.cuda.empty_cache()
+
+    model, it = _kdd_pipeline(path, device, "ell")
+    init = fm_params_to_jax(model.params)  # the card's initial state, for every run
+    rs.launches = 0
+    rec = _epoch_record(it, model, "fm_ell", max_steps=fm_steps)
+    rec["row_scatter_launches"] = rs.launches
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches = [b for _, b in zip(range(20), it)]
+    it.close()
+    rec["step_device_ms"] = device_ms(lambda: model.step(batches[0]), iters=10)
+    del model
+    torch.cuda.empty_cache()
+    gates = _loss_gates(lambda dev: _kdd_model(dev, "ell"), batches, 5, device,
+                        init=lambda m: m.set_params(fm_params_from_jax(*init, device=m.device)))
+    gates.pop("model")
+    out["fm_ell"] = {**rec, **gates}
+    del batches, init
+    torch.cuda.empty_cache()
+    emit(out)
+    problems = []
+    lin, fm = out["linear_bcoo"], out["fm_ell"]
+    if lin["row_scatter_launches"] < lin["batches"]:
+        problems.append(f"bcoo: the row scatter launched {lin['row_scatter_launches']} times")
+    if fm["batches"] != fm_steps or fm["row_scatter_launches"] < 2 * fm_steps:
+        problems.append(f"fm: {fm['batches']} steps, {fm['row_scatter_launches']} scatters")
+    for name, leg, steps in (("bcoo", lin, 20), ("fm", fm, 5)):
+        if not (np.isfinite(leg["loss"]) and leg["card_bit_identical_twice"]
+                and leg["cpu_steps"] == steps and leg["max_rel_diff_vs_cpu"] <= 1e-4):
+            problems.append(f"{name}: {leg}")
+    if problems:
+        raise AssertionError(f"formats libfm: {problems}")
+    return out
+
+
+def run_libfm_xor(tmp: str, device) -> dict:
+    """Phase 13 (c): ``tests/test_device.py``'s libfm case on the card,
+    ``FMLearner(ell)`` on ``field:index:1`` rows whose label is an XOR."""
+    from dmlc_tpu_torch import DeviceIter, FMLearner, create_parser
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    rng = np.random.default_rng(5)
+    lines = []
+    for _ in range(400):
+        a, b = int(rng.integers(0, 2)), int(rng.integers(0, 2))
+        lines.append(f"{a ^ b} 0:{a}:1 1:{2 + b}:1")
+    path = os.path.join(tmp, "xor.libfm")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    model = FMLearner(num_col=4, num_factors=4, layout="ell", learning_rate=0.15, seed=3,
+                      device=device)
+    it = DeviceIter(create_parser(path + "?format=libfm", 0, 1, "auto", threaded=False),
+                    num_col=model.device_num_col(), batch_size=50, layout="ell", max_nnz=2,
+                    drop_remainder=True, device=device)
+    rs.launches = 0
+    t0 = time.monotonic()
+    model.fit(it, epochs=60)
+    acc = model.accuracy(it)
+    it.close()
+    out = {"phase": "formats_libfm_xor", "accuracy": acc, "steps": 60 * 8,
+           "row_scatter_launches": rs.launches, "wall_s": time.monotonic() - t0}
+    emit(out)
+    if not acc > 0.9 or rs.launches < 2 * out["steps"]:
+        raise AssertionError(f"libfm XOR: {out}")
+    return out
+
+
+def run_formats(tmp: str, device, seed: int) -> dict:
+    """Phase 13: the csv and libfm formats, the dense emit and the parse
+    fan-out, fed to the learners on the card."""
+    from dmlc_tpu_torch import native
+
+    t0 = time.monotonic()
+    if not native.available():
+        raise AssertionError("the native parser did not build")
+    csv, fm = os.path.join(tmp, "criteo.csv"), os.path.join(tmp, "kdd.libfm")
+    emit({"phase": "formats_corpora", "parse_engine": "native",
+          "criteo": write_criteo_csv(csv, CRITEO_ROWS, seed),
+          "kdd": write_kdd_libfm(fm, KDD_ROWS, seed), "write_s": time.monotonic() - t0,
+          "reduced": "Criteo day 0 (about 195 M rows) and KDD2012 track 2 (about 150 M "
+                     "rows) each cut to 1,048,576 rows for the time limit; widths as "
+                     "published (40 csv columns; 10 libfm fields, 50 M ids)"})
+    out = {"csv": run_criteo_csv(csv, tmp, device), "libfm": run_kdd_libfm(fm, device),
+           "xor": run_libfm_xor(tmp, device)}
+    for p in (csv, fm):
+        os.remove(p)
+    out["wall_s"] = time.monotonic() - t0
+    emit({"phase": "formats_total", "wall_s": out["wall_s"]})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2886,8 +3373,12 @@ def main() -> int:
         # phase 4
         dense = run_dense_epoch(path, dev)
         emit(dense)
-        if not (np.isfinite(dense["loss"]) and dense["loss"] < np.log(2)):
-            raise AssertionError(f"dense epoch loss {dense['loss']}")
+        if not all(np.isfinite(dense[r]["loss"]) and dense[r]["loss"] < np.log(2)
+                   for r in ("emit", "csr")):
+            raise AssertionError(f"dense epoch loss: {dense}")
+        if dense["emit"]["block_kinds"].get("RowBlock") or dense["csr"]["block_kinds"].get(
+                "DenseBlock"):
+            raise AssertionError(f"dense epoch routes: {dense}")
 
         # phase 6: the warm paths, each with its counts zeroed just before
         ell_snap = os.path.join(tmp, "ell.snapshot")
@@ -2930,6 +3421,9 @@ def main() -> int:
         bc_higgs = run_block_cache_higgs(path, tmp, dev)
         bc_snap = run_shuffled_snapshot(path, ell_snap, dev)
         emit({"phase": "block_cache_total", "wall_s": time.monotonic() - t12})
+        # phase 13: the csv and libfm formats, each leg's launches counted
+        # from 0 around its main path
+        formats = run_formats(tmp, dev, args.seed)
         # the profiler's windows: the decode's first (a window opened after
         # others has recorded nothing now and then), then the steps'
         emit(profile_decodes({p: snaps[p] for p in ("warm_dense_bfloat16", "warm_dense_q8")},
@@ -2964,7 +3458,8 @@ def main() -> int:
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:122",
         "launches": (launches + warm_ell["k1_launches"] + ckpt_k1 + par_k1
-                     + bc_higgs["k1_launches"] + bc_snap["k1_launches"]),
+                     + bc_higgs["k1_launches"] + bc_snap["k1_launches"]
+                     + formats["csv"]["k1_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2973,7 +3468,8 @@ def main() -> int:
         "source": "dmlc_tpu_torch/csrc/ell_matvec_dw.cu",
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:191",
         "launches": (dw_launches + warm_ell["dw_launches"] + ckpt_dw + par_dw
-                     + bc_higgs["dw_launches"] + bc_snap["dw_launches"]),
+                     + bc_higgs["dw_launches"] + bc_snap["dw_launches"]
+                     + formats["csv"]["dw_launches"]),
         "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
                            if r["dw_route"] == "cuda"),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
@@ -2983,7 +3479,7 @@ def main() -> int:
         "source": "dmlc_tpu_torch/csrc/widen_span.cu",
         "replaces": "dmlc_tpu/ops/device_decode.py:168",
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
-                     + ckpt_k2 + bc_snap["k2_launches"]),
+                     + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -2993,7 +3489,10 @@ def main() -> int:
         "replaces": "dmlc_tpu/models/als.py:169",
         "launches": als["row_scatter_launches"] + sum(
             v["row_scatter_launches"] for v in fm.values())
-        + par["pair"]["launches"]["row_scatter"] + bc_als["row_scatter_launches"],
+        + par["pair"]["launches"]["row_scatter"] + bc_als["row_scatter_launches"]
+        + formats["libfm"]["linear_bcoo"]["row_scatter_launches"]
+        + formats["libfm"]["fm_ell"]["row_scatter_launches"]
+        + formats["xor"]["row_scatter_launches"],
         "max_abs_err": max([r["row_scatter"]["max_abs_diff_vs_plain"] for r in rs_rows]
                            + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
         "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],

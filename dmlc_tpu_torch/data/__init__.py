@@ -1,11 +1,14 @@
-"""Data layer of the port: row blocks, the libsvm parser with the
-parse-once block cache and the epoch planner, the device feed (with the
-snapshot store and its device-decode tier, and mid-epoch checkpoints from
-the split up)."""
+"""Data layer of the port: row blocks, the libsvm, csv and libfm parsers
+with the dense emit, the parse fan-out, the parse-once block cache and the
+epoch planner, the device feed (with the snapshot store and its
+device-decode tier, and mid-epoch checkpoints from the split up)."""
 
 from dmlc_tpu_torch.data.device import DeviceIter, PackedDenseBatch
-from dmlc_tpu_torch.data.parsers import LibSVMParser, Parser, ThreadedParser, create_parser
-from dmlc_tpu_torch.data.row_block import RowBlock, RowBlockContainer
+from dmlc_tpu_torch.data.parsers import (CSVParser, LibFMParser, LibSVMParser,
+                                         ParallelTextParser, Parser, ThreadedParser,
+                                         create_parser)
+from dmlc_tpu_torch.data.row_block import DenseBlock, RowBlock, RowBlockContainer
 
-__all__ = ["DeviceIter", "LibSVMParser", "PackedDenseBatch", "Parser", "RowBlock",
+__all__ = ["CSVParser", "DenseBlock", "DeviceIter", "LibFMParser", "LibSVMParser",
+           "PackedDenseBatch", "ParallelTextParser", "Parser", "RowBlock",
            "RowBlockContainer", "ThreadedParser", "create_parser"]

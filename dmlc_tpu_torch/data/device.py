@@ -20,7 +20,14 @@ consumption:
 Dense batches are :class:`PackedDenseBatch` (one ``[B, num_col + 2]``
 slab: features | label | weight) when ``pack_aux`` is on, the default for
 float32; ``x_dtype="bfloat16"`` ships the features (and, packed, the
-label and weight, which must then be bf16-exact) in bfloat16.
+label and weight, which must then be bf16-exact) in bfloat16. At
+construction a dense pipeline asks its source for dense blocks
+(``set_emit_dense``, as the JAX package does): a libsvm or float32 csv
+parser on the native engine then emits :class:`DenseBlock`s with no CSR
+block. The producer groups the ``DenseBlock`` and ``RowBlock`` parts of a
+batch by views and packs them into the batch's staging slot in one pass
+(a ``RowBlock`` part densified on the way); the batches are the same bytes
+on either route.
 
 **Snapshot store.** With ``snapshot=`` (or a parser from
 ``create_parser(..., snapshot=path)``) the first complete epoch
@@ -132,7 +139,7 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.data import epoch as _epoch
-from dmlc_tpu_torch.data.row_block import RowBlock, RowBlockContainer
+from dmlc_tpu_torch.data.row_block import DenseBlock, RowBlock, RowBlockContainer
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io import snapshot as _snapshot
 from dmlc_tpu_torch.io.block_cache import remove_quietly, torch_dtype
@@ -176,6 +183,33 @@ def rebatch_blocks(blocks: Iterator[RowBlock], batch_size: int,
                 pending.push_block(merged.slice(pos, len(merged)))
     if pending_rows and not drop_remainder:
         yield pending.to_block()
+
+
+def _dense_batches(blocks, batch_size: int, drop_remainder: bool = False):
+    """Group a stream of :class:`DenseBlock` and :class:`RowBlock` parts
+    into lists of parts of exactly ``batch_size`` rows, by views (``slice``),
+    copying nothing; the final partial list is emitted unless
+    ``drop_remainder``."""
+    parts: list = []
+    pending = 0
+    for block in blocks:
+        parts.append(block)
+        pending += len(block)
+        while pending >= batch_size:
+            take, need = [], batch_size
+            while need > 0:
+                n = len(parts[0])
+                if n <= need:
+                    take.append(parts.pop(0))
+                    need -= n
+                else:
+                    take.append(parts[0].slice(0, need))
+                    parts[0] = parts[0].slice(need, n)
+                    need = 0
+            pending -= batch_size
+            yield take
+    if pending and not drop_remainder:
+        yield parts
 
 
 def _require_bf16_exact(packed_col: torch.Tensor, src: np.ndarray, what: str) -> None:
@@ -414,6 +448,10 @@ class DeviceIter:
               "freezes one epoch's batch order — shuffle snapshot "
               "epochs with snapshot_shuffle_seed= instead "
               "(docs/data.md)")
+        if layout == "dense" and hasattr(source, "set_emit_dense"):
+            # dense blocks straight from the scanner, no CSR block; the
+            # producer packs either kind
+            source.set_emit_dense(self.num_col)
         self._snap_reader: Optional[_snapshot.SnapshotReader] = None
         self._snap_writer: Optional[_snapshot.SnapshotWriter] = None
         self._snap_serving = False  # the current producer is the warm feed
@@ -530,7 +568,8 @@ class DeviceIter:
             yield block
 
     def _source_batches(self, drop: int, seeked: bool):
-        """``(batch block, annotation, bcoo nnz pad)`` in stream order: the
+        """``(batch, annotation, bcoo nnz pad)`` in stream order, a batch
+        one RowBlock (a dense batch: its list of parts), with the
         annotation of the last block boundary at or before the batch's end
         (None before the first), and the nnz pad planned here, in order, so
         the tail batch pads into a shape already emitted."""
@@ -540,9 +579,11 @@ class DeviceIter:
             return
         boundaries: deque = deque()
         cur, emitted = None, 0
-        for block in rebatch_blocks(self._tracked_blocks(boundaries, drop, seeked),
-                                    self.batch_size, self.drop_remainder):
-            emitted += len(block)
+        tracked = self._tracked_blocks(boundaries, drop, seeked)
+        regroup = _dense_batches if self.layout == "dense" else rebatch_blocks
+        for block in regroup(tracked, self.batch_size, self.drop_remainder):
+            # a dense batch is its list of parts
+            emitted += sum(map(len, block)) if self.layout == "dense" else len(block)
             while boundaries and boundaries[0][0] <= emitted:
                 cur = boundaries.popleft()
             annot = None if cur is None else {"source": cur[1], "skip_rows": emitted - cur[0]}
@@ -570,7 +611,7 @@ class DeviceIter:
         else:  # natural blocks: round the rows up too
             pad = -(-len(block) // self.row_bucket) * self.row_bucket if self.row_bucket else None
         if self.layout == "dense":
-            return block_to_dense(block, self.num_col, pad_rows_to=pad)
+            return block  # its parts are packed in one pass (_pack_dense)
         if len(block.index) and int(block.index.max()) >= self.num_col:
             # ell's pad index num_col addresses the sink, and torch's sparse
             # tensors mask nothing: a larger index would read outside the
@@ -591,18 +632,45 @@ class DeviceIter:
         if self.layout == "bcoo":
             self._pack_bcoo(slot, arrays)
             return
-        if not self.pack_aux:
-            for buf, arr in zip(slot.bufs, arrays):
-                buf.copy_(torch.from_numpy(arr))
+        if self.layout == "dense":
+            self._pack_dense(slot, arrays)
             return
-        x, y, w = arrays
-        packed, nc = slot.bufs[0], self.num_col
-        packed[:, :nc].copy_(torch.from_numpy(x))
-        packed[:, nc].copy_(torch.from_numpy(y))
-        packed[:, nc + 1].copy_(torch.from_numpy(w))
-        if self._aux_exact_check:
-            _require_bf16_exact(packed[:, nc], y, "label")
-            _require_bf16_exact(packed[:, nc + 1], w, "weight")
+        for buf, arr in zip(slot.bufs, arrays):
+            buf.copy_(torch.from_numpy(arr))
+
+    def _pack_dense(self, slot: _Slot, parts) -> None:
+        """A dense batch's parts into its staging slot in one pass (the
+        unpacked branches of the JAX package's ``_pack_dense_parts``): a
+        ``DenseBlock`` part copied as it is, a ``RowBlock`` part densified
+        first; an absent weight is 1; rows past the parts (the epoch's tail)
+        are zeros, so their weight 0 masks them. The copy into a bfloat16
+        slot rounds to nearest even."""
+        nc = self.num_col
+        if self.pack_aux:
+            packed = slot.bufs[0]
+            xb, yb, wb = packed[:, :nc], packed[:, nc], packed[:, nc + 1]
+        else:
+            xb, yb, wb = slot.bufs
+        pos = 0
+        for part in parts:
+            n = len(part)
+            if isinstance(part, DenseBlock):
+                x, y, w = part.x, part.label, part.weight
+            else:
+                x, y, w = block_to_dense(part, nc)
+            xb[pos:pos + n].copy_(torch.from_numpy(x))
+            yb[pos:pos + n].copy_(torch.from_numpy(y))
+            if w is None:
+                wb[pos:pos + n] = 1.0
+            else:
+                wb[pos:pos + n].copy_(torch.from_numpy(w))
+            if self._aux_exact_check:
+                _require_bf16_exact(yb[pos:pos + n], y, "label")
+                if w is not None:
+                    _require_bf16_exact(wb[pos:pos + n], w, "weight")
+            pos += n
+        for buf in (xb, yb, wb):
+            buf[pos:] = 0
 
     def _pack_bcoo(self, slot: _Slot, arrays) -> None:
         """A bcoo batch into the slot's u8 span (:func:`_bcoo_offsets`),
@@ -1035,9 +1103,16 @@ class DeviceIter:
         adds sampled transfer landings to it, which the port does not
         sample. ``shuffle_seed`` and ``epoch`` are the source's epoch plan
         (None without one), ``snapshot_seed`` and ``snapshot_epoch`` the
-        snapshot plan's (None without a snapshot)."""
+        snapshot plan's (None without a snapshot). ``parse_workers`` and
+        ``parse_parallelism_efficiency`` (the whole ``parse_parallel``
+        sideband beside them) are the source chain's parse fan-out, as the
+        JAX package reports them."""
         plan_state = getattr(self.source, "plan_state", None) or {}
         snap = self.snapshot_path is not None
+        # the source chain's parse fan-out (ParallelTextParser); a
+        # one-lane source reports one worker and no efficiency
+        fn = getattr(self.source, "parallel_stats", None)
+        pstats = fn() if fn is not None else None
         return {"batches": self.batches_fed,
                 "batches_fed": self.batches_fed,
                 "bytes_to_device": self.bytes_to_device,
@@ -1061,5 +1136,9 @@ class DeviceIter:
                 "device_decode": self.device_decode,
                 "device_decode_bytes": self.device_decode_bytes,
                 "device_decode_seconds": self.device_decode_seconds,
+                "parse_workers": (pstats or {}).get("parse_workers", 1),
+                "parse_parallelism_efficiency": (pstats or {}).get(
+                    "parse_parallelism_efficiency"),
+                "parse_parallel": pstats,
                 "resilience": {"pipeline_restarts": self.pipeline_restarts,
                                "pipeline_giveups": self.pipeline_giveups}}

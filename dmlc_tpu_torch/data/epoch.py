@@ -1,8 +1,7 @@
 """Deterministic epoch planner: shuffled, pod-sharded, resumable warm epochs.
 
 Own copy of the JAX package's ``data/epoch.py`` (numpy only; the port
-imports nothing of that package), without the ``field`` array the port's
-blocks do not carry. Every order is a pure function of ``(seed, epoch)``:
+imports nothing of that package). Every order is a pure function of ``(seed, epoch)``:
 
 - :func:`block_permutation`: the seeded visitation order of the cached
   block indices for one epoch;
@@ -101,7 +100,7 @@ def row_permutation(seed: int, epoch: int, block_index: int, rows: int,
 
 def uniform_column_pattern(block: RowBlock) -> bool:
     """True when every row has the SAME feature-column pattern (identical
-    nnz AND identical ``index`` entries row for row) — the
+    nnz AND identical ``index``/``field`` entries row for row) — the
     dense-text common case (HIGGS/Criteo-like corpora). Such a block's
     nnz-id arrays are invariant under any row permutation, so
     :func:`permute_block_rows` can skip their gathers entirely — they are
@@ -117,7 +116,12 @@ def uniform_column_pattern(block: RowBlock) -> bool:
     if k == 0:
         return True
     idx2d = block.index.reshape(n, k)
-    return bool(np.array_equal(idx2d, np.broadcast_to(idx2d[0], idx2d.shape)))
+    if not np.array_equal(idx2d, np.broadcast_to(idx2d[0], idx2d.shape)):
+        return False
+    if block.field is not None:
+        f2d = block.field.reshape(n, k)
+        return bool(np.array_equal(f2d, np.broadcast_to(f2d[0], f2d.shape)))
+    return True
 
 
 def permute_block_rows(block: RowBlock, perm: np.ndarray,
@@ -131,7 +135,7 @@ def permute_block_rows(block: RowBlock, perm: np.ndarray,
 
     ``uniform_columns=True`` is the caller's assertion (via
     :func:`uniform_column_pattern`, typically memoized) that every row's
-    index pattern is identical — those arrays then pass through
+    index/field pattern is identical — those arrays then pass through
     un-gathered (they are permutation-invariant), keeping the shuffle's
     copy cost to the value/label arrays.
     """
@@ -169,6 +173,7 @@ def permute_block_rows(block: RowBlock, perm: np.ndarray,
         value=g(block.value) if block.value is not None else None,
         weight=block.weight[perm] if block.weight is not None else None,
         qid=block.qid[perm] if block.qid is not None else None,
+        field=g_ids(block.field) if block.field is not None else None,
         hold=block.hold,
     )
 

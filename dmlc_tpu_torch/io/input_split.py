@@ -1,8 +1,10 @@
-"""Partitioned, line-aware input splitting — ``LineSplitter``.
+"""Partitioned, line-aware input splitting — ``LineSplitter`` and
+``MmapLineSplit``.
 
 Own copy of the JAX package's ``io/input_split.py`` (InputSplitBase +
-LineSplitter), trimmed to what the port's parse path uses: byte-range
-partitioning of local text files and whole-record chunk reads.
+LineSplitter, MmapLineSplit), trimmed to what the port's parse path uses:
+byte-range partitioning of local text files and whole-record chunk reads,
+by a stream of reads or as zero-copy slices of an mmap.
 
 The partition invariant (input_split_base.cc:30-64, 196-199, 235-242):
 
@@ -27,6 +29,8 @@ position taken in either package seeks the other's splitter there.
 
 from __future__ import annotations
 
+import mmap
+import os
 from bisect import bisect_right
 from typing import BinaryIO, List, Optional
 
@@ -234,6 +238,125 @@ class LineSplitter:
 
     def close(self) -> None:
         self._close_fp()
+
+
+class MmapLineSplit(LineSplitter):
+    """Zero-copy chunk reads over local text files.
+
+    Chunks are memoryview slices of per-file mmaps, cut at the last record
+    boundary inside the chunk budget: each pull costs a tail ``rfind``
+    instead of the stream's read, concat and slice over every byte. It is
+    the serial chunk source under the parse fan-out
+    (:class:`dmlc_tpu_torch.data.parsers.ParallelTextParser`), which needs
+    a pull far cheaper than its workers' parse.
+
+    The partition bounds are :class:`LineSplitter`'s, byte for byte. A
+    chunk never spans a file join (ending it at the file's end is the same
+    record boundary as the stream's injected newline), so on a single file
+    the chunks hold the stream's records with the stream's grouping; an
+    unterminated last line is a chunk of its own, as there. States keep the
+    ``kind="byte"`` schema with ``offset_curr`` counting file bytes (no
+    overflow is ever held), so they restore across the two splits and the
+    two packages; a state with a pending chunk tail (a record iteration's,
+    which no chunk-pulling parser produces) is refused.
+    """
+
+    def __init__(self, uri: str, part_index: int = 0, num_parts: int = 1,
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+        self._maps: List[Optional[mmap.mmap]] = []
+        self._views: List[Optional[memoryview]] = []
+        super().__init__(uri, part_index, num_parts, chunk_bytes)
+        self._maps = [None] * len(self.files)
+        self._views = [None] * len(self.files)
+
+    def _map(self, fi: int):
+        """The lazily mapped file ``fi``; the listing's size is the truth, so
+        a file that shrank since fails loudly instead of faulting."""
+        if self._maps[fi] is None:
+            name = self.files[fi].path.name
+            with open(name, "rb") as f:
+                size = os.fstat(f.fileno()).st_size
+                check(size >= self.files[fi].size,
+                      f"{name}: shrank since listing ({size} < {self.files[fi].size} bytes)")
+                self._maps[fi] = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            self._views[fi] = memoryview(self._maps[fi])
+        return self._maps[fi], self._views[fi]
+
+    def next_chunk(self) -> Optional[memoryview]:
+        # a partition emptied by the record-boundary adjustment yields nothing
+        if self.offset_begin >= self.offset_end or self.offset_curr >= self.offset_end:
+            return None
+        pos = max(self.offset_curr, self.offset_begin)
+        fi = min(bisect_right(self.file_offset, pos) - 1, len(self.files) - 1)
+        self.file_ptr = fi
+        fbase = self.file_offset[fi]
+        hard_end = min(self.offset_end, self.file_offset[fi + 1]) - fbase
+        lo = pos - fbase
+        mm, mv = self._map(fi)
+        size = self._chunk_bytes
+        while True:
+            hi = lo + size
+            if hi >= hard_end:
+                # the partition's or file's end; an unterminated last line
+                # is its own chunk, as the stream cuts it
+                eol = max(mm.rfind(b"\n", lo, hard_end), mm.rfind(b"\r", lo, hard_end))
+                cut = eol + 1 if lo <= eol and eol + 1 < hard_end else hard_end
+                break
+            eol = max(mm.rfind(b"\n", lo, hi), mm.rfind(b"\r", lo, hi))
+            if eol >= lo:
+                cut = eol + 1
+                break
+            size *= 2  # grow until a whole record fits (Chunk::Load)
+        self.offset_curr = fbase + cut
+        return mv[lo:cut]
+
+    def before_first(self) -> None:
+        self.offset_curr = self.offset_begin
+        self.file_ptr = min(max(bisect_right(self.file_offset, self.offset_begin) - 1, 0),
+                            len(self.files) - 1)
+        self._overflow = self._pending = b""
+
+    def load_state(self, state: dict) -> None:
+        check(state.get("kind") == "byte", "incompatible split state")
+        part, nparts = state.get("part_index"), state.get("num_parts")
+        if (part is not None and nparts is not None
+                and (part, nparts) != (self.part_index, self.num_parts)):
+            self.reset_partition(int(part), int(nparts))
+        check(not state.get("chunk"),
+              "MmapLineSplit cannot restore a mid-record-iteration state "
+              "with a pending chunk tail (chunk-pulling consumers never "
+              "produce one)")
+        # a stream state counts its read-ahead overflow in offset_curr; the
+        # overflow never holds a join newline, so this is file-byte exact
+        off = int(state["offset_curr"]) - len(bytes.fromhex(state.get("overflow", "") or ""))
+        check(self.offset_begin <= off <= self.offset_end,
+              f"state offset {off} outside partition "
+              f"[{self.offset_begin}, {self.offset_end})")
+        self.offset_curr = off
+        self.file_ptr = min(bisect_right(self.file_offset, off) - 1, len(self.files) - 1)
+        self._overflow = self._pending = b""
+
+    def close(self) -> None:
+        for i, mm in enumerate(self._maps):
+            if mm is None:
+                continue
+            view, self._views[i], self._maps[i] = self._views[i], None, None
+            try:
+                view.release()
+                mm.close()
+            except BufferError:
+                pass  # chunk views still alive: the garbage collector unmaps
+        super().close()
+
+
+def create_mmap_text_split(uri: str, part_index: int = 0, num_parts: int = 1,
+                           chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> MmapLineSplit:
+    """The zero-copy local text chunk source (the JAX package's factory of
+    the same name)."""
+    check(num_parts >= 1, f"num_parts must be >= 1, got {num_parts}")
+    check(0 <= part_index < num_parts,
+          f"part_index {part_index} out of range for {num_parts} parts")
+    return MmapLineSplit(uri, part_index, num_parts, chunk_bytes=chunk_bytes)
 
 
 def _seek_record_begin(stream: BinaryIO) -> int:

@@ -6,10 +6,10 @@ contract: one producer thread fills a bounded queue ahead of the consumer,
 re-raised on the consumer side, and ``destroy`` joins the thread.
 
 :class:`OrderedWorkerPool` is the JAX package's pool of the same name,
-trimmed to what the block cache's plan-ordered reads use: one serial
-source of items, a work function run on a fixed number of threads, at
-most ``max_ahead`` items pulled ahead of delivery, delivery in source
-order. Its live ``resize`` (autotuning), source restarts and stall
+trimmed to what the parse fan-out and the block cache's plan-ordered
+reads use: one serial source of items, a work function run on a fixed
+number of threads, at most ``max_ahead`` items pulled ahead of delivery,
+delivery in source order. Its live ``resize`` (autotuning), source restarts and stall
 diagnostics are not ported.
 """
 

@@ -1,11 +1,16 @@
-"""ctypes binding of the C++ libsvm chunk parser, built on demand with g++.
+"""ctypes binding of the C++ chunk parsers, built on demand with g++.
 
 The sources are the repository's ``native/src/*.cc`` (the same list and flags
 the JAX package builds with), compiled by this port into its own
 ``dmlc_tpu_torch/_build/`` — never into ``native/build/``, which the JAX
-package owns and rebuilds on its own schedule. Only ``dmlc_parse_libsvm``
-is bound. Result arrays are wrapped as numpy views that own the malloc'd
-buffers through a finalizer (zero copies on the handoff).
+package owns and rebuilds on its own schedule. Four entry points are bound:
+``dmlc_parse_libsvm`` and ``dmlc_parse_libfm`` (CSR blocks),
+``dmlc_parse_libsvm_dense`` (libsvm straight to the dense layout; a qid
+row raises :class:`NeedsCsrError`) and ``dmlc_parse_csv`` (a float32 cell
+matrix). A chunk is bytes or a memoryview (an mmap slice), whose buffer
+address is passed through with no copy. Result arrays are wrapped as numpy
+views that own the malloc'd buffers through a finalizer (zero copies on the
+handoff).
 
 As in the reference, a failed build logs a warning and :func:`available`
 is False: the parsers then use the numpy engine, which emits identical
@@ -40,6 +45,12 @@ _build_failed = False
 build_seconds: Optional[float] = None
 
 
+class NeedsCsrError(DMLCError):
+    """Input the dense scanner cannot express (qid rows): the explicit
+    signal (``DenseResult.needs_csr``) for callers to take the CSR path, so
+    no routing depends on an error message's wording."""
+
+
 class _CsrBlockResult(ctypes.Structure):
     _fields_ = [
         ("n_rows", ctypes.c_int64),
@@ -51,6 +62,29 @@ class _CsrBlockResult(ctypes.Structure):
         ("index", ctypes.POINTER(ctypes.c_uint64)),
         ("field", ctypes.POINTER(ctypes.c_uint64)),
         ("value", ctypes.POINTER(ctypes.c_float)),
+        ("error", ctypes.c_char_p),
+    ]
+
+
+class _DenseResult(ctypes.Structure):
+    _fields_ = [
+        ("n_rows", ctypes.c_int64),
+        ("n_cols", ctypes.c_int64),
+        ("x", ctypes.POINTER(ctypes.c_float)),
+        ("label", ctypes.POINTER(ctypes.c_float)),
+        ("weight", ctypes.POINTER(ctypes.c_float)),
+        ("error", ctypes.c_char_p),
+        ("needs_csr", ctypes.c_int32),
+        ("x_bf16", ctypes.c_int32),
+        ("packed_aux", ctypes.c_int32),
+    ]
+
+
+class _CsvResult(ctypes.Structure):
+    _fields_ = [
+        ("n_rows", ctypes.c_int64),
+        ("n_cols", ctypes.c_int64),
+        ("cells", ctypes.POINTER(ctypes.c_float)),
         ("error", ctypes.c_char_p),
     ]
 
@@ -76,11 +110,19 @@ def _load() -> Optional[ctypes.CDLL]:
                                  "engine: %s", str(exc)[-2000:])
             _build_failed = True
             return None
-        lib.dmlc_parse_libsvm.restype = ctypes.POINTER(_CsrBlockResult)
-        lib.dmlc_parse_libsvm.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
-        # void* so the finalizer never depends on ctypes class identity
-        lib.dmlc_free_block.argtypes = [ctypes.c_void_p]
+        for name in ("dmlc_parse_libsvm", "dmlc_parse_libfm"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.POINTER(_CsrBlockResult)
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        lib.dmlc_parse_libsvm_dense.restype = ctypes.POINTER(_DenseResult)
+        lib.dmlc_parse_libsvm_dense.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+        lib.dmlc_parse_csv.restype = ctypes.POINTER(_CsvResult)
+        lib.dmlc_parse_csv.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_char]
+        # void* so the finalizers never depend on ctypes class identity
+        for name in ("dmlc_free_block", "dmlc_free_dense", "dmlc_free_csv"):
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -98,13 +140,12 @@ def default_nthread() -> int:
 
 
 class _Owner:
-    """Frees the C result when garbage collected."""
+    """Frees the C result with ``free_fn`` when garbage collected."""
 
     __slots__ = ("__weakref__",)
 
-    def __init__(self, lib, res):
-        weakref.finalize(self, lib.dmlc_free_block,
-                         ctypes.cast(res, ctypes.c_void_p).value)
+    def __init__(self, free_fn, res):
+        weakref.finalize(self, free_fn, ctypes.cast(res, ctypes.c_void_p).value)
 
 
 class _HeldBuffer:
@@ -129,20 +170,28 @@ def _view(ptr, n, dtype, owner):
     return np.asarray(_HeldBuffer(addr, n * dtype.itemsize, owner)).view(dtype)
 
 
-def parse_libsvm(chunk: bytes, nthread: int = 0, indexing_mode: int = 0):
-    """Parse a libsvm chunk natively; a dict of numpy arrays, or None when
-    the native library is unavailable. Malformed input raises DMLCError."""
-    lib = _load()
-    if lib is None:
-        return None
-    res = lib.dmlc_parse_libsvm(chunk, len(chunk), nthread or default_nthread(),
-                                indexing_mode)
+def _chunk_buf(chunk):
+    """``bytes | memoryview`` -> (a ``c_char_p`` argument, its length, a
+    keepalive). A contiguous view passes its buffer address with no copy:
+    every native scanner reads ``[data, data + len)`` only and copies what
+    it keeps. The keepalive must stay referenced until the call returns."""
+    if isinstance(chunk, bytes):
+        return chunk, len(chunk), chunk
+    view = memoryview(chunk)
+    if view.nbytes == 0 or not view.c_contiguous:
+        data = bytes(view)
+        return data, len(data), data
+    arr = np.frombuffer(view, np.uint8)
+    return ctypes.c_char_p(arr.ctypes.data), arr.nbytes, (view, arr)
+
+
+def _wrap_block(lib, res) -> dict:
     r = res.contents
     if r.error:
         msg = r.error.decode()
         lib.dmlc_free_block(res)
         raise DMLCError(msg)
-    owner = _Owner(lib, res)
+    owner = _Owner(lib.dmlc_free_block, res)
     n, nnz = r.n_rows, r.nnz
     out = {
         "offset": _view(r.offset, n + 1, np.int64, owner),
@@ -150,6 +199,7 @@ def parse_libsvm(chunk: bytes, nthread: int = 0, indexing_mode: int = 0):
         "weight": _view(r.weight, n, np.float32, owner),
         "qid": _view(r.qid, n, np.int64, owner),
         "index": _view(r.index, nnz, np.uint64, owner),
+        "field": _view(r.field, nnz, np.uint64, owner),
         "value": _view(r.value, nnz, np.float32, owner),
         "_owner": owner,
     }
@@ -159,3 +209,78 @@ def parse_libsvm(chunk: bytes, nthread: int = 0, indexing_mode: int = 0):
     if out["index"] is None:
         out["index"] = np.empty(0, np.uint64)
     return out
+
+
+def parse_libsvm(chunk, nthread: int = 0, indexing_mode: int = 0):
+    """Parse a libsvm chunk natively; a dict of numpy arrays, or None when
+    the native library is unavailable. Malformed input raises DMLCError."""
+    lib = _load()
+    if lib is None:
+        return None
+    buf, n, keep = _chunk_buf(chunk)
+    res = lib.dmlc_parse_libsvm(buf, n, nthread or default_nthread(), indexing_mode)
+    del keep
+    return _wrap_block(lib, res)
+
+
+def parse_libfm(chunk, nthread: int = 0, indexing_mode: int = 0):
+    """Parse a libfm chunk natively (``field`` filled); as :func:`parse_libsvm`."""
+    lib = _load()
+    if lib is None:
+        return None
+    buf, n, keep = _chunk_buf(chunk)
+    res = lib.dmlc_parse_libfm(buf, n, nthread or default_nthread(), indexing_mode)
+    del keep
+    return _wrap_block(lib, res)
+
+
+def parse_libsvm_dense(chunk, num_col: int, nthread: int = 0, indexing_mode: int = -1):
+    """Parse libsvm straight to the dense layout: ``(x [n, num_col] float32,
+    label, weight or None, owner)``, or None when the native library is
+    unavailable. Features at or past ``num_col`` are dropped. Raises
+    :class:`NeedsCsrError` for input the dense scanner cannot express (qid
+    rows), DMLCError for malformed input."""
+    lib = _load()
+    if lib is None:
+        return None
+    buf, n, keep = _chunk_buf(chunk)
+    res = lib.dmlc_parse_libsvm_dense(buf, n, nthread or default_nthread(), num_col,
+                                      indexing_mode)
+    del keep
+    r = res.contents
+    if r.error:
+        msg = r.error.decode()
+        needs_csr = bool(r.needs_csr)
+        lib.dmlc_free_dense(res)
+        raise NeedsCsrError(msg) if needs_csr else DMLCError(msg)
+    owner = _Owner(lib.dmlc_free_dense, res)
+    rows = r.n_rows
+    if rows == 0:
+        return np.zeros((0, num_col), np.float32), np.empty(0, np.float32), None, owner
+    x = _view(r.x, rows * num_col, np.float32, owner)
+    x = np.zeros((rows, num_col), np.float32) if x is None else x.reshape(rows, num_col)
+    return (x, _view(r.label, rows, np.float32, owner),
+            _view(r.weight, rows, np.float32, owner), owner)
+
+
+def parse_csv(chunk, delimiter: str = ",", nthread: int = 0):
+    """Parse a csv chunk natively: ``(cells [n, ncol] float32, owner)``, or
+    None when the native library is unavailable. The caller keeps
+    ``owner`` referenced while it uses ``cells``."""
+    lib = _load()
+    if lib is None:
+        return None
+    buf, n, keep = _chunk_buf(chunk)
+    res = lib.dmlc_parse_csv(buf, n, nthread or default_nthread(),
+                             delimiter.encode()[0] if delimiter else b","[0])
+    del keep
+    r = res.contents
+    if r.error:
+        msg = r.error.decode()
+        lib.dmlc_free_csv(res)
+        raise DMLCError(msg)
+    owner = _Owner(lib.dmlc_free_csv, res)
+    rows, cols = r.n_rows, r.n_cols
+    if rows == 0 or cols == 0:
+        return np.zeros((0, 0), np.float32), owner
+    return _view(r.cells, rows * cols, np.float32, owner).reshape(rows, cols), owner

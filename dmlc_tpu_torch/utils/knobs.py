@@ -9,12 +9,16 @@ variable, then the default.
   floor of 1; an environment value that is not a positive integer raises.
 - ``device_decode`` (``DMLC_TPU_DEVICE_DECODE``): ``"1"`` arms the device
   decode of warm snapshot batches; any other value, or none, leaves it off.
+- ``parse_workers`` (``DMLC_TPU_PARSE_WORKERS``, default ``max(1, min(4,
+  cpus))``): the width of the chunk-parse fan-out
+  (``ParallelTextParser``); 1 keeps the one-lane ``ThreadedParser``.
 - ``plan_read_workers`` (``DMLC_TPU_PLAN_READ_WORKERS``, default 2): the
-  width of the block cache's plan-ordered read pool, read through
-  :func:`resolve` with the JAX package's rules (an explicit value is
-  clamped up to 1; an environment value that is not a positive integer
-  raises). The JAX package's ceiling, the CPU count, bounds its
-  autotuner, which is not ported.
+  width of the block cache's plan-ordered read pool.
+
+Both are read through :func:`resolve` with the JAX package's rules (an
+explicit value is clamped up to the floor of 1; an environment value that
+is not a positive integer raises). The JAX package's ceilings bound its
+autotuner, which is not ported.
 - ``DMLC_TPU_BLOCK_CACHE``: a directory; a parser built without a
   ``block_cache=`` knob or a ``#blockcache=`` fragment caches its blocks
   there under a name derived from the URI (:func:`block_cache_dir`).
@@ -32,8 +36,17 @@ PREFETCH_DEFAULT = 2
 PREFETCH_FLOOR = 1
 DEVICE_DECODE_ENV = "DMLC_TPU_DEVICE_DECODE"
 BLOCK_CACHE_ENV = "DMLC_TPU_BLOCK_CACHE"
-# name -> (env, default, floor)
-_KNOBS = {"plan_read_workers": ("DMLC_TPU_PLAN_READ_WORKERS", 2, 1)}
+
+
+def _cpus() -> int:
+    return os.cpu_count() or 1
+
+
+# name -> (env, default, floor); a callable default is read when it is used
+_KNOBS = {
+    "parse_workers": ("DMLC_TPU_PARSE_WORKERS", lambda: max(1, min(4, _cpus())), 1),
+    "plan_read_workers": ("DMLC_TPU_PLAN_READ_WORKERS", 2, 1),
+}
 
 
 def _parse_positive_int(raw: str, what: str) -> int:
@@ -78,7 +91,7 @@ def resolve(name: str, explicit: Optional[int] = None) -> int:
     raw = os.environ.get(env, "").strip()
     if raw:
         return _parse_positive_int(raw, env)
-    return default
+    return int(default() if callable(default) else default)
 
 
 def block_cache_dir() -> Optional[str]:

@@ -80,7 +80,7 @@ def _multiclass_corpus(tmp_path, n=640, d=6, classes=3):
 
 
 def _port_iter(uri, num_col, batch_size, chunk_bytes=1 << 20, **kw):
-    parser = create_parser(uri, 0, 1, "libsvm", chunk_bytes=chunk_bytes)
+    parser = create_parser(uri, 0, 1, "libsvm", chunk_bytes=chunk_bytes, parse_workers=1)
     return DeviceIter(parser, num_col=num_col, batch_size=batch_size, layout="bcoo",
                       device="cpu", **kw)
 

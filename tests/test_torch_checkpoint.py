@@ -57,7 +57,7 @@ def _jax_parser(uri, part=0, nparts=1, chunk_bytes=CHUNK, snapshot=None):
 
 def _port_parser(uri, part=0, nparts=1, chunk_bytes=CHUNK, snapshot=None):
     return create_parser(uri, part, nparts, "libsvm", chunk_bytes=chunk_bytes,
-                         snapshot=snapshot)
+                         parse_workers=1, snapshot=snapshot)
 
 
 def _jax_iter(uri, layout="dense", chunk_bytes=CHUNK, snapshot=None, **kw):

@@ -63,7 +63,8 @@ def _jax(path, cache, **kw):
 
 
 def _port(path, cache, **kw):
-    return create_parser(path, 0, 1, "libsvm", chunk_bytes=CHUNK, block_cache=cache, **kw)
+    return create_parser(path, 0, 1, "libsvm", chunk_bytes=CHUNK, parse_workers=1,
+                         block_cache=cache, **kw)
 
 
 def _block_bytes(b) -> bytes:

@@ -13,7 +13,7 @@ On the CPU (``device="cpu"``):
   ``convert``, and ``device=None`` raises without a card.
 
 The libfm-format case (``tests/test_device.py``'s
-``test_fm_libfm_format_end_to_end``) waits for the port's libfm parser.
+``test_fm_libfm_format_end_to_end``) is in ``tests/test_torch_format_train.py``.
 """
 
 import numpy as np

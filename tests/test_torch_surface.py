@@ -188,7 +188,7 @@ def test_c5_create_parser_positions_match_reference(tmp_path):
     # the exact call of examples/train_linear.py
     bare = create_parser(uri, 0, 1, "libsvm", threaded=False)
     assert isinstance(bare, LibSVMParser)
-    threaded = create_parser(uri, 0, 1, "libsvm", np.uint64, True)
+    threaded = create_parser(uri, 0, 1, "libsvm", np.uint64, True, parse_workers=1)
     assert isinstance(threaded, ThreadedParser)
     got, want = _blocks(bare), _blocks(threaded)
     assert len(got) == len(want) > 0
