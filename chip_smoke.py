@@ -96,10 +96,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launch queue); the step's device time and host wall.
    Then the A/B of the routes for a row scatter (``index_add_``,
    ``index_put_(accumulate=True)``, the kernel) at the ALS shapes, a
-   larger ALS shape, a 1-D table above ``DW_MAX_TABLE`` and phase 10's
-   shapes: bits over two runs, device time, enqueue behind a spin, the
-   kernel within 1e-4 + 1e-5 of each word's absolute sum of its plain
-   version;
+   larger ALS shape, a 1-D table above ``DW_MAX_TABLE``, phase 10's and
+   phase 13's shapes: bits over two runs, device time, enqueue behind a
+   spin, the kernel within 1e-4 + 1e-5 of each word's absolute sum of its
+   plain version and bit for bit equal to the plain version that sums in
+   its order (``row_scatter_add_ordered_plain``), overwriting and
+   accumulating onto a table holding -0.0 words; at the 1-D
+   tables wider than ``DW_MAX_TABLE`` the row scatter of ``val * g``
+   against K1's ``dw`` route there (zeros + ``index_add_``), the A/B that
+   decides ``dw_route``; with ``--parent DIR`` the parent commit's row
+   scatter, built from ``DIR``, timed in turns with this one (P C C P)
+   and bit for bit equal to it (accumulating, but where the parent turned
+   a row no entry hits from -0.0 into +0.0);
 10. FM on phase 3's corpus (8 factors, Adam 0.05, batch 8192): 2 epochs on
    ell and dense, 1 on bcoo, accuracy above 0.9, the row scatter's
    launches counted; 20 card steps run twice and bit-identical and within
@@ -174,7 +182,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 The ``torch.profiler`` windows run last, the decode's first: the steps'
 windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
 bcoo step's (``bcoo_step_profile``, device time by kernel), the ALS and
-FM steps' (``step_profile``: device events and time by kernel a step), and
+FM steps' and phase 13's libfm bcoo and FM ell steps' (``step_profile``:
+device events and time by kernel a step), and
 how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
 the main paths of phases 3, 6, 7, 11, 12 and 13; the row scatter's on
@@ -332,18 +341,22 @@ def dw_bound_ms(b: int, k: int, w: int) -> tuple:
 
 
 def load_parent_libs(parent: str, out_dir: str) -> dict:
-    """The parent commit's K1 and K2, each built from ``parent``'s
-    ``dmlc_tpu_torch/csrc/`` into a library of its own under ``out_dir``
-    (two ``nvcc`` at once), for an A/B in one run. The C interfaces are the
-    parent's: ``dmlc_ell_matvec_f32(w, idx, val, out, B, K, W, stream)``
-    and ``dmlc_widen_span(seg, out, rows, cols, itemsize, stream)``, one
-    launch a float segment."""
+    """The parent commit's K1, K2 and row scatter, each built from
+    ``parent``'s ``dmlc_tpu_torch/csrc/`` into a library of its own under
+    ``out_dir`` (three ``nvcc`` at once), for an A/B in one run. The C
+    interfaces are the parent's: ``dmlc_ell_matvec_f32(w, idx, val, out,
+    B, K, W, stream)``, the one-segment K2 ``dmlc_widen_span(seg, out,
+    rows, cols, itemsize, stream)``, one launch a float segment, and the
+    table-driven row scatter (``dmlc_row_sort_counts``, ``dmlc_row_sort``,
+    ``dmlc_row_scatter_chunks`` and ``dmlc_row_scatter_f32(sorted, perm,
+    src, table, head, tail, N, R, D, accumulate, stream)``). A library
+    without its interface is left out, and so is its A/B."""
     import ctypes
 
     from dmlc_tpu_torch.ops import _build
 
     procs = {}
-    for name in ("ell_matvec", "widen_span"):
+    for name in ("ell_matvec", "widen_span", "row_scatter"):
         src = os.path.join(parent, "dmlc_tpu_torch", "csrc", name + ".cu")
         lib_path = os.path.join(out_dir, f"lib{name}_parent.so")
         procs[name] = (lib_path, subprocess.Popen(
@@ -356,13 +369,26 @@ def load_parent_libs(parent: str, out_dir: str) -> dict:
         if proc.returncode != 0:
             raise AssertionError(f"the parent's {name}.cu failed to build:\n{err[-4000:]}")
         libs[name] = ctypes.CDLL(lib_path)
-    libs["ell_matvec"].dmlc_ell_matvec_f32.restype = ctypes.c_int
-    libs["ell_matvec"].dmlc_ell_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int64] * 3 + [ctypes.c_void_p]
-    libs["widen_span"].dmlc_widen_span.restype = ctypes.c_int
-    libs["widen_span"].dmlc_widen_span.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p]
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    bindings = {  # library: {function: (restype, argtypes)}
+        "ell_matvec": {"dmlc_ell_matvec_f32": (ctypes.c_int, [ptr] * 4 + [i64] * 3 + [ptr])},
+        "widen_span": {"dmlc_widen_span": (
+            ctypes.c_int, [ptr, ptr, i64, i64, ctypes.c_int, ptr])},
+        "row_scatter": {
+            "dmlc_row_sort_counts": (i64, [i64] * 2),
+            "dmlc_row_sort": (ctypes.c_int, [ptr, i64, i64] + [ptr] * 4),
+            "dmlc_row_scatter_chunks": (i64, [i64]),
+            "dmlc_row_scatter_f32": (ctypes.c_int, [ptr] * 6 + [i64] * 3 + [ctypes.c_int, ptr])},
+    }
+    for name, functions in bindings.items():
+        try:
+            for fn, (restype, argtypes) in functions.items():
+                getattr(libs[name], fn).restype = restype
+                getattr(libs[name], fn).argtypes = argtypes
+        except AttributeError:
+            # another interface (a parent whose K2 decodes a whole batch,
+            # as this tree's dmlc_decode_span does): no A/B for that kernel
+            del libs[name]
     return libs
 
 
@@ -1572,10 +1598,11 @@ def launch_queue_depth(counts=(500, 1000, 1023, 1024, 1100)) -> dict:
     return {"phase": "launch_queue", "enqueued_without_waiting": fits}
 
 
-def step_profile(name: str, step, steps: int = 5) -> dict:
+def step_profile(name: str, step, steps: int = 5, top: int = 8) -> dict:
     """Device events (kernels, copies, fills) a ``step`` issues and their
-    time, from ``steps`` steps under ``torch.profiler``. A measurement,
-    not a check: an empty trace is reported as such."""
+    time, from ``steps`` steps under ``torch.profiler``, the ``top`` largest
+    by name. A measurement, not a check: an empty trace is reported as
+    such."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1595,10 +1622,10 @@ def step_profile(name: str, step, steps: int = 5) -> dict:
             events += 1
             per_kernel[evt.name] = (per_kernel.get(evt.name, 0.0)
                                     + evt.time_range.elapsed_us() / steps / 1e3)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    largest = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     return {"phase": "step_profile", "step": name, "device_events_per_step": events / steps,
             "device_ms_per_step": sum(per_kernel.values()),
-            "top_kernels_ms_per_step": [[k[:80], ms] for k, ms in top]}
+            "top_kernels_ms_per_step": [[k[:80], ms] for k, ms in largest]}
 
 
 def bcoo_step_profile(path: str, device, steps: int = 10) -> dict:
@@ -1680,19 +1707,88 @@ def row_scatter_inputs(b: int, k: int, d: int, row: tuple, seed: int, device):
     return idx, src
 
 
-def row_scatter_ab(seed: int) -> list:
+def parent_row_scatter(lib, table, idx, src, accumulate: bool):
+    """The parent's row scatter (the table-driven wrapper and kernel) into
+    ``table`` in place: its stable order (its counting sort up to 4,095
+    rows, ``torch.sort`` of the ids clamped into ``[-1, D]`` above), then
+    its two launches."""
+    import torch
+
+    rows, n, dev = table.shape[0], idx.shape[0], table.device
+    width = table[0].numel() if table.dim() > 1 else 1
+    ids = (idx.clamp(-1, rows) if idx.dtype == torch.int64 else idx).to(torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    counts = lib.dmlc_row_sort_counts(n, rows)
+    if counts:
+        order = (torch.empty(n, dtype=torch.int32, device=dev),
+                 torch.empty(n, dtype=torch.int64, device=dev))
+        scratch = torch.empty(counts, dtype=torch.int32, device=dev)
+        rc = lib.dmlc_row_sort(ids.contiguous().data_ptr(), n, rows, scratch.data_ptr(),
+                               order[0].data_ptr(), order[1].data_ptr(), stream)
+        if rc != 0:
+            raise AssertionError(f"the parent's row sort failed to launch: {rc}")
+    else:
+        order = torch.sort(ids, stable=True)
+    src = src.contiguous()
+    partials = torch.empty((2, lib.dmlc_row_scatter_chunks(n), width), device=dev)
+    rc = lib.dmlc_row_scatter_f32(order[0].data_ptr(), order[1].data_ptr(), src.data_ptr(),
+                                  table.data_ptr(), partials[0].data_ptr(),
+                                  partials[1].data_ptr(), n, width, rows, int(accumulate),
+                                  stream)
+    if rc != 0:
+        raise AssertionError(f"the parent's row scatter failed to launch: {rc}")
+    return table
+
+
+def neg_zero_base(shape, idx, seed: int, device):
+    """A random base table with -0.0 in the first word of every 7th row
+    (rows the ids hit and rows they miss), and the rows the ids hit."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn(shape, generator=gen, device=device)
+    base.view(shape[0], -1)[::7, 0] = -0.0
+    touched = torch.zeros(shape[0], dtype=torch.bool, device=device)
+    touched[idx] = True
+    return base, touched
+
+
+def neg_zero_differences(parent, change, base, touched) -> tuple:
+    """Where ``parent`` and ``change`` (both accumulated onto ``base``) hold
+    other bits: ``(only at -0.0 words, their count)``, the first true when
+    every such word is an untouched row's -0.0 that the change left as it
+    was and the parent wrote as +0.0 (``*out + 0.0f``)."""
+    import torch
+
+    p, c, b = (t.view(torch.int32).view(t.shape[0], -1) for t in (parent, change, base))
+    neg_zero = torch.tensor(-0.0, device=base.device).view(torch.int32)
+    differ = p != c
+    allowed = (~touched[:, None]) & (b == neg_zero) & (c == neg_zero) & (p == 0)
+    return bool((differ & ~allowed).sum() == 0), int((differ & allowed).sum())
+
+
+def row_scatter_ab(seed: int, parent=None) -> list:
     """Each candidate route for a row scatter at ``ROW_SCATTER_SHAPES``:
     its bits over two runs, its distance from ``index_add_``, its device
     time (CUDA events behind a spin, median of 5), whether 20 calls enqueue
     behind a half-second spin, and the bytes bound (``src`` and ``idx``
     read once, the table written once). The kernel must agree with the
     plain version (``index_add_``) within 1e-4 + 1e-5 of each word's
-    absolute sum and give the same bits twice, and its stable order by row
-    id (the counting sort up to 4,095 rows) must equal
-    ``torch.sort(stable=True)``'s, bit for bit."""
+    absolute sum, give the same bits twice, and equal, bit for bit, the
+    plain version that sums in its order (``row_scatter_add_ordered_plain``)
+    with and without ``accumulate`` (onto a table holding -0.0 words); its
+    stable order by row id (the counting sort up to 4,095 rows)
+    must equal ``torch.sort(stable=True)``'s, bit for bit. At a 1-D table
+    wider than ``DW_MAX_TABLE``, the row scatter of ``val * g`` is timed
+    against K1's ``dw`` route there, zeros + ``index_add_``: the A/B that
+    decides ``dw_route`` (the row scatter within 1.2x would take it). With ``parent`` (the parent's library), the
+    parent's route and this one in turns, P C C P, and their bits: equal
+    without ``accumulate``, and with it equal but where the parent turned
+    an untouched row's -0.0 into +0.0."""
     import torch
 
     from dmlc_tpu_torch.ops import _build
+    from dmlc_tpu_torch.ops import ell_matvec as k1
     from dmlc_tpu_torch.ops import row_scatter as rs
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1717,27 +1813,88 @@ def row_scatter_ab(seed: int) -> list:
                          "ms": device_ms(lambda: fn(shape, idx, src)),
                          "no_host_sync": spin["no_host_sync"], "spin_host_s": spin["host_s"]}
             del first, second
-        # the stable order by row id against torch's stable sort, bit for
-        # bit (the counting sort's route up to 4,095 rows)
+        del plain, tol
+        # the kernel against the plain version in its own order, bit for
+        # bit: overwriting, and accumulating onto a table with -0.0 words
+        ordered = rs.row_scatter_add_ordered_plain(shape, idx, src)
+        base, touched = neg_zero_base(shape, idx, seed + 50 + i, dev)
+        kernel_acc = rs.row_scatter_cuda_(base.clone(), idx, src, accumulate=True)
+        rec["ordered_plain"] = {
+            "equal": same_bits(rs.row_scatter_add(shape, idx, src), ordered),
+            "accumulate_equal": same_bits(
+                kernel_acc, rs.row_scatter_add_ordered_plain(shape, idx, src, base))}
+        if parent is not None:
+            def parent_fn():
+                return parent_row_scatter(parent, torch.empty(shape, device=dev), idx, src,
+                                          False)
+
+            def change_fn():
+                return rs.row_scatter_add(shape, idx, src)
+            order_ms = [device_ms(f) for f in (parent_fn, change_fn, change_fn, parent_fn)]
+            only_neg_zero, kept = neg_zero_differences(
+                parent_row_scatter(parent, base.clone(), idx, src, True), kernel_acc, base,
+                touched)
+            rec["parent"] = {
+                "equal": same_bits(parent_fn(), ordered),
+                "accumulate_equal_but_neg_zero": only_neg_zero,
+                "accumulate_neg_zero_words_kept": kept,
+                "parent_ms_runs": [order_ms[0], order_ms[3]], "change_ms_runs": order_ms[1:3]}
+        del ordered, base, touched, kernel_acc
+        # the stable order by row id against torch's stable sort of the
+        # keys, bit for bit (the counting sort's route up to 4,095 rows)
         counting = _build.load_kernels().dmlc_row_sort_counts(b * k, d) > 0
-        order, want = rs.stable_order(idx, d), torch.sort(idx.to(torch.int32), stable=True)
+        keys = rs._sort_keys(idx, d).to(torch.int32)
+        order, want = rs.stable_order(idx, d), torch.sort(keys, stable=True)
         rec["sort"] = {"route": "counting" if counting else "torch.sort",
                        "equal_to_torch_sort": all(torch.equal(x, y) for x, y in zip(order, want)),
                        "ms": device_ms(lambda: rs.stable_order(idx, d)),
-                       "torch_sort_ms": device_ms(
-                           lambda: torch.sort(idx.to(torch.int32), stable=True))}
+                       "torch_sort_ms": device_ms(lambda: torch.sort(keys, stable=True))}
         # the plain version (zeros and index_add_) and the one PyTorch call,
         # index_add_ into a table already there
         acc = torch.zeros(shape, device=dev)
         rec["plain_ms"] = device_ms(lambda: rs.row_scatter_add_plain(shape, idx, src))
         rec["library_ms"] = device_ms(lambda: acc.index_add_(0, idx, src))
+        del acc
+        if not row and d > k1.DW_MAX_TABLE:
+            # K1's dw at this table on the row scatter (of val * g over the
+            # indices) against its route, zeros + index_add_
+            # (ell_matvec_grads): within 1.2x would move dw_route
+            idx2, val = idx.to(torch.int32).view(b, k), src.view(b, k)
+            g = torch.randn(b, generator=torch.Generator(device=dev).manual_seed(seed + 70 + i),
+                            device=dev)
+            w = torch.zeros(d, device=dev)
+
+            def wide_dw():
+                return rs.row_scatter_add((d,), idx2.flatten(), (val * g[:, None]).flatten())
+            dw = wide_dw()
+            dw_ms = device_ms(wide_dw)
+            dw_plain_ms = device_ms(lambda: k1.ell_matvec_grads(w, idx2, val, g,
+                                                                need_dval=False))
+            rec["dw"] = {"route": k1.dw_route(d), "ms": dw_ms, "plain_ms": dw_plain_ms,
+                         "vs_plain": dw_ms / dw_plain_ms,
+                         "within_bar_1_2": dw_ms <= 1.2 * dw_plain_ms,
+                         "bit_identical_twice": same_bits(dw, wide_dw()),
+                         "equal_to_ordered_plain": same_bits(dw, rs.row_scatter_add_ordered_plain(
+                             (d,), idx2.flatten(), (val * g[:, None]).flatten()))}
+            del w, dw
         emit(rec)
         rows.append(rec)
-        kern = rec["row_scatter"]
+        kern, ordered_rec = rec["row_scatter"], rec["ordered_plain"]
+        problems = []
         if not (kern["bit_identical_twice"] and kern["within_tol"] and kern["no_host_sync"]
                 and rec["sort"]["equal_to_torch_sort"]):
-            raise AssertionError(f"row_scatter {name}: the kernel differs from its plain "
-                                 f"version, between two runs, or waited for the device: {kern}")
+            problems.append(f"the kernel differs from its plain version, between two runs, "
+                            f"or waited for the device: {kern}")
+        if not (ordered_rec["equal"] and ordered_rec["accumulate_equal"]):
+            problems.append(f"the kernel differs from its ordered plain version: {ordered_rec}")
+        if "dw" in rec and not (rec["dw"]["bit_identical_twice"]
+                                and rec["dw"]["equal_to_ordered_plain"]):
+            problems.append(f"the wide dw: {rec['dw']}")
+        if "parent" in rec and not (rec["parent"]["equal"]
+                                    and rec["parent"]["accumulate_equal_but_neg_zero"]):
+            problems.append(f"the parent's kernel gives other bits: {rec['parent']}")
+        if problems:
+            raise AssertionError(f"row_scatter {name}: {problems}")
     return rows
 
 
@@ -3184,13 +3341,15 @@ def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
     step); each leg's step device time on a resident batch. Gates: 20 steps
     twice bit-identical on each leg; the losses against the port on the CPU
     from the same initial state, the first 20 (linear) and 5 (FM) within
-    1e-4."""
+    1e-4. Each leg keeps a step on its resident batch (``step_fns``) for
+    the profiler's window at the end of the run."""
     import torch
 
     from dmlc_tpu_torch.convert import fm_params_from_jax, fm_params_to_jax
     from dmlc_tpu_torch.ops import row_scatter as rs
 
     out: dict = {"phase": "formats_libfm"}
+    step_fns = {}
     model, it = _kdd_pipeline(path, device, "bcoo")
     rs.launches = 0
     rec = _epoch_record(it, model, "linear_bcoo")
@@ -3199,6 +3358,7 @@ def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
     batches = [b for _, b in zip(range(20), it)]
     it.close()
     rec["step_device_ms"] = device_ms(lambda: model.step(batches[0]), iters=10)
+    step_fns["linear_bcoo"] = (lambda m, b: lambda: m.step(b))(model, batches[0])
     del model
     gates = _loss_gates(lambda dev: _kdd_model(dev, "bcoo"), batches, 20, device)
     gates.pop("model")
@@ -3215,6 +3375,7 @@ def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
     batches = [b for _, b in zip(range(20), it)]
     it.close()
     rec["step_device_ms"] = device_ms(lambda: model.step(batches[0]), iters=10)
+    step_fns["fm_ell"] = (lambda m, b: lambda: m.step(b))(model, batches[0])
     del model
     torch.cuda.empty_cache()
     gates = _loss_gates(lambda dev: _kdd_model(dev, "ell"), batches, 5, device,
@@ -3224,6 +3385,7 @@ def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
     del batches, init
     torch.cuda.empty_cache()
     emit(out)
+    out["step_fns"] = step_fns
     problems = []
     lin, fm = out["linear_bcoo"], out["fm_ell"]
     if lin["row_scatter_launches"] < lin["batches"]:
@@ -3299,8 +3461,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: phases 2 and 5 also time its "
-                         "K1 and its K2 route beside this one's, in turns")
+                    help="a checkout of the parent commit: phases 2, 5 and 9 also time "
+                         "its K1, its K2 route (a one-segment K2) and its row scatter "
+                         "beside this one's, in turns")
     ap.add_argument("--parallel-child", nargs="+", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -3406,7 +3569,7 @@ def main() -> int:
               "reduced": "none: examples/train_als.py's full run (4096 users, 512 items, "
                          "16 factors, 32 ratings a row, batch 512)"})
         als = run_als(ratings, dev)
-        rs_rows = row_scatter_ab(args.seed)
+        rs_rows = row_scatter_ab(args.seed, parent.get("row_scatter"))
         fm = {layout: run_fm(path, dev, layout) for layout in FM_EPOCHS}
         emit({"phase": "fm_vs_linear", "fm_step_device_ms": {
             k: v["step_device_ms"] for k, v in fm.items()}})
@@ -3443,6 +3606,8 @@ def main() -> int:
         emit(step_profile("als", als.pop("step_fn")))
         for layout, r in fm.items():
             emit(step_profile(f"fm_{layout}", r.pop("step_fn")))
+        for leg, fn in formats["libfm"].pop("step_fns").items():
+            emit(step_profile(f"libfm_{leg}", fn, top=12))
         emit(launch_queue_depth())
         step_ms = {"linear_ell": step["step_device_ms"],
                    **{f"fm_{k}": v["step_device_ms"] for k, v in fm.items()},

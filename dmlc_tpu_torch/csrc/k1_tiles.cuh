@@ -1,7 +1,7 @@
 // Shared by the K1 kernels (ell_matvec.cu, ell_matvec_dw.cu): mbarriers,
 // one-dimensional bulk copies (cp.async.bulk) into shared memory, the copy
 // of one row tile of an ELL batch, the order in which a lane walks its
-// part of a row, and the SM count.
+// part of a row, and the SM count (row_scatter.cu takes that too).
 
 #pragma once
 

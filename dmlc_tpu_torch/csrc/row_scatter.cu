@@ -6,14 +6,18 @@
 // the place of the XLA scatter-adds of the JAX package's ALS and FM steps
 // and of its bcoo gradient (dmlc_tpu/models/als.py:169-171, the transposes
 // of the gathers in dmlc_tpu/models/fm.py:64-69, bcoo_dot_general's
-// transpose); no Pallas kernel stands behind them. On this card PyTorch's
-// index_add_ adds with one float atomic a word, in an order that changes
-// from run to run, and index_put_(accumulate=True), deterministic, ran
-// 38-132x slower than index_add_ at the ALS shapes (PERF.md §6).
+// transpose); no Pallas kernel stands behind them. On this card PyTorch's index_add_
+// adds with one float atomic a word, in an order that changes from run to
+// run, and index_put_(accumulate=True), deterministic, ran 38-132x slower
+// than index_add_ at the ALS shapes (PERF.md §6).
 //
-// What bounds it: bytes. Each entry's row of src is read and each table
-// row written. The entries are first put in a stable order by row id, so
-// each table row's entries form one run, kept in their original order:
+// What bounds it: bytes, and only the bytes the N entries need. Without
+// accumulate the whole table is written once (zeroed); then src is read
+// once and each touched row written once. A row no entry hits costs
+// nothing beyond the zeroing, so the cost follows N, not D.
+//
+// The entries are first put in a stable order by row id, so each table
+// row's entries form one run, kept in their original order:
 //
 // 0. the sort. For tables of at most kSortMaxRows rows, a counting sort
 //    here (dmlc_row_sort, three launches): each tile of kSortTile entries
@@ -23,31 +27,56 @@
 //    its ids into registers and walks them 32 at a time, in order, and the
 //    lanes that hold one id take consecutive slots by lane
 //    (__match_any_sync). Wider tables are sorted by the caller
-//    (torch.sort(stable=True)): the same order.
+//    (torch.sort(stable=True) with an id outside [0, D) keyed as D): the
+//    same order. Either way an id outside [0, D) sorts after every row.
 //
-// Then two launches, no float atomics:
+// Then, without accumulate, the table is zeroed by cudaMemsetAsync (on the
+// H100 it beat a grid-stride kernel of 16-byte stores by 2% on 1.6 GB).
+// Then two launches, no float atomics; the sorted order is cut into
+// chunks of kChunk entries:
 //
-// 1. chunk partials: the sorted order is cut into chunks of kChunk entries.
-//    For a chunk whose first run began in the chunk before, head[c] is the
-//    sum of that run's entries in the chunk; for one whose last run goes
-//    on into the next chunk, tail[c] the sum of that run's entries in the
-//    chunk (one thread a chunk and column, in sorted order; other chunks
-//    write nothing). A chunk inside one long run has head == tail == its
-//    sum.
-// 2. row sums: one thread a table row and column. Each block first finds
-//    where its rows' runs start (a binary search a row, into shared
-//    memory). A run inside one chunk is summed entry by entry; a longer
-//    one as tail[first chunk] + tail of each chunk inside it + head[last
-//    chunk]. So a run of any length (the ELL pad sink takes a quarter of
-//    the entries at the ALS shapes) costs a thread at most kChunk loads
-//    plus a partial a chunk, and the partials are spread over as many
-//    threads as the run has chunks.
+// 1. chunk runs: one thread a chunk and column (a float4 of four columns
+//    for rows of kVecMinWidth words or more), neighbouring threads on
+//    neighbouring columns, walks the chunk's entries in sorted order. A
+//    run that begins and ends in the chunk is summed entry by entry and
+//    written to its row. For the run that began in the chunk before,
+//    head[c] is its sum in the chunk; for the one that goes on into the
+//    next chunk, tail[c] (a chunk inside one run: head == tail == its sum).
+// 2. long runs: one thread a chunk and column. The thread of the chunk
+//    where a run that goes on begins finds the run's last chunk (a search
+//    over the chunks' first ids, kProbes loads a round) and writes
+//    tail[first chunk] + tail of each chunk inside it + head[last chunk],
+//    the partials loaded kBatch at a time. Every other thread returns
+//    after three id loads.
 //
-// Every sum runs in an order fixed by idx alone, so the result has the
-// same bits on every run, whichever route sorted it. An id outside
-// [0, D) adds to no row. With accumulate = 0 every table row is written
-// (a row with no entries gets 0), so the caller need not zero the table
-// first.
+// Both launches take blocks as small as a warp when the grid would leave
+// SMs idle: a 1-D table gives one thread a chunk, N / 32 threads in all.
+//
+// Why this shape: the launches see only the N entries, so a row no entry
+// hits costs nothing beyond the zeroing. The version before this one gave
+// each table word a thread and each table row a binary search over the
+// sorted ids. On an H100 (chip_smoke.py row_scatter_ab, sort included,
+// PERF.md §6): 81,920 ids into 50,000,001 words 0.17 ms against its 1.31
+// (zeros + index_add_ 0.13); into [50,000,001, 8] 0.59 ms against 4.89
+// (0.55); at the ALS gram 0.047 ms against 0.045, the FM shapes level.
+// Variants tried on the H100 and dropped: runs found tile by tile
+// (a search a run, packed in shared memory) ran 10-30% over the version
+// before at the small FM and ALS shapes, as a long run's chain of partials
+// started only when the scheduler reached its tile; a warp folding each
+// narrow run together (shuffles) ran several times over it, its lanes
+// taking one run's columns in turn. Launch 1 reads every entry anyway, so
+// it sums the short runs; float4 shares cut its time at the 256-word ALS
+// rows by a third, but slowed launch 2's chains, which stay a float a
+// thread.
+//
+// The sums run in exactly the order of the version before, so each
+// touched row has the same bits as it gave. One deliberate difference:
+// with accumulate, a row no entry hits is not touched at all (that
+// version wrote *out + 0.0f there, turning a -0.0 into +0.0; index_add_
+// also leaves such a row as it was). Without accumulate a row with no
+// entries gets +0.0, as before. Every sum runs in an order fixed by idx
+// alone, so the result has the same bits on every run, whichever route
+// sorted it.
 //
 // Host interface: plain C, loaded with ctypes. The launches go on the
 // caller's stream, do not synchronise and allocate nothing: the caller
@@ -58,6 +87,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "k1_tiles.cuh"  // dmlc_k1::sm_count
 
 namespace {
 
@@ -70,6 +101,9 @@ constexpr int64_t kSortMaxCounts = 1 << 20;  // (rows + 1) x tiles, scanned by o
 constexpr int kScanThreads = 1024;
 constexpr int kScanPer = 8;                  // counts a scan thread takes from shared memory
 constexpr int kScanSegment = kScanThreads * kScanPer;  // counts staged at once: 32 KB
+constexpr int kBatch = 64;                  // partials a long run's thread loads at once
+constexpr int kProbes = 8;                  // ids a search round loads at once
+constexpr int64_t kVecMinWidth = 64;        // rows this wide take launch 1 by float4 shares
 
 // ids outside [0, rows) sort after every row, as the id `rows`
 __device__ __forceinline__ int32_t sort_key(int32_t id, int64_t rows) {
@@ -168,78 +202,145 @@ __global__ void place(const int32_t* __restrict__ idx, int64_t n, int64_t rows, 
   }
 }
 
-__device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ sorted,
-                                               int64_t n, int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(sorted[mid]) < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+// A thread's share of a row: one float, or four adjacent floats (a row of
+// a multiple of 4 words, 16-byte aligned). Each word is summed on its own,
+// in the same order either way.
+__device__ __forceinline__ float vzero(float) { return 0.0f; }
+__device__ __forceinline__ float4 vzero(float4) { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-__global__ void chunk_partials(const int32_t* __restrict__ sorted,
-                               const int64_t* __restrict__ perm,
-                               const float* __restrict__ src, float* __restrict__ head,
-                               float* __restrict__ tail, int64_t n, int64_t width,
-                               int64_t chunks) {
+// row `id`'s share `col` (of `width` shares a row) set to, or added to, sum
+template <typename T>
+__device__ __forceinline__ void write_row(T* __restrict__ table, int32_t id, int64_t rows,
+                                          int64_t width, int64_t col, T sum, int accumulate) {
+  if (id < 0 || id >= rows) return;  // an id outside [0, rows) adds to no row
+  T* out = table + static_cast<int64_t>(id) * width + col;
+  *out = accumulate ? vadd(*out, sum) : sum;
+}
+
+// launch 1: one thread a chunk and share of a row walks the chunk's
+// entries in sorted order. A run that begins and ends in the chunk is
+// written to its row; the sum of the run that began in the chunk before
+// goes to head, of the one that goes on into the next chunk to tail (both,
+// for a chunk inside one run). Single floats are loaded first, all 32 in
+// flight at once, then walked in registers; float4 shares in a loop.
+template <typename T>
+__global__ void chunk_runs(const int32_t* __restrict__ sorted, const int64_t* __restrict__ perm,
+                           const T* __restrict__ src, T* __restrict__ head, T* __restrict__ tail,
+                           T* __restrict__ table, int64_t n, int64_t width, int64_t rows,
+                           int64_t chunks, int accumulate) {
   int64_t item = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (item >= chunks * width) return;
   int64_t c = item / width, col = item - c * width;
-  int64_t lo = c * kChunk, hi = lo + kChunk < n ? lo + kChunk : n;
-  int32_t first = sorted[lo], last = sorted[hi - 1];
-  bool need_head = lo > 0 && sorted[lo - 1] == first;
-  bool need_tail = hi < n && sorted[hi] == last;
-  if (!need_head && !need_tail) return;
-  float h = 0.0f, t = 0.0f;
-  for (int64_t j = lo; j < hi; ++j) {
-    int32_t id = sorted[j];
-    float v = src[perm[j] * width + col];
-    if (id == first) h += v;
-    if (id == last) t += v;
-  }
-  if (need_head) head[item] = h;
-  if (need_tail) tail[item] = t;
-}
-
-__global__ void row_sums(const int32_t* __restrict__ sorted, const int64_t* __restrict__ perm,
-                         const float* __restrict__ src, const float* __restrict__ head,
-                         const float* __restrict__ tail, float* __restrict__ table, int64_t n,
-                         int64_t width, int64_t rows, int accumulate) {
-  // the runs' starts of this block's rows and of the row after the last
-  __shared__ int64_t starts[kThreads + 2];
-  int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-  int64_t last = first + blockDim.x < rows * width ? first + blockDim.x - 1 : rows * width - 1;
-  int64_t row0 = first / width, bounds = last / width - row0 + 2;
-  for (int64_t t = threadIdx.x; t < bounds; t += blockDim.x) {
-    starts[t] = lower_bound(sorted, n, row0 + t);
-  }
-  __syncthreads();
-  int64_t item = first + threadIdx.x;
-  if (item > last) return;
-  int64_t d = item / width, col = item - d * width;
-  int64_t lo = starts[d - row0], hi = starts[d - row0 + 1];
-  float acc = 0.0f;
-  if (hi > lo) {
-    int64_t cf = lo / kChunk, cl = (hi - 1) / kChunk;
-    if (cf == cl) {
-      for (int64_t j = lo; j < hi; ++j) acc += src[perm[j] * width + col];
-    } else {
-      acc = tail[cf * width + col];
-      for (int64_t c = cf + 1; c < cl; ++c) acc += tail[c * width + col];
-      acc += head[cl * width + col];
+  int64_t lo = c * kChunk;
+  int count = n - lo < kChunk ? static_cast<int>(n - lo) : static_cast<int>(kChunk);
+  int32_t cur = sorted[lo];
+  bool head_run = lo > 0 && sorted[lo - 1] == cur;
+  bool goes_on = lo + count < n && sorted[lo + count] == sorted[lo + count - 1];
+  T acc = vzero(T());
+  auto step = [&](int32_t id, T v) {
+    if (id != cur) {
+      if (head_run) {
+        head[item] = acc;
+      } else {
+        write_row(table, cur, rows, width, col, acc, accumulate);
+      }
+      head_run = false;
+      cur = id;
+      acc = vzero(T());
     }
+    acc = vadd(acc, v);
+  };
+  if (sizeof(T) == sizeof(float)) {
+    int32_t ids[kChunk];
+    T vals[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      ids[u] = u < count ? sorted[lo + u] : 0;
+      vals[u] = u < count ? src[perm[lo + u] * width + col] : vzero(T());
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      if (u < count) step(ids[u], vals[u]);
+    }
+  } else {
+#pragma unroll 8
+    for (int u = 0; u < count; ++u) step(sorted[lo + u], src[perm[lo + u] * width + col]);
   }
-  float* out = table + item;
-  *out = accumulate ? *out + acc : acc;
+  if (goes_on) tail[item] = acc;
+  if (head_run) {
+    head[item] = acc;
+  } else if (!goes_on) {
+    write_row(table, cur, rows, width, col, acc, accumulate);
+  }
 }
 
-unsigned grid_for(int64_t items) {
-  return static_cast<unsigned>((items + kThreads - 1) / kThreads);
+// The first chunk in [a, b) that does not begin with id, or b; the chunks
+// before it from a on all do (the ids are sorted). kProbes loads a round,
+// all in flight at once.
+__device__ __forceinline__ int64_t first_other_chunk(const int32_t* __restrict__ sorted,
+                                                     int32_t id, int64_t a, int64_t b) {
+  while (a < b) {
+    int64_t step = (b - a + kProbes - 1) / kProbes;
+    bool same[kProbes];
+#pragma unroll
+    for (int u = 0; u < kProbes; ++u) {
+      int64_t p = a + u * step;
+      same[u] = p < b && sorted[p * kChunk] == id;
+    }
+    int u = 0;
+    while (u < kProbes && same[u]) ++u;
+    if (u == 0) return a;
+    int64_t next_b = a + u * step;  // the first probe that differs (or past b)
+    a = a + (u - 1) * step + 1;
+    b = next_b < b ? next_b : b;
+  }
+  return a;
+}
+
+// launch 2: a run that spans chunks, from the thread of the chunk and
+// column where it begins: its last chunk (the last that begins with its
+// id), then tail[first chunk] + tail of each chunk inside it +
+// head[last chunk], the partials loaded kBatch at a time, all in flight.
+__global__ void long_runs(const int32_t* __restrict__ sorted, const float* __restrict__ head,
+                          const float* __restrict__ tail, float* __restrict__ table, int64_t n,
+                          int64_t width, int64_t rows, int64_t chunks, int accumulate) {
+  int64_t item = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (item >= chunks * width) return;
+  int64_t c = item / width, col = item - c * width;
+  int64_t lo = c * kChunk, hi = lo + kChunk;
+  if (hi >= n) return;
+  int32_t id = sorted[hi - 1];
+  if (sorted[hi] != id || (lo > 0 && sorted[lo - 1] == id) || id < 0 || id >= rows) return;
+  int64_t last = first_other_chunk(sorted, id, c + 2, chunks) - 1, k = c + 1;
+  float acc = tail[c * width + col];
+  for (; k + kBatch <= last; k += kBatch) {
+    float part[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) part[u] = tail[(k + u) * width + col];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) acc += part[u];
+  }
+  for (; k < last; ++k) acc += tail[k * width + col];
+  write_row(table, id, rows, width, col, acc + head[last * width + col], accumulate);
+}
+
+// Threads a block for `items` threads in all: kThreads, halved down to a
+// warp while the grid would leave SMs idle (a 1-D table gives a launch one
+// thread a chunk, N / 32 threads in all).
+int block_for(int64_t items) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int block = kThreads, sms = dmlc_k1::sm_count(dev);
+  while (block > 32 && (items + block - 1) / block < 2 * sms) block >>= 1;
+  return block;
+}
+
+unsigned blocks_for(int64_t items, int block) {
+  return static_cast<unsigned>((items + block - 1) / block);
 }
 
 }  // namespace
@@ -277,15 +378,29 @@ extern "C" int dmlc_row_scatter_f32(const int32_t* sorted, const int64_t* perm,
                                     cudaStream_t stream) {
   if (n < 0 || width <= 0 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
-  if (n == 0) {
-    if (accumulate) return static_cast<int>(cudaSuccess);
-    return static_cast<int>(
-        cudaMemsetAsync(table, 0, rows * width * sizeof(float), stream));
+  if (!accumulate) {
+    cudaError_t rc = cudaMemsetAsync(table, 0, rows * width * sizeof(float), stream);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  int64_t chunks = dmlc_row_scatter_chunks(n);
-  chunk_partials<<<grid_for(chunks * width), kThreads, 0, stream>>>(sorted, perm, src, head,
-                                                                   tail, n, width, chunks);
-  row_sums<<<grid_for(rows * width), kThreads, 0, stream>>>(sorted, perm, src, head, tail,
-                                                           table, n, width, rows, accumulate);
+  if (n > 0) {
+    int64_t chunks = dmlc_row_scatter_chunks(n), items = chunks * width;
+    bool vec4 = width % 4 == 0 && width >= kVecMinWidth &&
+                ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(table) |
+                  reinterpret_cast<uintptr_t>(head) | reinterpret_cast<uintptr_t>(tail)) & 15) == 0;
+    if (vec4) {
+      int block = block_for(items / 4);
+      chunk_runs<float4><<<blocks_for(items / 4, block), block, 0, stream>>>(
+          sorted, perm, reinterpret_cast<const float4*>(src), reinterpret_cast<float4*>(head),
+          reinterpret_cast<float4*>(tail), reinterpret_cast<float4*>(table), n, width / 4, rows,
+          chunks, accumulate);
+    } else {
+      int block = block_for(items);
+      chunk_runs<float><<<blocks_for(items, block), block, 0, stream>>>(
+          sorted, perm, src, head, tail, table, n, width, rows, chunks, accumulate);
+    }
+    int block = block_for(items);
+    long_runs<<<blocks_for(items, block), block, 0, stream>>>(sorted, head, tail, table, n, width,
+                                                              rows, chunks, accumulate);
+  }
   return static_cast<int>(cudaGetLastError());
 }
