@@ -7,7 +7,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. environment: the card, torch/CUDA versions, the build times of the CUDA
    kernel library and the native parser (both built here from the
-   checkout's sources), and the parse engine in use;
+   checkout's sources; a native parser that does not build fails the run,
+   no phase falls back to the numpy engine), and a plain local
+   ``create_parser`` returning the fused native reader
+   (``NativeStreamParser``, engine ``native``). Every later phase parses
+   with it unless it names the registry stack
+   (``DMLC_TPU_NO_NATIVE_READER=1``);
 2. kernel K1 (``csrc/ell_matvec.cu``) and its ``dw`` kernel
    (``csrc/ell_matvec_dw.cu``) against their plain PyTorch versions at the
    shapes the JAX package cares about and a large HIGGS-shaped batch —
@@ -64,11 +69,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    healing: a byte flipped in a warm batch of a small snapshot, the warm
    device-decode epoch equal to the cold one byte for byte after one
    pipeline restart;
-7. checkpoints on the main path: a cold ELL epoch checkpointed after 37
-   batches (the DeviceIter state through JSON, the parameters through
-   numpy), closed and resumed in a fresh pipeline by a seek of the split
-   (under 0.8 of the corpus read), to the uninterrupted epoch's weight and
-   bias exactly (``torch.equal``); on phase 6's snapshot, a warm checkpoint
+7. checkpoints on the main path: on the registry stack, a cold ELL epoch
+   checkpointed after 37 batches (the DeviceIter state through JSON, the
+   parameters through numpy), closed and resumed in a fresh pipeline by a
+   seek of the split (under 0.8 of the corpus read), to the uninterrupted
+   epoch's weight and bias exactly (``torch.equal``); the same on the
+   fused native reader, whose state is a count the restore replays (91
+   batches after it, the weights equal, the uninterrupted epoch's weights
+   equal to the registry stack's, the share of the corpus read reported);
+   on phase 6's snapshot, a warm checkpoint
    and the cold one each resumed into a fresh warm device-decode pipeline:
    the remaining batches bit-equal to the uninterrupted warm epoch's, one
    K2 launch each, the same final weights; with the load time, the time to
@@ -83,7 +92,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    spin without waiting for it (no host sync, also none inside a library),
    the first 20 steps run twice and bit-identical (the gradient's row
    scatter has no atomics), and one epoch of natural blocks
-   (``batch_size=None``) with a finite loss;
+   (``batch_size=None``) with a finite loss; then ``coo_matmul``'s two
+   forward routes on one coalesced batch, torch's sparse product and the
+   row scatter, in turns for a ``[D]`` and a ``[D, 8]`` table, within
+   tolerance of each other, and the step on each (``coo_forward_ab``: the
+   measurement that keeps the product for a batch marked coalesced);
 9. ALS at ``examples/train_als.py``'s full size (4096 users, 512 items, 16
    factors, 32 ratings a row, batch 512, reg 0.05): create_parser ->
    DeviceIter(ell) -> AlsLearner -> fit(4 epochs) -> eval_loss, the epoch
@@ -97,7 +110,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Then the A/B of the routes for a row scatter (``index_add_``,
    ``index_put_(accumulate=True)``, the kernel) at the ALS shapes, a
    larger ALS shape, a 1-D table above ``DW_MAX_TABLE``, phase 10's and
-   phase 13's shapes: bits over two runs, device time, enqueue behind a
+   phase 13's shapes, and the bcoo forward's (row-ordered ids into
+   ``[8192, 1]`` and ``[16384, 1]``): bits over two runs, device time, enqueue behind a
    spin, the kernel within 1e-4 + 1e-5 of each word's absolute sum of its
    plain version and bit for bit equal to the plain version that sums in
    its order (``row_scatter_add_ordered_plain``), overwriting and
@@ -165,7 +179,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
     dense emit shadow-writing a snapshot and a warm ``device_decode=True``
     epoch (one K2 launch a batch), an ELL epoch (``max_nnz=39``: K1 and
     ``dw`` once a step), and a cold epoch on the numpy engine at 1 and 4
-    parse workers (rows/s, ``parse_parallelism_efficiency``); gates: the
+    parse workers of the registry stack's fan-out (rows/s,
+    ``parse_parallelism_efficiency``); gates: the
     first 8 dense-emit batches equal the CSR route's bit for bit, and on
     dense and ELL 20 card steps twice bit-identical, within 1e-4 of the port
     on the CPU and enqueued behind a device spin without a host sync; (b) a
@@ -175,9 +190,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
     table) and ``FMLearner(ell)``, 8 factors, Adam 0.05, 64 steps (two row
     scatters a step on a ``[50,000,001, 8]`` table); gates: 20 steps twice
     bit-identical on each, and the first 20 (linear) and 5 (FM) losses
-    within 1e-4 of the port on the CPU from the same initial state; (c)
-    ``tests/test_device.py``'s libfm XOR case, ``FMLearner(ell)`` above 0.9
+    within 1e-4 of the port on the CPU from the same initial state, the
+    first bcoo batch's forward (a row scatter) bit-equal to its ordered
+    plain version and within tolerance of ``index_add_`` and torch's
+    product; (c) ``tests/test_device.py``'s libfm XOR case, ``FMLearner(ell)`` above 0.9
     accuracy.
+14. the fused native reader's own routes (``run_native_reader``) on phase
+    3's and phase 13's corpora: (a) ``DeviceIter(dense, pack_aux=True)``
+    through its batch repack, float32 (packed slabs, one copy a batch) and
+    bfloat16, cold epochs in turns with the registry stack's dense emit,
+    then a snapshot's cold and warm ``device_decode=True`` epochs (one K2
+    launch a batch); the first 8 batches of both producers bit-equal, 20
+    steps twice bit-identical and within 1e-4 of the CPU; (b) the
+    KDD-shaped libfm as ``DeviceIter(bcoo, batch_size=None)`` natural
+    blocks through its ``CooBlock`` emit on the pair and the CSR wire,
+    elision off and on, beside the registry stack's RowBlock route:
+    rows/s, convert seconds, stall share, the step's device time; gates:
+    every block a ``CooBlock``, the row scatter once a step at least, the
+    first batch equal across the wires, 20 steps twice bit-identical and
+    within 1e-4 of the CPU, 20 steps enqueued behind a device spin without
+    waiting, the first block's forward held as in 13 (b); (c)
+    ``DeviceIter(ell)`` without ``max_nnz`` (K from each
+    batch's longest row), one epoch, K1 and ``dw`` launched once a batch.
+    Then each phase's rows/s and stall share beside the registry stack's
+    (``producer_change``, :data:`BEFORE_READER`).
 
 The ``torch.profiler`` windows run last, the decode's first: the steps'
 windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
@@ -186,8 +222,8 @@ FM steps' and phase 13's libfm bcoo and FM ell steps' (``step_profile``:
 device events and time by kernel a step), and
 how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7, 11, 12 and 13; the row scatter's on
-phases 9-13), the card's name and power limit as
+the main paths of phases 3, 6, 7, 11, 12, 13 and 14; the row scatter's on
+phases 9-14), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -196,6 +232,7 @@ CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -252,6 +289,22 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def registry_stack():
+    """Inside: ``create_parser`` builds the registry stack (the split, the
+    text parsers, ``ParallelTextParser``) for a plain local file, not the
+    fused native reader (``DMLC_TPU_NO_NATIVE_READER=1``)."""
+    old = os.environ.get("DMLC_TPU_NO_NATIVE_READER")
+    os.environ["DMLC_TPU_NO_NATIVE_READER"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DMLC_TPU_NO_NATIVE_READER"]
+        else:
+            os.environ["DMLC_TPU_NO_NATIVE_READER"] = old
+
+
 # ---------------- phase 1: environment and builds ----------------
 
 def build_all() -> dict:
@@ -267,11 +320,38 @@ def build_all() -> dict:
         native_ok = nat.result()
     ptxas = [line.strip() for line in _build.kernel_build_log.splitlines()
              if "registers" in line or "spill" in line]
+    if not native_ok:
+        raise AssertionError("the native parser did not build: no phase may fall back "
+                             "to the numpy engine")
     return {"build_wall_s": time.monotonic() - t0,
             "kernel_build_s": _build.kernel_build_seconds,
             "native_build_s": native.build_seconds,
-            "parse_engine": "native" if native_ok else "numpy",
-            "ptxas": ptxas}
+            "parse_engine": "native", "ptxas": ptxas}
+
+
+def assert_native_engine(tmp: str) -> dict:
+    """A plain local ``create_parser`` returns the fused native reader
+    (``NativeStreamParser``, engine ``native``), as the JAX package's does,
+    and parses a small file."""
+    from dmlc_tpu_torch import create_parser
+
+    path = os.path.join(tmp, "engine.libsvm")
+    with open(path, "w") as f:
+        f.write("1 0:1 2:0.5\n0 1:2\n")
+    parser = create_parser(path)
+    out = {"phase": "environment_engine", "parser": type(parser).__name__,
+           "engine": getattr(parser, "engine", None),
+           "rows": sum(len(b) for b in parser)}
+    parser.close()
+    with registry_stack():
+        fallback = create_parser(path)
+    out["registry_stack_parser"] = type(fallback).__name__
+    fallback.close()
+    os.remove(path)
+    emit(out)
+    if out["parser"] != "NativeStreamParser" or out["engine"] != "native" or out["rows"] != 2:
+        raise AssertionError(f"create_parser did not return the fused native reader: {out}")
+    return out
 
 
 # ---------------- phase 2: kernel K1 against its plain version ----------------
@@ -1344,6 +1424,7 @@ def _resume(path: str, device, state, params, snapshot=None, want=None) -> dict:
     t0 = time.monotonic()
     it.load_state(state)
     t1 = time.monotonic()
+    bytes_at_load = parser.bytes_read
     n, first_s, equal = 0, None, want is not None
     for batch in it:
         if first_s is None:
@@ -1357,6 +1438,7 @@ def _resume(path: str, device, state, params, snapshot=None, want=None) -> dict:
     t2 = time.monotonic()
     out = {"batches_after_restore": n, "load_state_s": t1 - t0, "first_batch_s": first_s,
            "restored_rows_per_s": n * BATCH / (t2 - t1), "parser_bytes_read": parser.bytes_read,
+           "parser_bytes_read_at_load": bytes_at_load,
            "snapshot_state": it.stats()["snapshot_state"], "k2_launches": dd.launches - k2_before,
            "weight": model.params.weight.detach().clone(),
            "bias": model.params.bias.detach().clone()}
@@ -1366,15 +1448,9 @@ def _resume(path: str, device, state, params, snapshot=None, want=None) -> dict:
     return out
 
 
-def run_checkpoint(path: str, snap: str, device, corpus_bytes: int) -> dict:
-    """Cold ELL: an uninterrupted epoch, then the same epoch checkpointed
-    after ``CKPT_AT`` batches, closed, and resumed in a fresh pipeline
-    (a seek); the final weight and bias must be ``torch.equal``. Warm
-    device decode on phase 6's snapshot: a warm checkpoint and the cold
-    one, each resumed into a fresh warm pipeline; the remaining batches
-    bit-equal to the uninterrupted warm epoch's, one K2 launch each, and
-    the final weights ``torch.equal`` to it (and to the cold epoch's: the
-    same batches)."""
+def _cold_restore_leg(path: str, device, corpus_bytes: int) -> dict:
+    """An uninterrupted cold ELL epoch, then the same epoch checkpointed
+    after ``CKPT_AT`` batches, closed and resumed in a fresh pipeline."""
     import torch
 
     _, model, it = _ell_pipeline(path, device)
@@ -1387,17 +1463,45 @@ def run_checkpoint(path: str, snap: str, device, corpus_bytes: int) -> dict:
     cold_s = time.monotonic() - t0
     it.close()
     ref_w, ref_b = model.params.weight.detach().clone(), model.params.bias.detach().clone()
-
-    cold_state, cold_params = _checkpoint(path, device)
-    cold = _resume(path, device, cold_state, cold_params)
-    cold_out = {k: v for k, v in cold.items() if k not in ("weight", "bias")}
-    cold_out.update(
-        state_kind=cold_state["kind"], state_batches=cold_state["batches"],
+    state, params = _checkpoint(path, device)
+    r = _resume(path, device, state, params)
+    out = {k: v for k, v in r.items() if k not in ("weight", "bias")}
+    out.update(
+        state_kind=state["kind"], state_batches=state["batches"],
         uninterrupted_epoch_s=cold_s, uninterrupted_rows_per_s=batches * BATCH / cold_s,
-        bytes_read_share=cold["parser_bytes_read"] / corpus_bytes,
-        weights_equal=bool(torch.equal(cold["weight"], ref_w)
-                           and torch.equal(cold["bias"], ref_b)))
-    emit({"phase": "checkpoint_cold_ell", **cold_out})
+        bytes_read_share=r["parser_bytes_read"] / corpus_bytes,
+        bytes_read_share_at_load=r["parser_bytes_read_at_load"] / corpus_bytes,
+        weights_equal=bool(torch.equal(r["weight"], ref_w) and torch.equal(r["bias"], ref_b)))
+    return {"out": out, "state": state, "params": params, "weight": ref_w, "bias": ref_b}
+
+
+def run_checkpoint(path: str, snap: str, device, corpus_bytes: int) -> dict:
+    """Cold ELL on the registry stack (the split and ``ParallelTextParser``):
+    an uninterrupted epoch, then the same epoch checkpointed after
+    ``CKPT_AT`` batches, closed, and resumed in a fresh pipeline (a seek of
+    the split, under 0.8 of the corpus read); the final weight and bias
+    must be ``torch.equal``. The same on the fused native reader, whose
+    state is a count the restore replays (the share of the corpus read by
+    the end of the restore reported): the batches after the restore and
+    the final weights must equal the uninterrupted epoch's, which must
+    equal the registry stack's. Warm device decode on phase 6's snapshot:
+    a warm checkpoint and the cold one, each resumed into a fresh warm
+    pipeline; the remaining batches bit-equal to the uninterrupted warm
+    epoch's, one K2 launch each, and the final weights ``torch.equal`` to
+    it (and to the cold epoch's: the same batches)."""
+    import torch
+
+    with registry_stack():
+        split = _cold_restore_leg(path, device, corpus_bytes)
+    cold_out, cold_state, cold_params = split["out"], split["state"], split["params"]
+    ref_w, ref_b = split["weight"], split["bias"]
+    emit({"phase": "checkpoint_cold_ell", "producer": "ParallelTextParser", **cold_out})
+    native = _cold_restore_leg(path, device, corpus_bytes)
+    native_out = native["out"]
+    native_out["uninterrupted_equals_registry_stack"] = bool(
+        torch.equal(native["weight"], ref_w) and torch.equal(native["bias"], ref_b))
+    emit({"phase": "checkpoint_cold_ell_native", "producer": "NativeStreamParser",
+          **native_out})
 
     # the uninterrupted warm epoch, its batches kept on the card
     _, model, it = _ell_pipeline(path, device, snap)
@@ -1421,7 +1525,8 @@ def run_checkpoint(path: str, snap: str, device, corpus_bytes: int) -> dict:
         emit(rec)
         warm_out.append(rec)
     cold_equals_warm = bool(torch.equal(ref_w, warm_w) and torch.equal(ref_b, warm_b))
-    out = {"cold": cold_out, "warm": warm_out, "warm_epoch_served_warm": warm_state_ok,
+    out = {"cold": cold_out, "native": native_out, "warm": warm_out,
+           "warm_epoch_served_warm": warm_state_ok,
            "cold_epoch_equals_warm_epoch": cold_equals_warm,
            "k2_launches": sum(r["k2_launches"] for r in warm_out)}
     rest = HIGGS_ROWS // BATCH - CKPT_AT
@@ -1430,6 +1535,10 @@ def run_checkpoint(path: str, snap: str, device, corpus_bytes: int) -> dict:
         problems.append("the cold ELL restore did not finish the epoch to the same weights")
     if cold_state["kind"] != "source" or not cold_out["bytes_read_share"] < 0.8:
         problems.append("the cold ELL restore did not seek")
+    if not (native_out["weights_equal"] and native_out["batches_after_restore"] == rest
+            and native_out["uninterrupted_equals_registry_stack"]):
+        problems.append("the native reader's restore did not finish the epoch to the same "
+                        "weights")
     for r in warm_out:
         if not (r["weights_equal"] and r["batches_equal"] and r["k2_launches"] == rest
                 and r["snapshot_state"] == "warm"):
@@ -1557,6 +1666,7 @@ def run_bcoo(path: str, device, steps: int = 20) -> dict:
     ell_ms = device_ms(lambda: ell_model.step(ell_batch), iters=10)
     bcoo_spin = enqueue_behind_spin(lambda: model.step(bcoo_batch))
     ell_spin = enqueue_behind_spin(lambda: ell_model.step(ell_batch))
+    forward_ab = coo_forward_ab(model, bcoo_batch, 31)
     nat_model, nat_it = _bcoo_pipeline(path, device, natural=True)
     t0 = time.monotonic()
     nat_loss, nat_nb = nat_model.fit_epoch(nat_it)
@@ -1569,18 +1679,117 @@ def run_bcoo(path: str, device, steps: int = 20) -> dict:
            "stall_s": stall, "stall_share": stall / epoch_s, "accuracy": acc,
            "nnz_shapes": shapes, "step_device_ms": bcoo_ms, "ell_step_device_ms": ell_ms,
            "step_enqueue_behind_spin": bcoo_spin, "ell_step_enqueue_behind_spin": ell_spin,
-           "natural_loss": nat_loss, "natural_batches": nat_nb, "natural_wall_s": nat_s,
+           "forward_ab": forward_ab, "natural_loss": nat_loss, "natural_batches": nat_nb, "natural_wall_s": nat_s,
            "natural_rows_per_s": HIGGS_ROWS / nat_s}
     emit(out)
     if not (len(pairs) == steps and rel <= 1e-4 and dense_equal):
         raise AssertionError(f"bcoo: the first {steps} steps or batch differ from the CPU: {pairs}")
     if not repeatable:
         raise AssertionError("bcoo: two card runs of the first steps differ")
-    if not (bcoo_spin["no_host_sync"] and ell_spin["no_host_sync"]):
-        raise AssertionError(f"a step waited for the device: bcoo {bcoo_spin}, ELL {ell_spin}")
+    if not (bcoo_spin["no_host_sync"] and ell_spin["no_host_sync"]
+            and forward_ab["row_scatter_step_behind_spin"]["no_host_sync"]):
+        raise AssertionError(f"a step waited for the device: bcoo {bcoo_spin}, ELL {ell_spin}, "
+                             f"{forward_ab}")
+    if not (forward_ab["linear"]["within_tol"] and forward_ab["fm_v"]["within_tol"]):
+        raise AssertionError(f"bcoo: the two forward routes disagree: {forward_ab}")
     if not (acc > 0.9 and np.isfinite(loss) and len(shapes) == 1 and np.isfinite(nat_loss)
             and nat_nb > 0):
         raise AssertionError(f"bcoo epoch failed its checks: {out}")
+    return out
+
+
+def coo_forward_check(x, seed: int) -> dict:
+    """One forward of a real bcoo batch ``x`` that is not marked coalesced
+    (so ``coo_matmul`` takes the row scatter over its rows) against a
+    seeded random table: twice the same bits, bit-equal to
+    ``row_scatter_add_ordered_plain`` of the same rows, and within 1e-4 +
+    1e-5 of each row's absolute sum of the plain version (zeros +
+    ``index_add_``) and of torch's sparse product. Comparison launches:
+    the caller reads its counts before."""
+    import torch
+
+    from dmlc_tpu_torch.ops import row_scatter as rs
+    from dmlc_tpu_torch.ops.sparse import coo_matmul
+
+    dev = x.device
+    w = torch.randn(x.shape[1], generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    rows, cols = x._indices()
+    src = x._values()[:, None] * w[cols][:, None]
+    shape = (x.shape[0], 1)
+    with torch.no_grad():
+        first, second = coo_matmul(x, w), coo_matmul(x, w)
+        library = torch.sparse.mm(x, w[:, None])[:, 0]
+    plain = rs.row_scatter_add_plain(shape, rows, src)[:, 0]
+    tol = 1e-4 + 1e-5 * rs.row_scatter_add_plain(shape, rows, src.abs())[:, 0]
+    err, lib_err = (first - plain).abs(), (first - library).abs()
+    return {"rows": x.shape[0], "nnz": rows.numel(), "marked_coalesced": x.is_coalesced(),
+            "bit_identical_twice": same_bits(first, second),
+            "equal_to_ordered_plain": same_bits(
+                first, rs.row_scatter_add_ordered_plain(shape, rows, src)[:, 0]),
+            "max_abs_err_vs_plain": float(err.max()), "within_tol": bool((err <= tol).all()),
+            "max_abs_err_vs_sparse_mm": float(lib_err.max()),
+            "within_tol_sparse_mm": bool((lib_err <= tol).all())}
+
+
+def coo_forward_failed(check: dict) -> bool:
+    return not (not check["marked_coalesced"] and check["bit_identical_twice"]
+                and check["equal_to_ordered_plain"] and check["within_tol"]
+                and check["within_tol_sparse_mm"])
+
+
+def coo_forward_ab(model, batch, seed: int) -> dict:
+    """``coo_matmul``'s two forward routes on one coalesced batch: torch's
+    sparse product (taken for a batch marked coalesced) and the row
+    scatter (taken otherwise; here on the same entries, not marked), in
+    turns (mm, scatter, scatter, mm), for a ``[D]`` and a ``[D, 8]`` table
+    (the linear margin, FM's factors); both within 1e-4 + 1e-5 of each
+    row's absolute sum; and the learner's step on each form of the batch,
+    the scatter's enqueued behind a device spin. Decides whether the
+    sparse product's route is kept (its forward at most 0.8x the
+    scatter's on both tables, and its step faster)."""
+    import torch
+
+    from dmlc_tpu_torch.ops.sparse import coo_matmul
+
+    x, y, wt = batch
+    xu = torch.sparse_coo_tensor(x._indices(), x._values(), x.shape)
+    if not x.is_coalesced() or xu.is_coalesced():
+        raise AssertionError("the bcoo A/B needs a batch marked coalesced")
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    out = {"rows": x.shape[0], "nnz": x._nnz()}
+    ab_abs = torch.sparse_coo_tensor(x._indices(), x._values().abs(), x.shape)
+    for name, cols in (("linear", 1), ("fm_v", 8)):
+        w = torch.randn(x.shape[1], cols, generator=gen, device=x.device)
+        with torch.no_grad():
+            mm, scat = coo_matmul(x, w), coo_matmul(xu, w)
+            tol = 1e-4 + 1e-5 * coo_matmul(ab_abs, w.abs())
+
+            def f_mm():
+                return coo_matmul(x, w)
+
+            def f_scat():
+                return coo_matmul(xu, w)
+            ms = [device_ms(f) for f in (f_mm, f_scat, f_scat, f_mm)]
+        out[name] = {"sparse_mm_ms": [ms[0], ms[3]], "row_scatter_ms": ms[1:3],
+                     "max_abs_diff": float((mm - scat).abs().max()),
+                     "within_tol": bool(((mm - scat).abs() <= tol).all())}
+    unmarked = (xu, y, wt)
+    model.step(unmarked)
+    torch.cuda.synchronize()
+    steps = [device_ms(f, iters=10) for f in (lambda: model.step(batch),
+                                              lambda: model.step(unmarked),
+                                              lambda: model.step(unmarked),
+                                              lambda: model.step(batch))]
+    out["step_sparse_mm_ms"], out["step_row_scatter_ms"] = [steps[0], steps[3]], steps[1:3]
+    # the sort adds launches to the step: in groups of 10, inside the card's
+    # launch queue (enqueue_behind_spin), as phase 14's unordered steps
+    out["row_scatter_step_behind_spin"] = enqueue_behind_spin(lambda: model.step(unmarked),
+                                                              group=10)
+    out["keep_sparse_mm"] = bool(
+        all(max(out[n]["sparse_mm_ms"]) <= 0.8 * min(out[n]["row_scatter_ms"])
+            for n in ("linear", "fm_v"))
+        and max(out["step_sparse_mm_ms"]) < min(out["step_row_scatter_ms"]))
     return out
 
 
@@ -1668,8 +1877,13 @@ ROW_SCATTER_SHAPES = [  # (name, B, K, D, row): B*K rows scattered into a [D, *r
     ("fm_w", BATCH, HIGGS_COLS, HIGGS_COLS + 1, ()),    # and its linear weights'
     ("kdd_bcoo", BATCH, 10, 50_000_001, ()),   # phase 13's libfm: the bcoo gradient
     ("kdd_fm_v", BATCH, 10, 50_000_001, (8,)),  # and FM's factor gradient
+    # phase 13/14's bcoo forward on an unordered batch: each row's 10 ids
+    # in row order into [rows, 1], fixed batches and natural blocks
+    ("kdd_coo_forward", BATCH, 10, BATCH, (1,)),
+    ("kdd_coo_forward_natural", 2 * BATCH, 10, 2 * BATCH, (1,)),
 ]
 ROW_SCATTER_MAIN = "als_gram"
+COO_FORWARD_SHAPES = ("kdd_coo_forward", "kdd_coo_forward_natural")
 
 
 def row_scatter_candidates() -> dict:
@@ -1704,6 +1918,21 @@ def row_scatter_inputs(b: int, k: int, d: int, row: tuple, seed: int, device):
     pad = torch.rand(b * k, generator=gen, device=device) < 0.25
     idx[pad] = d - 1
     src[pad] = 0.0
+    return idx, src
+
+
+def coo_forward_inputs(b: int, k: int, seed: int, device):
+    """A bcoo forward's row scatter: ``k`` entries for each of ``b`` rows,
+    row ids ascending, the last eighth of the entries the nnz bucket's
+    tail (the pad row ``b - 1``, value 0), and each entry's ``val * w``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.arange(b, device=device).repeat_interleave(k)
+    src = torch.randn((b * k, 1), generator=gen, device=device)
+    tail = b * k // 8
+    idx[-tail:] = b - 1
+    src[-tail:] = 0.0
     return idx, src
 
 
@@ -1794,7 +2023,8 @@ def row_scatter_ab(seed: int, parent=None) -> list:
     dev = torch.device("cuda", torch.cuda.current_device())
     rows = []
     for i, (name, b, k, d, row) in enumerate(ROW_SCATTER_SHAPES):
-        idx, src = row_scatter_inputs(b, k, d, row, seed + i, dev)
+        idx, src = (coo_forward_inputs(b, k, seed + i, dev) if name in COO_FORWARD_SHAPES
+                    else row_scatter_inputs(b, k, d, row, seed + i, dev))
         shape = (d, *row)
         n_row = int(np.prod(row)) if row else 1
         bound_ms, bound_by = bound(b * k * (8 + 4 * n_row) + d * n_row * 4, b * k * n_row)
@@ -2029,6 +2259,10 @@ def run_als(path: str, device, steps: int = 20) -> dict:
         return torch.stack(losses).cpu().numpy(), model.state_dict()
 
     model, it = _als_pipeline(path, device)
+    # the state a seek of the registry stack's split takes, or the count the
+    # fused native reader's restore replays
+    producer = type(it.source).__name__
+    want_kind = "batches" if producer == "NativeStreamParser" else "source"
     for _ in range(ALS["restore_epoch"]):
         model.fit_epoch(it)
     losses_a, ckpt = [], None
@@ -2063,7 +2297,8 @@ def run_als(path: str, device, steps: int = 20) -> dict:
            "max_rel_diff_vs_cpu": rel, "normal_eq_max_diff_over_abs_sum_vs_cpu": eq_rel,
            "items_max_abs_diff_vs_cpu": float(items_diff.max()),
            "items_within_tol_of_cpu": items_ok, "main_path_scatter_vs_plain": scatter,
-           "checkpoint_state_kind": ckpt[1]["kind"], "checkpoint_tail_steps": len(tail),
+           "checkpoint_producer": producer, "checkpoint_state_kind": ckpt[1]["kind"],
+           "checkpoint_tail_steps": len(tail),
            "checkpoint_tail_bytes_equal": tail.tobytes() == replay.tobytes(),
            "checkpoint_final_state_bytes_equal":
                _state_bits(ckpt_state_a) == _state_bits(ckpt_state_b),
@@ -2085,7 +2320,7 @@ def run_als(path: str, device, steps: int = 20) -> dict:
     if not (scatter["within_tol"] and scatter["same_bits_as_step"]):
         problems.append("a step's scatter differs from its plain version or from itself")
     if not (out["checkpoint_tail_bytes_equal"] and out["checkpoint_final_state_bytes_equal"]
-            and len(tail) == 2 * epoch_len - ALS["restore_at"] and ckpt[1]["kind"] == "source"):
+            and len(tail) == 2 * epoch_len - ALS["restore_at"] and ckpt[1]["kind"] == want_kind):
         problems.append("the checkpoint did not replay the loss tail, item solve and next epoch")
     if not spin["no_host_sync"]:
         problems.append("a step waited for the device")
@@ -3009,18 +3244,19 @@ KDD_ROWS, KDD_FIELDS, KDD_COLS = 1 << 20, 10, 50_000_000
 
 
 class _Blocks:
-    """A parser seen through: counts the blocks it hands out by kind, and
-    with ``csr=True`` hides ``set_emit_dense``, so a dense ``DeviceIter``
-    takes the CSR route (densified on its producer)."""
+    """A parser seen through: counts the blocks it hands out by kind (and
+    the packed ones), and with ``csr=True`` hides ``set_emit_dense``, so a
+    dense ``DeviceIter`` takes the CSR route (densified on its producer)."""
 
     def __init__(self, parser, csr: bool = False):
-        self.parser, self.csr, self.kinds = parser, csr, {}
+        self.parser, self.csr, self.kinds, self.packed = parser, csr, {}, 0
 
     def next_block(self):
         block = self.parser.next_block()
         if block is not None:
             kind = type(block).__name__
             self.kinds[kind] = self.kinds.get(kind, 0) + 1
+            self.packed += bool(getattr(block, "packed", False))
         return block
 
     def __getattr__(self, name):
@@ -3270,10 +3506,12 @@ def run_criteo_csv(path: str, tmp: str, device) -> dict:
     out["k1_launches"], out["dw_launches"] = k1.launches, k1.dw_launches
     ell_steps = legs[-1]["batches"]
     it.close()
-    # the numpy engine, one cold epoch at each width
+    # the numpy engine on the registry stack's parse fan-out, one cold
+    # epoch at each width
     for workers in (1, 4):
-        model, _, it = _csv_pipeline(path, device, "dense", engine="python",
-                                     parse_workers=workers)
+        with registry_stack():
+            model, _, it = _csv_pipeline(path, device, "dense", engine="python",
+                                         parse_workers=workers)
         legs.append(_epoch_record(it, model, f"dense_python_w{workers}"))
         it.close()
     out["legs"] = legs
@@ -3341,8 +3579,10 @@ def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
     step); each leg's step device time on a resident batch. Gates: 20 steps
     twice bit-identical on each leg; the losses against the port on the CPU
     from the same initial state, the first 20 (linear) and 5 (FM) within
-    1e-4. Each leg keeps a step on its resident batch (``step_fns``) for
-    the profiler's window at the end of the run."""
+    1e-4; the first bcoo batch's forward (a row scatter: the batch is
+    unordered) against its plain versions (:func:`coo_forward_check`).
+    Each leg keeps a step on its resident batch (``step_fns``) for the
+    profiler's window at the end of the run."""
     import torch
 
     from dmlc_tpu_torch.convert import fm_params_from_jax, fm_params_to_jax
@@ -3357,6 +3597,7 @@ def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
     rec["nnz_shapes"] = sorted(it.nnz_shapes)
     batches = [b for _, b in zip(range(20), it)]
     it.close()
+    rec["forward_check"] = coo_forward_check(batches[0][0], 13)
     rec["step_device_ms"] = device_ms(lambda: model.step(batches[0]), iters=10)
     step_fns["linear_bcoo"] = (lambda m, b: lambda: m.step(b))(model, batches[0])
     del model
@@ -3390,6 +3631,8 @@ def run_kdd_libfm(path: str, device, fm_steps: int = 64) -> dict:
     lin, fm = out["linear_bcoo"], out["fm_ell"]
     if lin["row_scatter_launches"] < lin["batches"]:
         problems.append(f"bcoo: the row scatter launched {lin['row_scatter_launches']} times")
+    if coo_forward_failed(lin["forward_check"]):
+        problems.append(f"bcoo: the forward's row scatter: {lin['forward_check']}")
     if fm["batches"] != fm_steps or fm["row_scatter_launches"] < 2 * fm_steps:
         problems.append(f"fm: {fm['batches']} steps, {fm['row_scatter_launches']} scatters")
     for name, leg, steps in (("bcoo", lin, 20), ("fm", fm, 5)):
@@ -3450,10 +3693,268 @@ def run_formats(tmp: str, device, seed: int) -> dict:
                      "published (40 csv columns; 10 libfm fields, 50 M ids)"})
     out = {"csv": run_criteo_csv(csv, tmp, device), "libfm": run_kdd_libfm(fm, device),
            "xor": run_libfm_xor(tmp, device)}
-    for p in (csv, fm):
-        os.remove(p)
+    os.remove(csv)
+    out["kdd_path"] = fm  # phase 14 reads it, then removes it
     out["wall_s"] = time.monotonic() - t0
     emit({"phase": "formats_total", "wall_s": out["wall_s"]})
+    return out
+
+
+# ---------------- phase 14: the fused native reader ----------------
+
+# rows/s and stall share of the same phases with the registry stack
+# (``ParallelTextParser``) as the producer, before ``create_parser`` moved
+# to the fused native reader: NVIDIA H100 80GB HBM3, 700.00 W (PERF.md §5)
+BEFORE_READER = {
+    "main_path_epoch0": (417663, 0.693), "main_path_epoch1": (436462, 0.730),
+    "dense_emit": (1366423, 0.267), "dense_csr": (1168378, 0.169),
+    "warm_ell_epoch0_cold": (439299, 0.727), "checkpoint_uninterrupted": (654268, None),
+    "bcoo": (1059776, 0.408), "bcoo_natural": (532794, None),
+    "block_cache_higgs_cold": (335378, 0.761),
+    "csv_dense_cold_emit": (1132931, 0.365), "csv_ell_cold": (531930, 0.635),
+    "libfm_linear_bcoo": (1158876, 0.241), "libfm_fm_ell": (592575, 0.176),
+}
+NATIVE_COO_LEGS = [  # (leg, csr_wire, elide_unit_values)
+    ("pair", False, False), ("pair_elide", False, True),
+    ("csr", True, False), ("csr_elide", True, True)]
+
+
+def _fit_record(it, model, src, rows=None) -> dict:
+    """One ``fit_epoch``: rows/s (``rows`` real rows, else full batches),
+    stall share, the producer's convert seconds and the source's blocks."""
+    keys = ("stall_seconds", "convert_seconds", "device_decode_bytes",
+            "snapshot_write_seconds", "source_wait_seconds")
+    before = it.stats()
+    t0 = time.monotonic()
+    loss, nb = model.fit_epoch(it)
+    secs = time.monotonic() - t0
+    after = it.stats()
+    d = {k: after[k] - before[k] for k in keys}
+    return {"loss": loss, "batches": nb, "wall_s": secs,
+            "rows_per_s": (rows if rows is not None else nb * BATCH) / secs,
+            "stall_share": d["stall_seconds"] / secs, "convert_s": d["convert_seconds"],
+            "source_wait_s": d["source_wait_seconds"],
+            "snapshot_write_s": d["snapshot_write_seconds"],
+            "warm": d["device_decode_bytes"] > 0,
+            "block_kinds": dict(src.kinds), "packed_blocks": src.packed}
+
+
+def _native_dense_pipeline(path: str, device, x_dtype: str, snapshot=None):
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, device=device)
+    src = _Blocks(create_parser(path, 0, 1, "libsvm", snapshot=snapshot))
+    it = DeviceIter(src, num_col=model.device_num_col(), batch_size=BATCH, layout="dense",
+                    drop_remainder=True, device=device, x_dtype=x_dtype, pack_aux=True,
+                    device_decode=snapshot is not None)
+    return model, src, it
+
+
+def run_native_dense(path: str, tmp: str, device) -> dict:
+    """Phase 14 (a): phase 3's HIGGS-shaped corpus, ``DeviceIter(dense,
+    pack_aux=True)`` in float32 and bfloat16 through the fused reader's
+    batch repack (float32: packed ``[8192, 31]`` slabs, one copy a batch;
+    bfloat16: bf16 features with float32 label and weight, packed with
+    the exactness check): cold epochs beside the same epochs through the
+    registry stack's dense emit, in turns (reader, registry, registry,
+    reader; no snapshot); then a cold epoch shadow-writing a snapshot and
+    a warm ``device_decode=True`` epoch from it (one K2 launch a batch).
+    Gates: the first 8 batches of the two producers bit-equal, 20 card
+    steps twice bit-identical and within 1e-4 relative of the CPU, K2 once
+    a warm batch, every epoch's loss below log 2."""
+    from dmlc_tpu_torch import LinearLearner
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    out: dict = {"phase": "native_reader_dense", "k2_launches": 0, "k2_launches_needed": 0}
+    problems = []
+    for x_dtype in ("float32", "bfloat16"):
+        turns = {"reader": [], "registry": []}
+        for route in ("reader", "registry", "registry", "reader"):
+            with registry_stack() if route == "registry" else contextlib.nullcontext():
+                model, src, it = _native_dense_pipeline(path, device, x_dtype)
+            turns[route].append(_fit_record(it, model, src))
+            it.close()
+        cold = turns["reader"][0]
+        snap = os.path.join(tmp, f"native_dense_{x_dtype}.snapshot")
+        model, src, it = _native_dense_pipeline(path, device, x_dtype, snapshot=snap)
+        cold_snap = _fit_record(it, model, src)
+        dd.launches = 0
+        warm = _fit_record(it, model, src)
+        k2 = dd.launches
+        it.close()
+        os.remove(snap)
+        first = []
+        for route in ("native", "registry"):
+            with registry_stack() if route == "registry" else contextlib.nullcontext():
+                _, _, it = _native_dense_pipeline(path, device, x_dtype)
+            first.append([b.packed.clone() for _, b in zip(range(8), it)])
+            it.close()
+        _, _, it = _native_dense_pipeline(path, device, x_dtype)
+        batches = [b for _, b in zip(range(20), it)]
+        it.close()
+        gates = _loss_gates(lambda dev: LinearLearner(HIGGS_COLS, layout="dense",
+                                                      learning_rate=0.3, device=dev),
+                            batches, 20, device)
+        gates.pop("model")
+        del batches
+        leg = {"cold_reader": turns["reader"], "cold_registry_emit": turns["registry"],
+               "cold_reader_snapshot_write": cold_snap, "warm_reader": warm,
+               "k2_launches": k2, "warm_batches": warm["batches"],
+               "first8_equal_registry_emit": len(first[0]) == 8 and all(
+                   same_bits(a, b) for a, b in zip(*first)), **gates}
+        out[x_dtype] = leg
+        out["k2_launches"] += k2
+        out["k2_launches_needed"] += warm["batches"]
+        if not (cold["block_kinds"].get("DenseBlock") and not cold["block_kinds"].get(
+                "RowBlock") and cold["packed_blocks"] == (
+                    cold["block_kinds"]["DenseBlock"] if x_dtype == "float32" else 0)):
+            problems.append(f"{x_dtype}: the reader's blocks {cold['block_kinds']}")
+        if not (warm["warm"] and warm["convert_s"] == 0.0 and k2 == warm["batches"]):
+            problems.append(f"{x_dtype}: K2 launched {k2} times for {warm['batches']} "
+                            "warm batches")
+        if not all(np.isfinite(r["loss"]) and r["loss"] < np.log(2)
+                   for r in turns["reader"] + turns["registry"] + [cold_snap, warm]):
+            problems.append(f"{x_dtype}: an epoch loss not below log 2")
+        if not (leg["first8_equal_registry_emit"] and gates["card_bit_identical_twice"]
+                and gates["cpu_steps"] == 20 and gates["max_rel_diff_vs_cpu"] <= 1e-4):
+            problems.append(f"{x_dtype}: {leg}")
+    emit(out)
+    if problems:
+        raise AssertionError(f"native reader dense: {problems}")
+    return out
+
+
+def _native_coo_pipeline(path: str, device, csr_wire: bool, elide: bool):
+    from dmlc_tpu_torch import DeviceIter, create_parser
+
+    model = _kdd_model(device, "bcoo")
+    src = _Blocks(create_parser(path + "?format=libfm"))
+    it = DeviceIter(src, num_col=model.device_num_col(), batch_size=None, layout="bcoo",
+                    csr_wire=csr_wire, elide_unit_values=elide, device=device)
+    return model, src, it
+
+
+def _coo_leg(path: str, device, csr_wire: bool, elide: bool) -> dict:
+    """One natural-block epoch of ``LinearLearner(bcoo)`` on the KDD-shaped
+    libfm, then its first 20 batches: the step's device time on a resident
+    batch, 20 steps twice and against the CPU, 20 steps enqueued behind a
+    device spin (two groups of 10)."""
+    import torch
+
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    model, src, it = _native_coo_pipeline(path, device, csr_wire, elide)
+    rs.launches = 0
+    rec = _fit_record(it, model, src, rows=KDD_ROWS)
+    rec["row_scatter_launches"] = rs.launches
+    rec["nnz_shapes"] = sorted(it.nnz_shapes)
+    it.reset()
+    batches = [b for _, b in zip(range(20), it)]
+    it.close()
+    rec["forward_check"] = coo_forward_check(batches[0][0], 14)
+    x0 = batches[0][0].coalesce()
+    rec["first_batch"] = (x0.indices().clone(), x0.values().clone())
+    rec["coalesced_share"] = sum(b[0].is_coalesced() for b in batches) / len(batches)
+    del model
+    torch.cuda.empty_cache()
+    gates = _loss_gates(lambda dev: _kdd_model(dev, "bcoo"), batches, 20, device)
+    m = gates.pop("model")
+    m.step(batches[0])
+    torch.cuda.synchronize()
+    rec["step_device_ms"] = device_ms(lambda: m.step(batches[0]), iters=10)
+    rec["step_enqueue_behind_spin"] = enqueue_behind_spin(lambda: m.step(batches[0]),
+                                                          group=10)
+    del m, batches
+    torch.cuda.empty_cache()
+    return {**rec, **gates}
+
+
+def run_native_coo(path: str, device) -> dict:
+    """Phase 14 (b): phase 13's KDD2012-shaped libfm (50,000,000 ids) as
+    ``DeviceIter(bcoo, batch_size=None)`` natural blocks through the
+    fused reader's COO emit (``CooBlock``: coordinates, bucket padding and
+    unit-value elision built in its C++ parse threads), on the pair and
+    the CSR wire, each with elision off and on, into
+    ``LinearLearner(bcoo)``; beside the same natural blocks through the
+    registry stack's RowBlock route (the convert on the producer). Gates,
+    on each wire: every block a ``CooBlock``, the row scatter launched
+    every step, the first batch equal across the wires, 20 steps twice
+    bit-identical and within 1e-4 relative of the CPU, 20 steps enqueued
+    behind a device spin without waiting, the first block's forward
+    against its plain versions (:func:`coo_forward_check`)."""
+    out: dict = {"phase": "native_reader_coo", "row_scatter_launches": 0}
+    for leg, csr_wire, elide in NATIVE_COO_LEGS:
+        out[leg] = _coo_leg(path, device, csr_wire, elide)
+        out["row_scatter_launches"] += out[leg]["row_scatter_launches"]
+    with registry_stack():
+        out["rowblock"] = _coo_leg(path, device, False, False)
+    ref = out["pair"].pop("first_batch")
+    problems = []
+    for leg, *_ in NATIVE_COO_LEGS[1:] + [("rowblock",)]:
+        idx, val = out[leg].pop("first_batch")
+        out[leg]["first_batch_equal_pair"] = bool(
+            idx.shape == ref[0].shape and (idx == ref[0]).all() and (val == ref[1]).all())
+    emit(out)
+    for leg in [name for name, *_ in NATIVE_COO_LEGS] + ["rowblock"]:
+        r = out[leg]
+        kinds_ok = (r["block_kinds"].get("CooBlock") and not r["block_kinds"].get("RowBlock")
+                    if leg != "rowblock" else not r["block_kinds"].get("CooBlock"))
+        if not (kinds_ok and r["row_scatter_launches"] >= r["batches"]
+                and np.isfinite(r["loss"]) and r.get("first_batch_equal_pair", True)
+                and r["card_bit_identical_twice"] and r["cpu_steps"] == 20
+                and r["max_rel_diff_vs_cpu"] <= 1e-4 and not coo_forward_failed(r["forward_check"])
+                and r["step_enqueue_behind_spin"]["no_host_sync"]):
+            problems.append(f"{leg}: {r}")
+    if problems:
+        raise AssertionError(f"native reader coo: {problems}")
+    return out
+
+
+def run_ell_per_batch_k(path: str, device) -> dict:
+    """Phase 14 (c): fault C8's path, ``DeviceIter(ell)`` without
+    ``max_nnz`` (K from each batch's longest row) on phase 3's corpus, one
+    epoch into ``LinearLearner(ell)``: K1 and ``dw`` launched once a
+    batch."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    src = _Blocks(create_parser(path))
+    it = DeviceIter(src, num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    drop_remainder=True, device=device)
+    k1.launches = k1.dw_launches = 0
+    rec = _fit_record(it, model, src)
+    out = {"phase": "native_reader_ell_per_batch_k", **rec, "k1_launches": k1.launches,
+           "dw_launches": k1.dw_launches}
+    it.reset()
+    out["first_batch_k"] = int(next(it).indices.shape[1])
+    it.close()
+    emit(out)
+    if not (out["k1_launches"] == out["dw_launches"] == out["batches"] > 0
+            and out["first_batch_k"] == HIGGS_COLS and out["loss"] < np.log(2)):
+        raise AssertionError(f"ell without max_nnz: {out}")
+    return out
+
+
+def run_native_reader(higgs: str, kdd: str, tmp: str, device) -> dict:
+    """Phase 14: the fused native reader's own routes (module docstring)."""
+    t0 = time.monotonic()
+    out = {"dense": run_native_dense(higgs, tmp, device), "coo": run_native_coo(kdd, device),
+           "ell": run_ell_per_batch_k(higgs, device)}
+    out["wall_s"] = time.monotonic() - t0
+    emit({"phase": "native_reader_total", "wall_s": out["wall_s"]})
+    return out
+
+
+def producer_change(now: dict) -> dict:
+    """Each phase's rows/s and stall share with the fused native reader as
+    its producer beside :data:`BEFORE_READER`'s."""
+    rows = {k: {"rows_per_s": v[0], "stall_share": v[1],
+                "before_rows_per_s": BEFORE_READER[k][0],
+                "before_stall_share": BEFORE_READER[k][1]} for k, v in now.items()}
+    out = {"phase": "producer_change", "producer": "NativeStreamParser (fused native reader)",
+           "before": "ParallelTextParser (registry stack)", "phases": rows}
+    emit(out)
     return out
 
 
@@ -3490,6 +3991,7 @@ def main() -> int:
     emit(env)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        assert_native_engine(tmp)
         # phases 2 and 5 (these launches are comparisons, not the main path's)
         parent = load_parent_libs(args.parent, tmp) if args.parent else {}
         k1_rows = phase_k1(args.seed, parent.get("ell_matvec"))
@@ -3557,10 +4059,10 @@ def main() -> int:
                                      layout="dense", pack_aux=True, **opts))
         # phase 7, its launches counted from 0
         k1.launches = k1.dw_launches = dd.launches = 0
-        run_checkpoint(path, ell_snap, dev, corpus["bytes"])
+        ckpt = run_checkpoint(path, ell_snap, dev, corpus["bytes"])
         ckpt_k1, ckpt_dw, ckpt_k2 = k1.launches, k1.dw_launches, dd.launches
         # phase 8
-        run_bcoo(path, dev)
+        bcoo = run_bcoo(path, dev)
         # phase 9: ALS at examples/train_als.py's full size, then the A/B of
         # the row scatter's routes; phase 10: FM on the HIGGS-shaped corpus.
         # Each path's row-scatter launches are counted from 0
@@ -3587,6 +4089,31 @@ def main() -> int:
         # phase 13: the csv and libfm formats, each leg's launches counted
         # from 0 around its main path
         formats = run_formats(tmp, dev, args.seed)
+        # phase 14: the fused native reader's routes on phases 3's and 13's
+        # corpora, each leg's launches counted from 0 around its main path
+        native = run_native_reader(path, formats["kdd_path"], tmp, dev)
+        os.remove(formats["kdd_path"])
+        csv_legs = {leg["leg"]: leg for leg in formats["csv"]["legs"]}
+        producer_change({
+            **{f"main_path_epoch{e['epoch']}": (e["rows_per_s"], e["stall_share"])
+               for e in main_path["epochs"]},
+            "dense_emit": (dense["emit"]["rows_per_s"], dense["emit"]["stall_share"]),
+            "dense_csr": (dense["csr"]["rows_per_s"], dense["csr"]["stall_share"]),
+            "warm_ell_epoch0_cold": (warm_ell["epochs"][0]["rows_per_s"],
+                                     warm_ell["epochs"][0]["stall_share"]),
+            "checkpoint_uninterrupted": (ckpt["native"]["uninterrupted_rows_per_s"], None),
+            "bcoo": (bcoo["rows_per_s"], bcoo["stall_share"]),
+            "bcoo_natural": (bcoo["natural_rows_per_s"], None),
+            "block_cache_higgs_cold": (bc_higgs["epochs"][0]["rows_per_s"],
+                                       bc_higgs["epochs"][0]["stall_share"]),
+            "csv_dense_cold_emit": (csv_legs["dense_cold_emit"]["rows_per_s"],
+                                    csv_legs["dense_cold_emit"]["stall_share"]),
+            "csv_ell_cold": (csv_legs["ell_cold"]["rows_per_s"],
+                             csv_legs["ell_cold"]["stall_share"]),
+            "libfm_linear_bcoo": (formats["libfm"]["linear_bcoo"]["rows_per_s"],
+                                  formats["libfm"]["linear_bcoo"]["stall_share"]),
+            "libfm_fm_ell": (formats["libfm"]["fm_ell"]["rows_per_s"],
+                             formats["libfm"]["fm_ell"]["stall_share"])})
         # the profiler's windows: the decode's first (a window opened after
         # others has recorded nothing now and then), then the steps'
         emit(profile_decodes({p: snaps[p] for p in ("warm_dense_bfloat16", "warm_dense_q8")},
@@ -3624,7 +4151,7 @@ def main() -> int:
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:122",
         "launches": (launches + warm_ell["k1_launches"] + ckpt_k1 + par_k1
                      + bc_higgs["k1_launches"] + bc_snap["k1_launches"]
-                     + formats["csv"]["k1_launches"]),
+                     + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -3634,7 +4161,7 @@ def main() -> int:
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:191",
         "launches": (dw_launches + warm_ell["dw_launches"] + ckpt_dw + par_dw
                      + bc_higgs["dw_launches"] + bc_snap["dw_launches"]
-                     + formats["csv"]["dw_launches"]),
+                     + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]),
         "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
                            if r["dw_route"] == "cuda"),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
@@ -3644,7 +4171,8 @@ def main() -> int:
         "source": "dmlc_tpu_torch/csrc/widen_span.cu",
         "replaces": "dmlc_tpu/ops/device_decode.py:168",
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
-                     + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]),
+                     + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
+                     + native["dense"]["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -3657,7 +4185,8 @@ def main() -> int:
         + par["pair"]["launches"]["row_scatter"] + bc_als["row_scatter_launches"]
         + formats["libfm"]["linear_bcoo"]["row_scatter_launches"]
         + formats["libfm"]["fm_ell"]["row_scatter_launches"]
-        + formats["xor"]["row_scatter_launches"],
+        + formats["xor"]["row_scatter_launches"]
+        + native["coo"]["row_scatter_launches"],
         "max_abs_err": max([r["row_scatter"]["max_abs_diff_vs_plain"] for r in rs_rows]
                            + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
         "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],

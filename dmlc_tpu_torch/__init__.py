@@ -2,10 +2,12 @@
 
 The JAX package ``dmlc_tpu`` is the reference; this package imports none of
 it (nor JAX) and keeps its own copies of the host layers it needs. Its main
-path so far: ``create_parser`` (libsvm, csv or libfm, byte-range shards,
-native or numpy parse, fanned out over ``parse_workers`` threads) ->
-``DeviceIter`` (dense batches straight from the parser's dense emit, ELL or
-sparse COO batches, pinned
+path so far: ``create_parser`` (libsvm, csv or libfm, byte-range shards;
+for a plain local file the fused native reader, read, chunked and parsed
+in C++ threads, else the registry stack, native or numpy parse fanned out
+over ``parse_workers`` threads) -> ``DeviceIter`` (dense batches straight
+from the reader's batch repack or the parser's dense emit, ELL or sparse
+COO batches, the reader's COO blocks as they come, pinned
 staging, async copies) -> ``LinearLearner`` (SGD; the ELL margin on the
 hand-written CUDA kernel ``csrc/ell_matvec.cu``) -> ``fit`` /
 ``accuracy``, with mid-epoch checkpoints (``state_dict`` / ``load_state``,

@@ -22,12 +22,22 @@ slab: features | label | weight) when ``pack_aux`` is on, the default for
 float32; ``x_dtype="bfloat16"`` ships the features (and, packed, the
 label and weight, which must then be bf16-exact) in bfloat16. At
 construction a dense pipeline asks its source for dense blocks
-(``set_emit_dense``, as the JAX package does): a libsvm or float32 csv
-parser on the native engine then emits :class:`DenseBlock`s with no CSR
-block. The producer groups the ``DenseBlock`` and ``RowBlock`` parts of a
-batch by views and packs them into the batch's staging slot in one pass
-(a ``RowBlock`` part densified on the way); the batches are the same bytes
-on either route.
+(``set_emit_dense``, as the JAX package does): the fused native reader
+then repacks the rows into exact ``batch_size`` blocks in its C++ threads,
+packed ``[B, num_col + 2]`` slabs under a float32 ``pack_aux`` (one copy
+into the staging slot a batch), bfloat16 features with float32 label and
+weight under a bfloat16 one (so that their cast stays checked here); a
+registry-stack libsvm or float32 csv parser on the native engine emits
+:class:`DenseBlock`s a chunk. The producer groups the ``DenseBlock`` and
+``RowBlock`` parts of a batch by views and packs them into the batch's
+staging slot in one pass (a ``RowBlock`` part densified on the way); the
+batches are the same bytes on every route.
+
+``ell`` batches are ``[B, max_nnz]``; without ``max_nnz`` each batch's K
+is its longest row's, as in the JAX package, and the batch crosses as one
+u8 span (its K changes from batch to batch). A feature id at or past
+``num_col`` raises on ``ell`` (its pad id ``num_col`` addresses the sink);
+``dense`` drops it, as the JAX package does.
 
 **Snapshot store.** With ``snapshot=`` (or a parser from
 ``create_parser(..., snapshot=path)``) the first complete epoch
@@ -105,12 +115,24 @@ to multiples of ``nnz_bucket`` (planned in stream order, so the tail batch
 pads into a shape already emitted), or natural blocks (``batch_size=None``,
 rows rounded up to ``row_bucket``). A batch's coordinates, values, label
 and weight cross as one u8 span, pad slots included, so transfer sizes
-repeat; on the device ``x`` is built on views of the real entries only.
-Pad slots inside ``x`` would share a coordinate, and torch assumes unique
+repeat; on the device ``x`` is built on views of the real entries only
+(the count is the host's, no device read). An id at or past ``num_col``
+becomes a value-0 entry at an in-bounds column, as JAX's BCOO masks it.
+With ``elide_unit_values`` an all-ones batch ships no values and the card
+makes them. Natural blocks from the fused native reader come as
+:class:`~dmlc_tpu_torch.data.row_block.CooBlock`s (``set_emit_coo``): the
+convert is done in its C++ parse threads, the block crosses as it came,
+and the card maps the native pad scheme to the port's
+(:func:`~dmlc_tpu_torch.ops.sparse.native_coo_to_port`), rebuilding the
+row ids of the CSR wire (``csr_wire``, the default, which needs both
+buckets) with :func:`~dmlc_tpu_torch.ops.sparse.csr_coords`. Pad or masked
+slots inside ``x`` may share a coordinate, and torch assumes unique
 coordinates in a tensor marked coalesced: ``to_dense`` then keeps one of
-the duplicates, not their sum. ``x`` is marked coalesced when its
-coordinates are in strict row-major order, so a product with it does not
-coalesce (a host sync) on the card. ``nnz_shapes`` collects the nnz
+the duplicates, not their sum. ``x`` is marked coalesced when its real
+coordinates are in bounds and in strict row-major order (a host check),
+so torch's product takes it as it is; the product of another ``x`` is a
+row scatter (:func:`~dmlc_tpu_torch.ops.sparse.coo_matmul`), so no batch
+coalesces (a host sync) on the card. ``nnz_shapes`` collects the nnz
 capacities the delivered spans had. Snapshots store fixed shapes only and
 refuse bcoo.
 
@@ -139,14 +161,15 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.data import epoch as _epoch
-from dmlc_tpu_torch.data.row_block import DenseBlock, RowBlock, RowBlockContainer
+from dmlc_tpu_torch.data.row_block import CooBlock, DenseBlock, RowBlock, RowBlockContainer
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io import snapshot as _snapshot
 from dmlc_tpu_torch.io.block_cache import remove_quietly, torch_dtype
 from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.ops import device_decode as _device_decode
 from dmlc_tpu_torch.ops.device_decode import PackedDenseBatch  # noqa: F401 (re-exported)
-from dmlc_tpu_torch.ops.sparse import block_to_bcoo_host, block_to_dense, block_to_ell
+from dmlc_tpu_torch.ops.sparse import (EllBatch, block_to_bcoo_host, block_to_dense,
+                                       block_to_ell, csr_coords, native_coo_to_port)
 from dmlc_tpu_torch.parallel.mesh import rank_device
 from dmlc_tpu_torch.utils import knobs as _knobs
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
@@ -159,6 +182,8 @@ _X_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # pad, and batch_size * max_nnz is a ceiling, not a density
 _NNZ_BUCKET_CAP = 512 * 1024
 _SPAN_ALIGN = 64
+# batch kinds that cross as one u8 span with no device decode
+_SPAN_KINDS = ("bcoo", "bcoo_native", "ell_span")
 
 
 def rebatch_blocks(blocks: Iterator[RowBlock], batch_size: int,
@@ -220,6 +245,15 @@ def _require_bf16_exact(packed_col: torch.Tensor, src: np.ndarray, what: str) ->
             f"bfloat16 aux packing: this batch's {what}s are not bf16-exact — "
             f"packing would silently corrupt them. Keep the {what}s "
             "float32-packable (pack_aux=False) or use x_dtype='float32'")
+
+
+def _as_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor with no copy; a ``uint16`` array holds
+    bfloat16 bits (the native repack's bf16 payload) and comes back as
+    ``torch.bfloat16``."""
+    if arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class _Slot:
@@ -287,29 +321,62 @@ def _align(n: int) -> int:
     return -(-n // _SPAN_ALIGN) * _SPAN_ALIGN
 
 
-def _bcoo_offsets(index_bytes: int, nnz: int, rows: int):
+def _bcoo_offsets(index_bytes: int, nnz: int, rows: int, has_values: bool = True):
     """Where a bcoo batch's segments lie in its span: coordinates ``[2,
-    nnz]`` (rows, then columns), values ``[nnz]`` f32, label and weight
-    ``[rows]`` f32, each 64-byte aligned. Returns the four offsets and the
-    span's size."""
+    nnz]`` (rows, then columns), values ``[nnz]`` f32 unless elided, label
+    and weight ``[rows]`` f32, each 64-byte aligned. Returns the four
+    offsets and the span's size."""
     o_val = _align(2 * nnz * index_bytes)
-    o_label = o_val + _align(4 * nnz)
+    o_label = o_val + (_align(4 * nnz) if has_values else 0)
     o_weight = o_label + _align(4 * rows)
     return o_val, o_label, o_weight, o_weight + 4 * rows
 
 
-def _row_major(block: RowBlock) -> bool:
-    """Whether the block's coordinates are unique and in row-major order:
-    columns strictly increasing within each row (rows ascend by
-    construction)."""
-    idx = block.index
-    if len(idx) < 2:
+def _native_coo_offsets(csr: bool, nnz: int, rows: int, has_values: bool):
+    """Where a :class:`CooBlock`'s segments lie in its span: the
+    coordinates (``[nnz, 2]`` pairs, or the columns ``[nnz]``), on the CSR
+    wire ``row_ptr`` ``[rows + 1]``, the values unless elided, label and
+    weight, each 64-byte aligned, all int32 or float32. Returns the
+    offsets of row_ptr, values, label and weight, and the span's size."""
+    o_ptr = _align((1 if csr else 2) * 4 * nnz)
+    o_val = o_ptr + (_align(4 * (rows + 1)) if csr else 0)
+    o_label = o_val + (_align(4 * nnz) if has_values else 0)
+    o_weight = o_label + _align(4 * rows)
+    return o_ptr, o_val, o_label, o_weight, o_weight + 4 * rows
+
+
+def _ell_offsets(rows: int, k: int):
+    """Where an ELL batch of a per-batch K lies in its span: indices and
+    values ``[rows, k]``, label and weight ``[rows]``, each 64-byte
+    aligned. Returns the three later offsets and the span's size."""
+    o_val = _align(4 * rows * k)
+    o_label = o_val + _align(4 * rows * k)
+    o_weight = o_label + _align(4 * rows)
+    return o_val, o_label, o_weight, o_weight + 4 * rows
+
+
+def _row_major(cols: np.ndarray, starts: np.ndarray, num_col: int) -> bool:
+    """Whether a batch's entries are unique, in bounds and in row-major
+    order: ``cols`` strictly increasing within each row, where ``starts``
+    are the entries that begin a row (rows ascend by construction)."""
+    if len(cols) and int(cols.max()) >= num_col:
+        return False  # a masked id's slot may share a coordinate
+    if len(cols) < 2:
         return True
-    out_of_order = np.diff(idx.astype(np.int64)) <= 0  # entry i + 1 vs entry i
-    starts = block.offset[1:-1]
-    starts = starts[(starts > 0) & (starts < len(idx))]
+    out_of_order = np.diff(cols.astype(np.int64)) <= 0  # entry i + 1 vs entry i
+    starts = starts[(starts > 0) & (starts < len(cols))]
     out_of_order[starts - 1] = False  # a row starts anywhere
     return not bool(out_of_order.any())
+
+
+def _coo_row_major(block: CooBlock) -> bool:
+    """:func:`_row_major` of a :class:`CooBlock`'s real entries."""
+    nnz = block.nnz
+    if block.row_ptr is not None:
+        return _row_major(block.coords[:nnz], block.row_ptr[1:block.n_rows], block.num_col)
+    rows = block.coords[:nnz, 0]
+    return _row_major(block.coords[:nnz, 1], np.flatnonzero(np.diff(rows)) + 1,
+                      block.num_col)
 
 
 class DeviceIter:
@@ -321,7 +388,8 @@ class DeviceIter:
     default for ``x_dtype="float32"``), else ``(x [B, num_col], label [B],
     weight [B])``; ``ell`` batches are
     :class:`~dmlc_tpu_torch.ops.sparse.EllBatch` with ``[B, max_nnz]`` int32
-    indices (pad index ``num_col``) and float32 values; ``bcoo`` batches are
+    indices (pad index ``num_col``; without ``max_nnz``, K is each batch's
+    longest row) and float32 values; ``bcoo`` batches are
     ``(x, label, weight)`` with ``x`` a sparse COO tensor. Every batch has
     ``batch_size`` rows: the epoch's last partial batch is padded with
     zero-weight rows, or dropped with ``drop_remainder``. ``batch_size=None``
@@ -329,6 +397,10 @@ class DeviceIter:
     ``row_bucket``. ``nnz_bucket`` rounds a bcoo batch's nnz up to its
     multiples (default ``min(batch_size * max_nnz, 512 Ki)``, 4096 without
     ``max_nnz``, 16384 for natural blocks; 0 keeps exact shapes).
+    ``elide_unit_values`` ships no values for an all-ones bcoo batch (the
+    card makes them); ``csr_wire`` (natural blocks from the fused native
+    reader, both buckets above 0) ships a block's columns and ``row_ptr``
+    in place of its (row, col) pairs.
 
     ``snapshot`` names the snapshot file (default: the source's
     ``snapshot_path``, stamped by ``create_parser(..., snapshot=)``, with its
@@ -363,6 +435,8 @@ class DeviceIter:
         pack_aux: Optional[bool] = None,
         nnz_bucket: Optional[int] = None,
         row_bucket: int = 1024,
+        elide_unit_values: bool = False,
+        csr_wire: bool = True,
         snapshot: Optional[str] = None,
         snapshot_signature: Optional[dict] = None,
         snapshot_quant: Optional[str] = None,
@@ -374,8 +448,8 @@ class DeviceIter:
               "batch_size=None (natural blocks) requires layout='bcoo'")
         check(batch_size is None or batch_size > 0,
               "DeviceIter: batch_size must be a positive integer")
-        check(layout != "ell" or (max_nnz is not None and max_nnz > 0),
-              "DeviceIter: layout='ell' needs max_nnz (one fixed [B, K] shape)")
+        check(layout != "ell" or max_nnz is None or max_nnz > 0,
+              "DeviceIter: max_nnz must be a positive integer")
         check(x_dtype in _X_DTYPES, f"unknown x_dtype {x_dtype!r}")
         check(x_dtype == "float32" or layout == "dense",
               "x_dtype='bfloat16' applies to the dense layout only")
@@ -412,6 +486,9 @@ class DeviceIter:
                 nnz_bucket = 4096 if batch_size is not None else 16384
         self.nnz_bucket = int(nnz_bucket)
         self.row_bucket = int(row_bucket)
+        # unit-value elision: an all-ones batch ships no values and the card
+        # makes them (the mask of in-bounds columns on the native COO emit)
+        self.elide_unit_values = bool(elide_unit_values)
         # nnz values fixed-batch bcoo batches emitted: the tail pads into it
         self._emitted_nse: set = set()
         self.nnz_shapes: set = set()  # nnz capacities of the bcoo spans delivered
@@ -433,6 +510,9 @@ class DeviceIter:
         check(snapshot is None or layout != "bcoo",
               "snapshot v1 stores fixed-geometry batches: layout 'dense' or "
               "'ell', not 'bcoo'")
+        check(snapshot is None or layout != "ell" or max_nnz,
+              "snapshot v1 stores fixed-geometry batches: 'ell' needs max_nnz "
+              "pinned (one [B, K] shape)")
         check(snapshot_quant in (None, "int8"), f"unknown snapshot_quant {snapshot_quant!r}")
         check(snapshot_quant is None or (snapshot is not None and self.pack_aux),
               "snapshot_quant='int8' applies to snapshotted packed dense "
@@ -450,8 +530,23 @@ class DeviceIter:
               "(docs/data.md)")
         if layout == "dense" and hasattr(source, "set_emit_dense"):
             # dense blocks straight from the scanner, no CSR block; the
-            # producer packs either kind
-            source.set_emit_dense(self.num_col)
+            # fused native reader also repacks them to batch_size rows off
+            # the interpreter lock. A bfloat16 pack_aux takes its features
+            # in bf16 and label and weight in float32, so that the
+            # producer's one packing pass can check their cast to bf16
+            # (the native repack would round them unchecked)
+            source.set_emit_dense(self.num_col, batch_rows=self.batch_size, dtype=x_dtype,
+                                  pack_aux=self.pack_aux and not self._aux_exact_check)
+        if layout == "bcoo" and batch_size is None and hasattr(source, "set_emit_coo"):
+            # device-ready COO blocks from the fused native reader: the
+            # convert moves into its C++ parse threads. The CSR wire ships
+            # columns + row_ptr (half the coordinate bytes) and needs both
+            # buckets, as in the JAX package
+            source.set_emit_coo(self.num_col, row_bucket=self.row_bucket,
+                                nnz_bucket=self.nnz_bucket,
+                                elide_unit=self.elide_unit_values,
+                                csr_wire=bool(csr_wire and self.nnz_bucket > 0
+                                              and self.row_bucket > 0))
         self._snap_reader: Optional[_snapshot.SnapshotReader] = None
         self._snap_writer: Optional[_snapshot.SnapshotWriter] = None
         self._snap_serving = False  # the current producer is the warm feed
@@ -515,6 +610,8 @@ class DeviceIter:
         return self._rings[spec]
 
     def _cold_kind(self) -> str:
+        if self.layout == "ell" and self.max_nnz is None:
+            return "ell_span"  # K follows each batch's longest row
         if self.layout != "dense":
             return self.layout
         return "dense_packed" if self.pack_aux else "dense"
@@ -525,6 +622,9 @@ class DeviceIter:
             # one u8 span a batch, grown in place when a batch needs more
             rows = B or self.row_bucket or 1024
             return [((_bcoo_offsets(4, self.nnz_bucket or 4096, rows)[-1],), torch.uint8)]
+        if self.layout == "ell" and self.max_nnz is None:
+            # one u8 span a batch, grown in place when a batch's K needs more
+            return [((_ell_offsets(B, 1)[-1],), torch.uint8)]
         if self.layout == "ell":
             K = self.max_nnz
             return [((B, K), torch.int32), ((B, K), f32), ((B,), f32), ((B,), f32)]
@@ -593,8 +693,9 @@ class DeviceIter:
     def _plan_bcoo_pad_nnz(self, block: RowBlock) -> Optional[int]:
         """A bcoo batch's nnz pad: up to the bucket multiple; a fixed-batch
         tail pads up to the smallest nnz full batches already emitted that
-        fits it, so an epoch adds no shape on its last batch."""
-        if not self.nnz_bucket:
+        fits it, so an epoch adds no shape on its last batch. A
+        :class:`CooBlock` comes padded by the native emit."""
+        if not self.nnz_bucket or isinstance(block, CooBlock):
             return None
         pad_nnz = -(-max(len(block.index), 1) // self.nnz_bucket) * self.nnz_bucket
         if self.batch_size is not None:
@@ -606,23 +707,31 @@ class DeviceIter:
         return pad_nnz
 
     def _convert(self, block: RowBlock, pad_nnz: Optional[int]):
+        if isinstance(block, CooBlock):
+            # the native COO emit: device-ready but for the pad scheme,
+            # which the card maps; the host only reads its order
+            return block, _coo_row_major(block)
         if self.batch_size is not None:
             pad = self.batch_size if len(block) != self.batch_size else None
         else:  # natural blocks: round the rows up too
             pad = -(-len(block) // self.row_bucket) * self.row_bucket if self.row_bucket else None
         if self.layout == "dense":
             return block  # its parts are packed in one pass (_pack_dense)
+        if self.layout == "bcoo":
+            # an id >= num_col becomes a value-0 slot (JAX's BCOO masks it)
+            masked = len(block.index) and int(block.index.max()) >= self.num_col
+            elide = (self.elide_unit_values and not masked
+                     and (block.value is None or bool((block.value == 1.0).all())))
+            return block_to_bcoo_host(block, self.num_col, pad_rows_to=pad,
+                                      pad_nnz_to=pad_nnz) + (
+                len(block.index), _row_major(block.index, block.offset[1:-1], self.num_col),
+                elide)
         if len(block.index) and int(block.index.max()) >= self.num_col:
-            # ell's pad index num_col addresses the sink, and torch's sparse
-            # tensors mask nothing: a larger index would read outside the
-            # weight table
+            # ell's pad index num_col addresses the sink: a larger index
+            # would read outside the weight table (JAX's ell path gives NaN)
             raise DMLCError(
                 f"DeviceIter: feature index {int(block.index.max())} >= "
                 f"num_col {self.num_col}")
-        if self.layout == "bcoo":
-            return block_to_bcoo_host(block, self.num_col, pad_rows_to=pad,
-                                      pad_nnz_to=pad_nnz) + (len(block.index),
-                                                             _row_major(block))
         return tuple(block_to_ell(block, self.num_col, max_nnz=self.max_nnz,
                                   pad_rows_to=pad))
 
@@ -630,21 +739,29 @@ class DeviceIter:
         """Copy a converted batch into its staging slot; torch casts to a
         bfloat16 slot with round-to-nearest-even."""
         if self.layout == "bcoo":
-            self._pack_bcoo(slot, arrays)
+            if isinstance(arrays[0], CooBlock):
+                self._pack_native_coo(slot, *arrays)
+            else:
+                self._pack_bcoo(slot, arrays)
             return
         if self.layout == "dense":
             self._pack_dense(slot, arrays)
+            return
+        if self.max_nnz is None:
+            self._pack_ell_span(slot, arrays)
             return
         for buf, arr in zip(slot.bufs, arrays):
             buf.copy_(torch.from_numpy(arr))
 
     def _pack_dense(self, slot: _Slot, parts) -> None:
-        """A dense batch's parts into its staging slot in one pass (the
-        unpacked branches of the JAX package's ``_pack_dense_parts``): a
-        ``DenseBlock`` part copied as it is, a ``RowBlock`` part densified
+        """A dense batch's parts into its staging slot in one pass (the JAX
+        package's ``_pack_dense_parts``): a packed ``DenseBlock`` (the
+        native repack's ``[n, num_col + 2]`` slab) copied whole into a
+        packed slot, so a full packed batch is one copy; another
+        ``DenseBlock`` part copied as it is; a ``RowBlock`` part densified
         first; an absent weight is 1; rows past the parts (the epoch's tail)
         are zeros, so their weight 0 masks them. The copy into a bfloat16
-        slot rounds to nearest even."""
+        slot rounds to nearest even; a bfloat16 part's bits are copied."""
         nc = self.num_col
         if self.pack_aux:
             packed = slot.bufs[0]
@@ -654,11 +771,21 @@ class DeviceIter:
         pos = 0
         for part in parts:
             n = len(part)
+            if isinstance(part, DenseBlock) and part.packed:
+                slab = _as_tensor(part.x)
+                if self.pack_aux:
+                    packed[pos:pos + n].copy_(slab)
+                else:
+                    xb[pos:pos + n].copy_(slab[:, :nc])
+                    yb[pos:pos + n].copy_(slab[:, nc])
+                    wb[pos:pos + n].copy_(slab[:, nc + 1])
+                pos += n
+                continue
             if isinstance(part, DenseBlock):
                 x, y, w = part.x, part.label, part.weight
             else:
                 x, y, w = block_to_dense(part, nc)
-            xb[pos:pos + n].copy_(torch.from_numpy(x))
+            xb[pos:pos + n].copy_(_as_tensor(x))
             yb[pos:pos + n].copy_(torch.from_numpy(y))
             if w is None:
                 wb[pos:pos + n] = 1.0
@@ -672,23 +799,60 @@ class DeviceIter:
         for buf in (xb, yb, wb):
             buf[pos:] = 0
 
-    def _pack_bcoo(self, slot: _Slot, arrays) -> None:
-        """A bcoo batch into the slot's u8 span (:func:`_bcoo_offsets`),
-        the span grown first when the batch needs more bytes."""
-        coords, vals, label, weight, (rows, _), real_nnz, row_major = arrays
-        nnz, isz = len(vals), coords.dtype.itemsize
-        o_val, o_label, o_weight, nbytes = _bcoo_offsets(isz, nnz, rows)
+    def _span(self, slot: _Slot, nbytes: int) -> np.ndarray:
+        """The slot's u8 span as numpy, grown first when a batch needs more
+        bytes (the ring handed the slot out after its last copy
+        completed)."""
         if slot.bufs[0].numel() < nbytes:
-            # the ring handed the slot out after its last copy completed
             slot.bufs[0] = torch.empty(max(nbytes, 2 * slot.bufs[0].numel()),
                                        dtype=torch.uint8, pin_memory=self._cuda)
-        span = slot.bufs[0].numpy()
+        slot.nbytes = nbytes
+        return slot.bufs[0].numpy()
+
+    def _pack_bcoo(self, slot: _Slot, arrays) -> None:
+        """A bcoo batch into the slot's u8 span (:func:`_bcoo_offsets`);
+        elided values are not shipped."""
+        coords, vals, label, weight, (rows, _), real_nnz, row_major, elide = arrays
+        nnz, isz = len(vals), coords.dtype.itemsize
+        o_val, o_label, o_weight, nbytes = _bcoo_offsets(isz, nnz, rows, not elide)
+        span = self._span(slot, nbytes)
         span[: 2 * nnz * isz].view(coords.dtype).reshape(2, nnz)[...] = coords.T
-        span[o_val: o_val + 4 * nnz].view(np.float32)[...] = vals
+        if not elide:
+            span[o_val: o_val + 4 * nnz].view(np.float32)[...] = vals
         span[o_label: o_label + 4 * rows].view(np.float32)[...] = label
         span[o_weight: nbytes].view(np.float32)[...] = weight
-        slot.layout = (isz, nnz, real_nnz, rows, row_major)
-        slot.nbytes = nbytes
+        slot.layout = (isz, nnz, real_nnz, rows, row_major, elide)
+
+    def _pack_native_coo(self, slot: _Slot, block: CooBlock, row_major: bool) -> None:
+        """A :class:`CooBlock` into the slot's u8 span as it came
+        (:func:`_native_coo_offsets`): one copy a segment, no convert."""
+        csr, has_values = block.row_ptr is not None, block.values is not None
+        nnz, rows = len(block.coords), len(block.label)
+        o_ptr, o_val, o_label, o_weight, nbytes = _native_coo_offsets(
+            csr, nnz, rows, has_values)
+        span = self._span(slot, nbytes)
+        span[: (1 if csr else 2) * 4 * nnz].view(np.int32)[...] = block.coords.reshape(-1)
+        if csr:
+            span[o_ptr: o_ptr + 4 * (rows + 1)].view(np.int32)[...] = block.row_ptr
+        if has_values:
+            span[o_val: o_val + 4 * nnz].view(np.float32)[...] = block.values
+        span[o_label: o_label + 4 * rows].view(np.float32)[...] = block.label
+        span[o_weight: nbytes].view(np.float32)[...] = block.weight
+        slot.kind = "bcoo_native"
+        slot.layout = (csr, nnz, block.nnz, rows, row_major, has_values)
+
+    def _pack_ell_span(self, slot: _Slot, arrays) -> None:
+        """An ELL batch whose K is its longest row's into the slot's u8 span
+        (:func:`_ell_offsets`)."""
+        indices, values, label, weight = arrays
+        rows, k = indices.shape
+        o_val, o_label, o_weight, nbytes = _ell_offsets(rows, k)
+        span = self._span(slot, nbytes)
+        span[: 4 * rows * k].view(np.int32)[...] = indices.reshape(-1)
+        span[o_val: o_val + 4 * rows * k].view(np.float32)[...] = values.reshape(-1)
+        span[o_label: o_label + 4 * rows].view(np.float32)[...] = label
+        span[o_weight: nbytes].view(np.float32)[...] = weight
+        slot.layout = (rows, k)
 
     def _write_snapshot_batch(self, slot: _Slot) -> None:
         kind, arrays = slot.kind, slot.bufs
@@ -844,7 +1008,7 @@ class DeviceIter:
                 event.record(self._copy_stream)
         nbytes = sum(b.numel() * b.element_size() for b in bufs)
         self.bytes_to_device += nbytes
-        if slot.layout is not None and slot.kind != "bcoo":
+        if slot.layout is not None and slot.kind not in _SPAN_KINDS:
             self.device_decode_bytes += nbytes
         entry = (out, event, slot.kind, slot.layout, slot.annot)
         self._ring.release(slot, event)
@@ -853,18 +1017,52 @@ class DeviceIter:
     def _bcoo_batch(self, span: torch.Tensor, layout):
         """``(x, label, weight)`` viewed from a bcoo batch's span on the
         device, ``x`` on its real entries: one widening of the coordinates
-        to int64, no other work."""
-        isz, nnz, real, rows, row_major = layout
-        o_val, o_label, o_weight, nbytes = _bcoo_offsets(isz, nnz, rows)
+        to int64 (and ones for elided values), no other work."""
+        isz, nnz, real, rows, row_major, elide = layout
+        o_val, o_label, o_weight, nbytes = _bcoo_offsets(isz, nnz, rows, not elide)
         idx_dtype = torch.int32 if isz == 4 else torch.int64
         coords = span[: 2 * nnz * isz].view(idx_dtype).view(2, nnz)[:, :real]
+        vals = (torch.ones(real, dtype=torch.float32, device=span.device) if elide
+                else span[o_val: o_val + 4 * real].view(torch.float32))
         x = torch.sparse_coo_tensor(
-            coords.to(torch.int64, memory_format=torch.contiguous_format),
-            span[o_val: o_val + 4 * real].view(torch.float32),
+            coords.to(torch.int64, memory_format=torch.contiguous_format), vals,
             (rows, self.num_col), is_coalesced=row_major, check_invariants=False)
         self.nnz_shapes.add(nnz)
         return (x, span[o_label: o_label + 4 * rows].view(torch.float32),
                 span[o_weight: nbytes].view(torch.float32))
+
+    def _native_bcoo_batch(self, span: torch.Tensor, layout):
+        """``(x, label, weight)`` from a :class:`CooBlock`'s span on the
+        device: the CSR wire's row ids rebuilt (:func:`csr_coords`), the
+        native pad scheme mapped to the port's with values masked by the
+        raw columns (:func:`native_coo_to_port`), ``x`` on the real entries
+        (the block's host count, no device read)."""
+        csr, nnz, real, rows, row_major, has_values = layout
+        o_ptr, o_val, o_label, o_weight, nbytes = _native_coo_offsets(
+            csr, nnz, rows, has_values)
+        if csr:
+            cols = span[: 4 * real].view(torch.int32)
+            coords = csr_coords(cols, span[o_ptr: o_ptr + 4 * (rows + 1)].view(torch.int32))
+        else:
+            coords = span[: 8 * real].view(torch.int32).view(real, 2)
+        vals = span[o_val: o_val + 4 * real].view(torch.float32) if has_values else None
+        coords, vals = native_coo_to_port(coords, vals, self.num_col, rows)
+        x = torch.sparse_coo_tensor(
+            coords.T.to(torch.int64, memory_format=torch.contiguous_format), vals,
+            (rows, self.num_col), is_coalesced=row_major, check_invariants=False)
+        self.nnz_shapes.add(nnz)
+        return (x, span[o_label: o_label + 4 * rows].view(torch.float32),
+                span[o_weight: nbytes].view(torch.float32))
+
+    @staticmethod
+    def _ell_span_batch(span: torch.Tensor, layout) -> EllBatch:
+        """An :class:`EllBatch` viewed from a per-batch-K span."""
+        rows, k = layout
+        o_val, o_label, o_weight, nbytes = _ell_offsets(rows, k)
+        return EllBatch(span[: 4 * rows * k].view(torch.int32).view(rows, k),
+                        span[o_val: o_val + 4 * rows * k].view(torch.float32).view(rows, k),
+                        span[o_label: o_label + 4 * rows].view(torch.float32),
+                        span[o_weight: nbytes].view(torch.float32))
 
     def _fill(self) -> None:
         while len(self._inflight) < self.prefetch:
@@ -903,6 +1101,10 @@ class DeviceIter:
             batch = _device_decode.wrap_batch(kind, out, self.num_col)
         elif kind == "bcoo":
             batch = self._bcoo_batch(out[0], layout)
+        elif kind == "bcoo_native":
+            batch = self._native_bcoo_batch(out[0], layout)
+        elif kind == "ell_span":
+            batch = self._ell_span_batch(out[0], layout)
         else:
             # device decode, on the consumer's stream after the copy's event:
             # one K2 launch for the whole batch

@@ -24,6 +24,12 @@ from the scanner, skipping the CSR block (``DeviceIter(layout="dense")``
 asks at construction). A libsvm chunk with qid rows switches the parser
 back to CSR for good.
 
+**The engine.** ``create_parser`` resolves the JAX package's engine
+chain (:func:`create_parser`): a plain local file goes to the fused native
+reader (:mod:`dmlc_tpu_torch.data.native_parser`), everything else (and
+``engine="python"``, ``DMLC_TPU_NO_NATIVE_READER``) to the registry stack
+below; both emit the same rows.
+
 **The parse fan-out.** :class:`ParallelTextParser` pulls chunks serially
 from the split (an :class:`~dmlc_tpu_torch.io.MmapLineSplit` for a plain
 local file) and parses them on ``parse_workers`` threads, delivering the
@@ -67,7 +73,7 @@ from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
 from dmlc_tpu_torch.io.uri import URISpec
 from dmlc_tpu_torch.parallel.distributed import pod_identity
 from dmlc_tpu_torch.utils import knobs as _knobs
-from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
+from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check, get_logger
 from dmlc_tpu_torch.utils.params import Parameter, field
 from dmlc_tpu_torch.utils.timer import get_time
 
@@ -153,10 +159,13 @@ class TextParserBase(Parser):
         self._read_seconds = 0.0
         self._parse_seconds = 0.0
 
-    def set_emit_dense(self, num_col: int) -> bool:
+    def set_emit_dense(self, num_col: int, batch_rows: int = 0, dtype: str = "float32",
+                       pack_aux: bool = False) -> bool:
         """Opt in to :class:`DenseBlock` batches straight from the scanner;
         False when this parser has no dense scanner on its engine
-        (RowBlocks as usual)."""
+        (RowBlocks as usual). ``batch_rows``, ``dtype`` and ``pack_aux``
+        are the fused native reader's repack and are ignored here: the
+        blocks are chunk-sized and float32, and ``DeviceIter`` packs them."""
         if self._dense_scanner and self.use_native():
             self._emit_dense = int(num_col)
             return True
@@ -774,7 +783,8 @@ class ParallelTextParser(Parser):
     def engine(self) -> str:
         return self.base.engine
 
-    def set_emit_dense(self, num_col: int) -> bool:
+    def set_emit_dense(self, num_col: int, batch_rows: int = 0, dtype: str = "float32",
+                       pack_aux: bool = False) -> bool:
         # once production runs, blocks of both kinds would mix: decline
         return self._pool is None and self.base.set_emit_dense(num_col)
 
@@ -1389,8 +1399,9 @@ class BlockCacheIter(Parser):
         """The base chain's ``{read, parse}`` seconds (0 before a cold pass
         built it) and ``cache_read``, the warm block reads."""
         out = {"read": 0.0, "parse": 0.0}
-        if self._base is not None:
-            out.update(self._base.stage_seconds())
+        fn = getattr(self._base, "stage_seconds", None)  # the native reader has none
+        if fn is not None:
+            out.update(fn())
         out["cache_read"] = self._cache_read_seconds
         return out
 
@@ -1472,9 +1483,47 @@ _PARSERS = {"libsvm": _make_text_parser(LibSVMParser),
             "csv": _make_text_parser(CSVParser)}
 
 
+def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
+                    num_parts: int, threaded: bool, parse_workers: Optional[int],
+                    chunk_bytes: int, engine: str) -> Parser:
+    """The JAX package's engine chain (``_create_parser_uncached``) over a
+    resolved engine: ``auto`` or ``native`` take the fused native reader
+    for a plain local corpus (unless ``DMLC_TPU_NO_NATIVE_READER`` is set),
+    and everything else the registry stack; ``python`` pins the numpy
+    scanner under every wrapper of that stack."""
+    if engine == "native-batch":
+        # the chunk-batch engine is not ported: this is the reference's
+        # branch for a config its batch kernel cannot serve, loud, and on
+        # to the registry stack
+        get_logger().warning(
+            "engine=native-batch unavailable for format=%r index_dtype=%s "
+            "(toolchain/format/dtype); using the Python engine",
+            type_, np.dtype(np.uint64).str)
+    if (engine in ("auto", "native")
+            and os.environ.get("DMLC_TPU_NO_NATIVE_READER", "0") in ("", "0")):
+        from dmlc_tpu_torch.data import native_parser as _native_parser
+
+        if _native_parser.native_reader_eligible(uri, type_, threaded):
+            try:
+                return _native_parser.NativeStreamParser(
+                    spec.uri, spec.args, part_index, num_parts, type_,
+                    chunk_bytes=chunk_bytes)
+            except DMLCError:
+                pass  # e.g. a csv dtype the native scanner lacks: the registry stack
+    if engine == "native":
+        get_logger().warning(
+            "engine=native unavailable for uri=%r format=%r "
+            "(URI/threading outside the fused reader's eligibility, "
+            "DMLC_TPU_NO_NATIVE_READER, or toolchain); using the Python "
+            "engine", uri, type_)
+    return _PARSERS[type_](spec.uri, spec.args, part_index, num_parts, threaded,
+                           parse_workers, chunk_bytes,
+                           "python" if engine == "python" else "auto")
+
+
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                   type_: str = "auto", index_dtype=np.uint64, threaded: bool = True,
-                  *, parse_workers: Optional[int] = None, engine: str = "auto",
+                  *, parse_workers: Optional[int] = None, engine: Optional[str] = None,
                   snapshot: Optional[str] = None,
                   chunk_bytes: int = DEFAULT_CHUNK_BYTES, block_cache: Optional[str] = None,
                   shuffle_seed: Optional[int] = None, shuffle_window: int = 0,
@@ -1486,7 +1535,21 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     ``format=`` argument and defaults to libsvm; ``index_dtype`` must be
     ``np.uint64`` (the blocks' index type; another raises). URI arguments
     (``?label_column=0&delimiter=;``, ``?indexing_mode=1``) flow into the
-    format's parameter struct. ``threaded`` parses ahead of the consumer:
+    format's parameter struct.
+
+    The engine (the JAX package's chain): ``engine``, else a ``?engine=``
+    URI argument, else ``DMLC_TPU_PARSE_ENGINE``, else ``"auto"``
+    (:func:`dmlc_tpu_torch.utils.knobs.parse_engine`; a typo raises).
+    ``auto`` and ``native`` return the fused native reader
+    (:class:`~dmlc_tpu_torch.data.native_parser.NativeStreamParser`) for a
+    threaded parse of a plain local libsvm, csv or libfm file whose
+    options it serves, unless ``DMLC_TPU_NO_NATIVE_READER`` is set to
+    other than ``0``; ``native`` warns where it cannot. ``native-batch``
+    (the chunk-batch engine, not ported) warns and takes the registry
+    stack, as the reference does where its batch engine cannot serve.
+    ``python`` takes the registry stack on the numpy scanner.
+
+    The registry stack: ``threaded`` parses ahead of the consumer:
     on ``parse_workers`` threads (:class:`ParallelTextParser`; None reads
     ``DMLC_TPU_PARSE_WORKERS``, else ``min(4, cpus)``), over a zero-copy
     :class:`~dmlc_tpu_torch.io.MmapLineSplit` for a single local file, or
@@ -1496,9 +1559,8 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     every worker count, and so are the states above one worker. A state
     marks the same position at every count and restores in either split,
     but the one-thread chain's carries the stream split's read-ahead
-    ``overflow``, so its JSON differs. The port's own options are keyword-only: ``engine``
-    (``"auto"``, or ``"python"`` for the numpy scanner under every
-    wrapper); ``chunk_bytes`` is the split's chunk size (at least 4096),
+    ``overflow``, so its JSON differs. The port's own options are
+    keyword-only: ``chunk_bytes`` is the split's chunk size (at least 4096),
     which sets the blocks and enters the cache and snapshot signature.
 
     ``block_cache`` (else a ``#blockcache=<path>`` fragment, else the
@@ -1530,13 +1592,12 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     spec = URISpec(uri)
     if type_ == "auto":
         type_ = spec.args.get("format", "libsvm")
-    make = _PARSERS.get(type_)
-    if make is None:
+    if type_ not in _PARSERS:
         raise DMLCError(f"unknown parser format {type_!r}; known: {list(_PARSERS)}")
     if np.dtype(index_dtype) != np.dtype(np.uint64):
         raise DMLCError(f"index_dtype {np.dtype(index_dtype)}: dmlc_tpu_torch "
                         "parses uint64 indices only")
-    check(engine in ("auto", "python"), f"unknown parse engine {engine!r}")
+    engine = _knobs.parse_engine(engine if engine is not None else spec.args.get("engine"))
     bc_path = _resolve_block_cache(spec, part_index, num_parts, block_cache)
     if snapshot is not None and num_parts != 1:
         snapshot = f"{snapshot}.split{num_parts}.part{part_index}"
@@ -1553,8 +1614,8 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
         index_dtype=np.dtype(np.uint64).str, chunk_bytes=int(chunk_bytes), split={})
 
     def build() -> Parser:
-        return make(spec.uri, spec.args, part_index, num_parts, threaded, parse_workers,
-                    chunk_bytes, engine)
+        return _build_uncached(uri.split("#", 1)[0], spec, type_, part_index, num_parts,
+                               threaded, parse_workers, chunk_bytes, engine)
 
     if bc_path is None:
         check(shuffle_seed is None and shuffle_window == 0 and not pod_sharding,

@@ -15,9 +15,12 @@ Layout (CSR):
     value   float32[nnz] optional (None = binary features)
 
 :class:`DenseBlock` is a parsed batch already in the dense layout ``[n,
-num_col]``, which a parser emits after ``set_emit_dense`` (the unpacked
-form: ``x``, ``label`` and ``weight`` apart; the JAX package's packed form
-comes from its fused reader, which the port does not have yet).
+num_col]``, which a parser emits after ``set_emit_dense``: unpacked
+(``x``, ``label`` and ``weight`` apart), or packed by the fused native
+reader (``x`` one ``[n, num_col + 2]`` slab, ``label`` and ``weight`` views
+of its trailing columns; a bfloat16 slab is a ``uint16`` view of its bits).
+:class:`CooBlock` is a batch in the native COO emit's layout
+(``set_emit_coo`` on the fused reader).
 """
 
 from __future__ import annotations
@@ -115,16 +118,19 @@ class DenseBlock:
     """A parsed batch already in the dense layout ``[n, num_col]``, emitted
     by a parser in dense mode (``set_emit_dense``): it skips the CSR block
     entirely. The reference has no analog (its parsers always build CSR,
-    src/data/row_block.h)."""
+    src/data/row_block.h). ``packed``: ``x`` is ``[n, num_col + 2]`` with
+    label and weight as its trailing columns, and ``label``/``weight`` are
+    views of them in ``x``'s dtype (``uint16`` bits for a bfloat16 slab)."""
 
-    __slots__ = ("x", "label", "weight", "hold", "resume_state")
+    __slots__ = ("x", "label", "weight", "hold", "resume_state", "packed")
 
     def __init__(self, x: np.ndarray, label: np.ndarray,
-                 weight: Optional[np.ndarray] = None, hold=None):
+                 weight: Optional[np.ndarray] = None, hold=None, packed: bool = False):
         self.x = x
         self.label = label
         self.weight = weight
         self.hold = hold  # the native result owning the views
+        self.packed = packed
         self.resume_state: Optional[dict] = None  # the parser's position after it
 
     def __len__(self) -> int:
@@ -134,7 +140,45 @@ class DenseBlock:
         """Row range view [begin, end), as :meth:`RowBlock.slice`."""
         return DenseBlock(self.x[begin:end], self.label[begin:end],
                           self.weight[begin:end] if self.weight is not None else None,
-                          hold=self.hold)
+                          hold=self.hold, packed=self.packed)
+
+
+class CooBlock:
+    """A batch in the native COO emit's layout (the JAX package's class):
+    ``coords`` int32 ``[nnz_padded, 2]`` (row, col), or on the CSR wire the
+    columns alone ``[nnz_padded]`` with ``row_ptr`` int32 ``[rows_padded +
+    1]``; ``values`` float32 ``[nnz_padded]``, None when the block is all
+    ones and elision is on; ``label``/``weight`` ``[rows_padded]``.
+    ``n_rows`` and ``nnz`` are the real counts. The native emit pads with
+    out-of-bounds coordinates (row ``rows_padded``, column ``num_col``) and
+    clamps an id past the width to column ``num_col`` inside the real
+    entries; :func:`dmlc_tpu_torch.ops.sparse.coo_block_tensors` maps both
+    to the port's in-bounds pad scheme."""
+
+    __slots__ = ("coords", "values", "label", "weight", "n_rows", "nnz",
+                 "num_col", "hold", "resume_state", "row_ptr")
+
+    def __init__(self, coords: np.ndarray, values: Optional[np.ndarray],
+                 label: np.ndarray, weight: np.ndarray, n_rows: int, nnz: int,
+                 num_col: int, hold=None, row_ptr: Optional[np.ndarray] = None):
+        self.row_ptr = row_ptr
+        self.coords = coords
+        self.values = values
+        self.label = label
+        self.weight = weight
+        self.n_rows = n_rows
+        self.nnz = nnz
+        self.num_col = num_col
+        self.hold = hold
+        self.resume_state: Optional[dict] = None
+
+    @property
+    def shape(self):
+        """The sparse shape: (padded rows, declared width)."""
+        return (len(self.label), self.num_col)
+
+    def __len__(self) -> int:
+        return self.n_rows
 
 
 class RowBlockContainer:

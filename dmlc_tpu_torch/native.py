@@ -3,14 +3,20 @@
 The sources are the repository's ``native/src/*.cc`` (the same list and flags
 the JAX package builds with), compiled by this port into its own
 ``dmlc_tpu_torch/_build/`` — never into ``native/build/``, which the JAX
-package owns and rebuilds on its own schedule. Four entry points are bound:
-``dmlc_parse_libsvm`` and ``dmlc_parse_libfm`` (CSR blocks),
+package owns and rebuilds on its own schedule. Bound here: the chunk
+scanners ``dmlc_parse_libsvm`` and ``dmlc_parse_libfm`` (CSR blocks),
 ``dmlc_parse_libsvm_dense`` (libsvm straight to the dense layout; a qid
 row raises :class:`NeedsCsrError`) and ``dmlc_parse_csv`` (a float32 cell
-matrix). A chunk is bytes or a memoryview (an mmap slice), whose buffer
-address is passed through with no copy. Result arrays are wrapped as numpy
-views that own the malloc'd buffers through a finalizer (zero copies on the
-handoff).
+matrix); and the fused stream reader ``dmlc_reader_*`` (``reader.cc``: a
+C++ producer thread reads record-aligned chunks of a byte-range partition
+of local files and parses them on worker threads, :class:`Reader`), whose
+results are tagged with a ``FMT_*`` code. A chunk is bytes or a memoryview
+(an mmap slice), whose buffer address is passed through with no copy.
+Result arrays are wrapped as numpy views that own the malloc'd buffers
+through a finalizer (zero copies on the handoff). A bfloat16 payload (the
+reader's dense repack with ``out_bf16``) is wrapped as a ``uint16`` view
+of its bits: numpy has no bfloat16 type, and the device side reinterprets
+it as ``torch.bfloat16``.
 
 As in the reference, a failed build logs a warning and :func:`available`
 is False: the parsers then use the numpy engine, which emits identical
@@ -89,6 +95,34 @@ class _CsvResult(ctypes.Structure):
     ]
 
 
+class _CsvSplitResult(ctypes.Structure):
+    _fields_ = [
+        ("n_rows", ctypes.c_int64),
+        ("n_feat_cols", ctypes.c_int64),
+        ("values", ctypes.POINTER(ctypes.c_float)),
+        ("label", ctypes.POINTER(ctypes.c_float)),
+        ("weight", ctypes.POINTER(ctypes.c_float)),
+        ("error", ctypes.c_char_p),
+    ]
+
+
+class _CooResult(ctypes.Structure):
+    _fields_ = [
+        ("n_rows", ctypes.c_int64),
+        ("nnz", ctypes.c_int64),
+        ("rows_padded", ctypes.c_int64),
+        ("nnz_padded", ctypes.c_int64),
+        ("coords", ctypes.POINTER(ctypes.c_int32)),
+        ("values", ctypes.POINTER(ctypes.c_float)),
+        ("label", ctypes.POINTER(ctypes.c_float)),
+        ("weight", ctypes.POINTER(ctypes.c_float)),
+        ("error", ctypes.c_char_p),
+        ("values_elided", ctypes.c_int32),
+        ("csr_wire", ctypes.c_int32),
+        ("row_ptr", ctypes.POINTER(ctypes.c_int32)),
+    ]
+
+
 def _commands(out_path: str, obj_dir: str):
     # one g++ per source, all started together, then one link
     objs = [os.path.join(obj_dir, os.path.basename(s) + ".o") for s in _SRCS]
@@ -121,8 +155,25 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.dmlc_parse_csv.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_char]
         # void* so the finalizers never depend on ctypes class identity
-        for name in ("dmlc_free_block", "dmlc_free_dense", "dmlc_free_csv"):
+        for name in ("dmlc_free_block", "dmlc_free_dense", "dmlc_free_csv",
+                     "dmlc_free_csv_split", "dmlc_free_coo"):
             getattr(lib, name).argtypes = [ctypes.c_void_p]
+        lib.dmlc_reader_create.restype = ctypes.c_void_p
+        lib.dmlc_reader_create.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_char, ctypes.c_int32,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+        lib.dmlc_reader_next.restype = ctypes.c_void_p
+        lib.dmlc_reader_next.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
+        lib.dmlc_reader_before_first.argtypes = [ctypes.c_void_p]
+        lib.dmlc_reader_bytes_read.restype = ctypes.c_int64
+        lib.dmlc_reader_bytes_read.argtypes = [ctypes.c_void_p]
+        lib.dmlc_reader_error.restype = ctypes.c_char_p
+        lib.dmlc_reader_error.argtypes = [ctypes.c_void_p]
+        lib.dmlc_reader_destroy.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -247,6 +298,14 @@ def parse_libsvm_dense(chunk, num_col: int, nthread: int = 0, indexing_mode: int
     res = lib.dmlc_parse_libsvm_dense(buf, n, nthread or default_nthread(), num_col,
                                       indexing_mode)
     del keep
+    return _wrap_dense(lib, res, num_col)[:4]
+
+
+def _wrap_dense(lib, res, num_col: int):
+    """A DenseResult as ``(x, label, weight, owner, packed)``. A bfloat16
+    ``x`` is a ``uint16`` view of its bits. ``packed``: ``x`` is ``[n,
+    num_col + 2]`` with label and weight as its trailing columns, and
+    ``label``/``weight`` are views of those columns (in ``x``'s dtype)."""
     r = res.contents
     if r.error:
         msg = r.error.decode()
@@ -255,12 +314,17 @@ def parse_libsvm_dense(chunk, num_col: int, nthread: int = 0, indexing_mode: int
         raise NeedsCsrError(msg) if needs_csr else DMLCError(msg)
     owner = _Owner(lib.dmlc_free_dense, res)
     rows = r.n_rows
+    x_dtype = np.uint16 if r.x_bf16 else np.float32
     if rows == 0:
-        return np.zeros((0, num_col), np.float32), np.empty(0, np.float32), None, owner
-    x = _view(r.x, rows * num_col, np.float32, owner)
-    x = np.zeros((rows, num_col), np.float32) if x is None else x.reshape(rows, num_col)
+        return (np.zeros((0, num_col), x_dtype), np.empty(0, np.float32), None,
+                owner, False)
+    if r.packed_aux:
+        xp = _view(r.x, rows * (num_col + 2), x_dtype, owner).reshape(rows, num_col + 2)
+        return xp, xp[:, num_col], xp[:, num_col + 1], owner, True
+    x = _view(r.x, rows * num_col, x_dtype, owner)
+    x = np.zeros((rows, num_col), x_dtype) if x is None else x.reshape(rows, num_col)
     return (x, _view(r.label, rows, np.float32, owner),
-            _view(r.weight, rows, np.float32, owner), owner)
+            _view(r.weight, rows, np.float32, owner), owner, False)
 
 
 def parse_csv(chunk, delimiter: str = ",", nthread: int = 0):
@@ -274,6 +338,29 @@ def parse_csv(chunk, delimiter: str = ",", nthread: int = 0):
     res = lib.dmlc_parse_csv(buf, n, nthread or default_nthread(),
                              delimiter.encode()[0] if delimiter else b","[0])
     del keep
+    return _wrap_csv(lib, res)
+
+
+def _wrap_csv_split(lib, res):
+    """``(values [n, k], label or None, weight or None, n, owner)``, views
+    over the C buffers; the caller supplies the csv skeleton (index,
+    offset)."""
+    r = res.contents
+    if r.error:
+        msg = r.error.decode()
+        lib.dmlc_free_csv_split(res)
+        raise DMLCError(msg)
+    owner = _Owner(lib.dmlc_free_csv_split, res)
+    n, k = r.n_rows, r.n_feat_cols
+    if n == 0:
+        return np.zeros((0, 0), np.float32), None, None, 0, owner
+    values = (_view(r.values, n * k, np.float32, owner).reshape(n, k)
+              if k else np.zeros((n, 0), np.float32))
+    return (values, _view(r.label, n, np.float32, owner),
+            _view(r.weight, n, np.float32, owner), int(n), owner)
+
+
+def _wrap_csv(lib, res):
     r = res.contents
     if r.error:
         msg = r.error.decode()
@@ -284,3 +371,137 @@ def parse_csv(chunk, delimiter: str = ",", nthread: int = 0):
     if rows == 0 or cols == 0:
         return np.zeros((0, 0), np.float32), owner
     return _view(r.cells, rows * cols, np.float32, owner).reshape(rows, cols), owner
+
+
+# ---------------- the fused stream reader (reader.cc) ----------------
+
+FMT_LIBSVM = 0
+FMT_LIBSVM_DENSE = 1
+FMT_CSV = 2
+FMT_LIBFM = 3
+FMT_RECORDIO = 4
+FMT_RECORDIO_CHUNK = 5
+FMT_LIBSVM_COO = 6
+FMT_LIBFM_COO = 7
+FMT_CSV_SPLIT = 8
+
+
+def _wrap_coo(lib, res) -> dict:
+    """A CooResult as a dict of views: ``coords`` int32 ``[nnz_padded, 2]``
+    (row, col), or on the CSR wire the columns alone ``[nnz_padded]`` with
+    ``row_ptr`` int32 ``[rows_padded + 1]``; ``values`` None when elided;
+    ``n_rows``/``nnz`` the real counts (the shapes carry the bucket pad)."""
+    r = res.contents
+    if r.error:
+        msg = r.error.decode()
+        lib.dmlc_free_coo(res)
+        raise DMLCError(msg)
+    owner = _Owner(lib.dmlc_free_coo, res)
+    if r.csr_wire:
+        coords = _view(r.coords, r.nnz_padded, np.int32, owner)
+        coords = coords if coords is not None else np.zeros((0,), np.int32)
+        row_ptr = _view(r.row_ptr, r.rows_padded + 1, np.int32, owner)
+    else:
+        coords = _view(r.coords, 2 * r.nnz_padded, np.int32, owner)
+        coords = (coords.reshape(r.nnz_padded, 2) if coords is not None
+                  else np.zeros((0, 2), np.int32))
+        row_ptr = None
+    return {"n_rows": int(r.n_rows), "nnz": int(r.nnz),
+            "rows_padded": int(r.rows_padded), "coords": coords, "row_ptr": row_ptr,
+            "values": (None if r.values_elided
+                       else _view(r.values, r.nnz_padded, np.float32, owner)),
+            "label": _view(r.label, r.rows_padded, np.float32, owner),
+            "weight": _view(r.weight, r.rows_padded, np.float32, owner),
+            "_owner": owner}
+
+
+def _wrap_stream_result(lib, ptr, fmt_value: int, num_col: int):
+    """A ``dmlc_reader_next`` result, wrapped by its format tag:
+    ``(fmt, wrapped)``."""
+    if fmt_value in (FMT_LIBSVM, FMT_LIBFM):
+        return fmt_value, _wrap_block(lib, ctypes.cast(ptr, ctypes.POINTER(_CsrBlockResult)))
+    if fmt_value == FMT_LIBSVM_DENSE:
+        return fmt_value, _wrap_dense(lib, ctypes.cast(ptr, ctypes.POINTER(_DenseResult)),
+                                      num_col)
+    if fmt_value in (FMT_LIBSVM_COO, FMT_LIBFM_COO):
+        return fmt_value, _wrap_coo(lib, ctypes.cast(ptr, ctypes.POINTER(_CooResult)))
+    if fmt_value == FMT_CSV_SPLIT:
+        return fmt_value, _wrap_csv_split(
+            lib, ctypes.cast(ptr, ctypes.POINTER(_CsvSplitResult)))
+    if fmt_value == FMT_CSV:
+        return fmt_value, _wrap_csv(lib, ctypes.cast(ptr, ctypes.POINTER(_CsvResult)))
+    raise DMLCError(f"native reader: format {fmt_value} is not bound in dmlc_tpu_torch")
+
+
+class Reader:
+    """The native read -> chunk -> parse pipeline over a byte-range
+    partition of local files (``reader.cc``), with the JAX package's
+    signature. A C++ producer thread loads record-aligned chunks and parses
+    them on ``nthread`` workers; :meth:`next` blocks (the interpreter lock
+    released) until a parsed block is ready and wraps it with no copy."""
+
+    def __init__(self, paths, sizes, part_index: int, num_parts: int,
+                 fmt: int, num_col: int = 0, indexing_mode: int = 0,
+                 delimiter: str = ",", nthread: int = 0,
+                 chunk_bytes: int = 1 << 20, queue_depth: int = 4,
+                 batch_rows: int = 0, label_col: int = -1,
+                 weight_col: int = -1, out_bf16: bool = False,
+                 row_bucket: int = 0, nnz_bucket: int = 0,
+                 elide_unit: bool = False, csr_wire: bool = False,
+                 pack_aux: bool = False):
+        lib = _load()
+        if lib is None:
+            raise DMLCError("native core unavailable")
+        self._lib = lib
+        self._fmt = fmt
+        self._num_col = num_col
+        arr_p = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
+        arr_s = (ctypes.c_int64 * len(sizes))(*sizes)
+        self._h = lib.dmlc_reader_create(
+            arr_p, arr_s, len(paths), part_index, num_parts, fmt, num_col,
+            indexing_mode, delimiter.encode()[0] if delimiter else b","[0],
+            nthread or default_nthread(), chunk_bytes, queue_depth,
+            batch_rows, label_col, weight_col, 1 if out_bf16 else 0,
+            row_bucket, nnz_bucket, 1 if elide_unit else 0,
+            1 if csr_wire else 0, 1 if pack_aux else 0)
+        if not self._h:
+            raise DMLCError("native reader creation failed (out of memory or threads)")
+        self._check_error()
+
+    def _check_error(self) -> None:
+        err = self._lib.dmlc_reader_error(self._h)
+        if err:
+            raise DMLCError(err.decode())
+
+    def next(self):
+        """The next parsed block as ``(fmt, wrapped)``, None at the end of
+        the partition. The tag can turn from ``FMT_LIBSVM_DENSE`` to
+        ``FMT_LIBSVM`` mid-stream, for good, when the dense scanner meets a
+        qid row."""
+        if self._h is None:
+            return None
+        fmt = ctypes.c_int32(self._fmt)
+        ptr = self._lib.dmlc_reader_next(self._h, ctypes.byref(fmt))
+        if not ptr:
+            self._check_error()
+            return None
+        return _wrap_stream_result(self._lib, ptr, fmt.value, self._num_col)
+
+    def before_first(self) -> None:
+        if self._h is not None:
+            self._lib.dmlc_reader_before_first(self._h)
+
+    @property
+    def bytes_read(self) -> int:
+        return self._lib.dmlc_reader_bytes_read(self._h) if self._h is not None else 0
+
+    def close(self) -> None:
+        if self._h is not None:
+            self._lib.dmlc_reader_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -22,6 +22,8 @@ autotuner, which is not ported.
 - ``DMLC_TPU_BLOCK_CACHE``: a directory; a parser built without a
   ``block_cache=`` knob or a ``#blockcache=`` fragment caches its blocks
   there under a name derived from the URI (:func:`block_cache_dir`).
+- ``DMLC_TPU_PARSE_ENGINE``: the text-parse engine (:func:`parse_engine`),
+  one of :data:`PARSE_ENGINES`; a typo raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-from dmlc_tpu_torch.utils.check import DMLCError
+from dmlc_tpu_torch.utils.check import DMLCError, check
 
 PREFETCH_ENV = "DMLC_TPU_PREFETCH"
 PREFETCH_DEFAULT = 2
@@ -97,3 +99,32 @@ def resolve(name: str, explicit: Optional[int] = None) -> int:
 def block_cache_dir() -> Optional[str]:
     """``DMLC_TPU_BLOCK_CACHE``, or None when it is unset or empty."""
     return os.environ.get(BLOCK_CACHE_ENV, "").strip() or None
+
+
+PARSE_ENGINES = ("auto", "native-batch", "native", "python")
+
+
+def parse_engine(explicit: Optional[str] = None) -> str:
+    """The text-parse engine selector (the JAX package's, with its
+    message): the explicit argument (``create_parser(engine=)``, else the
+    caller passes a ``?engine=`` URI argument here) > ``DMLC_TPU_PARSE_ENGINE``
+    > ``auto``. Values:
+
+    - ``auto``: the fused native reader for plain local corpora, the
+      registry stack otherwise;
+    - ``native-batch``: the chunk-batch parser, which the port does not
+      have; it warns and takes the registry stack, as the reference does
+      where its batch engine cannot serve;
+    - ``native``: the fused native reader only (warns where it cannot
+      serve);
+    - ``python``: the registry stack on the numpy scanner all the way down.
+
+    A value outside :data:`PARSE_ENGINES` raises."""
+    raw = (explicit if explicit is not None
+           else os.environ.get("DMLC_TPU_PARSE_ENGINE", "").strip() or "auto")
+    value = str(raw).strip().lower()
+    check(value in PARSE_ENGINES,
+          f"parse engine {raw!r}: must be one of {PARSE_ENGINES} "
+          f"(DMLC_TPU_PARSE_ENGINE / create_parser(engine=...) / "
+          f"?engine= URI arg — docs/data.md engine-selection table)")
+    return value

@@ -234,7 +234,10 @@ def test_natural_block_restore_skips_without_converting(tmp_path, monkeypatch):
             np.testing.assert_array_equal(x, y)
 
 
-def test_fixed_batch_restore_by_seek(tmp_path):
+def test_fixed_batch_restore_by_seek(tmp_path, monkeypatch):
+    # a seek is the registry stack's state (the fused native reader's is a
+    # block count), reached as the JAX package's tests reach it
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
     uri = _separable_corpus(tmp_path)
     kw = dict(num_col=8, batch_size=32, chunk_bytes=4096)
     full = _port_dense(_port_iter(uri, **kw))
@@ -276,10 +279,23 @@ def test_argument_checks(tmp_path):
     with pytest.raises(DMLCError, match="not 'bcoo'"):
         DeviceIter(create_parser(uri, snapshot=str(tmp_path / "s")), num_col=6,
                    batch_size=16, layout="bcoo", device="cpu")
-    it = _port_iter(uri, num_col=4, batch_size=16)
+    # fault C9: an id >= num_col is refused on ell (JAX's ell path reads
+    # past its table), and dropped on bcoo, as JAX's BCOO masks it
+    ell = DeviceIter(create_parser(uri), num_col=4, batch_size=16, layout="ell",
+                     max_nnz=6, device="cpu")
     with pytest.raises(DMLCError, match="feature index 5 >= num_col 4"):
-        next(it)
+        next(ell)
+    ell.close()
+    it = _port_iter(uri, num_col=4, batch_size=16)
+    x, _, _ = next(it)
     it.close()
+    block = create_parser(uri, 0, 1, "libsvm", threaded=False).next_block()
+    keep = block.index < 4
+    want = np.zeros((16, 4), np.float32)
+    rows = np.repeat(np.arange(len(block)), np.diff(block.offset))
+    sel = keep & (rows < 16)
+    want[rows[sel], block.index[sel].astype(np.int64)] = block.value[sel]
+    np.testing.assert_array_equal(x.to_dense().numpy(), want)
 
 
 @pytest.mark.parametrize("classes", [None, 3])
@@ -360,3 +376,79 @@ def test_learner_fits_bcoo_batches(tmp_path, batch_size):
     acc = model.accuracy(it)
     it.close()
     assert acc > 0.9, f"batch_size={batch_size} acc={acc}"
+
+
+@pytest.mark.parametrize("route", ["rowblock_fixed", "rowblock_natural", "cooblock_pair",
+                                   "cooblock_csr"])
+def test_c9_ids_past_num_col_dropped_as_reference(tmp_path, monkeypatch, route):
+    """Fault C9: a feature id >= ``num_col`` is dropped on bcoo, as JAX's
+    BCOO masks it, on the RowBlock route (the registry stack, fixed or
+    natural batches) and on the native ``CooBlock`` route (pair and CSR
+    wire): 20 steps within 1e-5 of the JAX learner's. ``ell`` refuses it
+    (test_argument_checks)."""
+    rng = np.random.default_rng(9)
+    lines = []
+    for i in range(96):
+        ids = sorted(rng.choice(4, size=int(rng.integers(1, 4)), replace=False))
+        feats = [f"{j}:{rng.normal():.4f}" for j in ids]
+        if i % 3 == 0:
+            feats.insert(1, f"9:{rng.normal():.4f}")
+        lines.append(f"{i % 2} " + " ".join(feats))
+    uri = _write(tmp_path, "c9.libsvm", lines)
+    natural = route != "rowblock_fixed"
+    kw = dict(num_col=4, batch_size=None if natural else 16, nnz_bucket=64, row_bucket=32)
+    if route.startswith("rowblock"):
+        monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+    port_it = DeviceIter(create_parser(uri, chunk_bytes=4096), layout="bcoo", device="cpu",
+                         csr_wire=route == "cooblock_csr", **kw)
+    monkeypatch.delenv("DMLC_TPU_NO_NATIVE_READER", raising=False)
+    jax_it = JaxDeviceIter(jax_create_parser(uri + "?engine=python", chunk_bytes=4096),
+                           layout="bcoo", **kw)
+    jax = JaxLinearLearner(4, layout="bcoo", learning_rate=0.3)
+    port = LinearLearner(4, layout="bcoo", learning_rate=0.3, device="cpu")
+    got, want = [], []
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        while len(got) < 20:
+            for (x, y, w), jb in zip(port_it, jax_it):
+                if route.startswith("cooblock"):
+                    assert x.shape[0] % 32 == 0
+                want.append(float(jax.step(jb)))
+                got.append(float(port.step((x, y, w))))
+                if len(got) == 20:
+                    break
+            port_it.reset()
+            jax_it.reset()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    port_it.close()
+    jax_it.close()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(port.params.weight.detach().numpy(),
+                               np.asarray(jax.params[0]), rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("batch_size", [32, None])
+def test_rowblock_route_elides_unit_values(tmp_path, monkeypatch, batch_size):
+    """``elide_unit_values`` on the RowBlock route (the registry stack): an
+    all-ones batch ships no values, the card makes them, and the batches
+    equal JAX's with elision on in dense form, label and weight."""
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+    uri = _binary_corpus(tmp_path, n=600)
+    kw = dict(num_col=50, batch_size=batch_size, nnz_bucket=128, row_bucket=64,
+              chunk_bytes=4096)
+    sizes = {}
+    for elide in (False, True):
+        it = _port_iter(uri, elide_unit_values=elide, **kw)
+        got = _port_dense(it)
+        sizes[elide] = it.bytes_to_device
+        it.close()
+        jax = _jax_iter(uri, elide_unit_values=elide, **kw)
+        want = _jax_dense(jax)
+        jax.close()
+        assert len(got) == len(want) > 1
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+    assert sizes[True] < sizes[False]

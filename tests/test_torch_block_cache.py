@@ -61,6 +61,16 @@ from test_block_cache import GOLDEN, _golden_blocks  # noqa: E402
 NUM_COL, BATCH, CHUNK = 6, 64, 4096
 
 
+@pytest.fixture(autouse=True)
+def _registry_stack(monkeypatch):
+    """These cases hold the registry stack of ``create_parser`` (the split,
+    the text parsers and their threaded wrappers) against the JAX package's
+    Python chain. A plain local file now goes to the fused native reader,
+    as in the JAX package, whose own tests reach the registry stack the
+    same way; the reader has its own suite (test_torch_native_reader.py)."""
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+
+
 def _corpus(tmp_path, n=900, name="bc.libsvm"):
     rng = np.random.default_rng(12)
     path = tmp_path / name

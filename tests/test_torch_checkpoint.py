@@ -37,6 +37,18 @@ from dmlc_tpu_torch.io.input_split import LineSplitter
 from dmlc_tpu_torch.io.snapshot import SnapshotReader
 
 NUM_COL, BATCH, CHUNK = 6, 64, 4096
+
+
+@pytest.fixture(autouse=True)
+def _registry_stack(monkeypatch):
+    """These cases hold the registry stack of ``create_parser`` (the split,
+    the text parsers and their threaded wrappers) against the JAX package's
+    Python chain. A plain local file now goes to the fused native reader,
+    as in the JAX package, whose own tests reach the registry stack the
+    same way; the reader has its own suite (test_torch_native_reader.py)."""
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+
+
 LAYOUTS = {"dense": {}, "ell": {"layout": "ell", "max_nnz": NUM_COL}}
 
 

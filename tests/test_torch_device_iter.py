@@ -86,3 +86,53 @@ def test_ell_rejects_feature_beyond_num_col(tmp_path):
     with pytest.raises(DMLCError, match="num_col"):
         next(it)
     it.close()
+
+
+def test_c8_ell_without_max_nnz_trains_as_the_reference(tmp_path):
+    """Fault C8: ``layout="ell"`` without ``max_nnz`` takes K from each
+    batch's longest row, as the JAX package does (``block_to_ell(max_nnz=
+    None)``), and trains a 4-row file to its epoch losses; the batches
+    equal JAX's byte for byte, and K varies between them."""
+    import torch
+
+    from dmlc_tpu.models.linear import LinearLearner as JaxLinearLearner
+    from dmlc_tpu_torch import convert
+    from dmlc_tpu_torch.models import LinearLearner
+
+    path = tmp_path / "c8.libsvm"
+    path.write_text("1 0:1 1:1 2:1\n0 3:1\n1 0:1 2:1 3:0.5\n0 1:1 3:1\n")
+    kw = dict(num_col=4, batch_size=2, layout="ell")
+    got = _epochs(DeviceIter(create_parser(str(path)), device="cpu", **kw), epochs=1)[0]
+    want = _epochs(JaxDeviceIter(jax_create_parser(str(path)), **kw), epochs=1)[0]
+    assert [b[0].shape for b in got] == [(2, 3), (2, 3)]
+    for gb, wb in zip(got, want):
+        for g, w in zip(gb, wb):
+            assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    path2 = tmp_path / "c8b.libsvm"
+    path2.write_text("1 0:1 1:1 2:1\n0 3:1\n1 2:1\n0 1:1\n")
+    ks = [b[0].shape[1] for b in
+          _epochs(DeviceIter(create_parser(str(path2)), device="cpu", **kw), epochs=1)[0]]
+    assert ks == [3, 1]
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses = {}
+        for name, uri in (("4rows", str(path)), ("ragged", str(path2))):
+            jax = JaxLinearLearner(4, layout="ell", learning_rate=0.5)
+            port = LinearLearner(4, layout="ell", learning_rate=0.5, device="cpu")
+            port.set_params(convert.linear_params_from_jax(
+                *(np.asarray(p) for p in jax.params), device="cpu"))
+            jl, pl = [], []
+            jax.fit(JaxDeviceIter(jax_create_parser(uri), **kw), epochs=2,
+                    log_fn=lambda e, loss, nb, s: jl.append(float(loss)))
+            port.fit(DeviceIter(create_parser(uri), device="cpu", **kw), epochs=2,
+                     log_fn=lambda e, loss, nb, s: pl.append(float(loss)))
+            np.testing.assert_allclose(pl, jl, rtol=1e-5, atol=1e-6)
+            losses[name] = pl
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert losses["4rows"][1] < losses["4rows"][0] < np.log(2)
+    # a snapshot still needs one [B, K] shape
+    with pytest.raises(DMLCError, match="max_nnz"):
+        DeviceIter(create_parser(str(path), snapshot=str(tmp_path / "s")), device="cpu",
+                   **kw)

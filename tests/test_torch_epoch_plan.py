@@ -42,6 +42,17 @@ from dmlc_tpu_torch.data import create_parser
 from dmlc_tpu_torch.data import epoch
 from dmlc_tpu_torch.data.row_block import RowBlock
 
+
+@pytest.fixture(autouse=True)
+def _registry_stack(monkeypatch):
+    """These cases hold the registry stack of ``create_parser`` (the split,
+    the text parsers and their threaded wrappers) against the JAX package's
+    Python chain. A plain local file now goes to the fused native reader,
+    as in the JAX package, whose own tests reach the registry stack the
+    same way; the reader has its own suite (test_torch_native_reader.py)."""
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+
+
 CHUNK = 4096
 
 

@@ -31,6 +31,17 @@ from dmlc_tpu_torch import convert
 from dmlc_tpu_torch.data import DenseBlock, DeviceIter, create_parser
 from dmlc_tpu_torch.models import FMLearner, LinearLearner
 
+
+@pytest.fixture(autouse=True)
+def _registry_stack(monkeypatch):
+    """These cases hold the registry stack of ``create_parser`` (the split,
+    the text parsers and their threaded wrappers) against the JAX package's
+    Python chain. A plain local file now goes to the fused native reader,
+    as in the JAX package, whose own tests reach the registry stack the
+    same way; the reader has its own suite (test_torch_native_reader.py)."""
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+
+
 TOL = 1e-5
 CSV_QUERY = "?format=csv&label_column=0"
 CSV_COLS = 39          # 13 integer + 26 categorical features

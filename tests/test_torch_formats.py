@@ -46,6 +46,16 @@ SETTLE = settings(max_examples=25, deadline=None,
 
 
 @pytest.fixture(autouse=True)
+def _registry_stack(monkeypatch):
+    """These cases hold the registry stack of ``create_parser`` (the split,
+    the text parsers and their threaded wrappers) against the JAX package's
+    Python chain. A plain local file now goes to the fused native reader,
+    as in the JAX package, whose own tests reach the registry stack the
+    same way; the reader has its own suite (test_torch_native_reader.py)."""
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+
+
+@pytest.fixture(autouse=True)
 def _native_built():
     assert native.available(), "the port's native parser failed to build"
     assert jax_native.available(), "the JAX package's native parser failed to build"

@@ -40,6 +40,16 @@ from dmlc_tpu_torch.utils.check import DMLCError
 
 
 @pytest.fixture(autouse=True)
+def _registry_stack(monkeypatch):
+    """These cases hold the registry stack of ``create_parser`` (the split,
+    the text parsers and their threaded wrappers) against the JAX package's
+    Python chain. A plain local file now goes to the fused native reader,
+    as in the JAX package, whose own tests reach the registry stack the
+    same way; the reader has its own suite (test_torch_native_reader.py)."""
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
+
+
+@pytest.fixture(autouse=True)
 def _no_worker_env(monkeypatch):
     monkeypatch.delenv("DMLC_TPU_PARSE_WORKERS", raising=False)
 
@@ -556,3 +566,95 @@ def test_csv_fan_out_shares_the_read_only_skeleton(tmp_path):
     assert sum(1 for _ in it) == -(-600 // 64)
     it.close()
     assert not isinstance(blocks[0], DenseBlock)
+
+
+# ---------------- fault C7: the parse engine knob ----------------
+
+def _jax_engine(parser) -> str:
+    """The engine a JAX parser chain parses with."""
+    if type(parser).__name__ == "NativeStreamParser":
+        return "reader"
+    while not hasattr(parser, "use_native"):
+        parser = parser.base
+    return "native" if parser.use_native() else "numpy"
+
+
+def _port_engine(parser) -> str:
+    return "reader" if type(parser).__name__ == "NativeStreamParser" else parser.engine
+
+
+@pytest.mark.parametrize("source", ["keyword", "uri", "env"])
+@pytest.mark.parametrize("engine", ["python", "native", "auto"])
+def test_c7_engine_from_each_source_matches_reference(tmp_path, monkeypatch, source, engine):
+    """The engine runs as the JAX package's under each of its three sources
+    (create_parser's ``engine=``, a ``?engine=`` URI argument,
+    ``DMLC_TPU_PARSE_ENGINE``): ``python`` the numpy scanner under every
+    wrapper, ``native`` and ``auto`` the fused native reader."""
+    monkeypatch.delenv("DMLC_TPU_NO_NATIVE_READER")
+    monkeypatch.delenv("DMLC_TPU_PARSE_ENGINE", raising=False)
+    path = tmp_path / "c7.libsvm"
+    path.write_bytes(_libsvm_text(n=50))
+    uri, kw = str(path), {}
+    if source == "keyword":
+        kw["engine"] = engine
+    elif source == "uri":
+        uri += f"?engine={engine}"
+    else:
+        monkeypatch.setenv("DMLC_TPU_PARSE_ENGINE", engine)
+    port, jax = create_parser(uri, **kw), jax_create_parser(uri, **kw)
+    assert _port_engine(port) == _jax_engine(jax) == (
+        "numpy" if engine == "python" else "reader")
+    assert [b.index.tobytes() for b in port] == [b.index.tobytes() for b in jax]
+    port.close()
+    jax.close()
+
+
+def test_c7_engine_priority_and_typos_match_reference(tmp_path, monkeypatch):
+    monkeypatch.delenv("DMLC_TPU_NO_NATIVE_READER")
+    path = tmp_path / "c7.libsvm"
+    path.write_bytes(_libsvm_text(n=20))
+    monkeypatch.setenv("DMLC_TPU_PARSE_ENGINE", "python")
+    # the explicit keyword beats the URI, which beats the environment
+    for uri, kw, want in ((str(path), {}, "numpy"),
+                          (str(path) + "?engine=native", {}, "reader"),
+                          (str(path) + "?engine=native", {"engine": "python"}, "numpy"),
+                          # the URI's opt-out still keeps the reader away
+                          (str(path) + "?engine=python", {"engine": "auto"}, "native")):
+        port, jax = create_parser(uri, **kw), jax_create_parser(uri, **kw)
+        assert _port_engine(port) == _jax_engine(jax) == want, (uri, kw)
+        port.close()
+        jax.close()
+    for raw in ("pyhton", "NATIVE-BATCH "):
+        try:
+            want = jax_knobs.parse_engine(raw)
+        except JaxDMLCError as exc:
+            with pytest.raises(DMLCError) as got:
+                knobs.parse_engine(raw)
+            assert str(got.value) == str(exc)
+        else:
+            assert knobs.parse_engine(raw) == want
+    monkeypatch.setenv("DMLC_TPU_PARSE_ENGINE", "typo")
+    with pytest.raises(DMLCError, match="must be one of"):
+        create_parser(str(path))
+    assert knobs.PARSE_ENGINES == jax_knobs.PARSE_ENGINES
+
+
+def test_c7_native_batch_warns_and_takes_the_registry_stack(tmp_path, monkeypatch, caplog):
+    """``native-batch`` (the chunk-batch engine, not ported) warns as the
+    JAX package does where its batch engine cannot serve a config, and
+    parses on the registry stack; ``native`` that cannot be served warns
+    too."""
+    monkeypatch.delenv("DMLC_TPU_NO_NATIVE_READER")
+    path = tmp_path / "c7.libsvm"
+    path.write_bytes(_libsvm_text(n=20))
+    with caplog.at_level("WARNING", logger="dmlc_tpu_torch"):
+        port = create_parser(str(path), engine="native-batch")
+    assert isinstance(port, ParallelTextParser) and port.engine == "native"
+    assert ("engine=native-batch unavailable for format='libsvm' index_dtype=<u8 "
+            "(toolchain/format/dtype); using the Python engine") in caplog.text
+    port.close()
+    caplog.clear()
+    with caplog.at_level("WARNING", logger="dmlc_tpu_torch"):
+        port = create_parser(str(path), engine="native", threaded=False)
+    assert isinstance(port, LibSVMParser)
+    assert "engine=native unavailable for uri=" in caplog.text

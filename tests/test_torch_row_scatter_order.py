@@ -14,7 +14,9 @@ which ``chip_smoke.py`` holds the kernel to bit for bit. Here:
   partials, then the runs that span chunks), over runs of 1, 31, 32, 33 and 100 entries, a sink run
   of a quarter of the entries, ids outside ``[0, D)`` on both sides, rows
   ``()``, ``(8,)`` and ``(16, 16)``, and both ``accumulate`` settings with
-  a -0.0 word in a touched and in an untouched row;
+  a -0.0 word in a touched and in an untouched row; and at the bcoo
+  forward's pattern (ten row-ordered ids a row into ``[rows, 1]``, a pad
+  tail of an eighth of the entries on the last row);
 - it agrees with the JAX package's ``.at[idx].add`` within 1e-5 relative
   (float32 sums in another order);
 - on small-integer-valued floats, where every order is exact, it equals
@@ -150,6 +152,26 @@ def test_ordered_plain_equals_kernel_model(case, row, accumulate):
     assert got.numpy().reshape(rows, -1).tobytes() == want.tobytes()
     if accumulate:  # the untouched -0.0 word stays -0.0
         assert np.signbit(got.numpy().reshape(rows, -1)[0, 0])
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("rows", [64, 200])
+def test_ordered_plain_equals_kernel_model_on_the_bcoo_forward(rows, accumulate):
+    """The bcoo forward's scatter (``coo_matmul`` on an unordered batch):
+    ten ids a row in row order into ``[rows, 1]``, the last eighth of the
+    entries the nnz bucket's tail on the pad row (a run across chunks)."""
+    rng = np.random.default_rng(rows)
+    idx = np.repeat(np.arange(rows), 10).astype(np.int64)
+    src = rng.normal(size=(len(idx), 1)).astype(np.float32)
+    tail = len(idx) // 8
+    idx[-tail:] = rows - 1
+    src[-tail:] = 0.0
+    table = _table(rng, rows, (1,)) if accumulate else None
+    got = rs.row_scatter_add_ordered_plain(
+        (rows, 1), torch.from_numpy(idx), torch.from_numpy(src),
+        None if table is None else torch.from_numpy(table))
+    want = _kernel_model(rows, idx, src, None if table is None else table.reshape(rows, -1))
+    assert got.numpy().reshape(rows, -1).tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("accumulate", [False, True])

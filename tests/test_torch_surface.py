@@ -183,7 +183,10 @@ def _blocks(parser):
     return out
 
 
-def test_c5_create_parser_positions_match_reference(tmp_path):
+def test_c5_create_parser_positions_match_reference(tmp_path, monkeypatch):
+    # the registry stack, as the JAX package's tests reach it: a plain
+    # local file otherwise goes to the fused native reader
+    monkeypatch.setenv("DMLC_TPU_NO_NATIVE_READER", "1")
     uri = _corpus(tmp_path, n=300)
     # the exact call of examples/train_linear.py
     bare = create_parser(uri, 0, 1, "libsvm", threaded=False)
