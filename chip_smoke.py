@@ -212,7 +212,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
     waiting, the first block's forward held as in 13 (b); (c)
     ``DeviceIter(ell)`` without ``max_nnz`` (K from each
     batch's longest row), one epoch, K1 and ``dw`` launched once a batch.
-    Then each phase's rows/s and stall share beside the registry stack's
+15. the convert pool, the read pool and the attribution (``run_pools``)
+    on phase 3's corpus: (a) cold ELL at ``convert_workers`` 1, 2 and 4
+    (``convert_ahead=4``), two epochs and an accuracy pass each: rows/s,
+    stall share and busy seconds an epoch, ``stages`` / ``stage_busy`` /
+    ``wall_seconds``, ``staging_ring`` and ``transfer_samples``, K1 and
+    ``dw`` counted around each; gates: accuracy > 0.9, the stages summing
+    to at most the wall, the first 8 batches bit-equal across the widths;
+    (b) a cold epoch writes a snapshot, then two warm ``device_decode=True``
+    epochs at ``snapshot_read_workers`` 1 and 2: K2 once a batch, K1 and
+    ``dw`` once a step, no convert; (c) 20 steps fed by ``DeviceIter(transfer_sample=1)`` (each
+    pull waits on its batch's copy event) enqueued behind a half-second
+    spin on the consumer's stream, done well before it ends, with the
+    epoch converted ahead, and reported with the workers running beside
+    the pulls (their share of the interpreter lock); (d)
+    ``DMLC_TPU_TRACE=chrome:<path>`` over a cold epoch: the trace's events
+    cover every stage ``stats()["stages"]`` reports above 0;
+    ``DMLC_TPU_TRACE=1``: ``torch.profiler`` (all threads) shows the
+    convert, dispatch and transfer ranges.
+    Then each phase's rows/s and stall share, every phase at the default
+    ``convert_workers=2``, beside PR 11's (one producer thread,
+    :data:`PR11_READER`) and the registry stack's before the reader
     (``producer_change``, :data:`BEFORE_READER`).
 
 The ``torch.profiler`` windows run last, the decode's first: the steps'
@@ -222,7 +242,7 @@ FM steps' and phase 13's libfm bcoo and FM ell steps' (``step_profile``:
 device events and time by kernel a step), and
 how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7, 11, 12, 13 and 14; the row scatter's on
+the main paths of phases 3, 6, 7 and 11-15; the row scatter's on
 phases 9-14), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -833,7 +853,7 @@ def run_dense_epoch(path: str, device) -> dict:
         out[route] = {"loss": loss, "batches": nb, "wall_s": secs,
                       "rows_per_s": nb * BATCH / secs, "stall_s": it.stall_seconds,
                       "stall_share": it.stall_seconds / secs,
-                      "producer_convert_s": it.convert_seconds,
+                      "producer_convert_s": it.stats()["convert_seconds"],
                       "bytes_to_device": it.bytes_to_device, "block_kinds": src.kinds}
         it.close()
     out["loss"] = out["emit"]["loss"]
@@ -3946,13 +3966,263 @@ def run_native_reader(higgs: str, kdd: str, tmp: str, device) -> dict:
     return out
 
 
+# ---------------- phase 15: the convert pool, the read pool, the attribution ----------------
+
+POOL_WIDTHS = (1, 2, 4)   # convert_workers of phase 15 (a)
+READ_WIDTHS = (1, 2)      # snapshot_read_workers of phase 15 (b)
+POOL_AHEAD = 4
+# rows/s and stall share of the same phases in PR 11's chip run 2, the
+# fused native reader feeding one producer thread: NVIDIA H100 80GB HBM3,
+# 700.00 W (PERF.md §6)
+PR11_READER = {
+    "main_path_epoch0": (488332, 0.625), "main_path_epoch1": (592608, 0.647),
+    "dense_emit": (1487271, 0.542), "dense_csr": (1318529, 0.765),
+    "warm_ell_epoch0_cold": (538734, 0.761), "checkpoint_uninterrupted": (751091, None),
+    "bcoo": (1145143, 0.483), "bcoo_natural": (613637, None),
+    "block_cache_higgs_cold": (409818, 0.817),
+    "csv_dense_cold_emit": (1201753, 0.521), "csv_ell_cold": (412786, 0.632),
+    "libfm_linear_bcoo": (1409713, 0.195), "libfm_fm_ell": (596473, 0.106),
+}
+POOL_STATS = ("stages", "stage_busy", "wall_seconds", "staging_ring", "transfer_samples",
+              "host_stall_seconds", "input_wait_seconds", "convert_workers", "pipeline")
+
+
+def _pool_pipeline(path: str, device, convert_workers: int, snapshot=None,
+                   convert_ahead: int = POOL_AHEAD, **kw):
+    """Phase 3's main path with the convert pool's width named."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model = LinearLearner(num_col=HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snapshot),
+                    num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device,
+                    convert_workers=convert_workers, convert_ahead=convert_ahead, **kw)
+    return model, it
+
+
+def _pool_epochs(model, it, leg: str, epochs: int) -> list:
+    """``fit(epochs)`` with each epoch's rows/s, stall share and busy
+    seconds by stage."""
+    out = []
+    prev = it.stats()
+
+    def log(epoch, loss, nb, secs):
+        now = it.stats()
+        rec = {"leg": leg, "epoch": epoch, "loss": loss, "batches": nb, "wall_s": secs,
+               "rows_per_s": nb * BATCH / secs,
+               "stall_share": (now["stall_seconds"] - prev["stall_seconds"]) / secs,
+               "warm": now["device_decode_bytes"] > prev["device_decode_bytes"],
+               "busy_s": {k: v - prev["stage_busy"][k] for k, v in now["stage_busy"].items()}}
+        prev.update(now)
+        out.append(rec)
+
+    model.fit(it, epochs=epochs, log_fn=log)
+    return out
+
+
+def _check_attribution(leg: str, stats: dict) -> None:
+    total = sum(stats["stages"].values())
+    if not (stats["wall_seconds"] > 0 and total <= stats["wall_seconds"] * 1.02 + 1e-6):
+        raise AssertionError(f"{leg}: stages sum {total} against wall {stats['wall_seconds']}")
+
+
+def run_convert_pool(path: str, device) -> dict:
+    """Phase 15 (a): cold ELL at each convert width, two epochs and an
+    accuracy pass a width, K1 and ``dw`` counted from 0 around each; the
+    first 8 batches of every width bit-equal to width 1's."""
+    import torch
+
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    first = {}
+    for w in POOL_WIDTHS:
+        _, it = _pool_pipeline(path, device, w)
+        first[w] = [[t.clone() for t in batch] for _, batch in zip(range(8), it)]
+        it.close()
+    same = all(len(first[w]) == 8 and all(
+        torch.equal(a, b) for x, y in zip(first[w], first[1]) for a, b in zip(x, y))
+        for w in POOL_WIDTHS)
+    legs = []
+    for w in POOL_WIDTHS:
+        model, it = _pool_pipeline(path, device, w)
+        k1.launches = k1.dw_launches = 0
+        t0 = time.monotonic()
+        epochs = _pool_epochs(model, it, f"convert_workers_{w}", 2)
+        acc = model.accuracy(it)
+        leg = {"phase": "convert_pool", "convert_workers": w, "convert_ahead": POOL_AHEAD,
+               "epochs": epochs, "accuracy": acc, "wall_s": time.monotonic() - t0,
+               "k1_launches": k1.launches, "dw_launches": k1.dw_launches,
+               "steps": sum(e["batches"] for e in epochs),
+               **{k: it.stats()[k] for k in POOL_STATS}}
+        it.close()
+        emit(leg)
+        _check_attribution(f"convert_workers={w}", leg)
+        if not (acc > 0.9 and all(np.isfinite(e["loss"]) for e in epochs)):
+            raise AssertionError(f"convert_workers={w}: accuracy {acc}, {epochs}")
+        if (leg["k1_launches"] < leg["steps"] + HIGGS_ROWS // BATCH
+                or leg["dw_launches"] < leg["steps"]):
+            raise AssertionError(f"convert_workers={w}: K1 {leg['k1_launches']}, "
+                                 f"dw {leg['dw_launches']} for {leg['steps']} steps")
+        legs.append(leg)
+    out = {"phase": "convert_pool_first_batches", "widths": list(POOL_WIDTHS),
+           "first_8_bit_equal": same}
+    emit(out)
+    if not same:
+        raise AssertionError("the first 8 batches differ across convert widths")
+    return {"legs": legs, "k1_launches": sum(leg["k1_launches"] for leg in legs),
+            "dw_launches": sum(leg["dw_launches"] for leg in legs)}
+
+
+def run_read_pool(path: str, tmp: str, device) -> dict:
+    """Phase 15 (b): a cold epoch writes a snapshot; then two warm
+    device-decode epochs at each read width, K2 counted from 0 around
+    each: one launch a warm batch, no convert."""
+    from dmlc_tpu_torch.ops import device_decode as dd
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    snap = os.path.join(tmp, "read_pool.snapshot")
+    model, it = _pool_pipeline(path, device, 2, snapshot=snap, device_decode=True)
+    model.fit_epoch(it)
+    it.close()
+    legs = []
+    for w in READ_WIDTHS:
+        model, it = _pool_pipeline(path, device, 2, snapshot=snap, device_decode=True,
+                                   snapshot_read_workers=w)
+        dd.launches = k1.launches = k1.dw_launches = 0
+        epochs = _pool_epochs(model, it, f"snapshot_read_workers_{w}", 2)
+        leg = {"phase": "read_pool", "snapshot_read_workers": w, "epochs": epochs,
+               "k2_launches": dd.launches, "k1_launches": k1.launches,
+               "dw_launches": k1.dw_launches, "batches": sum(e["batches"] for e in epochs),
+               **{k: it.stats()[k] for k in POOL_STATS}}
+        it.close()
+        emit(leg)
+        _check_attribution(f"snapshot_read_workers={w}", leg)
+        if not all(e["warm"] and e["busy_s"]["convert"] == 0.0 for e in epochs):
+            raise AssertionError(f"snapshot_read_workers={w}: an epoch was not warm: {epochs}")
+        if leg["k2_launches"] != leg["batches"]:
+            raise AssertionError(f"snapshot_read_workers={w}: K2 launched "
+                                 f"{leg['k2_launches']} times for {leg['batches']} batches")
+        if leg["k1_launches"] < leg["batches"] or leg["dw_launches"] < leg["batches"]:
+            raise AssertionError(f"snapshot_read_workers={w}: K1 {leg['k1_launches']}, "
+                                 f"dw {leg['dw_launches']} for {leg['batches']} steps")
+        legs.append(leg)
+    os.remove(snap)
+    return {"legs": legs, **{k: sum(leg[k] for leg in legs)
+                             for k in ("k1_launches", "dw_launches", "k2_launches")}}
+
+
+def _spin_leg(path: str, device, convert_ahead: int) -> dict:
+    """20 steps fed by ``DeviceIter(transfer_sample=1)`` enqueued behind a
+    spin, after the pool was let run ``convert_ahead`` batches ahead."""
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    model, it = _pool_pipeline(path, device, 2, transfer_sample=1,
+                               convert_ahead=convert_ahead)
+    model.step(next(it))
+    time.sleep(3.0)
+    samples0 = it.stats()["transfer_samples"]
+    k1.launches = k1.dw_launches = 0
+    spin = enqueue_behind_spin(lambda: model.step(next(it)))
+    out = {"convert_ahead": convert_ahead, **spin,
+           "transfer_samples": it.stats()["transfer_samples"] - samples0,
+           "k1_launches": k1.launches, "dw_launches": k1.dw_launches}
+    it.close()
+    return out
+
+
+def run_sampled_spin(path: str, device) -> dict:
+    """Phase 15 (c): 20 steps fed by ``DeviceIter(transfer_sample=1)``
+    enqueued behind a half-second spin on the consumer's stream; each pull
+    waits on its batch's copy event, which the spin does not hold. Gated
+    with the whole epoch converted ahead (``convert_ahead`` past its 128
+    batches: the workers have stopped, so no pull shares the interpreter
+    lock with them); reported beside it with 32 ahead, where the workers
+    refill the window during the 20 pulls (what the lock costs the
+    consumer)."""
+    free = _spin_leg(path, device, HIGGS_ROWS // BATCH + 8)
+    busy = _spin_leg(path, device, 32)
+    out = {"phase": "sampled_transfer_spin", **free, "with_workers_running": busy,
+           "k1_launches": free["k1_launches"] + busy["k1_launches"],
+           "dw_launches": free["dw_launches"] + busy["dw_launches"]}
+    emit(out)
+    if not (free["no_host_sync"] and free["transfer_samples"] == 20
+            and busy["transfer_samples"] == 20 and busy["stream_busy_after"]):
+        raise AssertionError(f"sampled transfers held the steps: {out}")
+    return out
+
+
+def run_trace_modes(path: str, tmp: str, device) -> dict:
+    """Phase 15 (d): ``DMLC_TPU_TRACE=chrome:<path>`` over a cold epoch
+    writes a trace whose events cover every stage ``stats()["stages"]``
+    reports above 0; ``DMLC_TPU_TRACE=1`` under ``torch.profiler`` (all
+    threads) shows the convert, dispatch and transfer ranges."""
+    import torch
+
+    from dmlc_tpu_torch.utils import telemetry
+
+    telemetry.reset_spans()  # the trace holds this leg's spans, not the run's
+    trace = os.path.join(tmp, "pool.trace.json")
+    old = os.environ.get("DMLC_TPU_TRACE")
+    try:
+        os.environ["DMLC_TPU_TRACE"] = f"chrome:{trace}"
+        model, it = _pool_pipeline(path, device, 2, transfer_sample=8)
+        model.fit_epoch(it)
+        stats = it.stats()
+        it.close()
+        with open(trace) as f:
+            doc = json.load(f)
+        names = {e["name"] for e in doc["traceEvents"]
+                 if e.get("ph") == "X" and e["args"].get("pipeline") == stats["pipeline"]}
+        need = {k for k, v in stats["stages"].items() if v > 0}
+        os.environ["DMLC_TPU_TRACE"] = "1"
+        model, it = _pool_pipeline(path, device, 2, transfer_sample=1)
+        model.step(next(it))
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts, experimental_config=cfg) as prof:
+            for _ in range(6):
+                model.step(next(it))
+            torch.cuda.synchronize()
+        it.close()
+    finally:
+        if old is None:
+            os.environ.pop("DMLC_TPU_TRACE", None)
+        else:
+            os.environ["DMLC_TPU_TRACE"] = old
+    ranges = sorted(e.key for e in prof.key_averages() if e.key.startswith("dmlc_tpu."))
+    out = {"phase": "trace_modes", "chrome_events": sorted(names),
+           "stages_above_0": sorted(need), "trace_bytes": os.path.getsize(trace),
+           "annotate_ranges": ranges}
+    os.remove(trace)
+    emit(out)
+    if not need <= names:
+        raise AssertionError(f"the chrome trace misses stages: {out}")
+    if not {"dmlc_tpu.convert", "dmlc_tpu.dispatch", "dmlc_tpu.transfer"} <= set(ranges):
+        raise AssertionError(f"annotate mode: the profiler shows {ranges}")
+    return out
+
+
+def run_pools(path: str, tmp: str, device) -> dict:
+    """Phase 15 (module docstring)."""
+    t0 = time.monotonic()
+    out = {"convert": run_convert_pool(path, device), "read": run_read_pool(path, tmp, device),
+           "spin": run_sampled_spin(path, device), "trace": run_trace_modes(path, tmp, device)}
+    out["wall_s"] = time.monotonic() - t0
+    emit({"phase": "pools_total", "wall_s": out["wall_s"]})
+    return out
+
+
 def producer_change(now: dict) -> dict:
-    """Each phase's rows/s and stall share with the fused native reader as
-    its producer beside :data:`BEFORE_READER`'s."""
+    """Each phase's rows/s and stall share at the default convert width
+    beside PR 11's (:data:`PR11_READER`, one producer thread) and the
+    registry stack's before the reader (:data:`BEFORE_READER`)."""
     rows = {k: {"rows_per_s": v[0], "stall_share": v[1],
+                "pr11_rows_per_s": PR11_READER[k][0], "pr11_stall_share": PR11_READER[k][1],
                 "before_rows_per_s": BEFORE_READER[k][0],
                 "before_stall_share": BEFORE_READER[k][1]} for k, v in now.items()}
-    out = {"phase": "producer_change", "producer": "NativeStreamParser (fused native reader)",
+    out = {"phase": "producer_change",
+           "producer": "NativeStreamParser (fused native reader), convert pool at 2 workers",
+           "pr11": "NativeStreamParser (fused native reader), one producer thread",
            "before": "ParallelTextParser (registry stack)", "phases": rows}
     emit(out)
     return out
@@ -4093,6 +4363,10 @@ def main() -> int:
         # corpora, each leg's launches counted from 0 around its main path
         native = run_native_reader(path, formats["kdd_path"], tmp, dev)
         os.remove(formats["kdd_path"])
+        # phase 15: the convert pool's widths, the read pool's, the sampled
+        # transfer behind a spin and the trace modes, each leg's launches
+        # counted from 0 around its main path
+        pools = run_pools(path, tmp, dev)
         csv_legs = {leg["leg"]: leg for leg in formats["csv"]["legs"]}
         producer_change({
             **{f"main_path_epoch{e['epoch']}": (e["rows_per_s"], e["stall_share"])
@@ -4151,7 +4425,9 @@ def main() -> int:
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:122",
         "launches": (launches + warm_ell["k1_launches"] + ckpt_k1 + par_k1
                      + bc_higgs["k1_launches"] + bc_snap["k1_launches"]
-                     + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]),
+                     + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]
+                     + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
+                     + pools["spin"]["k1_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -4161,7 +4437,9 @@ def main() -> int:
         "replaces": "dmlc_tpu/ops/pallas_sparse.py:191",
         "launches": (dw_launches + warm_ell["dw_launches"] + ckpt_dw + par_dw
                      + bc_higgs["dw_launches"] + bc_snap["dw_launches"]
-                     + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]),
+                     + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]
+                     + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
+                     + pools["spin"]["dw_launches"]),
         "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
                            if r["dw_route"] == "cuda"),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
@@ -4172,7 +4450,7 @@ def main() -> int:
         "replaces": "dmlc_tpu/ops/device_decode.py:168",
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
-                     + native["dense"]["k2_launches"]),
+                     + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

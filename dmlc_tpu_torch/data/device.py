@@ -3,9 +3,8 @@
 The PyTorch counterpart of the JAX package's ``data/device.py`` for the
 ``dense``, ``ell`` and ``bcoo`` layouts. Parsed RowBlocks are rebatched to
 one fixed shape on the host (or, for bcoo, kept as they come), converted to
-the device layout on a producer thread into a ring of pinned staging
-buffers, and copied to the device ``prefetch`` batches ahead of
-consumption:
+the device layout into a ring of pinned staging buffers, and copied to the
+device ``prefetch`` batches ahead of consumption:
 
 - each batch is copied with ``.to(device, non_blocking=True)`` on a
   dedicated copy stream, and a per-batch ``torch.cuda.Event`` is recorded
@@ -16,6 +15,21 @@ consumption:
 - a staging slot is refilled only after its copy event has completed: a
   pinned buffer rewritten while its async copy is in flight would corrupt
   the batch.
+
+**The convert pool.** A cold epoch runs on an
+:class:`~dmlc_tpu_torch.io.threaded_iter.OrderedWorkerPool`, as in the JAX
+package. Its serial stage pulls the source's blocks, rebatches them, keeps
+the checkpoint annotations and plans bcoo's nnz pads in stream order, and
+marks the batches a count restore skips; its parallel stage, on
+``convert_workers`` threads (``DMLC_TPU_CONVERT_WORKERS``, default 2),
+converts a batch, takes a free staging slot and packs the batch into it.
+At most ``convert_ahead`` batches (``DMLC_TPU_CONVERT_AHEAD``, default 4)
+are pulled and not yet delivered; the ring holds more slots than that, so
+the oldest batch always finds one. Batches are delivered in stream order,
+the same bytes at every width. Natural-block bcoo (``batch_size=None``)
+keeps one producer thread, as the JAX package does. The ring never
+allocates past its depth: a worker waits for a slot (counted as a miss in
+``stats()["staging_ring"]``).
 
 Dense batches are :class:`PackedDenseBatch` (one ``[B, num_col + 2]``
 slab: features | label | weight) when ``pack_aux`` is on, the default for
@@ -28,10 +42,10 @@ packed ``[B, num_col + 2]`` slabs under a float32 ``pack_aux`` (one copy
 into the staging slot a batch), bfloat16 features with float32 label and
 weight under a bfloat16 one (so that their cast stays checked here); a
 registry-stack libsvm or float32 csv parser on the native engine emits
-:class:`DenseBlock`s a chunk. The producer groups the ``DenseBlock`` and
-``RowBlock`` parts of a batch by views and packs them into the batch's
-staging slot in one pass (a ``RowBlock`` part densified on the way); the
-batches are the same bytes on every route.
+:class:`DenseBlock`s a chunk. The serial stage groups the ``DenseBlock``
+and ``RowBlock`` parts of a batch by views and a worker packs them into
+the batch's staging slot in one pass (a ``RowBlock`` part densified on the
+way); the batches are the same bytes on every route.
 
 ``ell`` batches are ``[B, max_nnz]``; without ``max_nnz`` each batch's K
 is its longest row's, as in the JAX package, and the batch crosses as one
@@ -42,7 +56,11 @@ u8 span (its K changes from batch to batch). A feature id at or past
 **Snapshot store.** With ``snapshot=`` (or a parser from
 ``create_parser(..., snapshot=path)``) the first complete epoch
 shadow-writes every batch it ships (:mod:`dmlc_tpu_torch.io.snapshot`),
-and later epochs serve them from the file with no parse and no convert:
+on the consumer's side in delivery order, and later epochs serve them from
+the file with no parse and no convert, read on a
+:class:`~dmlc_tpu_torch.io.snapshot.SnapshotIter` pool of
+``snapshot_read_workers`` threads (``DMLC_TPU_SNAPSHOT_READ_WORKERS``,
+default 2) in stored or plan order:
 
 - host decode (default): each batch's segments are read as mmap views,
   copied into pinned staging slots and copied to the device as in a cold
@@ -54,15 +72,32 @@ and later epochs serve them from the file with no parse and no convert:
   of kernel K2 (float slabs copied, an int8 slab dequantized, a bfloat16
   packed slab's label and weight widened to float32 in the same pass).
 
-Counters: ``stall_seconds`` is the consumer's time inside ``__next__``
-(waiting for the producer, issuing copies, and in device-decode epochs the
-decode's dispatch, also counted alone in ``device_decode_seconds``);
-``bytes_to_device`` counts the bytes copied, ``device_decode_bytes`` those
-that crossed as raw spans. On the producer side, ``source_wait_seconds`` is
-the time blocked on the parser, ``convert_seconds`` the time spent
-rebatching, converting and packing, ``snapshot_write_seconds`` the cold
-epoch's shadow write, and ``snapshot_read_seconds`` a warm epoch's reads
-(crc included) and copies into staging. A warm epoch adds nothing to
+**Counters and stage attribution.** ``stall_seconds`` is the consumer's
+time inside ``__next__`` (waiting for the pipeline, issuing copies, and in
+device-decode epochs the decode's dispatch, also counted alone in
+``device_decode_seconds``); ``host_stall_seconds`` the part of it spent
+waiting on the pool; ``input_wait_seconds`` the wait for the batch handed
+out plus the sampled transfer landings; ``bytes_to_device`` counts the
+bytes copied, ``device_decode_bytes`` those that crossed as raw spans.
+``source_wait_seconds`` is the serial stage's time blocked on the parser.
+The busy seconds of each stage are ``stats()["stage_busy"]`` (read,
+cache_read and parse from the source's own ``stage_seconds()`` during each
+pull, else all of the pull as parse; convert the serial stage's own work
+and the workers' convert and pack, summed over threads, also
+``convert_seconds``; snapshot_read a warm epoch's reads and copies into
+staging, also ``snapshot_read_seconds``; dispatch the consumer's copy
+issue; device_decode). ``stats()["stages"]`` splits the consumer's wall
+(``wall_seconds``, first pull to the last) among them: dispatch and
+device_decode as measured, the time blocked on the pipeline over the busy
+stages of the same window, scaled down where the threads overlapped, and
+``transfer``, every ``transfer_sample``-th batch
+(``DMLC_TPU_TRANSFER_SAMPLE``, default 32) a wait on that batch's copy
+event (never on a compute stream). Every stage records spans and every
+counter is a registry counter under ``pipeline_label``
+(:mod:`dmlc_tpu_torch.utils.telemetry`); ``DMLC_TPU_TRACE=1`` adds
+``torch.profiler`` ranges, ``DMLC_TPU_TRACE=chrome:<path>`` (or
+:meth:`DeviceIter.dump_trace`) exports the spans. ``snapshot_write_seconds``
+is the cold epoch's shadow write. A warm epoch adds nothing to
 ``convert_seconds``.
 
 **Checkpoints.** :meth:`DeviceIter.state_dict` is the JAX package's state,
@@ -153,7 +188,8 @@ autotuning.
 from __future__ import annotations
 
 import contextlib
-import queue
+import functools
+import threading
 from collections import deque
 from typing import Iterator, List, Optional
 
@@ -165,18 +201,17 @@ from dmlc_tpu_torch.data.row_block import CooBlock, DenseBlock, RowBlock, RowBlo
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io import snapshot as _snapshot
 from dmlc_tpu_torch.io.block_cache import remove_quietly, torch_dtype
-from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
+from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool, ThreadedIter
 from dmlc_tpu_torch.ops import device_decode as _device_decode
 from dmlc_tpu_torch.ops.device_decode import PackedDenseBatch  # noqa: F401 (re-exported)
 from dmlc_tpu_torch.ops.sparse import (EllBatch, block_to_bcoo_host, block_to_dense,
                                        block_to_ell, csr_coords, native_coo_to_port)
 from dmlc_tpu_torch.parallel.mesh import rank_device
 from dmlc_tpu_torch.utils import knobs as _knobs
-from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
-from dmlc_tpu_torch.utils.timer import get_time
+from dmlc_tpu_torch.utils import telemetry as _telemetry
+from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check, get_logger
+from dmlc_tpu_torch.utils.timer import StageMeter, get_time
 
-# converted batches the producer may hold ready ahead of the consumer
-_CONVERT_AHEAD = 2
 _X_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the derived bcoo nnz bucket's ceiling: the bucket is also a batch's worst
 # pad, and batch_size * max_nnz is a ceiling, not a density
@@ -284,37 +319,86 @@ class _Skipped:
 
 
 class _StagingRing:
-    """Host staging buffers a producer packs batches into.
+    """Host staging buffers the convert (or read) workers pack batches into.
 
-    A slot cycles free -> filled by the producer -> copied by the consumer
-    -> free again; the consumer records the copy's event on the slot when it
-    hands it back, and :meth:`acquire` waits on that event before the
-    producer may rewrite the buffers. :meth:`close` unblocks a producer
-    waiting for a slot (it then gets None)."""
+    A slot cycles free -> taken by a worker -> copied by the consumer ->
+    free again; the consumer records the copy's event on the slot when it
+    hands it back, and :meth:`acquire` waits on that event before a worker
+    may rewrite the buffers. The ring never allocates past its slots: an
+    acquire with no slot free waits for one (``misses`` counts those, and
+    ``hits`` the acquires that found one). :meth:`close` wakes every
+    waiting worker, which then gets None."""
 
     def __init__(self, slots: List[_Slot]):
-        self._slots = slots
-        self._free: "queue.Queue[Optional[_Slot]]" = queue.Queue()
-        self.reopen()
+        self._slots = list(slots)
+        self._cond = threading.Condition()
+        self._free: deque = deque(self._slots)
+        self._closed = False
+        self.hits = 0
+        self.misses = 0
 
     def acquire(self) -> Optional[_Slot]:
-        slot = self._free.get()
-        if slot is not None and slot.event is not None:
+        with self._cond:
+            if self._free:
+                self.hits += 1
+            elif not self._closed:
+                self.misses += 1
+                self._cond.wait_for(lambda: self._free or self._closed)
+            if self._closed:
+                return None
+            slot = self._free.popleft()
+        if slot.event is not None:
             slot.event.synchronize()
         return slot
 
     def release(self, slot: _Slot, event: Optional[torch.cuda.Event]) -> None:
-        slot.event = event
-        self._free.put(slot)
+        with self._cond:
+            slot.event = event
+            self._free.append(slot)
+            self._cond.notify()
 
     def close(self) -> None:
-        self._free.put(None)
+        """Wake every waiter: a closed ring hands out no slot."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
 
     def reopen(self) -> None:
-        """Every slot free again (the producer is stopped)."""
-        self._free = queue.Queue()
-        for slot in self._slots:
-            self._free.put(slot)
+        """Every slot free again (the workers are stopped)."""
+        with self._cond:
+            self._closed = False
+            self._free = deque(self._slots)
+
+    def grow(self, depth: int, make) -> None:
+        """Add slots made by ``make()`` up to ``depth`` (no worker runs)."""
+        with self._cond:
+            while len(self._slots) < depth:
+                slot = make()
+                self._slots.append(slot)
+                self._free.append(slot)
+
+    def stats(self) -> dict:
+        with self._cond:
+            return {"depth": len(self._slots), "hits": self.hits, "misses": self.misses}
+
+
+def _adopt_pipeline_scope(source, label: str, max_depth: int = 8) -> None:
+    """Stamp ``label`` on the thread primitives a parser chain built before
+    its ``DeviceIter`` existed: walk the chain's wrapper attributes and
+    call ``adopt_scope`` where there is one (a primitive that has a scope
+    keeps it)."""
+    seen = set()
+    stack = [(source, 0)]
+    while stack:
+        obj, depth = stack.pop()
+        if obj is None or id(obj) in seen or depth > max_depth:
+            continue
+        seen.add(id(obj))
+        adopt = getattr(obj, "adopt_scope", None)
+        if callable(adopt):
+            adopt(label)
+        for name in ("source", "base", "_base", "_iter", "_pool", "_plan_pool"):
+            stack.append((getattr(obj, name, None), depth + 1))
 
 
 def _align(n: int) -> int:
@@ -429,6 +513,9 @@ class DeviceIter:
         shardings=None,
         max_nnz: Optional[int] = None,
         prefetch: Optional[int] = None,
+        convert_ahead: Optional[int] = None,
+        convert_workers: Optional[int] = None,
+        transfer_sample: Optional[int] = None,
         drop_remainder: bool = False,
         device=None,
         x_dtype: str = "float32",
@@ -437,11 +524,13 @@ class DeviceIter:
         row_bucket: int = 1024,
         elide_unit_values: bool = False,
         csr_wire: bool = True,
+        pipeline_label: Optional[str] = None,
         snapshot: Optional[str] = None,
         snapshot_signature: Optional[dict] = None,
         snapshot_quant: Optional[str] = None,
         device_decode: Optional[bool] = None,
         snapshot_shuffle_seed: Optional[int] = None,
+        snapshot_read_workers: Optional[int] = None,
     ):
         check(layout in ("dense", "ell", "bcoo"), f"unknown layout {layout!r}")
         check(batch_size is not None or layout == "bcoo",
@@ -468,6 +557,11 @@ class DeviceIter:
         self.layout = layout
         self.max_nnz = None if max_nnz is None else int(max_nnz)
         self.prefetch = _knobs.prefetch(prefetch)
+        self.convert_workers = _knobs.resolve("convert_workers", convert_workers)
+        self._convert_ahead = _knobs.resolve("convert_ahead", convert_ahead)
+        self.snapshot_read_workers = _knobs.resolve("snapshot_read_workers",
+                                                    snapshot_read_workers)
+        self.transfer_sample = _knobs.transfer_sample(transfer_sample)
         self.drop_remainder = bool(drop_remainder)
         self.x_dtype = x_dtype
         # aux packing: label/weight as two trailing columns of x, one copy
@@ -566,21 +660,40 @@ class DeviceIter:
         self.pipeline_restarts = 0
         self.pipeline_giveups = 0
         self.stall_seconds = 0.0
-        self.input_wait_seconds = 0.0
+        self.host_stall_seconds = 0.0
         self.batches_fed = 0
         self.bytes_to_device = 0
         self.device_decode_bytes = 0
         self.device_decode_seconds = 0.0
-        # written by the producer thread only
-        self.source_wait_seconds = 0.0
-        self.convert_seconds = 0.0
         self.snapshot_write_seconds = 0.0
-        self.snapshot_read_seconds = 0.0
+        # written by the serial stage (one thread at a time)
+        self.source_wait_seconds = 0.0
+        # the telemetry scope of everything this pipeline records; thread
+        # primitives the parser chain built already take it now
+        self.pipeline_label = pipeline_label or _telemetry.new_pipeline_label()
+        _adopt_pipeline_scope(source, self.pipeline_label)
+        mode, path = _telemetry.trace_mode()
+        self._trace = mode == "annotate"
+        self._trace_export = path if mode == "chrome" else None
+        # the stages' busy seconds, added by the pipeline's threads, and
+        # the consumer's wall split among them (module docstring)
+        self._busy = StageMeter("read", "cache_read", "snapshot_read", "parse", "convert",
+                                "dispatch", "device_decode",
+                                metric=_telemetry.STAGE_BUSY_METRIC, scope=self.pipeline_label)
+        self._attr = StageMeter("read", "cache_read", "snapshot_read", "parse", "convert",
+                                "dispatch", "device_decode", "transfer",
+                                metric=_telemetry.STAGE_WALL_METRIC, scope=self.pipeline_label)
+        self._input_wait = _telemetry.REGISTRY.counter(_telemetry.INPUT_WAIT_METRIC,
+                                                       pipeline=self.pipeline_label)
+        self._res_base = _resilience.counters_snapshot(self.pipeline_label)
+        self._transfer_samples = 0
+        self._t_first: Optional[float] = None  # the first pull
+        self._t_last: Optional[float] = None   # the latest consumer activity
         self._cuda = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._rings: dict = {}  # staging rings by buffer spec, kept across epochs
         self._ring: Optional[_StagingRing] = None  # the current producer's
-        self._host: Optional[ThreadedIter] = None  # cold convert or warm read
+        self._host = None  # the convert pool, the natural-block producer or the warm feed
         self._inflight: deque = deque()
 
     def _check_shardings(self, layout: str) -> None:
@@ -598,16 +711,20 @@ class DeviceIter:
 
     # ---------------- staging ----------------
 
-    def _ring_for(self, spec) -> _StagingRing:
-        """The staging ring for ``spec``, a tuple of ``(shape, dtype)``."""
+    def _ring_for(self, spec, ahead: int, workers: int) -> _StagingRing:
+        """The staging ring for ``spec``, a tuple of ``(shape, dtype)``,
+        with at least a slot for each of ``ahead`` batches pulled and not
+        yet delivered (at most one slot each, so the oldest always finds
+        one), ``prefetch`` copies, each worker and two spare, as the JAX
+        package sizes its ring."""
         spec = tuple(spec)
-        if spec not in self._rings:
-            depth = _CONVERT_AHEAD + self.prefetch + 2
-            self._rings[spec] = _StagingRing([
-                _Slot([torch.empty(shape, dtype=dt, pin_memory=self._cuda)
-                       for shape, dt in spec])
-                for _ in range(depth)])
-        return self._rings[spec]
+        ring = self._rings.get(spec)
+        if ring is None:
+            ring = self._rings[spec] = _StagingRing([])
+        ring.grow(ahead + self.prefetch + workers + 2,
+                  lambda: _Slot([torch.empty(shape, dtype=dt, pin_memory=self._cuda)
+                                 for shape, dt in spec]))
+        return ring
 
     def _cold_kind(self) -> str:
         if self.layout == "ell" and self.max_nnz is None:
@@ -633,15 +750,35 @@ class DeviceIter:
             return [((B, self.num_col + 2), xdt)]
         return [((B, self.num_col), xdt), ((B,), f32), ((B,), f32)]
 
-    # ---------------- cold epochs (producer thread) ----------------
+    # ---------------- cold epochs (the convert pool) ----------------
 
     def _blocks(self, seeked: bool) -> Iterator[RowBlock]:
+        """The source's blocks, each pull's wait added to the supply
+        stages: read, cache_read and parse from the source's own
+        ``stage_seconds()`` over the pull, the rest as parse (the fused
+        native reader reports none, so all of its pull is parse, recorded
+        as a parse span)."""
         if not seeked:  # a seek-restored source already stands at the resume point
             self.source.before_first()
+        stage_fn = getattr(self.source, "stage_seconds", None)
         while True:
+            s0 = stage_fn() if stage_fn is not None else None
             t0 = get_time()
             blk = self.source.next_block()
-            self.source_wait_seconds += get_time() - t0
+            dt = get_time() - t0
+            self.source_wait_seconds += dt
+            read = cache_read = parse = 0.0
+            if s0 is not None:
+                s1 = stage_fn()
+                read = min(max(0.0, s1["read"] - s0["read"]), dt)
+                cache_read = min(max(0.0, s1.get("cache_read", 0.0) - s0.get("cache_read", 0.0)),
+                                 dt - read)
+                parse = max(0.0, s1.get("parse", 0.0) - s0.get("parse", 0.0))
+            if read + cache_read + parse <= 0.0 and dt > 0.0:
+                _telemetry.record_span("parse", t0, dt)
+            self._busy.add("read", read)
+            self._busy.add("cache_read", cache_read)
+            self._busy.add("parse", dt - read - cache_read)
             if blk is None:
                 return
             yield blk
@@ -861,38 +998,70 @@ class DeviceIter:
             kind, arrays = "dense_packed_q8", (q, scale)
         self._snap_writer.add_batch(kind, arrays, rows=self.batch_size, resume=slot.annot)
 
-    def _host_batches(self, skip: int, drop: int, seeked: bool) -> Iterator:
-        """The cold producer: each batch converted and packed into a
-        staging slot, after ``skip`` batches yielded unconverted as
-        :class:`_Skipped` (a count restore)."""
-        kind = self._cold_kind()
-        t0, wait0 = get_time(), self.source_wait_seconds
-        for block, annot, pad_nnz in self._source_batches(drop, seeked):
+    def _serial_batches(self, skip: int, drop: int, seeked: bool) -> Iterator:
+        """The convert pool's serial stage: ``("skip", annotation)`` for
+        each of the first ``skip`` batches (a count restore), then
+        ``("convert", batch, annotation, bcoo nnz pad)`` in stream order.
+        Its time beyond the source's pulls (the rebatch) is convert busy."""
+        inner = self._source_batches(drop, seeked)
+        while True:
+            b0 = self._busy.seconds()
+            t0 = get_time()
+            try:
+                block, annot, pad_nnz = next(inner)
+            except StopIteration:
+                return
+            dt = get_time() - t0
+            b1 = self._busy.seconds()
+            supply = sum(b1[k] - b0[k] for k in ("read", "parse", "cache_read"))
+            residue = max(0.0, dt - supply)
+            self._busy.add("convert", residue)
+            _telemetry.record_span("convert", t0, residue)
             if skip:
                 skip -= 1
-                yield _Skipped(annot)
-                t0, wait0 = get_time(), self.source_wait_seconds
-                continue
+                yield ("skip", annot)
+            else:
+                yield ("convert", block, annot, pad_nnz)
+
+    def _convert_work(self, item):
+        """The convert pool's parallel stage: a skipped batch as
+        :class:`_Skipped`; else the batch converted, a staging slot taken
+        (None once the ring closed: the epoch is being torn down) and the
+        batch packed into it. The convert and the pack are convert busy,
+        the wait for a slot is not."""
+        if item[0] == "skip":
+            return _Skipped(item[1])
+        _, block, annot, pad_nnz = item
+        t0 = get_time()
+        with _telemetry.profiler_annotation("dmlc_tpu.convert", self._trace):
             arrays = self._convert(block, pad_nnz)
             t_acquire = get_time()
             slot = self._ring.acquire()
-            if slot is None:  # the ring closed: the epoch is being torn down
-                return
+            if slot is None:
+                return None
             t_pack = get_time()
-            slot.kind, slot.layout, slot.annot = kind, None, annot
+            slot.kind, slot.layout, slot.annot = self._cold_kind(), None, annot
             self._pack(slot, arrays)
-            t_write = get_time()
-            if self._snap_writer is not None:
-                self._write_snapshot_batch(slot)
-                self.snapshot_write_seconds += get_time() - t_write
-            # this batch's host work, without the waits on the parser and
-            # on a free staging slot
-            self.convert_seconds += ((t_acquire - t0) + (t_write - t_pack)
-                                     - (self.source_wait_seconds - wait0))
-            yield slot
-            t0, wait0 = get_time(), self.source_wait_seconds
+        t1 = get_time()
+        busy = (t_acquire - t0) + (t1 - t_pack)
+        self._busy.add("convert", busy)
+        _telemetry.record_span("convert", t0, busy)
+        return slot
 
-    # ---------------- warm epochs (reader thread) ----------------
+    def _cold_feed(self, skip: int, drop: int, seeked: bool):
+        """A cold epoch's producer: the convert pool, or for natural blocks
+        the same two stages on one thread (module docstring)."""
+        self._ring = self._ring_for(self._cold_spec(), self._convert_ahead,
+                                    1 if self.batch_size is None else self.convert_workers)
+        if self.batch_size is None:
+            return ThreadedIter.from_factory(
+                lambda: map(self._convert_work, self._serial_batches(skip, drop, seeked)),
+                max_capacity=self._convert_ahead)
+        return OrderedWorkerPool(lambda: self._serial_batches(skip, drop, seeked),
+                                 self._convert_work, num_workers=self.convert_workers,
+                                 max_ahead=self._convert_ahead, counter_label="convert")
+
+    # ---------------- warm epochs (the read pool) ----------------
 
     def _snapshot_geometry(self) -> dict:
         """The batch-shape identity a snapshot is bound to (the JAX
@@ -916,49 +1085,42 @@ class DeviceIter:
                 geometry=self._snapshot_geometry())
         return self._snap_reader is not None
 
-    def _warm_batches(self, start: int) -> Iterator[_Slot]:
-        """Each stored batch from position ``start`` on, in stored order or,
-        with ``snapshot_shuffle_seed``, in the epoch's plan order, read (crc
-        included) and copied into a pinned staging slot with its
-        annotation: the raw span into a u8 slot, or each segment view into
-        its typed buffer. The read and the copy count as snapshot read
-        time; the wait for a free slot does not."""
-        reader = self._snap_reader
-        order, seed, epoch = None, self._snap_seed, self._snap_epoch
-        if seed is not None and not self._snap_seq_restore:
-            order = _epoch.block_permutation(seed, epoch, reader.num_batches)
-        for pos in range(start, reader.num_batches):
-            i = pos if order is None else int(order[pos])
-            t0 = get_time()
-            if self.device_decode:
-                kind, span, layout = reader.batch_span(i)
-            else:
-                kind, *arrays = reader.load_batch(i)
-            t_read = get_time()
-            slot = self._ring.acquire()
-            if slot is None:  # the ring closed: the epoch is being torn down
-                return
-            t_copy = get_time()
-            if self.device_decode:
-                slot.bufs[0][: span.size].numpy()[...] = span
-                slot.layout, slot.nbytes = layout, span.size
-            else:
-                check(len(arrays) == len(slot.bufs) and all(
-                    a.shape == tuple(b.shape) for a, b in zip(arrays, slot.bufs)),
-                    f"snapshot {self.snapshot_path}: batch shapes differ from the first batch's")
-                for buf, arr in zip(slot.bufs, arrays):
-                    buf.view(torch.uint8).numpy()[...] = arr.view(np.uint8)
-                slot.layout = None
-            slot.kind = kind
-            slot.annot = reader.resume(i) if order is None else {
-                "source": _epoch.plan_state_dict(seed, 0, epoch, pos + 1, 0, 1, unit="batch"),
-                "skip_rows": 0}
-            self.snapshot_read_seconds += (t_read - t0) + (get_time() - t_copy)
-            yield slot
+    def _stage_warm(self, plan_annot, pos: int, host_batch, resume,
+                    nbytes) -> Optional[_Slot]:
+        """A read pool worker's copy of the batch read at serving position
+        ``pos`` into a staging slot (None once the ring closed): the raw
+        span into a u8 slot, or each segment view into its typed buffer.
+        Its annotation is the stored one, or in plan order
+        ``plan_annot(pos + 1)``. The copy is snapshot read busy; the wait
+        for a slot is not."""
+        slot = self._ring.acquire()
+        if slot is None:
+            return None
+        t0 = get_time()
+        if self.device_decode:
+            _, span, layout, kind = host_batch
+            slot.bufs[0][: span.size].numpy()[...] = span
+            slot.layout, slot.nbytes = layout, span.size
+        else:
+            kind, *arrays = host_batch
+            check(len(arrays) == len(slot.bufs) and all(
+                a.shape == tuple(b.shape) for a, b in zip(arrays, slot.bufs)),
+                f"snapshot {self.snapshot_path}: batch shapes differ from the first batch's")
+            for buf, arr in zip(slot.bufs, arrays):
+                buf.view(torch.uint8).numpy()[...] = arr.view(np.uint8)
+            slot.layout = None
+        slot.kind = kind
+        slot.annot = resume if plan_annot is None else plan_annot(pos + 1)
+        self._busy.add("snapshot_read", get_time() - t0)
+        return slot
 
-    def _warm_feed(self, start: int) -> ThreadedIter:
-        """The warm epoch's producer: :meth:`_warm_batches` on one reader
-        thread, so batch N+1's read overlaps the use of batch N."""
+    def _warm_feed(self, start: int) -> _snapshot.SnapshotIter:
+        """The warm epoch's producer: each stored batch from position
+        ``start`` on, in stored order or, with ``snapshot_shuffle_seed``,
+        in the epoch's plan order, read (crc included) and copied into a
+        staging slot on the ``snapshot_read_workers`` threads of a
+        :class:`~dmlc_tpu_torch.io.snapshot.SnapshotIter`, delivered in
+        that order."""
         reader = self._snap_reader
         n = reader.num_batches
         if self.device_decode:
@@ -967,9 +1129,20 @@ class DeviceIter:
         else:
             layout = reader.layout(0) if n else ()
             spec = [(shape, torch_dtype(dt)) for _, dt, _, _, shape in layout]
-        self._ring = self._ring_for(spec)
-        return ThreadedIter.from_factory(lambda: self._warm_batches(start),
-                                         max_capacity=_CONVERT_AHEAD)
+        workers = self.snapshot_read_workers
+        self._ring = self._ring_for(spec, 2 * workers, workers)
+        order = plan_annot = None
+        seed, epoch = self._snap_seed, self._snap_epoch
+        if seed is not None and not self._snap_seq_restore:
+            order = _epoch.block_permutation(seed, epoch, n)
+
+            def plan_annot(pos: int) -> dict:
+                return {"source": _epoch.plan_state_dict(seed, 0, epoch, pos, 0, 1, unit="batch"),
+                        "skip_rows": 0}
+        return _snapshot.SnapshotIter(
+            reader, order=order, start=start, read_workers=workers,
+            on_read=lambda dt: self._busy.add("snapshot_read", dt), annotate=self._trace,
+            raw=self.device_decode, stage=functools.partial(self._stage_warm, plan_annot))
 
     # ---------------- device side (consumer thread) ----------------
 
@@ -990,22 +1163,26 @@ class DeviceIter:
                 skip, drop, seeked = self._skip_batches, self._drop_rows, self._seeked
                 self._skip_batches = self._drop_rows = 0
                 self._seeked = False
-                self._ring = self._ring_for(self._cold_spec())
-                self._host = ThreadedIter.from_factory(
-                    lambda: self._host_batches(skip, drop, seeked),
-                    max_capacity=_CONVERT_AHEAD)
+                self._host = self._cold_feed(skip, drop, seeked)
         return self._host
 
     def _put(self, slot: _Slot):
+        """Issue a slot's copy to the device on the copy stream and hand the
+        slot back to the ring with the copy's event; the issue is dispatch
+        busy."""
+        t0 = get_time()
         ctx = (torch.cuda.stream(self._copy_stream) if self._cuda
                else contextlib.nullcontext())
         bufs = slot.bufs if slot.layout is None else [slot.bufs[0][: slot.nbytes]]
         event = None
-        with ctx:
+        with ctx, _telemetry.profiler_annotation("dmlc_tpu.dispatch", self._trace):
             out = [b.to(self.device, non_blocking=self._cuda, copy=True) for b in bufs]
             if self._cuda:
                 event = torch.cuda.Event()
                 event.record(self._copy_stream)
+        dt = get_time() - t0
+        self._busy.add("dispatch", dt)
+        _telemetry.record_span("dispatch", t0, dt)
         nbytes = sum(b.numel() * b.element_size() for b in bufs)
         self.bytes_to_device += nbytes
         if slot.layout is not None and slot.kind not in _SPAN_KINDS:
@@ -1079,19 +1256,64 @@ class DeviceIter:
                 # a complete cold pass publishes its shadow snapshot here
                 self._finish_snapshot_writer()
                 return
+            if self._snap_writer is not None:
+                # the shadow write follows delivery order, whatever order
+                # the workers packed in
+                t0 = get_time()
+                self._write_snapshot_batch(slot)
+                self.snapshot_write_seconds += get_time() - t0
             self._inflight.append(self._put(slot))
 
     def __iter__(self):
         return self
 
+    def _account_window(self, t0: float, busy0: dict, t1: float, write0: float) -> None:
+        """Split the consumer's window ``[t0, t1]`` among the stages: the
+        dispatch and device_decode measured on this thread as they are;
+        the rest, less the shadow write, over the busy seconds the
+        pipeline's threads added in the window, scaled down where they
+        overlapped (workers running at once can add more than the window
+        holds). What they do not explain stays unattributed."""
+        busy1 = self._busy.seconds()
+        d_disp = busy1["dispatch"] - busy0["dispatch"]
+        d_decode = busy1["device_decode"] - busy0["device_decode"]
+        window = ((t1 - t0) - d_disp - d_decode
+                  - (self.snapshot_write_seconds - write0))
+        weights = {k: busy1[k] - busy0[k]
+                   for k in ("read", "cache_read", "snapshot_read", "parse", "convert")}
+        wsum = sum(weights.values())
+        if wsum > 0 and window > 0:
+            scale = min(1.0, window / wsum)
+            for k, v in weights.items():
+                if v > 0:
+                    self._attr.add(k, v * scale)
+        self._attr.add("dispatch", d_disp)
+        if d_decode > 0:
+            self._attr.add("device_decode", d_decode)
+
     def __next__(self):
+        # every consumer step runs under the pipeline's scope, so the pools
+        # it creates take the label
+        with _telemetry.scope(self.pipeline_label):
+            return self._next_scoped()
+
+    def _next_scoped(self):
         t0 = get_time()
+        if self._t_first is None:
+            self._t_first = t0
+        busy0, write0 = self._busy.seconds(), self.snapshot_write_seconds
         self._fill()
         if not self._inflight:
-            self.stall_seconds += get_time() - t0
+            t_end = get_time()
+            self.stall_seconds += t_end - t0
+            self._account_window(t0, busy0, t_end, write0)
+            self._t_last = t_end
             raise StopIteration
         out, event, kind, layout, annot = self._inflight.popleft()
-        self.input_wait_seconds += get_time() - t0
+        self._input_wait.inc(get_time() - t0)
+        if self._host is not None:
+            self.host_stall_seconds += self._host.stall_seconds
+            self._host.stall_seconds = 0.0
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -1110,7 +1332,10 @@ class DeviceIter:
             # one K2 launch for the whole batch
             t_decode = get_time()
             batch = _device_decode.decode_batch(out[0], layout, kind, self.num_col)
-            self.device_decode_seconds += get_time() - t_decode
+            dt = get_time() - t_decode
+            self.device_decode_seconds += dt
+            self._busy.add("device_decode", dt)
+            _telemetry.record_span("device_decode", t_decode, dt)
         # counted as delivered before the refill, which may heal the epoch
         # from this batch's state
         self.batches_fed += 1
@@ -1118,7 +1343,22 @@ class DeviceIter:
         # issue the replacement copy before handing the batch out; a wait
         # on the producer here holds the consumer up as much as one above
         self._fill()
-        self.stall_seconds += get_time() - t0
+        t1 = get_time()
+        self.stall_seconds += t1 - t0
+        self._account_window(t0, busy0, t1, write0)
+        if self.transfer_sample and self.batches_fed % self.transfer_sample == 0:
+            # the sampled landing: a host wait on this batch's copy event
+            # alone, never on a compute stream
+            ts = get_time()
+            if event is not None:
+                with _telemetry.profiler_annotation("dmlc_tpu.transfer", self._trace):
+                    event.synchronize()
+            dt = get_time() - ts
+            self._attr.add("transfer", dt)
+            self._input_wait.inc(dt)
+            _telemetry.record_span("transfer", ts, dt)
+            self._transfer_samples += 1
+        self._t_last = get_time()
         return batch
 
     # ---------------- checkpoints ----------------
@@ -1134,6 +1374,10 @@ class DeviceIter:
         """Restore a :meth:`state_dict` (of either package): warm serving
         at the state's batch when a snapshot holds it, else a seek of the
         source or a replay of the count (module docstring)."""
+        with _telemetry.scope(self.pipeline_label):
+            self._load_state_scoped(state)
+
+    def _load_state_scoped(self, state: dict) -> None:
         if self.snapshot_path is not None:
             if self._load_snapshot_state(state):
                 return
@@ -1226,6 +1470,7 @@ class DeviceIter:
     def _invalidate_snapshot(self) -> None:
         """A warm batch failed its crc: remove the file, so the next epoch
         runs cold and writes it anew."""
+        _resilience.record_event("snapshot_corruptions")
         self._drop_snap_reader()
         remove_quietly(self.snapshot_path)
 
@@ -1234,19 +1479,26 @@ class DeviceIter:
         converted and written, none delivered. Parsing and packing are
         deterministic, so the rebuilt batches are the lost ones, byte for
         byte."""
+        _resilience.record_event("snapshot_rebuilds")
         self._drop_snap_reader()
         remove_quietly(self.snapshot_path)
         self._abort_snapshot_writer()
         self._snap_writer = _snapshot.SnapshotWriter(
             self.snapshot_path, signature=self._snap_sig, geometry=self._snapshot_geometry())
-        self._ring = self._ring_for(self._cold_spec())
+        feed = self._cold_feed(0, 0, False)
         try:
-            for slot in self._host_batches(0, 0, False):
+            while True:
+                slot = feed.next()
+                if slot is None:
+                    break
+                self._write_snapshot_batch(slot)
                 self._ring.release(slot, None)  # written, never copied
             self._finish_snapshot_writer()
         except BaseException:
             self._abort_snapshot_writer()
             raise
+        finally:
+            feed.destroy()
         check(self._open_snapshot(),
               f"snapshot {self.snapshot_path}: rebuild did not publish a readable snapshot")
 
@@ -1295,32 +1547,63 @@ class DeviceIter:
         self._abort_snapshot_writer()
         self._drop_snap_reader()
         self.source.close()
+        if self._trace_export:
+            # DMLC_TPU_TRACE=chrome:<path>: every stage has written its spans
+            try:
+                self.dump_trace(self._trace_export)
+            except OSError as exc:
+                get_logger().warning("trace export to %s failed: %s", self._trace_export, exc)
+
+    def dump_trace(self, path: str) -> int:
+        """Export the span rings as Chrome-trace JSON at ``path``; returns
+        the spans written. The trace covers the process: filter by the
+        ``pipeline`` arg for this iterator's spans."""
+        return _telemetry.export_chrome_trace(path)
 
     def stats(self) -> dict:
-        """The pipeline's counters. Keys the JAX package's ``stats()`` also
-        has carry its names and value types (``batches`` first; the port's
-        own ``batches_fed`` is the same count). ``input_wait_seconds`` is
-        the consumer's wait inside ``__next__`` for the batch it hands out
-        (the part of ``stall_seconds`` before the refill); the JAX package
-        adds sampled transfer landings to it, which the port does not
-        sample. ``shuffle_seed`` and ``epoch`` are the source's epoch plan
-        (None without one), ``snapshot_seed`` and ``snapshot_epoch`` the
-        snapshot plan's (None without a snapshot). ``parse_workers`` and
+        """The pipeline's counters. Every key of the JAX package's
+        ``stats()`` but ``autotune`` and ``store`` is here with its value
+        type (``batches`` first; the port's own ``batches_fed`` is the same
+        count). ``stages`` splits ``wall_seconds`` (first pull to the
+        latest) among read / cache_read / snapshot_read / parse / convert /
+        dispatch / device_decode / transfer, its sum never above the wall;
+        ``stage_busy`` holds the busy seconds it is scaled from, summed
+        over threads (so they may exceed the wall); ``transfer`` is the
+        sampled copy landings, ``transfer_samples`` their count (module
+        docstring). ``input_wait_seconds`` is the consumer's wait inside
+        ``__next__`` for the batch it hands out plus those landings;
+        ``host_stall_seconds`` its wait on the pool. ``staging_ring`` is
+        ``{"depth", "hits", "misses"}`` of the current ring (None before
+        the first epoch); a miss is an acquire that waited for a free slot.
+        ``shuffle_seed`` and ``epoch`` are the source's epoch plan (None
+        without one), ``snapshot_seed`` and ``snapshot_epoch`` the snapshot
+        plan's (None without a snapshot). ``parse_workers`` and
         ``parse_parallelism_efficiency`` (the whole ``parse_parallel``
         sideband beside them) are the source chain's parse fan-out, as the
-        JAX package reports them."""
+        JAX package reports them. ``resilience`` holds the I/O events
+        recorded under this pipeline's label since it was built
+        (:mod:`dmlc_tpu_torch.io.resilience`) and its own restarts."""
         plan_state = getattr(self.source, "plan_state", None) or {}
         snap = self.snapshot_path is not None
         # the source chain's parse fan-out (ParallelTextParser); a
         # one-lane source reports one worker and no efficiency
         fn = getattr(self.source, "parallel_stats", None)
         pstats = fn() if fn is not None else None
+        wall = 0.0
+        if self._t_first is not None and self._t_last is not None:
+            wall = max(0.0, self._t_last - self._t_first)
+        resilience = _resilience.counters_delta(self._res_base, self.pipeline_label)
+        resilience["pipeline_restarts"] = self.pipeline_restarts
+        resilience["pipeline_giveups"] = self.pipeline_giveups
+        busy = self._busy.seconds()
         return {"batches": self.batches_fed,
                 "batches_fed": self.batches_fed,
                 "bytes_to_device": self.bytes_to_device,
+                "pipeline": self.pipeline_label,
                 "stall_seconds": self.stall_seconds,
+                "host_stall_seconds": self.host_stall_seconds,
                 "source_wait_seconds": self.source_wait_seconds,
-                "convert_seconds": self.convert_seconds,
+                "convert_seconds": busy["convert"],
                 # None: no snapshot armed; 'cold': converting and
                 # shadow-writing; 'warm': serving the stored batches
                 "snapshot_state": (None if self.snapshot_path is None
@@ -1332,15 +1615,20 @@ class DeviceIter:
                 "epoch": plan_state.get("epoch"),
                 "snapshot_seed": self._snap_seed if snap else None,
                 "snapshot_epoch": self._snap_epoch if snap else None,
-                "input_wait_seconds": self.input_wait_seconds,
+                "input_wait_seconds": self._input_wait.value,
                 "snapshot_write_seconds": self.snapshot_write_seconds,
-                "snapshot_read_seconds": self.snapshot_read_seconds,
+                "snapshot_read_seconds": busy["snapshot_read"],
                 "device_decode": self.device_decode,
                 "device_decode_bytes": self.device_decode_bytes,
                 "device_decode_seconds": self.device_decode_seconds,
+                "stages": self._attr.seconds(),
+                "stage_busy": busy,
+                "wall_seconds": wall,
+                "transfer_samples": self._transfer_samples,
+                "convert_workers": self.convert_workers,
                 "parse_workers": (pstats or {}).get("parse_workers", 1),
                 "parse_parallelism_efficiency": (pstats or {}).get(
                     "parse_parallelism_efficiency"),
                 "parse_parallel": pstats,
-                "resilience": {"pipeline_restarts": self.pipeline_restarts,
-                               "pipeline_giveups": self.pipeline_giveups}}
+                "staging_ring": self._ring.stats() if self._ring is not None else None,
+                "resilience": resilience}

@@ -73,6 +73,7 @@ from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
 from dmlc_tpu_torch.io.uri import URISpec
 from dmlc_tpu_torch.parallel.distributed import pod_identity
 from dmlc_tpu_torch.utils import knobs as _knobs
+from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check, get_logger
 from dmlc_tpu_torch.utils.params import Parameter, field
 from dmlc_tpu_torch.utils.timer import get_time
@@ -216,7 +217,10 @@ class TextParserBase(Parser):
         None)`` at the end of the stream."""
         t0 = get_time()
         chunk = self.source.next_chunk()
-        self._read_seconds += get_time() - t0
+        dt = get_time() - t0
+        self._read_seconds += dt
+        # the span beside the seconds: one start, one duration
+        _telemetry.record_span("read", t0, dt)
         if chunk is None:
             return None, None
         self._bytes += len(chunk)
@@ -231,7 +235,9 @@ class TextParserBase(Parser):
                 return None
             t1 = get_time()
             block = self.parse_chunk(chunk)
-            self._parse_seconds += get_time() - t1
+            dt = get_time() - t1
+            self._parse_seconds += dt
+            _telemetry.record_span("parse", t1, dt)
             if len(block) > 0:
                 # the position just AFTER this block: prefetching layers
                 # downstream checkpoint byte-exactly through it
@@ -759,6 +765,7 @@ class ParallelTextParser(Parser):
             block = self.base.parse_chunk(chunk)
         finally:
             t1 = get_time()
+            _telemetry.record_span("parse", t0, t1 - t0)
             with self._stage_lock:
                 self.base._parse_seconds += t1 - t0
                 if self._parse_t_first is None or t0 < self._parse_t_first:
@@ -948,6 +955,8 @@ class BlockCacheIter(Parser):
         self._bytes = 0      # cache bytes served
         self._cache_read_seconds = 0.0
         self._cr_lock = threading.Lock()  # the plan readers add to it
+        # DMLC_TPU_TRACE=1: the warm reads in profiler ranges
+        self._annotate = _telemetry.trace_mode()[0] == "annotate"
         self._seed = None if shuffle_seed is None else int(shuffle_seed)
         self._window = int(shuffle_window)
         self._host_id = int(host_id)
@@ -1025,9 +1034,13 @@ class BlockCacheIter(Parser):
         writer.add_block(block.to_segments(), rows=len(block), num_col=block.num_col,
                          resume=annot)
 
-    def _add_cache_read(self, dt: float) -> None:
+    def _add_cache_read(self, t0: float) -> None:
+        """A warm read that started at ``t0`` ends now: its seconds and
+        its ``cache_read`` span."""
+        dt = get_time() - t0
         with self._cr_lock:
             self._cache_read_seconds += dt
+        _telemetry.record_span("cache_read", t0, dt)
 
     # ---------------- delivery ----------------
 
@@ -1049,9 +1062,10 @@ class BlockCacheIter(Parser):
                 continue
             t0 = get_time()
             try:
-                segments = reader.load_segments(i)
+                with _telemetry.profiler_annotation("dmlc_tpu.cache_read", self._annotate):
+                    segments = reader.load_segments(i)
             except CacheCorruptionError:
-                self._add_cache_read(get_time() - t0)
+                self._add_cache_read(t0)
                 self._heal_corruption()
                 return self._next_cold()
             block = RowBlock.from_segments(segments, hold=reader.hold)
@@ -1059,7 +1073,7 @@ class BlockCacheIter(Parser):
             if annot is not None:
                 block.resume_state = annot
             self._bytes += reader.block_nbytes(i)
-            self._add_cache_read(get_time() - t0)
+            self._add_cache_read(t0)
             self._pos += 1
             self._delivered += 1
             return block
@@ -1080,20 +1094,21 @@ class BlockCacheIter(Parser):
         bidx = plan.block_at(pos)
         t0 = get_time()
         try:
-            rowperm = plan.row_order(bidx, reader.block_rows(bidx))
-            copy = rowperm is None and plan.permuted
-            segments = reader.load_segments(bidx, copy=copy)
-            # a row gather may pass the permutation-invariant index array
-            # through as a view: the mmap stays held then
-            block = RowBlock.from_segments(segments, hold=None if copy else reader.hold)
-            if rowperm is not None:
-                uniform = self._uniform_cols.get(bidx)
-                if uniform is None:
-                    uniform = _epoch.uniform_column_pattern(block)
-                    self._uniform_cols[bidx] = uniform
-                block = _epoch.permute_block_rows(block, rowperm, uniform_columns=uniform)
+            with _telemetry.profiler_annotation("dmlc_tpu.cache_read", self._annotate):
+                rowperm = plan.row_order(bidx, reader.block_rows(bidx))
+                copy = rowperm is None and plan.permuted
+                segments = reader.load_segments(bidx, copy=copy)
+                # a row gather may pass the permutation-invariant index
+                # array through as a view: the mmap stays held then
+                block = RowBlock.from_segments(segments, hold=None if copy else reader.hold)
+                if rowperm is not None:
+                    uniform = self._uniform_cols.get(bidx)
+                    if uniform is None:
+                        uniform = _epoch.uniform_column_pattern(block)
+                        self._uniform_cols[bidx] = uniform
+                    block = _epoch.permute_block_rows(block, rowperm, uniform_columns=uniform)
         finally:
-            self._add_cache_read(get_time() - t0)
+            self._add_cache_read(t0)
         return block, reader.block_nbytes(bidx)
 
     def _quiesce_plan_pool(self) -> None:

@@ -55,7 +55,9 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.io import resilience as _resilience
+from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
+from dmlc_tpu_torch.utils.timer import get_time
 
 BLOCK_CACHE_MAGIC = b"DMLCBC01"
 BLOCK_CACHE_VERSION = 1  # also the version source signatures carry
@@ -300,6 +302,7 @@ class BlockCacheWriter:
         re-attach the same checkpoint states."""
         check(self._f is not None and not self._finished,
               "BlockCacheWriter: writer already finished/aborted")
+        t_span = get_time()
         pos = _pad_to(self._f, _ALIGN)
         end, crc, arrays = write_segments(self._f, segments)
         # through JSON, so cold- and warm-served states compare equal
@@ -309,6 +312,8 @@ class BlockCacheWriter:
             "arrays": arrays})
         self._rows += int(rows)
         self._num_col = max(self._num_col, int(num_col))
+        # the shadow write's cost, on the trace beside the parse it follows
+        _telemetry.record_span("cache_write", t_span, get_time() - t_span, rows=int(rows))
 
     def finish(self) -> None:
         """Write footer + tail, fsync, and publish at ``path``."""

@@ -1,8 +1,7 @@
 """Snapshot store: post-convert, device-layout batches on disk.
 
 Own copy of the JAX package's ``io/snapshot.py`` (format ``DMLCSN01``,
-pinned by ``tests/data/snapshot_v1.golden``), trimmed to sequential
-serving. A cold epoch of :class:`~dmlc_tpu_torch.data.device.DeviceIter`
+pinned by ``tests/data/snapshot_v1.golden``). A cold epoch of :class:`~dmlc_tpu_torch.data.device.DeviceIter`
 shadow-writes the batches it ships; warm epochs read them back from an
 mmap with no parse and no convert::
 
@@ -31,13 +30,17 @@ from __future__ import annotations
 import json
 import os
 import zlib
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from dmlc_tpu_torch.io import block_cache as _bc
-from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
+from dmlc_tpu_torch.io import resilience as _resilience
+from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
+from dmlc_tpu_torch.utils import knobs as _knobs
+from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
+from dmlc_tpu_torch.utils.timer import get_time
 
 SNAPSHOT_MAGIC = b"DMLCSN01"
 SNAPSHOT_VERSION = 1
@@ -69,6 +72,7 @@ class SnapshotWriter:
         ``kind`` (numpy arrays or CPU tensors, 2-D allowed: shapes are
         recorded); ``resume`` is stored as the batch's resume annotation."""
         check(self._f is not None, "SnapshotWriter: writer already finished/aborted")
+        t_span = get_time()
         check(len(arrays) <= MAX_BATCH_ARRAYS,
               f"SnapshotWriter: batch carries {len(arrays)} arrays (max {MAX_BATCH_ARRAYS})")
         segments = {SNAPSHOT_SEGMENT_NAMES[i]: a.reshape(-1) for i, a in enumerate(arrays)}
@@ -81,6 +85,7 @@ class SnapshotWriter:
             "shapes": {SNAPSHOT_SEGMENT_NAMES[i]: list(a.shape) for i, a in enumerate(arrays)},
         })
         self._rows += int(rows)
+        _telemetry.record_span("snapshot_write", t_span, get_time() - t_span, rows=int(rows))
 
     def finish(self) -> None:
         """Write footer and tail, fsync, atomically publish at ``path``."""
@@ -192,45 +197,84 @@ def open_snapshot(path: str, signature: Optional[dict] = None,
                   geometry: Optional[dict] = None) -> Optional[SnapshotReader]:
     """Open a published snapshot, or None when it is missing or must be
     rebuilt (unreadable, wrong version, signature or geometry mismatch):
-    a stale file is removed, so the caller runs a cold pass."""
+    a stale file is removed (a ``snapshot_invalidations`` event), so the
+    caller runs a cold pass."""
     if not os.path.exists(path):
         return None
     try:
         return SnapshotReader(path, signature=signature, geometry=geometry)
     except DMLCError:
+        _resilience.record_event("snapshot_invalidations")
         _bc.remove_quietly(path)
         return None
 
 
 class SnapshotIter:
-    """A snapshot's batches in stored order, read ahead on
-    one thread (a :class:`~dmlc_tpu_torch.io.threaded_iter.ThreadedIter`),
-    so the read (mmap fault + crc) of batch N+1 overlaps the use of batch
-    N.
+    """The warm feed: a snapshot's batches in a given order, read ahead on
+    an :class:`~dmlc_tpu_torch.io.threaded_iter.OrderedWorkerPool` of
+    ``read_workers`` threads (``DMLC_TPU_SNAPSHOT_READ_WORKERS``, default
+    2) with ``2 × read_workers`` reads ahead, so the reads (mmap fault +
+    crc) of later batches overlap the use of batch N.
 
-    ``next()`` returns ``(host_batch, resume, nbytes)`` with ``host_batch =
-    (kind, *arrays)``, or None at the end. ``raw=True`` is the
+    ``order`` is an index array (an epoch plan's permutation over batch
+    indices) or None for stored order; ``start`` resumes at a position.
+    ``next()`` returns ``(host_batch, resume, nbytes)`` with ``host_batch
+    = (kind, *arrays)``, in order, or None at the end. ``raw=True`` is the
     device-decode feed: ``host_batch`` is ``("device_span", span, layout,
-    kind)``, the batch's verbatim bytes.
+    kind)``, the batch's verbatim bytes. Each read is recorded as a
+    ``snapshot_read`` span and its seconds passed to ``on_read``;
+    ``annotate`` wraps it in a profiler range. ``stage``, the port's own,
+    runs on the reading thread as ``stage(pos, host_batch, resume,
+    nbytes)``, ``pos`` the serving position, and its result is delivered
+    in the item's place (``DeviceIter`` copies the batch into a pinned
+    staging slot there).
     """
 
-    def __init__(self, reader: SnapshotReader, raw: bool = False):
+    def __init__(self, reader: SnapshotReader, order: Optional[np.ndarray] = None,
+                 start: int = 0, read_workers: Optional[int] = None,
+                 on_read: Optional[Callable[[float], None]] = None, annotate: bool = False,
+                 raw: bool = False, stage: Optional[Callable] = None):
         self.reader = reader
+        self._order = order
+        self._on_read = on_read
+        self._annotate = annotate
         self._raw = raw
-        self._iter = ThreadedIter.from_factory(self._items, max_capacity=2)
+        self._stage = stage
+        n = reader.num_batches if order is None else len(order)
+        workers = _knobs.resolve("snapshot_read_workers", read_workers)
+        self._pool = OrderedWorkerPool(lambda: iter(range(int(start), int(n))), self._read,
+                                       num_workers=workers, max_ahead=2 * workers,
+                                       counter_label="snapshot_read")
 
-    def _items(self):
+    def _read(self, pos: int):
         reader = self.reader
-        for i in range(reader.num_batches):
-            if self._raw:
-                kind, span, layout = reader.batch_span(i)
-                batch = ("device_span", span, layout, kind)
-            else:
-                batch = reader.load_batch(i)
-            yield batch, reader.resume(i), reader.batch_nbytes(i)
+        i = int(pos) if self._order is None else int(self._order[pos])
+        t0 = get_time()
+        try:
+            with _telemetry.profiler_annotation("dmlc_tpu.snapshot_read", self._annotate):
+                if self._raw:
+                    kind, span, layout = reader.batch_span(i)
+                    batch = ("device_span", span, layout, kind)
+                else:
+                    batch = reader.load_batch(i)
+        finally:
+            dt = get_time() - t0
+            _telemetry.record_span("snapshot_read", t0, dt)
+            if self._on_read is not None:
+                self._on_read(dt)
+        item = (batch, reader.resume(i), reader.batch_nbytes(i))
+        return item if self._stage is None else self._stage(pos, *item)
+
+    @property
+    def stall_seconds(self) -> float:
+        return self._pool.stall_seconds
+
+    @stall_seconds.setter
+    def stall_seconds(self, value: float) -> None:
+        self._pool.stall_seconds = value
 
     def next(self):
-        return self._iter.next()
+        return self._pool.next()
 
     def destroy(self) -> None:
-        self._iter.destroy()
+        self._pool.destroy()

@@ -6,11 +6,18 @@ contract: one producer thread fills a bounded queue ahead of the consumer,
 re-raised on the consumer side, and ``destroy`` joins the thread.
 
 :class:`OrderedWorkerPool` is the JAX package's pool of the same name,
-trimmed to what the parse fan-out and the block cache's plan-ordered
-reads use: one serial source of items, a work function run on a fixed
-number of threads, at most ``max_ahead`` items pulled ahead of delivery,
-delivery in source order. Its live ``resize`` (autotuning), source restarts and stall
-diagnostics are not ported.
+trimmed to what the port's pools use (the parse fan-out, the block
+cache's plan-ordered reads, ``DeviceIter``'s convert pool and the
+snapshot read pool): one serial source of items, a work function run on
+a fixed number of threads, at most ``max_ahead`` items pulled ahead of
+delivery, delivery in source order. Its live ``resize`` (autotuning),
+source restarts and stall diagnostics are not ported.
+
+Both run their threads under their creator's telemetry scope
+(:mod:`dmlc_tpu_torch.utils.telemetry`), adopted from the first scoped
+consumer when they were built outside any (``adopt_scope`` sets it from
+outside), and both count the consumer's wait in ``next`` as
+``stall_seconds``.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ import threading
 from collections import deque
 from typing import Any, Callable, Deque, Dict, Generic, Optional, Tuple, TypeVar
 
+from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import DMLCError
+from dmlc_tpu_torch.utils.timer import get_time
 
 T = TypeVar("T")
 
@@ -51,11 +60,22 @@ class ThreadedIter(Generic[T]):
         self._signal_processed = False
         self._exc: Optional[BaseException] = None
         self._destroyed = False
+        self.stall_seconds = 0.0  # the consumer's wait in next()
+        # the producer runs under the creator's scope, adopted from the
+        # first scoped consumer when there was none; the loop installs it
+        # each item, so an adoption takes effect mid-run
+        self._scope = _telemetry.current_scope()
         self._thread = threading.Thread(target=self._producer_loop, daemon=True)
         self._thread.start()
 
+    def adopt_scope(self, label: Optional[str]) -> None:
+        """Take ``label`` as the scope if there is none yet."""
+        if self._scope is None and label is not None:
+            self._scope = label
+
     def _producer_loop(self) -> None:
         while True:
+            _telemetry.set_scope(self._scope)
             with self._lock:
                 self._lock.wait_for(
                     lambda: self._signal != _SIG_PRODUCE
@@ -97,8 +117,12 @@ class ThreadedIter(Generic[T]):
         """Pop the next item; None at end of stream. Rethrows producer errors."""
         if self._destroyed:
             raise DMLCError("ThreadedIter: already destroyed")
+        if self._scope is None:
+            self._scope = _telemetry.current_scope()
+        t0 = get_time()
         with self._lock:
             self._lock.wait_for(lambda: self._queue or self._produce_end)
+            self.stall_seconds += get_time() - t0
             if self._queue:
                 item = self._queue.popleft()
                 self._lock.notify_all()
@@ -162,13 +186,16 @@ class OrderedWorkerPool(Generic[T]):
     under a lock, each taking the next sequence number; ``work_fn(item)``
     runs on ``num_workers`` threads at once; :meth:`next` hands the results
     out strictly in sequence order, None at the end. At most ``max_ahead``
-    items are pulled and not yet delivered. A ``work_fn`` exception is
-    raised by :meth:`next` at its item's position (earlier items deliver
-    first), and the pool delivers nothing after it. :meth:`destroy` joins
-    the workers."""
+    items are pulled and not yet delivered: a worker checks the window
+    again under the pull lock, so no worker that waited its turn pulls
+    past it. A ``work_fn`` exception is raised by :meth:`next` at its
+    item's position (earlier items deliver first), and the pool delivers
+    nothing after it. :meth:`destroy` joins the workers. ``counter_label``
+    names the pool (the JAX package's resilience counters of its source
+    restarts carry it; the port's pools do not restart)."""
 
     def __init__(self, source_factory: Callable[[], Any], work_fn: Callable[[Any], T],
-                 num_workers: int = 2, max_ahead: int = 4):
+                 num_workers: int = 2, max_ahead: int = 4, counter_label: str = "producer"):
         self._source = source_factory()
         self._work = work_fn
         self._ahead = max(1, int(max_ahead))
@@ -181,23 +208,34 @@ class OrderedWorkerPool(Generic[T]):
         self._poisoned = False
         self._src_exc: Optional[BaseException] = None
         self._destroyed = False
+        self.stall_seconds = 0.0  # the consumer's wait in next()
+        self.counter_label = counter_label
+        self._scope = _telemetry.current_scope()  # as ThreadedIter's
         self.num_workers = max(1, int(num_workers))
         self._threads = [threading.Thread(target=self._worker_loop, daemon=True)
                          for _ in range(self.num_workers)]
         for t in self._threads:
             t.start()
 
+    def _should_wake(self) -> bool:
+        """The window has room, or the pool is ending."""
+        return self._destroyed or self._produce_end or (self._seq - self._want) < self._ahead
+
     def _worker_loop(self) -> None:
         while True:
+            _telemetry.set_scope(self._scope)
             with self._lock:
-                self._lock.wait_for(lambda: self._destroyed or self._produce_end
-                                    or (self._seq - self._want) < self._ahead)
+                self._lock.wait_for(self._should_wake)
                 if self._destroyed or self._produce_end:
                     return
             with self._pull_lock:
-                # another worker may have ended the stream while this one waited
-                if self._destroyed or self._produce_end:
-                    return
+                with self._lock:
+                    # another worker may have ended the stream, or filled
+                    # the window, while this one waited its turn
+                    if self._destroyed or self._produce_end:
+                        return
+                    if not self._should_wake():
+                        continue
                 try:
                     item = next(self._source)
                 except StopIteration:
@@ -229,9 +267,13 @@ class OrderedWorkerPool(Generic[T]):
             raise DMLCError("OrderedWorkerPool: already destroyed")
         if self._poisoned:
             return None
+        if self._scope is None:
+            self._scope = _telemetry.current_scope()
+        t0 = get_time()
         with self._lock:
             self._lock.wait_for(lambda: self._want in self._results
                                 or (self._produce_end and self._want >= self._seq))
+            self.stall_seconds += get_time() - t0
             if self._want in self._results:
                 kind, value = self._results.pop(self._want)
                 self._want += 1
@@ -245,6 +287,11 @@ class OrderedWorkerPool(Generic[T]):
                 exc, self._src_exc = self._src_exc, None
                 raise exc
             return None
+
+    def adopt_scope(self, label: Optional[str]) -> None:
+        """Take ``label`` as the scope if there is none yet."""
+        if self._scope is None and label is not None:
+            self._scope = label
 
     def destroy(self) -> None:
         """Stop and join the workers (a worker inside ``work_fn`` finishes

@@ -14,11 +14,25 @@ variable, then the default.
   (``ParallelTextParser``); 1 keeps the one-lane ``ThreadedParser``.
 - ``plan_read_workers`` (``DMLC_TPU_PLAN_READ_WORKERS``, default 2): the
   width of the block cache's plan-ordered read pool.
+- ``convert_workers`` (``DMLC_TPU_CONVERT_WORKERS``, default 2): the width
+  of ``DeviceIter``'s convert pool.
+- ``convert_ahead`` (``DMLC_TPU_CONVERT_AHEAD``, default 4): the converted
+  batches the convert pool (or the natural-block producer) may hold ahead
+  of the consumer.
+- ``snapshot_read_workers`` (``DMLC_TPU_SNAPSHOT_READ_WORKERS``, default
+  2): the width of the warm snapshot read pool (``SnapshotIter``).
 
-Both are read through :func:`resolve` with the JAX package's rules (an
+These are read through :func:`resolve` with the JAX package's rules (an
 explicit value is clamped up to the floor of 1; an environment value that
 is not a positive integer raises). The JAX package's ceilings bound its
 autotuner, which is not ported.
+- ``DMLC_TPU_TRANSFER_SAMPLE`` (:func:`transfer_sample`, default 32):
+  every that many delivered batches ``DeviceIter`` waits for the batch's
+  copy and counts the wait; 0 turns the sampling off. Read as the JAX
+  ``DeviceIter`` reads it: a value that is not an integer raises
+  ``ValueError``, a negative one reads as 0.
+- ``DMLC_TPU_TRACE``: the trace mode, read by
+  :func:`dmlc_tpu_torch.utils.telemetry.trace_mode`.
 - ``DMLC_TPU_BLOCK_CACHE``: a directory; a parser built without a
   ``block_cache=`` knob or a ``#blockcache=`` fragment caches its blocks
   there under a name derived from the URI (:func:`block_cache_dir`).
@@ -48,6 +62,9 @@ def _cpus() -> int:
 _KNOBS = {
     "parse_workers": ("DMLC_TPU_PARSE_WORKERS", lambda: max(1, min(4, _cpus())), 1),
     "plan_read_workers": ("DMLC_TPU_PLAN_READ_WORKERS", 2, 1),
+    "convert_workers": ("DMLC_TPU_CONVERT_WORKERS", 2, 1),
+    "convert_ahead": ("DMLC_TPU_CONVERT_AHEAD", 4, 1),
+    "snapshot_read_workers": ("DMLC_TPU_SNAPSHOT_READ_WORKERS", 2, 1),
 }
 
 
@@ -94,6 +111,14 @@ def resolve(name: str, explicit: Optional[int] = None) -> int:
     if raw:
         return _parse_positive_int(raw, env)
     return int(default() if callable(default) else default)
+
+
+def transfer_sample(explicit: Optional[int] = None) -> int:
+    """The transfer-sample period: ``explicit``, else
+    ``DMLC_TPU_TRANSFER_SAMPLE``, else 32; never below 0."""
+    if explicit is None:
+        explicit = int(os.environ.get("DMLC_TPU_TRANSFER_SAMPLE", "32") or 32)
+    return max(0, int(explicit))
 
 
 def block_cache_dir() -> Optional[str]:

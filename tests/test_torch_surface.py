@@ -2,8 +2,11 @@
 the port had (each on the CPU, ``device="cpu"``):
 
 - C1: ``DeviceIter.stats()`` reports ``batches`` (first) beside
-  ``batches_fed``, and every key it shares with the JAX ``stats()`` holds a
-  value of the same type after the same epoch;
+  ``batches_fed``, and every key of the JAX ``stats()`` but ``autotune``
+  and ``store`` (queue A items 5 and 6) with a value of the same type
+  after the same epoch, ``resilience``, ``stages``, ``stage_busy`` and
+  ``staging_ring`` key for key (on ``ell`` the JAX package has no staging
+  ring, a difference ROADMAP C records);
 - C2: ``fit_epoch(max_steps)``, ``fit(steps_per_epoch)`` and
   ``accuracy(max_steps)`` stop after that many batches, reset the iterator
   and give the JAX loop's ``(loss, n)`` and accuracy on the same batches;
@@ -54,34 +57,57 @@ def _corpus(tmp_path, n=640, d=NUM_COL):
     return str(path)
 
 
-def _pipelines(uri):
-    jax_model = JaxLinearLearner(NUM_COL, layout="ell", learning_rate=0.3)
+def _pipelines(uri, layout="ell"):
+    jax_model = JaxLinearLearner(NUM_COL, layout=layout, learning_rate=0.3)
     jax_it = JaxDeviceIter(jax_create_parser(uri, 0, 1, "libsvm", threaded=False),
-                           num_col=NUM_COL, batch_size=64, layout="ell", max_nnz=NUM_COL)
-    model = LinearLearner(NUM_COL, layout="ell", learning_rate=0.3, device="cpu")
+                           num_col=NUM_COL, batch_size=64, layout=layout, max_nnz=NUM_COL)
+    model = LinearLearner(NUM_COL, layout=layout, learning_rate=0.3, device="cpu")
     it = DeviceIter(create_parser(uri, 0, 1, "libsvm", threaded=False), num_col=NUM_COL,
-                    batch_size=64, layout="ell", max_nnz=NUM_COL, device="cpu")
+                    batch_size=64, layout=layout, max_nnz=NUM_COL, device="cpu")
     return (jax_model, jax_it), (model, it)
 
 
-def test_c1_stats_keys_match_reference_types(tmp_path):
+def _c1_stats(tmp_path, layout):
+    """Both packages' ``stats()`` after the same epoch, checked key for
+    key against each other (module docstring)."""
     uri = _corpus(tmp_path)
-    (jax_model, jax_it), (model, it) = _pipelines(uri)
+    (jax_model, jax_it), (model, it) = _pipelines(uri, layout)
     for m, i in ((jax_model, jax_it), (model, it)):
         for batch in i:
-            m.step(batch)
+            if layout == "ell":
+                m.step(batch)
     want, got = jax_it.stats(), it.stats()
-    assert list(got)[0] == "batches" and got["batches"] == got["batches_fed"] == 10
-    shared = sorted(set(got) & set(want))
-    assert {"batches", "bytes_to_device", "stall_seconds", "snapshot_state", "cache_state",
-            "device_decode", "device_decode_bytes", "resilience"} <= set(shared)
-    for key in shared:
-        assert type(got[key]) is type(want[key]), (key, got[key], want[key])
-    assert got["batches"] == want["batches"]
-    for key in ("pipeline_restarts", "pipeline_giveups"):
-        assert type(got["resilience"][key]) is type(want["resilience"][key])
     jax_it.close()
     it.close()
+    assert list(got)[0] == "batches" and got["batches"] == got["batches_fed"] == 10
+    assert set(want) - set(got) == {"autotune", "store"}
+    for key in sorted(set(got) & set(want)):
+        if key == "staging_ring" and want[key] is None:
+            continue  # checked by the caller
+        assert type(got[key]) is type(want[key]), (key, got[key], want[key])
+    assert got["batches"] == want["batches"]
+    assert got["transfer_samples"] == want["transfer_samples"]
+    assert got["convert_workers"] == want["convert_workers"] == 2
+    for key in ("resilience", "stages", "stage_busy"):
+        assert set(got[key]) == set(want[key]), key
+        for k in got[key]:
+            assert type(got[key][k]) is type(want[key][k]), (key, k)
+    assert sum(got["stages"].values()) <= got["wall_seconds"]
+    return want, got
+
+
+def test_c1_stats_keys_match_reference_types(tmp_path):
+    want, got = _c1_stats(tmp_path, "ell")
+    # the port stages every layout in its pinned ring, the JAX package
+    # only dense batches (ROADMAP C)
+    assert want["staging_ring"] is None
+    assert set(got["staging_ring"]) == {"depth", "hits", "misses"}
+
+
+def test_c1_dense_stats_keys_match_reference_types(tmp_path):
+    want, got = _c1_stats(tmp_path, "dense")
+    assert set(got["staging_ring"]) == set(want["staging_ring"])
+    assert all(type(v) is int for v in got["staging_ring"].values())
 
 
 def test_c2_step_caps_match_reference(tmp_path):
