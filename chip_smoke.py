@@ -25,7 +25,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    shapes that reach K1's other branches (its persistent route with a
    ragged last tile, rows wider than a stage, unaligned inputs); with
    ``--parent DIR`` also the parent commit's K1, built from ``DIR``, timed
-   in turns with this one (P C C P);
+   in turns with this one (P C C P) and bit-equal to it (this one's
+   unsharded call, window 0);
 3. the main path at full width: a HIGGS-shaped libsvm corpus (28 dense
    features; UCI dataset 280, 11,000,000 rows, cut to 2**20 rows for the
    time limit) -> create_parser -> DeviceIter(ell) -> LinearLearner ->
@@ -146,8 +147,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    shards. gloo stages CUDA collectives through the host, so its rows/s
    is a gloo-on-one-card figure, and the spin check is (a)'s; (c) the
    port's dry run ``dmlc_tpu_torch.entry.dryrun_multichip(2)`` on the card,
-   its default (gloo, as the two ranks share one card): the one-step legs
-   and a 20-step trajectory within 1e-4 of the one-process run, falling.
+   its default (gloo, as the two ranks share one card), on the JAX dry
+   run's mesh ``{"data": 1, "model": 2}``: the one-step legs and a 20-step
+   feature-sharded trajectory within 1e-4 of the one-process run, falling.
+   Feature sharding (``LinearLearner(model_axis=)``; run after phase 14,
+   as (d) reads phase 13's corpus; (b) runs in (a)'s child): (a) K1 and
+   its ``dw`` on a shard window against their plain versions, at 8192x28
+   over a 30-word table in two windows and 8192x10 KDD-shaped ids over two
+   25,000,001-word windows of a 50,000,002-word table (values, the
+   partials' sum, ``dw`` against the plain windowed version and the whole
+   table's, bits twice, times and bounds), with K1's unsharded time beside
+   the parent's in turns under ``--parent``; (b) the world-1 NCCL group on
+   ``{"data": 1, "model": 1}``: 20 ELL and dense steps bit-identical to
+   the plain learner's, 20 enqueued behind a spin; one spawn of two gloo
+   ranks on ``{"data": 1, "model": 2}`` for (c) phase 3's corpus through
+   ``create_parser`` -> ``DeviceIter(mesh=, shardings=)`` ->
+   ``LinearLearner(model_axis="model")``, dense and ELL logistic and ELL
+   softmax, 20 steps each, losses and the gathered table within 1e-5 of
+   the one-process learner, the table bit-equal across the ranks, windowed
+   K1 and ``dw`` launches counted on each; (d) phase 13's KDD-shaped libfm
+   on the 50,000,002-word table, ELL logistic, SGD 0.1, 20 steps within
+   1e-4 of the one-process learner, each rank's shard bytes and step time
+   beside the one-process step's; (f) ALS at phase 9's size for 2 epochs,
+   replicated over the model axis, bit-equal to the one-process run; (e)
+   the dry run at four gloo ranks, ``{"data": 2, "model": 2}``.
 12. the block cache and the epoch planner: (a) ``examples/train_als.py``'s
    local leg at its full size through the port's example
    (``dmlc_tpu_torch.examples.train_als``): its ``main()`` as a user runs
@@ -242,8 +265,9 @@ FM steps' and phase 13's libfm bcoo and FM ell steps' (``step_profile``:
 device events and time by kernel a step), and
 how many launches the card queues behind a spin (``launch_queue``). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-15; the row scatter's on
-phases 9-14), the card's name and power limit as
+the main paths of phases 3, 6, 7 and 11-15, the windowed ones of phase
+11's feature sharding among them; the row scatter's on phases 9-14 and
+11 (f)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
@@ -600,7 +624,12 @@ def phase_k1(seed: int, parent=None) -> list:
             torch.testing.assert_close(p_out, ref, rtol=K1_RTOL, atol=K1_ATOL)
             kernel = lambda: k1.ell_matvec_cuda(table, idx, val)  # noqa: E731
             order = [device_ms(f) for f in (p_run, kernel, kernel, p_run)]
-            ab = {"parent_ms_runs": [order[0], order[3]], "change_ms_runs": order[1:3]}
+            # the unsharded call (lo = 0) keeps the parent's bits
+            ab = {"parent_ms_runs": [order[0], order[3]], "change_ms_runs": order[1:3],
+                  "bits_equal_to_parent": torch.equal(p_out, out)}
+            if not ab["bits_equal_to_parent"]:
+                raise AssertionError(f"K1 {name}: the unsharded call's bits differ from the "
+                                     "parent's")
         bound_ms, bound_by = k1_bound_ms(idx, b, k)
         # dw: the route's time, the plain version's, and index_add_ alone
         # on precomputed int64 indices and products (the one PyTorch call)
@@ -2461,13 +2490,32 @@ def _par_ell(path: str, mesh, part: int, parts: int, device=None):
 
 
 def _first_batches(it, n: int) -> list:
-    """The iterator's first ``n`` batches, copied, so a timed loop steps
-    and does not parse; the iterator is closed."""
+    """The iterator's first ``n`` batches (ELL, or dense ``(x, y, w)``),
+    copied, so a timed loop steps and does not parse; the iterator is
+    closed."""
     from dmlc_tpu_torch.ops.sparse import EllBatch
 
-    out = [EllBatch(*(t.clone() for t in b)) for _, b in zip(range(n), it)]
+    def clone(b):
+        ts = (t.clone() for t in b)
+        return EllBatch(*ts) if isinstance(b, EllBatch) else tuple(ts)
+
+    out = [clone(b) for _, b in zip(range(n), it)]
     it.close()
     return out
+
+
+def _par_dense(path: str, mesh, part: int, parts: int, device=None, model_axis=None):
+    """(learner, DeviceIter) of the dense path, unpacked, on one rank's part
+    (``model_axis``: feature-sharded, the rank's columns), or on ``device``
+    without a mesh."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, mesh=mesh,
+                          model_axis=model_axis, device=device)
+    it = DeviceIter(create_parser(path, part, parts, "libsvm"), num_col=model.device_num_col(),
+                    batch_size=BATCH, layout="dense", pack_aux=False, drop_remainder=True,
+                    mesh=mesh, shardings=model.batch_shardings(), device=device)
+    return model, it
 
 
 def _bits(tensors) -> str:
@@ -2480,12 +2528,13 @@ def _bits(tensors) -> str:
 def parallel_world1_child(path: str, out: str) -> None:
     """Leg (a), in a process of its own: a process group of one rank.
     ``init_from_env`` skips a one-worker job, as the JAX package does, so
-    this calls ``init_process_group`` itself; the learner's collectives are
-    issued all the same. The HIGGS-shaped main path with ``mesh=``: one
-    epoch and an accuracy pass with K1's and ``dw``'s launches counted; the
-    first 20 steps against the non-mesh learner on the same batches, bit
-    for bit; 20 mesh steps enqueued behind a device spin; the mesh step's
-    and the plain step's device time."""
+    this calls ``init_process_group`` itself; the data axis holds this one
+    rank, so the learner issues no collective over it. The HIGGS-shaped
+    main path with ``mesh=``: one epoch and an accuracy pass with K1's and
+    ``dw``'s launches counted; the first 20 steps against the non-mesh
+    learner on the same batches, bit for bit; 20 mesh steps enqueued behind
+    a device spin; the mesh step's and the plain step's device time. Then
+    feature sharding's world-1 leg on the same group (``fs_world1``)."""
     from datetime import timedelta
 
     import torch
@@ -2521,11 +2570,12 @@ def parallel_world1_child(path: str, out: str) -> None:
                                             zip(plain.params, meshed.params))}
     batch = batches[0]
     torch.cuda.synchronize()
-    # a step's launches and its two all-reduces: groups of 10 stay well
-    # inside the card's launch queue
+    # groups of 10 steps stay well inside the card's launch queue
     rec["step_enqueue_behind_spin"] = enqueue_behind_spin(lambda: meshed.step(batch), group=10)
     rec["mesh_step_device_ms"] = device_ms(lambda: meshed.step(batch), iters=10)
     rec["plain_step_device_ms"] = device_ms(lambda: plain.step(batch), iters=10)
+    dense = _first_batches(_par_dense(path, None, 0, 1, device=mesh.device)[1], PAR["steps"])
+    rec["fs_world1"] = fs_world1(make_mesh({"data": 1, "model": 1}), batches, dense)
     dist.destroy_process_group()
     with open(out, "w") as f:
         json.dump(rec, f)
@@ -2713,9 +2763,13 @@ def run_parallel(path: str, ratings: str, tmp: str, device, seed: int) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"parallel leg (a) failed: {proc.stderr[-3000:]}")
     a = json.load(open(out))
+    fs1 = a.pop("fs_world1")
     emit(a)
     check_world1(a)
     res["world1"] = a
+    emit({"phase": "fs_world1", **fs1})
+    check_fs_world1(fs1)
+    res["fs_world1"] = fs1
 
 
     nccl_dir = os.path.join(tmp, "nccl_pair")
@@ -2832,6 +2886,413 @@ def check_pair(run1: list, run2: list, ref: dict, out1: str) -> dict:
     return rec
 
 
+# ---------------- phase 11 (feature sharding): LinearLearner(model_axis=) ----------------
+
+FS = {"model": 2, "steps": 20, "ranks": 2, "dry_ranks": 4, "child_timeout": 600,
+      "kdd_lr": 0.1, "als_epochs": 2}
+FS_HIGGS_LEGS = {  # leg: (layout, learner kwargs), each with model_axis="model"
+    "dense_logistic": ("dense", {}),
+    "ell_logistic": ("ell", {}),
+    "ell_softmax": ("ell", {"objective": "softmax", "num_class": 2}),
+}
+FS_WINDOW_SHAPES = [  # (name, B, K, W): the table split in FS["model"] windows
+    ("higgs_w30", BATCH, HIGGS_COLS, 30),       # weight_dim 30 at model 2: 15 words a rank
+    # phase 13's KDD-shaped rows (KDD_FIELDS = 10 ids) over its 50,000,000
+    # ids: weight_dim 50,000,002 at model 2, 25,000,001 words a rank
+    ("kdd_w50m", BATCH, 10, 50_000_002),
+]
+
+
+def fs_world1(mesh, ell_batches: list, dense_batches: list) -> dict:
+    """Phase 11 (b), on the world-1 NCCL group: ``{"data": 1, "model": 1}``
+    with ``model_axis="model"``. 20 HIGGS ELL and dense steps bit-identical
+    to the plain learner's on the same batches (the windowed kernels at lo =
+    0; an axis of one rank issues no collective), their windowed K1 and
+    ``dw`` launches counted, and 20 sharded steps enqueued behind a device
+    spin in groups of 10."""
+    import torch
+
+    from dmlc_tpu_torch import LinearLearner
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    rec = {"mesh": mesh.shape}
+    for layout, batches in (("ell", ell_batches), ("dense", dense_batches)):
+        plain = LinearLearner(HIGGS_COLS, layout=layout, learning_rate=0.3, device=mesh.device)
+        sharded = LinearLearner(HIGGS_COLS, layout=layout, learning_rate=0.3, mesh=mesh,
+                                model_axis="model")
+        plain_losses = torch.stack([plain.step(b) for b in batches])
+        k1.launches = k1.dw_launches = 0
+        sharded_losses = torch.stack([sharded.step(b) for b in batches])
+        launches = {"k1": k1.launches, "dw": k1.dw_launches}
+        rec[layout] = {
+            "steps": len(batches), "launches": launches,
+            "losses_bit_equal_to_plain": torch.equal(plain_losses, sharded_losses),
+            "params_bit_equal_to_plain": all(torch.equal(p, q) for p, q in
+                                             zip(plain.params, sharded.params)),
+            "step_enqueue_behind_spin": enqueue_behind_spin(
+                lambda: sharded.step(batches[0]), group=10)}
+    return rec
+
+
+def check_fs_world1(rec: dict) -> None:
+    problems = []
+    for layout, want in (("ell", FS["steps"]), ("dense", 0)):
+        r = rec[layout]
+        if not (r["losses_bit_equal_to_plain"] and r["params_bit_equal_to_plain"]):
+            problems.append(f"{layout}: the sharded steps differ from the plain steps' bits")
+        if not r["step_enqueue_behind_spin"]["no_host_sync"]:
+            problems.append(f"{layout}: a sharded step waited for the device")
+        if (r["launches"]["k1"], r["launches"]["dw"]) != (want, want):
+            problems.append(f"{layout}: K1 / dw launched {r['launches']}, {want} each needed")
+    if problems:
+        raise AssertionError(f"feature sharding (b): {problems}: {rec}")
+
+
+def fs_kernel_gate(seed: int, k1_main: dict, dev) -> dict:
+    """Phase 11 (a): K1 and its ``dw`` on a shard window against their
+    plain versions on the card, at each ``FS_WINDOW_SHAPES`` table split in
+    ``FS["model"]`` windows: values within K1's tolerance, the windows'
+    partials summing to the whole table's margin, ``dw`` within 1e-4 + 1e-5
+    of each word's absolute sum of the plain windowed version and of the
+    whole table's ``dw`` over the window, bit-identical over two launches
+    on the kernel's route; device times beside the plain versions' and the
+    bounds. K1's unsharded time at the main path's shape (phase 2's, with
+    ``--parent`` beside its parent's in turns) is reported beside them."""
+    import torch
+
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.ops.sparse import EllBatch, ell_matvec, window_slots
+
+    rows, err, dw_err = [], 0.0, 0.0
+    for i, (name, b, k, w) in enumerate(FS_WINDOW_SHAPES):
+        table, idx, val = k1_inputs(b, k, w, seed + 300 + i, dev)
+        batch = EllBatch(idx, val, None, None)
+        g = torch.randn(b, generator=torch.Generator(device=dev).manual_seed(seed + 400 + i),
+                        device=dev)
+        whole = ell_matvec(table, batch)
+        dw_whole = k1.ell_matvec_grads(table, idx, val, g, need_dval=False)[0]
+        width = w // FS["model"]
+        partial_sum = torch.zeros_like(whole)
+        for m in range(FS["model"]):
+            lo = m * width
+            shard = table[lo:lo + width].contiguous()
+            out = k1.ell_matvec_cuda(shard, idx, val, lo)
+            again = k1.ell_matvec_cuda(shard, idx, val, lo)
+            ref = ell_matvec(shard, batch, lo=lo)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, rtol=K1_RTOL, atol=K1_ATOL)
+            partial_sum += out
+            route = k1.dw_route(width)
+
+            def dw_plain_fn():
+                return k1.ell_matvec_grads(shard, idx, val, g, need_dval=False, lo=lo)[0]
+
+            if route == "cuda":
+                def dw_fn():
+                    return k1.ell_matvec_dw_cuda(idx, val, g, width, lo)
+            else:
+                dw_fn = dw_plain_fn
+            dw, dw_again, dw_plain = dw_fn(), dw_fn(), dw_plain_fn()
+            # each word's absolute sum: the same gradient of |val| and |g|
+            scale = k1.ell_matvec_grads(shard, idx, val.abs(), g.abs(), need_dval=False,
+                                        lo=lo)[0]
+            tol = K1_ATOL + K1_RTOL * scale
+            diff = torch.maximum((dw - dw_plain).abs(), (dw - dw_whole[lo:lo + width]).abs())
+            repeatable = torch.equal(out, again) and torch.equal(dw, dw_again)
+            if bool((diff > tol).any()) or (route == "cuda" and not repeatable):
+                raise AssertionError(f"windowed dw {name} [{lo}, {lo + width}): differs by up "
+                                     f"to {float(diff.max())}, repeatable {repeatable}")
+            local, _, keep = window_slots(idx, val, lo, width)
+            touched = int(torch.unique(local[keep]).numel())
+            slots = int(keep.sum())
+            bound_ms, bound_by = bound(b * k * 8 + b * 4 + touched * 4, 2 * slots)
+            dw_bound, dw_bound_by = bound(b * k * 8 + b * 4 + width * 4, 2 * slots)
+            row = {"phase": "fs_kernel", "shape": name, "B": b, "K": k, "W": w,
+                   "window": [lo, width], "in_window_slots": slots,
+                   "max_abs_err": float((out - ref).abs().max()),
+                   "dw_route": route, "dw_max_abs_err": float(diff.max()),
+                   "repeatable": repeatable,
+                   "ms": device_ms(lambda: k1.ell_matvec_cuda(shard, idx, val, lo)),
+                   "plain_ms": device_ms(lambda: ell_matvec(shard, batch, lo=lo)),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "dw_ms": device_ms(dw_fn), "dw_plain_ms": device_ms(dw_plain_fn),
+                   "dw_bound_ms": dw_bound, "dw_bound_by": dw_bound_by}
+            emit(row)
+            rows.append(row)
+            err = max(err, row["max_abs_err"])
+            if route == "cuda":
+                dw_err = max(dw_err, row["dw_max_abs_err"])
+        torch.testing.assert_close(partial_sum, whole, rtol=K1_RTOL, atol=K1_ATOL)
+        del table, dw_whole
+    unsharded = {"phase": "fs_kernel_unsharded", "shape": K1_SHAPES[0][0],
+                 "ms": k1_main["ms"], "parent_ms_runs": k1_main.get("parent_ms_runs"),
+                 "change_ms_runs": k1_main.get("change_ms_runs"),
+                 "bits_equal_to_parent": k1_main.get("bits_equal_to_parent")}
+    if unsharded["parent_ms_runs"]:
+        unsharded["change_over_parent"] = (statistics.median(unsharded["change_ms_runs"])
+                                           / statistics.median(unsharded["parent_ms_runs"]))
+        unsharded["within_5pct"] = unsharded["change_over_parent"] <= 1.05
+    emit(unsharded)
+    return {"rows": rows, "max_abs_err": err, "dw_max_abs_err": dw_err}
+
+
+def _fs_pipeline(path: str, mesh, layout: str, kw: dict, num_col: int, max_nnz, lr: float,
+                 uri_suffix: str = "", device=None):
+    """(learner, DeviceIter) on the data rank's part of ``path``: with a
+    mesh, feature-sharded over its model axis; without one, the one-process
+    learner on ``device``."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    part, parts = (mesh.coords["data"], mesh.shape["data"]) if mesh is not None else (0, 1)
+    model = LinearLearner(num_col, layout=layout, learning_rate=lr, mesh=mesh,
+                          model_axis="model" if mesh is not None else None, device=device, **kw)
+    it = DeviceIter(create_parser(path + uri_suffix, part, parts,
+                                  "auto" if uri_suffix else "libsvm"),
+                    num_col=model.device_num_col(), batch_size=BATCH, layout=layout,
+                    max_nnz=max_nnz, pack_aux=False if layout == "dense" else None,
+                    drop_remainder=True, mesh=mesh, shardings=model.batch_shardings(),
+                    device=device)
+    return model, it
+
+
+def _fs_steps(model, it, steps: int):
+    """``steps`` steps straight from the iterator (closed after), each on
+    the host clock between two synchronisations (a gloo step's all-reduces
+    in it): the losses and the median step in ms."""
+    import torch
+
+    losses, secs = [], []
+    for _, b in zip(range(steps), it):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(model.step(b))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+    it.close()
+    if len(losses) != steps:
+        raise AssertionError(f"{len(losses)} batches, {steps} needed")
+    return [float(x) for x in losses], 1e3 * statistics.median(secs)
+
+
+def _fs_als(path: str, device, mesh=None) -> dict:
+    """Phase 11 (f)'s ALS at phase 9's size, ``FS["als_epochs"]`` epochs
+    with the item solve: on ``mesh`` replicated over its model axis, else
+    the one-process run."""
+    from dmlc_tpu_torch import AlsLearner, DeviceIter, create_parser
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    als = AlsLearner(ALS["users"], ALS["items"], num_factors=ALS["factors"], reg=ALS["reg"],
+                     seed=0, mesh=mesh, device=None if mesh is not None else device)
+    it = DeviceIter(create_parser(path, 0, 1, "libsvm", chunk_bytes=ALS["chunk_bytes"]),
+                    num_col=als.device_num_col(), batch_size=ALS["batch"], layout="ell",
+                    max_nnz=ALS["per_row"], drop_remainder=True, mesh=mesh,
+                    shardings=als.batch_shardings(),
+                    device=None if mesh is not None else device)
+    rs.launches = 0
+    epochs = [als.fit_epoch(it) for _ in range(FS["als_epochs"])]
+    it.close()
+    return {"losses": [loss for loss, _ in epochs], "batches": [nb for _, nb in epochs],
+            "row_scatter": rs.launches, "bits": _bits(als.params)}
+
+
+def fs_pair_child(cfg_path: str) -> None:
+    """Phase 11 (c), (d) and (f): one of two gloo ranks sharing the card on
+    ``{"data": 1, "model": 2}`` (NCCL takes one card a rank). (c) phase 3's
+    corpus through ``create_parser`` -> ``DeviceIter(mesh=, shardings=)``
+    -> ``LinearLearner(model_axis="model")``, dense and ELL logistic and
+    ELL softmax, 20 steps each, the table all-gathered; (d) phase 13's
+    KDD-shaped libfm on its 50,000,002-word table, 25,000,001 words a rank,
+    ELL logistic, SGD 0.1, 20 steps; (f) ALS at phase 9's size for 2 epochs,
+    replicated over the model axis. Windowed K1 and ``dw`` launches counted
+    around each leg's steps."""
+    from datetime import timedelta
+
+    import torch
+
+    from dmlc_tpu_torch import convert
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.parallel import host_shard_info, init_from_env, make_mesh
+
+    cfg = json.load(open(cfg_path))
+    init_from_env(backend="gloo", device=cfg["device"], timeout=timedelta(seconds=300))
+    mesh = make_mesh({"data": 1, "model": FS["model"]}, devices=cfg["device"])
+    rank, _ = host_shard_info()
+    out = {"rank": rank, "coords": mesh.coords, "backend": torch.distributed.get_backend(),
+           "higgs": {}}
+    for leg, (layout, kw) in FS_HIGGS_LEGS.items():
+        model, it = _fs_pipeline(cfg["higgs"], mesh, layout, kw, HIGGS_COLS,
+                                 HIGGS_COLS if layout == "ell" else None, 0.3)
+        k1.launches = k1.dw_launches = 0
+        losses, step_ms = _fs_steps(model, it, FS["steps"])
+        launches = {"k1": k1.launches, "dw": k1.dw_launches}
+        weight, bias = convert.linear_params_gather_to_jax(model.params, mesh, "model")
+        out["higgs"][leg] = {"losses": losses, "launches": launches, "step_ms": step_ms,
+                             "shard": [model.shard_lo, model.shard_width],
+                             "bytes_to_device": it.bytes_to_device,
+                             "bits": _bits([torch.from_numpy(weight), torch.from_numpy(bias)])}
+        if rank == 0:
+            np.savez(os.path.join(cfg["out"], f"higgs_{leg}.npz"), weight=weight, bias=bias)
+    model, it = _fs_pipeline(cfg["kdd"], mesh, "ell", {}, KDD_COLS, KDD_FIELDS, FS["kdd_lr"],
+                             uri_suffix="?format=libfm")
+    k1.launches = k1.dw_launches = 0
+    losses, step_ms = _fs_steps(model, it, FS["steps"])
+    out["kdd"] = {"losses": losses, "launches": {"k1": k1.launches, "dw": k1.dw_launches},
+                  "step_ms": step_ms, "weight_dim": model.weight_dim,
+                  "shard": [model.shard_lo, model.shard_width],
+                  "shard_bytes": model.params.weight.numel() * 4}
+    del model
+    torch.cuda.empty_cache()
+    out["als"] = _fs_als(cfg["ratings"], None, mesh)
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _fs_reference(cfg: dict, device) -> dict:
+    """The card's one-process runs on the pair's batches (the data axis is
+    one rank, so the pair's ranks read what one process reads): each HIGGS
+    leg, the KDD-shaped table and ALS."""
+    import torch
+
+    from dmlc_tpu_torch import convert
+
+    ref = {"higgs": {}}
+    for leg, (layout, kw) in FS_HIGGS_LEGS.items():
+        model, it = _fs_pipeline(cfg["higgs"], None, layout, kw, HIGGS_COLS,
+                                 HIGGS_COLS if layout == "ell" else None, 0.3, device=device)
+        losses, step_ms = _fs_steps(model, it, FS["steps"])
+        weight, bias = convert.linear_params_to_jax(model.params)
+        ref["higgs"][leg] = {"losses": losses, "weight": weight, "bias": bias,
+                             "step_ms": step_ms}
+    model, it = _fs_pipeline(cfg["kdd"], None, "ell", {}, KDD_COLS, KDD_FIELDS, FS["kdd_lr"],
+                             uri_suffix="?format=libfm", device=device)
+    losses, step_ms = _fs_steps(model, it, FS["steps"])
+    ref["kdd"] = {"losses": losses, "step_ms": step_ms,
+                  "table_bytes": model.params.weight.numel() * 4}
+    del model
+    torch.cuda.empty_cache()
+    ref["als"] = _fs_als(cfg["ratings"], device)
+    return ref
+
+
+def _rel_diff(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+
+
+def check_fs_pair(ranks: list, ref: dict, out_dir: str) -> dict:
+    """Phase 11 (c), (d), (f)'s record and gates against the one-process
+    runs ``ref``."""
+    rec = {"phase": "fs_pair", "backend": ranks[0]["backend"], "mesh": {"data": 1,
+                                                                        "model": FS["model"]},
+           "higgs": {}, "note": "gloo stages CUDA collectives through the host: the step "
+                                "times are gloo-on-one-card figures"}
+    problems = []
+    for leg, (layout, _) in FS_HIGGS_LEGS.items():
+        runs = [r["higgs"][leg] for r in ranks]
+        want = ref["higgs"][leg]
+        got = np.load(os.path.join(out_dir, f"higgs_{leg}.npz"))
+        real = HIGGS_COLS  # words past the features: a spare one (0) and the sink
+        r = {"loss_max_rel_diff": _rel_diff(runs[0]["losses"], want["losses"]),
+             "table_max_abs_diff": float(np.max(np.abs(got["weight"][:real]
+                                                       - want["weight"][:real]))),
+             "bias_max_abs_diff": float(np.max(np.abs(got["bias"] - want["bias"]))),
+             "words_past_features_zero": bool(np.all(got["weight"][real:] == 0.0)),
+             "losses_equal_across_ranks": all(x["losses"] == runs[0]["losses"] for x in runs),
+             "table_bits_equal_across_ranks": len({x["bits"] for x in runs}) == 1,
+             "launches": [x["launches"] for x in runs], "shards": [x["shard"] for x in runs],
+             "bytes_to_device": [x["bytes_to_device"] for x in runs],
+             "step_ms": [x["step_ms"] for x in runs], "one_process_step_ms": want["step_ms"]}
+        rec["higgs"][leg] = r
+        if not (r["loss_max_rel_diff"] <= 1e-5 and r["table_max_abs_diff"] <= 1e-5
+                and r["bias_max_abs_diff"] <= 1e-5 and r["words_past_features_zero"]):
+            problems.append(f"{leg}: differs from the one-process learner")
+        if not (r["losses_equal_across_ranks"] and r["table_bits_equal_across_ranks"]):
+            problems.append(f"{leg}: the ranks disagree")
+        need = FS["steps"] if leg == "ell_logistic" else 0  # softmax: the plain masked gather
+        if any((x["k1"], x["dw"]) != (need, need) for x in r["launches"]):
+            problems.append(f"{leg}: windowed K1 / dw launched {r['launches']}, {need} needed")
+    kdd = [r["kdd"] for r in ranks]
+    rec["kdd"] = {"loss_max_rel_diff": _rel_diff(kdd[0]["losses"], ref["kdd"]["losses"]),
+                  "losses_equal_across_ranks": all(x["losses"] == kdd[0]["losses"]
+                                                   for x in kdd),
+                  "first_loss": kdd[0]["losses"][0], "last_loss": kdd[0]["losses"][-1],
+                  "weight_dim": kdd[0]["weight_dim"], "shards": [x["shard"] for x in kdd],
+                  "shard_bytes": [x["shard_bytes"] for x in kdd],
+                  "one_process_table_bytes": ref["kdd"]["table_bytes"],
+                  "step_ms": [x["step_ms"] for x in kdd],
+                  "one_process_step_ms": ref["kdd"]["step_ms"],
+                  "launches": [x["launches"] for x in kdd]}
+    if not (rec["kdd"]["loss_max_rel_diff"] <= 1e-4
+            and rec["kdd"]["losses_equal_across_ranks"]):
+        problems.append("kdd: the sharded losses differ from the one-process learner's")
+    if any(x["launches"]["k1"] != FS["steps"] for x in kdd):
+        problems.append(f"kdd: windowed K1 launched {rec['kdd']['launches']}")
+    als = [r["als"] for r in ranks]
+    rec["als"] = {"losses": als[0]["losses"], "batches": als[0]["batches"],
+                  "bits_equal_to_one_process": all(x["bits"] == ref["als"]["bits"]
+                                                   for x in als),
+                  "row_scatter": [x["row_scatter"] for x in als]}
+    if not rec["als"]["bits_equal_to_one_process"]:
+        problems.append("als: the replicated tables differ from the one-process run's bits")
+    if problems:
+        emit(rec)
+        raise AssertionError(f"feature sharding: {problems}")
+    return rec
+
+
+def run_feature_sharding(path: str, ratings: str, kdd: str, tmp: str, device, seed: int,
+                         k1_main: dict, world1: dict) -> dict:
+    """Phase 11's feature sharding (``LinearLearner(model_axis=)``): (a)
+    the windowed kernels against their plain versions; (b) the world-1
+    NCCL leg, run by phase 11's world-1 child (``world1``); (c), (d) and (f)
+    in one spawn of two gloo ranks on ``{"data": 1, "model": 2}``
+    (``fs_pair_child``) against the card's one-process runs on the same
+    batches; (e) the dry run at four ranks, ``{"data": 2, "model": 2}``."""
+    from dmlc_tpu_torch.entry import dryrun_multichip
+    from dmlc_tpu_torch.parallel.launch import run_local
+
+    t0 = time.monotonic()
+    res = {"kernels": fs_kernel_gate(seed, k1_main, device), "world1": world1}
+    out = os.path.join(tmp, "fs_pair")
+    os.makedirs(out, exist_ok=True)
+    cfg = {"higgs": path, "kdd": kdd, "ratings": ratings, "device": str(device), "out": out}
+    cfg_path = os.path.join(out, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    t1 = time.monotonic()
+    run_local([sys.executable, os.path.abspath(__file__), "--parallel-child", "fs_pair",
+               cfg_path], FS["ranks"], timeout=FS["child_timeout"])
+    pair_s = time.monotonic() - t1
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(FS["ranks"])]
+    pair = check_fs_pair(ranks, _fs_reference(cfg, device), out)
+    pair["pair_spawn_s"] = pair_s
+    emit(pair)
+    res["pair"] = pair
+    t1 = time.monotonic()
+    dry = dryrun_multichip(FS["dry_ranks"], timeout=FS["child_timeout"])
+    dry = {"phase": "fs_dryrun", "ranks": FS["dry_ranks"], "mesh": dry["mesh"],
+           "backend": dry["backend"], "legs": dry["legs"],
+           "first_loss": dry["trajectory"][0], "last_loss": dry["trajectory"][-1],
+           "max_abs_diff_vs_single_process": float(np.max(np.abs(
+               np.array(dry["trajectory"]) - np.array(dry["single_process"])))),
+           "seconds": time.monotonic() - t1}
+    emit(dry)
+    if dry["mesh"] != {"data": FS["dry_ranks"] // 2, "model": 2}:
+        raise AssertionError(f"feature sharding (e): the dry run's mesh: {dry}")
+    res["dryrun"] = dry
+    res["launches"] = {
+        "k1": world1["ell"]["launches"]["k1"]
+        + sum(v["k1"] for leg in pair["higgs"].values() for v in leg["launches"])
+        + sum(x["k1"] for x in pair["kdd"]["launches"]),
+        "dw": world1["ell"]["launches"]["dw"]
+        + sum(v["dw"] for leg in pair["higgs"].values() for v in leg["launches"])
+        + sum(x["dw"] for x in pair["kdd"]["launches"]),
+        "row_scatter": sum(pair["als"]["row_scatter"])}
+    emit({"phase": "fs_total", "wall_s": time.monotonic() - t0, "launches": res["launches"]})
+    return res
+
+
 def parallel_child(argv: list) -> int:
     """``chip_smoke.py --parallel-child KIND ARGS...``: one process of
     phase 11."""
@@ -2840,6 +3301,8 @@ def parallel_child(argv: list) -> int:
         parallel_world1_child(*argv[1:])
     elif kind == "nccl_pair":
         parallel_nccl_pair_child(*argv[1:])
+    elif kind == "fs_pair":
+        fs_pair_child(*argv[1:])
     else:
         parallel_pair_child(*argv[1:])
     return 0
@@ -4362,6 +4825,11 @@ def main() -> int:
         # phase 14: the fused native reader's routes on phases 3's and 13's
         # corpora, each leg's launches counted from 0 around its main path
         native = run_native_reader(path, formats["kdd_path"], tmp, dev)
+        # phase 11's feature sharding: (a) the windowed kernels, (c)-(f) on
+        # phases 3's, 9's and 13's corpora ((b) ran in phase 11's world-1
+        # child), each leg's launches counted around its steps
+        fs = run_feature_sharding(path, ratings, formats["kdd_path"], tmp, dev, args.seed,
+                                  k1_rows[0], par["fs_world1"])
         os.remove(formats["kdd_path"])
         # phase 15: the convert pool's widths, the read pool's, the sampled
         # transfer behind a spin and the trace modes, each leg's launches
@@ -4427,8 +4895,9 @@ def main() -> int:
                      + bc_higgs["k1_launches"] + bc_snap["k1_launches"]
                      + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
-                     + pools["spin"]["k1_launches"]),
-        "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
+                     + pools["spin"]["k1_launches"] + fs["launches"]["k1"]),
+        "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
+                           + [fs["kernels"]["max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -4439,9 +4908,9 @@ def main() -> int:
                      + bc_higgs["dw_launches"] + bc_snap["dw_launches"]
                      + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
-                     + pools["spin"]["dw_launches"]),
-        "max_abs_err": max(r["dw_kernel_max_abs_err"] for r in k1_rows
-                           if r["dw_route"] == "cuda"),
+                     + pools["spin"]["dw_launches"] + fs["launches"]["dw"]),
+        "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
+                            if r["dw_route"] == "cuda"] + [fs["kernels"]["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -4464,7 +4933,7 @@ def main() -> int:
         + formats["libfm"]["linear_bcoo"]["row_scatter_launches"]
         + formats["libfm"]["fm_ell"]["row_scatter_launches"]
         + formats["xor"]["row_scatter_launches"]
-        + native["coo"]["row_scatter_launches"],
+        + native["coo"]["row_scatter_launches"] + fs["launches"]["row_scatter"],
         "max_abs_err": max([r["row_scatter"]["max_abs_diff_vs_plain"] for r in rs_rows]
                            + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
         "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],

@@ -21,7 +21,9 @@ row scatter-add of their steps gives the same bits on every run. With
 ``mesh=`` (:mod:`dmlc_tpu_torch.parallel`, on ``torch.distributed``:
 ``init_from_env`` from the DMLC_* contract, ``make_mesh``, ``sync_min``)
 the three learners train data-parallel with the JAX package's
-global-batch semantics. ``create_parser(..., block_cache=path)`` parses
+global-batch semantics, on two-axis meshes too, and
+``LinearLearner(model_axis=)`` shards its table over a model axis (its
+ELL margin on K1 over the rank's window). ``create_parser(..., block_cache=path)`` parses
 once and serves later epochs from a columnar cache, in a seeded, resumable
 and pod-sharded order with ``shuffle_seed`` / ``pod_sharding``.
 

@@ -3,12 +3,16 @@
 Both sides meet as numpy arrays: ``np.asarray`` of a JAX learner's
 parameters (or an ``AlsLearner.state_dict()``) goes in, and the same
 arrays come out, so one state can be trained by both packages and
-compared, or a checkpoint of one restored into the other.
+compared, or a checkpoint of one restored into the other. A
+feature-sharded ``LinearLearner`` takes its rank's shard of the JAX table
+(:func:`linear_params_from_jax` with ``mesh=`` / ``model_axis=``), and
+:func:`linear_params_gather_to_jax` all-gathers the shards back into the
+global table, as ``np.asarray`` of a sharded JAX array does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,15 +21,21 @@ from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.models.als import STATE_KEYS as ALS_STATE_KEYS
 from dmlc_tpu_torch.models.fm import FMParams
 from dmlc_tpu_torch.models.linear import LinearParams
+from dmlc_tpu_torch.parallel.mesh import shard_window
 from dmlc_tpu_torch.utils.check import check
 
 
-def linear_params_from_jax(weight: np.ndarray, bias: np.ndarray,
-                           device=None) -> LinearParams:
-    """float32 tensors on ``device`` (default: the CUDA device)."""
-    dev = resolve_device(device)
+def linear_params_from_jax(weight: np.ndarray, bias: np.ndarray, device=None, *,
+                           mesh=None, model_axis: Optional[str] = None) -> LinearParams:
+    """float32 tensors on ``device`` (default: the CUDA device; the
+    mesh's with ``mesh=``). Under feature sharding (``model_axis``), this
+    rank's shard of the global table, the rows at its coordinate on that
+    axis (``LinearLearner.shard_lo`` / ``shard_width``); the bias whole."""
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
+    weight = np.asarray(weight, np.float32)
+    lo, width = shard_window(mesh, model_axis, weight.shape[0])
     return LinearParams(
-        weight=torch.tensor(np.asarray(weight, np.float32), device=dev),
+        weight=torch.tensor(weight[lo:lo + width], device=dev),
         bias=torch.tensor(np.asarray(bias, np.float32), device=dev))
 
 
@@ -33,6 +43,17 @@ def linear_params_to_jax(params: LinearParams) -> Tuple[np.ndarray, np.ndarray]:
     """(weight, bias) as float32 numpy arrays, for ``jnp.asarray``."""
     return (params.weight.detach().cpu().numpy().astype(np.float32),
             params.bias.detach().cpu().numpy().astype(np.float32))
+
+
+def linear_params_gather_to_jax(params: LinearParams, mesh,
+                                model_axis: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(weight, bias) of a feature-sharded learner as float32 numpy
+    arrays: the global table, its shards all-gathered over ``model_axis``
+    in coordinate order (a collective: every rank of the model group calls
+    it), the counterpart of ``np.asarray(model.params.weight)`` on a
+    sharded JAX array."""
+    weight = mesh.all_gather(params.weight.detach(), model_axis)
+    return linear_params_to_jax(LinearParams(weight, params.bias))
 
 
 def fm_params_from_jax(w0: np.ndarray, w: np.ndarray, v: np.ndarray,

@@ -63,6 +63,14 @@
 // contributes nothing (the plain version raises on it): the kernel never
 // reads outside the table.
 //
+// The shard window. Under feature sharding (LinearLearner(model_axis=)) a
+// rank holds words [lo, lo + W) of the global table, and its margin is the
+// partial sum over the slots whose id falls in that window. The kernel
+// takes lo as an integer and reads word id - lo, one subtraction a slot:
+// no second [B, K] id tensor and no copy of w, and an id outside the
+// window is skipped by the same unsigned compare as above. The unsharded
+// call passes lo = 0 and gives the same bits as before.
+//
 // Host interface: plain C, loaded with ctypes. The launch goes on the
 // caller's stream, does not synchronise and allocates nothing; the return
 // value is cudaGetLastError() right after the launch.
@@ -89,11 +97,14 @@ __device__ __forceinline__ float gather(const float* table, uint32_t i) {
   return kTableSmem ? table[i] : __ldg(table + i);
 }
 
+// The table holds words [lo, lo + table_size) of a model-sharded table
+// (lo = 0 unsharded): id i reads word i - lo. Unsigned: an id below lo or
+// negative wraps high and is skipped, as is one past the window (the
+// caller keeps lo + table_size <= 2^31).
 template <bool kTableSmem>
-__device__ __forceinline__ void fma_slot(float& acc, const float* table, uint32_t table_size,
-                                         int32_t i, float v) {
-  // unsigned compare: a negative index wraps high and is skipped too
-  const uint32_t u = static_cast<uint32_t>(i);
+__device__ __forceinline__ void fma_slot(float& acc, const float* table, uint32_t lo,
+                                         uint32_t table_size, int32_t i, float v) {
+  const uint32_t u = static_cast<uint32_t>(i) - lo;
   if (u < table_size) acc = fmaf(gather<kTableSmem>(table, u), v, acc);
 }
 
@@ -117,12 +128,13 @@ int lanes_per_row(int64_t num_k, bool one_pass) {
 // One lane's part of a row (see for_row_groups), summed in fp32.
 template <bool kGlobal, bool kTableSmem, bool kVec>
 __device__ __forceinline__ float row_part(const int32_t* row_idx, const float* row_val,
-                                          const float* table, uint32_t table_size,
-                                          int num_k, int first, int step_shift, bool wrap) {
+                                          const float* table, uint32_t lo,
+                                          uint32_t table_size, int num_k, int first,
+                                          int step_shift, bool wrap) {
   float acc = 0.0f;
   for_row_groups<kGlobal, kVec>(row_idx, row_val, num_k, first, step_shift, wrap,
                                 [&](int32_t i, float v) {
-                                  fma_slot<kTableSmem>(acc, table, table_size, i, v);
+                                  fma_slot<kTableSmem>(acc, table, lo, table_size, i, v);
                                 });
   return acc;
 }
@@ -132,9 +144,9 @@ __device__ __forceinline__ float row_part(const int32_t* row_idx, const float* r
 // 2^lane_shift lanes a row, their parts summed by a fixed shuffle tree.
 template <bool kGlobal, bool kTableSmem, bool kVec>
 __device__ __forceinline__ void tile_sums(const int32_t* tile_idx, const float* tile_val,
-                                          const float* table, uint32_t table_size,
-                                          float* out, int64_t rows, int num_k, int lane,
-                                          int lane_shift) {
+                                          const float* table, uint32_t lo,
+                                          uint32_t table_size, float* out, int64_t rows,
+                                          int num_k, int lane, int lane_shift) {
   const int lanes = 1 << lane_shift;
   const int r = lane >> lane_shift;
   const int sub = lane & (lanes - 1);
@@ -142,7 +154,7 @@ __device__ __forceinline__ void tile_sums(const int32_t* tile_idx, const float* 
   if (r < rows) {
     const bool alone = lane_shift == 0;
     acc = row_part<kGlobal, kTableSmem, kVec>(tile_idx + r * num_k, tile_val + r * num_k,
-                                              table, table_size, num_k,
+                                              table, lo, table_size, num_k,
                                               alone ? first_group(num_k, lane) : sub,
                                               lane_shift, alone);
   }
@@ -154,8 +166,8 @@ template <bool kStaged, bool kTableSmem, bool kVec>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 ell_matvec_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,
                   const float* __restrict__ val, float* __restrict__ out,
-                  int64_t num_rows, int num_k, uint32_t table_size, int lane_shift,
-                  int64_t num_tiles) {
+                  int64_t num_rows, int num_k, uint32_t lo, uint32_t table_size,
+                  int lane_shift, int64_t num_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kMaxWarps][2];
   __shared__ __align__(8) uint64_t table_bar;
@@ -226,10 +238,10 @@ ell_matvec_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,
       tile_sums<false, kTableSmem, kVec>(
           reinterpret_cast<const int32_t*>(stages + stage * stage_bytes),
           reinterpret_cast<const float*>(stages + stage * stage_bytes + tile_words * 4),
-          table, table_size, out + row0, rows, num_k, lane, lane_shift);
+          table, lo, table_size, out + row0, rows, num_k, lane, lane_shift);
       __syncwarp();
     } else {
-      tile_sums<true, kTableSmem, kVec>(idx + row0 * num_k, val + row0 * num_k, table,
+      tile_sums<true, kTableSmem, kVec>(idx + row0 * num_k, val + row0 * num_k, table, lo,
                                         table_size, out + row0, rows, num_k, lane,
                                         lane_shift);
     }
@@ -237,13 +249,13 @@ ell_matvec_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,
 }
 
 using Kernel = void (*)(const float*, const int32_t*, const float*, float*, int64_t, int,
-                        uint32_t, int, int64_t);
+                        uint32_t, uint32_t, int, int64_t);
 
 // Launch one instantiation, raising its dynamic shared memory limit once
 // per device when it needs more than the default 48 KB.
 cudaError_t launch(Kernel kernel, int variant, int dev, unsigned int grid, int threads,
                    size_t smem, cudaStream_t stream, const float* w, const int32_t* idx,
-                   const float* val, float* out, int64_t num_rows, int num_k,
+                   const float* val, float* out, int64_t num_rows, int num_k, uint32_t lo,
                    uint32_t table_size, int lane_shift, int64_t num_tiles) {
   static size_t granted[8][64] = {};
   if (smem > 48 * 1024 && dev >= 0 && dev < 64 && granted[variant][dev] < smem) {
@@ -252,20 +264,22 @@ cudaError_t launch(Kernel kernel, int variant, int dev, unsigned int grid, int t
     if (rc != cudaSuccess) return rc;
     granted[variant][dev] = smem;
   }
-  kernel<<<grid, threads, smem, stream>>>(w, idx, val, out, num_rows, num_k, table_size,
+  kernel<<<grid, threads, smem, stream>>>(w, idx, val, out, num_rows, num_k, lo, table_size,
                                           lane_shift, num_tiles);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// w holds words [lo, lo + table_size) of the table; lo = 0 and the whole
+// table unsharded. Ids are int32, so a window past 2^31 reads nothing.
 extern "C" int dmlc_ell_matvec_f32(const float* w, const int32_t* idx,
                                    const float* val, float* out,
-                                   int64_t num_rows, int64_t num_k,
+                                   int64_t num_rows, int64_t num_k, int64_t lo,
                                    int64_t table_size, cudaStream_t stream) {
   if (num_rows <= 0) return static_cast<int>(cudaSuccess);
-  if (num_k < 0 || num_k > 0x7fffffffLL / 32 || table_size < 0 ||
-      table_size > 0xffffffffLL) {
+  if (num_k < 0 || num_k > 0x7fffffffLL / 32 || table_size < 0 || lo < 0 ||
+      lo + table_size > 0x80000000LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_k == 0 || table_size == 0) {
@@ -312,7 +326,8 @@ extern "C" int dmlc_ell_matvec_f32(const float* w, const int32_t* idx,
       ell_matvec_kernel<true, false, false>,  ell_matvec_kernel<true, false, true>,
       ell_matvec_kernel<true, true, false>,   ell_matvec_kernel<true, true, true>};
   rc = launch(kernels[variant], variant, dev, g, t, smem, stream, w, idx, val, out, num_rows,
-              k, ws, __builtin_ctz(static_cast<unsigned>(lanes)), num_tiles);
+              k, static_cast<uint32_t>(lo), ws, __builtin_ctz(static_cast<unsigned>(lanes)),
+              num_tiles);
   return static_cast<int>(rc);
 }
 

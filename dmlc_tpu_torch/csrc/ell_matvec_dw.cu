@@ -39,6 +39,11 @@
 // keeps PyTorch's scatter (the caller routes by W). An index outside
 // [0, W) contributes nothing, as in the forward.
 //
+// The shard window, as in the forward (ell_matvec.cu): dw is the gradient
+// of a shard holding words [lo, lo + W) of the table, so only ids in that
+// window are binned, at id - lo, and W is the shard's width. lo = 0 is the
+// unsharded call, with the same bits as before.
+//
 // Host interface: plain C, loaded with ctypes. The launches go on the
 // caller's stream, do not synchronise and allocate nothing: the caller
 // passes a scratch of dmlc_ell_dw_scratch_floats() floats for the
@@ -72,7 +77,8 @@ template <bool kVec>
 __global__ void __launch_bounds__(kTileWarps * 32)
 ell_dw_tiles_kernel(const int32_t* __restrict__ idx, const float* __restrict__ val,
                     const float* __restrict__ g, float* __restrict__ partial,
-                    int64_t num_rows, int num_k, int table_size, int64_t num_tiles) {
+                    int64_t num_rows, int num_k, uint32_t lo, int table_size,
+                    int64_t num_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kTileWarps][2];
   const int tid = threadIdx.x;
@@ -124,8 +130,9 @@ ell_dw_tiles_kernel(const int32_t* __restrict__ idx, const float* __restrict__ v
                                  stages + stage * stage_bytes + tile_words * 4) + lane * num_k;
       for_row_groups<false, kVec>(row_idx, row_val, num_k, first, 0, true,
                                   [&](int32_t i, float v) {
-                                    // unsigned: a negative index wraps high, skipped too
-                                    const uint32_t u = static_cast<uint32_t>(i);
+                                    // unsigned: an index below the window or
+                                    // negative wraps high, skipped too
+                                    const uint32_t u = static_cast<uint32_t>(i) - lo;
                                     if (u < ws) my_bins[u * 32 + lane] += v * g_row;
                                   });
     }
@@ -153,7 +160,8 @@ ell_dw_tiles_kernel(const int32_t* __restrict__ idx, const float* __restrict__ v
 __global__ void __launch_bounds__(kWarps * 32)
 ell_dw_flat_kernel(const int32_t* __restrict__ idx, const float* __restrict__ val,
                    const float* __restrict__ g, float* __restrict__ partial,
-                   int64_t num_rows, int num_k, int table_size, int64_t rows_per_block) {
+                   int64_t num_rows, int num_k, uint32_t lo, int table_size,
+                   int64_t rows_per_block) {
   extern __shared__ float warp_bins[];  // [kWarps][table_size]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -177,8 +185,9 @@ ell_dw_flat_kernel(const int32_t* __restrict__ idx, const float* __restrict__ va
       uint32_t bin = kNoBin;
       float c = 0.0f;
       if (slot < end) {
-        // unsigned compare: a negative index wraps high and is skipped too
-        const uint32_t i = static_cast<uint32_t>(__ldg(w_idx + slot));
+        // unsigned compare: an index below the window or negative wraps
+        // high and is skipped too
+        const uint32_t i = static_cast<uint32_t>(__ldg(w_idx + slot)) - lo;
         if (i < static_cast<uint32_t>(table_size)) {
           bin = i;
           c = __ldg(w_val + slot) * __ldg(w_g + slot / num_k);
@@ -289,11 +298,13 @@ extern "C" int64_t dmlc_ell_dw_scratch_floats(const int32_t* idx, const float* v
   return plan(idx, val, num_rows, num_k, table_size, dev).blocks * table_size;
 }
 
+// dw of the shard holding words [lo, lo + table_size); lo = 0 unsharded.
 extern "C" int dmlc_ell_matvec_dw_f32(const int32_t* idx, const float* val,
                                       const float* g, float* dw, float* scratch,
-                                      int64_t num_rows, int64_t num_k, int64_t table_size,
-                                      cudaStream_t stream) {
-  if (num_rows < 0 || num_k < 0 || table_size < 0 || table_size > kDwMaxTable) {
+                                      int64_t num_rows, int64_t num_k, int64_t lo,
+                                      int64_t table_size, cudaStream_t stream) {
+  if (num_rows < 0 || num_k < 0 || table_size < 0 || table_size > kDwMaxTable || lo < 0 ||
+      lo + table_size > 0x80000000LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (table_size == 0) return static_cast<int>(cudaSuccess);
@@ -309,6 +320,7 @@ extern "C" int dmlc_ell_matvec_dw_f32(const int32_t* idx, const float* val,
   }
   const int k = static_cast<int>(num_k);
   const int ws = static_cast<int>(table_size);
+  const uint32_t window_lo = static_cast<uint32_t>(lo);
   const unsigned int grid = static_cast<unsigned int>(p.blocks);
   if (p.tiles) {
     const int64_t num_tiles = (num_rows + 31) / 32;
@@ -316,18 +328,18 @@ extern "C" int dmlc_ell_matvec_dw_f32(const int32_t* idx, const float* val,
       rc = allow_smem(ell_dw_tiles_kernel<true>, 0, dev, p.smem);
       if (rc != cudaSuccess) return static_cast<int>(rc);
       ell_dw_tiles_kernel<true><<<grid, kTileWarps * 32, p.smem, stream>>>(
-          idx, val, g, scratch, num_rows, k, ws, num_tiles);
+          idx, val, g, scratch, num_rows, k, window_lo, ws, num_tiles);
     } else {
       rc = allow_smem(ell_dw_tiles_kernel<false>, 1, dev, p.smem);
       if (rc != cudaSuccess) return static_cast<int>(rc);
       ell_dw_tiles_kernel<false><<<grid, kTileWarps * 32, p.smem, stream>>>(
-          idx, val, g, scratch, num_rows, k, ws, num_tiles);
+          idx, val, g, scratch, num_rows, k, window_lo, ws, num_tiles);
     }
   } else {
     rc = allow_smem(ell_dw_flat_kernel, 2, dev, p.smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     ell_dw_flat_kernel<<<grid, kWarps * 32, p.smem, stream>>>(
-        idx, val, g, scratch, num_rows, k, ws, p.rows_per_block);
+        idx, val, g, scratch, num_rows, k, window_lo, ws, p.rows_per_block);
   }
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);

@@ -178,11 +178,18 @@ and the global batch is the ranks' batches concatenated in rank order (the
 JAX package's ``make_array_from_process_local_data`` layout). As there,
 bcoo and snapshots are refused under a mesh, and dense batches ship
 unpacked (``pack_aux`` off). ``shardings`` (a learner's
-``batch_shardings()``) must split every array's rows over the data axis.
+``batch_shardings()``) must split every array's rows over the data axis;
+a dense ``x`` may also split its columns over a model axis (``(data,
+model)``, a feature-sharded ``LinearLearner``'s): the rank then ships its
+model coordinate's slice, ``num_col / M`` columns, cut on the host before
+the pinned staging, so ``bytes_to_device`` counts only what this rank
+copies. The ranks of one model group read the same part and so build the
+same batch: under feature sharding each model rank repeats the parse and
+the convert of its group's rows, a cost of running one process a rank (a
+JAX process feeds all its devices from one pipeline), not a fault.
 
 On a CPU device the same pipeline runs without pinning, streams or events
-(the copy is synchronous). Not ported yet: feature-sharded placement and
-autotuning.
+(the copy is synchronous). Not ported yet: autotuning.
 """
 
 from __future__ import annotations
@@ -549,10 +556,13 @@ class DeviceIter:
         self.data_axis = data_axis
         self.shardings = tuple(shardings) if shardings is not None else None
         self.device = rank_device(mesh, device, data_axis=data_axis, who="DeviceIter")
+        self.num_col = int(num_col)
+        # the columns of a dense x this rank ships (all but under feature
+        # sharding, _check_shardings)
+        self._x_cols = slice(0, self.num_col)
         if mesh is not None and self.shardings is not None:
             self._check_shardings(layout)
         self.source = source
-        self.num_col = int(num_col)
         self.batch_size = None if batch_size is None else int(batch_size)
         self.layout = layout
         self.max_nnz = None if max_nnz is None else int(max_nnz)
@@ -698,16 +708,34 @@ class DeviceIter:
 
     def _check_shardings(self, layout: str) -> None:
         """A learner's ``batch_shardings()`` must split every array of a
-        batch by rows over this mesh's data axis, and nothing else."""
+        batch by rows over this mesh's data axis, and nothing else, but for
+        a dense ``x`` whose columns may split over another axis of the mesh
+        (``(data, model)``): this rank then ships its coordinate's slice."""
         want = 4 if layout == "ell" else 3
+        shardings = list(self.shardings)
+        model_axis = None
+        if layout == "dense" and len(shardings) == want:
+            spec = getattr(shardings[0], "spec", ())
+            if len(spec) == 2 and spec[1] is not None and spec[1] in self.mesh.shape \
+                    and spec[1] != self.data_axis:
+                model_axis = spec[1]
+                shardings[0] = shardings[0]._replace(spec=(spec[0], None))
         rows_split = all(
             getattr(sh, "mesh", None) is self.mesh and len(sh.spec) >= 1
             and sh.spec[0] == self.data_axis and not any(sh.spec[1:])
-            for sh in self.shardings)
-        check(len(self.shardings) == want and rows_split,
+            for sh in shardings)
+        check(len(shardings) == want and rows_split,
               f"DeviceIter: shardings must be {want} row splits over the mesh's "
-              f"{self.data_axis!r} axis (a learner's batch_shardings()), got "
-              f"{self.shardings}")
+              f"{self.data_axis!r} axis (a learner's batch_shardings()), a dense x's "
+              f"columns over another of its axes, got {self.shardings}")
+        if model_axis is not None:
+            parts = self.mesh.shape[model_axis]
+            check(self.num_col % parts == 0,
+                  f"DeviceIter: num_col {self.num_col} does not split over the "
+                  f"{parts} ranks of {model_axis!r}")
+            width = self.num_col // parts
+            lo = self.mesh.coords[model_axis] * width
+            self._x_cols = slice(lo, lo + width)
 
     # ---------------- staging ----------------
 
@@ -748,7 +776,8 @@ class DeviceIter:
         xdt = _X_DTYPES[self.x_dtype]
         if self.pack_aux:
             return [((B, self.num_col + 2), xdt)]
-        return [((B, self.num_col), xdt), ((B,), f32), ((B,), f32)]
+        cols = self._x_cols.stop - self._x_cols.start
+        return [((B, cols), xdt), ((B,), f32), ((B,), f32)]
 
     # ---------------- cold epochs (the convert pool) ----------------
 
@@ -898,8 +927,9 @@ class DeviceIter:
         ``DenseBlock`` part copied as it is; a ``RowBlock`` part densified
         first; an absent weight is 1; rows past the parts (the epoch's tail)
         are zeros, so their weight 0 masks them. The copy into a bfloat16
-        slot rounds to nearest even; a bfloat16 part's bits are copied."""
-        nc = self.num_col
+        slot rounds to nearest even; a bfloat16 part's bits are copied.
+        Under feature sharding only this rank's columns are copied."""
+        nc, cols = self.num_col, self._x_cols
         if self.pack_aux:
             packed = slot.bufs[0]
             xb, yb, wb = packed[:, :nc], packed[:, nc], packed[:, nc + 1]
@@ -913,7 +943,7 @@ class DeviceIter:
                 if self.pack_aux:
                     packed[pos:pos + n].copy_(slab)
                 else:
-                    xb[pos:pos + n].copy_(slab[:, :nc])
+                    xb[pos:pos + n].copy_(slab[:, cols])
                     yb[pos:pos + n].copy_(slab[:, nc])
                     wb[pos:pos + n].copy_(slab[:, nc + 1])
                 pos += n
@@ -922,7 +952,7 @@ class DeviceIter:
                 x, y, w = part.x, part.label, part.weight
             else:
                 x, y, w = block_to_dense(part, nc)
-            xb[pos:pos + n].copy_(_as_tensor(x))
+            xb[pos:pos + n].copy_(_as_tensor(x)[:, cols])
             yb[pos:pos + n].copy_(torch.from_numpy(y))
             if w is None:
                 wb[pos:pos + n] = 1.0

@@ -9,20 +9,24 @@ multi-rank dry run, the counterparts of the repository's
 interpreter under the DMLC_* contract, on the card (``device=None``; it
 raises without one) or on the CPU (``device="cpu"``), and runs through the
 normal entry points (``init_from_env`` -> ``make_mesh`` -> per-rank
-``create_parser`` -> ``DeviceIter(mesh=, shardings=)``):
+``create_parser`` -> ``DeviceIter(mesh=, shardings=)``) on the JAX dry
+run's mesh (``__graft_entry__.py``): ``{"data": n // 2, "model": 2}`` when
+``n`` is even, else ``{"data": n}``. Each rank reads part
+``coords["data"]`` of ``shape["data"]``, so the ranks of one model group
+see the same rows:
 
-- one data-parallel step each of the dense and ell ``LinearLearner`` and
-  the dense ``FMLearner``;
-- a 20-step trajectory over the ranks' shards of one corpus, which must
-  match the port's single-process learner on the same global batches (the
-  ranks' batches concatenated in rank order) within 1e-4, agree on every
-  rank, and descend.
+- one step each of the dense ``LinearLearner`` with ``model_axis="model"``
+  (feature-sharded: its table and ``x``'s columns split over the model
+  axis), and the ell ``LinearLearner`` and the dense ``FMLearner`` on the
+  same mesh without it (replicated over the model axis);
+- a 20-step feature-sharded dense trajectory over the data ranks' shards
+  of one corpus, which must match the port's single-process learner on
+  the same global batches (the data ranks' batches concatenated in data
+  order) within 1e-4, agree on every rank, and descend.
 
 The ranks' backend is gloo on the CPU; on the card it is NCCL where
 there is a card for every rank, and gloo over CUDA tensors where the ranks
-share fewer cards (NCCL takes one card a rank). The data axis spans all
-``n`` ranks. The JAX dry run's second mesh axis (``model``, feature
-sharding) waits for the port's feature sharding.
+share fewer cards (NCCL takes one card a rank).
 
     python -m dmlc_tpu_torch.entry [n] [--device cpu]
 """
@@ -87,6 +91,12 @@ def _trajectory(model, it, per_epoch: int, steps: int = STEPS) -> list:
     return out
 
 
+def dryrun_axes(n: int) -> dict:
+    """The JAX dry run's mesh over ``n`` ranks: a model axis of 2 when
+    ``n`` is even."""
+    return {"data": n // 2, "model": 2} if n % 2 == 0 else {"data": n}
+
+
 def _dryrun_child(out: str) -> None:
     """One rank of the dry run; writes ``rank<r>.json`` into ``out``."""
     from dmlc_tpu_torch import DeviceIter, FMLearner, LinearLearner, create_parser
@@ -94,19 +104,22 @@ def _dryrun_child(out: str) -> None:
 
     cfg = json.load(open(os.path.join(out, "config.json")))
     init_from_env(device=cfg["device"], backend=cfg["backend"], timeout=timedelta(seconds=60))
-    mesh = make_mesh(devices=cfg["device"])
     rank, world = host_shard_info()
+    mesh = make_mesh(dryrun_axes(world), devices=cfg["device"])
+    part, parts = mesh.coords["data"], mesh.shape["data"]
+    model_axis = "model" if "model" in mesh.shape else None
     paths = cfg["paths"]
 
     def feed(model, path, **kw):
-        return DeviceIter(create_parser(path, rank, world, "libsvm", threaded=False),
+        return DeviceIter(create_parser(path, part, parts, "libsvm", threaded=False),
                           num_col=model.device_num_col(), batch_size=PER_RANK_BATCH,
                           mesh=mesh, shardings=model.batch_shardings(), drop_remainder=True,
                           **kw)
 
     legs = {}
     for name, model, kw in (
-            ("loss", LinearLearner(NUM_COL, layout="dense", learning_rate=0.1, mesh=mesh),
+            ("loss", LinearLearner(NUM_COL, layout="dense", learning_rate=0.1, mesh=mesh,
+                                   model_axis=model_axis),
              {"layout": "dense"}),
             ("ell_loss", LinearLearner(NUM_COL, layout="ell", learning_rate=0.1, mesh=mesh),
              {"layout": "ell", "max_nnz": NUM_COL}),
@@ -115,10 +128,11 @@ def _dryrun_child(out: str) -> None:
         it = feed(model, paths["legs"], **kw)
         legs[name] = float(model.step(next(iter(it))))
         it.close()
-    parser = create_parser(paths["traj"], rank, world, "libsvm", threaded=False)
+    parser = create_parser(paths["traj"], part, parts, "libsvm", threaded=False)
     per_epoch = sync_min(sum(len(b) for b in parser) // PER_RANK_BATCH)
     parser.close()
-    model = LinearLearner(NUM_COL, layout="dense", learning_rate=0.5, mesh=mesh)
+    model = LinearLearner(NUM_COL, layout="dense", learning_rate=0.5, mesh=mesh,
+                          model_axis=model_axis)
     it = feed(model, paths["traj"], layout="dense")
     traj = _trajectory(model, it, per_epoch)
     it.close()
@@ -129,7 +143,7 @@ def _dryrun_child(out: str) -> None:
 
 def _single_process_trajectory(path: str, world: int, device) -> list:
     """The same 20 steps on one process: each step's global batch is the
-    ranks' batches concatenated in rank order."""
+    ``world`` data ranks' batches concatenated in data order."""
     from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
 
     model = LinearLearner(NUM_COL, layout="dense", learning_rate=0.5, device=device)
@@ -172,7 +186,8 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0, device=None) -> dic
                   n_devices, timeout=timeout)
         ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
                  for r in range(n_devices)]
-        single = _single_process_trajectory(paths["traj"], n_devices, dev)
+        axes = dryrun_axes(n_devices)
+        single = _single_process_trajectory(paths["traj"], axes["data"], dev)
     traj = ranks[0]["traj"]
     if any(r["traj"] != traj or r["legs"] != ranks[0]["legs"] for r in ranks):
         raise RuntimeError("dryrun_multichip: the ranks disagree on the global losses")
@@ -180,11 +195,12 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0, device=None) -> dic
     if not traj[-1] < traj[0]:
         raise RuntimeError(f"dryrun_multichip: the loss did not decrease: {traj}")
     legs = ranks[0]["legs"]
-    print(f"dryrun_multichip({n_devices}): mesh={{'data': {n_devices}}} on {dev.type} "
+    print(f"dryrun_multichip({n_devices}): mesh={axes} on {dev.type} "
           f"({backend}) " + " ".join(f"{k}={v:.4f}" for k, v in legs.items())
           + f" | 20-step sharded-split trajectory {traj[0]:.4f}->{traj[-1]:.4f} "
           "matches single-process to 1e-4 OK", flush=True)
-    return {"legs": legs, "trajectory": traj, "single_process": single, "backend": backend}
+    return {"legs": legs, "trajectory": traj, "single_process": single, "backend": backend,
+            "mesh": axes}
 
 
 def main(argv=None) -> None:

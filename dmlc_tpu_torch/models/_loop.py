@@ -22,6 +22,13 @@ batch on every rank, and the parameters stay replicated. ``accuracy``
 reduces its two partials over the ranks once, at the end of the pass,
 before its two host syncs.
 
+Every one of these collectives reduces over the **data axis only**. On a
+mesh with other axes (``{"data": D, "model": M}``) the ranks of one model
+group hold the same rows, so a sum over every rank would count each batch
+M times: a learner without a model axis is replicated over the others,
+and a feature-sharded one (``LinearLearner(model_axis=)``) sums its
+partial margins over the model axis itself, in its margin.
+
 Learners provide ``_step(batch) -> loss``, ``_margin(batch) -> (margin,
 label, weight)``, ``_pred_from_margin(margin)``, ``layout``, ``mesh`` (None
 on one device) and ``data_axis``.
@@ -57,40 +64,47 @@ class TrainLoopMixin:
 
     def batch_shardings(self):
         """Batch placement for a DeviceIter feeding this learner (None
-        without a mesh): every array's rows split over the data axis."""
+        without a mesh): every array's rows split over the data axis, and a
+        feature-sharded dense ``x``'s columns over the model axis (the JAX
+        package's ``(data, model)``)."""
         if self.mesh is None:
             return None
         row = Sharding(self.mesh, (self.data_axis, None))
         vec = Sharding(self.mesh, (self.data_axis,))
         if self.layout == "ell":
             return EllBatch(indices=row, values=row, label=vec, weight=vec)
-        return (row, vec, vec)
+        model_axis = getattr(self, "model_axis", None)
+        x = row if model_axis is None else Sharding(self.mesh, (self.data_axis, model_axis))
+        return (x, vec, vec)
 
     def _sum_over_ranks(self, *parts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """Device scalars summed over the mesh's ranks in one all-reduce;
-        as given without a mesh."""
+        """Device scalars summed over the data axis in one all-reduce; as
+        given without a mesh."""
         if self.mesh is None:
             return parts
-        return self.mesh.all_reduce_(torch.stack(parts)).unbind()
+        return self.mesh.all_reduce_(torch.stack(parts), self.data_axis).unbind()
 
     def _global_mean_backward(self, num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
         """Gradients of the (global) batch's weighted mean loss.
 
         ``num`` is this rank's ``Σ per·w`` (with its graph) and ``den`` its
-        ``Σ w``. On a mesh, one 2-word SUM all-reduce gives the global
-        ``[S, D]``; this rank backpropagates ``num / max(D, 1)``; one SUM
-        all-reduce of every parameter's gradient, flat, sums them into the
-        global gradient. Not ``DistributedDataParallel``, which averages
-        the ranks' own means: that differs from the global weighted mean
-        whenever the ranks' weight sums differ (weighted rows, a short
-        last batch). Without a mesh there is no collective. Returns the
-        loss ``S / max(D, 1)``, a device scalar; no host sync."""
+        ``Σ w``. On a mesh, one 2-word SUM all-reduce over the data axis
+        gives the global ``[S, D]``; this rank backpropagates ``num /
+        max(D, 1)``; one SUM all-reduce over the data axis of every
+        parameter's gradient, flat, sums them into the global gradient (of
+        this rank's shard, under feature sharding). Not
+        ``DistributedDataParallel``, which averages the ranks' own means:
+        that differs from the global weighted mean whenever the ranks'
+        weight sums differ (weighted rows, a short last batch). Without a
+        mesh there is no collective. Returns the loss ``S / max(D, 1)``, a
+        device scalar; no host sync."""
         s, d = self._sum_over_ranks(num.detach(), den.detach())
         total = torch.clamp(d, min=1.0)
         (num / total).backward()
         if self.mesh is not None:
             params = list(self.params)
-            flat = self.mesh.all_reduce_(torch.cat([p.grad.reshape(-1) for p in params]))
+            flat = self.mesh.all_reduce_(torch.cat([p.grad.reshape(-1) for p in params]),
+                                         self.data_axis)
             for p, g in zip(params, flat.split([p.numel() for p in params])):
                 p.grad.copy_(g.view_as(p))
         return s / total
@@ -136,7 +150,7 @@ class TrainLoopMixin:
 
     def _pass_ratio(self, n: int, a, b) -> float:
         """A pass's ``Σa / max(Σb, 1)`` from its two partial sums over
-        ``n`` batches, summed over the ranks in one all-reduce on a mesh;
+        ``n`` batches, summed over the data axis in one all-reduce on a mesh;
         the two :func:`host_scalar` calls are the pass's only syncs. A
         rank that saw no batch adds zeros (it takes part all the same, or
         its peers would wait for it)."""

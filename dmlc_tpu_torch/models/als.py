@@ -50,6 +50,12 @@ as in the JAX package:
 ``finalize_items`` then solves the same equations on every rank, and any
 rank's ``state_dict`` is the global state (no collective).
 
+Every collective runs over the data axis alone (``[world, ...]`` is the
+data axis's size, a rank's slot its data coordinate): on a mesh with
+other axes (``{"data": D, "model": M}``) the learner is replicated over
+them, each model group's ranks solving the same rows, as the JAX learner
+does on such a mesh.
+
 The JAX package's ``jax.random`` init cannot be reproduced here: the item
 table starts from ``torch.Generator(device).manual_seed(seed)``, and a
 parity run loads the reference's initial state through
@@ -143,26 +149,28 @@ class AlsLearner(TrainLoopMixin):
 
     def _add_normal_eq(self, ids: torch.Tensor, rows: torch.Tensor) -> None:
         """Scatter-add a step's rows into the normal equations: in place
-        without a mesh; on a mesh into a zeroed buffer (zero where no
-        entry lands), summed over the ranks, then added."""
-        if self.mesh is None:
+        without a mesh or on a data axis of one rank (nothing to sum, so the
+        one-process bits); else into a zeroed buffer (zero where no entry
+        lands), summed over the data axis, then added."""
+        if self.mesh is None or self.mesh.shape[self.data_axis] == 1:
             row_scatter_add_(self._normal_eq, ids, rows)
         else:
             self._normal_eq += self.mesh.all_reduce_(
-                row_scatter_add(self._normal_eq.shape, ids, rows))
+                row_scatter_add(self._normal_eq.shape, ids, rows), self.data_axis)
 
     def _gather_users(self, label: torch.Tensor, u: torch.Tensor):
-        """Every rank's ``(uid, u)`` rows of this step, in rank order (this
-        rank's own without a mesh): each rank fills its slot of a zeroed
-        float64 buffer and one SUM all-reduce fills the rest (module
-        docstring)."""
+        """Every data rank's ``(uid, u)`` rows of this step, in data order
+        (this rank's own without a mesh): each rank fills its slot of a
+        zeroed float64 buffer and one SUM all-reduce over the data axis
+        fills the rest (module docstring)."""
         if self.mesh is None:
             return label.long(), u
-        world, (rows, f) = self.mesh.size, u.shape
+        axis = self.data_axis
+        world, slot, (rows, f) = self.mesh.shape[axis], self.mesh.coords[axis], u.shape
         buf = torch.zeros((world, rows, 1 + f), dtype=torch.float64, device=self.device)
-        buf[self.mesh.rank, :, 0] = label
-        buf[self.mesh.rank, :, 1:] = u
-        flat = self.mesh.all_reduce_(buf).view(world * rows, 1 + f)
+        buf[slot, :, 0] = label
+        buf[slot, :, 1:] = u
+        flat = self.mesh.all_reduce_(buf, axis).view(world * rows, 1 + f)
         return flat[:, 0].long(), flat[:, 1:].to(u.dtype)
 
     def normal_eq_rows(self, batch, u: torch.Tensor, wk=None):

@@ -24,7 +24,10 @@ With ``mesh=`` the dense and ell layouts train data-parallel as
 ``LinearLearner`` does (``_loop.TrainLoopMixin._global_mean_backward``:
 the global batch's weighted mean loss, one flat all-reduce of the
 ``w0``/``w``/``V`` gradients, the ``l2`` gradient added once after it),
-with Adam run identically on every rank; bcoo raises.
+with Adam run identically on every rank; bcoo raises. Every collective
+reduces over the data axis alone, so on a mesh with other axes
+(``{"data": D, "model": M}``) the learner is replicated over them, as the
+JAX learner is there.
 
 The JAX package's ``jax.random`` init cannot be reproduced: ``V`` starts
 from ``torch.Generator(device).manual_seed(seed)``, and a parity run

@@ -136,12 +136,14 @@ def load_kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
     except OSError as exc:
         raise DMLCError(f"loading {path} failed: {exc}") from exc
+    # (w, idx, val, out, B, K, lo, W, stream): w holds words [lo, lo + W)
     lib.dmlc_ell_matvec_f32.restype = ctypes.c_int
     lib.dmlc_ell_matvec_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    # (idx, val, g, dw, scratch, B, K, lo, W, stream)
     lib.dmlc_ell_matvec_dw_f32.restype = ctypes.c_int
-    lib.dmlc_ell_matvec_dw_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
+    lib.dmlc_ell_matvec_dw_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
         ctypes.c_void_p]
     lib.dmlc_ell_dw_scratch_floats.restype = ctypes.c_int64
     lib.dmlc_ell_dw_scratch_floats.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3

@@ -201,7 +201,20 @@ def native_coo_to_port(coords: torch.Tensor, values: Optional[torch.Tensor],
     return out, vals
 
 
-def ell_matvec(weights: torch.Tensor, batch: EllBatch) -> torch.Tensor:
+def window_slots(indices: torch.Tensor, values: torch.Tensor, lo: int,
+                 width: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slots of an ELL batch as seen by a table shard holding words
+    ``[lo, lo + width)``: ``(local ids, values, keep)``, each slot inside
+    the window at ``id - lo`` with its value, every other one sent to word
+    0 with value 0 (``torch.where``: no boolean indexing, which would read
+    a count back to the host). ``keep`` is the window's mask."""
+    local = indices - lo
+    keep = (local >= 0) & (local < width)
+    return (torch.where(keep, local, 0), torch.where(keep, values, 0.0), keep)
+
+
+def ell_matvec(weights: torch.Tensor, batch: EllBatch,
+               lo: Optional[int] = None) -> torch.Tensor:
     """Batched sparse dot: out[b] = sum_k w[idx[b,k]] * val[b,k].
 
     The batched analog of Row::SDot (data.h:146-161), in plain PyTorch.
@@ -210,11 +223,19 @@ def ell_matvec(weights: torch.Tensor, batch: EllBatch) -> torch.Tensor:
     dim and returns [B, C]; its gather's gradient is :func:`row_scatter_add`.
     A 1-D table keeps indexing's own backward, the reference K1's ``dw``
     kernel is held against.
+
+    With ``lo`` the table is the shard holding words ``[lo, lo + W)`` of a
+    model-sharded table (feature sharding): the sum runs over the slots
+    whose id falls in that window (:func:`window_slots`), the rank's partial
+    margin. ``lo=None`` keeps the unsharded arithmetic and its bits.
     """
+    idx, val = batch.indices, batch.values
+    if lo is not None:
+        idx, val, _ = window_slots(idx, val, lo, weights.shape[0])
     if weights.dim() == 1:
-        return (weights[batch.indices.long()] * batch.values).sum(dim=1)
-    gathered = gather_rows(weights, batch.indices)  # [B, K, C]
-    return (gathered * batch.values[..., None]).sum(dim=1)
+        return (weights[idx.long()] * val).sum(dim=1)
+    gathered = gather_rows(weights, idx)  # [B, K, C]
+    return (gathered * val[..., None]).sum(dim=1)
 
 
 class _CooMatmul(torch.autograd.Function):

@@ -28,8 +28,13 @@ ranks' batches concatenated in rank order, from the same initial state
 - ``accuracy`` equal to JAX's global pass;
 - the first mesh step against the JAX learner on the in-process virtual
   mesh of the same size, within 1e-5;
+- a two-axis mesh (``{"data": world / 2, "model": 2}``): a learner without
+  a model axis trains on it, replicated over the model axis, its first
+  step within 1e-5 of the JAX learner's on the virtual mesh of that shape,
+  and a model axis the mesh lacks raises (feature sharding itself:
+  ``tests/test_torch_feature_shard.py``);
 - in process: a group of one gives the non-mesh step's bits, and bcoo,
-  snapshots and feature sharding raise under a mesh, as in JAX.
+  snapshots and a model axis the mesh lacks raise under a mesh, as in JAX.
 """
 
 import json
@@ -256,15 +261,29 @@ WORKER = textwrap.dedent(r'''
                      "bits": bits(model.params)}
     it.close()
 
-    # feature sharding is not ported: a model axis of size > 1 raises
+    # a two-axis mesh: a learner without a model axis is replicated over it
+    # (the JAX dry run trains so); a model axis the mesh lacks raises
     wide = make_mesh({"data": -1, "model": 2}, devices="cpu") if world % 2 == 0 else None
     if wide is not None:
         out["wide_shape"] = wide.shape
         try:
-            LinearLearner(cfg["num_col"], mesh=wide)
+            LinearLearner(cfg["num_col"], mesh=wide, model_axis="tensor")
             out["wide_raised"] = False
         except DMLCError as exc:
-            out["wide_raised"] = "not ported" in str(exc)
+            out["wide_raised"] = "not an axis" in str(exc)
+        model = LinearLearner(cfg["num_col"], layout="ell", learning_rate=0.3, mesh=wide)
+        model.set_params(convert.linear_params_from_jax(init["binary_w1"], init["binary_b1"],
+                                                        "cpu"))
+        it = DeviceIter(create_parser(cfg["corpora"]["binary"], wide.coords["data"],
+                                      wide.shape["data"], "libsvm", threaded=False),
+                        num_col=model.device_num_col(), batch_size=B, layout="ell",
+                        max_nnz=cfg["num_col"], mesh=wide, shardings=model.batch_shardings(),
+                        drop_remainder=True)
+        loss = float(model.step(next(iter(it))))
+        out["wide_step"] = {"loss": loss, "bits": bits(model.params),
+                            "params": [t.detach().numpy().ravel().tolist()
+                                       for t in model.params]}
+        it.close()
     with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -497,10 +516,30 @@ def test_first_mesh_step_matches_jax_virtual_mesh(group, corpora, init):
             np.testing.assert_allclose(got, np.asarray(want).ravel(), rtol=1e-5, atol=1e-5)
 
 
-def test_feature_sharding_raises_on_a_model_axis(group):
+def test_feature_sharding_raises_on_a_model_axis(group, corpora, init):
+    """On ``{"data": world / 2, "model": 2}`` a learner without a model
+    axis trains, replicated over the model axis (every rank the same bits),
+    and its first step is the JAX learner's on the virtual mesh of that
+    shape; a ``model_axis`` that is not a mesh axis raises. (This test
+    asserted the refusal of any second mesh axis until feature sharding
+    was ported; ``tests/test_torch_feature_shard.py`` trains it.)"""
+    world, data = group["world"], group["world"] // 2
     for r in group["ranks"]:
-        assert r["wide_shape"] == {"data": group["world"] // 2, "model": 2}
+        assert r["wide_shape"] == {"data": data, "model": 2}
         assert r["wide_raised"] is True
+    assert len({r["wide_step"]["bits"] for r in group["ranks"]}) == 1
+    batches, _ = _global_epoch(corpora["binary"], data, "ell", NUM_COL, NUM_COL)
+    mesh = jax_make_mesh({"data": data, "model": 2}, devices=jax.devices()[:world])
+    model = JaxLinearLearner(NUM_COL, layout="ell", learning_rate=0.3, mesh=mesh)
+    model.params = JaxLinearParams(jnp.asarray(init["binary_w1"]),
+                                   jnp.asarray(init["binary_b1"]))
+    model.opt_state = model.opt.init(model.params)
+    placed = [jax.device_put(a, sh) for a, sh in zip(batches[0], model.batch_shardings())]
+    loss = float(model.step(JaxEllBatch(*placed)))
+    got = group["ranks"][0]["wide_step"]
+    np.testing.assert_allclose(got["loss"], loss, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got["params"], model.params):
+        np.testing.assert_allclose(g, np.asarray(w).ravel(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------- in process ----------------
@@ -521,8 +560,9 @@ def _ell_batches(seed, steps=5):
 
 
 def test_group_of_one_gives_the_single_device_bits():
-    """A world-size-1 gloo group: the mesh step issues its collectives
-    (SUM over one rank is a copy) and gives the non-mesh step's bits."""
+    """A world-size-1 gloo group: the mesh's data axis holds one rank,
+    so the mesh step issues no collective over it, and gives the non-mesh
+    step's bits."""
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
                             world_size=1, rank=0, timeout=timedelta(seconds=60))
     try:
@@ -566,7 +606,7 @@ def test_mesh_raises_where_the_reference_raises(tmp_path):
     with pytest.raises(DMLCError, match="snapshot"):  # the parser's stamp counts too
         DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=str(tmp_path / "t.snapshot")),
                    NUM_COL + 1, B, mesh=mesh)
-    with pytest.raises(DMLCError, match="not ported"):
+    with pytest.raises(DMLCError, match="not an axis"):
         LinearLearner(NUM_COL, mesh=mesh, model_axis="model")
     with pytest.raises(DMLCError, match="shardings"):
         DeviceIter(create_parser(path, 0, 1, "libsvm", threaded=False), NUM_COL + 1, B,
