@@ -253,19 +253,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
     cover every stage ``stats()["stages"]`` reports above 0;
     ``DMLC_TPU_TRACE=1``: ``torch.profiler`` (all threads) shows the
     convert, dispatch and transfer ranges.
+16. the online autotuner (``run_autotune``) on phase 3's corpus: (a) cold
+    ELL at ``convert_workers=1``, ``DeviceIter(autotune=True,
+    autotune_interval=16)`` against the autotuner off, four epochs a side
+    in turns: rows/s, stall share, ``stats()["autotune"]``'s knobs and
+    last decisions, the staging ring an epoch; gates: the first 20 losses
+    and the final weights bit-equal between on and off, K1 and ``dw`` once
+    a step and held against their plain versions on the phase's first
+    batch; then 20 steps (groups of 10) fed by an autotuned
+    ``autotune_interval=4`` pipeline enqueued behind a device spin, with
+    ``prefetch`` + 2 and ``convert_ahead`` + 2 forced through the
+    autotuner's knobs at the 8th call and ``convert_ahead`` + 16 at the
+    12th: no host sync, and the ring's workers made new pinned slots;
+    (b) warm device-decode ELL from ``snapshot_read_workers=2`` with the
+    autotuner, in turns with fixed widths 1 and 2, three epochs each: the
+    width's trajectory, rows/s, K2 once a warm batch, losses and weights
+    bit-equal to the fixed runs; (c) the registry stack's parse fan-out
+    with a ``restart_policy`` under the convert pool, its split failing
+    once at chunk :data:`TUNE_FAIL_CHUNK`: every batch's hash equal to the
+    clean run's, ``parse_restarts`` 1.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
     (``producer_change``, :data:`BEFORE_READER`).
 
-The ``torch.profiler`` windows run last, the decode's first: the steps'
-windows of phases 3 and 6 (``step``, ``step_warm``) follow it, and a
-bcoo step's (``bcoo_step_profile``, device time by kernel), the ALS and
-FM steps' and phase 13's libfm bcoo and FM ell steps' (``step_profile``:
-device events and time by kernel a step), and
-how many launches the card queues behind a spin (``launch_queue``). Then the
+The ``torch.profiler`` windows run after phase 15, the decode's first:
+the steps' windows of phases 3 and 6 (``step``, ``step_warm``) follow it,
+and a bcoo step's (``bcoo_step_profile``, device time by kernel), the ALS
+and FM steps' and phase 13's libfm bcoo and FM ell steps'
+(``step_profile``: device events and time by kernel a step), and how many
+launches the card queues behind a spin (``launch_queue``). Phase 16 runs
+after them (a window opened after a pipeline ran behind a spin can miss a
+device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-15, the windowed ones of phase
+the main paths of phases 3, 6, 7 and 11-16, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14 and
 11 (f)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -4675,6 +4696,296 @@ def run_pools(path: str, tmp: str, device) -> dict:
     return out
 
 
+# ---------------- phase 16: the online autotuner ----------------
+
+TUNE_EPOCHS = 4          # phase 16 (a): epochs a side
+TUNE_INTERVAL = 16       # autotune_interval of (a) and (b)
+TUNE_WARM_EPOCHS = 3     # phase 16 (b): warm epochs a pipeline
+TUNE_FAIL_CHUNK = 178    # phase 16 (c): the split's 1 MiB chunk that fails once (of 357)
+
+
+def _tuned(it) -> dict:
+    """What ``stats()["autotune"]`` says now: knob values, steps, moves and
+    the last decisions (None when the autotuner is off)."""
+    snap = it.stats()["autotune"]
+    if snap is None:
+        return None
+    return {"knobs": snap["knobs"], "steps": snap["steps"], "adjustments": snap["adjustments"],
+            "converged": snap["converged"], "gap_stage": snap["gap_stage"],
+            "last": [{k: d.get(k) for k in ("step", "action", "knob", "from", "to", "gap_stage")
+                      if k in d} for d in snap["history"][-4:]]}
+
+
+def _tune_epoch(model, it, leg: str, epoch: int, losses=None) -> dict:
+    """One epoch stepped batch by batch (the first 20 losses kept in
+    ``losses``), timed to a synchronize, then ``reset()``, which takes the
+    autotuner's epoch-boundary step."""
+    import torch
+
+    before = it.stats()
+    t0 = time.monotonic()
+    nb = 0
+    for batch in it:
+        loss = model.step(batch)
+        if losses is not None and len(losses) < 20:
+            losses.append(loss)
+        nb += 1
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    it.reset()
+    now = it.stats()
+    return {"leg": leg, "epoch": epoch, "batches": nb, "wall_s": secs,
+            "rows_per_s": nb * BATCH / secs,
+            "stall_share": (now["stall_seconds"] - before["stall_seconds"]) / secs,
+            "staging_ring": now["staging_ring"], "autotune": _tuned(it)}
+
+
+def _k1_on_batch(model, batch) -> dict:
+    """K1 and ``dw`` on a main-path batch, over a seeded table of the
+    model's width, against their plain versions (these launches are
+    comparisons, made before the phase's counts are zeroed)."""
+    import torch
+
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.ops.sparse import EllBatch, ell_matvec
+
+    idx, val = batch.indices.contiguous(), batch.values.contiguous()
+    table = torch.randn(model.device_num_col(), device=idx.device,
+                        generator=torch.Generator(device=idx.device).manual_seed(15))
+    out = k1.ell_matvec_cuda(table, idx, val)
+    ref = ell_matvec(table, EllBatch(idx, val, None, None))
+    g = torch.randn(idx.shape[0], generator=torch.Generator(device=idx.device).manual_seed(16),
+                    device=idx.device)
+    dw = k1.ell_matvec_dw_cuda(idx, val, g, table.shape[0])
+    dw_plain = k1.ell_matvec_grads(table, idx, val, g, need_dval=False)[0]
+    scale = torch.zeros_like(table).index_add_(0, idx.long().flatten(),
+                                               (val * g[:, None]).abs().flatten())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=K1_RTOL, atol=K1_ATOL)
+    if bool(((dw - dw_plain).abs() > K1_ATOL + K1_RTOL * scale).any()):
+        raise AssertionError(f"phase 16: dw differs from its plain version by "
+                             f"{float((dw - dw_plain).abs().max())}")
+    return {"k1_max_abs_err": float((out - ref).abs().max()),
+            "dw_max_abs_err": float((dw - dw_plain).abs().max())}
+
+
+def _tune_spin(path: str, device) -> dict:
+    """Phase 16 (a)'s spin check: 20 steps (groups of 10) fed by an
+    autotuned ``DeviceIter(autotune_interval=4)`` enqueued behind a device
+    spin, with forced knob grows inside the window through the autotuner's
+    own knobs: ``prefetch`` + 2 and ``convert_ahead`` + 2 at the 8th call,
+    ``convert_ahead`` + 16 (past the ring's slack, so the workers make new
+    pinned slots) at the 12th. No call may wait for the card."""
+    model, it = _pool_pipeline(path, device, 1, convert_ahead=32, autotune=True,
+                               autotune_interval=4)
+    model.step(next(it))
+    time.sleep(3.0)
+    knobs = it.autotuner.knobs
+    ring0 = it.stats()["staging_ring"]["depth"]
+    steps0 = it.stats()["autotune"]["steps"]
+    calls = [0]
+
+    def step():
+        calls[0] += 1
+        if calls[0] == 8:
+            knobs["prefetch"].apply(knobs["prefetch"].get() + 2)
+            knobs["convert_ahead"].apply(knobs["convert_ahead"].get() + 2)
+        if calls[0] == 12:
+            knobs["convert_ahead"].apply(knobs["convert_ahead"].get() + 16)
+        model.step(next(it))
+
+    spin = enqueue_behind_spin(step, group=10)
+    time.sleep(1.0)  # the workers fill the wider window
+    stats = it.stats()
+    it.close()
+    return {**spin, "ring_depth_before": ring0, "ring_depth_after": stats["staging_ring"]["depth"],
+            "tuner_steps_in_window": stats["autotune"]["steps"] - steps0,
+            "knobs_after": stats["autotune"]["knobs"]}
+
+
+def run_tune_cold(path: str, device) -> dict:
+    """Phase 16 (a): cold ELL at ``convert_workers=1``, ``autotune=True``
+    (``autotune_interval=16``) against off, epoch by epoch in turns."""
+    import torch
+
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    on_model, on_it = _pool_pipeline(path, device, 1, autotune=True,
+                                     autotune_interval=TUNE_INTERVAL)
+    off_model, off_it = _pool_pipeline(path, device, 1)
+    # the kernels against their plain versions on the phase's first batch,
+    # from a pipeline of its own (the legs' counts start at 0 below)
+    _, probe = _pool_pipeline(path, device, 1)
+    checks = _k1_on_batch(on_model, next(probe))
+    probe.close()
+    legs = {"on": (on_model, on_it, []), "off": (off_model, off_it, [])}
+    epochs = []
+    k1.launches = k1.dw_launches = 0
+    for e in range(TUNE_EPOCHS):
+        for side in (("on", "off") if e % 2 == 0 else ("off", "on")):
+            model, it, losses = legs[side]
+            rec = _tune_epoch(model, it, f"autotune_{side}", e, losses)
+            emit({"phase": "autotune_cold_epoch", **rec})
+            epochs.append(rec)
+    launches, dw_launches = k1.launches, k1.dw_launches
+    on_it.close()
+    off_it.close()
+    same_losses = torch.equal(torch.stack(legs["on"][2]), torch.stack(legs["off"][2]))
+    same_weights = (torch.equal(on_model.params.weight, off_model.params.weight)
+                    and torch.equal(on_model.params.bias, off_model.params.bias))
+    steps = sum(r["batches"] for r in epochs)
+    out = {"phase": "autotune_cold", "epochs_a_side": TUNE_EPOCHS,
+           "autotune_interval": TUNE_INTERVAL, "convert_workers": 1,
+           "first_20_losses_bit_equal": same_losses, "final_weights_bit_equal": same_weights,
+           "k1_launches": launches, "dw_launches": dw_launches, "steps": steps, **checks}
+    for side in ("on", "off"):
+        rates = [r["rows_per_s"] for r in epochs if r["leg"] == f"autotune_{side}"]
+        out[f"{side}_rows_per_s"] = rates
+    out["on_over_off"] = [a / b for a, b in zip(out["on_rows_per_s"], out["off_rows_per_s"])]
+    emit(out)
+    if not (same_losses and same_weights and len(legs["on"][2]) == 20):
+        raise AssertionError(f"autotune on and off trained to different bits: {out}")
+    if launches < steps or dw_launches < steps:
+        raise AssertionError(f"phase 16 (a): K1 {launches}, dw {dw_launches} for {steps} steps")
+    k1.launches = k1.dw_launches = 0
+    spin = _tune_spin(path, device)
+    spin.update(phase="autotune_spin", k1_launches=k1.launches, dw_launches=k1.dw_launches)
+    emit(spin)
+    if not (spin["no_host_sync"] and spin["ring_depth_after"] > spin["ring_depth_before"]
+            and spin["tuner_steps_in_window"] >= 4):
+        raise AssertionError(f"the autotuned steps behind a spin: {spin}")
+    out["spin"] = spin
+    out["k1_launches"] += spin["k1_launches"]
+    out["dw_launches"] += spin["dw_launches"]
+    return out
+
+
+def run_tune_warm(path: str, tmp: str, device) -> dict:
+    """Phase 16 (b): warm device-decode ELL from ``snapshot_read_workers=2``
+    with the autotuner, in turns with fixed widths 1 and 2, three epochs
+    each over one snapshot; K2 counted around each warm epoch."""
+    import torch
+
+    from dmlc_tpu_torch.ops import device_decode as dd
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    snap = os.path.join(tmp, "autotune.snapshot")
+    model, it = _pool_pipeline(path, device, 2, snapshot=snap, device_decode=True)
+    model.fit_epoch(it)
+    it.close()
+    legs = {"tuned": _pool_pipeline(path, device, 2, snapshot=snap, device_decode=True,
+                                    snapshot_read_workers=2, autotune=True,
+                                    autotune_interval=TUNE_INTERVAL),
+            "fixed_1": _pool_pipeline(path, device, 2, snapshot=snap, device_decode=True,
+                                      snapshot_read_workers=1),
+            "fixed_2": _pool_pipeline(path, device, 2, snapshot=snap, device_decode=True,
+                                      snapshot_read_workers=2)}
+    losses = {k: [] for k in legs}
+    epochs, trajectory = [], [2]
+    k2 = k1_n = dw_n = batches = 0
+    order = list(legs)
+    for e in range(TUNE_WARM_EPOCHS):
+        for name in order[e % 3:] + order[:e % 3]:
+            model, it = legs[name]
+            dd.launches = k1.launches = k1.dw_launches = 0
+            rec = _tune_epoch(model, it, name, e, losses[name])
+            rec["k2_launches"] = dd.launches
+            k2, k1_n, dw_n = k2 + dd.launches, k1_n + k1.launches, dw_n + k1.dw_launches
+            batches += rec["batches"]
+            emit({"phase": "autotune_warm_epoch", **rec})
+            epochs.append(rec)
+            if rec["k2_launches"] != rec["batches"]:
+                raise AssertionError(f"phase 16 (b) {name}: K2 launched {rec['k2_launches']} "
+                                     f"times for {rec['batches']} warm batches")
+            if name == "tuned":
+                trajectory.append(rec["autotune"]["knobs"]["snapshot_read_workers"])
+    weights = {k: (m.params.weight, m.params.bias) for k, (m, _) in legs.items()}
+    for _, it in legs.values():
+        it.close()
+    os.remove(snap)
+    same = all(torch.equal(torch.stack(losses[k]), torch.stack(losses["tuned"]))
+               and torch.equal(weights[k][0], weights["tuned"][0])
+               and torch.equal(weights[k][1], weights["tuned"][1]) for k in legs)
+    out = {"phase": "autotune_warm", "snapshot_read_workers_trajectory": trajectory,
+           "rows_per_s": {k: [r["rows_per_s"] for r in epochs if r["leg"] == k] for k in legs},
+           "bits_equal_to_fixed": same, "k2_launches": k2, "k1_launches": k1_n,
+           "dw_launches": dw_n, "batches": batches}
+    emit(out)
+    if not same:
+        raise AssertionError(f"phase 16 (b): the tuned warm run differs from the fixed ones")
+    return out
+
+
+def _restart_leg(path: str, device, fail_at) -> dict:
+    """A cold ELL epoch over the registry stack's parse fan-out with a
+    ``restart_policy``, its split failing once at chunk ``fail_at`` (None:
+    never): each batch's hash and the pipeline's resilience counters."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+    from dmlc_tpu_torch.data.parsers import ParallelTextParser
+    from dmlc_tpu_torch.io.resilience import RetryPolicy
+
+    with registry_stack():
+        base = create_parser(path, 0, 1, "libsvm", parse_workers=2).base
+    parser = ParallelTextParser(base, num_workers=2,
+                                restart_policy=RetryPolicy(max_attempts=2, seed=0))
+    if fail_at is not None:
+        split, real, n = base.source, base.source.next_chunk, [0]
+
+        def next_chunk():
+            n[0] += 1
+            if n[0] == fail_at:
+                raise ConnectionResetError("phase 16 (c): an injected split read reset")
+            return real()
+        split.next_chunk = next_chunk
+    model = LinearLearner(num_col=HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(parser, num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device, convert_workers=2)
+    hashes = []
+    for batch in it:
+        model.step(batch)
+        hashes.append(_bits(list(batch)))
+    stats = it.stats()
+    it.close()
+    return {"hashes": hashes, "resilience": {k: v for k, v in stats["resilience"].items() if v},
+            "parse_workers": stats["parse_workers"]}
+
+
+def run_tune_restart(path: str, device) -> dict:
+    """Phase 16 (c): one retryable error of the split under the convert
+    pool's source (the parse fan-out's pool, ``restart_policy`` armed),
+    mid-epoch: the batches are the clean run's, hash for hash, and the
+    pool's restart counter moved."""
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    k1.launches = k1.dw_launches = 0
+    clean = _restart_leg(path, device, None)
+    healed = _restart_leg(path, device, TUNE_FAIL_CHUNK)
+    out = {"phase": "autotune_restart", "fail_at_chunk": TUNE_FAIL_CHUNK,
+           "batches": len(healed["hashes"]), "same_batches": healed["hashes"] == clean["hashes"],
+           "clean_resilience": clean["resilience"], "healed_resilience": healed["resilience"],
+           "k1_launches": k1.launches, "dw_launches": k1.dw_launches}
+    emit(out)
+    if not (out["same_batches"] and len(clean["hashes"]) == HIGGS_ROWS // BATCH
+            and healed["resilience"].get("parse_restarts") == 1
+            and not clean["resilience"]):
+        raise AssertionError(f"phase 16 (c): the healed epoch: {out}")
+    return out
+
+
+def run_autotune(path: str, tmp: str, device) -> dict:
+    """Phase 16 (module docstring)."""
+    t0 = time.monotonic()
+    out = {"cold": run_tune_cold(path, device), "warm": run_tune_warm(path, tmp, device),
+           "restart": run_tune_restart(path, device)}
+    out["wall_s"] = time.monotonic() - t0
+    for key in ("k1_launches", "dw_launches"):
+        out[key] = sum(out[leg][key] for leg in ("cold", "warm", "restart"))
+    out["k2_launches"] = out["warm"]["k2_launches"]
+    emit({"phase": "autotune_total", "wall_s": out["wall_s"], "k1_launches": out["k1_launches"],
+          "dw_launches": out["dw_launches"], "k2_launches": out["k2_launches"]})
+    return out
+
+
 def producer_change(now: dict) -> dict:
     """Each phase's rows/s and stall share at the default convert width
     beside PR 11's (:data:`PR11_READER`, one producer thread) and the
@@ -4882,6 +5193,11 @@ def main() -> int:
                    **{f"fm_{k}": v["step_device_ms"] for k, v in fm.items()},
                    "als": als["step_device_ms"]}
         emit({"phase": "step_device_ms", "steps": step_ms})
+        # phase 16: the autotuner on the card, each leg's launches counted
+        # from 0 around its main path. It runs after the profiler windows:
+        # a window opened after a pipeline ran behind a spin can miss a
+        # device event (PERF.md §7)
+        tune = run_autotune(path, tmp, dev)
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -4895,9 +5211,10 @@ def main() -> int:
                      + bc_higgs["k1_launches"] + bc_snap["k1_launches"]
                      + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
-                     + pools["spin"]["k1_launches"] + fs["launches"]["k1"]),
+                     + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
+                     + tune["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
-                           + [fs["kernels"]["max_abs_err"]]),
+                           + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -4908,9 +5225,11 @@ def main() -> int:
                      + bc_higgs["dw_launches"] + bc_snap["dw_launches"]
                      + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
-                     + pools["spin"]["dw_launches"] + fs["launches"]["dw"]),
+                     + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
+                     + tune["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
-                            if r["dw_route"] == "cuda"] + [fs["kernels"]["dw_max_abs_err"]]),
+                            if r["dw_route"] == "cuda"]
+                           + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -4919,7 +5238,8 @@ def main() -> int:
         "replaces": "dmlc_tpu/ops/device_decode.py:168",
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
-                     + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]),
+                     + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]
+                     + tune["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

@@ -1,0 +1,460 @@
+"""The online pipeline autotuner — a copy of the JAX package's
+``data/autotune.py``.
+
+A feedback controller that ``DeviceIter(autotune=True)`` runs between
+epochs (and every ``autotune_interval`` delivered batches) to resize the
+pipeline's pool widths and queue depths while it runs, climbing every
+knob toward the one steady state the host cannot improve on: the
+consumer bound by the device link (``gap_stage == transfer``), not by
+read, parse, convert or dispatch.
+
+The control law, for each :meth:`AutoTuner.step` window:
+
+1. **Verify first.** When the previous step changed a knob, the window's
+   delivery rate is held against the rate before the change: a fall past
+   the hysteresis margin reverts the knob and holds that move for
+   ``hold_steps`` steps (a knob flaps at most once a hold window).
+2. **Cooldown.** Resilience events in the window (retries, restarts,
+   heals) make its measurements recovery work: the controller holds for
+   ``cooldown_steps`` windows.
+3. **Bound check.** When the consumer's input-wait share is at most
+   ``target_wait_frac``, or transfer dominates every supply stage, the
+   pipeline keeps the device fed: steady, nothing moves.
+4. **Climb.** Otherwise the stage with the most busy seconds maps to its
+   knob (:data:`STAGE_KNOB`, :data:`STAGE_KNOB_FALLBACK`), which grows one
+   step inside the knob table's ``[lo, hi]``
+   (:func:`dmlc_tpu_torch.utils.knobs.bounds`: the CPU count, the
+   ``DMLC_TPU_AUTOTUNE_MIN/MAX_*`` environment), and the change enters rule
+   1's verification.
+
+Every decision lands in a bounded history with its rationale, surfaces in
+``DeviceIter.stats()["autotune"]`` (:meth:`AutoTuner.snapshot`), and is
+mirrored on the telemetry registry: ``autotune_knob`` gauges, an
+``autotune_steps`` counter, one ``autotune_step`` span a step, and the
+moves and holds as :func:`~dmlc_tpu_torch.utils.telemetry.record_decision`
+events. The knobs' application is injected (:class:`Knob` carries ``get``
+and ``apply``), so the controller only decides: the tests drive
+:meth:`AutoTuner.step` with synthetic windows, and ``DeviceIter`` gives it
+its live knobs. :class:`ParseTierTuner` is the parse-pool-only tuner the
+JAX package runs where a host owns nothing else.
+
+The decisions follow wall-clock windows, so they differ between runs;
+the batches do not: every knob resizes a pool or a queue whose delivery
+order and content it leaves as they are.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, List, Optional
+
+from dmlc_tpu_torch.utils import knobs as _knobs
+from dmlc_tpu_torch.utils import telemetry as _telemetry
+from dmlc_tpu_torch.utils.check import check
+from dmlc_tpu_torch.utils.timer import get_time
+
+# stage -> the knob that relieves it (docs/data.md autotune section).
+# read shares parse's knob: both are supply work done by the parse
+# fan-out's serial pull + workers, and more lanes overlap more of each.
+STAGE_KNOB: Dict[str, str] = {
+    "read": "parse_workers",
+    "parse": "parse_workers",
+    "cache_read": "plan_read_workers",
+    "snapshot_read": "snapshot_read_workers",
+    "convert": "convert_ahead",
+    "dispatch": "prefetch",
+    # device-decode busy is jit dispatch riding the transfer queue: a
+    # deeper device_put lookahead overlaps it, same as dispatch
+    "device_decode": "prefetch",
+}
+
+# per-stage fallback when the primary knob is not registered on this
+# pipeline: a service-fed pipeline has no local parse fan-out, so its
+# read stage (frame recv waits — see ServiceParser.stage_seconds) climbs
+# the client's pipelined fetch window instead (docs/service.md Wire v2)
+STAGE_KNOB_FALLBACK: Dict[str, str] = {
+    "read": "service_pipeline_depth",
+}
+
+# busy-attribution stages the controller ranks when picking a move
+# (transfer deliberately absent: it has no host-side knob — it IS the
+# convergence target)
+SUPPLY_STAGES = ("read", "cache_read", "snapshot_read", "parse",
+                 "convert", "dispatch", "device_decode")
+
+# controller actions that land on the audit ledger (docs/observability.md
+# Decision ledger): the actual control moves and anomaly holds. The
+# per-window bookkeeping actions (skip/hold/steady) stay in the local
+# history only — they would flood the ledger with no-ops.
+_LEDGER_ACTIONS = frozenset(
+    ("grow", "revert", "revert_failed", "cooldown", "bound"))
+
+
+class Knob:
+    """One live-resizable pipeline control.
+
+    ``get()`` returns the current value; ``apply(v)`` attempts to install
+    ``v`` and returns True when it took effect (False = the owning
+    component cannot resize right now — e.g. the parse tier is bypassed
+    by a warm cache — and the controller blocks the move instead of
+    looping on it). Bounds default to the knob table's
+    (:func:`dmlc_tpu_torch.utils.knobs.bounds`: table caps narrowed by the
+    ``DMLC_TPU_AUTOTUNE_MIN/MAX_*`` env)."""
+
+    __slots__ = ("name", "get", "apply", "lo", "hi", "step")
+
+    def __init__(self, name: str, get: Callable[[], int],
+                 apply: Callable[[int], bool],
+                 lo: Optional[int] = None, hi: Optional[int] = None,
+                 step: int = 1):
+        self.name = name
+        self.get = get
+        self.apply = apply
+        table_lo, table_hi = _knobs.bounds(name)
+        self.lo = table_lo if lo is None else max(int(lo), table_lo)
+        self.hi = table_hi if hi is None else min(int(hi), table_hi)
+        self.step = max(1, int(step))
+
+
+class AutoTuner:
+    """The feedback controller (module docstring has the control law).
+
+    ``step(window)`` consumes one measurement window::
+
+        {"wall": float seconds, "batches": int delivered,
+         "input_wait": float seconds the consumer measurably waited for
+                       input (host-batch waits + sampled transfer
+                       landings — DeviceIter's input_wait_seconds delta),
+         "busy": {stage: float busy-seconds delta per pipeline stage},
+         "transfer_est": float estimated whole-window transfer-wait
+                         seconds (the sampled sideband scaled by its
+                         period; 0.0 when unsampled),
+         "resilience_events": int fault-recovery events in the window}
+
+    and returns the decision dict it appended to :attr:`history`.
+    Thread-safe: DeviceIter calls it from the consumer thread only, but
+    ``snapshot()`` may race a step from a stats() reader.
+    """
+
+    def __init__(self, knobs: List[Knob], *,
+                 scope: Optional[str] = None,
+                 target_wait_frac: float = 0.05,
+                 hysteresis: float = 0.05,
+                 cooldown_steps: int = 2,
+                 hold_steps: int = 4,
+                 min_batches: int = 4,
+                 max_history: int = 256):
+        check(len({k.name for k in knobs}) == len(knobs),
+              "AutoTuner: duplicate knob names")
+        self.knobs: Dict[str, Knob] = {k.name: k for k in knobs}
+        self.scope = scope
+        self.target_wait_frac = float(target_wait_frac)
+        self.hysteresis = float(hysteresis)
+        self.cooldown_steps = max(0, int(cooldown_steps))
+        self.hold_steps = max(1, int(hold_steps))
+        self.min_batches = max(1, int(min_batches))
+        self.max_history = max(8, int(max_history))
+        self.history: List[dict] = []
+        self._lock = threading.Lock()
+        self._step_no = 0
+        self._adjustments = 0          # grows + reverts actually applied
+        self._pending: Optional[dict] = None   # change awaiting verification
+        self._blocked: Dict[str, int] = {}     # knob -> step it unblocks at
+        self._cooldown_until = 0
+        self._steady_streak = 0
+        self._last_gap: Optional[str] = None
+        self._steps_counter = _telemetry.REGISTRY.counter(
+            _telemetry.AUTOTUNE_STEP_METRIC, pipeline=scope or "")
+        for k in self.knobs.values():
+            self._publish_knob(k.name, k.get())
+
+    # ---------------- telemetry mirrors ----------------
+
+    def _publish_knob(self, name: str, value: int) -> None:
+        _telemetry.REGISTRY.gauge(
+            _telemetry.AUTOTUNE_KNOB_METRIC, knob=name,
+            pipeline=self.scope or "").set(float(value))
+
+    # ---------------- decision engine ----------------
+
+    @property
+    def converged(self) -> bool:
+        """Two consecutive steady windows: the controller has nothing
+        left to move (gap_stage is transfer / the consumer never waits)."""
+        return self._steady_streak >= 2
+
+    def current(self) -> Dict[str, int]:
+        return {name: k.get() for name, k in self.knobs.items()}
+
+    def _record(self, decision: dict) -> dict:
+        decision["step"] = self._step_no
+        self.history.append(decision)
+        if len(self.history) > self.max_history:
+            del self.history[: len(self.history) - self.max_history]
+        self._last_gap = decision.get("gap_stage", self._last_gap)
+        if decision["action"] in _LEDGER_ACTIONS:
+            _telemetry.record_decision(
+                "autotune", decision["action"],
+                trigger={k: decision[k]
+                         for k in ("knob", "from", "to", "gap_stage",
+                                   "input_wait_frac") if k in decision},
+                outcome=decision.get("rationale"),
+                pipeline=self.scope or "", step=self._step_no)
+        return decision
+
+    def step(self, window: dict) -> dict:
+        with self._lock:
+            t0 = get_time()
+            try:
+                return self._step_locked(window)
+            finally:
+                self._steps_counter.inc()
+                _telemetry.record_span("autotune_step", t0,
+                                       get_time() - t0)
+
+    def _step_locked(self, window: dict) -> dict:
+        self._step_no += 1
+        wall = float(window.get("wall", 0.0))
+        batches = int(window.get("batches", 0))
+        if wall <= 0.0 or batches < self.min_batches:
+            # too little signal to act on (or to judge a pending change):
+            # carry everything to the next window
+            return self._record({
+                "action": "skip",
+                "rationale": f"window too small ({batches} batches in "
+                             f"{wall:.3f}s; need >= {self.min_batches})",
+            })
+        throughput = batches / wall
+        busy = dict(window.get("busy") or {})
+        input_wait = float(window.get("input_wait", 0.0))
+        wait_frac = min(1.0, input_wait / wall)
+        transfer = float(window.get("transfer_est", 0.0))
+        events = int(window.get("resilience_events", 0))
+
+        # 1. verify the previous change before anything else
+        if self._pending is not None:
+            pend, self._pending = self._pending, None
+            base = pend["throughput_before"]
+            knob = self.knobs[pend["knob"]]
+            if base > 0 and throughput < base * (1.0 - self.hysteresis):
+                # the change hurt: revert and hold this knob so the pair
+                # cannot oscillate (grow -> revert -> grow ...). A revert
+                # the component refuses (the tier stopped being resizable
+                # between windows, e.g. a cache went warm) is recorded as
+                # such — history must never claim a value the knob does
+                # not actually hold.
+                ok = knob.apply(pend["from"])
+                self._publish_knob(knob.name, knob.get())
+                self._blocked[knob.name] = self._step_no + self.hold_steps
+                self._adjustments += 1
+                self._steady_streak = 0
+                return self._record({
+                    "action": "revert" if ok else "revert_failed",
+                    "knob": knob.name,
+                    "from": pend["to"],
+                    "to": pend["from"] if ok else knob.get(),
+                    "rationale": f"throughput {throughput:.2f} b/s fell "
+                                 f">{self.hysteresis:.0%} below baseline "
+                                 f"{base:.2f} b/s after the change; "
+                                 f"holding {self.hold_steps} steps"
+                                 + ("" if ok else " (revert REFUSED by "
+                                    "the component — value stands)"),
+                })
+            # improvement (or within noise): the change stands — fall
+            # through and keep climbing on this window's evidence
+
+        # 2. fault-recovery work poisons the window: cool down
+        if events > 0:
+            self._cooldown_until = self._step_no + self.cooldown_steps
+            self._steady_streak = 0
+            return self._record({
+                "action": "cooldown",
+                "rationale": f"{events} resilience event(s) in the "
+                             f"window; holding {self.cooldown_steps} "
+                             f"step(s) until recovery noise clears",
+            })
+        if self._step_no < self._cooldown_until:
+            return self._record({
+                "action": "hold",
+                "rationale": "in post-resilience cooldown",
+            })
+
+        # 3. bound check: the convergence target
+        ranked = sorted(((busy.get(s, 0.0), s) for s in SUPPLY_STAGES),
+                        reverse=True)
+        top_busy, top_stage = ranked[0]
+        if wait_frac <= self.target_wait_frac or transfer > top_busy:
+            self._steady_streak += 1
+            gap = "transfer"
+            return self._record({
+                "action": "steady", "gap_stage": gap,
+                "input_wait_frac": round(wait_frac, 4),
+                "rationale": (f"input wait {wait_frac:.1%} <= target "
+                              f"{self.target_wait_frac:.0%}"
+                              if wait_frac <= self.target_wait_frac else
+                              f"transfer ({transfer:.3f}s) dominates "
+                              f"every supply stage (top {top_stage} "
+                              f"{top_busy:.3f}s)") + " — pipeline is "
+                             "device-bound; nothing to tune",
+            })
+        self._steady_streak = 0
+
+        # 4. climb: the largest supply stage with a movable knob
+        for stage_busy, stage in ranked:
+            if stage_busy <= 0.0:
+                break
+            knob = (self.knobs.get(STAGE_KNOB.get(stage, ""))
+                    or self.knobs.get(STAGE_KNOB_FALLBACK.get(stage, "")))
+            if knob is None:
+                continue
+            # >= so a knob blocked at step S with hold H stays held for
+            # exactly H windows (S+1 .. S+H) — strict '>' held H-1 and
+            # with hold_steps=1 none at all, letting a reverted knob
+            # flap again on the very next window
+            if self._blocked.get(knob.name, 0) >= self._step_no:
+                continue
+            cur = knob.get()
+            if cur >= knob.hi:
+                continue
+            new = min(knob.hi, cur + knob.step)
+            if not knob.apply(new):
+                # the owning component cannot resize right now (e.g. the
+                # parse tier is bypassed warm): hold the move, try the
+                # next stage's knob on later windows
+                self._blocked[knob.name] = self._step_no + self.hold_steps
+                continue
+            self._publish_knob(knob.name, knob.get())
+            self._adjustments += 1
+            self._pending = {"knob": knob.name, "from": cur, "to": new,
+                             "throughput_before": throughput}
+            return self._record({
+                "action": "grow", "knob": knob.name, "from": cur,
+                "to": new, "gap_stage": stage,
+                "input_wait_frac": round(wait_frac, 4),
+                "rationale": f"input wait {wait_frac:.1%} with "
+                             f"'{stage}' owning the window "
+                             f"({stage_busy:.3f}s busy) -> grow "
+                             f"{knob.name} {cur} -> {new} "
+                             f"(cap {knob.hi})",
+            })
+        return self._record({
+            "action": "bound", "gap_stage": top_stage,
+            "input_wait_frac": round(wait_frac, 4),
+            "rationale": f"input-bound on '{top_stage}' but every mapped "
+                         "knob is at its cap, blocked, or unavailable — "
+                         "raise DMLC_TPU_AUTOTUNE_MAX_* to allow more",
+        })
+
+    # ---------------- reporting ----------------
+
+    def snapshot(self, history: int = 16) -> dict:
+        """The ``stats()['autotune']`` block: current knob values, step
+        and adjustment counts, convergence, and the last ``history``
+        decisions with their rationale (docs/observability.md schema)."""
+        with self._lock:
+            return {
+                "enabled": True,
+                "steps": self._step_no,
+                "adjustments": self._adjustments,
+                "converged": self.converged,
+                "gap_stage": self._last_gap,
+                "knobs": self.current(),
+                "history": [dict(d) for d in self.history[-history:]],
+            }
+
+
+class ParseTierTuner:
+    """Parse-pool-only tuner for hosts that own nothing else.
+
+    The measured ``parse_parallelism_efficiency`` (busy-seconds /
+    (span x workers), the parse pool's sideband) is the whole signal: lanes running
+    near-saturated (>= ``grow_at``) earn another lane, lanes mostly idle
+    (<= ``shrink_at``) give one back, bounded by the knob table's
+    ``parse_workers`` caps. The JAX package runs it in its data-service
+    parse worker between parts and in its ``create_row_block_iter`` load
+    pass; the port has neither host yet, so it stands alone here."""
+
+    def __init__(self, start: Optional[int] = None,
+                 grow_at: float = 0.7, shrink_at: float = 0.35,
+                 max_history: int = 64):
+        self.lo, self.hi = _knobs.bounds("parse_workers")
+        base = _knobs.resolve("parse_workers", start)
+        self.workers = min(self.hi, max(self.lo, base))
+        self.grow_at = float(grow_at)
+        self.shrink_at = float(shrink_at)
+        self.max_history = max(8, int(max_history))
+        self.history: List[dict] = []
+
+    def decide(self, efficiency: Optional[float],
+               workers: Optional[int] = None) -> int:
+        """One re-tune: returns the parse tier to use next."""
+        w = self.workers if workers is None else max(1, int(workers))
+        new, why = w, "efficiency in band"
+        if efficiency is None:
+            why = "no efficiency measurement (native/serial tier)"
+        elif efficiency >= self.grow_at and w < self.hi:
+            new = w + 1
+            why = (f"lanes saturated (eff {efficiency:.2f} >= "
+                   f"{self.grow_at}) -> grow (cap {self.hi})")
+        elif efficiency <= self.shrink_at and w > self.lo:
+            new = w - 1
+            why = (f"lanes idle (eff {efficiency:.2f} <= "
+                   f"{self.shrink_at}) -> shrink (floor {self.lo})")
+        self.history.append({
+            "workers": w, "next": new,
+            "efficiency": None if efficiency is None
+            else round(float(efficiency), 4),
+            "rationale": why,
+        })
+        if new != w:
+            _telemetry.record_decision(
+                "parse_tier_tuner", "grow" if new > w else "shrink",
+                trigger={"efficiency": round(float(efficiency), 4),
+                         "workers": w},
+                outcome=why, next_workers=new)
+        if len(self.history) > self.max_history:
+            del self.history[: len(self.history) - self.max_history]
+        self.workers = new
+        return new
+
+    def snapshot(self, history: int = 8) -> dict:
+        return {"enabled": True, "parse_workers": self.workers,
+                "bounds": [self.lo, self.hi],
+                "history": [dict(d) for d in self.history[-history:]]}
+
+
+def efficiency_window(prev: Optional[dict],
+                      stats: Optional[dict]) -> tuple:
+    """Per-WINDOW parse-parallelism efficiency from the cumulative
+    ``parallel_stats`` sideband: ``(efficiency_or_None, next_prev)``.
+
+    ``parse_busy_seconds`` / ``parse_span_seconds`` are cumulative since
+    the pool's last quiesce, and the raw ``parse_parallelism_efficiency``
+    divides by the CURRENT width — so after a live resize the cumulative
+    number mixes widths and goes stale. Callers re-deciding mid-stream
+    (the ``BasicRowIter`` load pass) must difference consecutive
+    snapshots through this helper; the between-parts callers
+    (``ParseWorker``) get a fresh pool per part and can keep using the
+    raw sideband."""
+    stats = stats or {}
+    busy = float(stats.get("parse_busy_seconds") or 0.0)
+    span = float(stats.get("parse_span_seconds") or 0.0)
+    workers = stats.get("parse_workers")
+    cur = {"busy": busy, "span": span}
+    base = prev or {"busy": 0.0, "span": 0.0}
+    d_busy = busy - base["busy"]
+    d_span = span - base["span"]
+    if not workers or d_span <= 0.0:
+        return None, cur
+    return min(1.0, max(0.0, d_busy) / (d_span * int(workers))), cur
+
+
+def env_config(knob_values: Dict[str, int]) -> Dict[str, str]:
+    """Map tuned knob values onto their environment variable names, so a
+    converged configuration is reusable by exporting it as it is."""
+    out = {}
+    for name, value in sorted(knob_values.items()):
+        spec = _knobs.KNOB_TABLE.get(name)
+        if spec is not None and spec.env:
+            out[spec.env] = str(int(value))
+    return out

@@ -29,7 +29,11 @@ the oldest batch always finds one. Batches are delivered in stream order,
 the same bytes at every width. Natural-block bcoo (``batch_size=None``)
 keeps one producer thread, as the JAX package does. The ring never
 allocates past its depth: a worker waits for a slot (counted as a miss in
-``stats()["staging_ring"]``).
+``stats()["staging_ring"]``). Its depth can grow while the workers run:
+the worker whose acquire finds no free slot and room under the depth
+allocates the new pinned slot itself (the consumer never waits on a host
+allocation); a smaller depth only stops new slots, and no slot is freed
+while the iterator lives (freeing pinned memory synchronizes the device).
 
 Dense batches are :class:`PackedDenseBatch` (one ``[B, num_col + 2]``
 slab: features | label | weight) when ``pack_aux`` is on, the default for
@@ -77,7 +81,10 @@ time inside ``__next__`` (waiting for the pipeline, issuing copies, and in
 device-decode epochs the decode's dispatch, also counted alone in
 ``device_decode_seconds``); ``host_stall_seconds`` the part of it spent
 waiting on the pool; ``input_wait_seconds`` the wait for the batch handed
-out plus the sampled transfer landings; ``bytes_to_device`` counts the
+out, the wait on the pool in the refill behind it (in a steady epoch the
+refill is where the consumer waits: the batch it hands out was copied a
+call earlier) and the sampled transfer landings — the autotuner's input
+wait; ``bytes_to_device`` counts the
 bytes copied, ``device_decode_bytes`` those that crossed as raw spans.
 ``source_wait_seconds`` is the serial stage's time blocked on the parser.
 The busy seconds of each stage are ``stats()["stage_busy"]`` (read,
@@ -133,15 +140,36 @@ the source, which replays its plan; the snapshot then sits out the rest of
 the epoch. A source whose ``plan_state`` has a seed is refused under
 ``snapshot=``: the snapshot freezes one epoch's order.
 
-**Healing.** A warm batch that fails its crc32 removes the file. Within the
-restart budget (:mod:`dmlc_tpu_torch.io.resilience`: ``max_attempts - 1``
-restarts an epoch, ``DMLC_RETRY_MAX_ATTEMPTS``, default 4) the epoch then
-goes on cold from the batch after the last one delivered, through
-``load_state(state_dict())`` as in the JAX package: a seek where the stored
-annotation allows, a replay by count otherwise.
+**Healing.** A retryable error that reaches the consumer
+(:func:`~dmlc_tpu_torch.io.resilience.classify`) re-arms the pipeline at
+the batch after the last one delivered, through
+``load_state(state_dict())`` as in the JAX package: a seek where the
+annotation allows, a replay by count otherwise, within the restart budget
+(:mod:`dmlc_tpu_torch.io.resilience`: ``max_attempts - 1`` restarts an
+epoch, ``DMLC_RETRY_MAX_ATTEMPTS``, default 4) and after the policy's
+backoff. A warm batch that fails its crc32 first removes the file, so the
+epoch goes on cold (no backoff: there is nothing to wait for).
 ``stats()["resilience"]["pipeline_restarts"]`` counts the restarts; past
-the budget the ``CacheCorruptionError`` propagates. The next epoch runs
+the budget, or for a fatal error, the error propagates. The next epoch runs
 cold and writes the snapshot anew.
+
+**Autotuning.** ``autotune=True`` (or ``DMLC_TPU_AUTOTUNE=1``) arms the
+online autotuner (:mod:`dmlc_tpu_torch.data.autotune`): at each
+:meth:`~DeviceIter.reset` after a delivered batch, and every
+``autotune_interval`` delivered batches (``DMLC_TPU_AUTOTUNE_INTERVAL``,
+default 0: epoch boundaries only), one controller step reads the window's
+registry counters (busy seconds by stage, the input wait, the sampled
+transfer wall, the resilience events and this iterator's lifetime restart
+tally) and may move one knob: ``prefetch`` and ``convert_ahead`` always,
+``parse_workers`` and ``plan_read_workers`` where the source chain can
+resize them, ``snapshot_read_workers`` under a snapshot.
+``convert_workers`` stays as built (one knob a stage: convert pressure
+grows ``convert_ahead``, as in the JAX package). A knob that widens a
+window raises the staging ring's depth first. A step reads counters and
+clocks only: it never waits on the card. The batches are the same,
+whatever the knobs do. ``stats()["autotune"]`` is the controller's
+:meth:`~dmlc_tpu_torch.data.autotune.AutoTuner.snapshot`, None when it is
+not armed.
 
 **bcoo.** ``layout="bcoo"`` batches are ``(x, label, weight)`` with ``x`` a
 torch sparse COO tensor ``[rows, num_col]`` on the device (pad scheme in
@@ -189,7 +217,7 @@ the convert of its group's rows, a cost of running one process a rank (a
 JAX process feeds all its devices from one pipeline), not a fault.
 
 On a CPU device the same pipeline runs without pinning, streams or events
-(the copy is synchronous). Not ported yet: autotuning.
+(the copy is synchronous).
 """
 
 from __future__ import annotations
@@ -203,6 +231,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from dmlc_tpu_torch.data import autotune as _autotune
 from dmlc_tpu_torch.data import epoch as _epoch
 from dmlc_tpu_torch.data.row_block import CooBlock, DenseBlock, RowBlock, RowBlockContainer
 from dmlc_tpu_torch.io import resilience as _resilience
@@ -331,29 +360,54 @@ class _StagingRing:
     A slot cycles free -> taken by a worker -> copied by the consumer ->
     free again; the consumer records the copy's event on the slot when it
     hands it back, and :meth:`acquire` waits on that event before a worker
-    may rewrite the buffers. The ring never allocates past its slots: an
-    acquire with no slot free waits for one (``misses`` counts those, and
-    ``hits`` the acquires that found one). :meth:`close` wakes every
-    waiting worker, which then gets None."""
+    may rewrite the buffers. An acquire with no slot free and room under
+    the depth (:meth:`set_depth`) makes a slot with ``make()`` on the
+    acquiring thread; with no room it waits for one (``misses`` counts
+    those, and ``hits`` the acquires that found one free). A smaller depth
+    only stops new slots: the ring never frees one. :meth:`close` wakes
+    every waiting worker, which then gets None."""
 
-    def __init__(self, slots: List[_Slot]):
+    def __init__(self, slots: List[_Slot], make=None):
         self._slots = list(slots)
+        self._make = make
+        self._depth = len(self._slots)
+        self._growing = 0  # slots being made by acquirers
         self._cond = threading.Condition()
         self._free: deque = deque(self._slots)
         self._closed = False
         self.hits = 0
         self.misses = 0
 
+    def _can_grow(self) -> bool:
+        return self._make is not None and len(self._slots) + self._growing < self._depth
+
     def acquire(self) -> Optional[_Slot]:
         with self._cond:
             if self._free:
                 self.hits += 1
-            elif not self._closed:
+            elif not self._closed and not self._can_grow():
                 self.misses += 1
-                self._cond.wait_for(lambda: self._free or self._closed)
+                self._cond.wait_for(lambda: self._free or self._closed or self._can_grow())
             if self._closed:
                 return None
-            slot = self._free.popleft()
+            if not self._free:
+                self._growing += 1
+                slot = None
+            else:
+                slot = self._free.popleft()
+        if slot is None:
+            # a live growth: the pinned allocation on this worker's thread
+            try:
+                slot = self._make()
+            finally:
+                with self._cond:
+                    self._growing -= 1
+                    if slot is not None:
+                        self._slots.append(slot)
+                    self._cond.notify_all()
+            with self._cond:
+                # a closed ring hands out no slot; reopen() frees this one
+                return None if self._closed else slot
         if slot.event is not None:
             slot.event.synchronize()
         return slot
@@ -376,11 +430,21 @@ class _StagingRing:
             self._closed = False
             self._free = deque(self._slots)
 
-    def grow(self, depth: int, make) -> None:
-        """Add slots made by ``make()`` up to ``depth`` (no worker runs)."""
+    def set_depth(self, depth: int) -> None:
+        """The most slots the ring may hold: a larger depth lets the next
+        acquires that find no free slot make one; a smaller one only stops
+        new slots."""
         with self._cond:
-            while len(self._slots) < depth:
-                slot = make()
+            self._depth = max(1, int(depth))
+            self._cond.notify_all()
+
+    def grow(self, depth: int) -> None:
+        """Raise the depth to at least ``depth`` and make the missing slots
+        now (no worker runs)."""
+        with self._cond:
+            self._depth = max(self._depth, int(depth))
+            while len(self._slots) < self._depth:
+                slot = self._make()
                 self._slots.append(slot)
                 self._free.append(slot)
 
@@ -538,6 +602,8 @@ class DeviceIter:
         device_decode: Optional[bool] = None,
         snapshot_shuffle_seed: Optional[int] = None,
         snapshot_read_workers: Optional[int] = None,
+        autotune: Optional[bool] = None,
+        autotune_interval: Optional[int] = None,
     ):
         check(layout in ("dense", "ell", "bcoo"), f"unknown layout {layout!r}")
         check(batch_size is not None or layout == "bcoo",
@@ -665,10 +731,14 @@ class DeviceIter:
         self._seeked = False
         self._last_resume: Optional[dict] = None  # the last delivered batch's
         # healing: the restart budget (read once, as the JAX package reads
-        # its policy) and this epoch's restarts
-        self._max_attempts = _resilience.max_attempts_from_env()
+        # its policy), this epoch's restarts and gives-up, and their
+        # lifetime tally (the autotuner's sensor: reset() zeroes the
+        # epoch's counts, and a new epoch's early restarts must still show)
+        self._retry_policy = _resilience.RetryPolicy.from_env()
         self.pipeline_restarts = 0
         self.pipeline_giveups = 0
+        self._faults_lifetime = 0
+        self._batches_total = 0  # delivered over the iterator's life
         self.stall_seconds = 0.0
         self.host_stall_seconds = 0.0
         self.batches_fed = 0
@@ -705,6 +775,15 @@ class DeviceIter:
         self._ring: Optional[_StagingRing] = None  # the current producer's
         self._host = None  # the convert pool, the natural-block producer or the warm feed
         self._inflight: deque = deque()
+        # the online autotuner (module docstring), armed by autotune=True or
+        # DMLC_TPU_AUTOTUNE=1
+        self.autotuner: Optional[_autotune.AutoTuner] = None
+        self._autotune_interval = 0
+        self._tune_mark: Optional[dict] = None
+        if _knobs.autotune_enabled(autotune):
+            self._autotune_interval = _knobs.autotune_interval(autotune_interval)
+            self.autotuner = _autotune.AutoTuner(self._autotune_knobs(),
+                                                 scope=self.pipeline_label)
 
     def _check_shardings(self, layout: str) -> None:
         """A learner's ``batch_shardings()`` must split every array of a
@@ -739,20 +818,35 @@ class DeviceIter:
 
     # ---------------- staging ----------------
 
+    def _ring_depth(self, ahead: int, workers: int) -> int:
+        """A slot for each of ``ahead`` batches pulled and not yet delivered
+        (at most one slot each, so the oldest always finds one),
+        ``prefetch`` copies, each worker and two spare, as the JAX package
+        sizes its ring."""
+        return ahead + self.prefetch + workers + 2
+
     def _ring_for(self, spec, ahead: int, workers: int) -> _StagingRing:
-        """The staging ring for ``spec``, a tuple of ``(shape, dtype)``,
-        with at least a slot for each of ``ahead`` batches pulled and not
-        yet delivered (at most one slot each, so the oldest always finds
-        one), ``prefetch`` copies, each worker and two spare, as the JAX
-        package sizes its ring."""
+        """The staging ring for ``spec``, a tuple of ``(shape, dtype)``, its
+        slots made now up to :meth:`_ring_depth` (no worker runs)."""
         spec = tuple(spec)
         ring = self._rings.get(spec)
         if ring is None:
-            ring = self._rings[spec] = _StagingRing([])
-        ring.grow(ahead + self.prefetch + workers + 2,
-                  lambda: _Slot([torch.empty(shape, dtype=dt, pin_memory=self._cuda)
-                                 for shape, dt in spec]))
+            ring = self._rings[spec] = _StagingRing([], make=lambda: _Slot(
+                [torch.empty(shape, dtype=dt, pin_memory=self._cuda) for shape, dt in spec]))
+        ring.grow(self._ring_depth(ahead, workers))
         return ring
+
+    def _refresh_ring_depth(self) -> None:
+        """The current ring's depth for the knobs as they are now: a window
+        that widens finds its slots (made by the workers that need them)."""
+        if self._ring is None:
+            return
+        if self._snap_serving:
+            w = self.snapshot_read_workers
+            self._ring.set_depth(self._ring_depth(2 * w, w))
+        else:
+            workers = 1 if self.batch_size is None else self.convert_workers
+            self._ring.set_depth(self._ring_depth(self._convert_ahead, workers))
 
     def _cold_kind(self) -> str:
         if self.layout == "ell" and self.max_nnz is None:
@@ -1091,6 +1185,101 @@ class DeviceIter:
                                  self._convert_work, num_workers=self.convert_workers,
                                  max_ahead=self._convert_ahead, counter_label="convert")
 
+    # ---------------- the online autotuner ----------------
+
+    def _autotune_knobs(self) -> list:
+        """The knobs this pipeline can move live: the queue depths always,
+        the parse fan-out and the plan read pool where the source chain
+        can resize them, the snapshot read pool under a snapshot (the JAX
+        package's set)."""
+        knobs = [_autotune.Knob("prefetch", lambda: self.prefetch, self._apply_prefetch),
+                 _autotune.Knob("convert_ahead", lambda: self._convert_ahead,
+                                self._apply_convert_ahead)]
+        if callable(getattr(self.source, "resize_parse_workers", None)):
+            fn = getattr(self.source, "parallel_stats", None)
+            pstats = fn() if callable(fn) else None
+            # the live pool's width, else the width a lazily built base
+            # will use, else the table's default
+            self._knob_parse_workers = int(
+                (pstats or {}).get("parse_workers")
+                or getattr(self.source, "parse_workers_hint", 0)
+                or _knobs.resolve("parse_workers"))
+            knobs.append(_autotune.Knob("parse_workers", lambda: self._knob_parse_workers,
+                                        self._apply_parse_workers))
+        if callable(getattr(self.source, "resize_plan_read_workers", None)):
+            knobs.append(_autotune.Knob(
+                "plan_read_workers",
+                lambda: int(getattr(self.source, "plan_read_workers", 0)
+                            or _knobs.resolve("plan_read_workers")),
+                lambda n: bool(self.source.resize_plan_read_workers(int(n)))))
+        if self.snapshot_path is not None:
+            knobs.append(_autotune.Knob("snapshot_read_workers",
+                                        lambda: self.snapshot_read_workers,
+                                        self._apply_snapshot_read_workers))
+        return knobs
+
+    def _apply_prefetch(self, n: int) -> bool:
+        # the ring first; the consumer's next _fill copies further ahead
+        self.prefetch = max(1, int(n))
+        self._refresh_ring_depth()
+        return True
+
+    def _apply_convert_ahead(self, n: int) -> bool:
+        self._convert_ahead = max(1, int(n))
+        self._refresh_ring_depth()  # before the window opens
+        if isinstance(self._host, OrderedWorkerPool):
+            self._host.set_max_ahead(self._convert_ahead)
+        elif isinstance(self._host, ThreadedIter):
+            self._host.set_capacity(self._convert_ahead)
+        return True
+
+    def _apply_parse_workers(self, n: int) -> bool:
+        if not self.source.resize_parse_workers(int(n)):
+            return False  # no parse tier now (a warm block cache)
+        self._knob_parse_workers = max(1, int(n))
+        return True
+
+    def _apply_snapshot_read_workers(self, n: int) -> bool:
+        self.snapshot_read_workers = max(1, int(n))
+        if isinstance(self._host, _snapshot.SnapshotIter):
+            self._refresh_ring_depth()  # before the 2n window opens
+            self._host.resize(self.snapshot_read_workers)
+        return True
+
+    def _autotune_mark_now(self) -> dict:
+        """One sensor reading: the controller's windows are the deltas of
+        two marks, all from counters that never rewind (the restart tally
+        is the lifetime one)."""
+        res = _resilience.counters_snapshot(self.pipeline_label)
+        return {"t": get_time(), "batches": self._batches_total,
+                "busy": self._busy.seconds(),
+                "transfer_wall": self._attr.seconds().get("transfer", 0.0),
+                "input_wait": self._input_wait.value,
+                "res": sum(res.values()) + self._faults_lifetime}
+
+    def _autotune_step(self) -> None:
+        """One controller step over the window since the last mark (at each
+        reset() after a delivered batch, and every ``autotune_interval``
+        delivered batches); the first call only takes the mark."""
+        if self.autotuner is None:
+            return
+        mark, now = self._tune_mark, self._autotune_mark_now()
+        self._tune_mark = now
+        if mark is None:
+            return
+        busy = {k: max(0.0, now["busy"].get(k, 0.0) - mark["busy"].get(k, 0.0))
+                for k in now["busy"]}
+        self.autotuner.step({
+            "wall": now["t"] - mark["t"],
+            "batches": now["batches"] - mark["batches"],
+            "input_wait": max(0.0, now["input_wait"] - mark["input_wait"]),
+            "busy": busy,
+            # the sampled landings scaled to the whole window
+            "transfer_est": max(0.0, now["transfer_wall"] - mark["transfer_wall"])
+            * max(1, self.transfer_sample),
+            "resilience_events": max(0, now["res"] - mark["res"]),
+        })
+
     # ---------------- warm epochs (the read pool) ----------------
 
     def _snapshot_geometry(self) -> dict:
@@ -1271,21 +1460,27 @@ class DeviceIter:
                         span[o_label: o_label + 4 * rows].view(torch.float32),
                         span[o_weight: nbytes].view(torch.float32))
 
-    def _fill(self) -> None:
+    def _fill(self) -> float:
+        """Copy batches until ``prefetch`` are in flight (or the epoch
+        ends); returns the seconds spent waiting on the producer."""
+        waited = 0.0
         while len(self._inflight) < self.prefetch:
+            t0 = get_time()
             try:
                 slot = self._host_iter().next()
-            except CacheCorruptionError:
-                if not self._snap_serving:
-                    raise
-                self._invalidate_snapshot()
-                if not self._heal():
-                    raise
-                continue
+            except BaseException as exc:  # noqa: BLE001 - classified below
+                corrupt = self._snap_serving and isinstance(exc, CacheCorruptionError)
+                if corrupt:
+                    # the file goes first, so the restart runs cold
+                    self._invalidate_snapshot()
+                if self._maybe_restart_pipeline(exc, backoff=not corrupt):
+                    continue
+                raise
+            waited += get_time() - t0
             if slot is None:
                 # a complete cold pass publishes its shadow snapshot here
                 self._finish_snapshot_writer()
-                return
+                return waited
             if self._snap_writer is not None:
                 # the shadow write follows delivery order, whatever order
                 # the workers packed in
@@ -1293,6 +1488,7 @@ class DeviceIter:
                 self._write_snapshot_batch(slot)
                 self.snapshot_write_seconds += get_time() - t0
             self._inflight.append(self._put(slot))
+        return waited
 
     def __iter__(self):
         return self
@@ -1369,10 +1565,11 @@ class DeviceIter:
         # counted as delivered before the refill, which may heal the epoch
         # from this batch's state
         self.batches_fed += 1
+        self._batches_total += 1
         self._last_resume = annot
         # issue the replacement copy before handing the batch out; a wait
         # on the producer here holds the consumer up as much as one above
-        self._fill()
+        self._input_wait.inc(self._fill())
         t1 = get_time()
         self.stall_seconds += t1 - t0
         self._account_window(t0, busy0, t1, write0)
@@ -1388,6 +1585,8 @@ class DeviceIter:
             self._input_wait.inc(dt)
             _telemetry.record_span("transfer", ts, dt)
             self._transfer_samples += 1
+        if self._autotune_interval and self._batches_total % self._autotune_interval == 0:
+            self._autotune_step()
         self._t_last = get_time()
         return batch
 
@@ -1532,16 +1731,29 @@ class DeviceIter:
         check(self._open_snapshot(),
               f"snapshot {self.snapshot_path}: rebuild did not publish a readable snapshot")
 
-    def _heal(self) -> bool:
-        """Re-arm the epoch cold at the batch after the last one delivered
-        (a warm batch failed its crc and the file is gone), through the
-        checkpoint machinery. Returns False, and restarts nothing, once the
-        epoch's restart budget is spent."""
-        if not _resilience.restart_allowed(self.pipeline_restarts, self._max_attempts):
+    def _maybe_restart_pipeline(self, exc: BaseException, backoff: bool = True) -> bool:
+        """Re-arm the epoch at the batch after the last one delivered,
+        through the checkpoint machinery, for a retryable ``exc`` within
+        the epoch's budget (the JAX package's rule), after the policy's
+        backoff unless ``backoff`` is off. False: ``exc`` must propagate (a
+        fatal error, or the budget is spent). A replay that fails again is
+        judged the same way."""
+        verdict = _resilience.restart_verdict(self._retry_policy, self.pipeline_restarts, exc)
+        if verdict == "giveup":
             self.pipeline_giveups += 1
+            self._faults_lifetime += 1
             return False
+        if verdict != "restart":
+            return False
+        used = self.pipeline_restarts
         self.pipeline_restarts += 1
-        self.load_state(self.state_dict())
+        self._faults_lifetime += 1
+        if backoff:
+            _resilience.restart_backoff(self._retry_policy, used, exc)
+        try:
+            self.load_state(self.state_dict())
+        except BaseException as nxt:  # noqa: BLE001 - judged as the first
+            return self._maybe_restart_pipeline(nxt, backoff)
         return True
 
     def _teardown(self) -> None:
@@ -1557,8 +1769,11 @@ class DeviceIter:
         """New epoch: stop the producer; the next pull restarts the source,
         or serves the snapshot once a complete pass has published it. A
         cold pass cut short here is not published. After a delivered batch
-        the snapshot plan's epoch advances."""
+        the snapshot plan's epoch advances, and an armed autotuner takes a
+        step over the finished window (its changes reach the pools the next
+        epoch builds, and the live ones)."""
         if self.batches_fed > 0:
+            self._autotune_step()
             self._snap_epoch += 1
         self._snap_seq_restore = False
         self._teardown()
@@ -1592,8 +1807,7 @@ class DeviceIter:
 
     def stats(self) -> dict:
         """The pipeline's counters. Every key of the JAX package's
-        ``stats()`` but ``autotune`` and ``store`` is here with its value
-        type (``batches`` first; the port's own ``batches_fed`` is the same
+        ``stats()`` but ``store`` is here with its value type (``batches`` first; the port's own ``batches_fed`` is the same
         count). ``stages`` splits ``wall_seconds`` (first pull to the
         latest) among read / cache_read / snapshot_read / parse / convert /
         dispatch / device_decode / transfer, its sum never above the wall;
@@ -1601,7 +1815,8 @@ class DeviceIter:
         over threads (so they may exceed the wall); ``transfer`` is the
         sampled copy landings, ``transfer_samples`` their count (module
         docstring). ``input_wait_seconds`` is the consumer's wait inside
-        ``__next__`` for the batch it hands out plus those landings;
+        ``__next__`` for the batch it hands out and on the pool in the
+        refill behind it, plus those landings;
         ``host_stall_seconds`` its wait on the pool. ``staging_ring`` is
         ``{"depth", "hits", "misses"}`` of the current ring (None before
         the first epoch); a miss is an acquire that waited for a free slot.
@@ -1612,7 +1827,9 @@ class DeviceIter:
         sideband beside them) are the source chain's parse fan-out, as the
         JAX package reports them. ``resilience`` holds the I/O events
         recorded under this pipeline's label since it was built
-        (:mod:`dmlc_tpu_torch.io.resilience`) and its own restarts."""
+        (:mod:`dmlc_tpu_torch.io.resilience`) and its own restarts.
+        ``autotune`` is the autotuner's snapshot (knobs, steps, adjustments,
+        convergence, the last decisions), None when it is not armed."""
         plan_state = getattr(self.source, "plan_state", None) or {}
         snap = self.snapshot_path is not None
         # the source chain's parse fan-out (ParallelTextParser); a
@@ -1661,4 +1878,5 @@ class DeviceIter:
                     "parse_parallelism_efficiency"),
                 "parse_parallel": pstats,
                 "staging_ring": self._ring.stats() if self._ring is not None else None,
+                "autotune": self.autotuner.snapshot() if self.autotuner is not None else None,
                 "resilience": resilience}

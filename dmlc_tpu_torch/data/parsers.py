@@ -721,9 +721,16 @@ class ParallelTextParser(Parser):
     reaches the base before it. ``stage_seconds()`` sums the workers'
     parse seconds under a lock, and :meth:`parallel_stats` reports the
     width and the measured parallel efficiency. A parse error is raised at
-    its chunk's place in the stream. The JAX package's opt-in
-    ``restart_policy`` (in-pool healing of chunk-pull errors) and live
-    ``resize_parse_workers`` are not ported.
+    its chunk's place in the stream. An opt-in ``restart_policy``
+    (:class:`~dmlc_tpu_torch.io.resilience.RetryPolicy`) heals a retryable
+    error of a chunk pull inside the pool: the split goes back to the
+    pool's origin (its state when the pool started; the epoch start when
+    it has none) and the chunks already pulled are skipped, so the blocks
+    are those of a clean run (``parse_restarts`` / ``parse_giveups``
+    count it). :meth:`resize_parse_workers` changes the width live (the
+    autotuner's ``parse_workers`` knob): chunks keep being pulled serially
+    and delivered in pull order, so the blocks and their annotations are
+    those of a run at one width.
 
     Its position runs ahead of delivery, so a checkpoint is the annotation
     of the last block delivered; ``load_state`` stops the production first
@@ -732,11 +739,13 @@ class ParallelTextParser(Parser):
     base then stands.
     """
 
-    def __init__(self, base: TextParserBase, num_workers: int = 2):
+    def __init__(self, base: TextParserBase, num_workers: int = 2,
+                 restart_policy: Optional[_resilience.RetryPolicy] = None):
         self.base = base
         self.num_workers = max(1, int(num_workers))
         # a couple of chunks in flight a worker rides out parse-time variance
         self._ahead = max(4, 2 * self.num_workers)
+        self._restart_policy = restart_policy
         base._parse_nthread = 1 if self.num_workers > 1 else 0
         self._pool: Optional[OrderedWorkerPool] = None
         self._delivered = 0
@@ -795,11 +804,61 @@ class ParallelTextParser(Parser):
         # once production runs, blocks of both kinds would mix: decline
         return self._pool is None and self.base.set_emit_dense(num_col)
 
-    def next_block(self):
+    def _ensure_pool(self) -> OrderedWorkerPool:
+        """The pool, started at the base's current position. A restart goes
+        back to that origin (the split's state, or its chunk-synchronized
+        resume state after a seek), rewinds the byte and chunk counters and
+        replays from there; with no origin, away from the stream's start,
+        the pool restarts nothing and the error propagates."""
         if self._pool is None:
-            self._pool = OrderedWorkerPool(self._chunk_stream, self._parse_work,
+            src = self.base.source
+            origin = None
+            if hasattr(src, "state_dict"):
+                try:
+                    origin = src.state_dict()
+                except (DMLCError, AttributeError):
+                    origin = None
+            if origin is None:
+                origin = getattr(src, "chunk_resume_state", None)
+            at_start = self.base._chunks_in == 0 and self._delivered == 0
+            policy = (self._restart_policy
+                      if (origin is not None and hasattr(src, "load_state")) or at_start
+                      else None)
+            counters0 = (self.base._bytes, self.base._chunks_in)
+            first = [True]
+
+            def factory():
+                if not first[0]:
+                    self.base._bytes, self.base._chunks_in = counters0
+                    if origin is not None and hasattr(src, "load_state"):
+                        src.load_state(origin)
+                    else:
+                        src.before_first()
+                first[0] = False
+                return self._chunk_stream()
+
+            self._pool = OrderedWorkerPool(factory, self._parse_work,
                                            num_workers=self.num_workers,
-                                           max_ahead=self._ahead)
+                                           max_ahead=self._ahead, restart_policy=policy,
+                                           counter_label="parse")
+        return self._pool
+
+    def resize_parse_workers(self, num_workers: int) -> bool:
+        """Change the width live (the autotuner's ``parse_workers`` knob):
+        the running pool grows or shrinks in place, the window follows
+        (``max(4, 2 * n)``), and at one worker the base may thread its
+        scanner again. Always True."""
+        n = max(1, int(num_workers))
+        self.num_workers = n
+        self.base._parse_nthread = 1 if n > 1 else 0
+        self._ahead = max(4, 2 * n)
+        if self._pool is not None:
+            self._pool.resize(n)
+            self._pool.set_max_ahead(self._ahead)
+        return True
+
+    def next_block(self):
+        self._ensure_pool()
         while True:
             block = self._pool.next()
             if block is None:
@@ -877,6 +936,9 @@ class ThreadedParser(ParallelTextParser):
     the fan-out at one lane, under the JAX package's name. Like the JAX
     class it reports no :meth:`parallel_stats`."""
 
+    # one lane, as the JAX class: no live width, so no autotuner parse knob
+    resize_parse_workers = None
+
     def __init__(self, base: TextParserBase):
         super().__init__(base, num_workers=1)
 
@@ -930,9 +992,12 @@ class BlockCacheIter(Parser):
     replays the stream byte for byte. A sequential state restored into a
     plan pipeline serves the rest of its epoch sequentially.
 
-    The JAX package's autotuning passthroughs (``resize_parse_workers``,
-    ``resize_plan_read_workers``) and its profiler annotations are not
-    ported.
+    The autotuner reaches the tiers through :meth:`resize_parse_workers`
+    (the base chain's fan-out on a cold pass; False while warm, when no
+    parse runs) and :meth:`resize_plan_read_workers` (the running plan pool
+    and every later one); ``parse_workers_hint``, stamped by
+    :func:`create_parser`, is the width a lazily built base will use. The
+    JAX package's profiler annotations are not ported.
     """
 
     def __init__(self, base: Union[Parser, Callable[[], Parser]], cache_file: str,
@@ -1425,6 +1490,22 @@ class BlockCacheIter(Parser):
         fn = getattr(self._base, "parallel_stats", None)
         return fn() if self._mode != "warm" and fn is not None else None
 
+    def resize_parse_workers(self, num_workers: int) -> bool:
+        """The autotuner's parse knob, passed to the base chain: False until
+        a cold pass built it (warm epochs parse nothing)."""
+        fn = getattr(self._base, "resize_parse_workers", None)
+        return bool(fn(num_workers)) if fn is not None else False
+
+    def resize_plan_read_workers(self, num_workers: int) -> bool:
+        """The plan read pool's width, live (its window ``2 * n``) and for
+        every pool built after; plan order holds either way. True."""
+        n = max(1, int(num_workers))
+        self.plan_read_workers = n
+        if self._plan_pool is not None:
+            self._plan_pool.resize(n)
+            self._plan_pool.set_max_ahead(2 * n)
+        return True
+
     @property
     def bytes_read(self) -> int:
         """The base parser's source bytes (0 before any cold pass built it)
@@ -1656,6 +1737,9 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
         parser = BlockCacheIter(build, bc_path, signature=signature,
                                 shuffle_seed=shuffle_seed, shuffle_window=shuffle_window,
                                 host_id=host_id, num_hosts=num_hosts)
+        # the width the lazily built base will use: the autotuner seeds its
+        # parse knob from it before a cold pass builds the parser
+        parser.parse_workers_hint = _knobs.resolve("parse_workers", parse_workers)
     if snapshot is not None:
         parser.snapshot_path = snapshot
         parser.snapshot_signature = signature

@@ -227,7 +227,8 @@ class SnapshotIter:
     runs on the reading thread as ``stage(pos, host_batch, resume,
     nbytes)``, ``pos`` the serving position, and its result is delivered
     in the item's place (``DeviceIter`` copies the batch into a pinned
-    staging slot there).
+    staging slot there). :meth:`resize` changes the read width live (the
+    autotuner's ``snapshot_read_workers`` knob).
     """
 
     def __init__(self, reader: SnapshotReader, order: Optional[np.ndarray] = None,
@@ -245,6 +246,15 @@ class SnapshotIter:
         self._pool = OrderedWorkerPool(lambda: iter(range(int(start), int(n))), self._read,
                                        num_workers=workers, max_ahead=2 * workers,
                                        counter_label="snapshot_read")
+
+    def resize(self, read_workers: int) -> bool:
+        """Resize the read pool live to ``n`` workers with ``2 × n`` reads
+        ahead; batches keep their serving order. A ``DeviceIter`` grows its
+        staging ring for the wider window first. True."""
+        n = max(1, int(read_workers))
+        self._pool.resize(n)
+        self._pool.set_max_ahead(2 * n)
+        return True
 
     def _read(self, pos: int):
         reader = self.reader

@@ -1,129 +1,369 @@
-"""The port's environment knobs.
+"""The port's knob table: one validated home for every tunable.
 
-A copy of the JAX package's read path (``utils/knobs.py``) for the knobs
-the port has so far: an explicit argument wins, then the environment
-variable, then the default.
+A copy of the JAX package's ``utils/knobs.py``. Every tunable the input
+pipeline has (pool widths, queue depths, the autotuner's pacing, the
+service and store rows the port does not use yet) is one
+:class:`KnobSpec` row of :data:`KNOB_TABLE`, read through :func:`resolve`:
+an explicit argument wins (clamped up to the row's floor), then the
+environment variable, validated (a value that is not a positive integer
+raises), then the default. :func:`bounds` gives the autotuner's caps for a
+knob: the row's ``[lo, hi]`` (``hi`` the host's CPU count for the worker
+pools), narrowed by ``DMLC_TPU_AUTOTUNE_MIN_<KNOB>`` /
+``DMLC_TPU_AUTOTUNE_MAX_<KNOB>``. :func:`autotune_enabled`
+(``DMLC_TPU_AUTOTUNE=1``) and :func:`autotune_interval`
+(``DMLC_TPU_AUTOTUNE_INTERVAL``) arm and pace the online autotuner
+(:mod:`dmlc_tpu_torch.data.autotune`). The error texts are the JAX
+package's.
+
+The port's rows in use:
 
 - ``prefetch`` (``DMLC_TPU_PREFETCH``, default 2): batches copied to the
-  device ahead of the consumer. An explicit value is clamped up to the
-  floor of 1; an environment value that is not a positive integer raises.
-- ``device_decode`` (``DMLC_TPU_DEVICE_DECODE``): ``"1"`` arms the device
-  decode of warm snapshot batches; any other value, or none, leaves it off.
+  device ahead of the consumer (:func:`prefetch`);
 - ``parse_workers`` (``DMLC_TPU_PARSE_WORKERS``, default ``max(1, min(4,
   cpus))``): the width of the chunk-parse fan-out
-  (``ParallelTextParser``); 1 keeps the one-lane ``ThreadedParser``.
+  (``ParallelTextParser``); 1 keeps the one-lane ``ThreadedParser``;
 - ``plan_read_workers`` (``DMLC_TPU_PLAN_READ_WORKERS``, default 2): the
-  width of the block cache's plan-ordered read pool.
-- ``convert_workers`` (``DMLC_TPU_CONVERT_WORKERS``, default 2): the width
-  of ``DeviceIter``'s convert pool.
+  block cache's plan-ordered read pool;
+- ``convert_workers`` (``DMLC_TPU_CONVERT_WORKERS``, default 2):
+  ``DeviceIter``'s convert pool;
 - ``convert_ahead`` (``DMLC_TPU_CONVERT_AHEAD``, default 4): the converted
   batches the convert pool (or the natural-block producer) may hold ahead
-  of the consumer.
+  of the consumer;
 - ``snapshot_read_workers`` (``DMLC_TPU_SNAPSHOT_READ_WORKERS``, default
-  2): the width of the warm snapshot read pool (``SnapshotIter``).
+  2): the warm snapshot read pool (``SnapshotIter``);
+- ``metrics_history`` / ``metrics_max_pipelines``: the telemetry's
+  history ring and its bound on pipeline scopes.
 
-These are read through :func:`resolve` with the JAX package's rules (an
-explicit value is clamped up to the floor of 1; an environment value that
-is not a positive integer raises). The JAX package's ceilings bound its
-autotuner, which is not ported.
+Other switches read here:
+
+- ``DMLC_TPU_DEVICE_DECODE`` (:func:`device_decode`): ``"1"`` arms the
+  device decode of warm snapshot batches;
 - ``DMLC_TPU_TRANSFER_SAMPLE`` (:func:`transfer_sample`, default 32):
   every that many delivered batches ``DeviceIter`` waits for the batch's
   copy and counts the wait; 0 turns the sampling off. Read as the JAX
   ``DeviceIter`` reads it: a value that is not an integer raises
-  ``ValueError``, a negative one reads as 0.
-- ``DMLC_TPU_TRACE``: the trace mode, read by
-  :func:`dmlc_tpu_torch.utils.telemetry.trace_mode`.
+  ``ValueError``, a negative one reads as 0;
 - ``DMLC_TPU_BLOCK_CACHE``: a directory; a parser built without a
   ``block_cache=`` knob or a ``#blockcache=`` fragment caches its blocks
-  there under a name derived from the URI (:func:`block_cache_dir`).
+  there under a name derived from the URI (:func:`block_cache_dir`);
 - ``DMLC_TPU_PARSE_ENGINE``: the text-parse engine (:func:`parse_engine`),
-  one of :data:`PARSE_ENGINES`; a typo raises.
+  one of :data:`PARSE_ENGINES`; a typo raises;
+- the store and service readers (:func:`store_budget_bytes`,
+  :func:`store_job_budget_bytes`, :func:`qos_max_inflight`,
+  :func:`store_gc_age_seconds`, :func:`wire_compression`), the JAX
+  package's, for the parts of the port still to come.
+
+``DMLC_TPU_TRACE`` is read by :func:`dmlc_tpu_torch.utils.telemetry.trace_mode`.
+A test scans the port for reads of a tunable ``DMLC_TPU_*`` variable
+outside this module (``tests/test_torch_knob_lint.py``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Dict, Optional, Tuple, Union
 
 from dmlc_tpu_torch.utils.check import DMLCError, check
 
 PREFETCH_ENV = "DMLC_TPU_PREFETCH"
-PREFETCH_DEFAULT = 2
-PREFETCH_FLOOR = 1
 DEVICE_DECODE_ENV = "DMLC_TPU_DEVICE_DECODE"
 BLOCK_CACHE_ENV = "DMLC_TPU_BLOCK_CACHE"
+
+IntOrFn = Union[int, Callable[[], int]]
 
 
 def _cpus() -> int:
     return os.cpu_count() or 1
 
 
-# name -> (env, default, floor); a callable default is read when it is used
-_KNOBS = {
-    "parse_workers": ("DMLC_TPU_PARSE_WORKERS", lambda: max(1, min(4, _cpus())), 1),
-    "plan_read_workers": ("DMLC_TPU_PLAN_READ_WORKERS", 2, 1),
-    "convert_workers": ("DMLC_TPU_CONVERT_WORKERS", 2, 1),
-    "convert_ahead": ("DMLC_TPU_CONVERT_AHEAD", 4, 1),
-    "snapshot_read_workers": ("DMLC_TPU_SNAPSHOT_READ_WORKERS", 2, 1),
+class KnobSpec:
+    """One tunable: its env name, default, and autotune bounds.
+
+    ``default`` / ``hi`` may be callables (a value the host gives, as
+    the CPU count, is read when it is used, not at import).
+    """
+
+    __slots__ = ("name", "env", "default", "lo", "hi", "doc")
+
+    def __init__(self, name: str, env: Optional[str], default: IntOrFn,
+                 lo: int, hi: IntOrFn, doc: str):
+        self.name = name
+        self.env = env
+        self.default = default
+        self.lo = int(lo)
+        self.hi = hi
+        self.doc = doc
+
+    def default_value(self) -> int:
+        d = self.default
+        return int(d() if callable(d) else d)
+
+    def hi_value(self) -> int:
+        h = self.hi
+        return int(h() if callable(h) else h)
+
+
+# The registered tunables. Every knob the autotuner may touch — and every
+# worker-count env the pipeline reads — is a row here; ``resolve`` /
+# ``bounds`` look knobs up by name.
+KNOB_TABLE: Dict[str, KnobSpec] = {
+    spec.name: spec for spec in (
+        KnobSpec(
+            "parse_workers", "DMLC_TPU_PARSE_WORKERS",
+            default=lambda: max(1, min(4, _cpus())), lo=1, hi=_cpus,
+            doc="data-parallel chunk-parse fan-out width "
+                "(ParallelTextParser pool)"),
+        KnobSpec(
+            "convert_workers", "DMLC_TPU_CONVERT_WORKERS",
+            default=2, lo=1, hi=_cpus,
+            doc="host layout-conversion pool width (DeviceIter)"),
+        KnobSpec(
+            "plan_read_workers", "DMLC_TPU_PLAN_READ_WORKERS",
+            default=2, lo=1, hi=_cpus,
+            doc="plan-ordered warm block-cache read pool width"),
+        KnobSpec(
+            "snapshot_read_workers", "DMLC_TPU_SNAPSHOT_READ_WORKERS",
+            default=2, lo=1, hi=_cpus,
+            doc="warm snapshot read pool width (SnapshotIter)"),
+        KnobSpec(
+            "convert_ahead", "DMLC_TPU_CONVERT_AHEAD",
+            default=4, lo=1, hi=64,
+            doc="converted-batch lookahead window (convert pool "
+                "max_ahead / natural-block prefetch capacity)"),
+        KnobSpec(
+            "prefetch", "DMLC_TPU_PREFETCH",
+            default=2, lo=1, hi=16,
+            doc="device_put transfers issued ahead of consumption"),
+        KnobSpec(
+            "dispatch_workers", "DMLC_TPU_DISPATCH_WORKERS",
+            default=32, lo=1, hi=1024,
+            doc="data-service dispatcher concurrent connection-handler "
+                "cap; excess connections shed with a retryable busy "
+                "reply (docs/service.md control-plane recovery). Not an "
+                "autotuned knob — the controller maps no stage to it"),
+        KnobSpec(
+            "hedge_factor", "DMLC_TPU_HEDGE_FACTOR",
+            default=4, lo=1, hi=64,
+            doc="straggler-hedging threshold: an in-flight part stuck "
+                "past this multiple of the fleet's median "
+                "grant->complete latency is speculatively re-issued to "
+                "a second worker, first-complete-wins (docs/service.md "
+                "elastic membership). Not an autotuned knob — hedging "
+                "policy is the operator's duplicate-work budget"),
+        KnobSpec(
+            "drain_deadline", "DMLC_TPU_DRAIN_DEADLINE",
+            default=30, lo=1, hi=86400,
+            doc="seconds a draining worker keeps serving its "
+                "frame-store-complete parts before the drain force-"
+                "completes and remaining parts re-issue (docs/service.md "
+                "elastic membership). Not an autotuned knob — the "
+                "deadline is the preemption notice window"),
+        KnobSpec(
+            "fleet_min", "DMLC_TPU_FLEET_MIN",
+            default=1, lo=1, hi=4096,
+            doc="fleet autoscaler floor: the worker count the fleet "
+                "never drains below (docs/service.md fleet autoscaling). "
+                "Not a DeviceIter-autotuned knob — it bounds the FLEET "
+                "controller, which moves worker count, not a pipeline "
+                "stage"),
+        KnobSpec(
+            "fleet_max", "DMLC_TPU_FLEET_MAX",
+            default=lambda: max(2, _cpus()), lo=1, hi=4096,
+            doc="fleet autoscaler ceiling: the worker count grow events "
+                "never exceed — the operator's capacity/cost cap "
+                "(docs/service.md fleet autoscaling)"),
+        KnobSpec(
+            "service_pipeline_depth", "DMLC_TPU_SERVICE_PIPELINE_DEPTH",
+            default=4, lo=1, hi=64,
+            doc="wire v2 pipelined block requests a service client keeps "
+                "in flight per stream — RTT hides behind the outstanding "
+                "window; depth 1 degenerates to the v1 one-request-per-"
+                "frame cadence (docs/service.md Wire v2). Autotuned: the "
+                "controller maps the read stage to it when the source is "
+                "a service stream"),
+        KnobSpec(
+            "claim_wait_deadline", "DMLC_TPU_CLAIM_WAIT_DEADLINE",
+            default=30, lo=1, hi=86400,
+            doc="seconds a service worker waits on a sibling's cold-build "
+                "claim before giving up the wait and building the part "
+                "itself (docs/service.md single-claim cold builds). Not "
+                "an autotuned knob — the deadline is the operator's "
+                "duplicate-work-vs-latency tradeoff under claim-holder "
+                "failure"),
+        KnobSpec(
+            "metrics_history", "DMLC_TPU_METRICS_HISTORY",
+            default=256, lo=1, hi=65536,
+            doc="samples retained in the bounded metrics time-series "
+                "ring behind the exposition gauges "
+                "(telemetry.sample_metrics_history — the fleet "
+                "autoscaler records one per control tick, so 'what did "
+                "input_wait look like when the fleet grew' is "
+                "answerable post hoc; docs/observability.md Prometheus "
+                "exposition). Not an autotuned knob — it sizes a "
+                "diagnostic buffer, not a pipeline stage"),
+        KnobSpec(
+            "metrics_max_pipelines", "DMLC_TPU_METRICS_MAX_PIPELINES",
+            default=512, lo=8, hi=1048576,
+            doc="distinct per-pipeline metric scopes the registry "
+                "retains before the least-recently-touched scope is "
+                "retired with its counters folded into process totals "
+                "— the registry twin of DMLC_TPU_TRACE_MAX_RINGS "
+                "(docs/observability.md). Not an autotuned knob — it "
+                "bounds bookkeeping, not throughput"),
+        KnobSpec(
+            "fleet_scale_interval", "DMLC_TPU_FLEET_SCALE_INTERVAL",
+            default=10, lo=1, hi=3600,
+            doc="seconds between fleet-autoscaler control ticks: each "
+                "tick aggregates per-job input_wait_seconds deltas from "
+                "the tracker pod table and may grow (live join) or "
+                "shrink (graceful drain) the fleet by ONE worker — "
+                "paired with hysteresis so decisions never flap "
+                "(docs/service.md fleet autoscaling)"),
+    )
 }
 
 
 def _parse_positive_int(raw: str, what: str) -> int:
+    """Loud validation of a tunable's env value: integers >= 1 only —
+    zero, negatives, and garbage raise instead of silently defaulting
+    (a typo'd knob must fail the run, not quietly mistune it)."""
     try:
         value = int(raw)
-    except ValueError:
-        raise DMLCError(f"{what}={raw!r}: not an integer; queue depths must be "
-                        f"whole numbers >= 1") from None
-    if value < 1:
-        raise DMLCError(f"{what}={value}: must be >= 1 (unset the variable to use "
-                        f"the default instead)")
+    except (TypeError, ValueError):
+        raise DMLCError(
+            f"{what}={raw!r}: not an integer — worker counts and queue "
+            f"depths must be whole numbers >= 1 (docs/data.md autotune "
+            f"section lists every knob)") from None
+    check(value >= 1,
+          f"{what}={value}: must be >= 1 (0/negative would disable the "
+          f"stage; unset the variable to use the default instead)")
     return value
 
 
-def prefetch(explicit: Optional[int] = None) -> int:
-    """The prefetch depth: ``explicit`` (clamped up to 1), else
-    ``DMLC_TPU_PREFETCH``, else 2."""
-    if explicit is not None:
-        return max(PREFETCH_FLOOR, int(explicit))
-    raw = os.environ.get(PREFETCH_ENV, "").strip()
-    if raw:
-        return _parse_positive_int(raw, PREFETCH_ENV)
-    return PREFETCH_DEFAULT
-
-
-def device_decode(explicit: Optional[bool] = None) -> bool:
-    """The device-decode switch: ``explicit``, else
-    ``DMLC_TPU_DEVICE_DECODE == "1"``."""
-    if explicit is not None:
-        return bool(explicit)
-    return os.environ.get(DEVICE_DECODE_ENV, "").strip() == "1"
-
-
 def resolve(name: str, explicit: Optional[int] = None) -> int:
-    """A worker-count knob: ``explicit`` (clamped up to the floor), else
-    its environment variable (validated), else the default."""
-    if name not in _KNOBS:
-        raise DMLCError(f"unknown knob {name!r}; registered knobs: {sorted(_KNOBS)}")
-    env, default, floor = _KNOBS[name]
+    """The one knob read path: explicit argument (clamped up to the row's
+    floor) > the environment variable (validated by
+    :func:`_parse_positive_int`) > the row's default."""
+    spec = KNOB_TABLE.get(name)
+    check(spec is not None, f"unknown knob {name!r}; registered knobs: "
+                            f"{sorted(KNOB_TABLE)}")
     if explicit is not None:
-        return max(floor, int(explicit))
-    raw = os.environ.get(env, "").strip()
-    if raw:
-        return _parse_positive_int(raw, env)
-    return int(default() if callable(default) else default)
+        return max(spec.lo, int(explicit))
+    if spec.env:
+        raw = os.environ.get(spec.env, "").strip()
+        if raw:
+            return _parse_positive_int(raw, spec.env)
+    return spec.default_value()
 
 
-def transfer_sample(explicit: Optional[int] = None) -> int:
-    """The transfer-sample period: ``explicit``, else
-    ``DMLC_TPU_TRANSFER_SAMPLE``, else 32; never below 0."""
-    if explicit is None:
-        explicit = int(os.environ.get("DMLC_TPU_TRANSFER_SAMPLE", "32") or 32)
-    return max(0, int(explicit))
+def prefetch(explicit: Optional[int] = None) -> int:
+    """The prefetch depth: ``resolve("prefetch", explicit)``."""
+    return resolve("prefetch", explicit)
 
 
-def block_cache_dir() -> Optional[str]:
-    """``DMLC_TPU_BLOCK_CACHE``, or None when it is unset or empty."""
-    return os.environ.get(BLOCK_CACHE_ENV, "").strip() or None
+def bounds(name: str) -> Tuple[int, int]:
+    """The autotuner's hard caps for ``name``: the table's ``[lo, hi]``
+    narrowed by ``DMLC_TPU_AUTOTUNE_MIN_<KNOB>`` /
+    ``DMLC_TPU_AUTOTUNE_MAX_<KNOB>`` env overrides (validated loudly;
+    an inverted pair raises)."""
+    spec = KNOB_TABLE.get(name)
+    check(spec is not None, f"unknown knob {name!r}; registered knobs: "
+                            f"{sorted(KNOB_TABLE)}")
+    lo, hi = spec.lo, spec.hi_value()
+    env_lo = os.environ.get(f"DMLC_TPU_AUTOTUNE_MIN_{name.upper()}",
+                            "").strip()
+    env_hi = os.environ.get(f"DMLC_TPU_AUTOTUNE_MAX_{name.upper()}",
+                            "").strip()
+    if env_lo:
+        lo = _parse_positive_int(env_lo,
+                                 f"DMLC_TPU_AUTOTUNE_MIN_{name.upper()}")
+    if env_hi:
+        hi = _parse_positive_int(env_hi,
+                                 f"DMLC_TPU_AUTOTUNE_MAX_{name.upper()}")
+    check(lo <= hi,
+          f"autotune bounds for {name}: min {lo} > max {hi} "
+          f"(check the DMLC_TPU_AUTOTUNE_MIN/MAX_{name.upper()} pair)")
+    return lo, hi
+
+
+def store_budget_bytes(explicit: Optional[int] = None) -> Optional[int]:
+    """The artifact store's total on-disk byte budget
+    (docs/store.md): explicit argument > ``DMLC_TPU_STORE_BUDGET_BYTES``
+    env (validated loudly: integer >= 1) > None (unbounded — the
+    historical fill-the-volume behavior). Not an autotune knob — the
+    budget is the operator's capacity contract, never a value the
+    controller may move — but it lives here so the knob lint gate covers
+    the read and a typo'd budget fails the run instead of silently
+    unbounding the store."""
+    if explicit is not None:
+        value = int(explicit)
+        check(value >= 1,
+              f"store_budget_bytes={value}: must be >= 1 (omit the "
+              f"budget entirely for an unbounded store)")
+        return value
+    raw = os.environ.get("DMLC_TPU_STORE_BUDGET_BYTES", "").strip()
+    if not raw:
+        return None
+    return _parse_positive_int(raw, "DMLC_TPU_STORE_BUDGET_BYTES")
+
+
+def store_job_budget_bytes(explicit: Optional[int] = None) -> Optional[int]:
+    """Per-tenant artifact-store byte budget (docs/store.md per-job
+    budgets): explicit argument > ``DMLC_TPU_STORE_JOB_BUDGET_BYTES``
+    env (validated loudly: integer >= 1) > None (no per-job cap — only
+    the fleet-wide ``DMLC_TPU_STORE_BUDGET_BYTES`` applies). Layered on
+    the store's eviction pass: a job over its budget sheds ITS OWN
+    cheapest unpinned artifacts first, so one tenant's cold builds can
+    never evict a sibling's warm set. Not an autotune knob — isolation
+    budgets are the operator's tenancy contract."""
+    if explicit is not None:
+        value = int(explicit)
+        check(value >= 1,
+              f"store_job_budget_bytes={value}: must be >= 1 (omit the "
+              f"budget entirely for uncapped tenants)")
+        return value
+    raw = os.environ.get("DMLC_TPU_STORE_JOB_BUDGET_BYTES", "").strip()
+    if not raw:
+        return None
+    return _parse_positive_int(raw, "DMLC_TPU_STORE_JOB_BUDGET_BYTES")
+
+
+def qos_max_inflight(explicit: Optional[int] = None) -> Optional[int]:
+    """Fleet-wide parts-in-flight ceiling for the data service
+    (docs/service.md Production QoS): explicit argument >
+    ``DMLC_TPU_QOS_MAX_INFLIGHT`` env (validated loudly: integer >= 1) >
+    None (no ceiling — the historical grant-whatever-workers-ask
+    behavior). When the sum of granted-not-completed parts across every
+    job reaches the ceiling, the dispatcher sheds further grants and
+    locate replies turn ``{"throttled": true}`` — overload degrades to
+    bounded queueing instead of fleet collapse. Not an autotune knob —
+    the ceiling is the operator's overload contract."""
+    if explicit is not None:
+        value = int(explicit)
+        check(value >= 1,
+              f"qos_max_inflight={value}: must be >= 1 (omit the ceiling "
+              f"entirely for unbounded admission)")
+        return value
+    raw = os.environ.get("DMLC_TPU_QOS_MAX_INFLIGHT", "").strip()
+    if not raw:
+        return None
+    return _parse_positive_int(raw, "DMLC_TPU_QOS_MAX_INFLIGHT")
+
+
+def store_gc_age_seconds(explicit: Optional[int] = None) -> int:
+    """Minimum age before an orphaned ``.tmp`` staging file is
+    garbage-collected at store open (docs/store.md): explicit argument >
+    ``DMLC_TPU_STORE_GC_AGE_SECONDS`` env (validated: integer >= 1) >
+    600. The gate exists so a LIVE concurrent writer's in-flight staging
+    file is never raced."""
+    if explicit is not None:
+        value = int(explicit)
+        check(value >= 1, f"store_gc_age_seconds={value}: must be >= 1")
+        return value
+    raw = os.environ.get("DMLC_TPU_STORE_GC_AGE_SECONDS", "").strip()
+    if not raw:
+        return 600
+    return _parse_positive_int(raw, "DMLC_TPU_STORE_GC_AGE_SECONDS")
 
 
 PARSE_ENGINES = ("auto", "native-batch", "native", "python")
@@ -152,4 +392,86 @@ def parse_engine(explicit: Optional[str] = None) -> str:
           f"parse engine {raw!r}: must be one of {PARSE_ENGINES} "
           f"(DMLC_TPU_PARSE_ENGINE / create_parser(engine=...) / "
           f"?engine= URI arg — docs/data.md engine-selection table)")
+    return value
+
+
+WIRE_COMPRESSION_MODES = ("auto", "off", "zlib", "zstd", "lz4")
+
+
+def wire_compression(explicit: Optional[str] = None) -> str:
+    """The wire v2 per-segment compression selector (docs/service.md
+    Wire v2): explicit argument > ``DMLC_TPU_WIRE_COMPRESSION`` env >
+    ``auto``. Values:
+
+    - ``auto``: offer every codec this process has (preference order
+      zstd > lz4 > zlib) and let stream-open negotiation pick;
+    - ``off``: identity only — never offer or accept a codec;
+    - ``zlib`` / ``zstd`` / ``lz4``: offer exactly that codec (a codec
+      whose module is missing falls back to identity at negotiation,
+      never crashes — no hard dependency).
+
+    Not an autotuned knob — codec choice is negotiated per stream, not a
+    value the controller may move; it lives here so the knob lint gate
+    covers the env read and a typo'd mode fails the run loudly."""
+    raw = (explicit if explicit is not None
+           else os.environ.get("DMLC_TPU_WIRE_COMPRESSION", "").strip()
+           or "auto")
+    value = str(raw).strip().lower()
+    check(value in WIRE_COMPRESSION_MODES,
+          f"wire compression {raw!r}: must be one of "
+          f"{WIRE_COMPRESSION_MODES} (DMLC_TPU_WIRE_COMPRESSION — "
+          f"docs/service.md Wire v2)")
+    return value
+
+
+def autotune_enabled(explicit: Optional[bool] = None) -> bool:
+    """The master switch: an explicit argument wins; otherwise
+    ``DMLC_TPU_AUTOTUNE=1`` arms the controller (any other value — or
+    unset — leaves it off, the historical static-knob behavior)."""
+    if explicit is not None:
+        return bool(explicit)
+    return os.environ.get("DMLC_TPU_AUTOTUNE", "").strip() == "1"
+
+
+def device_decode(explicit: Optional[bool] = None) -> bool:
+    """The device-decode switch: ``explicit``, else
+    ``DMLC_TPU_DEVICE_DECODE == "1"``."""
+    if explicit is not None:
+        return bool(explicit)
+    return os.environ.get(DEVICE_DECODE_ENV, "").strip() == "1"
+
+
+def transfer_sample(explicit: Optional[int] = None) -> int:
+    """The transfer-sample period: ``explicit``, else
+    ``DMLC_TPU_TRANSFER_SAMPLE``, else 32; never below 0."""
+    if explicit is None:
+        explicit = int(os.environ.get("DMLC_TPU_TRANSFER_SAMPLE", "32") or 32)
+    return max(0, int(explicit))
+
+
+def block_cache_dir() -> Optional[str]:
+    """``DMLC_TPU_BLOCK_CACHE``, or None when it is unset or empty."""
+    return os.environ.get(BLOCK_CACHE_ENV, "").strip() or None
+
+
+def autotune_interval(explicit: Optional[int] = None) -> int:
+    """Mid-epoch controller pacing: run a tuning step every N delivered
+    batches (0 = epoch boundaries only, the default). Explicit argument
+    > ``DMLC_TPU_AUTOTUNE_INTERVAL`` env (validated: integer >= 0) >
+    0."""
+    if explicit is not None:
+        value = int(explicit)
+        check(value >= 0, f"autotune_interval={value}: must be >= 0")
+        return value
+    raw = os.environ.get("DMLC_TPU_AUTOTUNE_INTERVAL", "").strip()
+    if not raw:
+        return 0
+    try:
+        value = int(raw)
+    except ValueError:
+        raise DMLCError(
+            f"DMLC_TPU_AUTOTUNE_INTERVAL={raw!r}: not an integer") from None
+    check(value >= 0,
+          f"DMLC_TPU_AUTOTUNE_INTERVAL={value}: must be >= 0 "
+          "(0 = tune at epoch boundaries only)")
     return value

@@ -33,11 +33,23 @@ input pipeline uses:
   info blobs by ``(name, labels)``. The stage meters
   (:class:`~dmlc_tpu_torch.utils.timer.StageMeter`), the input-wait counter
   and the resilience events (:mod:`dmlc_tpu_torch.io.resilience`) are
-  registry counters, so ``stats()`` reads one set of books.
-
-Not ported yet: trace-context propagation, the decision log, the metrics
-history, the Prometheus text form, the pod snapshot and its table, and the
-registry's retirement of old pipeline scopes.
+  registry counters, so ``stats()`` reads one set of books. Past
+  ``DMLC_TPU_METRICS_MAX_PIPELINES`` pipeline scopes the least recently
+  touched one retires: its counters and histograms fold into the
+  ``pipeline=""`` totals, its gauges and info blobs go.
+- **Trace context** (:func:`trace`, :func:`trace_context_wire` /
+  :func:`trace_context_from_wire`, :func:`set_trace_propagation`): a
+  thread-local ``(trace_id, span_id)`` stamped on the spans recorded under
+  it, with the JAX package's wire form.
+- **Decision log** (:func:`record_decision`): one event shape for every
+  controller (the autotuner's moves among them), a bounded ring and a
+  ``decision_events`` counter a ``(component, action)``.
+- **Metrics history** (:func:`sample_metrics_history`), **Prometheus text**
+  (:func:`render_prometheus`, :func:`parse_prometheus_text`) and the **pod
+  view** (:func:`pod_snapshot`, :func:`format_pod_table`,
+  :func:`component_snapshot`, :func:`export_pod_trace`), the JAX
+  package's, output for output. The ``store`` block reads 0 until the port
+  has the tiered store.
 """
 
 from __future__ import annotations
@@ -53,6 +65,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from dmlc_tpu_torch.utils import knobs as _knobs
+
 # the span and export schema, as the JAX package's
 SCHEMA_VERSION = 2
 
@@ -67,6 +81,18 @@ STALL_METRIC = "pipeline_stall"
 # every second the consumer waited for input: the wait for a batch plus
 # the sampled transfer landings
 INPUT_WAIT_METRIC = "input_wait_seconds"
+# the autotuner's mirrors: a gauge a knob and a steps counter, by pipeline
+AUTOTUNE_KNOB_METRIC = "autotune_knob"
+AUTOTUNE_STEP_METRIC = "autotune_steps"
+# the JAX package's store and service metric names, read by the pod view
+STORE_BYTES_METRIC = "store_bytes"
+SERVICE_JOB_WAIT_METRIC = "service_job_input_wait_seconds"
+SERVICE_JOB_PARTS_METRIC = "service_job_parts"
+SERVICE_JOB_SLO_METRIC = "service_job_slo_wait_frac"
+SERVICE_WIRE_RAW_METRIC = "service_wire_bytes_raw"
+SERVICE_WIRE_SENT_METRIC = "service_wire_bytes_sent"
+# the decision log's counter, labeled (component, action)
+DECISION_METRIC = "decision_events"
 
 
 # ---------------- pipeline scopes ----------------
@@ -114,6 +140,96 @@ def scoped_target(fn: Callable[..., Any], label: Optional[str] = None) -> Callab
     return run
 
 
+# ---------------- distributed trace context ----------------
+#
+# A trace context is ``(trace_id, span_id)``: the trace a causal chain
+# belongs to and the span id the next hop parents under. It crosses
+# processes as an optional ``{"trace": {"tid", "sid"}}`` key, and within a
+# process a thread-local copy stamps trace_id / parent_id on every span
+# recorded while it is installed.
+
+# the in-process override of the DMLC_TPU_TRACE_CONTEXT switch
+_trace_propagation: Optional[bool] = None
+
+
+def set_trace_propagation(enabled: Optional[bool]) -> None:
+    """Force trace-context propagation on/off for this process
+    (``None`` restores the ``DMLC_TPU_TRACE_CONTEXT`` env default)."""
+    global _trace_propagation
+    _trace_propagation = None if enabled is None else bool(enabled)
+
+
+def trace_propagation_enabled() -> bool:
+    """Master switch for cross-process trace context: on by default,
+    ``DMLC_TPU_TRACE_CONTEXT=0`` (or :func:`set_trace_propagation`)
+    turns the wire key + span stamping off."""
+    if _trace_propagation is not None:
+        return _trace_propagation
+    return os.environ.get("DMLC_TPU_TRACE_CONTEXT", "").strip() != "0"
+
+
+def new_trace_id() -> str:
+    """A fresh 64-bit hex trace id (one per (job, part) causal chain)."""
+    return os.urandom(8).hex()
+
+
+def new_span_id() -> str:
+    """A fresh 32-bit hex span id (for spans that hand a context on)."""
+    return os.urandom(4).hex()
+
+
+def current_trace() -> Optional[Tuple[str, str]]:
+    """The ``(trace_id, parent span_id)`` context active on this thread,
+    or None."""
+    return getattr(_tls, "trace", None)
+
+
+def set_trace(ctx: Optional[Tuple[str, str]]) -> None:
+    """Install ``ctx`` as this thread's trace context."""
+    _tls.trace = ctx
+
+
+@contextmanager
+def trace(trace_id: Optional[str], span_id: str = ""):
+    """Run a block under a trace context — spans recorded inside inherit
+    ``trace_id``/``parent_id`` automatically; restores the previous
+    context. A falsy ``trace_id`` clears the context for the block."""
+    prev = current_trace()
+    set_trace((trace_id, span_id) if trace_id else None)
+    try:
+        yield
+    finally:
+        set_trace(prev)
+
+
+def trace_context_wire(
+        ctx: Optional[Tuple[str, str]] = None) -> Optional[dict]:
+    """The compact wire form ``{"tid", "sid"}`` of ``ctx`` (default:
+    this thread's context), or None when absent/disabled. Callers attach
+    it under the ``"trace"`` request key only when non-None, so peers
+    that predate tracing never see the key."""
+    if not trace_propagation_enabled():
+        return None
+    if ctx is None:
+        ctx = current_trace()
+    if not ctx or not ctx[0]:
+        return None
+    return {"tid": ctx[0], "sid": ctx[1] or ""}
+
+
+def trace_context_from_wire(obj: Any) -> Optional[Tuple[str, str]]:
+    """Parse an incoming ``"trace"`` wire key back into a context.
+    Malformed shapes yield None — observability must never fail an
+    RPC."""
+    if not trace_propagation_enabled() or not isinstance(obj, dict):
+        return None
+    tid = obj.get("tid")
+    if not isinstance(tid, str) or not tid:
+        return None
+    sid = obj.get("sid")
+    return (tid, sid if isinstance(sid, str) else "")
+
+
 # ---------------- span rings ----------------
 
 def _ring_capacity() -> int:
@@ -150,8 +266,10 @@ class _SpanRing:
         self.counts: Dict[str, int] = {}
 
     def record(self, name: str, start_ns: int, dur_ns: int, pipeline: Optional[str],
-               labels: Optional[dict]) -> None:
-        self.entries[self.idx] = (name, start_ns, dur_ns, pipeline, labels)
+               labels: Optional[dict], trace_id: Optional[str] = None,
+               parent_id: Optional[str] = None, span_id: Optional[str] = None) -> None:
+        self.entries[self.idx] = (name, start_ns, dur_ns, pipeline, labels, trace_id,
+                                  parent_id, span_id)
         self.idx = (self.idx + 1) % self.capacity
         self.total += 1
         self.counts[name] = self.counts.get(name, 0) + 1
@@ -205,12 +323,22 @@ def _my_ring() -> _SpanRing:
     return ring
 
 
-def record_span(name: str, start_s: float, dur_s: float, **labels) -> None:
+def record_span(name: str, start_s: float, dur_s: float, trace_id: Optional[str] = None,
+                parent_id: Optional[str] = None, span_id: Optional[str] = None,
+                **labels) -> None:
     """Record one stage span: ``start_s`` a ``get_time()`` stamp and
     ``dur_s`` its duration, the values the caller adds to its stage meter.
-    The active pipeline scope rides along."""
+    The active pipeline scope rides along, and so does the active trace
+    context unless ``trace_id`` / ``parent_id`` are given; ``span_id``
+    names this span for a next hop to parent under."""
+    if trace_id is None:
+        ctx = current_trace()
+        if ctx is not None:
+            trace_id = ctx[0]
+            if parent_id is None:
+                parent_id = ctx[1] or None
     _my_ring().record(name, int(start_s * 1e9), int(dur_s * 1e9), current_scope(),
-                      labels or None)
+                      labels or None, trace_id, parent_id, span_id)
 
 
 @contextmanager
@@ -230,12 +358,21 @@ def spans_snapshot(pipeline: Optional[str] = None) -> List[dict]:
         rings = list(_rings)
     out = []
     for ring in rings:
-        for name, start_ns, dur_ns, pipe, labels in ring.snapshot():
+        for (name, start_ns, dur_ns, pipe, labels, trace_id, parent_id,
+             span_id) in ring.snapshot():
             if pipeline is not None and pipe != pipeline:
                 continue
-            out.append({"name": name, "tid": ring.tid, "thread": ring.thread_name,
-                        "start_ns": start_ns, "dur_ns": dur_ns, "pipeline": pipe,
-                        "labels": labels or {}})
+            row = {"name": name, "tid": ring.tid, "thread": ring.thread_name,
+                   "start_ns": start_ns, "dur_ns": dur_ns, "pipeline": pipe,
+                   "labels": labels or {}}
+            # the trace fields only on the spans of a trace
+            if trace_id:
+                row["trace_id"] = trace_id
+            if parent_id:
+                row["parent_id"] = parent_id
+            if span_id:
+                row["span_id"] = span_id
+            out.append(row)
     out.sort(key=lambda s: s["start_ns"])
     return out
 
@@ -285,6 +422,9 @@ def export_chrome_trace(path: str, pipeline: Optional[str] = None) -> int:
         args = dict(s["labels"])
         if s["pipeline"]:
             args["pipeline"] = s["pipeline"]
+        for k in ("trace_id", "parent_id", "span_id"):
+            if s.get(k):
+                args[k] = s[k]
         events.append({"name": s["name"], "cat": "dmlc_tpu", "ph": "X", "pid": pid,
                        "tid": s["tid"], "ts": s["start_ns"] / 1e3, "dur": s["dur_ns"] / 1e3,
                        "args": args})
@@ -420,15 +560,71 @@ class Info(_Metric):
             return dict(self._value) if self._value is not None else None
 
 
+def _metrics_max_pipelines() -> int:
+    """``DMLC_TPU_METRICS_MAX_PIPELINES``: the pipeline scopes the registry
+    keeps before it retires the least recently touched one."""
+    return _knobs.resolve("metrics_max_pipelines")
+
+
 class MetricsRegistry:
     """Metrics by name and labels. ``counter`` / ``gauge`` / ``histogram``
     / ``info`` get or create the handle of one ``(name, labels)``; a
     caller keeps its handles, so the hot path takes only the metric's own
-    lock."""
+    lock.
+
+    Past ``DMLC_TPU_METRICS_MAX_PIPELINES`` distinct ``pipeline`` labels
+    (a metric's creation touches its label), the least recently touched
+    one retires: its counters and histograms fold into the same metric
+    with ``pipeline=""`` (so totals over the other labels stay), its
+    gauges and info blobs are dropped (:meth:`retired_pipelines` counts
+    the retirements)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: Dict[tuple, _Metric] = {}
+        # pipeline label -> its last touch; the retirement tally
+        self._pipeline_touch: Dict[str, int] = {}
+        self._touch_seq = itertools.count(1)
+        self._retired_pipelines = 0
+
+    def _retire_pipeline_locked(self, pipeline: str) -> None:
+        self._pipeline_touch.pop(pipeline, None)
+        self._retired_pipelines += 1
+        tag = ("pipeline", pipeline)
+        for key in [k for k in self._metrics if tag in k[2]]:
+            old = self._metrics.pop(key)
+            if not isinstance(old, (Counter, Histogram)):
+                continue  # gauges and info blobs are one instance's state
+            kind, name, label_items = key
+            folded = tuple(sorted((lk, "" if lk == "pipeline" else lv)
+                                  for lk, lv in label_items))
+            tgt = self._metrics.get((kind, name, folded))
+            if tgt is None:
+                tgt = self._metrics[(kind, name, folded)] = type(old)(dict(folded))
+            if isinstance(old, Counter):
+                tgt.inc(old.value)
+                continue
+            v = old.value
+            with tgt.lock:
+                tgt._count += v["count"]
+                tgt._sum += v["sum"]
+                if v["min"] is not None:
+                    tgt._min = v["min"] if tgt._min is None else min(tgt._min, v["min"])
+                if v["max"] is not None:
+                    tgt._max = v["max"] if tgt._max is None else max(tgt._max, v["max"])
+
+    def _touch_pipeline_locked(self, pipeline: str) -> None:
+        self._pipeline_touch[pipeline] = next(self._touch_seq)
+        if len(self._pipeline_touch) <= _metrics_max_pipelines():
+            return
+        oldest = min(self._pipeline_touch, key=self._pipeline_touch.get)
+        if oldest != pipeline:
+            self._retire_pipeline_locked(oldest)
+
+    def retired_pipelines(self) -> int:
+        """The pipeline scopes retired so far."""
+        with self._lock:
+            return self._retired_pipelines
 
     def _get(self, cls, name: str, labels: Dict[str, str]) -> _Metric:
         key = (cls.kind, name, tuple(sorted(labels.items())))
@@ -439,6 +635,8 @@ class MetricsRegistry:
                 if m is None:
                     m = cls(dict(labels))
                     self._metrics[key] = m
+                    if labels.get("pipeline"):
+                        self._touch_pipeline_locked(labels["pipeline"])
         return m
 
     def counter(self, name: str, **labels) -> Counter:
@@ -491,8 +689,514 @@ class MetricsRegistry:
         with self._lock:
             if name is None:
                 self._metrics.clear()
+                self._pipeline_touch.clear()
+                self._retired_pipelines = 0
             else:
                 self._metrics = {k: v for k, v in self._metrics.items() if k[1] != name}
 
 
 REGISTRY = MetricsRegistry()
+
+
+# ---------------- control-decision audit ledger ----------------
+
+# retained decision events per process: the ledger is a bounded ring
+# (old events drop, the DECISION_METRIC counters stay monotonic), sized
+# for "why did the fleet do that" forensics, not for history
+DECISION_HISTORY_LIMIT = 256
+
+_decisions_lock = threading.Lock()
+_decisions: List[dict] = []
+_decisions_total = 0
+
+
+def record_decision(component: str, action: str,
+                    trigger: Optional[dict] = None,
+                    outcome: Optional[Any] = None, **extra) -> dict:
+    """Append one structured control-decision event to the audit ledger
+    (docs/observability.md Decision ledger). One shape for every
+    controller: ``component`` (autotune / autoscaler / dispatcher /
+    store / worker), ``action`` (grow, drain, evict, hedge, throttle,
+    ...), ``trigger`` (the metric deltas that fired it), ``outcome``
+    (what changed). The event also bumps the ``decision_events``
+    registry counter and inherits the active trace context so a
+    decision shows up inside the trace it affected. Returns the event
+    dict — fleet components journal exactly this via the dispatcher
+    append-journal."""
+    global _decisions_total
+    event: Dict[str, Any] = {
+        "ts": round(time.monotonic(), 6),
+        "component": str(component),
+        "action": str(action),
+    }
+    if trigger:
+        event["trigger"] = dict(trigger)
+    if outcome is not None:
+        event["outcome"] = outcome
+    ctx = current_trace()
+    if ctx and ctx[0]:
+        event["trace_id"] = ctx[0]
+    for k, v in extra.items():
+        if v is not None:
+            event[k] = v
+    with _decisions_lock:
+        _decisions.append(event)
+        _decisions_total += 1
+        if len(_decisions) > DECISION_HISTORY_LIMIT:
+            del _decisions[: len(_decisions) - DECISION_HISTORY_LIMIT]
+    REGISTRY.counter(DECISION_METRIC, component=str(component),
+                     action=str(action)).inc()
+    return event
+
+
+def decisions_snapshot(component: Optional[str] = None) -> List[dict]:
+    """Retained decision events, oldest-first, optionally filtered to
+    one component. Dicts are copies — callers may annotate freely."""
+    with _decisions_lock:
+        events = list(_decisions)
+    return [dict(e) for e in events
+            if component is None or e.get("component") == component]
+
+
+def decisions_total() -> int:
+    """Decisions RECORDED since process start (ring drops don't lower
+    this)."""
+    with _decisions_lock:
+        return _decisions_total
+
+
+def decision_counts() -> Dict[str, int]:
+    """``component.action`` -> count since process start, from the
+    registry shadow counter (monotonic across ring drops) — what
+    ``pod_snapshot()['decisions']`` ships to the tracker."""
+    out: Dict[str, int] = {}
+    for row in REGISTRY.snapshot(DECISION_METRIC, "counter"):
+        labels = row["labels"]
+        key = f"{labels.get('component', '?')}.{labels.get('action', '?')}"
+        out[key] = out.get(key, 0) + int(round(row["value"]))
+    return out
+
+
+def reset_decisions() -> None:
+    """Clear the ledger (tests; production rings just wrap)."""
+    global _decisions_total
+    with _decisions_lock:
+        _decisions.clear()
+        _decisions_total = 0
+    REGISTRY.clear(DECISION_METRIC)
+
+
+# ---------------- bounded metrics time-series ring ----------------
+
+def _metrics_history_limit() -> int:
+    """``DMLC_TPU_METRICS_HISTORY``: the samples the history ring keeps."""
+    return _knobs.resolve("metrics_history")
+
+
+_history_lock = threading.Lock()
+_history: List[dict] = []
+
+
+def sample_metrics_history(now: Optional[float] = None) -> dict:
+    """Capture one bounded time-series sample of the hot fleet gauges —
+    per-job input wait, wire bytes, store bytes, decision count — so
+    post-hoc questions like "what did input_wait look like when the
+    autoscaler grew" are answerable from the ring alone. The fleet
+    autoscaler samples once per control tick; anything else may call it
+    too (the ring just wraps)."""
+    sample = {
+        "ts": round(time.monotonic() if now is None else now, 6),
+        "input_wait_seconds": round(REGISTRY.sum(INPUT_WAIT_METRIC), 4),
+        "job_wait_seconds": {
+            j: round(v, 4) for j, v in
+            REGISTRY.sum_by(SERVICE_JOB_WAIT_METRIC, "job").items() if j},
+        "wire_bytes_raw": int(REGISTRY.sum(SERVICE_WIRE_RAW_METRIC)),
+        "wire_bytes_sent": int(REGISTRY.sum(SERVICE_WIRE_SENT_METRIC)),
+        "store_bytes": int(REGISTRY.sum(STORE_BYTES_METRIC)),
+        "decisions": decisions_total(),
+    }
+    limit = _metrics_history_limit()
+    with _history_lock:
+        _history.append(sample)
+        if len(_history) > limit:
+            del _history[: len(_history) - limit]
+    return dict(sample)
+
+
+def metrics_history() -> List[dict]:
+    """The retained time-series samples, oldest-first (copies)."""
+    with _history_lock:
+        return [dict(s) for s in _history]
+
+
+def reset_metrics_history() -> None:
+    """Clear the ring (tests)."""
+    with _history_lock:
+        _history.clear()
+
+
+# ---------------- Prometheus text-format exposition ----------------
+
+_PROM_PREFIX = "dmlc_tpu_"
+
+
+def _prom_name(name: str) -> str:
+    out = []
+    for ch in name:
+        out.append(ch if (ch.isalnum() and ch.isascii()) or ch in "_:"
+                   else "_")
+    base = "".join(out)
+    if base and base[0].isdigit():
+        base = "_" + base
+    return _PROM_PREFIX + base
+
+
+def _prom_labels(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    parts = []
+    for k in sorted(labels):
+        v = str(labels[k]).replace("\\", "\\\\").replace("\n", "\\n") \
+            .replace('"', '\\"')
+        parts.append(f'{k}="{v}"')
+    return "{" + ",".join(parts) + "}"
+
+
+def render_prometheus(rows: Optional[List[dict]] = None) -> str:
+    """Render registry snapshot rows as Prometheus text exposition
+    format (docs/observability.md Prometheus exposition). Stable naming
+    contract: every metric is prefixed ``dmlc_tpu_``, counters gain the
+    conventional ``_total`` suffix, histograms expose their
+    count/sum/min/max summary as ``_count``/``_sum``/``_min``/``_max``
+    samples, info blobs (structured JSON, not numeric) are skipped.
+    Output is deterministically sorted; the ``metrics_text`` RPC on
+    dispatcher and workers serves exactly this."""
+    if rows is None:
+        rows = REGISTRY.snapshot()
+    typed: Dict[str, str] = {}
+    samples: List[Tuple[str, str, float]] = []
+    for row in rows:
+        kind = row["kind"]
+        if kind == "info":
+            continue
+        name = _prom_name(row["name"])
+        labels = {k: v for k, v in (row["labels"] or {}).items()
+                  if v not in (None, "")}
+        if kind == "counter":
+            typed.setdefault(name + "_total", "counter")
+            samples.append((name + "_total", _prom_labels(labels),
+                            float(row["value"])))
+        elif kind == "gauge":
+            typed.setdefault(name, "gauge")
+            samples.append((name, _prom_labels(labels),
+                            float(row["value"])))
+        elif kind == "histogram":
+            v = row["value"] or {}
+            for part in ("count", "sum", "min", "max"):
+                pv = v.get(part)
+                if pv is None:
+                    continue
+                typed.setdefault(f"{name}_{part}", "gauge")
+                samples.append((f"{name}_{part}", _prom_labels(labels),
+                                float(pv)))
+    lines: List[str] = []
+    last_name = None
+    for name, label_str, value in sorted(samples):
+        if name != last_name:
+            lines.append(f"# TYPE {name} {typed[name]}")
+            last_name = name
+        try:
+            text = str(int(value)) if value == int(value) else repr(value)
+        except (OverflowError, ValueError):  # inf / nan
+            text = repr(value)
+        lines.append(f"{name}{label_str} {text}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def parse_prometheus_text(text: str) -> List[Tuple[str, Dict[str, str],
+                                                   float]]:
+    """Minimal Prometheus text-format parser — the round-trip check
+    behind the exposition tests. Returns
+    ``(name, labels, value)`` samples; raises ValueError on any
+    malformed sample line."""
+    import re
+
+    sample_re = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})?\s+(\S+)$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    out: List[Tuple[str, Dict[str, str], float]] = []
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = sample_re.match(line)
+        if m is None:
+            raise ValueError(f"malformed exposition line: {raw!r}")
+        name, _, label_blob, value_text = m.groups()
+        labels: Dict[str, str] = {}
+        if label_blob:
+            pos = 0
+            while pos < len(label_blob):
+                lm = label_re.match(label_blob, pos)
+                if lm is None:
+                    raise ValueError(f"malformed labels: {raw!r}")
+                labels[lm.group(1)] = (lm.group(2)
+                                       .replace('\\"', '"')
+                                       .replace("\\n", "\n")
+                                       .replace("\\\\", "\\"))
+                pos = lm.end()
+                if pos < len(label_blob):
+                    if label_blob[pos] != ",":
+                        raise ValueError(f"malformed labels: {raw!r}")
+                    pos += 1
+        try:
+            value = float(value_text)
+        except ValueError:
+            raise ValueError(f"malformed sample value: {raw!r}") from None
+        out.append((name, labels, value))
+    return out
+
+
+# ---------------- pod-scale aggregation ----------------
+
+def pod_snapshot() -> dict:
+    """This process's registry as a compact JSON-able snapshot — what a
+    worker ships to the tracker over the heartbeat path. Stage seconds and
+    resilience events are summed ACROSS pipeline labels (the tracker's
+    unit of balance is the host, not the pipeline instance)."""
+    stages = REGISTRY.sum_by(STAGE_BUSY_METRIC, "stage")
+    # 'transfer' lives on the wall meter only (it is a sampled consumer-
+    # side probe, not a pipeline-thread busy counter) — merge it in so a
+    # transfer-bound rank is visible in the pod table
+    transfer = REGISTRY.sum_by(STAGE_WALL_METRIC, "stage").get("transfer")
+    if transfer:
+        stages["transfer"] = stages.get("transfer", 0.0) + transfer
+    events = REGISTRY.sum_by(RESILIENCE_METRIC, "event")
+    # per-job data-service breakdown (docs/service.md multi-tenant
+    # service): client-side input wait + worker-side parts served,
+    # keyed by job — the autoscaler's fleet-wide signal is the sum of
+    # these across ranks (additive key; schema stays v1 because old
+    # readers ignore it and every v1 field is unchanged)
+    job_waits = REGISTRY.sum_by(SERVICE_JOB_WAIT_METRIC, "job")
+    job_parts = REGISTRY.sum_by(SERVICE_JOB_PARTS_METRIC, "job")
+    jobs = {j: {"input_wait_seconds": round(job_waits.get(j, 0.0), 4),
+                "parts": int(round(job_parts.get(j, 0)))}
+            for j in sorted(set(job_waits) | set(job_parts)) if j}
+    # SLO targets ride beside the wait they bound (docs/service.md
+    # Production QoS) — a gauge, identical across a job's ranks, so the
+    # pod table can show wait-vs-target per job at a glance
+    for j, slo in REGISTRY.sum_by(SERVICE_JOB_SLO_METRIC, "job").items():
+        if j and slo and j in jobs:
+            jobs[j]["slo_wait_frac"] = round(slo, 4)
+    return {
+        "telemetry_schema_version": SCHEMA_VERSION,
+        "stages": {k: round(v, 4) for k, v in stages.items() if k},
+        "resilience": {k: int(round(v)) for k, v in events.items() if k},
+        "jobs": jobs,
+        # tiered artifact store (docs/store.md): this host's live bytes
+        # under management + its eviction/rebuild tallies, so the pod
+        # table shows which rank's disk the budget is squeezing
+        "store": {
+            "store_bytes": int(REGISTRY.sum(STORE_BYTES_METRIC)),
+            "store_evictions": int(round(
+                events.get("store_evictions", 0))),
+            "store_rebuilds_after_eviction": int(round(
+                events.get("store_rebuilds_after_eviction", 0))),
+        },
+        "spans": span_counts(),
+        "spans_dropped": spans_dropped(),
+        # control-decision ledger summary (schema v2): component.action
+        # tallies, so the pod table shows every rank's control activity
+        # next to the stage seconds it acted on
+        "decisions": decision_counts(),
+    }
+
+
+def _format_jobs_cell(jobs: dict) -> str:
+    """One rank's per-job breakdown cell: ``job=wait<seconds>s/parts<n>``
+    per job (docs/observability.md per-job pod-table rows)."""
+    cells = []
+    for j in sorted(jobs):
+        rec = jobs[j] or {}
+        cell = (f"{j}=wait{float(rec.get('input_wait_seconds', 0.0)):.3f}s"
+                f"/parts{int(rec.get('parts', 0))}")
+        if rec.get("slo_wait_frac"):
+            # the job's input-wait SLO target next to its wait — the
+            # at-a-glance "is the autoscaler holding the contract" cell
+            cell += f"/slo{float(rec['slo_wait_frac']):.2f}"
+        cells.append(cell)
+    return " ".join(cells) if cells else "-"
+
+
+def format_pod_table(by_rank: Dict[int, dict]) -> str:
+    """Merged per-rank × per-stage seconds table from worker snapshots
+    (what the tracker logs), with a trailing per-job breakdown column
+    (job-labeled input wait + parts served — the fleet autoscaler's
+    operator-visible input signal). Ranks whose snapshot carries a
+    different schema version are listed but not merged."""
+    stage_cols = list(STAGES)
+    extras = sorted({s for snap in by_rank.values()
+                     for s in (snap.get("stages") or {})
+                     if s not in STAGES})
+    stage_cols += extras
+    width = max([5] + [len(s) for s in stage_cols])
+    header = "rank  " + "  ".join(f"{s:>{width}}" for s in stage_cols) \
+        + "  resilience  jobs  decisions"
+    lines = [header]
+    totals = {s: 0.0 for s in stage_cols}
+    job_totals: Dict[str, Dict[str, float]] = {}
+    decision_totals: Dict[str, int] = {}
+    for rank in sorted(by_rank):
+        snap = by_rank[rank] or {}
+        if snap.get("telemetry_schema_version") != SCHEMA_VERSION:
+            lines.append(f"{rank:>4}  [schema "
+                         f"{snap.get('telemetry_schema_version')!r} != "
+                         f"{SCHEMA_VERSION}: not merged]")
+            continue
+        stages = snap.get("stages") or {}
+        cells = []
+        for s in stage_cols:
+            v = float(stages.get(s, 0.0))
+            totals[s] += v
+            cells.append(f"{v:>{width}.3f}")
+        res = snap.get("resilience") or {}
+        hot = {k: v for k, v in sorted(res.items()) if v}
+        # store_evictions/rebuilds already ride the resilience dict;
+        # surface the rank's live store bytes next to them when nonzero
+        store_bytes = (snap.get("store") or {}).get("store_bytes")
+        if store_bytes:
+            hot["store_bytes"] = int(store_bytes)
+        jobs = snap.get("jobs") or {}
+        for j, rec in jobs.items():
+            tot = job_totals.setdefault(j, {"input_wait_seconds": 0.0,
+                                            "parts": 0})
+            tot["input_wait_seconds"] += float(
+                (rec or {}).get("input_wait_seconds", 0.0))
+            tot["parts"] += int((rec or {}).get("parts", 0))
+            slo = (rec or {}).get("slo_wait_frac")
+            if slo:
+                # a target, not a tally: identical across ranks, so the
+                # sum row carries it through max, never addition
+                tot["slo_wait_frac"] = max(float(slo),
+                                           float(tot.get("slo_wait_frac",
+                                                         0.0)))
+        # control-decision tallies (schema v2): every autoscale / evict /
+        # hedge / throttle this rank performed, as component.action:n
+        decisions = snap.get("decisions") or {}
+        for d, n in decisions.items():
+            decision_totals[d] = decision_totals.get(d, 0) + int(n)
+        dec_cell = " ".join(f"{d}:{int(n)}" for d, n in
+                            sorted(decisions.items()) if n) or "-"
+        lines.append(f"{rank:>4}  " + "  ".join(cells)
+                     + f"  {hot if hot else '-'}"
+                     + f"  {_format_jobs_cell(jobs)}"
+                     + f"  {dec_cell}")
+    lines.append("-" * len(header))
+    lines.append(" sum  " + "  ".join(
+        f"{totals[s]:>{width}.3f}" for s in stage_cols)
+        + (f"  jobs: {_format_jobs_cell(job_totals)}"
+           if job_totals else "")
+        + ("  decisions: " + " ".join(
+            f"{d}:{n}" for d, n in sorted(decision_totals.items()) if n)
+           if decision_totals else ""))
+    return "\n".join(lines)
+
+
+def component_snapshot(role: str) -> dict:
+    """Everything ONE component ships for a merged pod timeline — the
+    ``trace_dump`` RPC reply body on dispatcher and workers, and what
+    ``LocalFleet.dump_trace`` collects locally. ``now`` is this
+    process's monotonic clock at snapshot time: the puller pairs it with
+    its own RPC request/reply midpoint to estimate the peer's clock
+    offset (docs/observability.md Distributed tracing)."""
+    return {"peer": str(role), "pid": os.getpid(),
+            "schema": SCHEMA_VERSION, "now": round(time.monotonic(), 6),
+            "spans": spans_snapshot(), "decisions": decisions_snapshot()}
+
+
+def export_pod_trace(path: str, peers: List[dict]) -> int:
+    """Merge per-peer span + decision snapshots into ONE Chrome-trace/
+    Perfetto JSON — the fleet-wide timeline (docs/observability.md
+    Distributed tracing). Each peer dict carries:
+
+    - ``peer``: display name (``dispatcher``, ``worker-0``, ``client``,
+      ``rank-3``...) — becomes the Perfetto process name, so pid = role
+    - ``schema``: the peer's ``telemetry_schema_version``
+    - ``clock_offset_s``: seconds to ADD to the peer's timestamps to
+      land them on the caller's clock (estimated from RPC request/reply
+      midpoints — see ``LocalFleet.dump_trace``); 0.0 for local spans
+    - ``spans``: :func:`spans_snapshot` rows
+    - ``decisions``: :func:`decisions_snapshot` events, rendered as
+      instant events on the peer's timeline
+
+    A peer at a DIFFERENT schema version is listed, never merged: its
+    process shows up with one explicit ``schema-mismatch`` annotation
+    instant event and none of its spans — the same refuse-to-merge
+    contract as :func:`format_pod_table`, so a mixed-version fleet
+    degrades loudly instead of rendering garbage. Returns the number of
+    span events written; the file is written to ``<path>.tmp`` then
+    atomically published."""
+    events: List[dict] = []
+    written = 0
+    skipped_peers: List[str] = []
+    for pid, peer in enumerate(peers, start=1):
+        name = str(peer.get("peer") or f"peer-{pid}")
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "tid": 0, "args": {"name": name}})
+        schema = peer.get("schema")
+        offset_us = float(peer.get("clock_offset_s") or 0.0) * 1e6
+        if schema != SCHEMA_VERSION:
+            # listed, not merged: one loud annotation, zero spans
+            skipped_peers.append(name)
+            events.append({
+                "name": "schema-mismatch", "cat": "dmlc_tpu", "ph": "i",
+                "pid": pid, "tid": 0, "ts": 0.0, "s": "p",
+                "args": {"schema": schema, "expected": SCHEMA_VERSION,
+                         "note": "peer listed, spans not merged"},
+            })
+            continue
+        threads_named = set()
+        for s in peer.get("spans") or []:
+            tid = s.get("tid", 0)
+            if tid not in threads_named:
+                threads_named.add(tid)
+                events.append({"name": "thread_name", "ph": "M",
+                               "pid": pid, "tid": tid,
+                               "args": {"name": s.get("thread", "")}})
+            args = dict(s.get("labels") or {})
+            if s.get("pipeline"):
+                args["pipeline"] = s["pipeline"]
+            for k in ("trace_id", "parent_id", "span_id"):
+                if s.get(k):
+                    args[k] = s[k]
+            events.append({
+                "name": s["name"], "cat": "dmlc_tpu", "ph": "X",
+                "pid": pid, "tid": tid,
+                "ts": s["start_ns"] / 1e3 + offset_us,
+                "dur": s["dur_ns"] / 1e3,
+                "args": args,
+            })
+            written += 1
+        for d in peer.get("decisions") or []:
+            events.append({
+                "name": f"{d.get('component', '?')}.{d.get('action', '?')}",
+                "cat": "dmlc_tpu_decision", "ph": "i", "pid": pid,
+                "tid": 0, "ts": float(d.get("ts", 0.0)) * 1e6 + offset_us,
+                "s": "p", "args": dict(d),
+            })
+    doc = {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "telemetry_schema_version": SCHEMA_VERSION,
+            "peers": [str(p.get("peer") or "") for p in peers],
+            "peers_not_merged": skipped_peers,
+        },
+    }
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
+    return written

@@ -327,9 +327,12 @@ def test_restart_budget_follows_the_jax_rule(monkeypatch, env, restarts):
         monkeypatch.delenv("DMLC_RETRY_MAX_ATTEMPTS", raising=False)
     else:
         monkeypatch.setenv("DMLC_RETRY_MAX_ATTEMPTS", env)
-    attempts = resilience.max_attempts_from_env()
-    assert attempts == RetryPolicy.from_env().max_attempts
-    allowed = [used for used in range(6) if resilience.restart_allowed(used, attempts)]
+    from dmlc_tpu_torch.utils.check import CacheCorruptionError
+
+    port_policy = resilience.RetryPolicy.from_env()
+    assert port_policy.max_attempts == RetryPolicy.from_env().max_attempts
+    allowed = [used for used in range(6) if resilience.restart_verdict(
+        port_policy, used, CacheCorruptionError("crc mismatch")) == "restart"]
     assert allowed == list(range(restarts))
     policy = RetryPolicy.from_env()
     exc = JaxCacheCorruptionError("crc mismatch")

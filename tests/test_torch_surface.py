@@ -2,11 +2,12 @@
 the port had (each on the CPU, ``device="cpu"``):
 
 - C1: ``DeviceIter.stats()`` reports ``batches`` (first) beside
-  ``batches_fed``, and every key of the JAX ``stats()`` but ``autotune``
-  and ``store`` (queue A items 5 and 6) with a value of the same type
-  after the same epoch, ``resilience``, ``stages``, ``stage_busy`` and
-  ``staging_ring`` key for key (on ``ell`` the JAX package has no staging
-  ring, a difference ROADMAP C records);
+  ``batches_fed``, and every key of the JAX ``stats()`` but ``store``
+  (queue A item 6) with a value of the same type after the same epoch,
+  ``resilience``, ``stages``, ``stage_busy`` and ``staging_ring`` key for
+  key (on ``ell`` the JAX package has no staging ring, a difference
+  ROADMAP C records); ``autotune`` is None when the autotuner is not
+  armed and, armed, a dict with the JAX snapshot's keys and value types;
 - C2: ``fit_epoch(max_steps)``, ``fit(steps_per_epoch)`` and
   ``accuracy(max_steps)`` stop after that many batches, reset the iterator
   and give the JAX loop's ``(loss, n)`` and accuracy on the same batches;
@@ -57,14 +58,28 @@ def _corpus(tmp_path, n=640, d=NUM_COL):
     return str(path)
 
 
-def _pipelines(uri, layout="ell"):
+def _pipelines(uri, layout="ell", **kw):
     jax_model = JaxLinearLearner(NUM_COL, layout=layout, learning_rate=0.3)
     jax_it = JaxDeviceIter(jax_create_parser(uri, 0, 1, "libsvm", threaded=False),
-                           num_col=NUM_COL, batch_size=64, layout=layout, max_nnz=NUM_COL)
+                           num_col=NUM_COL, batch_size=64, layout=layout, max_nnz=NUM_COL, **kw)
     model = LinearLearner(NUM_COL, layout=layout, learning_rate=0.3, device="cpu")
     it = DeviceIter(create_parser(uri, 0, 1, "libsvm", threaded=False), num_col=NUM_COL,
-                    batch_size=64, layout=layout, max_nnz=NUM_COL, device="cpu")
+                    batch_size=64, layout=layout, max_nnz=NUM_COL, device="cpu", **kw)
     return (jax_model, jax_it), (model, it)
+
+
+def _armed_autotune_stats(uri, layout):
+    """Both packages' ``stats()["autotune"]`` after two epochs with the
+    autotuner armed (the second reset takes its first step)."""
+    out = []
+    for _, it in _pipelines(uri, layout, autotune=True):
+        for _ in range(2):
+            for _ in it:
+                pass
+            it.reset()
+        out.append(it.stats()["autotune"])
+        it.close()
+    return out
 
 
 def _c1_stats(tmp_path, layout):
@@ -80,7 +95,13 @@ def _c1_stats(tmp_path, layout):
     jax_it.close()
     it.close()
     assert list(got)[0] == "batches" and got["batches"] == got["batches_fed"] == 10
-    assert set(want) - set(got) == {"autotune", "store"}
+    assert set(want) - set(got) == {"store"}
+    assert got["autotune"] is None and want["autotune"] is None
+    jax_tune, tune = _armed_autotune_stats(uri, layout)
+    assert type(tune) is dict and type(jax_tune) is dict
+    assert {k: type(v) for k, v in tune.items()} == {k: type(v) for k, v in jax_tune.items()}
+    assert tune["steps"] == jax_tune["steps"] == 1
+    assert set(tune["knobs"]) == set(jax_tune["knobs"])
     for key in sorted(set(got) & set(want)):
         if key == "staging_ring" and want[key] is None:
             continue  # checked by the caller

@@ -13,7 +13,14 @@ exports the same stage event names as the JAX run of the same pipeline,
 with every stage ``stats()["stages"]`` reports above 0, per-stage span sums
 within 10% of the busy seconds, and the stage sum at most
 ``wall_seconds``; ``DMLC_TPU_TRACE=1`` shows the profiler ranges; two
-concurrent iterators keep disjoint counters.
+concurrent iterators keep disjoint counters. The rest of the module
+equals the JAX package's for the same inputs: the Prometheus text (and its
+parse, malformed lines refused), the decision log (trace id, extras, the
+bounded ring, the counts), the metrics history ring, the retirement of old
+pipeline scopes under ``DMLC_TPU_METRICS_MAX_PIPELINES``, the trace
+context and its wire form under each ``DMLC_TPU_TRACE_CONTEXT`` setting,
+``pod_snapshot`` / ``format_pod_table`` (the ``store`` block reading 0),
+``component_snapshot`` and ``export_pod_trace``.
 """
 
 import json
@@ -490,3 +497,197 @@ def test_stats_carries_the_pipeline_label(tmp_path):
     finally:
         it.close()
         other.close()
+
+
+# ---------------- the rest of the module: against the reference ----------------
+
+def _fill_registry(mod):
+    """The same metrics in a fresh registry of either package."""
+    reg = mod.MetricsRegistry()
+    reg.counter(mod.STAGE_BUSY_METRIC, pipeline="p-1", stage="parse").inc(1.25)
+    reg.counter(mod.RESILIENCE_METRIC, pipeline="p-1", event="cache_rebuilds").inc(2)
+    reg.gauge(mod.AUTOTUNE_KNOB_METRIC, pipeline="p-1", knob="prefetch").set(3)
+    reg.gauge("odd name-1", label='quote"back\\slash\nline').set(0.1)
+    reg.counter(mod.AUTOTUNE_STEP_METRIC, pipeline="").inc(7)
+    h = reg.histogram("latency", pipeline="p-2")
+    for v in (0.5, 1.5, 1e30):
+        h.observe(v)
+    reg.histogram("empty")
+    reg.info(mod.STALL_METRIC, component="pool").set({"k": 1})
+    reg.gauge("inf_gauge").set(float("inf"))
+    return reg
+
+
+def test_prometheus_text_matches_reference_and_round_trips():
+    text = telemetry.render_prometheus(_fill_registry(telemetry).snapshot())
+    assert text == jax_telemetry.render_prometheus(_fill_registry(jax_telemetry).snapshot())
+    samples = telemetry.parse_prometheus_text(text)
+    assert samples == jax_telemetry.parse_prometheus_text(text)
+    by = {(n, tuple(sorted(lb.items()))): v for n, lb, v in samples}
+    assert by[("dmlc_tpu_stage_busy_seconds_total", (("pipeline", "p-1"), ("stage", "parse")))] \
+        == 1.25
+    assert by[("dmlc_tpu_odd_name_1", (("label", 'quote"back\\slash\nline'),))] == 0.1
+    assert by[("dmlc_tpu_autotune_steps_total", ())] == 7
+    assert not any(n.startswith("dmlc_tpu_pipeline_stall") for n, _, _ in samples)
+    for bad in ("metric{a=1} 2", "metric 1 2 3", 'm{a="x"b="y"} 1', "m notanumber"):
+        for mod in (telemetry, jax_telemetry):
+            with pytest.raises(ValueError):
+                mod.parse_prometheus_text(bad)
+    assert telemetry.render_prometheus([]) == jax_telemetry.render_prometheus([]) == ""
+
+
+def _ledger_run(mod):
+    mod.reset_decisions()
+    with mod.trace("trace-abc", "span-1"):
+        mod.record_decision("autotune", "grow", trigger={"knob": "prefetch", "from": 2},
+                            outcome="grew", pipeline="p", step=1, skipped=None)
+    mod.record_decision("store", "evict")
+    first = [{k: v for k, v in e.items() if k != "ts"} for e in mod.decisions_snapshot()]
+    for i in range(mod.DECISION_HISTORY_LIMIT + 3):
+        mod.record_decision("autotune", "revert", step=i)
+    return (first, len(mod.decisions_snapshot()), mod.decisions_total(),
+            mod.decision_counts(),
+            [e.get("step") for e in mod.decisions_snapshot("autotune")][-3:])
+
+
+def test_decision_log_matches_reference():
+    got, want = _ledger_run(telemetry), _ledger_run(jax_telemetry)
+    assert got == want
+    assert got[0][0] == {"component": "autotune", "action": "grow",
+                         "trigger": {"knob": "prefetch", "from": 2}, "outcome": "grew",
+                         "trace_id": "trace-abc", "pipeline": "p", "step": 1}
+    assert got[1] == telemetry.DECISION_HISTORY_LIMIT and got[2] == got[1] + 5
+
+
+def _history_run(mod, monkeypatch):
+    monkeypatch.setenv("DMLC_TPU_METRICS_HISTORY", "3")
+    mod.reset_metrics_history()
+    mod.reset_decisions()
+    for name in (mod.INPUT_WAIT_METRIC, mod.SERVICE_JOB_WAIT_METRIC, mod.STORE_BYTES_METRIC,
+                 mod.SERVICE_WIRE_RAW_METRIC, mod.SERVICE_WIRE_SENT_METRIC):
+        mod.REGISTRY.clear(name)
+    mod.REGISTRY.counter(mod.INPUT_WAIT_METRIC, pipeline="h").inc(0.25)
+    mod.REGISTRY.counter(mod.SERVICE_JOB_WAIT_METRIC, job="j1").inc(1.5)
+    mod.record_decision("autotune", "grow")
+    out = [mod.sample_metrics_history(now=float(i)) for i in range(5)]
+    return out, mod.metrics_history()
+
+
+def test_metrics_history_matches_reference(monkeypatch):
+    got, want = _history_run(telemetry, monkeypatch), _history_run(jax_telemetry, monkeypatch)
+    assert got == want
+    assert [s["ts"] for s in got[1]] == [2.0, 3.0, 4.0]
+    assert got[0][0]["input_wait_seconds"] == 0.25 and got[0][0]["decisions"] == 1
+
+
+def _retire_run(mod, monkeypatch):
+    monkeypatch.setenv("DMLC_TPU_METRICS_MAX_PIPELINES", "8")
+    reg = mod.MetricsRegistry()
+    for i in range(12):
+        reg.counter("c", pipeline=f"p{i}", stage="x").inc(i + 1)
+        reg.gauge("g", pipeline=f"p{i}").set(i)
+        reg.histogram("h", pipeline=f"p{i}").observe(float(i))
+    reg.counter("c", pipeline="p5", stage="x").inc(100)  # an old handle's scope again
+    return (reg.retired_pipelines(), reg.sum("c"), sorted(reg.sum_by("c", "pipeline").items()),
+            sorted(json.dumps(r, sort_keys=True) for r in reg.snapshot()))
+
+
+def test_pipeline_retirement_matches_reference(monkeypatch):
+    got = _retire_run(telemetry, monkeypatch)
+    assert got == _retire_run(jax_telemetry, monkeypatch)
+    assert got[0] >= 4 and got[1] == sum(range(1, 13)) + 100
+    assert ("", float(sum(range(1, got[0] + 1)))) in got[2]
+
+
+@pytest.mark.parametrize("switch", [None, "0", "1"])
+def test_trace_context_wire_matches_reference(monkeypatch, switch):
+    if switch is None:
+        monkeypatch.delenv("DMLC_TPU_TRACE_CONTEXT", raising=False)
+    else:
+        monkeypatch.setenv("DMLC_TPU_TRACE_CONTEXT", switch)
+    out = []
+    for mod in (telemetry, jax_telemetry):
+        rows = [mod.trace_propagation_enabled(), mod.trace_context_wire(),
+                mod.trace_context_wire(("t1", "")), mod.trace_context_wire(("", "s"))]
+        with mod.trace("t2", "s2"):
+            rows += [mod.current_trace(), mod.trace_context_wire()]
+            with mod.trace(None):
+                rows.append(mod.current_trace())
+        rows.append(mod.current_trace())
+        for wire in ({"tid": "a", "sid": "b"}, {"tid": "a", "sid": 3}, {"tid": ""},
+                     ["tid"], None, {"sid": "x"}):
+            rows.append(mod.trace_context_from_wire(wire))
+        mod.set_trace_propagation(True)
+        rows.append(mod.trace_context_wire(("t3", "s3")))
+        mod.set_trace_propagation(False)
+        rows.append(mod.trace_context_wire(("t3", "s3")))
+        mod.set_trace_propagation(None)
+        assert len(mod.new_trace_id()) == 16 and len(mod.new_span_id()) == 8
+        out.append(rows)
+    assert out[0] == out[1]
+
+
+def test_spans_carry_the_trace_context():
+    label = telemetry.new_pipeline_label("trace-span")
+    with telemetry.scope(label), telemetry.trace("tid-9", "parent-3"):
+        telemetry.record_span("convert", time.monotonic(), 0.001)
+        telemetry.record_span("dispatch", time.monotonic(), 0.001, span_id="mine")
+    telemetry.record_span("transfer", time.monotonic(), 0.001)
+    rows = {r["name"]: r for r in telemetry.spans_snapshot(label)}
+    assert rows["convert"]["trace_id"] == "tid-9" and rows["convert"]["parent_id"] == "parent-3"
+    assert rows["dispatch"]["span_id"] == "mine"
+    assert all("trace_id" not in r for r in telemetry.spans_snapshot(None)
+               if r["name"] == "transfer" and r["pipeline"] is None)
+
+
+def _pod(mod):
+    reg = mod.REGISTRY
+    for name in (mod.STAGE_BUSY_METRIC, mod.STAGE_WALL_METRIC, mod.RESILIENCE_METRIC,
+                 mod.SERVICE_JOB_WAIT_METRIC, mod.SERVICE_JOB_PARTS_METRIC,
+                 mod.SERVICE_JOB_SLO_METRIC, mod.STORE_BYTES_METRIC):
+        reg.clear(name)
+    mod.reset_decisions()
+    reg.counter(mod.STAGE_BUSY_METRIC, pipeline="pod-a", stage="parse").inc(1.5)
+    reg.counter(mod.STAGE_BUSY_METRIC, pipeline="pod-b", stage="convert").inc(0.25)
+    reg.counter(mod.STAGE_WALL_METRIC, pipeline="pod-a", stage="transfer").inc(0.5)
+    reg.counter(mod.RESILIENCE_METRIC, pipeline="pod-a", event="parse_restarts").inc(1)
+    reg.counter(mod.SERVICE_JOB_WAIT_METRIC, job="j1").inc(0.75)
+    reg.counter(mod.SERVICE_JOB_PARTS_METRIC, job="j1").inc(3)
+    reg.gauge(mod.SERVICE_JOB_SLO_METRIC, job="j1").set(0.05)
+    mod.record_decision("autotune", "grow")
+    snap = mod.pod_snapshot()
+    snap.pop("spans")
+    snap.pop("spans_dropped")
+    other = dict(snap, stages={"parse": 0.5, "cache_read": 2.0}, decisions={"autotune.revert": 1})
+    table = mod.format_pod_table({0: snap, 1: other, 2: {"telemetry_schema_version": 1}})
+    return snap, table
+
+
+def test_pod_snapshot_and_table_match_reference():
+    got, want = _pod(telemetry), _pod(jax_telemetry)
+    assert got == want
+    snap, table = got
+    assert snap["store"] == {"store_bytes": 0, "store_evictions": 0,
+                             "store_rebuilds_after_eviction": 0}
+    assert snap["jobs"] == {"j1": {"input_wait_seconds": 0.75, "parts": 3, "slo_wait_frac": 0.05}}
+    assert snap["stages"]["transfer"] == 0.5 and "not merged" in table
+
+
+def test_component_snapshot_and_pod_trace_match_reference(tmp_path):
+    docs = []
+    for mod in (telemetry, jax_telemetry):
+        mod.reset_decisions()
+        mod.record_decision("autotune", "grow", step=1)
+        comp = mod.component_snapshot("worker-0")
+        assert comp["schema"] == mod.SCHEMA_VERSION and comp["peer"] == "worker-0"
+        spans = [{"name": "convert", "tid": 7, "thread": "w", "start_ns": 1000,
+                  "dur_ns": 500, "pipeline": "p", "labels": {"rows": 2}, "trace_id": "t"}]
+        peers = [{"peer": "rank-0", "schema": mod.SCHEMA_VERSION, "clock_offset_s": 0.5,
+                  "spans": spans, "decisions": [{"ts": 1.0, "component": "autotune",
+                                                  "action": "grow"}]},
+                 {"peer": "old", "schema": 1, "spans": spans}]
+        path = str(tmp_path / f"{mod.__name__}.pod.json")
+        assert mod.export_pod_trace(path, peers) == 1
+        with open(path) as f:
+            docs.append(json.load(f))
+    assert docs[0] == docs[1]
