@@ -272,6 +272,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
     with a ``restart_policy`` under the convert pool, its split failing
     once at chunk :data:`TUNE_FAIL_CHUNK`: every batch's hash equal to the
     clean run's, ``parse_restarts`` 1.
+17. the tiered artifact store and the split layer (``run_store``) on
+    phase 3's corpus, in a directory of its own: (a)
+    ``create_parser(path#cache)`` -> ``DeviceIter(ell)`` -> ``LinearLearner``
+    for two epochs, the first writing the ``#cachefile`` chunk cache, the
+    second reading only the cache with the source renamed away; gates:
+    every batch's digest, the first 20 losses and the final weights
+    bit-equal to the plain URI's run on the same engine (the registry
+    stack), K1 and ``dw`` once a step and held against their plain
+    versions on the phase's first batch, ``cache_rebuilds`` 0; rows/s and
+    stall share of both epochs and the cache's bytes beside the corpus's;
+    then 20 steps of the cache-only epoch behind a spin in groups of 10,
+    no host sync; (b) a block cache and an ELL snapshot (``device_decode=
+    True``) of the corpus beside the chunk cache: ``stats()["store"]
+    ["store_bytes"]`` equals the three files' sizes (the byte gauges are
+    cleared when the phase starts); a publish under a budget between the
+    two larger files' sum and the total evicts the snapshot, and only it
+    (cost order, on the decision ledger); the next epoch rebuilds it cold
+    (``store_rebuilds_after_eviction`` 1, batch digests and losses equal to
+    the first cold run's, K1 once a step); then a warm device-decode
+    epoch with two read workers, a squeeze (budget 1) published from
+    another thread after batch :data:`STORE_SQUEEZE_AT`: the pinned
+    snapshot survives, K2 once a batch, bits equal to an unsqueezed warm
+    epoch; (c) ``create_parser(path, shuffle=True, num_shuffle_parts=4,
+    seed=3)`` without a block cache (the split layer's
+    ``ShuffledInputSplit``): the multiset of row digests equals the plain
+    run's; the same keywords with a block cache: one
+    ``DeprecationWarning`` and the plan the JAX package's mapping sets
+    (:data:`LEGACY_PLAN`), a cold and a warm epoch; K1 and ``dw`` once a
+    step throughout. The phase prints its wall time.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
@@ -286,7 +315,7 @@ launches the card queues behind a spin (``launch_queue``). Phase 16 runs
 after them (a window opened after a pipeline ran behind a spin can miss a
 device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-16, the windowed ones of phase
+the main paths of phases 3, 6, 7 and 11-17, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14 and
 11 (f)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -4986,6 +5015,381 @@ def run_autotune(path: str, tmp: str, device) -> dict:
     return out
 
 
+# ---------------- phase 17: the tiered artifact store and the split layer ----------------
+
+STORE_SQUEEZE_AT = 64    # phase 17 (b): the warm batch after which the squeeze publishes
+LEGACY_SHUFFLE = {"shuffle": True, "num_shuffle_parts": 4, "seed": 3}
+# the plan the JAX package's create_parser maps LEGACY_SHUFFLE onto with a
+# block cache: shuffle_seed = seed, shuffle_window = LEGACY_SHUFFLE_WINDOW
+LEGACY_PLAN = {"shuffle_seed": 3, "window": 4096}
+
+
+class _Digests:
+    """Exact device-side digests of a stream of ELL batches, with no host
+    sync: each row's int64 mix of its bit patterns (indices, values, label,
+    weight) and each batch's order-sensitive mix of its rows'. Equal
+    streams give equal digests; ``rows()`` sorts the row digests, the
+    multiset of rows."""
+
+    def __init__(self, device, k: int = HIGGS_COLS):
+        import torch
+
+        g = torch.Generator(device="cpu").manual_seed(17)
+        self._w = torch.randint(1, 1 << 31, (2 * k + 2 + BATCH,), generator=g,
+                                dtype=torch.int64).to(device)
+        self._k = k
+        self.batch, self.row = [], []
+
+    def add(self, batch) -> None:
+        import torch
+
+        k, w = self._k, self._w
+        b = batch.indices.shape[0]
+        r = ((batch.indices.to(torch.int64) * w[:k]).sum(1)
+             + (batch.values.contiguous().view(torch.int32).to(torch.int64) * w[k:2 * k]).sum(1)
+             + batch.label.contiguous().view(torch.int32).to(torch.int64) * w[2 * k]
+             + batch.weight.contiguous().view(torch.int32).to(torch.int64) * w[2 * k + 1])
+        self.row.append(r)
+        self.batch.append((r * w[2 * k + 2: 2 * k + 2 + b]).sum())
+
+    def batches(self):
+        import torch
+
+        return torch.stack(self.batch).cpu()
+
+    def rows(self):
+        import torch
+
+        return torch.sort(torch.cat(self.row)).values.cpu()
+
+
+def _store_pipeline(uri: str, device, parser_kw=None, **iter_kw):
+    """Phase 3's ELL main path over ``create_parser(uri, **parser_kw)``."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
+
+    model = LinearLearner(num_col=HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(create_parser(uri, 0, 1, "libsvm", **(parser_kw or {})),
+                    num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device, **iter_kw)
+    return model, it
+
+
+def _store_epoch(model, it, leg: str, digests: "_Digests", losses=None, on_batch=None) -> dict:
+    """One epoch stepped batch by batch, each batch digested on the card
+    (the first 20 losses kept in ``losses``; ``on_batch(n)`` called after
+    batch ``n``), timed to a synchronize, then ``reset()``; K1, ``dw`` and
+    K2 counted around it."""
+    import torch
+
+    from dmlc_tpu_torch.ops import device_decode as dd
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    before = it.stats()
+    k1_0, dw_0, k2_0 = k1.launches, k1.dw_launches, dd.launches
+    t0 = time.monotonic()
+    nb = 0
+    for batch in it:
+        digests.add(batch)
+        loss = model.step(batch)
+        if losses is not None and len(losses) < 20:
+            losses.append(loss)
+        nb += 1
+        if on_batch is not None:
+            on_batch(nb)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    now = it.stats()
+    it.reset()
+    return {"leg": leg, "batches": nb, "wall_s": secs, "rows_per_s": nb * BATCH / secs,
+            "stall_share": (now["stall_seconds"] - before["stall_seconds"]) / secs,
+            "k1_launches": k1.launches - k1_0, "dw_launches": k1.dw_launches - dw_0,
+            "k2_launches": dd.launches - k2_0, "snapshot_state": now["snapshot_state"],
+            "store": now["store"]}
+
+
+def _weights(model):
+    return (model.params.weight.detach().clone(), model.params.bias.detach().clone())
+
+
+def _same_weights(a, b) -> bool:
+    import torch
+
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _launch_gate(rec: dict, leg: str, k2: bool = False) -> None:
+    if rec["k1_launches"] < rec["batches"] or rec["dw_launches"] < rec["batches"]:
+        raise AssertionError(f"phase 17 {leg}: K1 {rec['k1_launches']}, dw "
+                             f"{rec['dw_launches']} for {rec['batches']} steps")
+    if k2 and rec["k2_launches"] != rec["batches"]:
+        raise AssertionError(f"phase 17 {leg}: K2 launched {rec['k2_launches']} times for "
+                             f"{rec['batches']} warm batches")
+
+
+def run_store_cachefile(path: str, d: str, device) -> dict:
+    """Phase 17 (a): ``create_parser(path#cache)`` -> ``DeviceIter(ell)`` ->
+    ``LinearLearner``, two epochs: the first writes the chunk cache, the
+    second reads only the cache with the source renamed away; against the
+    plain URI on the same engine (the registry stack), two epochs."""
+    import torch
+
+    from dmlc_tpu_torch.io import resilience
+
+    cache = os.path.join(d, "higgs.cache")
+    with registry_stack():
+        plain_model, plain_it = _store_pipeline(path, device)
+    # K1 and dw against their plain versions on the phase's first batch,
+    # from a pipeline of its own (the legs' counts are taken around them)
+    _, probe = _store_pipeline(path, device)
+    checks = _k1_on_batch(plain_model, next(probe))
+    probe.close()
+    res0 = resilience.counters_snapshot()
+    plain_losses, plain_dig, plain_recs = [], [], []
+    for e in range(2):
+        dig = _Digests(device)
+        plain_recs.append(_store_epoch(plain_model, plain_it, f"plain_{e}", dig, plain_losses))
+        plain_dig.append(dig)
+    plain_it.close()
+    model, it = _store_pipeline(f"{path}#{cache}", device)
+    losses, digs, recs = [], [], []
+    for e in range(2):
+        dig = _Digests(device)
+        recs.append(_store_epoch(model, it, f"cachefile_{e}", dig, losses))
+        digs.append(dig)
+        if e == 0:
+            os.rename(path, path + ".away")  # epoch 2 may read the cache only
+    source_gone = not os.path.exists(path)
+    it.close()
+    # the spin leg: 20 steps of the cache-only epoch, groups of 10
+    spin_model, spin_it = _store_pipeline(f"{path}#{cache}", device, convert_ahead=32)
+    spin_model.step(next(spin_it))
+    time.sleep(3.0)
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    k1_0, dw_0 = k1.launches, k1.dw_launches
+    spin = enqueue_behind_spin(lambda: spin_model.step(next(spin_it)), group=10)
+    spin.update(k1_launches=k1.launches - k1_0, dw_launches=k1.dw_launches - dw_0)
+    spin_it.close()
+    os.rename(path + ".away", path)
+    res = resilience.counters_delta(res0)
+    same_batches = all(torch.equal(a.batches(), b.batches()) for a, b in zip(digs, plain_dig))
+    out = {"phase": "store_cachefile", "epochs": recs, "plain_epochs": plain_recs,
+           "source_renamed_away_in_epoch_2": source_gone,
+           "cache_bytes": os.path.getsize(cache), "corpus_bytes": os.path.getsize(path),
+           "batch_hashes_equal": same_batches,
+           "first_20_losses_bit_equal": (len(losses) == 20 and torch.equal(
+               torch.stack(losses), torch.stack(plain_losses))),
+           "final_weights_bit_equal": _same_weights(_weights(model), _weights(plain_model)),
+           "cache_rebuilds": res.get("cache_rebuilds", 0),
+           "cache_corruptions": res.get("cache_corruptions", 0), **checks,
+           "spin": spin}
+    emit(out)
+    for rec in recs:
+        _launch_gate(rec, rec["leg"])
+    if not (source_gone and same_batches and out["first_20_losses_bit_equal"]
+            and out["final_weights_bit_equal"] and out["cache_rebuilds"] == 0
+            and all(r["batches"] == HIGGS_ROWS // BATCH for r in recs)):
+        raise AssertionError(f"phase 17 (a): the cached epochs: {out}")
+    if not spin["no_host_sync"] or spin["k1_launches"] < spin["calls"]:
+        raise AssertionError(f"phase 17 (a): the cached steps behind a spin: {spin}")
+    out["plain_digests"] = plain_dig[0]
+    out["k1_launches"] = sum(r["k1_launches"] for r in recs) + spin["k1_launches"]
+    out["dw_launches"] = sum(r["dw_launches"] for r in recs) + spin["dw_launches"]
+    return out
+
+
+def _squeeze_publish(d: str, name: str) -> float:
+    """Publish a small block cache into ``d`` (the budget is enforced on
+    publish); returns its wall seconds."""
+    from dmlc_tpu_torch.io.block_cache import BlockCacheWriter
+
+    t0 = time.monotonic()
+    w = BlockCacheWriter(os.path.join(d, name), signature={"squeeze": name})
+    w.add_block({"offset": np.arange(3, dtype=np.int64), "label": np.zeros(2, np.float32)},
+                rows=2)
+    w.finish()
+    return time.monotonic() - t0
+
+
+def run_store_budget(path: str, d: str, device) -> dict:
+    """Phase 17 (b): the three tiers in one directory, a budget that evicts
+    the snapshot first, its cold rebuild, then a warm device-decode epoch
+    pinned through a squeeze published from another thread."""
+    import threading
+
+    import torch
+
+    from dmlc_tpu_torch.io import resilience
+    from dmlc_tpu_torch.store import manager as store
+    from dmlc_tpu_torch.utils import telemetry
+
+    cache = os.path.join(d, "higgs.cache")
+    bc, snap = os.path.join(d, "higgs.bc"), os.path.join(d, "higgs.snapshot")
+    kw = {"block_cache": bc, "snapshot": snap}
+    model, it = _store_pipeline(path, device, kw, device_decode=True)
+    cold_dig, cold_losses = _Digests(device), []
+    cold = _store_epoch(model, it, "build_cold", cold_dig, cold_losses)
+    it.close()
+    sizes = {n: os.path.getsize(os.path.join(d, n))
+             for n in ("higgs.cache", "higgs.bc", "higgs.snapshot")}
+    store_bytes = cold["store"]["store_bytes"]
+    st = store.store_for(snap)
+    managed = {e["path"]: e["bytes"] for e in st.entries()}
+    # a budget between the two larger artifacts' sum and the total: one
+    # eviction, of the cheapest tier to rebuild, makes room
+    small = sorted(sizes.values())
+    budget = small[1] + small[2] + 4096 + small[0] // 2
+    telemetry.reset_decisions()
+    res0 = resilience.counters_snapshot()
+    os.environ["DMLC_TPU_STORE_BUDGET_BYTES"] = str(budget)
+    try:
+        store.reset_stores()
+        t0 = time.monotonic()
+        _squeeze_publish(d, "squeeze1.bc")
+        evict_s = time.monotonic() - t0
+    finally:
+        del os.environ["DMLC_TPU_STORE_BUDGET_BYTES"]
+    ledger = [{k: e.get(k) for k in ("action", "trigger", "outcome")}
+              for e in telemetry.decisions_snapshot("store")]
+    evicted = [n for n in sizes if not os.path.exists(os.path.join(d, n))]
+    # the next epoch rebuilds the snapshot cold (from the warm block cache)
+    model, it = _store_pipeline(path, device, kw, device_decode=True)
+    re_dig, re_losses = _Digests(device), []
+    rebuild = _store_epoch(model, it, "rebuild_cold", re_dig, re_losses)
+    it.close()
+    res1 = resilience.counters_delta(res0)
+    rebuilt_same = (torch.equal(re_dig.batches(), cold_dig.batches())
+                    and torch.equal(torch.stack(re_losses), torch.stack(cold_losses)))
+    # an unsqueezed warm device-decode epoch, then one squeezed in its middle
+    warm = {}
+    for leg in ("warm", "warm_squeezed"):
+        model, it = _store_pipeline(path, device, kw, device_decode=True,
+                                    snapshot_read_workers=2)
+        dig, losses, squeeze = _Digests(device), [], {}
+
+        def on_batch(n, leg=leg, squeeze=squeeze):
+            if leg == "warm_squeezed" and n == STORE_SQUEEZE_AT:
+                os.environ["DMLC_TPU_STORE_BUDGET_BYTES"] = "1"
+                try:
+                    t = threading.Thread(
+                        target=lambda: squeeze.update(s=_squeeze_publish(d, "squeeze2.bc")))
+                    t.start()
+                    t.join()
+                finally:
+                    del os.environ["DMLC_TPU_STORE_BUDGET_BYTES"]
+                squeeze["snapshot_survived"] = os.path.exists(snap)
+
+        rec = _store_epoch(model, it, leg, dig, losses, on_batch)
+        it.close()
+        warm[leg] = (rec, dig, losses, _weights(model), dict(squeeze))
+    res2 = resilience.counters_delta(res0)
+    w_rec, w_dig, w_losses, w_weights, _ = warm["warm"]
+    s_rec, s_dig, s_losses, s_weights, squeeze = warm["warm_squeezed"]
+    squeezed_same = (torch.equal(s_dig.batches(), w_dig.batches())
+                     and torch.equal(torch.stack(s_losses), torch.stack(w_losses))
+                     and _same_weights(s_weights, w_weights))
+    out = {"phase": "store_budget", "sizes": sizes, "store_bytes": store_bytes,
+           "managed": managed, "budget": budget, "evicted": evicted,
+           "evict_publish_s": evict_s, "ledger": ledger, "cold": cold, "rebuild": rebuild,
+           "rebuild_bit_equal_to_cold": rebuilt_same,
+           "store_rebuilds_after_eviction": res1.get("store_rebuilds_after_eviction", 0),
+           "store_evictions_after_budget": res1.get("store_evictions", 0),
+           "warm": w_rec, "warm_squeezed": s_rec, "squeeze_s": squeeze.get("s"),
+           "snapshot_survived_squeeze": squeeze.get("snapshot_survived"),
+           "squeezed_bits_equal_unsqueezed": squeezed_same,
+           "store_evictions": res2.get("store_evictions", 0),
+           "evicted_by_squeeze": sorted(n for n in ("higgs.cache", "higgs.bc")
+                                        if not os.path.exists(os.path.join(d, n)))}
+    emit(out)
+    if store_bytes != sum(sizes.values()) or managed != sizes:
+        raise AssertionError(f"phase 17 (b): store_bytes {store_bytes} against the files "
+                             f"{sizes} (manifest {managed})")
+    if evicted != ["higgs.snapshot"] or out["store_evictions_after_budget"] != 1:
+        raise AssertionError(f"phase 17 (b): the budget evicted {evicted}, not the snapshot")
+    if not (rebuilt_same and out["store_rebuilds_after_eviction"] == 1
+            and rebuild["snapshot_state"] == "cold" and os.path.exists(snap)):
+        raise AssertionError(f"phase 17 (b): the snapshot's rebuild: {out}")
+    _launch_gate(cold, "build_cold")
+    _launch_gate(rebuild, "rebuild_cold")
+    for rec in (w_rec, s_rec):
+        _launch_gate(rec, rec["leg"], k2=True)
+    if not (squeeze.get("snapshot_survived") and squeezed_same
+            and s_rec["snapshot_state"] == "warm" and out["store_evictions"] >= 2):
+        raise AssertionError(f"phase 17 (b): the pinned warm epoch through the squeeze: {out}")
+    out["k1_launches"] = sum(r["k1_launches"] for r in (cold, rebuild, w_rec, s_rec))
+    out["dw_launches"] = sum(r["dw_launches"] for r in (cold, rebuild, w_rec, s_rec))
+    out["k2_launches"] = w_rec["k2_launches"] + s_rec["k2_launches"]
+    return out
+
+
+def run_store_shuffle(path: str, d: str, device, plain: "_Digests") -> dict:
+    """Phase 17 (c): the split layer's legacy shuffle decorator without a
+    block cache (the rows of the plain run, as a multiset), then the same
+    keywords with one: the JAX package's DeprecationWarning and plan."""
+    import warnings
+
+    import torch
+
+    model, it = _store_pipeline(path, device, dict(LEGACY_SHUFFLE))
+    dig = _Digests(device)
+    rec = _store_epoch(model, it, "shuffle_decorator", dig)
+    it.close()
+    same_rows = torch.equal(dig.rows(), plain.rows())
+    reordered = not torch.equal(dig.batches(), plain.batches())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, it = _store_pipeline(path, device, dict(LEGACY_SHUFFLE,
+                                                       block_cache=os.path.join(d, "shuf.bc")))
+    dep = [str(w.message) for w in caught if issubclass(w.category, DeprecationWarning)]
+    plan = it.source.plan_state
+    mapped = {"shuffle_seed": plan["shuffle_seed"], "window": plan["window"]}
+    cached = _store_epoch(model, it, "shuffle_mapped_cold", _Digests(device))
+    warm = _store_epoch(model, it, "shuffle_mapped_warm", _Digests(device))
+    it.close()
+    out = {"phase": "store_shuffle", "decorator": rec, "rows_equal_plain": same_rows,
+           "batch_order_differs_from_plain": reordered, "deprecation_warnings": dep,
+           "plan": mapped, "plan_expected": LEGACY_PLAN, "mapped_cold": cached,
+           "mapped_warm": warm}
+    emit(out)
+    for r in (rec, cached, warm):
+        _launch_gate(r, r["leg"])
+    if not (same_rows and rec["batches"] == HIGGS_ROWS // BATCH):
+        raise AssertionError(f"phase 17 (c): the shuffled rows differ from the plain run's")
+    if len(dep) != 1 or mapped != LEGACY_PLAN:
+        raise AssertionError(f"phase 17 (c): the legacy mapping: {dep} {mapped}")
+    out["k1_launches"] = sum(r["k1_launches"] for r in (rec, cached, warm))
+    out["dw_launches"] = sum(r["dw_launches"] for r in (rec, cached, warm))
+    return out
+
+
+def run_store(path: str, tmp: str, device) -> dict:
+    """Phase 17 (module docstring), in a directory of its own. The store's
+    byte gauges are cleared first, so ``stats()["store"]["store_bytes"]``
+    counts the stores this phase opens."""
+    import shutil
+
+    from dmlc_tpu_torch.store import manager as store
+    from dmlc_tpu_torch.utils import telemetry
+
+    t0 = time.monotonic()
+    d = os.path.join(tmp, "store17")
+    os.makedirs(d)
+    store.reset_stores()
+    telemetry.REGISTRY.clear(telemetry.STORE_BYTES_METRIC)
+    out = {"cachefile": run_store_cachefile(path, d, device)}
+    out["budget"] = run_store_budget(path, d, device)
+    out["shuffle"] = run_store_shuffle(path, d, device, out["cachefile"].pop("plain_digests"))
+    shutil.rmtree(d)
+    store.reset_stores()
+    out["wall_s"] = time.monotonic() - t0
+    for key in ("k1_launches", "dw_launches"):
+        out[key] = sum(out[leg][key] for leg in ("cachefile", "budget", "shuffle"))
+    out["k2_launches"] = out["budget"]["k2_launches"]
+    emit({"phase": "store_total", "wall_s": out["wall_s"], "k1_launches": out["k1_launches"],
+          "dw_launches": out["dw_launches"], "k2_launches": out["k2_launches"]})
+    return out
+
+
 def producer_change(now: dict) -> dict:
     """Each phase's rows/s and stall share at the default convert width
     beside PR 11's (:data:`PR11_READER`, one producer thread) and the
@@ -5198,6 +5602,9 @@ def main() -> int:
         # a window opened after a pipeline ran behind a spin can miss a
         # device event (PERF.md §7)
         tune = run_autotune(path, tmp, dev)
+        # phase 17: the tiered artifact store and the split layer on phase 3's
+        # corpus, each leg's launches counted around its epochs
+        store17 = run_store(path, tmp, dev)
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -5212,9 +5619,10 @@ def main() -> int:
                      + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
                      + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
-                     + tune["k1_launches"]),
+                     + tune["k1_launches"] + store17["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
-                           + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"]]),
+                           + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"],
+                              store17["cachefile"]["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -5226,10 +5634,11 @@ def main() -> int:
                      + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
                      + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
-                     + tune["dw_launches"]),
+                     + tune["dw_launches"] + store17["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
                             if r["dw_route"] == "cuda"]
-                           + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"]]),
+                           + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"],
+                              store17["cachefile"]["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -5239,7 +5648,7 @@ def main() -> int:
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
                      + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]
-                     + tune["k2_launches"]),
+                     + tune["k2_launches"] + store17["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

@@ -224,6 +224,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import threading
 from collections import deque
 from typing import Iterator, List, Optional
@@ -234,15 +235,17 @@ import torch
 from dmlc_tpu_torch.data import autotune as _autotune
 from dmlc_tpu_torch.data import epoch as _epoch
 from dmlc_tpu_torch.data.row_block import CooBlock, DenseBlock, RowBlock, RowBlockContainer
+from dmlc_tpu_torch.io import block_cache as _block_cache
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io import snapshot as _snapshot
-from dmlc_tpu_torch.io.block_cache import remove_quietly, torch_dtype
+from dmlc_tpu_torch.io.block_cache import torch_dtype
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool, ThreadedIter
 from dmlc_tpu_torch.ops import device_decode as _device_decode
 from dmlc_tpu_torch.ops.device_decode import PackedDenseBatch  # noqa: F401 (re-exported)
 from dmlc_tpu_torch.ops.sparse import (EllBatch, block_to_bcoo_host, block_to_dense,
                                        block_to_ell, csr_coords, native_coo_to_port)
 from dmlc_tpu_torch.parallel.mesh import rank_device
+from dmlc_tpu_torch.store.manager import store_counters
 from dmlc_tpu_torch.utils import knobs as _knobs
 from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check, get_logger
@@ -457,7 +460,9 @@ def _adopt_pipeline_scope(source, label: str, max_depth: int = 8) -> None:
     """Stamp ``label`` on the thread primitives a parser chain built before
     its ``DeviceIter`` existed: walk the chain's wrapper attributes and
     call ``adopt_scope`` where there is one (a primitive that has a scope
-    keeps it)."""
+    keeps it). A property is not followed: it may be a lazy builder (the
+    block cache's parser chain, the chunk cache's source split, which a
+    warm pass must never build); what it built sits under ``_base``."""
     seen = set()
     stack = [(source, 0)]
     while stack:
@@ -469,6 +474,8 @@ def _adopt_pipeline_scope(source, label: str, max_depth: int = 8) -> None:
         if callable(adopt):
             adopt(label)
         for name in ("source", "base", "_base", "_iter", "_pool", "_plan_pool"):
+            if isinstance(inspect.getattr_static(obj, name, None), property):
+                continue
             stack.append((getattr(obj, name, None), depth + 1))
 
 
@@ -1700,8 +1707,8 @@ class DeviceIter:
         """A warm batch failed its crc: remove the file, so the next epoch
         runs cold and writes it anew."""
         _resilience.record_event("snapshot_corruptions")
-        self._drop_snap_reader()
-        remove_quietly(self.snapshot_path)
+        self._drop_snap_reader()  # releases the reader's pin first
+        _block_cache._artifact_store(self.snapshot_path).discard(self.snapshot_path)
 
     def _rebuild_snapshot(self) -> None:
         """Rebuild a vanished snapshot in one silent cold pass: every batch
@@ -1709,8 +1716,8 @@ class DeviceIter:
         deterministic, so the rebuilt batches are the lost ones, byte for
         byte."""
         _resilience.record_event("snapshot_rebuilds")
-        self._drop_snap_reader()
-        remove_quietly(self.snapshot_path)
+        self._drop_snap_reader()  # releases the reader's pin first
+        _block_cache._artifact_store(self.snapshot_path).discard(self.snapshot_path)
         self._abort_snapshot_writer()
         self._snap_writer = _snapshot.SnapshotWriter(
             self.snapshot_path, signature=self._snap_sig, geometry=self._snapshot_geometry())
@@ -1807,7 +1814,7 @@ class DeviceIter:
 
     def stats(self) -> dict:
         """The pipeline's counters. Every key of the JAX package's
-        ``stats()`` but ``store`` is here with its value type (``batches`` first; the port's own ``batches_fed`` is the same
+        ``stats()`` is here with its value type (``batches`` first; the port's own ``batches_fed`` is the same
         count). ``stages`` splits ``wall_seconds`` (first pull to the
         latest) among read / cache_read / snapshot_read / parse / convert /
         dispatch / device_decode / transfer, its sum never above the wall;
@@ -1829,7 +1836,12 @@ class DeviceIter:
         recorded under this pipeline's label since it was built
         (:mod:`dmlc_tpu_torch.io.resilience`) and its own restarts.
         ``autotune`` is the autotuner's snapshot (knobs, steps, adjustments,
-        convergence, the last decisions), None when it is not armed."""
+        convergence, the last decisions), None when it is not armed.
+        ``store`` is the tiered artifact store's counters
+        (:func:`~dmlc_tpu_torch.store.manager.store_counters`): the live
+        managed bytes of every store this process opened, and the
+        process-wide evictions and eviction-triggered rebuilds, since a
+        budget squeeze from any pipeline can evict this one's files."""
         plan_state = getattr(self.source, "plan_state", None) or {}
         snap = self.snapshot_path is not None
         # the source chain's parse fan-out (ParallelTextParser); a
@@ -1879,4 +1891,5 @@ class DeviceIter:
                 "parse_parallel": pstats,
                 "staging_ring": self._ring.stats() if self._ring is not None else None,
                 "autotune": self.autotuner.snapshot() if self.autotuner is not None else None,
-                "resilience": resilience}
+                "resilience": resilience,
+                "store": store_counters()}

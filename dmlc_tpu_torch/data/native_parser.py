@@ -48,7 +48,7 @@ from dmlc_tpu_torch.utils.timer import get_time
 def list_partition_files(uri: str) -> Tuple[List[str], List[int]]:
     """A local URI (``;`` lists, directories) expanded to ``(paths,
     sizes)`` with the input split's matching rules."""
-    lister = LineSplitter(uri)
+    lister = LineSplitter(uri, None)  # the listing only: no partition
     try:
         return ([info.path.name for info in lister.files],
                 [info.size for info in lister.files])
@@ -303,16 +303,20 @@ class NativeStreamParser(Parser):
             self._reader = None
 
 
-def native_reader_eligible(uri: str, type_: str, threaded: bool) -> bool:
+def native_reader_eligible(uri: str, type_: str, threaded: bool,
+                           split_kw: Optional[Dict] = None) -> bool:
     """Whether ``create_parser`` can route ``uri`` to the fused reader: a
     threaded parse of a plain local text file (no ``#`` fragment, no
-    ``engine=python``) with the native library built. (The JAX package's
-    split decorators, which also keep a URI off the reader, are not
-    ported.)"""
+    ``engine=python``, none of the split layer's decorator keywords) with
+    the native library built."""
     if not threaded or type_ not in ("libsvm", "csv", "libfm"):
         return False
     if "#" in uri or "engine=python" in uri:
-        return False  # a fragment decorator, or the explicit opt-out
+        return False  # the chunk-cache decorator, or the explicit opt-out
+    split_kw = split_kw or {}
+    if any(split_kw.get(k) for k in ("shuffle", "num_shuffle_parts", "index_uri",
+                                     "recurse_directories")):
+        return False
     base = uri.split("?", 1)[0]
     if base == "stdin":
         return False

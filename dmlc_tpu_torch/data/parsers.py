@@ -58,6 +58,7 @@ import hashlib
 import json
 import os
 import threading
+import warnings
 from typing import Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
@@ -67,8 +68,8 @@ from dmlc_tpu_torch.data import epoch as _epoch
 from dmlc_tpu_torch.data.row_block import DenseBlock, RowBlock
 from dmlc_tpu_torch.io import block_cache as _bc
 from dmlc_tpu_torch.io import resilience as _resilience
-from dmlc_tpu_torch.io.input_split import (DEFAULT_CHUNK_BYTES, LineSplitter,
-                                           create_mmap_text_split)
+from dmlc_tpu_torch.io.input_split import (DEFAULT_CHUNK_BYTES, InputSplit,
+                                           create_input_split, create_mmap_text_split)
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
 from dmlc_tpu_torch.io.uri import URISpec
 from dmlc_tpu_torch.parallel.distributed import pod_identity
@@ -148,7 +149,7 @@ class TextParserBase(Parser):
     # whether the native engine has a dense scanner for this format
     _dense_scanner: bool = False
 
-    def __init__(self, source: LineSplitter, engine: str = "auto"):
+    def __init__(self, source: InputSplit, engine: str = "auto"):
         check(engine in ("auto", "python"), f"unknown parse engine {engine!r}")
         self.source = source
         self._bytes = 0      # chunk bytes pulled, over the parser's life
@@ -212,9 +213,10 @@ class TextParserBase(Parser):
     def _pull_chunk(self):
         """One serial chunk pull with its bookkeeping: the read seconds, the
         byte and chunk counts, and the resume annotation of the position
-        just after the chunk. Shared by :meth:`next_block` and the fan-out's
-        serial stage, so the two cannot annotate differently. ``(None,
-        None)`` at the end of the stream."""
+        just after the chunk (None when the split has no chunk-synchronized
+        state: the chunk cache, the shuffle decorator, stdin). Shared by
+        :meth:`next_block` and the fan-out's serial stage, so the two cannot
+        annotate differently. ``(None, None)`` at the end of the stream."""
         t0 = get_time()
         chunk = self.source.next_chunk()
         dt = get_time() - t0
@@ -225,8 +227,10 @@ class TextParserBase(Parser):
             return None, None
         self._bytes += len(chunk)
         self._chunks_in += 1
-        return chunk, {"kind": "split", "split": self.source.chunk_resume_state,
-                       "chunks": self._chunks_in}
+        split_state = getattr(self.source, "chunk_resume_state", None)
+        if split_state is None:
+            return chunk, None
+        return chunk, {"kind": "split", "split": split_state, "chunks": self._chunks_in}
 
     def next_block(self):
         while True:
@@ -241,7 +245,8 @@ class TextParserBase(Parser):
             if len(block) > 0:
                 # the position just AFTER this block: prefetching layers
                 # downstream checkpoint byte-exactly through it
-                block.resume_state = annot
+                if annot is not None:
+                    block.resume_state = annot
                 return block
 
     def before_first(self) -> None:
@@ -255,15 +260,23 @@ class TextParserBase(Parser):
         self._chunks_in = 0
 
     def state_dict(self) -> dict:
-        """The split's position after the last chunk pulled (the split
-        is undecorated, so its live state is exact)."""
-        return {"kind": "split", "split": self.source.chunk_resume_state,
-                "chunks": self._chunks_in}
+        """The split's position after the last chunk pulled, where the
+        split has a chunk-synchronized state (an undecorated splitter, or
+        the prefetching :class:`~dmlc_tpu_torch.io.input_split.\
+ThreadedInputSplit`, whose chunks carry the position they were produced
+        at); else the chunk count, replayed on restore."""
+        split_state = getattr(self.source, "chunk_resume_state", None)
+        if split_state is not None:
+            return {"kind": "split", "split": split_state, "chunks": self._chunks_in}
+        if self._chunks_in == 0 and hasattr(self.source, "state_dict"):
+            # the epoch start: no chunk pulled yet, the live state is exact
+            return {"kind": "split", "split": self.source.state_dict(), "chunks": 0}
+        return {"kind": "chunks", "chunks": self._chunks_in}
 
     def load_state(self, state: dict) -> None:
         """Seek for a ``split`` state; replay the chunk count, without
         parsing, for a ``chunks`` state."""
-        if state.get("kind") == "split":
+        if state.get("kind") == "split" and hasattr(self.source, "load_state"):
             self.source.load_state(state["split"])
         else:
             self.before_first()
@@ -406,7 +419,7 @@ class LibSVMParser(TextParserBase):
 
     _dense_scanner = True
 
-    def __init__(self, source: LineSplitter, args: Dict[str, str] | None = None,
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
                  engine: str = "auto"):
         super().__init__(source, engine)
         self.param = LibSVMParserParam()
@@ -521,7 +534,7 @@ class CSVParser(TextParserBase):
 
     _dense_scanner = True
 
-    def __init__(self, source: LineSplitter, args: Dict[str, str] | None = None,
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
                  engine: str = "auto"):
         super().__init__(source, engine)
         self.param = CSVParserParam()
@@ -643,7 +656,7 @@ def csv_cells_to_block(cells: np.ndarray, n: int, ncol: int, label_column: int,
 class LibFMParser(TextParserBase):
     """libfm ``label field:idx:val`` -> RowBlock (libfm_parser.h:85-143)."""
 
-    def __init__(self, source: LineSplitter, args: Dict[str, str] | None = None,
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
                  engine: str = "auto"):
         super().__init__(source, engine)
         self.param = LibFMParserParam()
@@ -1223,8 +1236,8 @@ class BlockCacheIter(Parser):
         if corruption:
             _resilience.record_event("cache_corruptions")
             _resilience.record_event("cache_rebuilds")
-        self._drop_reader()
-        _bc.remove_quietly(self.cache_file)
+        self._drop_reader()  # releases the reader's pin first
+        _bc._artifact_store(self.cache_file).discard(self.cache_file)
         self._abort_writer()
         base = self.base
         base.before_first()
@@ -1251,8 +1264,8 @@ class BlockCacheIter(Parser):
         and deliver from the broken block on."""
         _resilience.record_event("cache_corruptions")
         _resilience.record_event("cache_rebuilds")
-        self._drop_reader()
-        _bc.remove_quietly(self.cache_file)
+        self._drop_reader()  # releases the reader's pin first
+        _bc._artifact_store(self.cache_file).discard(self.cache_file)
         self._abort_writer()
         self._mode = "cold"
         self._shadow = True
@@ -1543,30 +1556,46 @@ def _resolve_block_cache(spec: URISpec, part_index: int, num_parts: int,
 
 
 def _parallel_chunk_source(uri: str, part_index: int, num_parts: int,
-                           chunk_bytes: int) -> LineSplitter:
-    """The chunk source under the parse fan-out: a single local file gets
-    the zero-copy :class:`~dmlc_tpu_torch.io.MmapLineSplit`, whose chunks
-    on one file are the stream's, so per-chunk semantics (``indexing_mode
-    = -1``, per-chunk checks) cannot differ between worker counts. Several
-    files keep the stream split, whose chunks may span a file join."""
-    split = create_mmap_text_split(uri, part_index, num_parts, chunk_bytes=chunk_bytes)
-    if len(split.files) == 1:
-        return split
-    split.close()
-    return LineSplitter(uri, part_index, num_parts, chunk_bytes=chunk_bytes)
+                           **split_kw) -> InputSplit:
+    """The chunk source under the parse fan-out: a plain single local file
+    gets the zero-copy :class:`~dmlc_tpu_torch.io.MmapLineSplit`, whose
+    chunks on one file are the stream's, so per-chunk semantics
+    (``indexing_mode = -1``, per-chunk checks) cannot differ between worker
+    counts. Several files, a chunk cache and the split decorators keep the
+    standard split stack (:func:`create_input_split`), whose chunks are
+    the one-worker chain's."""
+    plain = ("#" not in uri
+             and not any(split_kw.get(k) for k in
+                         ("shuffle", "num_shuffle_parts", "index_uri", "recurse_directories")))
+    if plain and uri.split("?", 1)[0] != "stdin":
+        try:
+            split = create_mmap_text_split(
+                uri, part_index, num_parts,
+                chunk_bytes=split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES))
+            if len(split.files) == 1:
+                return split
+            split.close()  # several files: a join changes the chunk grouping
+        except (DMLCError, OSError, ValueError):
+            pass  # not mappable: the stream stack serves it
+    return create_input_split(uri, part_index, num_parts, "text", threaded=True, **split_kw)
 
 
 def _make_text_parser(cls):
     """The registry entry of a text format (the JAX package's factory):
     ``parse_workers > 1`` under ``threaded`` builds the fan-out, else the
-    one-lane chain, or the bare parser without ``threaded``."""
+    one-lane chain over :func:`create_input_split` (a
+    :class:`~dmlc_tpu_torch.io.ThreadedInputSplit` under a
+    :class:`ThreadedParser`), or the bare parser over the bare split
+    without ``threaded``. ``split_kw`` are :func:`create_input_split`'s
+    keywords."""
     def factory(uri: str, args: dict, part_index: int, num_parts: int, threaded: bool,
-                parse_workers: Optional[int], chunk_bytes: int, engine: str) -> Parser:
+                parse_workers: Optional[int], engine: str, **split_kw) -> Parser:
         workers = _knobs.resolve("parse_workers", parse_workers)
         if threaded and workers > 1:
-            source = _parallel_chunk_source(uri, part_index, num_parts, chunk_bytes)
+            source = _parallel_chunk_source(uri, part_index, num_parts, **split_kw)
             return ParallelTextParser(cls(source, args, engine=engine), num_workers=workers)
-        source = LineSplitter(uri, part_index, num_parts, chunk_bytes=chunk_bytes)
+        source = create_input_split(uri, part_index, num_parts, "text", threaded=threaded,
+                                    **split_kw)
         base = cls(source, args, engine=engine)
         return ThreadedParser(base) if threaded else base
     return factory
@@ -1578,15 +1607,25 @@ _PARSERS = {"libsvm": _make_text_parser(LibSVMParser),
             "libfm": _make_text_parser(LibFMParser),
             "csv": _make_text_parser(CSVParser)}
 
+# the intra-block row-shuffle window the legacy ``shuffle=True`` split
+# argument maps onto when a block cache serves the epoch (the JAX value)
+LEGACY_SHUFFLE_WINDOW = 4096
+
 
 def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
                     num_parts: int, threaded: bool, parse_workers: Optional[int],
-                    chunk_bytes: int, engine: str) -> Parser:
+                    engine: str, **split_kw) -> Parser:
     """The JAX package's engine chain (``_create_parser_uncached``) over a
     resolved engine: ``auto`` or ``native`` take the fused native reader
     for a plain local corpus (unless ``DMLC_TPU_NO_NATIVE_READER`` is set),
     and everything else the registry stack; ``python`` pins the numpy
-    scanner under every wrapper of that stack."""
+    scanner under every wrapper of that stack. A ``#cachefile`` fragment
+    stays on ``uri``: it keeps the corpus off the fused reader and arms the
+    chunk cache at the split layer."""
+    split_uri = spec.uri
+    if "#" in uri:
+        # create_input_split derives the partition-qualified cache name
+        split_uri = f"{spec.uri}#{uri.split('#', 1)[1]}"
     if engine == "native-batch":
         # the chunk-batch engine is not ported: this is the reference's
         # branch for a config its batch kernel cannot serve, loud, and on
@@ -1599,11 +1638,11 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
             and os.environ.get("DMLC_TPU_NO_NATIVE_READER", "0") in ("", "0")):
         from dmlc_tpu_torch.data import native_parser as _native_parser
 
-        if _native_parser.native_reader_eligible(uri, type_, threaded):
+        if _native_parser.native_reader_eligible(uri, type_, threaded, split_kw):
             try:
                 return _native_parser.NativeStreamParser(
                     spec.uri, spec.args, part_index, num_parts, type_,
-                    chunk_bytes=chunk_bytes)
+                    chunk_bytes=split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES))
             except DMLCError:
                 pass  # e.g. a csv dtype the native scanner lacks: the registry stack
     if engine == "native":
@@ -1612,18 +1651,22 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
             "(URI/threading outside the fused reader's eligibility, "
             "DMLC_TPU_NO_NATIVE_READER, or toolchain); using the Python "
             "engine", uri, type_)
-    return _PARSERS[type_](spec.uri, spec.args, part_index, num_parts, threaded,
-                           parse_workers, chunk_bytes,
-                           "python" if engine == "python" else "auto")
+    return _PARSERS[type_](split_uri, spec.args, part_index, num_parts, threaded,
+                           parse_workers, "python" if engine == "python" else "auto",
+                           **split_kw)
+
+
+# create_input_split's keywords, which create_parser passes down
+_SPLIT_KEYWORDS = ("index_uri", "shuffle", "seed", "batch_size", "recurse_directories",
+                   "num_shuffle_parts", "chunk_bytes")
 
 
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                   type_: str = "auto", index_dtype=np.uint64, threaded: bool = True,
                   *, parse_workers: Optional[int] = None, engine: Optional[str] = None,
-                  snapshot: Optional[str] = None,
-                  chunk_bytes: int = DEFAULT_CHUNK_BYTES, block_cache: Optional[str] = None,
+                  snapshot: Optional[str] = None, block_cache: Optional[str] = None,
                   shuffle_seed: Optional[int] = None, shuffle_window: int = 0,
-                  pod_sharding=False) -> Parser:
+                  pod_sharding=False, **split_kw) -> Parser:
     """Parser factory — analog of dmlc::Parser::Create (src/data.cc:62-85).
 
     The positional parameters are the JAX package's: ``type_`` is
@@ -1650,14 +1693,26 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     ``DMLC_TPU_PARSE_WORKERS``, else ``min(4, cpus)``), over a zero-copy
     :class:`~dmlc_tpu_torch.io.MmapLineSplit` for a single local file, or
     with ``parse_workers=1`` on one thread (:class:`ThreadedParser` over a
+    :class:`~dmlc_tpu_torch.io.ThreadedInputSplit` over a
     :class:`~dmlc_tpu_torch.io.LineSplitter`, as in the JAX package);
     ``threaded=False`` returns the bare parser. The blocks are the same at
     every worker count, and so are the states above one worker. A state
     marks the same position at every count and restores in either split,
     but the one-thread chain's carries the stream split's read-ahead
-    ``overflow``, so its JSON differs. The port's own options are
-    keyword-only: ``chunk_bytes`` is the split's chunk size (at least 4096),
-    which sets the blocks and enters the cache and snapshot signature.
+    ``overflow``, so its JSON differs. The keywords after ``threaded``
+    are keyword-only.
+
+    ``split_kw`` are :func:`~dmlc_tpu_torch.io.input_split.create_input_split`'s
+    keywords, the JAX package's: ``chunk_bytes`` (the split's chunk size,
+    at least 4096, which sets the blocks), ``shuffle`` / ``seed`` /
+    ``num_shuffle_parts`` (the chunk-shuffle decorator), ``index_uri``,
+    ``batch_size`` and ``recurse_directories``; they enter the cache and
+    snapshot signature as in the JAX package. A ``#cachefile`` fragment
+    (``path#cache``, ``.split<N>.part<K>`` for one of several parts) arms
+    the chunk cache at the split layer
+    (:mod:`dmlc_tpu_torch.io.cached_split`) and keeps the corpus off the
+    fused native reader: the first epoch writes it, later epochs read only
+    it.
 
     ``block_cache`` (else a ``#blockcache=<path>`` fragment, else the
     ``DMLC_TPU_BLOCK_CACHE`` directory) returns a :class:`BlockCacheIter`
@@ -1671,21 +1726,31 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     tuple. The plan knobs need a cache and stay out of its signature, so
     one cache serves every ``(seed, window, sharding)``.
 
-    ``snapshot`` arms the snapshot store: the parser carries
+    ``snapshot`` (else a ``#snapshot=<path>`` fragment) arms the snapshot
+    store: the parser carries
     ``snapshot_path`` (suffixed ``.split<N>.part<K>`` for one of several
     parts) and ``snapshot_signature``, the source key a snapshot is bound
     to, which a :class:`~dmlc_tpu_torch.data.device.DeviceIter` over it
     picks up. It does not combine with ``shuffle_seed``: shuffled snapshot
     epochs come from ``DeviceIter``'s ``snapshot_shuffle_seed``.
 
+    The legacy shuffle arguments: without a block cache, ``shuffle`` /
+    ``num_shuffle_parts`` / ``seed`` build the split layer's
+    :class:`~dmlc_tpu_torch.io.input_split.ShuffledInputSplit`; with one,
+    they map onto the epoch plan as in the JAX package, with its
+    ``DeprecationWarning``: ``shuffle_seed`` defaults to ``seed``,
+    ``shuffle=True`` sets ``shuffle_window`` to
+    :data:`LEGACY_SHUFFLE_WINDOW` where it was 0, and the three arguments
+    leave the cache signature (one cache serves every seed).
+
     The signatures equal the JAX package's for the same corpus, format
     and arguments (the engine and worker knobs stay out of them), so a
-    cache or a snapshot written by either package opens in the other. The
-    JAX package's mapping of the split layer's legacy ``shuffle`` /
-    ``num_shuffle_parts`` arguments onto the plan has nothing to map from
-    here, as the port's split takes no such arguments.
+    cache or a snapshot written by either package opens in the other.
     """
-    spec = URISpec(uri)
+    unknown = sorted(set(split_kw) - set(_SPLIT_KEYWORDS))
+    if unknown:
+        raise TypeError(f"create_parser() got unexpected keyword arguments {unknown}")
+    spec = URISpec(uri, part_index, num_parts)
     if type_ == "auto":
         type_ = spec.args.get("format", "libsvm")
     if type_ not in _PARSERS:
@@ -1695,6 +1760,8 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                         "parses uint64 indices only")
     engine = _knobs.parse_engine(engine if engine is not None else spec.args.get("engine"))
     bc_path = _resolve_block_cache(spec, part_index, num_parts, block_cache)
+    if snapshot is None:
+        snapshot = spec.snapshot
     if snapshot is not None and num_parts != 1:
         snapshot = f"{snapshot}.split{num_parts}.part{part_index}"
     check(snapshot is None or shuffle_seed is None,
@@ -1702,16 +1769,41 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
           "freezes one epoch's batch order) — use DeviceIter's "
           "snapshot_shuffle_seed for shuffled snapshot epochs "
           "(docs/data.md)")
-    # the engine is left out of the signature: every engine emits the
-    # same blocks from the same chunks
+    if spec.block_cache is not None or spec.snapshot is not None:
+        # cache/snapshot routing, not a chunk cache: the engines see a plain URI
+        uri = uri.split("#", 1)[0]
+    if bc_path is not None and (split_kw.get("shuffle") or split_kw.get("num_shuffle_parts")):
+        # the JAX package's one-release mapping of the split layer's shuffle
+        # arguments onto the epoch plan that orders the cached blocks
+        warnings.warn(
+            "block_cache + shuffle decorator args (shuffle/"
+            "num_shuffle_parts) now map onto the shuffle-native epoch "
+            "plan; pass shuffle_seed/shuffle_window directly — this "
+            "mapping will be removed in the next release (docs/data.md)",
+            DeprecationWarning, stacklevel=2)
+        if shuffle_seed is None:
+            shuffle_seed = int(split_kw.get("seed", 0) or 0)
+        if split_kw.pop("shuffle", None) and shuffle_window == 0:
+            shuffle_window = LEGACY_SHUFFLE_WINDOW
+        split_kw.pop("num_shuffle_parts", None)
+        # the seed lives in the plan now, which stays out of the signature
+        split_kw.pop("seed", None)
+        get_logger().warning(
+            "create_parser: mapping legacy shuffle decorator args onto "
+            "the epoch plan (effective shuffle_seed=%s, shuffle_window=%s)",
+            shuffle_seed, shuffle_window)
+    # the engine is left out of the signature (every engine emits the same
+    # blocks from the same chunks); the split layer's config is in it
     signature = _bc.source_signature(
         spec.uri, part_index, num_parts, format=type_,
         args={k: v for k, v in spec.args.items() if k != "engine"},
-        index_dtype=np.dtype(np.uint64).str, chunk_bytes=int(chunk_bytes), split={})
+        index_dtype=np.dtype(np.uint64).str,
+        chunk_bytes=int(split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES)),
+        split={k: v for k, v in sorted(split_kw.items()) if k != "chunk_bytes"})
 
     def build() -> Parser:
-        return _build_uncached(uri.split("#", 1)[0], spec, type_, part_index, num_parts,
-                               threaded, parse_workers, chunk_bytes, engine)
+        return _build_uncached(uri, spec, type_, part_index, num_parts, threaded,
+                               parse_workers, engine, **split_kw)
 
     if bc_path is None:
         check(shuffle_seed is None and shuffle_window == 0 and not pod_sharding,

@@ -34,16 +34,19 @@ the device side views them as ``torch.bfloat16``. The writer takes a
 ``torch.bfloat16`` tensor and stores it under that name, as the JAX writer
 stores an ``ml_dtypes`` array.
 
-Publishing is local: a writer streams to ``<path>.<pid>.<seq>.tmp``, and
-:func:`finish_container` fsyncs it and moves it into place with
-``os.replace``, so a crash never leaves a torn file under ``path``; a
-stale or corrupt file is removed. The JAX package's tiered artifact store
-(budgets, pins, manifest) is not ported.
+Publishing goes through the tiered artifact store
+(:mod:`dmlc_tpu_torch.store`): a writer streams to the store's staging
+name ``<path>.<pid>.<seq>.tmp`` (:meth:`ArtifactStore.stage_path`), and
+:func:`finish_container` hands it to :meth:`ArtifactStore.publish_file`
+(fsync, atomic rename, a manifest record, the byte budget), so a crash
+never leaves a torn file under ``path``. A reader pins the file it serves
+and drops the pin at close, so a budget squeeze cannot evict it
+mid-epoch; a stale or corrupt file is discarded through the store
+(no tombstone: an invalidation is not an eviction).
 """
 
 from __future__ import annotations
 
-import itertools
 import json
 import mmap
 import os
@@ -69,13 +72,19 @@ _BF16 = "bfloat16"
 # deterministic); optional arrays are absent from a block's footer entry
 SEGMENT_NAMES = ("offset", "label", "weight", "qid", "field", "index", "value")
 
-# process-unique staging names: two writers of one path never share bytes
-_stage_seq = itertools.count()
+
+def _store_manager():
+    """The tiered-store manager module, bound at call time: it sits above
+    the resilience and telemetry layers this module imports."""
+    from dmlc_tpu_torch.store import manager
+
+    return manager
 
 
-def stage_path(path: str) -> str:
-    """A fresh staging name beside ``path``."""
-    return f"{path}.{os.getpid()}.{next(_stage_seq)}.tmp"
+def _artifact_store(path: str):
+    """The :class:`~dmlc_tpu_torch.store.manager.ArtifactStore` owning
+    ``path``'s directory."""
+    return _store_manager().store_for(path)
 
 
 def container_header(magic: bytes, version: int) -> bytes:
@@ -179,16 +188,17 @@ def span_layout(arrays: Dict[str, list], shapes=None, base: int = 0):
 def finish_container(f, tmp_path: str, path: str, footer: dict,
                      magic: bytes) -> None:
     """Write the crc'd JSON ``footer``, the tail record and the closing
-    ``magic``, then fsync and move ``tmp_path`` into place at ``path``."""
+    ``magic``, then publish ``tmp_path`` at ``path`` through the artifact
+    store (fsync + atomic rename + manifest record + byte budget) under the
+    tier its magic names."""
     payload = json.dumps(footer, sort_keys=True, separators=(",", ":")).encode()
     off = _pad_to(f, _ALIGN)
     f.write(payload)
     f.write(struct.pack(_TAIL_FMT, off, len(payload), zlib.crc32(payload) & 0xFFFFFFFF))
     f.write(magic)
-    f.flush()
-    os.fsync(f.fileno())
-    f.close()
-    os.replace(tmp_path, path)
+    _artifact_store(path).publish_file(
+        tmp_path, path, tier=_store_manager().tier_for_magic(magic),
+        signature=footer.get("signature"), fobj=f)
 
 
 def open_container(path: str, magic: bytes, version: int, what: str):
@@ -265,28 +275,21 @@ def source_signature(uri: str, part_index: int, num_parts: int, **config) -> dic
     })
 
 
-def remove_quietly(path: str) -> None:
-    try:
-        os.remove(path)
-    except OSError:
-        pass
-
-
 # ---------------- the block cache: writer, reader, open helper ----------------
 
 
 class BlockCacheWriter:
     """Streams checksummed columnar block segments to a staging file;
-    :meth:`finish` writes the footer and publishes it at ``path`` (fsync +
-    ``os.replace``)."""
+    :meth:`finish` writes the footer and publishes it at ``path`` through
+    the artifact store."""
 
     def __init__(self, path: str, signature: Optional[dict] = None):
         self.path = path
         self._sig = signature or {}
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        # a process-unique staging name: two writers of one path never
-        # share half-written bytes
-        self.tmp_path = stage_path(path)
+        # a process-unique staging name from the store: two writers of one
+        # path never share half-written bytes
+        self.tmp_path = _artifact_store(path).stage_path(path)
         self._f = open(self.tmp_path, "wb")
         self._f.write(container_header(BLOCK_CACHE_MAGIC, BLOCK_CACHE_VERSION))
         self._entries: List[dict] = []
@@ -331,7 +334,10 @@ class BlockCacheWriter:
         if self._f is not None:
             self._f.close()
             self._f = None
-        remove_quietly(self.tmp_path)
+        try:
+            os.remove(self.tmp_path)
+        except OSError:
+            pass
 
     def close(self) -> None:
         if not self._finished:
@@ -344,11 +350,13 @@ class BlockCacheReader:
 
     The views alias the mmap: a block built on them keeps :attr:`hold`
     (the mmap) alive, and :meth:`close` leaves an mmap with live views to
-    the garbage collector instead of closing it under them."""
+    the garbage collector instead of closing it under them. The reader
+    pins the file in its store while it is open."""
 
     def __init__(self, path: str, signature: Optional[dict] = None, verify: bool = True):
         self.path = path
         self.verify = verify
+        self._store_pinned = False
         self._file, self._mm, footer = open_container(
             path, BLOCK_CACHE_MAGIC, BLOCK_CACHE_VERSION, f"block cache {path}")
         try:
@@ -358,6 +366,10 @@ class BlockCacheReader:
             self._blocks = footer["blocks"]
             if signature is not None and self.signature != _normalize(signature):
                 raise DMLCError(f"block cache {path}: source signature mismatch (stale cache)")
+            # while this reader serves the cache, a budget squeeze may not
+            # evict it; the pin drops at close()
+            _artifact_store(path).pin(path)
+            self._store_pinned = True
         except Exception:
             self.close()
             raise
@@ -401,6 +413,14 @@ class BlockCacheReader:
         return segments
 
     def close(self) -> None:
+        # the pin drops first, even when live views keep the mmap open: an
+        # unlinked file stays mapped on POSIX, so the drop is always safe
+        if getattr(self, "_store_pinned", False):
+            self._store_pinned = False
+            try:
+                _artifact_store(self.path).drop(self.path)
+            except OSError:
+                pass
         # an mmap with exported views cannot close (BufferError): the
         # garbage collector reclaims it once the last view is gone
         mm = getattr(self, "_mm", None)
@@ -420,12 +440,17 @@ def open_block_cache(path: str, signature: Optional[dict] = None,
                      verify: bool = True) -> Optional[BlockCacheReader]:
     """Open a published cache, or None when it is missing or must be
     rebuilt (unreadable, another version, a signature mismatch): the stale
-    file is removed and a ``cache_invalidations`` event counted."""
+    file is discarded through the store and a ``cache_invalidations``
+    event counted. A miss on a path the store's manifest marks as evicted
+    counts ``store_rebuilds_after_eviction``: the rebuild the caller now
+    runs is the budget's doing."""
     if not os.path.exists(path):
+        # consults the store only where the directory already has a manifest
+        _store_manager().note_missing(path)
         return None
     try:
         return BlockCacheReader(path, signature=signature, verify=verify)
     except DMLCError:
         _resilience.record_event("cache_invalidations")
-        remove_quietly(path)
+        _artifact_store(path).discard(path)
         return None

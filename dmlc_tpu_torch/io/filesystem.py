@@ -52,6 +52,18 @@ class LocalFileSystem:
                 continue
         return out
 
+    def list_directory_recursive(self, path: URI) -> List[FileInfo]:
+        """BFS recursive listing — analog of filesys.cc:8-25."""
+        out: List[FileInfo] = []
+        queue = [path]
+        while queue:
+            for info in self.list_directory(queue.pop(0)):
+                if info.type == DIR_TYPE:
+                    queue.append(info.path)
+                else:
+                    out.append(info)
+        return out
+
     def open_for_read(self, path: URI) -> BinaryIO:
         try:
             return open(path.name, "rb")
@@ -59,8 +71,10 @@ class LocalFileSystem:
             raise DMLCError(f"LocalFileSystem.open: {path.name!r}: {exc}") from exc
 
 
-def get_filesystem(uri: URI) -> LocalFileSystem:
+def get_filesystem(uri: URI | str) -> LocalFileSystem:
     """The filesystem for ``uri``; only local paths are served here."""
+    if isinstance(uri, str):
+        uri = URI(uri)
     if uri.protocol != "file://":
         raise DMLCError(
             f"unknown filesystem protocol {uri.protocol!r}: dmlc_tpu_torch "

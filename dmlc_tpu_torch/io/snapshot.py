@@ -52,7 +52,8 @@ SNAPSHOT_SEGMENT_NAMES = tuple(f"a{i}" for i in range(MAX_BATCH_ARRAYS))
 
 class SnapshotWriter:
     """Streams checksummed device-layout batches to a staging file;
-    :meth:`finish` writes the footer and publishes it at ``path``."""
+    :meth:`finish` writes the footer and publishes it at ``path`` through
+    the artifact store (:mod:`dmlc_tpu_torch.store`)."""
 
     def __init__(self, path: str, signature: Optional[dict] = None,
                  geometry: Optional[dict] = None):
@@ -60,7 +61,8 @@ class SnapshotWriter:
         self._sig = signature or {}
         self._geom = _bc._normalize(geometry or {})
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self.tmp_path = _bc.stage_path(path)
+        # a process-unique staging name from the store
+        self.tmp_path = _bc._artifact_store(path).stage_path(path)
         self._f = open(self.tmp_path, "wb")
         self._f.write(_bc.container_header(SNAPSHOT_MAGIC, SNAPSHOT_VERSION))
         self._entries: List[dict] = []
@@ -101,17 +103,22 @@ class SnapshotWriter:
         if self._f is not None:
             self._f.close()
             self._f = None
-            _bc.remove_quietly(self.tmp_path)
+            try:
+                os.remove(self.tmp_path)
+            except OSError:
+                pass
 
 
 class SnapshotReader:
     """mmap-backed reader: batches decode to zero-copy read-only numpy
     views in their stored shapes (bfloat16 segments as ``uint16`` words).
-    Views alias the mmap, and :meth:`close` tolerates views still alive."""
+    Views alias the mmap, and :meth:`close` tolerates views still alive.
+    The reader pins the file in its store while it is open."""
 
     def __init__(self, path: str, signature: Optional[dict] = None,
                  geometry: Optional[dict] = None):
         self.path = path
+        self._store_pinned = False
         self._file, self._mm, footer = _bc.open_container(
             path, SNAPSHOT_MAGIC, SNAPSHOT_VERSION, f"snapshot {path}")
         try:
@@ -124,6 +131,10 @@ class SnapshotReader:
             if geometry is not None and self.geometry != _bc._normalize(geometry):
                 raise DMLCError(f"snapshot {path}: batch geometry mismatch "
                                 f"(stored {self.geometry})")
+            # a warm epoch streaming this snapshot cannot lose it to a
+            # budget squeeze; the pin drops at close()
+            _bc._artifact_store(path).pin(path)
+            self._store_pinned = True
         except Exception:
             self.close()
             raise
@@ -180,6 +191,14 @@ class SnapshotReader:
         return self._batches[i]["kind"], span, self.layout(i)
 
     def close(self) -> None:
+        # the pin drops first, even with live views (an unlinked file stays
+        # mapped on POSIX)
+        if getattr(self, "_store_pinned", False):
+            self._store_pinned = False
+            try:
+                _bc._artifact_store(self.path).drop(self.path)
+            except OSError:
+                pass
         mm = getattr(self, "_mm", None)
         if mm is not None:
             try:
@@ -197,15 +216,19 @@ def open_snapshot(path: str, signature: Optional[dict] = None,
                   geometry: Optional[dict] = None) -> Optional[SnapshotReader]:
     """Open a published snapshot, or None when it is missing or must be
     rebuilt (unreadable, wrong version, signature or geometry mismatch):
-    a stale file is removed (a ``snapshot_invalidations`` event), so the
-    caller runs a cold pass."""
+    a stale file is discarded through the store (a
+    ``snapshot_invalidations`` event), so the caller runs a cold pass. A
+    miss on a path the store's manifest marks as evicted counts
+    ``store_rebuilds_after_eviction``."""
     if not os.path.exists(path):
+        # consults the store only where the directory already has a manifest
+        _bc._store_manager().note_missing(path)
         return None
     try:
         return SnapshotReader(path, signature=signature, geometry=geometry)
     except DMLCError:
         _resilience.record_event("snapshot_invalidations")
-        _bc.remove_quietly(path)
+        _bc._artifact_store(path).discard(path)
         return None
 
 
@@ -229,6 +252,12 @@ class SnapshotIter:
     in the item's place (``DeviceIter`` copies the batch into a pinned
     staging slot there). :meth:`resize` changes the read width live (the
     autotuner's ``snapshot_read_workers`` knob).
+
+    The feed pins the snapshot in its store before the pool's first read
+    and drops the pin in :meth:`destroy` once the last worker has exited
+    (a worker parked on a full staging ring included), so a budget squeeze
+    published mid-epoch cannot evict the file its workers map, whatever
+    becomes of the reader meanwhile.
     """
 
     def __init__(self, reader: SnapshotReader, order: Optional[np.ndarray] = None,
@@ -243,6 +272,8 @@ class SnapshotIter:
         self._stage = stage
         n = reader.num_batches if order is None else len(order)
         workers = _knobs.resolve("snapshot_read_workers", read_workers)
+        _bc._artifact_store(reader.path).pin(reader.path)
+        self._pinned = True
         self._pool = OrderedWorkerPool(lambda: iter(range(int(start), int(n))), self._read,
                                        num_workers=workers, max_ahead=2 * workers,
                                        counter_label="snapshot_read")
@@ -287,4 +318,10 @@ class SnapshotIter:
         return self._pool.next()
 
     def destroy(self) -> None:
-        self._pool.destroy()
+        self._pool.destroy()  # joins every worker
+        if self._pinned:
+            self._pinned = False
+            try:
+                _bc._artifact_store(self.reader.path).drop(self.reader.path)
+            except OSError:
+                pass

@@ -1,0 +1,711 @@
+"""Tiered artifact store: one lifecycle for every on-disk artifact.
+
+Own copy of the JAX package's ``store/manager.py``. Three artifact tiers
+persist on disk — ``DMLCCHK1`` chunk caches
+(:mod:`dmlc_tpu_torch.io.cached_split`), ``DMLCBC01`` block caches
+(:mod:`dmlc_tpu_torch.io.block_cache`), ``DMLCSN01`` snapshots
+(:mod:`dmlc_tpu_torch.io.snapshot`) — and every one of them is published,
+pinned, dropped and evicted here:
+
+- **One directory layout + crash-safe manifest.** Every directory that
+  holds published artifacts owns a ``.dmlc_store/`` sidecar with an
+  append-only JSONL journal of publish / pin / drop / evict / rebuild
+  events (tier, byte size, build-cost class, signature hash, pid, seq).
+  Appends happen under an ``flock`` so concurrent processes never tear
+  it; a torn final line from a crash is skipped at replay. The journal
+  compacts automatically past :data:`COMPACT_LINES` lines
+  (:class:`~dmlc_tpu_torch.store.journal.AppendJournal`). Its events are
+  the JAX package's, key for key, so a JAX process and a port process
+  sharing a cache directory see one manifest.
+- **Atomic publish through the store.** Writers stage to a
+  process-unique ``<path>.<pid>.<seq>.tmp`` (:meth:`ArtifactStore.\
+stage_path` — two processes publishing the same signature can never
+  clobber each other's half-written bytes) and publish via
+  :meth:`ArtifactStore.publish_file` (fsync + ``os.replace`` + journal,
+  all inside the store — ``tests/test_torch_store_lint.py`` fails direct
+  publishes elsewhere in the port). Orphaned ``.tmp`` files from crashed
+  writers are garbage-collected at store open, age-gated by
+  ``DMLC_TPU_STORE_GC_AGE_SECONDS`` so a live concurrent writer is never
+  raced.
+- **Pin/refcount.** Readers pin the artifact they serve
+  (:meth:`ArtifactStore.pin` / :meth:`ArtifactStore.drop`, refcounted
+  per pid); eviction never touches a pinned artifact, so a warm epoch
+  cannot lose its tier mid-epoch. Pins of dead pids are ignored at
+  replay — a crashed reader cannot wedge the budget.
+- **Byte budgets with cost-aware eviction.** With
+  ``DMLC_TPU_STORE_BUDGET_BYTES`` set (read by
+  :func:`dmlc_tpu_torch.utils.knobs.store_budget_bytes`), every publish
+  enforces the budget: unpinned artifacts are evicted cheapest-to-
+  rebuild first — snapshots (a warm cache still skips the parse), then
+  block caches, then chunk caches (a rebuild re-reads the source) — LRU
+  within a tier. Eviction surfaces to readers as the vanished-cache
+  path: the next open misses, the pipeline rebuilds, and the stream
+  stays byte-identical. The store remembers the eviction (a tombstone in
+  the manifest) so the healing open counts
+  ``store_rebuilds_after_eviction`` next to ``store_evictions``.
+
+Telemetry: current on-disk bytes ride the registry as the
+:data:`~dmlc_tpu_torch.utils.telemetry.STORE_BYTES_METRIC` gauge (labeled
+``root``/``tier``); evictions and eviction-triggered rebuilds are
+resilience events (``store_evictions`` /
+``store_rebuilds_after_eviction``), and every eviction is a ``store``
+entry on the decision ledger. :func:`store_counters` packages all three
+for ``DeviceIter.stats()['store']`` and
+:func:`~dmlc_tpu_torch.utils.telemetry.pod_snapshot`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import itertools
+import json
+import os
+import re
+import threading
+from typing import Dict, List, Optional
+
+from dmlc_tpu_torch.io import resilience as _resilience
+from dmlc_tpu_torch.store.journal import AppendJournal
+from dmlc_tpu_torch.utils import knobs as _knobs
+from dmlc_tpu_torch.utils import telemetry as _telemetry
+from dmlc_tpu_torch.utils.check import check
+
+# the sidecar directory one ArtifactStore owns inside its root
+STORE_DIRNAME = ".dmlc_store"
+MANIFEST_NAME = "manifest.jsonl"
+LOCK_NAME = "lock"
+
+# journal compaction thresholds: past COMPACT_LINES lines (checked at
+# every replay) — or past COMPACT_BYTES on a pin/drop append (a warm
+# steady state pins/drops every epoch without ever replaying, so the
+# append path must bound the file too) — the journal is rewritten as
+# the live state (publish + tombstone + live-pin lines)
+COMPACT_LINES = 4096
+COMPACT_BYTES = 1 << 18
+
+# the staging-name shape stage_path() allocates: <final>.<pid>.<seq>.tmp
+# — orphan GC parses the pid back out so a LIVE local writer's staging
+# file is never collected, however stale its mtime
+_STAGE_RE = re.compile(r"\.(\d+)\.\d+\.tmp$")
+
+# the managed tiers in BUILD-COST order — index IS the cost class, and
+# eviction walks it ascending: snapshots are cheapest to rebuild (the
+# block cache below them still skips the parse), chunk caches dearest
+# (a rebuild re-reads the possibly-remote source)
+TIERS = ("snapshot", "block_cache", "chunk_cache")
+TIER_COST = {tier: cost for cost, tier in enumerate(TIERS)}
+
+# container magics of the store-managed formats (pinned by the formats'
+# golden files — the store never parses past these 8 bytes)
+MAGIC_TIERS = {
+    b"DMLCSN01": "snapshot",
+    b"DMLCBC01": "block_cache",
+    b"DMLCCHK1": "chunk_cache",
+}
+
+_stage_seq = itertools.count(1)
+
+# the active publish owner (a service job name), thread-local: service
+# workers wrap a part's whole parse in publish_owner(job) so every
+# artifact the parse publishes — however deep in the block-cache /
+# chunk-cache machinery the write happens — lands in the manifest with
+# its owning-job ledger entry
+_owner_tls = threading.local()
+
+
+@contextlib.contextmanager
+def publish_owner(job: Optional[str]):
+    """Attribute every publish on this thread to ``job`` for the scope
+    (nested scopes restore the outer owner). The owner rides the
+    manifest's publish events, so per-tenant budget eviction can filter
+    candidates by owning job."""
+    prev = getattr(_owner_tls, "job", None)
+    _owner_tls.job = str(job) if job else None
+    try:
+        yield
+    finally:
+        _owner_tls.job = prev
+
+
+def current_publish_owner() -> Optional[str]:
+    """The thread's active publish-owner job, or None (unowned — only
+    the fleet-wide budget applies to such artifacts)."""
+    return getattr(_owner_tls, "job", None)
+
+
+def tier_for_magic(magic: bytes) -> str:
+    """The tier a container magic publishes under."""
+    tier = MAGIC_TIERS.get(bytes(magic))
+    check(tier is not None,
+          f"store: unknown container magic {magic!r} — store-managed "
+          f"formats are {sorted(m.decode() for m in MAGIC_TIERS)}")
+    return tier
+
+
+def signature_hash(signature) -> Optional[str]:
+    """Short stable digest of an artifact's staleness signature (the
+    manifest records identity, not the full — possibly large — file
+    list)."""
+    if signature is None:
+        return None
+    payload = json.dumps(signature, sort_keys=True,
+                         separators=(",", ":"), default=str)
+    return hashlib.sha1(payload.encode()).hexdigest()[:16]
+
+
+def _pid_alive(pid: int) -> bool:
+    if pid == os.getpid():
+        return True
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except (PermissionError, OSError):  # exists, other owner
+        return True
+    return True
+
+
+class _Entry:
+    """Replayed live state of one artifact."""
+
+    __slots__ = ("name", "tier", "bytes", "sig", "seq", "pins", "evicted",
+                 "job")
+
+    def __init__(self, name: str, tier: str, nbytes: int,
+                 sig: Optional[str], seq: int,
+                 job: Optional[str] = None):
+        self.name = name
+        self.tier = tier
+        self.bytes = int(nbytes)
+        self.sig = sig
+        self.seq = seq          # last event seq — the LRU clock
+        self.pins: Dict[int, int] = {}   # pid -> refcount
+        self.evicted = False    # tombstone: evicted, rebuild not yet seen
+        self.job = job          # owning-job ledger (per-tenant budgets)
+
+    def pinned(self) -> bool:
+        return any(n > 0 and _pid_alive(pid)
+                   for pid, n in self.pins.items())
+
+
+class ArtifactStore:
+    """The lifecycle manager of one directory of published artifacts.
+
+    Obtain instances through :func:`store_for` (process-cached per root);
+    construction garbage-collects orphaned ``.tmp`` staging files, adopts
+    store-managed artifacts published before the manifest existed, and
+    enforces the byte budget once.
+    """
+
+    def __init__(self, root: str):
+        self.root = os.path.abspath(root)
+        self._dir = os.path.join(self.root, STORE_DIRNAME)
+        self._manifest = os.path.join(self._dir, MANIFEST_NAME)
+        self._lock_path = os.path.join(self._dir, LOCK_NAME)
+        os.makedirs(self._dir, exist_ok=True)
+        # the shared append-only JSONL substrate (flock'd appends,
+        # torn-tail skip, atomic rewrite) — store.journal.AppendJournal
+        self._journal = AppendJournal(self._manifest,
+                                      lock_path=self._lock_path)
+        # live cold-build claims:
+        # name -> {"owner", "pid"}; refreshed by every replay
+        self._claims: Dict[str, dict] = {}
+        with self._locked():
+            self._gc_orphans_locked()
+            state = self._replay_locked()
+            self._adopt_strays_locked(state)
+            self._enforce_budget_locked(state)
+            self._set_gauges_locked(state)
+
+    # ---------------- locking ----------------
+
+    def _locked(self):
+        """In-process mutex + cross-process ``flock`` over the sidecar
+        (the journal's lock, reentrant per thread)."""
+        return self._journal.locked()
+
+    # ---------------- journal ----------------
+
+    def _append_locked(self, event: dict, sync: bool = False) -> None:
+        # publish/evict records must survive a crash — a lost pin/drop
+        # line only loses an ephemeral per-pid refcount
+        self._journal.append(event, sync=sync)
+
+    def _read_lines_locked(self) -> List[str]:
+        return self._journal.read_lines()
+
+    def _replay_locked(self) -> Dict[str, _Entry]:
+        """Reconstruct live state from the journal. Undecodable lines
+        (only the torn tail of a crashed append can be one — appends are
+        single writes under the lock) are skipped; pins of dead pids are
+        dropped; entries whose file vanished outside the store (manual
+        rm) are dropped without a tombstone."""
+        lines = self._read_lines_locked()
+        entries: Dict[str, _Entry] = {}
+        claims: Dict[str, dict] = {}
+        for seq, raw in enumerate(lines):
+            try:
+                ev = json.loads(raw)
+            except ValueError:
+                continue
+            op = ev.get("op")
+            name = ev.get("path")
+            if not isinstance(name, str):
+                continue
+            if op == "publish":
+                tier = ev.get("tier")
+                if tier not in TIER_COST:
+                    continue
+                e = _Entry(name, tier, int(ev.get("bytes", 0) or 0),
+                           ev.get("sig"), seq, job=ev.get("job"))
+                prev = entries.get(name)
+                if prev is not None:
+                    e.pins = prev.pins  # pins survive a republish
+                entries[name] = e
+                # a publish completes whatever cold build claimed the
+                # path — the claim dissolves with the artifact live
+                claims.pop(name, None)
+            elif op == "pin":
+                e = entries.get(name)
+                if e is not None:
+                    pid = int(ev.get("pid", 0) or 0)
+                    e.pins[pid] = e.pins.get(pid, 0) + 1
+                    e.seq = seq  # a pin is a use: advances the LRU clock
+            elif op == "drop":
+                e = entries.get(name)
+                if e is not None:
+                    pid = int(ev.get("pid", 0) or 0)
+                    n = e.pins.get(pid, 0) - 1
+                    if n > 0:
+                        e.pins[pid] = n
+                    else:
+                        e.pins.pop(pid, None)
+            elif op == "evict":
+                e = entries.get(name)
+                if e is not None:
+                    e.evicted = True
+                    e.seq = seq
+            elif op == "remove":
+                # deliberate invalidation (stale signature, corruption
+                # heal): no tombstone — the rebuild it triggers is not
+                # an eviction casualty
+                entries.pop(name, None)
+                claims.pop(name, None)
+            elif op == "rebuild":
+                e = entries.get(name)
+                if e is not None and e.evicted:
+                    entries.pop(name, None)
+            elif op == "claim":
+                claims[name] = {"owner": str(ev.get("owner", "")),
+                                "pid": int(ev.get("pid", 0) or 0)}
+            elif op == "release":
+                cur = claims.get(name)
+                if cur is not None and cur["owner"] == ev.get("owner"):
+                    claims.pop(name, None)
+        for name, e in list(entries.items()):
+            e.pins = {pid: n for pid, n in e.pins.items()
+                      if n > 0 and _pid_alive(pid)}
+            if not e.evicted and not os.path.exists(
+                    os.path.join(self.root, name)):
+                del entries[name]
+        # a claim whose holder's pid died is dropped — a crashed cold
+        # builder must never wedge the fleet behind a stranded claim
+        self._claims = {name: c for name, c in claims.items()
+                        if _pid_alive(c["pid"])}
+        self._maybe_compact_locked(entries, len(lines))
+        return entries
+
+    def _maybe_compact_locked(self, entries: Dict[str, _Entry],
+                              nlines: int) -> None:
+        if nlines <= COMPACT_LINES:
+            return
+
+        def live_events():
+            for e in sorted(entries.values(), key=lambda e: e.seq):
+                pub = {"op": "publish", "path": e.name, "tier": e.tier,
+                       "bytes": e.bytes, "sig": e.sig,
+                       "cost": TIER_COST[e.tier]}
+                if e.job:
+                    # the owning-job ledger survives compaction — a
+                    # per-tenant budget squeeze after a compaction must
+                    # still know whose artifact is whose
+                    pub["job"] = e.job
+                yield pub
+                if e.evicted:
+                    yield {"op": "evict", "path": e.name}
+                for pid, n in e.pins.items():
+                    for _ in range(n):
+                        yield {"op": "pin", "path": e.name, "pid": pid}
+            # live claims survive compaction (emitted after publishes so
+            # the publish-clears-claim replay rule cannot eat them)
+            for name, c in self._claims.items():
+                yield {"op": "claim", "path": name,
+                       "owner": c["owner"], "pid": c["pid"]}
+
+        self._journal.rewrite(live_events())
+        # replayed seqs are now compacted-file line numbers; entries keep
+        # their relative LRU order, which is all eviction consults
+
+    # ---------------- open-time maintenance ----------------
+
+    def _gc_orphans_locked(self) -> None:
+        """Remove ``*.tmp`` staging files abandoned by crashed writers.
+        A staging name carries its writer's pid — a pid that is still
+        alive on this host is a LIVE writer, never collected no matter
+        how stale the mtime (a cold pass can stall behind retry backoff
+        far longer than any age gate). Dead/foreign ``.tmp`` files are
+        additionally age-gated, which covers pid recycling and writers
+        on other hosts of a shared filesystem."""
+        max_age = _knobs.store_gc_age_seconds()
+        try:
+            names = os.listdir(self.root)
+        except OSError:
+            return
+        import time
+
+        now = time.time()
+        for name in names:
+            if not name.endswith(".tmp"):
+                continue
+            m = _STAGE_RE.search(name)
+            if m is not None and _pid_alive(int(m.group(1))):
+                continue  # live local writer: racing it would corrupt
+                #           an in-flight publish
+            path = os.path.join(self.root, name)
+            try:
+                if not os.path.isfile(path):
+                    continue
+                if now - os.path.getmtime(path) <= max_age:
+                    continue
+                os.remove(path)
+            except OSError:
+                continue
+
+    def _adopt_strays_locked(self, state: Dict[str, _Entry]) -> None:
+        """Bring store-managed artifacts published before the manifest
+        existed (older builds) under management: sniff the 8-byte magic,
+        journal a publish. Adopted artifacts are budget-counted and
+        evictable like any other."""
+        try:
+            names = os.listdir(self.root)
+        except OSError:
+            return
+        seq = None  # manifest read once, then a running counter
+        for name in sorted(names):
+            if name in state or name.endswith(".tmp") \
+                    or name == STORE_DIRNAME:
+                continue
+            path = os.path.join(self.root, name)
+            try:
+                if not os.path.isfile(path):
+                    continue
+                with open(path, "rb") as f:
+                    magic = f.read(8)
+            except OSError:
+                continue
+            tier = MAGIC_TIERS.get(magic)
+            if tier is None:
+                continue
+            nbytes = os.path.getsize(path)
+            if seq is None:
+                seq = len(self._read_lines_locked())
+            self._append_locked({"op": "publish", "path": name,
+                                 "tier": tier, "bytes": nbytes,
+                                 "sig": None, "cost": TIER_COST[tier],
+                                 "adopted": True})
+            state[name] = _Entry(name, tier, nbytes, None, seq)
+            seq += 1
+
+    # ---------------- budget / eviction ----------------
+
+    def _enforce_budget_locked(self, state: Dict[str, _Entry],
+                               protect: Optional[str] = None) -> None:
+        # per-tenant pass FIRST: a job
+        # over DMLC_TPU_STORE_JOB_BUDGET_BYTES sheds ITS OWN artifacts,
+        # so the offender is bounded before its pressure ever reaches
+        # the fleet-wide pass — one tenant's cold builds can never evict
+        # a sibling's warm set through the shared budget
+        job_budget = _knobs.store_job_budget_bytes()
+        if job_budget is not None:
+            by_job: Dict[str, List[_Entry]] = {}
+            for e in state.values():
+                if not e.evicted and e.job:
+                    by_job.setdefault(e.job, []).append(e)
+            for owned in by_job.values():
+                self._evict_over_locked(owned, job_budget, protect)
+        budget = _knobs.store_budget_bytes()
+        if budget is not None:
+            live = [e for e in state.values() if not e.evicted]
+            self._evict_over_locked(live, budget, protect)
+
+    def _evict_over_locked(self, candidates: List[_Entry], budget: int,
+                           protect: Optional[str]) -> None:
+        """Evict from ``candidates`` until their live bytes fit
+        ``budget``: cheapest-to-rebuild first (tier cost ascending), LRU
+        within a tier (event seq ascending)."""
+        total = sum(e.bytes for e in candidates if not e.evicted)
+        for victim in sorted(candidates, key=lambda e: (TIER_COST[e.tier],
+                                                        e.seq)):
+            if total <= budget:
+                break
+            if victim.evicted or victim.name == protect \
+                    or victim.pinned():
+                # the just-published artifact and every pinned one are
+                # exempt — with nothing else to evict the store may sit
+                # over budget until a pin drops
+                continue
+            try:
+                os.remove(os.path.join(self.root, victim.name))
+            except OSError:
+                pass
+            self._append_locked({"op": "evict", "path": victim.name},
+                                sync=True)
+            victim.evicted = True
+            total -= victim.bytes
+            _resilience.record_event("store_evictions")
+            _telemetry.record_decision(
+                "store", "evict",
+                trigger={"over_bytes": int(total + victim.bytes - budget),
+                         "budget_bytes": int(budget),
+                         "tier": victim.tier,
+                         "bytes": int(victim.bytes)},
+                outcome=f"evicted {victim.name} "
+                        f"(tier {victim.tier}, seq {victim.seq})",
+                root=self.root, job=victim.job or "")
+
+    def _set_gauges_locked(self, state: Dict[str, _Entry]) -> None:
+        per_tier = {tier: 0 for tier in TIERS}
+        for e in state.values():
+            if not e.evicted:
+                per_tier[e.tier] += e.bytes
+        for tier, nbytes in per_tier.items():
+            _telemetry.REGISTRY.gauge(_telemetry.STORE_BYTES_METRIC,
+                                      root=self.root,
+                                      tier=tier).set(nbytes)
+
+    # ---------------- public API ----------------
+
+    def stage_path(self, final_path: str) -> str:
+        """A process-unique staging path for ``final_path`` — concurrent
+        writers (even of the same signature, e.g. two service workers
+        racing the same part) each stream to their own ``.tmp`` and the
+        atomic rename converges on one complete artifact."""
+        return f"{final_path}.{os.getpid()}.{next(_stage_seq)}.tmp"
+
+    def publish_file(self, tmp_path: str, final_path: str, tier: str,
+                     signature=None, fobj=None,
+                     job: Optional[str] = None) -> None:
+        """The one publish path: fsync the staged bytes, atomically
+        rename into place, journal the publish, enforce the byte budget.
+        ``fobj`` is the still-open staging file when the caller has one
+        (saves a reopen); it is closed here either way. ``job`` records
+        the owning tenant in the manifest ledger (per-job budgets);
+        defaults to the thread's :func:`publish_owner` scope."""
+        check(tier in TIER_COST,
+              f"store: unknown tier {tier!r}; managed tiers: {TIERS}")
+        if job is None:
+            job = current_publish_owner()
+        if fobj is not None and not fobj.closed:
+            # fsync BEFORE the atomic rename: without it a crash in the
+            # window can publish a complete-looking artifact whose bytes
+            # never hit the platter
+            fobj.flush()
+            os.fsync(fobj.fileno())
+            fobj.close()
+        else:
+            with open(tmp_path, "rb") as f:
+                os.fsync(f.fileno())
+        name = self._name(final_path)
+        with self._locked():
+            os.replace(tmp_path, final_path)
+            nbytes = os.path.getsize(final_path)
+            pub = {"op": "publish", "path": name, "tier": tier,
+                   "bytes": nbytes, "sig": signature_hash(signature),
+                   "cost": TIER_COST[tier], "pid": os.getpid()}
+            if job:
+                pub["job"] = str(job)
+            self._append_locked(pub, sync=True)
+            state = self._replay_locked()
+            self._enforce_budget_locked(state, protect=name)
+            self._set_gauges_locked(state)
+
+    def pin(self, path: str) -> None:
+        """Refcount-protect ``path`` from eviction (per pid; journaled so
+        other processes' eviction passes see it). Pinning a path the
+        manifest does not know is a no-op — unknown files are never
+        eviction candidates anyway."""
+        with self._locked():
+            self._append_locked({"op": "pin", "path": self._name(path),
+                                 "pid": os.getpid()})
+            self._compact_if_bloated_locked()
+
+    def drop(self, path: str) -> None:
+        """Release one :meth:`pin` reference."""
+        with self._locked():
+            self._append_locked({"op": "drop", "path": self._name(path),
+                                 "pid": os.getpid()})
+            self._compact_if_bloated_locked()
+
+    def _compact_if_bloated_locked(self) -> None:
+        """Bound the journal on the APPEND path too: a warm steady state
+        pins/drops every epoch without ever publishing or replaying, and
+        those appends alone must not grow the sidecar without bound
+        (replay compacts past COMPACT_LINES)."""
+        try:
+            if os.path.getsize(self._manifest) <= COMPACT_BYTES:
+                return
+        except OSError:
+            return
+        self._replay_locked()
+
+    def claim(self, path: str, owner: str) -> bool:
+        """Single-claim the cold build of ``path`` fleet-wide.
+
+        Returns True when ``owner`` now holds (or already held) the
+        build claim; False when a DIFFERENT live owner does — the caller
+        should wait for that builder's publish instead of running a
+        duplicate cold pass. The claim is
+        journaled (crash-safe, cross-process via the manifest flock) and
+        dissolves on the path's publish, an explicit :meth:`release`, or
+        the claimant pid dying."""
+        name = self._name(path)
+        with self._locked():
+            self._replay_locked()
+            cur = self._claims.get(name)
+            if cur is not None and cur["owner"] != owner:
+                return False
+            if cur is None:
+                self._append_locked(
+                    {"op": "claim", "path": name, "owner": str(owner),
+                     "pid": os.getpid()}, sync=True)
+                self._claims[name] = {"owner": str(owner),
+                                      "pid": os.getpid()}
+            return True
+
+    def release(self, path: str, owner: str) -> None:
+        """Release ``owner``'s build claim on ``path`` (no-op when not
+        held — a publish already dissolved it)."""
+        name = self._name(path)
+        with self._locked():
+            self._append_locked({"op": "release", "path": name,
+                                 "owner": str(owner)})
+            if self._claims.get(name, {}).get("owner") == str(owner):
+                self._claims.pop(name, None)
+            self._compact_if_bloated_locked()
+
+    def claimant(self, path: str) -> Optional[str]:
+        """The live owner token of ``path``'s build claim, or None."""
+        with self._locked():
+            self._replay_locked()
+            cur = self._claims.get(self._name(path))
+            return cur["owner"] if cur is not None else None
+
+    def discard(self, path: str) -> None:
+        """Deliberate removal (stale signature, corruption heal): delete
+        the file and clear the manifest entry WITHOUT a tombstone — the
+        rebuild this triggers is the caller's own healing, not an
+        eviction casualty."""
+        with self._locked():
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            self._append_locked({"op": "remove",
+                                 "path": self._name(path)}, sync=True)
+            self._set_gauges_locked(self._replay_locked())
+
+    def note_missing(self, path: str) -> None:
+        """A reader found ``path`` absent. If the manifest shows it was
+        evicted, the open that follows is an eviction-triggered rebuild:
+        count ``store_rebuilds_after_eviction`` once and clear the
+        tombstone."""
+        with self._locked():
+            state = self._replay_locked()
+            e = state.get(self._name(path))
+            if e is None or not e.evicted:
+                return
+            self._append_locked({"op": "rebuild",
+                                 "path": self._name(path)}, sync=True)
+            _resilience.record_event("store_rebuilds_after_eviction")
+
+    # -------- read side --------
+
+    def entries(self) -> List[dict]:
+        """The live manifest state (diagnostics / tests): one dict per
+        known artifact."""
+        with self._locked():
+            state = self._replay_locked()
+        return [{"path": e.name, "tier": e.tier, "bytes": e.bytes,
+                 "sig": e.sig, "pinned": e.pinned(),
+                 "evicted": e.evicted, "job": e.job}
+                for e in sorted(state.values(), key=lambda e: e.seq)]
+
+    def total_bytes(self) -> int:
+        """Live (non-evicted) artifact bytes under management."""
+        with self._locked():
+            state = self._replay_locked()
+        return sum(e.bytes for e in state.values() if not e.evicted)
+
+    def _name(self, path: str) -> str:
+        name = os.path.basename(os.path.abspath(path))
+        check(os.path.dirname(os.path.abspath(path)) == self.root,
+              f"store at {self.root}: artifact {path} lives in a "
+              f"different directory (use store_for(path))")
+        return name
+
+
+# ---------------- process-wide store registry ----------------
+
+_stores: Dict[str, ArtifactStore] = {}
+_stores_mu = threading.Lock()
+
+
+def store_for(path: str) -> ArtifactStore:
+    """The :class:`ArtifactStore` managing ``path``'s directory (cached
+    per root for the process's life — open-time GC/adoption runs once)."""
+    root = os.path.dirname(os.path.abspath(path))
+    with _stores_mu:
+        st = _stores.get(root)
+        if st is None:
+            st = ArtifactStore(root)
+            _stores[root] = st
+        return st
+
+
+def reset_stores() -> None:
+    """Forget cached store instances (tests: a fresh ``store_for`` re-runs
+    open-time GC/adoption/budget enforcement)."""
+    with _stores_mu:
+        _stores.clear()
+
+
+def note_missing(path: str) -> None:
+    """Cheap missing-artifact probe for readers: consult the store ONLY
+    when ``path``'s directory already carries a manifest sidecar. A
+    directory the store never managed cannot hold an eviction tombstone,
+    so a bare existence check of an unmanaged path stays one ``stat`` —
+    it never creates the sidecar or pays the open-time directory scan
+    (the probe may target a large read-only data directory)."""
+    root = os.path.dirname(os.path.abspath(path))
+    if not os.path.exists(os.path.join(root, STORE_DIRNAME,
+                                       MANIFEST_NAME)):
+        return
+    store_for(path).note_missing(path)
+
+
+def store_counters() -> Dict[str, int]:
+    """The store's registry-backed counter triple — what
+    ``DeviceIter.stats()['store']``, the bench JSON line, and
+    :func:`~dmlc_tpu_torch.utils.telemetry.pod_snapshot` carry:
+    ``store_bytes`` (live bytes across every store this process touched),
+    ``store_evictions``, ``store_rebuilds_after_eviction``."""
+    events = _telemetry.REGISTRY.sum_by(_telemetry.RESILIENCE_METRIC,
+                                        "event")
+    return {
+        "store_bytes": int(_telemetry.REGISTRY.sum(
+            _telemetry.STORE_BYTES_METRIC)),
+        "store_evictions": int(round(events.get("store_evictions", 0))),
+        "store_rebuilds_after_eviction": int(round(
+            events.get("store_rebuilds_after_eviction", 0))),
+    }

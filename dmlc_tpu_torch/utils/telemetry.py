@@ -48,8 +48,8 @@ input pipeline uses:
   (:func:`render_prometheus`, :func:`parse_prometheus_text`) and the **pod
   view** (:func:`pod_snapshot`, :func:`format_pod_table`,
   :func:`component_snapshot`, :func:`export_pod_trace`), the JAX
-  package's, output for output. The ``store`` block reads 0 until the port
-  has the tiered store.
+  package's, output for output; the ``store`` block reads the tiered
+  artifact store's live bytes and events (:mod:`dmlc_tpu_torch.store`).
 """
 
 from __future__ import annotations

@@ -43,6 +43,7 @@ from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data import epoch as jax_epoch
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
 from dmlc_tpu.io import resilience as jax_resilience
+from dmlc_tpu.io.uri import URISpec as JaxURISpec
 from dmlc_tpu.utils import knobs as jax_knobs
 from dmlc_tpu.utils.check import DMLCError as JaxDMLCError
 from dmlc_tpu_torch.data import DeviceIter, create_parser
@@ -52,6 +53,7 @@ from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.snapshot import SnapshotReader
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
 from dmlc_tpu_torch.io.uri import URISpec
+from dmlc_tpu_torch.store import STORE_DIRNAME
 from dmlc_tpu_torch.utils import knobs
 from dmlc_tpu_torch.utils.check import DMLCError
 
@@ -153,11 +155,11 @@ def test_writer_reproduces_the_golden_file(tmp_path):
     blk = RowBlock.from_segments(r.load_segments(0), hold=r.hold)
     assert blk.field.tobytes() == _golden_blocks()[0][0]["field"].tobytes()
     r.close()
-    # an aborted writer leaves nothing behind
+    # an aborted writer leaves nothing behind but the store's sidecar
     w = bc.BlockCacheWriter(str(tmp_path / "aborted"))
     w.add_block(_golden_blocks()[1][0], rows=1)
     w.abort()
-    assert sorted(os.listdir(tmp_path)) == ["rebuilt.golden"]
+    assert sorted(os.listdir(tmp_path)) == [STORE_DIRNAME, "rebuilt.golden"]
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
@@ -467,7 +469,14 @@ def test_uri_fragments():
     assert (spec.uri, spec.args, spec.block_cache) == (
         "data.libsvm", {"format": "libsvm"}, "/tmp/c.bc")
     assert URISpec("data.libsvm").block_cache is None
-    for bad, match in (("d#snapshot=/s", "not supported"), ("d#cachefile", "not supported"),
+    # the chunk cache and snapshot fragments are the JAX package's
+    for uri in ("d#snapshot=/s", "d#cachefile", "d?format=csv#c.cache"):
+        for part, nparts in ((0, 1), (1, 3)):
+            got, want = URISpec(uri, part, nparts), JaxURISpec(uri, part, nparts)
+            assert (got.uri, got.args, got.cache_file, got.block_cache, got.snapshot) == (
+                want.uri, want.args, want.cache_file, want.block_cache, want.snapshot)
+    assert URISpec("d#cachefile", 1, 3).cache_file == "cachefile.split3.part1"
+    for bad, match in (("d#service=h:1", "not support"), ("d#snapshot=", "empty path"),
                        ("d#blockcache=", "empty path"), ("d#a#b", "only one")):
         with pytest.raises(DMLCError, match=match):
             URISpec(bad)

@@ -32,6 +32,7 @@ from dmlc_tpu_torch.io.snapshot import (
     open_snapshot,
 )
 from dmlc_tpu_torch.ops.device_decode import quantize_int8
+from dmlc_tpu_torch.store import STORE_DIRNAME
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -202,7 +203,7 @@ def test_abort_leaves_nothing(tmp_path):
     w.add_batch("dense_packed", (np.zeros((4, 5), np.float32),), rows=4)
     assert os.path.exists(w.tmp_path)
     w.abort()
-    assert os.listdir(tmp_path) == []
+    assert os.listdir(tmp_path) == [STORE_DIRNAME]  # the store's sidecar only
     with pytest.raises(DMLCError, match="finished/aborted"):
         w.add_batch("dense_packed", (np.zeros((4, 5), np.float32),), rows=4)
 

@@ -36,6 +36,7 @@ from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
 from dmlc_tpu_torch.data import DeviceIter, PackedDenseBatch, create_parser
 from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.snapshot import SnapshotReader
+from dmlc_tpu_torch.store import STORE_DIRNAME
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError
 
 NUM_COL, BATCH, ROWS = 6, 64, 512
@@ -214,7 +215,8 @@ def test_reset_mid_epoch_publishes_nothing(tmp_path):
     next(it)
     next(it)
     it.reset()
-    assert os.listdir(tmp_path) == ["c.libsvm"]  # no snapshot, no staging file
+    # no snapshot, no staging file: the corpus and the store's sidecar
+    assert sorted(os.listdir(tmp_path)) == [STORE_DIRNAME, "c.libsvm"]
     assert len(_drain(it)) == ROWS // BATCH
     assert os.path.exists(snap)
     next(it)

@@ -2,8 +2,8 @@
 the port had (each on the CPU, ``device="cpu"``):
 
 - C1: ``DeviceIter.stats()`` reports ``batches`` (first) beside
-  ``batches_fed``, and every key of the JAX ``stats()`` but ``store``
-  (queue A item 6) with a value of the same type after the same epoch,
+  ``batches_fed``, and every key of the JAX ``stats()``, ``store``
+  included, with a value of the same type after the same epoch,
   ``resilience``, ``stages``, ``stage_busy`` and ``staging_ring`` key for
   key (on ``ell`` the JAX package has no staging ring, a difference
   ROADMAP C records); ``autotune`` is None when the autotuner is not
@@ -95,7 +95,14 @@ def _c1_stats(tmp_path, layout):
     jax_it.close()
     it.close()
     assert list(got)[0] == "batches" and got["batches"] == got["batches_fed"] == 10
-    assert set(want) - set(got) == {"store"}
+    # every JAX key, and beside them only the port's own counters
+    assert set(want) <= set(got) and set(got) - set(want) == {
+        "batches_fed", "convert_seconds", "device_decode_seconds", "snapshot_read_seconds",
+        "snapshot_write_seconds", "source_wait_seconds"}
+    assert {k: type(v) for k, v in got["store"].items()} == {
+        k: type(v) for k, v in want["store"].items()}
+    assert set(got["store"]) == {"store_bytes", "store_evictions",
+                                 "store_rebuilds_after_eviction"}
     assert got["autotune"] is None and want["autotune"] is None
     jax_tune, tune = _armed_autotune_stats(uri, layout)
     assert type(tune) is dict and type(jax_tune) is dict

@@ -34,6 +34,7 @@ import torch
 
 from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
+from dmlc_tpu.store import manager as jax_store
 from dmlc_tpu.utils import telemetry as jax_telemetry
 from dmlc_tpu.utils.timer import StageMeter as JaxStageMeter
 from dmlc_tpu_torch.data import DeviceIter, create_parser
@@ -43,6 +44,7 @@ from dmlc_tpu_torch.data.row_block import RowBlock
 from dmlc_tpu_torch.io import block_cache as bc
 from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool, ThreadedIter
+from dmlc_tpu_torch.store import manager as port_store
 from dmlc_tpu_torch.utils import telemetry
 from dmlc_tpu_torch.utils.timer import StageMeter, format_stage_table
 
@@ -663,7 +665,7 @@ def _pod(mod):
     return snap, table
 
 
-def test_pod_snapshot_and_table_match_reference():
+def test_pod_snapshot_and_table_match_reference(tmp_path):
     got, want = _pod(telemetry), _pod(jax_telemetry)
     assert got == want
     snap, table = got
@@ -671,6 +673,22 @@ def test_pod_snapshot_and_table_match_reference():
                              "store_rebuilds_after_eviction": 0}
     assert snap["jobs"] == {"j1": {"input_wait_seconds": 0.75, "parts": 3, "slo_wait_frac": 0.05}}
     assert snap["stages"]["transfer"] == 0.5 and "not merged" in table
+    # one published artifact in each package's store: the store block then
+    # reads its live bytes, the same in both
+    blocks = []
+    for mod, store in ((telemetry, port_store), (jax_telemetry, jax_store)):
+        d = tmp_path / mod.__name__
+        d.mkdir()
+        final = str(d / "a.bin")
+        st = store.store_for(final)
+        tmp = st.stage_path(final)
+        with open(tmp, "wb") as f:
+            f.write(b"DMLCBC01" + bytes(120))
+        st.publish_file(tmp, final, tier="block_cache")
+        blocks.append(mod.pod_snapshot()["store"])
+        store.reset_stores()
+    assert blocks[0] == blocks[1] == {"store_bytes": 128, "store_evictions": 0,
+                                      "store_rebuilds_after_eviction": 0}
 
 
 def test_component_snapshot_and_pod_trace_match_reference(tmp_path):
