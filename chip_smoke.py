@@ -301,6 +301,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
     ``DeprecationWarning`` and the plan the JAX package's mapping sets
     (:data:`LEGACY_PLAN`), a cold and a warm epoch; K1 and ``dw`` once a
     step throughout. The phase prints its wall time.
+18. the filesystem registry, the native host engines and the row
+    iterators (``run_host_io``) on phase 3's corpus, in a directory of its
+    own: (a) the corpus's bytes in ``mem://`` (``write_all``), where
+    ``create_parser`` (engine ``auto``) builds the chunk feeder
+    (``NativeFeedParser``) -> ``DeviceIter(ell)`` -> ``LinearLearner``,
+    two epochs; gates: every batch's digest, the first 20 losses and the
+    final weights bit-equal to the fused native reader's run on the local
+    file (the plain local run, two epochs), K1 and ``dw`` once a step and
+    held against their plain versions on a batch of the leg; a snapshot
+    written over the ``mem://`` source by a cold epoch and one warm
+    ``device_decode=True`` epoch from it, its batches equal to the cold
+    ones, K2 once a warm batch; 20 steps of the ``mem://`` pipeline behind
+    a spin in groups of 10, no host sync; (b) ``engine="native-batch"``
+    with ``block_cache=``: the chain is a ``BlockCacheIter`` over the
+    batch engine, the cold epoch writes every block through
+    ``add_block_encoded`` (no ``add_block``), the warm one reads every
+    block's span through ``block_encoded``; both epochs' value digests, the
+    first 20 losses and the final weights bit-equal to the registry
+    stack's Python-engine run (``engine="python"``: a cold epoch that
+    writes a block cache of its own, a warm one from it), and the bit
+    digests to the fused reader's (the native scanners read ``-0.000000``
+    as +0.0 where numpy reads -0.0, in both packages); (c)
+    ``create_row_block_iter(path#pages)``: a ``DiskRowIter`` as
+    ``DeviceIter``'s source, epoch 1 over the pages it built, epoch 2 from
+    a new one with the source renamed away; digests, losses and weights
+    bit-equal to a ``BasicRowIter`` run (the corpus in memory), the page
+    file's bytes; (d) host only: a RecordIO corpus of about 64 MB (records
+    of 1 byte to 32 KiB, every 13th multi-part) and its index through
+    ``NativeRecordIOSplit``, the shuffled ``NativeIndexedRecordIOSplit``
+    and ``NativeFeedRecordIOSplit`` (the same bytes under ``mem://``): the
+    records equal the Python splitters' (as a multiset under the shuffle),
+    records/s of each beside the Python splitter's. Every leg of (a)-(c)
+    prints rows/s and stall share beside the plain local run's and passes
+    each epoch's launches through the K1 / ``dw`` (and K2) gate. The phase
+    prints its wall time.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
@@ -315,7 +350,7 @@ launches the card queues behind a spin (``launch_queue``). Phase 16 runs
 after them (a window opened after a pipeline ran behind a spin can miss a
 device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-17, the windowed ones of phase
+the main paths of phases 3, 6, 7 and 11-18, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14 and
 11 (f)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -2593,6 +2628,7 @@ def parallel_world1_child(path: str, out: str) -> None:
     from dmlc_tpu_torch import LinearLearner
     from dmlc_tpu_torch.ops import ell_matvec as k1
     from dmlc_tpu_torch.parallel import make_mesh
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
     from dmlc_tpu_torch.parallel.launch import free_port
 
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
@@ -2626,9 +2662,9 @@ def parallel_world1_child(path: str, out: str) -> None:
     rec["plain_step_device_ms"] = device_ms(lambda: plain.step(batch), iters=10)
     dense = _first_batches(_par_dense(path, None, 0, 1, device=mesh.device)[1], PAR["steps"])
     rec["fs_world1"] = fs_world1(make_mesh({"data": 1, "model": 1}), batches, dense)
-    dist.destroy_process_group()
     with open(out, "w") as f:
         json.dump(rec, f)
+    exit_rank()  # destroys the group and skips torch's teardown at exit
 
 
 def parallel_nccl_pair_child(out_dir: str) -> None:
@@ -2639,13 +2675,14 @@ def parallel_nccl_pair_child(out_dir: str) -> None:
     import torch
 
     from dmlc_tpu_torch.parallel import init_from_env, make_mesh
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
 
     contract = init_from_env(timeout=timedelta(seconds=PAR["nccl_timeout"]))
     t = make_mesh().all_reduce_(torch.ones(4, device="cuda"))
     torch.cuda.synchronize()
     with open(os.path.join(out_dir, f"nccl_{contract.task_id}.json"), "w") as f:
         json.dump({"sum": t.tolist()}, f)
-    torch.distributed.destroy_process_group()
+    exit_rank()
 
 
 def parallel_pair_child(cfg_path: str) -> None:
@@ -2662,6 +2699,7 @@ def parallel_pair_child(cfg_path: str) -> None:
     from dmlc_tpu_torch.ops import ell_matvec as k1
     from dmlc_tpu_torch.ops import row_scatter as rs
     from dmlc_tpu_torch.parallel import host_shard_info, init_from_env, make_mesh, sync_min
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
 
     cfg = json.load(open(cfg_path))
     init_from_env(backend="gloo", device=cfg["device"], timeout=timedelta(seconds=120))
@@ -2722,7 +2760,7 @@ def parallel_pair_child(cfg_path: str) -> None:
                    os.path.join(cfg["out"], "params.pt"))
     with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    exit_rank()
 
 
 def write_uneven_corpus(path: str, rows: int, seed: int) -> None:
@@ -3162,6 +3200,7 @@ def fs_pair_child(cfg_path: str) -> None:
     from dmlc_tpu_torch import convert
     from dmlc_tpu_torch.ops import ell_matvec as k1
     from dmlc_tpu_torch.parallel import host_shard_info, init_from_env, make_mesh
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
 
     cfg = json.load(open(cfg_path))
     init_from_env(backend="gloo", device=cfg["device"], timeout=timedelta(seconds=300))
@@ -3195,7 +3234,7 @@ def fs_pair_child(cfg_path: str) -> None:
     out["als"] = _fs_als(cfg["ratings"], None, mesh)
     with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    exit_rank()
 
 
 def _fs_reference(cfg: dict, device) -> dict:
@@ -5029,15 +5068,17 @@ class _Digests:
     sync: each row's int64 mix of its bit patterns (indices, values, label,
     weight) and each batch's order-sensitive mix of its rows'. Equal
     streams give equal digests; ``rows()`` sorts the row digests, the
-    multiset of rows."""
+    multiset of rows. With ``canonical_zero`` a value's -0.0 digests as
+    +0.0 (equal values, not equal bits)."""
 
-    def __init__(self, device, k: int = HIGGS_COLS):
+    def __init__(self, device, k: int = HIGGS_COLS, canonical_zero: bool = False):
         import torch
 
         g = torch.Generator(device="cpu").manual_seed(17)
         self._w = torch.randint(1, 1 << 31, (2 * k + 2 + BATCH,), generator=g,
                                 dtype=torch.int64).to(device)
         self._k = k
+        self._canonical_zero = canonical_zero
         self.batch, self.row = [], []
 
     def add(self, batch) -> None:
@@ -5045,8 +5086,10 @@ class _Digests:
 
         k, w = self._k, self._w
         b = batch.indices.shape[0]
+        # -0.0 + 0.0 is +0.0, and every other value is unchanged
+        values = batch.values + 0.0 if self._canonical_zero else batch.values
         r = ((batch.indices.to(torch.int64) * w[:k]).sum(1)
-             + (batch.values.contiguous().view(torch.int32).to(torch.int64) * w[k:2 * k]).sum(1)
+             + (values.contiguous().view(torch.int32).to(torch.int64) * w[k:2 * k]).sum(1)
              + batch.label.contiguous().view(torch.int32).to(torch.int64) * w[2 * k]
              + batch.weight.contiguous().view(torch.int32).to(torch.int64) * w[2 * k + 1])
         self.row.append(r)
@@ -5117,13 +5160,13 @@ def _same_weights(a, b) -> bool:
     return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def _launch_gate(rec: dict, leg: str, k2: bool = False) -> None:
+def _launch_gate(rec: dict, leg: str, k2: bool = False, phase: int = 17) -> None:
     if rec["k1_launches"] < rec["batches"] or rec["dw_launches"] < rec["batches"]:
-        raise AssertionError(f"phase 17 {leg}: K1 {rec['k1_launches']}, dw "
+        raise AssertionError(f"phase {phase} {leg}: K1 {rec['k1_launches']}, dw "
                              f"{rec['dw_launches']} for {rec['batches']} steps")
     if k2 and rec["k2_launches"] != rec["batches"]:
-        raise AssertionError(f"phase 17 {leg}: K2 launched {rec['k2_launches']} times for "
-                             f"{rec['batches']} warm batches")
+        raise AssertionError(f"phase {phase} {leg}: K2 launched {rec['k2_launches']} times "
+                             f"for {rec['batches']} warm batches")
 
 
 def run_store_cachefile(path: str, d: str, device) -> dict:
@@ -5390,6 +5433,391 @@ def run_store(path: str, tmp: str, device) -> dict:
     return out
 
 
+# ---------------- phase 18: the filesystem registry, the native engines, the row iterators ----------------
+
+MEM_HIGGS = "mem://chip/higgs.libsvm"
+REC_BYTES = 64 << 20     # phase 18 (d): the RecordIO corpus's size
+REC_MULTI_EVERY = 13     # every this many records holds the magic word (multi-part)
+
+
+def _plain_pair(rec: dict) -> dict:
+    return {"rows_per_s": rec["rows_per_s"], "stall_share": rec["stall_share"]}
+
+
+def _epochs_equal(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x.batches(), y.batches())
+                                    for x, y in zip(a, b))
+
+
+def _losses_equal(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) == 20 and torch.equal(torch.stack(a), torch.stack(b))
+
+
+class _DigestPair:
+    """Both digests of an epoch: of the bits, and of the values
+    (``canonical_zero``)."""
+
+    def __init__(self, device):
+        self.bits, self.values = _Digests(device), _Digests(device, canonical_zero=True)
+
+    def add(self, batch) -> None:
+        self.bits.add(batch)
+        self.values.add(batch)
+
+
+def _run_epochs(model, it, legs: list, losses: list) -> tuple:
+    """One epoch per leg name, each digested (bits and values); returns
+    (records, bit digests, value digests)."""
+    recs, pairs = [], []
+    for leg in legs:
+        pair = _DigestPair(it.device)
+        recs.append(_store_epoch(model, it, leg, pair, losses))
+        pairs.append(pair)
+    return recs, [p.bits for p in pairs], [p.values for p in pairs]
+
+
+def run_host_mem(path: str, tmp: str, device) -> dict:
+    """Phase 18 (a): phase 3's corpus under ``mem://`` through the chunk
+    feeder (``create_parser`` builds ``NativeFeedParser``) -> ``DeviceIter
+    (ell)`` -> ``LinearLearner``, two epochs, against the fused native
+    reader on the local file; a snapshot written over the ``mem://`` source
+    and one warm ``device_decode=True`` epoch from it; 20 steps behind a
+    spin."""
+    from dmlc_tpu_torch.io.filesystem import MemoryFileSystem
+    from dmlc_tpu_torch.io.stream import write_all
+
+    t0 = time.monotonic()
+    with open(path, "rb") as f:
+        write_all(MEM_HIGGS, f.read())
+    load_s = time.monotonic() - t0
+    # the fused reader on the local file: the plain local run
+    plain_model, plain_it = _store_pipeline(path, device)
+    plain_class = type(plain_it.source).__name__
+    plain_losses = []
+    plain_recs, plain_digs, _ = _run_epochs(plain_model, plain_it, ["local_0", "local_1"],
+                                            plain_losses)
+    plain_it.close()
+    # K1 and dw against their plain versions on a batch of the leg's own pipeline
+    _, probe = _store_pipeline(MEM_HIGGS, device)
+    checks = _k1_on_batch(plain_model, next(probe))
+    probe.close()
+    model, it = _store_pipeline(MEM_HIGGS, device)
+    feed_class = type(it.source).__name__
+    losses = []
+    recs, digs, _ = _run_epochs(model, it, ["mem_0", "mem_1"], losses)
+    it.close()
+    # a snapshot over the mem:// source: a cold epoch writes it, a warm one
+    # decodes it on the card
+    snap = os.path.join(tmp, "mem_higgs.snapshot")
+    snap_model, snap_it = _store_pipeline(MEM_HIGGS, device, {"snapshot": snap},
+                                          device_decode=True)
+    snap_recs, snap_digs, _ = _run_epochs(snap_model, snap_it, ["mem_snapshot_cold",
+                                                                "mem_snapshot_warm"], [])
+    snap_it.close()
+    # the spin leg: 20 steps of the mem:// pipeline, groups of 10
+    spin_model, spin_it = _store_pipeline(MEM_HIGGS, device, convert_ahead=32)
+    spin_model.step(next(spin_it))
+    time.sleep(3.0)
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    k1_0, dw_0 = k1.launches, k1.dw_launches
+    spin = enqueue_behind_spin(lambda: spin_model.step(next(spin_it)), group=10)
+    spin.update(k1_launches=k1.launches - k1_0, dw_launches=k1.dw_launches - dw_0)
+    spin_it.close()
+    MemoryFileSystem.reset()
+    os.remove(snap)
+    out = {"phase": "host_mem", "load_mem_s": load_s, "parser": feed_class,
+           "plain_parser": plain_class, "epochs": recs, "plain_epochs": plain_recs,
+           "plain_local": _plain_pair(plain_recs[-1]),
+           "batch_hashes_equal": _epochs_equal(digs, plain_digs),
+           "first_20_losses_bit_equal": _losses_equal(losses, plain_losses),
+           "final_weights_bit_equal": _same_weights(_weights(model), _weights(plain_model)),
+           "snapshot_epochs": snap_recs,
+           "warm_batches_equal_cold": _epochs_equal(snap_digs[1:], snap_digs[:1]),
+           "warm_batches_equal_local": _epochs_equal(snap_digs[1:], plain_digs[:1]),
+           **checks, "spin": spin}
+    emit(out)
+    if feed_class != "NativeFeedParser" or plain_class != "NativeStreamParser":
+        raise AssertionError(f"phase 18 (a): the parsers: {feed_class}, {plain_class}")
+    for rec in recs + plain_recs + snap_recs[:1]:
+        _launch_gate(rec, rec["leg"], phase=18)
+    _launch_gate(snap_recs[1], "mem_snapshot_warm", k2=True, phase=18)
+    if not (out["batch_hashes_equal"] and out["first_20_losses_bit_equal"]
+            and out["final_weights_bit_equal"] and out["warm_batches_equal_cold"]
+            and snap_recs[1]["snapshot_state"] == "warm"
+            and all(r["batches"] == HIGGS_ROWS // BATCH for r in recs + snap_recs)):
+        raise AssertionError(f"phase 18 (a): the mem:// epochs: {out}")
+    if not spin["no_host_sync"] or spin["k1_launches"] < spin["calls"]:
+        raise AssertionError(f"phase 18 (a): the mem:// steps behind a spin: {spin}")
+    out["k1_launches"] = (sum(r["k1_launches"] for r in recs + plain_recs + snap_recs)
+                          + spin["k1_launches"])
+    out["dw_launches"] = (sum(r["dw_launches"] for r in recs + plain_recs + snap_recs)
+                          + spin["dw_launches"])
+    out["k2_launches"] = snap_recs[1]["k2_launches"]
+    out["plain_digests"] = plain_digs
+    return out
+
+
+@contextlib.contextmanager
+def _counted(cls, name: str, counts: dict):
+    """Count the calls of ``cls.name`` inside the block (restored after)."""
+    orig = getattr(cls, name)
+
+    def wrapper(*args, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return orig(*args, **kw)
+
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def run_host_batch(path: str, tmp: str, device, plain: dict) -> dict:
+    """Phase 18 (b): ``engine="native-batch"`` with ``block_cache=``: a cold
+    epoch builds the cache through ``add_block_encoded``, a warm one reads
+    it through ``block_encoded``; against the registry stack's Python
+    engine (``engine="python"``), two epochs over a block cache of its own
+    (the engine's parse runs once)."""
+    from dmlc_tpu_torch.data.batch_parser import NativeBatchParser
+    from dmlc_tpu_torch.io.block_cache import BlockCacheReader, BlockCacheWriter
+
+    # the Python engine's run: its first epoch parses (about 40 k rows/s)
+    # and writes a block cache of its own, which serves its second
+    py_bc = os.path.join(tmp, "higgs_python.bc")
+    py_model, py_it = _store_pipeline(path, device, {"engine": "python", "block_cache": py_bc})
+    py_losses = []
+    py_recs, py_bits, py_values = _run_epochs(py_model, py_it, ["python_cold", "python_warm"],
+                                              py_losses)
+    py_it.close()
+    os.remove(py_bc)
+    bc = os.path.join(tmp, "higgs_batch.bc")
+    counts = {}
+    model, it = _store_pipeline(path, device, {"engine": "native-batch", "block_cache": bc})
+    losses = []
+    with _counted(BlockCacheWriter, "add_block_encoded", counts), \
+            _counted(BlockCacheWriter, "add_block", counts), \
+            _counted(BlockCacheReader, "block_encoded", counts):
+        cold_dig, warm_dig = _DigestPair(device), _DigestPair(device)
+        cold = _store_epoch(model, it, "batch_cold", cold_dig, losses)
+        built = (type(it.source).__name__, type(it.source._base).__name__,
+                 type(getattr(it.source._base, "base", None)).__name__)
+        warm = _store_epoch(model, it, "batch_warm", warm_dig, losses)
+    it.close()
+    cache_bytes = os.path.getsize(bc)
+    os.remove(bc)
+    out = {"phase": "host_batch", "parser": built, "epochs": [cold, warm],
+           "python_epochs": py_recs, "plain_local": _plain_pair(plain["plain_local"]),
+           "calls": counts, "cache_bytes": cache_bytes,
+           # the native scanners read "-0.000000" as +0.0 where numpy reads
+           # -0.0, in both packages: the Python engine's batches are the
+           # same values, and the fused reader's the same bits
+           "batch_values_equal_python": _epochs_equal([cold_dig.values, warm_dig.values],
+                                                      py_values),
+           "batch_bits_equal_python": _epochs_equal([cold_dig.bits, warm_dig.bits], py_bits),
+           "batch_hashes_equal_local": _epochs_equal([cold_dig.bits, warm_dig.bits],
+                                                     plain["plain_digests"]),
+           "first_20_losses_bit_equal": _losses_equal(losses[:20], py_losses[:20]),
+           "final_weights_bit_equal": _same_weights(_weights(model), _weights(py_model))}
+    emit(out)
+    if built[0] != "BlockCacheIter" or built[2] != NativeBatchParser.__name__:
+        raise AssertionError(f"phase 18 (b): the chain built {built}")
+    for rec in (cold, warm) + tuple(py_recs):
+        _launch_gate(rec, rec["leg"], phase=18)
+    # every cold block went to the cache as its span, every warm block came
+    # back as one
+    if not (counts.get("add_block_encoded", 0) > 0 and counts.get("add_block", 0) == 0
+            and counts.get("block_encoded") == counts["add_block_encoded"]):
+        raise AssertionError(f"phase 18 (b): the encoded span paths: {counts}")
+    if not (out["batch_values_equal_python"] and out["batch_hashes_equal_local"]
+            and out["first_20_losses_bit_equal"] and out["final_weights_bit_equal"]):
+        raise AssertionError(f"phase 18 (b): the native-batch epochs: {out}")
+    out["k1_launches"] = sum(r["k1_launches"] for r in (cold, warm) + tuple(py_recs))
+    out["dw_launches"] = sum(r["dw_launches"] for r in (cold, warm) + tuple(py_recs))
+    return out
+
+
+def _rows_pipeline(src, device):
+    from dmlc_tpu_torch import DeviceIter, LinearLearner
+
+    model = LinearLearner(num_col=HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(src, num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device)
+    return model, it
+
+
+def run_host_rows(path: str, tmp: str, device, plain: dict) -> dict:
+    """Phase 18 (c): ``create_row_block_iter(path#pages)`` -> ``DiskRowIter``
+    as ``DeviceIter``'s source: epoch 1 over the pages it built, epoch 2
+    from a new iterator over the pages with the source renamed away;
+    against a ``BasicRowIter`` run (the corpus in memory), two epochs."""
+    from dmlc_tpu_torch.data.iterators import create_row_block_iter
+
+    t0 = time.monotonic()
+    basic = create_row_block_iter(path, silent=True)
+    basic_load_s = time.monotonic() - t0
+    classes = [type(basic).__name__]
+    b_model, b_it = _rows_pipeline(basic, device)
+    b_losses = []
+    b_recs, b_digs, _ = _run_epochs(b_model, b_it, ["basic_0", "basic_1"], b_losses)
+    b_it.close()
+    del basic, b_it
+    pages = os.path.join(tmp, "higgs.pages")
+    t0 = time.monotonic()
+    disk = create_row_block_iter(f"{path}#{pages}", silent=True)
+    build_s = time.monotonic() - t0
+    classes.append(type(disk).__name__)
+    model, it = _rows_pipeline(disk, device)
+    losses = []
+    d0, dig0, _ = _run_epochs(model, it, ["pages_0"], losses)
+    it.close()
+    os.rename(path, path + ".away")  # the pages alone serve epoch 2
+    try:
+        again = create_row_block_iter(f"{path}#{pages}", silent=True)
+        classes.append(type(again).__name__)
+        it = _rows_pipeline(again, device)[1]
+        d1, dig1, _ = _run_epochs(model, it, ["pages_1"], losses)
+        it.close()
+    finally:
+        os.rename(path + ".away", path)
+    page_bytes = os.path.getsize(pages)
+    os.remove(pages)
+    recs = d0 + d1
+    out = {"phase": "host_rows", "iterators": classes, "basic_load_s": basic_load_s,
+           "pages_build_s": build_s, "page_file_bytes": page_bytes,
+           "corpus_bytes": os.path.getsize(path), "epochs": recs, "basic_epochs": b_recs,
+           "plain_local": _plain_pair(plain["plain_local"]),
+           "batch_hashes_equal": _epochs_equal(dig0 + dig1, b_digs),
+           "batch_hashes_equal_local": _epochs_equal(dig0 + dig1, plain["plain_digests"]),
+           "first_20_losses_bit_equal": _losses_equal(losses[:20], b_losses[:20]),
+           "final_weights_bit_equal": _same_weights(_weights(model), _weights(b_model))}
+    emit(out)
+    if classes != ["BasicRowIter", "DiskRowIter", "DiskRowIter"]:
+        raise AssertionError(f"phase 18 (c): the iterators: {classes}")
+    for rec in recs + b_recs:
+        _launch_gate(rec, rec["leg"], phase=18)
+    if not (out["batch_hashes_equal"] and out["first_20_losses_bit_equal"]
+            and out["final_weights_bit_equal"]):
+        raise AssertionError(f"phase 18 (c): the page-cache epochs: {out}")
+    out["k1_launches"] = sum(r["k1_launches"] for r in recs + b_recs)
+    out["dw_launches"] = sum(r["dw_launches"] for r in recs + b_recs)
+    return out
+
+
+def write_recordio_corpus(path: str, seed: int) -> dict:
+    """About :data:`REC_BYTES` of RecordIO: records of 1 byte to 32 KiB,
+    every :data:`REC_MULTI_EVERY`-th holding the magic word (the writer
+    splits it into a multi-part record), and its index at ``path.idx``."""
+    from dmlc_tpu_torch.io.recordio import RECORDIO_MAGIC, write_indexed_recordio
+
+    rng = np.random.default_rng(seed)
+    magic = RECORDIO_MAGIC.to_bytes(4, "little")
+    blob = rng.bytes(REC_BYTES)
+    recs, pos, i = [], 0, 0
+    while pos < len(blob) - (32 << 10):
+        n = int(rng.integers(1, 32 << 10))
+        rec = blob[pos:pos + n]
+        if i % REC_MULTI_EVERY == 0:
+            rec = rec[: n // 2] + magic + rec[n // 2:]
+        recs.append(rec)
+        pos += n
+        i += 1
+    with open(path, "wb") as data, open(path + ".idx", "wb") as idx:
+        write_indexed_recordio(data, idx, recs)
+    return {"records": len(recs), "bytes": os.path.getsize(path),
+            "multi_part": sum(1 for r in recs if magic in r),
+            "digest": _records_digest(recs)}
+
+
+def _records_digest(records) -> list:
+    import zlib
+
+    return [(len(r), zlib.crc32(r)) for r in records]
+
+
+def _drain_records(split) -> tuple:
+    t0 = time.monotonic()
+    out = [bytes(r) for r in split.iter_records()]
+    secs = time.monotonic() - t0
+    split.close()
+    return out, secs
+
+
+def run_host_recordio(tmp: str, seed: int) -> dict:
+    """Phase 18 (d), host only: a RecordIO corpus of about 64 MB with its
+    index through ``NativeRecordIOSplit``, the shuffled
+    ``NativeIndexedRecordIOSplit`` and ``NativeFeedRecordIOSplit`` (the same
+    bytes under ``mem://``), each against the Python splitter; records/s."""
+    from dmlc_tpu_torch.io import create_input_split
+    from dmlc_tpu_torch.io.filesystem import MemoryFileSystem
+    from dmlc_tpu_torch.io.stream import write_all
+
+    path = os.path.join(tmp, "corpus.rec")
+    corpus = write_recordio_corpus(path, seed)
+    want = corpus.pop("digest")
+    with open(path, "rb") as f:
+        write_all("mem://chip/corpus.rec", f.read())
+    legs = {  # name: (uri, type, keywords, registry-stack keywords)
+        "recordio": (path, "recordio", {}),
+        "indexed_shuffled": (path, "indexed_recordio",
+                             {"index_uri": path + ".idx", "shuffle": True, "seed": 5}),
+        "feed_mem": ("mem://chip/corpus.rec", "recordio", {}),
+    }
+    out = {"phase": "host_recordio", **corpus, "legs": {}}
+    ok = True
+    for name, (uri, type_, kw) in legs.items():
+        native_split = create_input_split(uri, 0, 1, type_, **kw)
+        cls = type(native_split).__name__
+        got, secs = _drain_records(native_split)
+        with registry_stack():
+            py_split = create_input_split(uri, 0, 1, type_, **kw)
+        py_cls = type(py_split).__name__
+        ref, py_secs = _drain_records(py_split)
+        shuffled = kw.get("shuffle", False)
+        same = (sorted(_records_digest(got)) == sorted(_records_digest(ref)) == sorted(want)
+                if shuffled else _records_digest(got) == _records_digest(ref) == want)
+        out["legs"][name] = {"split": cls, "python_split": py_cls, "records": len(got),
+                             "records_equal": same, "records_per_s": len(got) / secs,
+                             "python_records_per_s": len(ref) / py_secs,
+                             "mb_per_s": corpus["bytes"] / secs / 1e6}
+        ok = ok and same
+    MemoryFileSystem.reset()
+    emit(out)
+    classes = {k: v["split"] for k, v in out["legs"].items()}
+    if classes != {"recordio": "NativeRecordIOSplit",
+                   "indexed_shuffled": "NativeIndexedRecordIOSplit",
+                   "feed_mem": "NativeFeedRecordIOSplit"} or not ok:
+        raise AssertionError(f"phase 18 (d): the RecordIO engines: {out}")
+    return out
+
+
+def run_host_io(path: str, tmp: str, device, seed: int) -> dict:
+    """Phase 18 (module docstring), in a directory of its own."""
+    import shutil
+
+    t0 = time.monotonic()
+    d = os.path.join(tmp, "hostio18")
+    os.makedirs(d)
+    out = {"mem": run_host_mem(path, d, device)}
+    out["batch"] = run_host_batch(path, d, device, out["mem"])
+    out["rows"] = run_host_rows(path, d, device, out["mem"])
+    out["mem"].pop("plain_digests")
+    out["recordio"] = run_host_recordio(d, seed)
+    shutil.rmtree(d)
+    out["wall_s"] = time.monotonic() - t0
+    for key in ("k1_launches", "dw_launches"):
+        out[key] = sum(out[leg][key] for leg in ("mem", "batch", "rows"))
+    out["k2_launches"] = out["mem"]["k2_launches"]
+    emit({"phase": "host_io_total", "wall_s": out["wall_s"], "k1_launches": out["k1_launches"],
+          "dw_launches": out["dw_launches"], "k2_launches": out["k2_launches"]})
+    return out
+
+
 def producer_change(now: dict) -> dict:
     """Each phase's rows/s and stall share at the default convert width
     beside PR 11's (:data:`PR11_READER`, one producer thread) and the
@@ -5605,6 +6033,10 @@ def main() -> int:
         # phase 17: the tiered artifact store and the split layer on phase 3's
         # corpus, each leg's launches counted around its epochs
         store17 = run_store(path, tmp, dev)
+        # phase 18: the filesystem registry (mem://) and the chunk feeder, the
+        # native-batch engine, the row iterators and the native RecordIO
+        # engines, each leg's launches counted around its epochs
+        host18 = run_host_io(path, tmp, dev, args.seed)
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -5619,10 +6051,11 @@ def main() -> int:
                      + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
                      + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
-                     + tune["k1_launches"] + store17["k1_launches"]),
+                     + tune["k1_launches"] + store17["k1_launches"] + host18["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
                            + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"],
-                              store17["cachefile"]["k1_max_abs_err"]]),
+                              store17["cachefile"]["k1_max_abs_err"],
+                              host18["mem"]["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -5634,11 +6067,12 @@ def main() -> int:
                      + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
                      + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
-                     + tune["dw_launches"] + store17["dw_launches"]),
+                     + tune["dw_launches"] + store17["dw_launches"] + host18["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
                             if r["dw_route"] == "cuda"]
                            + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"],
-                              store17["cachefile"]["dw_max_abs_err"]]),
+                              store17["cachefile"]["dw_max_abs_err"],
+                              host18["mem"]["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -5648,7 +6082,7 @@ def main() -> int:
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
                      + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]
-                     + tune["k2_launches"] + store17["k2_launches"]),
+                     + tune["k2_launches"] + store17["k2_launches"] + host18["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

@@ -25,15 +25,23 @@ global-batch semantics, on two-axis meshes too, and
 ``LinearLearner(model_axis=)`` shards its table over a model axis (its
 ELL margin on K1 over the rank's window). ``create_parser(..., block_cache=path)`` parses
 once and serves later epochs from a columnar cache, in a seeded, resumable
-and pod-sharded order with ``shuffle_seed`` / ``pod_sharding``.
+and pod-sharded order with ``shuffle_seed`` / ``pod_sharding``. Every
+registered filesystem serves (:mod:`dmlc_tpu_torch.io.filesystem`:
+``file://``, ``mem://``), a ``mem://`` corpus through the native chunk
+feeder; ``engine="native-batch"`` parses chunks straight into block-cache
+spans; ``create_row_block_iter`` gives the in-memory and page-cached row
+iterators, which feed ``DeviceIter`` as a parser does.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card the default raises ``DMLCError``.
 """
 
+__version__ = "0.1.0"
+
 from dmlc_tpu_torch.data import DeviceIter, create_parser
 from dmlc_tpu_torch.models import AlsLearner, FMLearner, LinearLearner
 from dmlc_tpu_torch.utils.check import DMLCError
+from dmlc_tpu_torch.utils.params import Parameter
 
-__all__ = ["AlsLearner", "DMLCError", "DeviceIter", "FMLearner", "LinearLearner",
-           "create_parser"]
+__all__ = ["AlsLearner", "DMLCError", "DeviceIter", "FMLearner", "LinearLearner", "Parameter",
+           "__version__", "create_parser"]

@@ -372,7 +372,8 @@ class ParseTierTuner:
     (<= ``shrink_at``) give one back, bounded by the knob table's
     ``parse_workers`` caps. The JAX package runs it in its data-service
     parse worker between parts and in its ``create_row_block_iter`` load
-    pass; the port has neither host yet, so it stands alone here."""
+    pass; the port runs it in the load pass
+    (:class:`~dmlc_tpu_torch.data.iterators.BasicRowIter`)."""
 
     def __init__(self, start: Optional[int] = None,
                  grow_at: float = 0.7, shrink_at: float = 0.35,

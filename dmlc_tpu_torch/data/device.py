@@ -885,14 +885,20 @@ class DeviceIter:
     def _blocks(self, seeked: bool) -> Iterator[RowBlock]:
         """The source's blocks, each pull's wait added to the supply
         stages: read, cache_read and parse from the source's own
-        ``stage_seconds()`` over the pull, the rest as parse (the fused
-        native reader reports none, so all of its pull is parse, recorded
-        as a parse span)."""
+        ``stage_seconds()`` over the pull, the rest as parse. The part of
+        a pull that is not a warm cache read and that no span of the
+        source covers (all of it for the fused native reader, which reports
+        no stages; the chain's own overhead otherwise) is recorded as a
+        parse span at the pull's end, so the trace's parse spans add up to
+        the parse stage less the block cache's writes (``cache_write``
+        spans of their own)."""
         if not seeked:  # a seek-restored source already stands at the resume point
             self.source.before_first()
         stage_fn = getattr(self.source, "stage_seconds", None)
+        has_writes = hasattr(self.source, "cache_write_seconds")
         while True:
             s0 = stage_fn() if stage_fn is not None else None
+            w0 = self.source.cache_write_seconds if has_writes else 0.0
             t0 = get_time()
             blk = self.source.next_block()
             dt = get_time() - t0
@@ -904,8 +910,10 @@ class DeviceIter:
                 cache_read = min(max(0.0, s1.get("cache_read", 0.0) - s0.get("cache_read", 0.0)),
                                  dt - read)
                 parse = max(0.0, s1.get("parse", 0.0) - s0.get("parse", 0.0))
-            if read + cache_read + parse <= 0.0 and dt > 0.0:
-                _telemetry.record_span("parse", t0, dt)
+            writes = self.source.cache_write_seconds - w0 if has_writes else 0.0
+            rest = dt - read - cache_read - parse - writes
+            if rest > 0.0 and cache_read <= 0.0:  # a warm read's overhead gets no span
+                _telemetry.record_span("parse", t0 + dt - rest, rest)
             self._busy.add("read", read)
             self._busy.add("cache_read", cache_read)
             self._busy.add("parse", dt - read - cache_read)

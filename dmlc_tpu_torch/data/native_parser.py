@@ -3,17 +3,20 @@
 lock released.
 
 Own copy of the JAX package's ``data/native_parser.py``
-(:class:`NativeStreamParser`, :func:`list_partition_files`,
-:func:`native_reader_eligible`). Where the reference stacks a threaded
+(:class:`NativeStreamParser`, :class:`NativeFeedParser`,
+:func:`list_partition_files`, :func:`native_reader_eligible`,
+:func:`native_feed_eligible`). Where the reference stacks a threaded
 input split, a parse-ahead thread and per-chunk parse threads
 (src/io/threaded_input_split.h, src/data/parser.h:70-126), this class hands
 the same pipeline to the native core: the blocks are the registry stack's,
 chunk for chunk.
 
 ``create_parser`` routes plain local libsvm, csv and libfm corpora here
-(:func:`native_reader_eligible`); decorated URIs and ``engine=python`` take
-the registry stack. Two emits move device-layout work into the C++ parse
-threads:
+(:func:`native_reader_eligible`), and plain corpora on another registered
+filesystem to :class:`NativeFeedParser`, whose feed thread pushes the
+partition's bytes into the same C++ pipeline (:func:`native_feed_eligible`);
+decorated URIs and ``engine=python`` take the registry stack. Two emits
+move device-layout work into the C++ parse threads:
 
 - ``set_emit_dense(num_col, batch_rows, dtype, pack_aux)``: :class:`DenseBlock`
   batches, repacked to exact ``[batch_rows, num_col]`` blocks (bfloat16 with
@@ -29,6 +32,7 @@ replays that many blocks.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,9 +42,10 @@ from dmlc_tpu_torch.data.parsers import (CSVParserParam, LibFMParserParam,
                                          LibSVMParserParam, Parser, _csv_skeleton,
                                          csv_cells_to_block, csv_cells_to_dense)
 from dmlc_tpu_torch.data.row_block import CooBlock, DenseBlock, RowBlock
-from dmlc_tpu_torch.io.filesystem import get_filesystem
+from dmlc_tpu_torch.io.filesystem import LocalFileSystem, get_filesystem
 from dmlc_tpu_torch.io.input_split import DEFAULT_CHUNK_BYTES, LineSplitter
 from dmlc_tpu_torch.io.uri import URI
+from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import DMLCError, check
 from dmlc_tpu_torch.utils.timer import get_time
 
@@ -48,6 +53,7 @@ from dmlc_tpu_torch.utils.timer import get_time
 def list_partition_files(uri: str) -> Tuple[List[str], List[int]]:
     """A local URI (``;`` lists, directories) expanded to ``(paths,
     sizes)`` with the input split's matching rules."""
+    check(isinstance(get_filesystem(uri), LocalFileSystem), "native reader requires local files")
     lister = LineSplitter(uri, None)  # the listing only: no partition
     try:
         return ([info.path.name for info in lister.files],
@@ -92,8 +98,8 @@ class NativeStreamParser(Parser):
             check(self.param.label_column != self.param.weight_column
                   or self.param.label_column < 0,
                   "CSVParser: label_column must differ from weight_column")
-        self.paths, self.sizes = list_partition_files(uri)
-        self._reader: Optional[native.Reader] = None
+        self._init_source(uri)
+        self._reader = None
         self._emit_dense: Optional[int] = None
         self._emit_bf16 = False
         self._pack_aux = False
@@ -106,6 +112,11 @@ class NativeStreamParser(Parser):
         self._blocks_out = 0  # delivered blocks, for a count resume
         self._batch_rows = 0
         self._bytes_base = 0  # bytes read under earlier partitions
+
+    def _init_source(self, uri: str) -> None:
+        """Resolve the byte source: here local files, listed with the
+        split's matching rules (the native reader reads them itself)."""
+        self.paths, self.sizes = list_partition_files(uri)
 
     @property
     def engine(self) -> str:
@@ -186,7 +197,7 @@ class NativeStreamParser(Parser):
             pack_aux=bool(repack and self._pack_aux))
         return fmt, kwargs
 
-    def _ensure_reader(self) -> native.Reader:
+    def _ensure_reader(self):
         if self._reader is None:
             fmt, kwargs = self._stream_config()
             self._reader = native.Reader(self.paths, self.sizes, self.part_index,
@@ -303,12 +314,13 @@ class NativeStreamParser(Parser):
             self._reader = None
 
 
-def native_reader_eligible(uri: str, type_: str, threaded: bool,
-                           split_kw: Optional[Dict] = None) -> bool:
-    """Whether ``create_parser`` can route ``uri`` to the fused reader: a
-    threaded parse of a plain local text file (no ``#`` fragment, no
-    ``engine=python``, none of the split layer's decorator keywords) with
-    the native library built."""
+def _native_eligible(uri: str, type_: str, threaded: bool, split_kw: Optional[Dict],
+                     want_local: bool) -> bool:
+    """The native routes' shared rule: a threaded parse of a plain text
+    file (no ``#`` fragment, no ``engine=python``, none of the split
+    layer's decorator keywords) with the native library built, on the
+    local filesystem (``want_local``, the pull reader) or on another
+    registered one (the chunk feeder)."""
     if not threaded or type_ not in ("libsvm", "csv", "libfm"):
         return False
     if "#" in uri or "engine=python" in uri:
@@ -321,7 +333,124 @@ def native_reader_eligible(uri: str, type_: str, threaded: bool,
     if base == "stdin":
         return False
     try:
-        get_filesystem(URI(base))
+        fs = get_filesystem(URI(base))
     except DMLCError:
         return False
+    if isinstance(fs, LocalFileSystem) != want_local:
+        return False
     return native.available()
+
+
+def native_reader_eligible(uri: str, type_: str, threaded: bool,
+                           split_kw: Optional[Dict] = None) -> bool:
+    """Whether ``create_parser`` can route ``uri`` to the fused reader: a
+    plain local text file (:func:`_native_eligible`)."""
+    return _native_eligible(uri, type_, threaded, split_kw, want_local=True)
+
+
+class NativeFeedParser(NativeStreamParser):
+    """A corpus on another registered filesystem (``mem://``) through the
+    native pipeline: a feed thread reads this partition's bytes through the
+    filesystem layer and pushes them into the C++ chunk feeder
+    (``reader.cc``'s push mode, :class:`dmlc_tpu_torch.native.Feeder`),
+    which owns the record-aligned chunking, the threaded parse and the
+    batch repack, as the pull reader does for local files.
+
+    The partition (byte range, move to a record head, newline at a text
+    file's join) stays with the Python splitter, which speaks every
+    filesystem; the feed thread streams exactly its bytes
+    (``InputSplitBase._read``). An error in the feed thread reaches the
+    consumer's :meth:`next_block` once the queued blocks have drained, as
+    a ``DMLCError`` whose ``__cause__`` is the feed thread's exception, so
+    the resilience classifier sees the original class."""
+
+    FEED_CHUNK = 1 << 20
+
+    def _init_source(self, uri: str) -> None:
+        self.uri = uri
+        self.paths = self.sizes = None
+        self._feed_thread: Optional[threading.Thread] = None
+        self._feed_exc: Optional[BaseException] = None  # the feed thread's error
+
+    def _make_split(self) -> LineSplitter:
+        return LineSplitter(self.uri, self.part_index, self.num_parts)
+
+    def _start_feed(self) -> None:
+        feeder = self._reader
+        split = self._make_split()
+
+        def run() -> None:
+            try:
+                while True:
+                    data = split._read(self.FEED_CHUNK)
+                    if not data or not feeder.push(data):
+                        break
+                feeder.finish()
+            except Exception as exc:  # noqa: BLE001
+                # a failed read must not look like the end of the stream; the
+                # native side carries only the message, so the exception
+                # itself is kept for next_block's cause chain
+                self._feed_exc = exc
+                feeder.fail(f"feed failed: {exc}")
+            finally:
+                try:
+                    split.close()
+                except Exception:  # noqa: BLE001
+                    pass
+
+        # the feed thread runs under its creator's pipeline scope
+        self._feed_thread = threading.Thread(target=_telemetry.scoped_target(run),
+                                             name="dmlc-feed", daemon=True)
+        self._feed_thread.start()
+
+    def _stop_feed(self) -> None:
+        if self._feed_thread is not None:
+            if self._reader is not None:
+                self._reader.abort()
+            self._feed_thread.join()
+            self._feed_thread = None
+
+    def _ensure_reader(self):
+        if self._reader is None:
+            fmt, kwargs = self._stream_config()
+            self._reader = native.Feeder(fmt, **kwargs)
+            self._start_feed()
+        return self._reader
+
+    def next_block(self):
+        try:
+            return super().next_block()
+        except DMLCError as exc:
+            cause = self._feed_exc
+            if cause is not None and exc.__cause__ is None:
+                self._feed_exc = None
+                raise exc from cause
+            raise
+
+    def before_first(self) -> None:
+        self._feed_exc = None  # cleared before the next feed thread starts
+        if self._reader is not None:
+            self._stop_feed()
+            if self._reader.error() is not None:
+                # an error is sticky in the native pipeline: a failed feeder
+                # cannot restart, so an epoch reset after a fault (a
+                # pipeline restart) gets a new one
+                self._reader.close()
+                self._reader = None
+                self._ensure_reader()
+            else:
+                self._reader.before_first()
+                self._start_feed()
+        self._blocks_out = 0
+
+    def close(self) -> None:
+        self._stop_feed()
+        super().close()
+
+
+def native_feed_eligible(uri: str, type_: str, threaded: bool,
+                         split_kw: Optional[Dict] = None) -> bool:
+    """Whether ``create_parser`` can route ``uri`` to the chunk feeder: a
+    plain text file on a registered filesystem other than the local one
+    (:func:`_native_eligible`)."""
+    return _native_eligible(uri, type_, threaded, split_kw, want_local=False)

@@ -26,9 +26,12 @@ back to CSR for good.
 
 **The engine.** ``create_parser`` resolves the JAX package's engine
 chain (:func:`create_parser`): a plain local file goes to the fused native
-reader (:mod:`dmlc_tpu_torch.data.native_parser`), everything else (and
+reader (:mod:`dmlc_tpu_torch.data.native_parser`), a plain file on another
+registered filesystem (``mem://``) to its chunk feeder
+(``NativeFeedParser``), ``engine="native-batch"`` to the chunk-batch
+engine (:mod:`dmlc_tpu_torch.data.batch_parser`), everything else (and
 ``engine="python"``, ``DMLC_TPU_NO_NATIVE_READER``) to the registry stack
-below; both emit the same rows.
+below; all emit the same rows.
 
 **The parse fan-out.** :class:`ParallelTextParser` pulls chunks serially
 from the split (an :class:`~dmlc_tpu_torch.io.MmapLineSplit` for a plain
@@ -1033,6 +1036,10 @@ class BlockCacheIter(Parser):
         self._bytes = 0      # cache bytes served
         self._cache_read_seconds = 0.0
         self._cr_lock = threading.Lock()  # the plan readers add to it
+        # cumulative seconds of the cold pass's cache writes (the tee and the
+        # publish), each also a cache_write span: DeviceIter leaves them out
+        # of the parse span it records for the rest of a pull
+        self.cache_write_seconds = 0.0
         # DMLC_TPU_TRACE=1: the warm reads in profiler ranges
         self._annotate = _telemetry.trace_mode()[0] == "annotate"
         self._seed = None if shuffle_seed is None else int(shuffle_seed)
@@ -1109,8 +1116,15 @@ class BlockCacheIter(Parser):
 
     @staticmethod
     def _tee_block(writer: _bc.BlockCacheWriter, block: RowBlock, annot) -> None:
-        writer.add_block(block.to_segments(), rows=len(block), num_col=block.num_col,
-                         resume=annot)
+        """Shadow-write one parsed block: a ``native-batch`` block's span
+        (``block.encoded``) as it is, any other through the segment
+        encoder; the files are the same bytes either way."""
+        encoded = getattr(block, "encoded", None)
+        if encoded is not None:
+            writer.add_block_encoded(encoded, resume=annot)
+        else:
+            writer.add_block(block.to_segments(), rows=len(block), num_col=block.num_col,
+                             resume=annot)
 
     def _add_cache_read(self, t0: float) -> None:
         """A warm read that started at ``t0`` ends now: its seconds and
@@ -1147,6 +1161,9 @@ class BlockCacheIter(Parser):
                 self._heal_corruption()
                 return self._next_cold()
             block = RowBlock.from_segments(segments, hold=reader.hold)
+            # the block's span rides along: a consumer that appends blocks
+            # (a tee) reuses the mmap's bytes with no re-encode
+            block.encoded = reader.block_encoded(i)
             annot = reader.resume(i)
             if annot is not None:
                 block.resume_state = annot
@@ -1280,12 +1297,18 @@ class BlockCacheIter(Parser):
             if block is None:
                 writer, self._writer = self._writer, None
                 if writer is not None:
+                    t0 = get_time()
                     writer.finish()  # fsync + publish
+                    dt = get_time() - t0
+                    self.cache_write_seconds += dt
+                    _telemetry.record_span("cache_write", t0, dt)
                 return None
             annot = block.resume_state
             writer = self._ensure_writer()
             if writer is not None:
-                self._tee_block(writer, block, annot)
+                t0 = get_time()
+                self._tee_block(writer, block, annot)  # records its cache_write span
+                self.cache_write_seconds += get_time() - t0
             seen = self._cold_seen
             self._cold_seen += 1
             if self._skip > 0:
@@ -1627,9 +1650,15 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
         # create_input_split derives the partition-qualified cache name
         split_uri = f"{spec.uri}#{uri.split('#', 1)[1]}"
     if engine == "native-batch":
-        # the chunk-batch engine is not ported: this is the reference's
-        # branch for a config its batch kernel cannot serve, loud, and on
-        # to the registry stack
+        from dmlc_tpu_torch.data import batch_parser as _bp
+
+        if _bp.batch_engine_eligible(type_, np.uint64, spec.args):
+            return _bp.create_batch_parser(split_uri, spec.args, part_index, num_parts, type_,
+                                           threaded=threaded, parse_workers=parse_workers,
+                                           **split_kw)
+        # the batch kernel cannot serve this configuration (format, dtype,
+        # no native library): the Python engine, loudly, so the knob never
+        # names a path that did not run
         get_logger().warning(
             "engine=native-batch unavailable for format=%r index_dtype=%s "
             "(toolchain/format/dtype); using the Python engine",
@@ -1638,13 +1667,22 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
             and os.environ.get("DMLC_TPU_NO_NATIVE_READER", "0") in ("", "0")):
         from dmlc_tpu_torch.data import native_parser as _native_parser
 
+        chunk_bytes = split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES)
         if _native_parser.native_reader_eligible(uri, type_, threaded, split_kw):
             try:
                 return _native_parser.NativeStreamParser(
                     spec.uri, spec.args, part_index, num_parts, type_,
-                    chunk_bytes=split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES))
+                    chunk_bytes=chunk_bytes)
             except DMLCError:
                 pass  # e.g. a csv dtype the native scanner lacks: the registry stack
+        elif _native_parser.native_feed_eligible(uri, type_, threaded, split_kw):
+            # another registered filesystem: its bytes fed to the C++ chunk parser
+            try:
+                return _native_parser.NativeFeedParser(
+                    spec.uri, spec.args, part_index, num_parts, type_,
+                    chunk_bytes=chunk_bytes)
+            except DMLCError:
+                pass  # the registry stack serves it
     if engine == "native":
         get_logger().warning(
             "engine=native unavailable for uri=%r format=%r "
@@ -1682,11 +1720,15 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     ``auto`` and ``native`` return the fused native reader
     (:class:`~dmlc_tpu_torch.data.native_parser.NativeStreamParser`) for a
     threaded parse of a plain local libsvm, csv or libfm file whose
-    options it serves, unless ``DMLC_TPU_NO_NATIVE_READER`` is set to
-    other than ``0``; ``native`` warns where it cannot. ``native-batch``
-    (the chunk-batch engine, not ported) warns and takes the registry
-    stack, as the reference does where its batch engine cannot serve.
-    ``python`` takes the registry stack on the numpy scanner.
+    options it serves, and the chunk feeder
+    (:class:`~dmlc_tpu_torch.data.native_parser.NativeFeedParser`) for the
+    same on another registered filesystem (``mem://``), unless
+    ``DMLC_TPU_NO_NATIVE_READER`` is set to other than ``0``; ``native``
+    warns where it cannot. ``native-batch`` returns the chunk-batch engine
+    (:class:`~dmlc_tpu_torch.data.batch_parser.NativeBatchParser`) over the
+    registry stack's chunk sources, and warns and takes the registry stack
+    for a configuration it cannot serve (a non-float32 csv), as the JAX
+    package does. ``python`` takes the registry stack on the numpy scanner.
 
     The registry stack: ``threaded`` parses ahead of the consumer:
     on ``parse_workers`` threads (:class:`ParallelTextParser`; None reads

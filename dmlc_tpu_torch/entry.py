@@ -101,6 +101,7 @@ def _dryrun_child(out: str) -> None:
     """One rank of the dry run; writes ``rank<r>.json`` into ``out``."""
     from dmlc_tpu_torch import DeviceIter, FMLearner, LinearLearner, create_parser
     from dmlc_tpu_torch.parallel import host_shard_info, init_from_env, make_mesh, sync_min
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
 
     cfg = json.load(open(os.path.join(out, "config.json")))
     init_from_env(device=cfg["device"], backend=cfg["backend"], timeout=timedelta(seconds=60))
@@ -138,7 +139,7 @@ def _dryrun_child(out: str) -> None:
     it.close()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump({"legs": legs, "traj": traj, "per_epoch": per_epoch}, f)
-    torch.distributed.destroy_process_group()
+    exit_rank()  # destroys the group and skips torch's teardown at exit
 
 
 def _single_process_trajectory(path: str, world: int, device) -> list:

@@ -23,10 +23,11 @@ nbytes]}}, ...]}``. The pipeline half, ``BlockCacheIter``, lives in
 :mod:`dmlc_tpu_torch.data.parsers`. A cache is bound to a source
 signature (:func:`source_signature`); :func:`open_block_cache` returns
 None for a missing, unreadable or stale cache and removes the stale file,
-so the caller rebuilds. The JAX package's pre-encoded span paths
-(``add_block_encoded``, ``block_encoded``) serve its ``native-batch``
-engine and its data service, neither of which is ported, and are left
-out.
+so the caller rebuilds. The pre-encoded span paths
+(:meth:`BlockCacheWriter.add_block_encoded`,
+:meth:`BlockCacheReader.block_encoded`) serve the ``native-batch`` engine
+(:mod:`dmlc_tpu_torch.data.batch_parser`): its blocks reach the file with
+no re-encode, and a warm block carries its span.
 
 bfloat16 without ``ml_dtypes``: a segment stored under the dtype string
 ``"bfloat16"`` reads on the host as ``uint16`` words (the same bytes), and
@@ -58,6 +59,8 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.io import resilience as _resilience
+from dmlc_tpu_torch.io.filesystem import get_filesystem
+from dmlc_tpu_torch.io.uri import URI
 from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check
 from dmlc_tpu_torch.utils.timer import get_time
@@ -244,9 +247,11 @@ def _normalize(obj):
 
 def source_signature(uri: str, part_index: int, num_parts: int, **config) -> dict:
     """The staleness key a container is bound to: the source files with
-    sizes and mtimes, the partition, and the parser ``config``. Local
-    paths only (the port reads no remote filesystem); the dict equals the
-    JAX package's for the same corpus and settings."""
+    sizes and mtimes, the partition, and the parser ``config``. A file on
+    another registered filesystem (``mem://``) carries its size from the
+    filesystem and no mtime, a directory its listing; an unreachable one
+    its path alone. The dict equals the JAX package's for the same corpus
+    and settings."""
     base = uri.split("#", 1)[0].split("?", 1)[0]
     files: List[list] = []
     for part in base.split(";"):
@@ -254,18 +259,29 @@ def source_signature(uri: str, part_index: int, num_parts: int, **config) -> dic
             continue
         local = part[7:] if part.startswith("file://") else (
             part if "://" not in part else None)
-        if local is None:
-            files.append([part, None, None])
-        elif os.path.isdir(local):
-            for name in sorted(os.listdir(local)):
-                fp = os.path.join(local, name)
-                if os.path.isfile(fp):
-                    st = os.stat(fp)
-                    files.append([fp, st.st_size, st.st_mtime_ns])
-        elif os.path.exists(local):
-            st = os.stat(local)
-            files.append([local, st.st_size, st.st_mtime_ns])
-        else:
+        if local is not None:
+            if os.path.isdir(local):
+                for name in sorted(os.listdir(local)):
+                    fp = os.path.join(local, name)
+                    if os.path.isfile(fp):
+                        st = os.stat(fp)
+                        files.append([fp, st.st_size, st.st_mtime_ns])
+            elif os.path.exists(local):
+                st = os.stat(local)
+                files.append([local, st.st_size, st.st_mtime_ns])
+            else:
+                files.append([part, None, None])
+            continue
+        try:  # sizes from the filesystem layer, no mtimes
+            fs = get_filesystem(part)
+            info = fs.get_path_info(URI(part))
+            if info.type == "directory":
+                for f in fs.list_directory(info.path):
+                    if f.type == "file":
+                        files.append([str(f.path), f.size, None])
+            else:
+                files.append([str(info.path), info.size, None])
+        except Exception:  # noqa: BLE001 - an unreachable source: its path alone
             files.append([part, None, None])
     return _normalize({
         "cache_version": BLOCK_CACHE_VERSION,
@@ -308,6 +324,29 @@ class BlockCacheWriter:
         t_span = get_time()
         pos = _pad_to(self._f, _ALIGN)
         end, crc, arrays = write_segments(self._f, segments)
+        self._append_entry(t_span, pos, end, crc, arrays, rows, num_col, resume)
+
+    def add_block_encoded(self, encoded, resume: Optional[dict] = None) -> None:
+        """Append one pre-encoded block span, an
+        :class:`~dmlc_tpu_torch.data.batch_parser.EncodedSegments` (the
+        ``native-batch`` engine's): its bytes are the ``[pos, end)`` span
+        :meth:`add_block` would write (segment order, 64-byte alignment,
+        zero gap bytes), with their crc32 and the footer's ``arrays``, so
+        the block goes to disk in one write with no re-encode. The file is
+        byte-identical to :meth:`add_block`'s on the same block."""
+        check(self._f is not None and not self._finished,
+              "BlockCacheWriter: writer already finished/aborted")
+        t_span = get_time()
+        pos = _pad_to(self._f, _ALIGN)
+        self._f.write(encoded.data)
+        arrays = {name: [dt, pos + int(off), int(nb)]
+                  for name, (dt, off, nb) in encoded.arrays.items()}
+        self._append_entry(t_span, pos, pos + int(encoded.nbytes), int(encoded.crc), arrays,
+                           encoded.rows, encoded.num_col, resume)
+
+    def _append_entry(self, t_span, pos, end, crc, arrays, rows, num_col, resume) -> None:
+        """The bookkeeping both append paths share: the footer entry, the
+        totals and the ``cache_write`` span."""
         # through JSON, so cold- and warm-served states compare equal
         self._entries.append({
             "pos": pos, "end": end, "rows": int(rows), "crc": crc,
@@ -411,6 +450,22 @@ class BlockCacheReader:
         if copy:
             segments = {k: np.array(v) for k, v in segments.items()}
         return segments
+
+    def block_encoded(self, i: int):
+        """Block ``i``'s contiguous segment span as an
+        :class:`~dmlc_tpu_torch.data.batch_parser.EncodedSegments` view over
+        the mmap, with no copy (a block cache tee appends it as it is). The
+        view aliases the mmap through ``hold``: keep the reader open while
+        it lives."""
+        from dmlc_tpu_torch.data.batch_parser import EncodedSegments
+
+        entry = self._blocks[i]
+        pos, end = int(entry["pos"]), int(entry["end"])
+        arrays = {name: (dt, int(off) - pos, int(nb))
+                  for name, (dt, off, nb) in entry["arrays"].items()}
+        return EncodedSegments(data=memoryview(self._mm)[pos:end], arrays=arrays,
+                               crc=int(entry["crc"]), rows=int(entry["rows"]),
+                               num_col=self.num_col, hold=self._mm)
 
     def close(self) -> None:
         # the pin drops first, even when live views keep the mmap open: an

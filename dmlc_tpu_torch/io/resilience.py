@@ -1,7 +1,6 @@
 """The fault-tolerance rules of the I/O stack, and the resilience counters.
 
 Own copy of the JAX package's ``io/resilience.py`` but its
-``ResilientStream`` (which comes with the cloud filesystems) and its
 fault-injection seam (``faults.maybe_fail``, no fault plans in the port):
 
 - :func:`classify` names an exception ``retryable`` (5xx / 429 / 408,
@@ -17,7 +16,10 @@ fault-injection seam (``faults.maybe_fail``, no fault plans in the port):
   healing): a retryable error may restart ``max_attempts - 1`` times, then
   gives up; ``DMLC_RETRY_MAX_ATTEMPTS=1`` allows no restart. A
   ``DeviceIter`` heals a corrupt snapshot batch without the backoff's
-  sleep (nothing to wait for), other retryable errors after it.
+  sleep (nothing to wait for), other retryable errors after it;
+- :class:`ResilientStream`: a read stream that reopens its source and
+  resumes at its byte offset after a retryable failure
+  (``open_stream(uri, resilient=True)``).
 
 The counters are the JAX package's resilience events under its names
 (``record_event``, ``counters_snapshot``, ``counters_delta``), each
@@ -31,13 +33,15 @@ records ``cache_corruptions`` (a block-cache block failed its crc32),
 ``cache_rebuilds`` (the cache was rebuilt from the source),
 ``cache_invalidations`` (a stale or unreadable cache was dropped) and the
 snapshot's ``snapshot_corruptions``, ``snapshot_rebuilds`` and
-``snapshot_invalidations``; the retry, resume and giveup keys read 0 until
-the port has the filesystems that retry.
+``snapshot_invalidations``; a :class:`ResilientStream` records
+``attempts``, ``retries``, ``resumes``, ``giveups`` and ``fatal`` as the
+JAX package's does.
 """
 
 from __future__ import annotations
 
 import http.client
+import io as _pyio
 import os
 import random
 import time
@@ -329,3 +333,74 @@ def restart_backoff(policy: RetryPolicy, used: int,
 
 
 NO_RETRY = RetryPolicy.none()
+
+
+# ---------------- the resumable stream ----------------
+
+class ResilientStream(_pyio.RawIOBase):
+    """Resumable read-only stream over a reopenable source.
+
+    ``open_fn()`` returns a fresh readable (and seekable, for a mid-stream
+    resume) binary stream. On a retryable mid-read failure the broken
+    inner stream is dropped, a new one is opened and seeked to the current
+    byte offset, and the read resumes: the consumer sees an unbroken byte
+    sequence. Fatal errors and spent budgets surface as ``DMLCError``.
+    """
+
+    def __init__(self, open_fn: Callable[[], object],
+                 policy: Optional[RetryPolicy] = None, what: str = ""):
+        super().__init__()
+        self._open_fn = open_fn
+        self._policy = policy or default_policy()
+        self._what = what
+        self._inner = None
+        self._pos = 0
+        self.reopens = 0  # resumes on this stream
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def _ensure(self):
+        if self._inner is None:
+            self._inner = self._open_fn()
+            if self._pos:
+                self._inner.seek(self._pos)
+                self.reopens += 1
+        return self._inner
+
+    def _drop_inner(self) -> None:
+        inner, self._inner = self._inner, None
+        if inner is not None:
+            try:
+                inner.close()
+            except Exception:  # noqa: BLE001 - already broken
+                pass
+
+    def seek(self, offset: int, whence: int = 0) -> int:
+        self._pos = self._policy.call(
+            lambda: self._ensure().seek(offset, whence), op="read", what=self._what,
+            resume_offset=self._pos, on_retry=self._drop_inner)
+        return self._pos
+
+    def tell(self) -> int:
+        return self._pos
+
+    def read(self, n: int = -1) -> bytes:
+        data = self._policy.call(
+            lambda: self._ensure().read(n), op="read", what=self._what,
+            resume_offset=self._pos, on_retry=self._drop_inner)
+        if data:
+            self._pos += len(data)
+        return data
+
+    def readinto(self, b) -> int:
+        data = self.read(len(b))
+        b[: len(data)] = data
+        return len(data)
+
+    def close(self) -> None:
+        self._drop_inner()
+        super().close()

@@ -1,7 +1,8 @@
 """URI parsing + the dmlc URI sugar ``path?k=v#cachefile`` (uri_spec.h:42-75).
 
-Own copy of the JAX package's ``io/uri.py``, trimmed to local paths with
-``?key=value`` arguments and three fragments: ``#<cachefile>`` names the
+Own copy of the JAX package's ``io/uri.py``: ``protocol://host/path``
+(``file://`` when there is no protocol) with ``?key=value`` arguments and
+three fragments: ``#<cachefile>`` names the
 split layer's chunk cache (``URISpec.cache_file``, with the
 ``.split<N>.part<K>`` suffix for one of several parts, uri_spec.h:47-53;
 :mod:`dmlc_tpu_torch.io.cached_split`), ``#blockcache=<path>`` the
@@ -22,6 +23,7 @@ class URI:
     """``protocol://host/path`` split — analog of dmlc::io::URI (io.h:539)."""
 
     def __init__(self, uri: str):
+        self.raw = uri
         pos = uri.find("://")
         if pos < 0:
             self.protocol = "file://"
@@ -35,6 +37,18 @@ class URI:
                 self.host, self.name = rest, ""
             else:
                 self.host, self.name = rest[:slash], rest[slash:]
+
+    def str_nohost(self) -> str:
+        """protocol + name, host dropped (io.h: used for FS-relative paths)."""
+        return self.protocol + self.name if self.protocol != "file://" else self.name
+
+    def __str__(self) -> str:
+        if self.protocol == "file://" and not self.host:
+            return self.name
+        return f"{self.protocol}{self.host}{self.name}"
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"URI({str(self)!r})"
 
 
 class URISpec:

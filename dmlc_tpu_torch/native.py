@@ -10,7 +10,14 @@ row raises :class:`NeedsCsrError`) and ``dmlc_parse_csv`` (a float32 cell
 matrix); and the fused stream reader ``dmlc_reader_*`` (``reader.cc``: a
 C++ producer thread reads record-aligned chunks of a byte-range partition
 of local files and parses them on worker threads, :class:`Reader`), whose
-results are tagged with a ``FMT_*`` code. A chunk is bytes or a memoryview
+results are tagged with a ``FMT_*`` code; its push mode ``dmlc_feeder_*``
+(:class:`Feeder`: the caller pushes a partition's bytes from any
+filesystem), the indexed RecordIO reader ``dmlc_indexed_reader_*``
+(:class:`IndexedReader`), the RecordIO framing scan
+``dmlc_recordio_extract`` (:func:`recordio_extract`) and the chunk-batch
+parser ``dmlc_parse_batch`` (:func:`parse_batch`: a chunk straight to a
+block-cache segment span). The ctypes structs mirror the JAX package's
+(``dmlc_tpu/native/__init__.py``). A chunk is bytes or a memoryview
 (an mmap slice), whose buffer address is passed through with no copy.
 Result arrays are wrapped as numpy views that own the malloc'd buffers
 through a finalizer (zero copies on the handoff). A bfloat16 payload (the
@@ -106,6 +113,31 @@ class _CsvSplitResult(ctypes.Structure):
     ]
 
 
+class _SegmentBlockResult(ctypes.Structure):
+    _fields_ = [
+        ("n_rows", ctypes.c_int64),
+        ("nnz", ctypes.c_int64),
+        ("num_col", ctypes.c_int64),
+        ("buf", ctypes.POINTER(ctypes.c_char)),
+        ("buf_len", ctypes.c_int64),
+        ("seg_off", ctypes.c_int64 * 7),
+        ("seg_len", ctypes.c_int64 * 7),
+        ("crc32", ctypes.c_uint32),
+        ("simd_level", ctypes.c_int32),
+        ("error", ctypes.c_char_p),
+    ]
+
+
+class _RecordBatchResult(ctypes.Structure):
+    _fields_ = [
+        ("n_records", ctypes.c_int64),
+        ("data_len", ctypes.c_int64),
+        ("data", ctypes.POINTER(ctypes.c_char)),
+        ("offsets", ctypes.POINTER(ctypes.c_int64)),
+        ("error", ctypes.c_char_p),
+    ]
+
+
 class _CooResult(ctypes.Structure):
     _fields_ = [
         ("n_rows", ctypes.c_int64),
@@ -156,7 +188,8 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_char]
         # void* so the finalizers never depend on ctypes class identity
         for name in ("dmlc_free_block", "dmlc_free_dense", "dmlc_free_csv",
-                     "dmlc_free_csv_split", "dmlc_free_coo"):
+                     "dmlc_free_csv_split", "dmlc_free_coo", "dmlc_free_segblock",
+                     "dmlc_free_records"):
             getattr(lib, name).argtypes = [ctypes.c_void_p]
         lib.dmlc_reader_create.restype = ctypes.c_void_p
         lib.dmlc_reader_create.argtypes = [
@@ -174,6 +207,44 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.dmlc_reader_error.restype = ctypes.c_char_p
         lib.dmlc_reader_error.argtypes = [ctypes.c_void_p]
         lib.dmlc_reader_destroy.argtypes = [ctypes.c_void_p]
+        lib.dmlc_parse_batch.restype = ctypes.POINTER(_SegmentBlockResult)
+        lib.dmlc_parse_batch.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_char, ctypes.c_int32, ctypes.c_int32]
+        lib.dmlc_simd_level.restype = ctypes.c_int
+        lib.dmlc_recordio_extract.restype = ctypes.POINTER(_RecordBatchResult)
+        lib.dmlc_recordio_extract.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+        lib.dmlc_feeder_create.restype = ctypes.c_void_p
+        lib.dmlc_feeder_create.argtypes = [
+            ctypes.c_int32, ctypes.c_int64, ctypes.c_int32, ctypes.c_char,
+            ctypes.c_int32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+        lib.dmlc_feeder_push.restype = ctypes.c_int32
+        lib.dmlc_feeder_push.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+        lib.dmlc_feeder_fail.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.dmlc_feeder_next.restype = ctypes.c_void_p
+        lib.dmlc_feeder_next.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
+        lib.dmlc_feeder_bytes_read.restype = ctypes.c_int64
+        lib.dmlc_feeder_error.restype = ctypes.c_char_p
+        for name in ("dmlc_feeder_finish", "dmlc_feeder_abort", "dmlc_feeder_before_first",
+                     "dmlc_feeder_bytes_read", "dmlc_feeder_error", "dmlc_feeder_destroy"):
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
+        lib.dmlc_indexed_reader_create.restype = ctypes.c_void_p
+        lib.dmlc_indexed_reader_create.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int32, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_uint64, ctypes.c_int32]
+        lib.dmlc_indexed_reader_next.restype = ctypes.c_void_p
+        lib.dmlc_indexed_reader_skip.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                                 ctypes.c_int64]
+        lib.dmlc_indexed_reader_bytes_read.restype = ctypes.c_int64
+        lib.dmlc_indexed_reader_error.restype = ctypes.c_char_p
+        for name in ("dmlc_indexed_reader_next", "dmlc_indexed_reader_before_first",
+                     "dmlc_indexed_reader_bytes_read", "dmlc_indexed_reader_error",
+                     "dmlc_indexed_reader_destroy"):
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -373,6 +444,114 @@ def _wrap_csv(lib, res):
     return _view(r.cells, rows * cols, np.float32, owner).reshape(rows, cols), owner
 
 
+# canonical segment slot order: io/block_cache.py's SEGMENT_NAMES and the
+# native DMLC_SEG_* constants, with the on-disk dtypes
+_BATCH_SEGMENTS = (
+    ("offset", "<i8"), ("label", "<f4"), ("weight", "<f4"), ("qid", "<i8"),
+    ("field", "<u8"), ("index", "<u8"), ("value", "<f4"),
+)
+
+# dmlc_parse_batch format codes (the stream reader's FMT_* values)
+BATCH_FMT = {"libsvm": 0, "csv": 2, "libfm": 3}
+
+
+def simd_level() -> int:
+    """The batch scanner's scan ISA on this host: 0 scalar, 1 SSE2, 2 AVX2,
+    3 NEON; -1 when the native library is unavailable."""
+    lib = _load()
+    return -1 if lib is None else int(lib.dmlc_simd_level())
+
+
+def parse_batch(chunk, fmt: str, nthread: int = 0, indexing_mode: int = 0,
+                delimiter: str = ",", label_col: int = -1, weight_col: int = -1):
+    """Parse a whole text chunk straight into a block-cache v1 segment span
+    (``native/src/batch_parse.cc``). None when the native library is
+    unavailable, else a dict:
+
+    - ``segments``: ``{name: view}`` of the present arrays, what
+      ``RowBlock.from_segments`` takes;
+    - ``data``: one uint8 view over the whole span, the bytes a block-cache
+      block stores;
+    - ``arrays``: ``{name: [dtype_str, span_offset, nbytes]}``, the footer
+      schema with offsets relative to ``data``;
+    - ``rows``, ``nnz``, ``num_col``, ``crc`` (zlib's crc32 of ``data``),
+      ``simd_level`` and ``_owner`` (keep it referenced while a view lives).
+
+    Malformed input raises DMLCError.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    code = BATCH_FMT.get(fmt)
+    if code is None:
+        raise DMLCError(f"parse_batch: unsupported format {fmt!r}")
+    buf, n, keep = _chunk_buf(chunk)
+    res = lib.dmlc_parse_batch(buf, n, nthread or default_nthread(), code, indexing_mode,
+                               delimiter.encode()[0] if delimiter else b","[0],
+                               label_col, weight_col)
+    del keep
+    if not res:
+        raise DMLCError("batch parse: out of memory")
+    r = res.contents
+    if r.error:
+        msg = r.error.decode()
+        lib.dmlc_free_segblock(res)
+        raise DMLCError(msg)
+    owner = _Owner(lib.dmlc_free_segblock, res)
+    rows = int(r.n_rows)
+    out = {"rows": rows, "nnz": int(r.nnz), "num_col": int(r.num_col), "crc": int(r.crc32),
+           "simd_level": int(r.simd_level), "segments": {}, "arrays": {}, "data": None,
+           "_owner": owner}
+    if rows == 0:
+        return out
+    span = _view(r.buf, int(r.buf_len), np.uint8, owner)
+    out["data"] = span if span is not None else np.empty(0, np.uint8)
+    for slot, (name, dtype_str) in enumerate(_BATCH_SEGMENTS):
+        off = int(r.seg_off[slot])
+        if off < 0:
+            continue
+        nbytes = int(r.seg_len[slot])
+        dt = np.dtype(dtype_str)
+        # a present but empty segment (a label-only chunk's index) is a
+        # real footer entry, as the segment writer records it
+        out["segments"][name] = (out["data"][off: off + nbytes].view(dt) if nbytes
+                                 else np.empty(0, dt))
+        out["arrays"][name] = [dtype_str, off, nbytes]
+    return out
+
+
+def recordio_extract(data):
+    """Every record of a span of RecordIO bytes that starts at a record
+    head and holds whole records: ``(payload uint8, offsets int64 [n+1])``,
+    record ``i`` being ``payload[offsets[i]:offsets[i+1]]``, views over the
+    native buffer. None when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    data = bytes(data) if not isinstance(data, bytes) else data
+    res = lib.dmlc_recordio_extract(data, len(data))
+    if not res:
+        raise DMLCError("recordio: out of memory")
+    return _wrap_records(lib, res)
+
+
+def _wrap_records(lib, res):
+    r = res.contents
+    if r.error:
+        msg = r.error.decode()
+        lib.dmlc_free_records(res)
+        raise DMLCError(msg)
+    owner = _Owner(lib.dmlc_free_records, res)
+    n = r.n_records
+    offsets = _view(r.offsets, n + 1, np.int64, owner)
+    payload = _view(r.data, r.data_len, np.uint8, owner)
+    if offsets is None:
+        offsets = np.zeros(1, np.int64)
+    if payload is None:
+        payload = np.empty(0, np.uint8)
+    return payload, offsets
+
+
 # ---------------- the fused stream reader (reader.cc) ----------------
 
 FMT_LIBSVM = 0
@@ -416,13 +595,16 @@ def _wrap_coo(lib, res) -> dict:
 
 
 def _wrap_stream_result(lib, ptr, fmt_value: int, num_col: int):
-    """A ``dmlc_reader_next`` result, wrapped by its format tag:
-    ``(fmt, wrapped)``."""
+    """A ``dmlc_reader_next`` / ``dmlc_feeder_next`` result, wrapped by
+    its format tag: ``(fmt, wrapped)``."""
     if fmt_value in (FMT_LIBSVM, FMT_LIBFM):
         return fmt_value, _wrap_block(lib, ctypes.cast(ptr, ctypes.POINTER(_CsrBlockResult)))
     if fmt_value == FMT_LIBSVM_DENSE:
         return fmt_value, _wrap_dense(lib, ctypes.cast(ptr, ctypes.POINTER(_DenseResult)),
                                       num_col)
+    if fmt_value in (FMT_RECORDIO, FMT_RECORDIO_CHUNK):
+        return fmt_value, _wrap_records(
+            lib, ctypes.cast(ptr, ctypes.POINTER(_RecordBatchResult)))
     if fmt_value in (FMT_LIBSVM_COO, FMT_LIBFM_COO):
         return fmt_value, _wrap_coo(lib, ctypes.cast(ptr, ctypes.POINTER(_CooResult)))
     if fmt_value == FMT_CSV_SPLIT:
@@ -498,6 +680,172 @@ class Reader:
     def close(self) -> None:
         if self._h is not None:
             self._lib.dmlc_reader_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class Feeder:
+    """The push mode of the native pipeline (the JAX package's class): the
+    caller streams a partition's raw bytes in, from any filesystem, and
+    pulls parsed blocks out; record-aligned chunking, the threaded parse
+    and the batch repack run in C++ as in :class:`Reader`.
+
+    Contract: one feed thread calls :meth:`push` repeatedly, then
+    :meth:`finish`; ``push`` blocks (the interpreter lock released) while
+    the byte queue is full. Before :meth:`before_first` or :meth:`close`,
+    call :meth:`abort` and join the feed thread."""
+
+    def __init__(self, fmt: int, num_col: int = 0, indexing_mode: int = 0,
+                 delimiter: str = ",", nthread: int = 0,
+                 chunk_bytes: int = 1 << 20, queue_depth: int = 4,
+                 batch_rows: int = 0, label_col: int = -1,
+                 weight_col: int = -1, out_bf16: bool = False,
+                 row_bucket: int = 0, nnz_bucket: int = 0,
+                 elide_unit: bool = False, csr_wire: bool = False,
+                 pack_aux: bool = False):
+        lib = _load()
+        if lib is None:
+            raise DMLCError("native core unavailable")
+        self._lib = lib
+        self._fmt = fmt
+        self._num_col = num_col
+        self._h = lib.dmlc_feeder_create(
+            fmt, num_col, indexing_mode, delimiter.encode()[0] if delimiter else b","[0],
+            nthread or default_nthread(), chunk_bytes, queue_depth,
+            batch_rows, label_col, weight_col, 1 if out_bf16 else 0,
+            row_bucket, nnz_bucket, 1 if elide_unit else 0,
+            1 if csr_wire else 0, 1 if pack_aux else 0)
+        if not self._h:
+            raise DMLCError("native feeder creation failed")
+
+    def push(self, data) -> bool:
+        """Feed bytes; False when the pipeline stopped (an error or an abort)."""
+        if self._h is None:
+            return False
+        return self._lib.dmlc_feeder_push(self._h, bytes(data), len(data)) == 0
+
+    def finish(self) -> None:
+        if self._h is not None:
+            self._lib.dmlc_feeder_finish(self._h)
+
+    def abort(self) -> None:
+        if self._h is not None:
+            self._lib.dmlc_feeder_abort(self._h)
+
+    def fail(self, msg: str) -> None:
+        """Record a feed-side failure and end the stream; the consumer's
+        :meth:`next` raises once the queued results have drained."""
+        if self._h is not None:
+            self._lib.dmlc_feeder_fail(self._h, msg.encode()[:512])
+
+    def next(self):
+        """The next parsed block as ``(fmt, wrapped)``, as
+        :meth:`Reader.next`; None at the end of the stream."""
+        if self._h is None:
+            return None
+        fmt = ctypes.c_int32(self._fmt)
+        ptr = self._lib.dmlc_feeder_next(self._h, ctypes.byref(fmt))
+        if not ptr:
+            err = self._lib.dmlc_feeder_error(self._h)
+            if err:
+                raise DMLCError(err.decode())
+            return None
+        return _wrap_stream_result(self._lib, ptr, fmt.value, self._num_col)
+
+    def before_first(self) -> None:
+        if self._h is not None:
+            self._lib.dmlc_feeder_before_first(self._h)
+
+    def error(self):
+        """The pipeline's error, or None. An error survives
+        :meth:`before_first` (the pipeline stays stopped): a clean restart
+        after a failure needs a new Feeder."""
+        if self._h is None:
+            return None
+        err = self._lib.dmlc_feeder_error(self._h)
+        return err.decode() if err else None
+
+    @property
+    def bytes_read(self) -> int:
+        return self._lib.dmlc_feeder_bytes_read(self._h) if self._h is not None else 0
+
+    def close(self) -> None:
+        if self._h is not None:
+            self._lib.dmlc_feeder_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class IndexedReader:
+    """The native indexed RecordIO pipeline (``reader.cc`` IndexedReader;
+    indexed_recordio_split.cc:12-41, 159-233): record-count partitioning
+    over an external index, batched contiguous reads, and with ``shuffle``
+    a per-epoch permutation (mt19937_64 from ``seed``) read by seeks.
+    :meth:`next` blocks (the interpreter lock released) until a batch of
+    extracted payloads is ready and wraps it as ``(payload, offsets)``."""
+
+    def __init__(self, paths, sizes, index_offsets, part_index: int, num_parts: int,
+                 batch_records: int = 256, shuffle: bool = False, seed: int = 0,
+                 queue_depth: int = 4):
+        lib = _load()
+        if lib is None:
+            raise DMLCError("native core unavailable")
+        self._lib = lib
+        arr_p = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
+        arr_s = (ctypes.c_int64 * len(sizes))(*sizes)
+        arr_i = (ctypes.c_int64 * len(index_offsets))(*index_offsets)
+        self._h = lib.dmlc_indexed_reader_create(
+            arr_p, arr_s, len(paths), arr_i, len(index_offsets), part_index, num_parts,
+            batch_records, 1 if shuffle else 0, seed, queue_depth)
+        if not self._h:
+            raise DMLCError("native indexed reader creation failed (out of memory)")
+        self._check_error()
+
+    def _check_error(self) -> None:
+        err = self._lib.dmlc_indexed_reader_error(self._h)
+        if err:
+            raise DMLCError(err.decode())
+
+    def next(self):
+        """The next batch as ``(payload, offsets)``; None at the end."""
+        if self._h is None:
+            return None
+        ptr = self._lib.dmlc_indexed_reader_next(self._h)
+        if not ptr:
+            self._check_error()
+            return None
+        return _wrap_records(self._lib, ctypes.cast(ptr, ctypes.POINTER(_RecordBatchResult)))
+
+    def before_first(self) -> None:
+        """The epoch reset; under shuffle the next epoch's permutation."""
+        if self._h is not None:
+            self._lib.dmlc_indexed_reader_before_first(self._h)
+
+    def skip(self, epochs: int, records: int) -> None:
+        """Land in epoch ``epochs`` at record ``records`` with no prefix
+        read (the permutations are replayed from the seed). Forward only."""
+        if self._h is not None:
+            self._lib.dmlc_indexed_reader_skip(self._h, epochs, records)
+            self._check_error()
+
+    @property
+    def bytes_read(self) -> int:
+        return (self._lib.dmlc_indexed_reader_bytes_read(self._h)
+                if self._h is not None else 0)
+
+    def close(self) -> None:
+        if self._h is not None:
+            self._lib.dmlc_indexed_reader_destroy(self._h)
             self._h = None
 
     def __del__(self):

@@ -16,6 +16,7 @@ whose peers are gone raises instead of hanging.
 from __future__ import annotations
 
 import os
+import sys
 from datetime import timedelta
 from typing import NamedTuple, Optional
 
@@ -149,3 +150,18 @@ def sync_min(value: int) -> int:
     t = torch.tensor([int(value)], dtype=torch.int64, device=nccl_device() or "cpu")
     dist.all_reduce(t, op=dist.ReduceOp.MIN)
     return int(t.item())
+
+
+def exit_rank(code: int = 0) -> None:
+    """End a rank's process: destroy the process group (if one is up),
+    flush the standard streams and leave with ``os._exit(code)``, which
+    skips the interpreter's teardown. On a loaded host torch's teardown of
+    a gloo group at interpreter exit now and then calls ``std::terminate``
+    (SIGABRT with no Python frame) after the rank's work is done, and the
+    launcher then reports the rank as failed. Close every file the rank
+    writes before calling it."""
+    if group_ready():
+        dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

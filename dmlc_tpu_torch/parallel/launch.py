@@ -6,10 +6,11 @@ each rank is a fresh interpreter with ``DMLC_TRACKER_URI/PORT``,
 ``DMLC_NUM_WORKER``, ``DMLC_TASK_ID`` and ``DMLC_ROLE`` set, so that
 :func:`~dmlc_tpu_torch.parallel.init_from_env` joins them into one group.
 
-The rendezvous port is a free one (bound to port 0 and released), with
-``DMLC_TRACKER_PORT`` one below it so the group's coordinator lands on
-it; a rank that finds it taken (``EADDRINUSE``, another job won the race)
-fails the attempt, and the launch is retried once on a new port. Every
+The rendezvous port is a free one (:func:`free_port`: drawn below the
+kernel's ephemeral range, so no automatically assigned port can take it),
+with ``DMLC_TRACKER_PORT`` one below it so the group's coordinator lands
+on it; a rank that finds it taken (``EADDRINUSE``, another job won the
+race) fails the attempt, and the launch is retried once on a new port. Every
 rank has the launch's deadline: when one fails or the deadline passes, the
 rest are killed, so no rank is left waiting on a collective.
 """
@@ -17,6 +18,7 @@ rest are killed, so no rank is left waiting on a collective.
 from __future__ import annotations
 
 import os
+import random
 import socket
 import subprocess
 import tempfile
@@ -36,15 +38,34 @@ class RankResult(NamedTuple):
     stderr: str
 
 
+def _ephemeral_range() -> "tuple[int, int]":
+    """The kernel's range for automatically assigned ports."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(v) for v in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return 32768, 60999  # Linux's default
+
+
 def free_port(host: str = "127.0.0.1") -> int:
-    """A TCP port that was free on ``host`` a moment ago (above 1024, so
-    the tracker port one below it is a user port too)."""
-    while True:
+    """A TCP port that was free on ``host`` a moment ago, drawn at random
+    below the kernel's ephemeral range and above 1025 (so the tracker port
+    one below it is a user port too). A port in the ephemeral range could
+    be handed to another process's ``bind(0)`` or outgoing connection
+    between this check and the coordinator's bind, and a rank would then
+    meet a stranger there; below it only an explicit bind can take it."""
+    lo = min(_ephemeral_range()[0], 65536)
+    rng = random.SystemRandom()
+    for _ in range(200):
+        port = rng.randrange(10000 if lo > 11000 else 1026, lo)
         with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-            s.bind((host, 0))
-            port = s.getsockname()[1]
-        if port > 1025:
-            return port
+            try:
+                s.bind((host, port))
+            except OSError:
+                continue
+        return port
+    raise DMLCError(f"free_port: no free port below {lo} on {host}")
 
 
 def worker_env(base: Dict[str, str], num_workers: int, task_id: int, port: int,

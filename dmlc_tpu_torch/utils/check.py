@@ -2,7 +2,9 @@
 
 Own copy of the JAX package's ``utils/check.py`` (the port imports nothing
 of it), trimmed to what the port uses: :class:`DMLCError`,
-:class:`CacheCorruptionError`, :func:`check` and :func:`get_logger`.
+:class:`CacheCorruptionError`, :func:`check` with its comparison forms
+(:func:`check_eq` … :func:`check_ge`, their messages the JAX package's)
+and :func:`get_logger`.
 """
 
 from __future__ import annotations
@@ -46,3 +48,37 @@ def check(cond: bool, msg: str = "check failed") -> None:
     """``CHECK(cond)`` — reference logging.h:205."""
     if not cond:
         raise DMLCError(msg)
+
+
+def _fail(detail: str, msg: str) -> None:
+    raise DMLCError(f"{detail}: {msg}" if msg else detail)
+
+
+def check_eq(a, b, msg: str = "") -> None:
+    if not (a == b):
+        _fail(f"check failed: {a!r} == {b!r}", msg)
+
+
+def check_ne(a, b, msg: str = "") -> None:
+    if not (a != b):
+        _fail(f"check failed: {a!r} != {b!r}", msg)
+
+
+def check_lt(a, b, msg: str = "") -> None:
+    if not (a < b):
+        _fail(f"check failed: {a!r} < {b!r}", msg)
+
+
+def check_le(a, b, msg: str = "") -> None:
+    if not (a <= b):
+        _fail(f"check failed: {a!r} <= {b!r}", msg)
+
+
+def check_gt(a, b, msg: str = "") -> None:
+    if not (a > b):
+        _fail(f"check failed: {a!r} > {b!r}", msg)
+
+
+def check_ge(a, b, msg: str = "") -> None:
+    if not (a >= b):
+        _fail(f"check failed: {a!r} >= {b!r}", msg)

@@ -29,12 +29,17 @@ PKG = os.path.dirname(dmlc_tpu_torch.__file__)
 FORBIDDEN = ("jax", "jaxlib", "optax", "dmlc_tpu", "ml_dtypes")
 # modules the port added by hand-picked slices, which the subprocess must
 # import too (the block cache, the snapshot store, the epoch planner, the ALS
-# example, the tiered artifact store, the chunk cache, RecordIO)
+# example, the tiered artifact store, the chunk cache, RecordIO, the
+# filesystem registry and its streams, the native RecordIO engines, the
+# chunk-batch engine, the row iterators and the serializer)
 SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot",
                     "dmlc_tpu_torch.ops.device_decode", "dmlc_tpu_torch.data.epoch",
                     "dmlc_tpu_torch.examples.train_als", "dmlc_tpu_torch.store.journal",
                     "dmlc_tpu_torch.store.manager", "dmlc_tpu_torch.io.cached_split",
-                    "dmlc_tpu_torch.io.recordio")
+                    "dmlc_tpu_torch.io.recordio", "dmlc_tpu_torch.io.filesystem",
+                    "dmlc_tpu_torch.io.stream", "dmlc_tpu_torch.io.native_recordio",
+                    "dmlc_tpu_torch.data.batch_parser", "dmlc_tpu_torch.data.iterators",
+                    "dmlc_tpu_torch.utils.serializer")
 
 
 def _port_sources():

@@ -252,3 +252,62 @@ def test_create_parser_cachefile_epochs_equal_plain(tmp_path, monkeypatch, npart
     names = sorted(n for n in os.listdir(tmp_path) if n.startswith("h.cache"))
     assert names == (["h.cache"] if nparts == 1
                      else ["h.cache.split2.part0", "h.cache.split2.part1"])
+
+
+# ---------------- fault C11: DeviceIter over a warm chain ----------------
+
+def _ell_batches(it) -> list:
+    """The epoch's ELL batches as bytes (indices, values, label, weight)."""
+    out = [tuple(t.numpy().tobytes() for t in (b.indices, b.values, b.label, b.weight))
+           for b in it]
+    it.close()
+    return out
+
+
+def _device_iter(parser):
+    from dmlc_tpu_torch.data import DeviceIter
+
+    return DeviceIter(parser, num_col=31, batch_size=64, layout="ell", max_nnz=8,
+                      device="cpu")
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_c11_device_iter_over_a_warm_cachefile_chain(tmp_path, workers):
+    """After the first pass wrote the chunk cache, a ``DeviceIter`` built
+    over a fresh ``path#cache`` chain, the source renamed away, constructs
+    (its scope walk does not build the source split behind the cache) and
+    yields the plain run's batches."""
+    src = _text_corpus(tmp_path / "c.libsvm")
+    cache = tmp_path / "c.cache"
+    plain = _ell_batches(_device_iter(create_parser(src, chunk_bytes=4096,
+                                                    parse_workers=workers)))
+    first = _ell_batches(_device_iter(create_parser(f"{src}#{cache}", chunk_bytes=4096,
+                                                    parse_workers=workers)))
+    assert first == plain and cache.exists() and len(plain) == 900 // 64 + 1
+    os.rename(src, src + ".away")
+    it = _device_iter(create_parser(f"{src}#{cache}", chunk_bytes=4096,
+                                    parse_workers=workers))
+    assert _ell_batches(it) == plain
+
+
+def test_c11_warm_block_cache_under_device_iter_builds_no_cold_chain(tmp_path):
+    """A warm ``BlockCacheIter`` under ``DeviceIter``: construction and a
+    whole epoch never build its cold chain (its factory raises if called,
+    and ``_base`` stays None), and the batches are the cold pass's."""
+    src = _text_corpus(tmp_path / "c.libsvm")
+    bc = str(tmp_path / "c.bc")
+    plain = _ell_batches(_device_iter(create_parser(src, chunk_bytes=4096, block_cache=bc)))
+    warm = create_parser(src, chunk_bytes=4096, block_cache=bc)
+    assert warm.cache_state == "warm" and warm._base is None
+
+    def build():
+        raise AssertionError("the warm pass built the cold chain")
+
+    warm._base_factory = build
+    it = _device_iter(warm)
+    assert warm._base is None
+    got = [tuple(t.numpy().tobytes() for t in (b.indices, b.values, b.label, b.weight))
+           for b in it]
+    assert warm._base is None
+    it.close()
+    assert got == plain

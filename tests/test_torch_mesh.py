@@ -34,6 +34,7 @@ WORKER = textwrap.dedent(r'''
 
     from dmlc_tpu_torch.parallel import (data_sharding, host_shard_info, init_from_env,
                                          local_batch_to_global, make_mesh)
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
 
     init_from_env(device="cpu", timeout=timedelta(seconds=60))
     rank, world = host_shard_info()
@@ -68,7 +69,7 @@ WORKER = textwrap.dedent(r'''
     out["spec"] = list(data_sharding(default, ndim=2).spec)
     with open(os.path.join(os.environ["OUT"], f"mesh_{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    exit_rank()  # destroys the group and skips torch's teardown at exit
 ''')
 
 

@@ -640,18 +640,27 @@ def test_c7_engine_priority_and_typos_match_reference(tmp_path, monkeypatch):
 
 
 def test_c7_native_batch_warns_and_takes_the_registry_stack(tmp_path, monkeypatch, caplog):
-    """``native-batch`` (the chunk-batch engine, not ported) warns as the
-    JAX package does where its batch engine cannot serve a config, and
-    parses on the registry stack; ``native`` that cannot be served warns
-    too."""
+    """``native-batch`` warns as the JAX package does where its batch
+    engine cannot serve a config (a csv of int32 values), and parses on
+    the registry stack; a config it serves takes the batch engine, with no
+    warning; ``native`` that cannot be served warns too."""
     monkeypatch.delenv("DMLC_TPU_NO_NATIVE_READER")
     path = tmp_path / "c7.libsvm"
     path.write_bytes(_libsvm_text(n=20))
+    csv = tmp_path / "c7.csv"
+    csv.write_text("".join(f"{i % 2},{i},{i + 1}\n" for i in range(20)))
+    with caplog.at_level("WARNING", logger="dmlc_tpu_torch"):
+        port = create_parser(f"{csv}?format=csv&dtype=int32", engine="native-batch")
+    assert isinstance(port, ParallelTextParser) and port.engine == "numpy"
+    assert ("engine=native-batch unavailable for format='csv' index_dtype=<u8 "
+            "(toolchain/format/dtype); using the Python engine") in caplog.text
+    assert sum(len(b) for b in port) == 20
+    port.close()
+    caplog.clear()
     with caplog.at_level("WARNING", logger="dmlc_tpu_torch"):
         port = create_parser(str(path), engine="native-batch")
-    assert isinstance(port, ParallelTextParser) and port.engine == "native"
-    assert ("engine=native-batch unavailable for format='libsvm' index_dtype=<u8 "
-            "(toolchain/format/dtype); using the Python engine") in caplog.text
+    assert isinstance(port, ParallelTextParser) and port.engine == "native-batch"
+    assert "unavailable" not in caplog.text
     port.close()
     caplog.clear()
     with caplog.at_level("WARNING", logger="dmlc_tpu_torch"):

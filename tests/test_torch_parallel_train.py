@@ -164,6 +164,7 @@ WORKER = textwrap.dedent(r'''
                                 LinearLearner, convert, create_parser)
     from dmlc_tpu_torch.parallel import (host_shard_info, init_from_env, make_mesh,
                                          pod_identity, sync_min)
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
 
     cfg = json.load(open(sys.argv[1]))
     contract = init_from_env(device="cpu", timeout=timedelta(seconds=60))
@@ -286,7 +287,7 @@ WORKER = textwrap.dedent(r'''
         it.close()
     with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    exit_rank()  # destroys the group and skips torch's teardown at exit
 ''')
 
 

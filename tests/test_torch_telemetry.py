@@ -212,6 +212,11 @@ def test_device_iter_adopts_its_source_chain():
 
 def test_span_ring_bounded_counts_kept(monkeypatch):
     monkeypatch.setenv("DMLC_TPU_TRACE_RING_SPANS", "64")
+    # past DMLC_TPU_TRACE_MAX_RINGS rings (a process that ran many
+    # pipelines first), the new thread's ring would retire a dead thread's
+    # ring and add its spans to spans_dropped inside the measured window:
+    # raise the cap so the window holds this ring's drops alone
+    monkeypatch.setenv("DMLC_TPU_TRACE_MAX_RINGS", str(1 << 30))
 
     def run():
         for i in range(200):
