@@ -282,7 +282,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
     stack), K1 and ``dw`` once a step and held against their plain
     versions on the phase's first batch, ``cache_rebuilds`` 0; rows/s and
     stall share of both epochs and the cache's bytes beside the corpus's;
-    then 20 steps of the cache-only epoch behind a spin in groups of 10,
+    then 20 steps of the cache-only epoch behind a spin of about 2 s
+    (:data:`PIPELINE_SPIN_CYCLES`) in groups of 10,
     no host sync; (b) a block cache and an ELL snapshot (``device_decode=
     True``) of the corpus beside the chunk cache: ``stats()["store"]
     ["store_bytes"]`` equals the three files' sizes (the byte gauges are
@@ -313,7 +314,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
     written over the ``mem://`` source by a cold epoch and one warm
     ``device_decode=True`` epoch from it, its batches equal to the cold
     ones, K2 once a warm batch; 20 steps of the ``mem://`` pipeline behind
-    a spin in groups of 10, no host sync; (b) ``engine="native-batch"``
+    a spin of about 2 s in groups of 10, no host sync; (b) ``engine="native-batch"``
     with ``block_cache=``: the chain is a ``BlockCacheIter`` over the
     batch engine, the cold epoch writes every block through
     ``add_block_encoded`` (no ``add_block``), the warm one reads every
@@ -336,6 +337,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
     prints rows/s and stall share beside the plain local run's and passes
     each epoch's launches through the K1 / ``dw`` (and K2) gate. The phase
     prints its wall time.
+19. the cloud filesystems (``run_cloud``) in a directory of its own,
+    beside ``dmlc_tpu_torch/testing/fake_cloud.py`` in a child process
+    (S3 with every SigV4 signature checked, GCS, WebHDFS, Azure with every
+    Shared Key signature checked, plain HTTP, served from its memory on
+    127.0.0.1; killed in a ``finally``), the port pointed at it through
+    the environment: (a) phase 3's corpus read into memory, then uploaded
+    through the port's multipart write stream
+    (``open_stream("s3://bench/higgs.libsvm", "w")``, parts of 8 MiB; each
+    part's wall time and the retries reported, a retry failing the
+    phase), one sweep of Range GETs with no parse, then
+    ``create_parser`` -> ``NativeFeedParser`` -> ``DeviceIter(ell)`` at 2
+    convert workers -> ``LinearLearner``, two epochs against the fused
+    reader's on the local file (digests, 20 losses, weights bit-equal),
+    K1 and ``dw`` held against their plain versions on a batch of the
+    leg, a snapshot over the ``s3://`` source (cold, then a warm
+    ``device_decode=True`` epoch, K2 once a batch, its batches the cold
+    ones'), 20 steps behind a spin of about 2 s
+    (:data:`PIPELINE_SPIN_CYCLES`) in groups of 10; (b) the corpus cut to
+    :data:`CLOUD_CUT_ROWS` rows, written through the port's own streams
+    (the GCS media upload, the WebHDFS two-step create, the Azure block
+    list, the S3 multipart; plain HTTP through the fake's control), one
+    epoch each on ``http://``, ``gs://``, ``hdfs://``, ``azure://`` and
+    ``s3://``, bit-equal to the fused reader's epoch on the same cut, and
+    a two-file ``s3://bench/parts/`` read at ``num_parts=2``, the two
+    parts' rows the corpus's; (c) an ``s3://`` epoch of (b)'s size while
+    the fake serves a 503, a 429 with ``Retry-After: 0.05`` and a reset
+    mid-body (:data:`CLOUD_FAULTS`): healed, bit-equal to (b)'s clean
+    epoch, retries and resumes reported; then a 403 fails an epoch in
+    one attempt with ``DMLCError`` ("feed failed", no batch after it); (d) a ``DeviceIter`` state taken after
+    :data:`CLOUD_CKPT_AT` batches and the learner's parameters saved to
+    ``s3://`` and read back into a fresh pipeline: the remaining batches
+    and final weights the uninterrupted epoch's; then
+    ``dmlc_tpu_torch.examples.checkpoint_resume`` on the card, its corpus
+    on ``s3://``. Every epoch passes the K1 / ``dw`` (and K2) gate; the
+    fake refusing a signature fails the phase. The phase prints its wall
+    time and fails past :data:`CLOUD_LIMIT_S`.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
@@ -350,7 +387,7 @@ launches the card queues behind a spin (``launch_queue``). Phase 16 runs
 after them (a window opened after a pipeline ran behind a spin can miss a
 device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-18, the windowed ones of phase
+the main paths of phases 3, 6, 7 and 11-19, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14 and
 11 (f)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -419,19 +456,25 @@ def smi_line() -> str:
 
 
 @contextlib.contextmanager
+def _env(values: dict):
+    """``os.environ`` with ``values`` inside the block, as it was after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def registry_stack():
     """Inside: ``create_parser`` builds the registry stack (the split, the
     text parsers, ``ParallelTextParser``) for a plain local file, not the
     fused native reader (``DMLC_TPU_NO_NATIVE_READER=1``)."""
-    old = os.environ.get("DMLC_TPU_NO_NATIVE_READER")
-    os.environ["DMLC_TPU_NO_NATIVE_READER"] = "1"
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["DMLC_TPU_NO_NATIVE_READER"]
-        else:
-            os.environ["DMLC_TPU_NO_NATIVE_READER"] = old
+    return _env({"DMLC_TPU_NO_NATIVE_READER": "1"})
 
 
 # ---------------- phase 1: environment and builds ----------------
@@ -1698,6 +1741,24 @@ def _bcoo_pipeline(path: str, device, natural: bool = False):
     return model, it
 
 
+# the spin behind a leg whose steps pull from a running pipeline, about 2 s:
+# its convert workers (and phase 19's feed thread) share the interpreter
+# lock with the consumer, whose 10 steps took 0.06-0.32 s of host time on
+# the card's host; a step that syncs still waits the whole spin
+PIPELINE_SPIN_CYCLES = 4_000_000_000
+_SPIN_PIECE = 1_000_000_000  # cycles a ``torch.cuda._sleep`` call at most
+
+
+def _spin(cycles: int) -> None:
+    """One device-side spin of ``cycles`` on the current stream, queued in
+    pieces of at most :data:`_SPIN_PIECE`."""
+    import torch
+
+    while cycles > 0:
+        torch.cuda._sleep(min(cycles, _SPIN_PIECE))
+        cycles -= _SPIN_PIECE
+
+
 def enqueue_behind_spin(step, calls: int = 20, spin_cycles: int = 1_000_000_000,
                         group: int = None) -> dict:
     """Whether ``step`` waits for the device: ``calls`` calls enqueued
@@ -1718,13 +1779,13 @@ def enqueue_behind_spin(step, calls: int = 20, spin_cycles: int = 1_000_000_000,
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    torch.cuda._sleep(spin_cycles)
+    _spin(spin_cycles)
     end.record()
     torch.cuda.synchronize()
     spin_s = start.elapsed_time(end) / 1e3
     host_s, busy = 0.0, True
     for first in range(0, calls, group):
-        torch.cuda._sleep(spin_cycles)
+        _spin(spin_cycles)
         t0 = time.monotonic()
         for _ in range(min(group, calls - first)):
             step()
@@ -4714,19 +4775,17 @@ def run_trace_modes(path: str, tmp: str, device) -> dict:
 
     telemetry.reset_spans()  # the trace holds this leg's spans, not the run's
     trace = os.path.join(tmp, "pool.trace.json")
-    old = os.environ.get("DMLC_TPU_TRACE")
-    try:
-        os.environ["DMLC_TPU_TRACE"] = f"chrome:{trace}"
+    with _env({"DMLC_TPU_TRACE": f"chrome:{trace}"}):
         model, it = _pool_pipeline(path, device, 2, transfer_sample=8)
         model.fit_epoch(it)
         stats = it.stats()
         it.close()
-        with open(trace) as f:
-            doc = json.load(f)
-        names = {e["name"] for e in doc["traceEvents"]
-                 if e.get("ph") == "X" and e["args"].get("pipeline") == stats["pipeline"]}
-        need = {k for k, v in stats["stages"].items() if v > 0}
-        os.environ["DMLC_TPU_TRACE"] = "1"
+    with open(trace) as f:
+        doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"]
+             if e.get("ph") == "X" and e["args"].get("pipeline") == stats["pipeline"]}
+    need = {k for k, v in stats["stages"].items() if v > 0}
+    with _env({"DMLC_TPU_TRACE": "1"}):
         model, it = _pool_pipeline(path, device, 2, transfer_sample=1)
         model.step(next(it))
         cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
@@ -4736,11 +4795,6 @@ def run_trace_modes(path: str, tmp: str, device) -> dict:
                 model.step(next(it))
             torch.cuda.synchronize()
         it.close()
-    finally:
-        if old is None:
-            os.environ.pop("DMLC_TPU_TRACE", None)
-        else:
-            os.environ["DMLC_TPU_TRACE"] = old
     ranges = sorted(e.key for e in prof.key_averages() if e.key.startswith("dmlc_tpu."))
     out = {"phase": "trace_modes", "chrome_events": sorted(names),
            "stages_above_0": sorted(need), "trace_bytes": os.path.getsize(trace),
@@ -4840,7 +4894,7 @@ def _k1_on_batch(model, batch) -> dict:
 def _tune_spin(path: str, device) -> dict:
     """Phase 16 (a)'s spin check: 20 steps (groups of 10) fed by an
     autotuned ``DeviceIter(autotune_interval=4)`` enqueued behind a device
-    spin, with forced knob grows inside the window through the autotuner's
+    spin of about 2 s (:data:`PIPELINE_SPIN_CYCLES`), with forced knob grows inside the window through the autotuner's
     own knobs: ``prefetch`` + 2 and ``convert_ahead`` + 2 at the 8th call,
     ``convert_ahead`` + 16 (past the ring's slack, so the workers make new
     pinned slots) at the 12th. No call may wait for the card."""
@@ -4862,7 +4916,7 @@ def _tune_spin(path: str, device) -> dict:
             knobs["convert_ahead"].apply(knobs["convert_ahead"].get() + 16)
         model.step(next(it))
 
-    spin = enqueue_behind_spin(step, group=10)
+    spin = enqueue_behind_spin(step, group=10, spin_cycles=PIPELINE_SPIN_CYCLES)
     time.sleep(1.0)  # the workers fill the wider window
     stats = it.stats()
     it.close()
@@ -5210,7 +5264,8 @@ def run_store_cachefile(path: str, d: str, device) -> dict:
     from dmlc_tpu_torch.ops import ell_matvec as k1
 
     k1_0, dw_0 = k1.launches, k1.dw_launches
-    spin = enqueue_behind_spin(lambda: spin_model.step(next(spin_it)), group=10)
+    spin = enqueue_behind_spin(lambda: spin_model.step(next(spin_it)), group=10,
+                               spin_cycles=PIPELINE_SPIN_CYCLES)
     spin.update(k1_launches=k1.launches - k1_0, dw_launches=k1.dw_launches - dw_0)
     spin_it.close()
     os.rename(path + ".away", path)
@@ -5284,14 +5339,11 @@ def run_store_budget(path: str, d: str, device) -> dict:
     budget = small[1] + small[2] + 4096 + small[0] // 2
     telemetry.reset_decisions()
     res0 = resilience.counters_snapshot()
-    os.environ["DMLC_TPU_STORE_BUDGET_BYTES"] = str(budget)
-    try:
+    with _env({"DMLC_TPU_STORE_BUDGET_BYTES": str(budget)}):
         store.reset_stores()
         t0 = time.monotonic()
         _squeeze_publish(d, "squeeze1.bc")
         evict_s = time.monotonic() - t0
-    finally:
-        del os.environ["DMLC_TPU_STORE_BUDGET_BYTES"]
     ledger = [{k: e.get(k) for k in ("action", "trigger", "outcome")}
               for e in telemetry.decisions_snapshot("store")]
     evicted = [n for n in sizes if not os.path.exists(os.path.join(d, n))]
@@ -5312,14 +5364,11 @@ def run_store_budget(path: str, d: str, device) -> dict:
 
         def on_batch(n, leg=leg, squeeze=squeeze):
             if leg == "warm_squeezed" and n == STORE_SQUEEZE_AT:
-                os.environ["DMLC_TPU_STORE_BUDGET_BYTES"] = "1"
-                try:
+                with _env({"DMLC_TPU_STORE_BUDGET_BYTES": "1"}):
                     t = threading.Thread(
                         target=lambda: squeeze.update(s=_squeeze_publish(d, "squeeze2.bc")))
                     t.start()
                     t.join()
-                finally:
-                    del os.environ["DMLC_TPU_STORE_BUDGET_BYTES"]
                 squeeze["snapshot_survived"] = os.path.exists(snap)
 
         rec = _store_epoch(model, it, leg, dig, losses, on_batch)
@@ -5525,7 +5574,8 @@ def run_host_mem(path: str, tmp: str, device) -> dict:
     from dmlc_tpu_torch.ops import ell_matvec as k1
 
     k1_0, dw_0 = k1.launches, k1.dw_launches
-    spin = enqueue_behind_spin(lambda: spin_model.step(next(spin_it)), group=10)
+    spin = enqueue_behind_spin(lambda: spin_model.step(next(spin_it)), group=10,
+                               spin_cycles=PIPELINE_SPIN_CYCLES)
     spin.update(k1_launches=k1.launches - k1_0, dw_launches=k1.dw_launches - dw_0)
     spin_it.close()
     MemoryFileSystem.reset()
@@ -5818,6 +5868,451 @@ def run_host_io(path: str, tmp: str, device, seed: int) -> dict:
     return out
 
 
+# ---------------- phase 19: the cloud filesystems ----------------
+
+CLOUD_S3 = "s3://bench/higgs.libsvm"
+CLOUD_CUT_ROWS = 1 << 16   # (b)-(d): the corpus cut for the other protocols
+CLOUD_CKPT_AT = 3          # (d): batches of the cut before the checkpoint
+CLOUD_UPLOAD_PIECE = 8 << 20
+CLOUD_LIMIT_S = 60.0       # phase 19's wall time, the fake's start to its stop
+CLOUD_FAULTS = [  # (c): served at the n-th Range GET of an s3:// epoch
+    {"proto": "s3", "action": "503", "at": 3},
+    {"proto": "s3", "action": "429", "at": 7, "retry_after": "0.05"},
+    {"proto": "s3", "action": "reset", "at": 12},
+]
+
+
+class _FakeCloudChild:
+    """``dmlc_tpu_torch/testing/fake_cloud.py`` in a child process of its
+    own (its own interpreter lock, standard library only, started with
+    ``subprocess``: no fork after CUDA is up), serving S3, GCS, WebHDFS,
+    Azure and plain HTTP from its memory on 127.0.0.1; stopped by
+    :meth:`close`."""
+
+    def __init__(self, d: str):
+        script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dmlc_tpu_torch",
+                              "testing", "fake_cloud.py")
+        self.err_path = os.path.join(d, "fake_cloud.err")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen([sys.executable, script], stdout=subprocess.PIPE,
+                                     stderr=self._err, text=True)
+        line = self.proc.stdout.readline()
+        if not line:
+            self.close()
+            raise AssertionError(f"phase 19: the fake cloud did not start: {self.stderr()}")
+        info = json.loads(line)
+        self.env, self.control, self.ports = info["env"], info["control"], info["ports"]
+
+    def _call(self, method: str, path: str, body: bytes = b"") -> dict:
+        import urllib.request
+
+        req = urllib.request.Request(self.control + path, data=body or None, method=method)
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read() or b"{}")
+
+    def put(self, proto: str, key: str, data: bytes) -> None:
+        import urllib.parse
+
+        self._call("PUT", "/put?" + urllib.parse.urlencode({"proto": proto, "key": key}), data)
+
+    def faults(self, rules: list) -> None:
+        self._call("POST", "/clear_faults")
+        self._call("POST", "/faults", json.dumps(rules).encode())
+
+    def stats(self) -> dict:
+        return self._call("GET", "/stats")
+
+    def stderr(self) -> str:
+        self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()[-2000:]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        self.proc.stdout.close()
+        self._err.close()
+
+
+def _range_sweep(uri: str, piece: int = 1 << 20) -> dict:
+    """One pass of Range GETs over ``uri`` with no parse: the client's and
+    the fake's pace without the pipeline."""
+    from dmlc_tpu_torch.io.stream import open_stream
+
+    t0 = time.monotonic()
+    n = 0
+    with open_stream(uri) as f:
+        while True:
+            data = f.read(piece)
+            if not data:
+                break
+            n += len(data)
+    secs = time.monotonic() - t0
+    return {"bytes": n, "seconds": secs, "mb_per_s": n / secs / 1e6}
+
+
+def _cut_bytes(path: str, rows: int) -> bytes:
+    with open(path, "rb") as f:
+        return b"".join(f.readline() for _ in range(rows))
+
+
+def _one_epoch(uri: str, device, leg: str) -> tuple:
+    """A fresh learner's one epoch over ``uri``: (record, digests, losses,
+    weights, parser class)."""
+    model, it = _store_pipeline(uri, device)
+    parser = type(it.source).__name__
+    dig, losses = _Digests(device), []
+    rec = _store_epoch(model, it, leg, dig, losses)
+    it.close()
+    return rec, dig, losses, _weights(model), parser
+
+
+def _same_losses(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) > 0 and torch.equal(torch.stack(a), torch.stack(b))
+
+
+class _RowDigests(_Digests):
+    """:class:`_Digests` of the rows a batch really holds (weight not 0):
+    the rows of a short last batch without its padding."""
+
+    def add(self, batch) -> None:
+        super().add(batch)
+        self.row[-1] = self.row[-1][batch.weight != 0]
+
+
+def run_cloud_s3(path: str, cloud: "_FakeCloudChild", d: str, device) -> dict:
+    """Phase 19 (a): phase 3's corpus uploaded through the port's multipart
+    write stream, then ``create_parser("s3://...")`` (``NativeFeedParser``)
+    -> ``DeviceIter(ell)`` at 2 convert workers -> ``LinearLearner``, two
+    epochs, against the fused native reader on the local file; a snapshot
+    over the ``s3://`` source (cold, then warm with K2); 20 steps behind a
+    spin; one Range-GET sweep with no parse."""
+    from dmlc_tpu_torch.io import resilience as res
+    from dmlc_tpu_torch.io.stream import open_stream
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    t0 = time.monotonic()
+    with open(path, "rb") as f:
+        corpus = memoryview(f.read())
+    read_s = time.monotonic() - t0
+    base = res.counters_snapshot()
+    write_s = []  # a write of CLOUD_UPLOAD_PIECE bytes: one part's upload
+    t0 = time.monotonic()
+    with open_stream(CLOUD_S3, "w") as dst:
+        for at in range(0, len(corpus), CLOUD_UPLOAD_PIECE):
+            t1 = time.monotonic()
+            dst.write(corpus[at:at + CLOUD_UPLOAD_PIECE])
+            write_s.append(time.monotonic() - t1)
+    upload_s = time.monotonic() - t0
+    upload_counters = {k: v for k, v in res.counters_delta(base).items()
+                       if k in ("attempts", "retries", "giveups", "fatal")}
+    del corpus
+    stats = cloud.stats()
+    parts = sum(len(u["parts"]) for u in stats["uploads"].values())
+    sweep = _range_sweep(CLOUD_S3)
+    plain_model, plain_it = _store_pipeline(path, device)
+    plain_class = type(plain_it.source).__name__
+    plain_losses = []
+    plain_recs, plain_digs, _ = _run_epochs(plain_model, plain_it, ["local_0", "local_1"],
+                                            plain_losses)
+    plain_it.close()
+    _, probe = _store_pipeline(CLOUD_S3, device)
+    checks = _k1_on_batch(plain_model, next(probe))
+    probe.close()
+    model, it = _store_pipeline(CLOUD_S3, device, convert_workers=2)
+    feed_class = type(it.source).__name__
+    losses = []
+    recs, digs, _ = _run_epochs(model, it, ["s3_0", "s3_1"], losses)
+    it.close()
+    snap = os.path.join(d, "s3_higgs.snapshot")
+    snap_model, snap_it = _store_pipeline(CLOUD_S3, device, {"snapshot": snap},
+                                          device_decode=True)
+    snap_recs, snap_digs, _ = _run_epochs(snap_model, snap_it, ["s3_snapshot_cold",
+                                                                "s3_snapshot_warm"], [])
+    snap_it.close()
+    os.remove(snap)
+    spin_model, spin_it = _store_pipeline(CLOUD_S3, device, convert_ahead=32)
+    spin_model.step(next(spin_it))
+    time.sleep(3.0)
+    k1_0, dw_0 = k1.launches, k1.dw_launches
+    spin = enqueue_behind_spin(lambda: spin_model.step(next(spin_it)), group=10,
+                               spin_cycles=PIPELINE_SPIN_CYCLES)
+    spin.update(k1_launches=k1.launches - k1_0, dw_launches=k1.dw_launches - dw_0)
+    spin_it.close()
+    out = {"phase": "cloud_s3", "uri": CLOUD_S3, "corpus_read_s": read_s, "upload_s": upload_s,
+           "upload_parts": parts, "upload_mb_per_s": os.path.getsize(path) / upload_s / 1e6,
+           "upload_write_s": {"max": max(write_s), "median": statistics.median(write_s),
+                              "over_1s": sum(w > 1.0 for w in write_s)},
+           "upload_counters": upload_counters, "upload_requests": {
+               k: v for k, v in stats["requests"].items() if k.startswith("s3.")},
+           "range_sweep": sweep,
+           "parser": feed_class, "plain_parser": plain_class, "epochs": recs,
+           "plain_epochs": plain_recs, "plain_local": _plain_pair(plain_recs[-1]),
+           "batch_hashes_equal": _epochs_equal(digs, plain_digs),
+           "first_20_losses_bit_equal": _losses_equal(losses, plain_losses),
+           "final_weights_bit_equal": _same_weights(_weights(model), _weights(plain_model)),
+           "snapshot_epochs": snap_recs,
+           "warm_batches_equal_cold": _epochs_equal(snap_digs[1:], snap_digs[:1]),
+           "warm_batches_equal_local": _epochs_equal(snap_digs[1:], plain_digs[:1]),
+           **checks, "spin": spin}
+    emit(out)
+    if upload_counters.get("retries"):
+        # a request to the fake on this host answers in milliseconds: a
+        # retry is a request that failed or hung for a whole attempt
+        raise AssertionError(f"phase 19 (a): the upload retried: {upload_counters}")
+    if feed_class != "NativeFeedParser" or plain_class != "NativeStreamParser":
+        raise AssertionError(f"phase 19 (a): the parsers: {feed_class}, {plain_class}")
+    if parts < 2:
+        raise AssertionError(f"phase 19 (a): the upload took {parts} parts, not a multipart")
+    for rec in recs + plain_recs + snap_recs[:1]:
+        _launch_gate(rec, rec["leg"], phase=19)
+    _launch_gate(snap_recs[1], "s3_snapshot_warm", k2=True, phase=19)
+    if not (out["batch_hashes_equal"] and out["first_20_losses_bit_equal"]
+            and out["final_weights_bit_equal"] and out["warm_batches_equal_cold"]
+            and snap_recs[1]["snapshot_state"] == "warm"
+            and all(r["batches"] == HIGGS_ROWS // BATCH for r in recs + snap_recs)):
+        raise AssertionError(f"phase 19 (a): the s3:// epochs: {out}")
+    if not spin["no_host_sync"] or spin["k1_launches"] < spin["calls"]:
+        raise AssertionError(f"phase 19 (a): the s3:// steps behind a spin: {spin}")
+    out["k1_launches"] = (sum(r["k1_launches"] for r in recs + plain_recs + snap_recs)
+                          + spin["k1_launches"])
+    out["dw_launches"] = (sum(r["dw_launches"] for r in recs + plain_recs + snap_recs)
+                          + spin["dw_launches"])
+    out["k2_launches"] = snap_recs[1]["k2_launches"]
+    return out
+
+
+def run_cloud_cut(path: str, cloud: "_FakeCloudChild", d: str, device) -> dict:
+    """Phase 19 (b): the corpus cut to :data:`CLOUD_CUT_ROWS` rows, written
+    through the port's own write streams (the media upload, the two-step
+    WebHDFS create, the Azure block list, the S3 multipart) and served to
+    one epoch each on ``http://``, ``gs://``, ``hdfs://``, ``azure://`` and
+    ``s3://``, bit-equal to the fused reader's epoch on the same cut; a
+    two-file ``s3://bench/parts/`` directory read at ``num_parts=2``."""
+    import torch
+
+    from dmlc_tpu_torch import DeviceIter, create_parser
+    from dmlc_tpu_torch.io.stream import write_all
+
+    cut = _cut_bytes(path, CLOUD_CUT_ROWS)
+    local = os.path.join(d, "higgs_cut.libsvm")
+    with open(local, "wb") as f:
+        f.write(cut)
+    uris = {"http": f"http://127.0.0.1:{cloud.ports['http']}/bench/higgs_cut.libsvm",
+            "gs": "gs://bench/higgs_cut.libsvm", "hdfs": "hdfs://nn/bench/higgs_cut.libsvm",
+            "azure": "azure://bench/higgs_cut.libsvm", "s3": "s3://bench/cut/higgs_cut.libsvm"}
+    t0 = time.monotonic()
+    cloud.put("http", "/bench/higgs_cut.libsvm", cut)
+    for proto in ("gs", "hdfs", "azure", "s3"):
+        write_all(uris[proto], cut)
+    write_s = time.monotonic() - t0
+    stats = cloud.stats()
+    ref_rec, ref_dig, ref_losses, ref_w, ref_class = _one_epoch(local, device, "local_cut")
+    legs, equal = {}, {}
+    for proto, uri in uris.items():
+        rec, dig, losses, w, parser = _one_epoch(uri, device, f"{proto}_cut")
+        _launch_gate(rec, rec["leg"], phase=19)
+        legs[proto] = {**rec, "parser": parser, "dig": dig, "losses": losses, "weights": w}
+        equal[proto] = (parser == "NativeFeedParser" and rec["batches"] == ref_rec["batches"]
+                        and torch.equal(dig.batches(), ref_dig.batches())
+                        and _same_losses(losses, ref_losses) and _same_weights(w, ref_w))
+    # two files under s3://bench/parts/, read as two parts
+    half = cut.rfind(b"\n", 0, len(cut) // 2) + 1
+    write_all("s3://bench/parts/part-0.libsvm", cut[:half])
+    write_all("s3://bench/parts/part-1.libsvm", cut[half:])
+    rows = _RowDigests(device)
+    part_rows, part_classes = [], []
+    for part in range(2):
+        parser = create_parser("s3://bench/parts/", part, 2, "libsvm")
+        part_classes.append(type(parser).__name__)
+        it = DeviceIter(parser, num_col=HIGGS_COLS, batch_size=BATCH, layout="ell",
+                        max_nnz=HIGGS_COLS, drop_remainder=False, device=device)
+        for batch in it:
+            rows.add(batch)
+        it.close()
+        part_rows.append(int(sum(r.numel() for r in rows.row)) - sum(part_rows))
+    ref_rows = _RowDigests(device)
+    it = DeviceIter(create_parser(local, 0, 1, "libsvm"), num_col=HIGGS_COLS,
+                    batch_size=BATCH, layout="ell", max_nnz=HIGGS_COLS, drop_remainder=False,
+                    device=device)
+    for batch in it:
+        ref_rows.add(batch)
+    it.close()
+    parts_equal = torch.equal(rows.rows(), ref_rows.rows())
+    out = {"phase": "cloud_cut", "rows": CLOUD_CUT_ROWS, "bytes": len(cut), "write_s": write_s,
+           "reduced": f"phase 3's corpus cut to its first {CLOUD_CUT_ROWS} rows for the "
+                      "other protocols (the s3:// leg of (a) runs at full size)",
+           "ref_parser": ref_class, "local_cut": _plain_pair(ref_rec),
+           "legs": {p: {k: v for k, v in r.items() if k not in ("dig", "losses", "weights")}
+                    for p, r in legs.items()},
+           "bits_equal_local": equal, "azure_block_lists": stats["block_lists"],
+           "parts": {"uri": "s3://bench/parts/", "num_parts": 2, "parsers": part_classes,
+                     "rows": part_rows, "rows_equal_corpus": parts_equal}}
+    emit(out)
+    if not all(equal.values()):
+        raise AssertionError(f"phase 19 (b): a protocol's epoch differs from the local cut: "
+                             f"{equal}")
+    if not parts_equal or sum(part_rows) != CLOUD_CUT_ROWS or min(part_rows) == 0:
+        raise AssertionError(f"phase 19 (b): the two parts' rows: {out['parts']}")
+    out["k1_launches"] = sum(r["k1_launches"] for r in legs.values())
+    out["dw_launches"] = sum(r["dw_launches"] for r in legs.values())
+    out["s3_leg"] = legs["s3"]
+    out["uris"] = uris
+    return out
+
+
+def run_cloud_faults(cloud: "_FakeCloudChild", device, clean: dict) -> dict:
+    """Phase 19 (c): an ``s3://`` epoch of (b)'s size while the fake serves
+    a 503, a 429 with ``Retry-After: 0.05`` and a connection reset
+    mid-body (:data:`CLOUD_FAULTS`): it heals, bit-equal to (b)'s clean
+    epoch; then a 403 fails an epoch in one attempt with ``DMLCError``."""
+    import torch
+
+    from dmlc_tpu_torch.io import resilience as res
+    from dmlc_tpu_torch.utils.check import DMLCError
+
+    uri = "s3://bench/cut/higgs_cut.libsvm"
+    cloud.faults(CLOUD_FAULTS)
+    base = res.counters_snapshot()
+    rec, dig, losses, w, _ = _one_epoch(uri, device, "s3_faults")
+    healed = res.counters_delta(base)
+    fired = [f["fired"] for f in cloud.stats()["faults"]]
+    _launch_gate(rec, rec["leg"], phase=19)
+    equal = (torch.equal(dig.batches(), clean["dig"].batches())
+             and _same_losses(losses, clean["losses"]) and _same_weights(w, clean["weights"]))
+    cloud.faults([{"proto": "s3", "action": "403", "at": 5}])
+    base = res.counters_snapshot()
+    model, it = _store_pipeline(uri, device)
+    raised, steps = None, 0
+    try:
+        for batch in it:
+            model.step(batch)
+            steps += 1
+    except DMLCError as exc:
+        raised = str(exc)[:300]
+    finally:
+        try:
+            it.close()
+        except DMLCError:
+            pass
+    fatal = res.counters_delta(base)
+    cloud.faults([])
+    keys = ("attempts", "retries", "resumes", "giveups", "fatal")
+    out = {"phase": "cloud_faults", "uri": uri, "faults": CLOUD_FAULTS, "fired": fired,
+           "epoch": rec, "healed_counters": {k: healed[k] for k in keys},
+           "bits_equal_clean": equal, "forbidden_403": {
+               "raised": raised, "steps_before": steps,
+               "counters": {k: fatal[k] for k in keys}}}
+    emit(out)
+    if fired != [1, 1, 1] or not equal or healed["retries"] != 3 or healed["giveups"]:
+        raise AssertionError(f"phase 19 (c): the served faults did not heal: {out}")
+    if (raised is None or not raised.startswith("feed failed") or fatal["fatal"] != 1
+            or fatal["retries"] or fatal["giveups"]):
+        raise AssertionError(f"phase 19 (c): the 403 did not fail in one attempt: {out}")
+    out["k1_launches"], out["dw_launches"] = rec["k1_launches"], rec["dw_launches"]
+    return out
+
+
+def run_cloud_checkpoint(device, clean: dict) -> dict:
+    """Phase 19 (d): a ``DeviceIter.state_dict()`` taken after
+    :data:`CLOUD_CKPT_AT` batches of (b)'s ``s3://`` pipeline and the
+    learner's parameters saved to ``s3://`` through ``open_stream`` and
+    read back into a fresh pipeline: the remaining batches and the final
+    weights equal the uninterrupted epoch's; then the ported
+    ``checkpoint_resume`` example on the card, its corpus on ``s3://``."""
+    import io as _io
+
+    import torch
+
+    from dmlc_tpu_torch.convert import linear_params_from_jax, linear_params_to_jax
+    from dmlc_tpu_torch.examples import checkpoint_resume
+    from dmlc_tpu_torch.io.stream import read_all, write_all
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+
+    uri = "s3://bench/cut/higgs_cut.libsvm"
+    k1_0, dw_0 = k1.launches, k1.dw_launches
+    model, it = _store_pipeline(uri, device)
+    dig = _Digests(device)
+    for _, batch in zip(range(CLOUD_CKPT_AT), it):
+        dig.add(batch)
+        model.step(batch)
+    state = it.state_dict()
+    it.close()
+    buf = _io.BytesIO()
+    np.savez(buf, *linear_params_to_jax(model.params))
+    write_all("s3://bench/ckpt/state.json", json.dumps(state).encode())
+    write_all("s3://bench/ckpt/params.npz", buf.getvalue())
+    # a fresh process would start here: everything from s3://
+    state2 = json.loads(read_all("s3://bench/ckpt/state.json"))
+    npz = np.load(_io.BytesIO(read_all("s3://bench/ckpt/params.npz")))
+    model2, it2 = _store_pipeline(uri, device)
+    model2.set_params(linear_params_from_jax(*(npz[k] for k in sorted(npz.files)),
+                                             device=device))
+    it2.load_state(state2)
+    for batch in it2:
+        dig.add(batch)
+        model2.step(batch)
+    it2.close()
+    torch.cuda.synchronize()
+    k1_n, dw_n = k1.launches - k1_0, k1.dw_launches - dw_0
+    spliced = torch.equal(dig.batches(), clean["dig"].batches())
+    weights = _same_weights(_weights(model2), clean["weights"])
+    t0 = time.monotonic()
+    example_batches = checkpoint_resume.run("s3://bench/example/train.libsvm")
+    out = {"phase": "cloud_checkpoint", "uri": uri, "checkpoint_at": CLOUD_CKPT_AT,
+           "state": state, "batches": len(dig.batch), "remaining_batches_equal": spliced,
+           "final_weights_bit_equal": weights, "k1_launches": k1_n, "dw_launches": dw_n,
+           "example": {"uri": "s3://bench/example/train.libsvm", "batches": example_batches,
+                       "seconds": time.monotonic() - t0}}
+    emit(out)
+    if not (spliced and weights) or len(dig.batch) != CLOUD_CUT_ROWS // BATCH:
+        raise AssertionError(f"phase 19 (d): the resumed s3:// epoch: {out}")
+    if k1_n < len(dig.batch) or dw_n < len(dig.batch):
+        raise AssertionError(f"phase 19 (d): K1 {k1_n}, dw {dw_n} for {len(dig.batch)} steps")
+    return out
+
+
+def run_cloud(path: str, tmp: str, device) -> dict:
+    """Phase 19 (module docstring), in a directory of its own, beside the
+    fake cloud in a child process (killed in a ``finally``)."""
+    import shutil
+
+    t0 = time.monotonic()
+    d = os.path.join(tmp, "cloud19")
+    os.makedirs(d)
+    cloud = _FakeCloudChild(d)
+    try:
+        with _env({**cloud.env, "AZURE_BLOCK_MB": "8"}):
+            out = {"s3": run_cloud_s3(path, cloud, d, device)}
+            out["cut"] = run_cloud_cut(path, cloud, d, device)
+            clean = out["cut"].pop("s3_leg")
+            out["faults"] = run_cloud_faults(cloud, device, clean)
+            out["checkpoint"] = run_cloud_checkpoint(device, clean)
+            auth = cloud.stats()["auth_failures"]
+    except BaseException:
+        print(f"phase 19: fake cloud stderr: {cloud.stderr()}", file=sys.stderr)
+        raise
+    finally:
+        cloud.close()
+    shutil.rmtree(d)
+    out["wall_s"] = time.monotonic() - t0
+    legs = ("s3", "cut", "faults", "checkpoint")
+    for key in ("k1_launches", "dw_launches"):
+        out[key] = sum(out[leg][key] for leg in legs)
+    out["k2_launches"] = out["s3"]["k2_launches"]
+    emit({"phase": "cloud_total", "wall_s": out["wall_s"], "auth_failures": auth,
+          "k1_launches": out["k1_launches"], "dw_launches": out["dw_launches"],
+          "k2_launches": out["k2_launches"]})
+    if auth:
+        raise AssertionError(f"phase 19: requests the fake refused as unsigned: {auth[:5]}")
+    if out["wall_s"] > CLOUD_LIMIT_S:
+        raise AssertionError(f"phase 19: {out['wall_s']:.2f} s, over its {CLOUD_LIMIT_S} s")
+    return out
+
+
 def producer_change(now: dict) -> dict:
     """Each phase's rows/s and stall share at the default convert width
     beside PR 11's (:data:`PR11_READER`, one producer thread) and the
@@ -6037,6 +6532,9 @@ def main() -> int:
         # native-batch engine, the row iterators and the native RecordIO
         # engines, each leg's launches counted around its epochs
         host18 = run_host_io(path, tmp, dev, args.seed)
+        # phase 19: the cloud filesystems beside a fake cloud in a child
+        # process, each leg's launches counted around its epochs
+        cloud19 = run_cloud(path, tmp, dev)
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -6051,11 +6549,13 @@ def main() -> int:
                      + formats["csv"]["k1_launches"] + native["ell"]["k1_launches"]
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
                      + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
-                     + tune["k1_launches"] + store17["k1_launches"] + host18["k1_launches"]),
+                     + tune["k1_launches"] + store17["k1_launches"] + host18["k1_launches"]
+                     + cloud19["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
                            + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"],
                               store17["cachefile"]["k1_max_abs_err"],
-                              host18["mem"]["k1_max_abs_err"]]),
+                              host18["mem"]["k1_max_abs_err"],
+                              cloud19["s3"]["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -6067,12 +6567,14 @@ def main() -> int:
                      + formats["csv"]["dw_launches"] + native["ell"]["dw_launches"]
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
                      + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
-                     + tune["dw_launches"] + store17["dw_launches"] + host18["dw_launches"]),
+                     + tune["dw_launches"] + store17["dw_launches"] + host18["dw_launches"]
+                     + cloud19["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
                             if r["dw_route"] == "cuda"]
                            + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"],
                               store17["cachefile"]["dw_max_abs_err"],
-                              host18["mem"]["dw_max_abs_err"]]),
+                              host18["mem"]["dw_max_abs_err"],
+                              cloud19["s3"]["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -6082,7 +6584,8 @@ def main() -> int:
         "launches": (warm_ell["k2_launches"] + sum(d["k2_launches"] for d in warm_dense)
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
                      + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]
-                     + tune["k2_launches"] + store17["k2_launches"] + host18["k2_launches"]),
+                     + tune["k2_launches"] + store17["k2_launches"] + host18["k2_launches"]
+                     + cloud19["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],

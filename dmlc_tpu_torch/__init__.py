@@ -42,6 +42,7 @@ from dmlc_tpu_torch.data import DeviceIter, create_parser
 from dmlc_tpu_torch.models import AlsLearner, FMLearner, LinearLearner
 from dmlc_tpu_torch.utils.check import DMLCError
 from dmlc_tpu_torch.utils.params import Parameter
+from dmlc_tpu_torch.utils.registry import Registry
 
 __all__ = ["AlsLearner", "DMLCError", "DeviceIter", "FMLearner", "LinearLearner", "Parameter",
-           "__version__", "create_parser"]
+           "Registry", "__version__", "create_parser"]

@@ -360,9 +360,13 @@ class NativeFeedParser(NativeStreamParser):
     file's join) stays with the Python splitter, which speaks every
     filesystem; the feed thread streams exactly its bytes
     (``InputSplitBase._read``). An error in the feed thread reaches the
-    consumer's :meth:`next_block` once the queued blocks have drained, as
-    a ``DMLCError`` whose ``__cause__`` is the feed thread's exception, so
-    the resilience classifier sees the original class."""
+    consumer's next :meth:`next_block` as a ``DMLCError`` ("feed failed:
+    ...") whose ``__cause__`` is the feed thread's exception, so the
+    resilience classifier sees the original class; every later
+    :meth:`next_block` raises it again until :meth:`before_first`, so no
+    block is delivered after it (the native side parses the partial line
+    the feed ended on as a last record, which must not reach a
+    learner)."""
 
     FEED_CHUNK = 1 << 20
 
@@ -417,20 +421,31 @@ class NativeFeedParser(NativeStreamParser):
             self._start_feed()
         return self._reader
 
+    def _raise_if_feed_failed(self) -> None:
+        # the error stays set until before_first: every pull after it raises
+        cause = self._feed_exc
+        if cause is not None:
+            raise DMLCError(f"feed failed: {cause}") from cause
+
     def next_block(self):
+        # no block is delivered once the feed thread has failed: the native
+        # side parses the partial line the feed ended on as the stream's
+        # last record (a wrong row, or a parse error hiding the failure).
+        # The feed thread keeps its error before it fails the feeder, so a
+        # block that arrives after the failure is seen with the error set
+        self._raise_if_feed_failed()
         try:
-            return super().next_block()
-        except DMLCError as exc:
-            cause = self._feed_exc
-            if cause is not None and exc.__cause__ is None:
-                self._feed_exc = None
-                raise exc from cause
+            block = super().next_block()
+        except DMLCError:
+            self._raise_if_feed_failed()
             raise
+        self._raise_if_feed_failed()
+        return block
 
     def before_first(self) -> None:
-        self._feed_exc = None  # cleared before the next feed thread starts
+        self._stop_feed()
+        self._feed_exc = None  # cleared once the old feed thread has ended
         if self._reader is not None:
-            self._stop_feed()
             if self._reader.error() is not None:
                 # an error is sticky in the native pipeline: a failed feeder
                 # cannot restart, so an epoch reset after a fault (a
@@ -445,6 +460,7 @@ class NativeFeedParser(NativeStreamParser):
 
     def close(self) -> None:
         self._stop_feed()
+        self._feed_exc = None  # a rebuilt reader starts a new feed
         super().close()
 
 

@@ -27,11 +27,14 @@ back to CSR for good.
 **The engine.** ``create_parser`` resolves the JAX package's engine
 chain (:func:`create_parser`): a plain local file goes to the fused native
 reader (:mod:`dmlc_tpu_torch.data.native_parser`), a plain file on another
-registered filesystem (``mem://``) to its chunk feeder
-(``NativeFeedParser``), ``engine="native-batch"`` to the chunk-batch
-engine (:mod:`dmlc_tpu_torch.data.batch_parser`), everything else (and
+registered filesystem (``mem://``, ``s3://``, ``gs://``, ``hdfs://``,
+``azure://``, ``http://``) to its chunk feeder (``NativeFeedParser``),
+``engine="native-batch"`` to the chunk-batch engine
+(:mod:`dmlc_tpu_torch.data.batch_parser`), everything else (and
 ``engine="python"``, ``DMLC_TPU_NO_NATIVE_READER``) to the registry stack
-below; all emit the same rows.
+below; all emit the same rows. The registry stack's formats are the
+entries of :data:`PARSER_REGISTRY` (``Registry.get("parser")``): a format
+registered there reaches ``create_parser``.
 
 **The parse fan-out.** :class:`ParallelTextParser` pulls chunks serially
 from the split (an :class:`~dmlc_tpu_torch.io.MmapLineSplit` for a plain
@@ -80,6 +83,7 @@ from dmlc_tpu_torch.utils import knobs as _knobs
 from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError, check, get_logger
 from dmlc_tpu_torch.utils.params import Parameter, field
+from dmlc_tpu_torch.utils.registry import Registry
 from dmlc_tpu_torch.utils.timer import get_time
 
 
@@ -135,9 +139,10 @@ class TextParserBase(Parser):
     """Pulls chunks from a split and parses each into a block (analog of
     TextParserBase::FillData, text_parser.h:110-146).
 
-    ``engine`` is ``"auto"`` (the native scanner when it built, else numpy)
-    or ``"python"`` (the numpy engine all the way down). A chunk the
-    numpy engine cannot convert raises DMLCError, as the native one does.
+    Each chunk goes through the native scanner when it built, else the
+    numpy engine (``create_parser(engine="python")`` pins numpy after the
+    build, :func:`_pin_python_scanner`). A chunk the numpy engine cannot
+    convert raises DMLCError, as the native one does.
     """
 
     # per-chunk native scanner threads, 0 the native default; the fan-out
@@ -152,13 +157,12 @@ class TextParserBase(Parser):
     # whether the native engine has a dense scanner for this format
     _dense_scanner: bool = False
 
-    def __init__(self, source: InputSplit, engine: str = "auto"):
-        check(engine in ("auto", "python"), f"unknown parse engine {engine!r}")
+    def __init__(self, source: InputSplit):
         self.source = source
         self._bytes = 0      # chunk bytes pulled, over the parser's life
         self._chunks_in = 0  # chunks pulled this epoch
         # None: not probed yet; False for the numpy engine
-        self._native: Optional[bool] = False if engine == "python" else None
+        self._native: Optional[bool] = None
         self._emit_dense: Optional[int] = None  # num_col while dense mode is on
         # cumulative seconds: chunk fetch (read) and chunk -> block (parse)
         self._read_seconds = 0.0
@@ -422,9 +426,8 @@ class LibSVMParser(TextParserBase):
 
     _dense_scanner = True
 
-    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
-                 engine: str = "auto"):
-        super().__init__(source, engine)
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None):
+        super().__init__(source)
         self.param = LibSVMParserParam()
         self.param.init(dict(args or {}), allow_unknown=True)
         check(self.param.format == "libsvm", "LibSVMParser: format must be libsvm")
@@ -537,9 +540,8 @@ class CSVParser(TextParserBase):
 
     _dense_scanner = True
 
-    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
-                 engine: str = "auto"):
-        super().__init__(source, engine)
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None):
+        super().__init__(source)
         self.param = CSVParserParam()
         self.param.init(dict(args or {}), allow_unknown=True)
         check(self.param.format == "csv", "CSVParser: format must be csv")
@@ -659,9 +661,8 @@ def csv_cells_to_block(cells: np.ndarray, n: int, ncol: int, label_column: int,
 class LibFMParser(TextParserBase):
     """libfm ``label field:idx:val`` -> RowBlock (libfm_parser.h:85-143)."""
 
-    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
-                 engine: str = "auto"):
-        super().__init__(source, engine)
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None):
+        super().__init__(source)
         self.param = LibFMParserParam()
         self.param.init(dict(args or {}), allow_unknown=True)
         check(self.param.format == "libfm", "LibFMParser: format must be libfm")
@@ -1604,31 +1605,52 @@ def _parallel_chunk_source(uri: str, part_index: int, num_parts: int,
 
 
 def _make_text_parser(cls):
-    """The registry entry of a text format (the JAX package's factory):
+    """The registry entry of a text format, with the JAX package's
+    signature (``index_dtype`` is always ``np.uint64`` here):
     ``parse_workers > 1`` under ``threaded`` builds the fan-out, else the
     one-lane chain over :func:`create_input_split` (a
     :class:`~dmlc_tpu_torch.io.ThreadedInputSplit` under a
     :class:`ThreadedParser`), or the bare parser over the bare split
     without ``threaded``. ``split_kw`` are :func:`create_input_split`'s
     keywords."""
-    def factory(uri: str, args: dict, part_index: int, num_parts: int, threaded: bool,
-                parse_workers: Optional[int], engine: str, **split_kw) -> Parser:
+    def factory(uri: str, args: dict, part_index: int, num_parts: int, index_dtype,
+                threaded: bool, parse_workers: Optional[int] = None, **split_kw) -> Parser:
         workers = _knobs.resolve("parse_workers", parse_workers)
         if threaded and workers > 1:
             source = _parallel_chunk_source(uri, part_index, num_parts, **split_kw)
-            return ParallelTextParser(cls(source, args, engine=engine), num_workers=workers)
+            return ParallelTextParser(cls(source, args), num_workers=workers)
         source = create_input_split(uri, part_index, num_parts, "text", threaded=threaded,
                                     **split_kw)
-        base = cls(source, args, engine=engine)
+        base = cls(source, args)
         return ThreadedParser(base) if threaded else base
     return factory
 
 
+# the formats create_parser dispatches, the JAX package's registry of kind
+# "parser": a format registered here reaches create_parser (its factory is
+# called as ``body(uri, args, part_index, num_parts, index_dtype, threaded,
+# parse_workers=, **split_kw)``)
+PARSER_REGISTRY: Registry = Registry.get("parser")
+
 # csv is registered unthreaded in the reference (data.cc:51-60 wraps libsvm
 # and libfm only); the JAX package threads it too, and so does the port
-_PARSERS = {"libsvm": _make_text_parser(LibSVMParser),
-            "libfm": _make_text_parser(LibFMParser),
-            "csv": _make_text_parser(CSVParser)}
+PARSER_REGISTRY.register("libsvm", "libsvm text format")(_make_text_parser(LibSVMParser))
+PARSER_REGISTRY.register("libfm", "libfm field:index:value format")(
+    _make_text_parser(LibFMParser))
+PARSER_REGISTRY.register("csv", "dense csv format")(_make_text_parser(CSVParser))
+
+
+def _pin_python_scanner(parser: Parser) -> None:
+    """``engine="python"``: the numpy scanner all the way down, under every
+    wrapper of the registry stack (a stack that is not text is left as
+    it is)."""
+    base = parser
+    while not isinstance(base, TextParserBase):
+        base = getattr(base, "base", None)
+        if base is None:
+            return
+    base._native = False
+
 
 # the intra-block row-shuffle window the legacy ``shuffle=True`` split
 # argument maps onto when a block cache serves the epoch (the JAX value)
@@ -1689,9 +1711,21 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
             "(URI/threading outside the fused reader's eligibility, "
             "DMLC_TPU_NO_NATIVE_READER, or toolchain); using the Python "
             "engine", uri, type_)
-    return _PARSERS[type_](split_uri, spec.args, part_index, num_parts, threaded,
-                           parse_workers, "python" if engine == "python" else "auto",
-                           **split_kw)
+    parser = _format_entry(type_).body(split_uri, spec.args, part_index, num_parts, np.uint64,
+                                       threaded, parse_workers=parse_workers, **split_kw)
+    if engine == "python":
+        _pin_python_scanner(parser)
+    return parser
+
+
+def _format_entry(type_: str):
+    """``type_``'s entry in :data:`PARSER_REGISTRY`; an unknown format
+    raises with the registered names, in the JAX package's words."""
+    entry = PARSER_REGISTRY.find(type_)
+    if entry is None:
+        raise DMLCError(
+            f"unknown parser format {type_!r}; known: {list(PARSER_REGISTRY.list_names())}")
+    return entry
 
 
 # create_input_split's keywords, which create_parser passes down
@@ -1708,8 +1742,10 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     """Parser factory — analog of dmlc::Parser::Create (src/data.cc:62-85).
 
     The positional parameters are the JAX package's: ``type_`` is
-    ``libsvm``, ``csv`` or ``libfm``, and ``'auto'`` resolves from the URI's
-    ``format=`` argument and defaults to libsvm; ``index_dtype`` must be
+    ``libsvm``, ``csv``, ``libfm`` or another entry of
+    :data:`PARSER_REGISTRY` (its factory builds the parser), and
+    ``'auto'`` resolves from the URI's ``format=`` argument and defaults
+    to libsvm; ``index_dtype`` must be
     ``np.uint64`` (the blocks' index type; another raises). URI arguments
     (``?label_column=0&delimiter=;``, ``?indexing_mode=1``) flow into the
     format's parameter struct.
@@ -1722,7 +1758,7 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     threaded parse of a plain local libsvm, csv or libfm file whose
     options it serves, and the chunk feeder
     (:class:`~dmlc_tpu_torch.data.native_parser.NativeFeedParser`) for the
-    same on another registered filesystem (``mem://``), unless
+    same on another registered filesystem (``mem://`` or a cloud store), unless
     ``DMLC_TPU_NO_NATIVE_READER`` is set to other than ``0``; ``native``
     warns where it cannot. ``native-batch`` returns the chunk-batch engine
     (:class:`~dmlc_tpu_torch.data.batch_parser.NativeBatchParser`) over the
@@ -1795,8 +1831,7 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     spec = URISpec(uri, part_index, num_parts)
     if type_ == "auto":
         type_ = spec.args.get("format", "libsvm")
-    if type_ not in _PARSERS:
-        raise DMLCError(f"unknown parser format {type_!r}; known: {list(_PARSERS)}")
+    _format_entry(type_)
     if np.dtype(index_dtype) != np.dtype(np.uint64):
         raise DMLCError(f"index_dtype {np.dtype(index_dtype)}: dmlc_tpu_torch "
                         "parses uint64 indices only")

@@ -1,5 +1,7 @@
 """Host I/O of the port: URIs, the filesystem registry (``file://``,
-``mem://``) and its streams, the resilience rules, RecordIO, the split
+``mem://`` and the cloud members ``http://``, ``https://``, ``s3://``,
+``gs://``, ``hdfs://``, ``viewfs://``, ``azure://``, registered on import)
+and its streams, the resilience rules, RecordIO, the split
 layer (splitters, the native RecordIO engines, the prefetch and shuffle
 decorators, the chunk cache), prefetch threads and the ordered worker
 pool, the segment container with the block cache, and the snapshot
@@ -22,6 +24,11 @@ from dmlc_tpu_torch.io.resilience import (ResilientStream, RetryPolicy, classify
 from dmlc_tpu_torch.io.stream import open_stream, read_all, write_all
 from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
 from dmlc_tpu_torch.io.uri import URI, URISpec
+from dmlc_tpu_torch.io import http_filesys as _http_filesys  # noqa: F401 http://, https://
+from dmlc_tpu_torch.io import s3_filesys as _s3_filesys  # noqa: F401 s3://
+from dmlc_tpu_torch.io import gcs_filesys as _gcs_filesys  # noqa: F401 gs://
+from dmlc_tpu_torch.io import hdfs_filesys as _hdfs_filesys  # noqa: F401 hdfs://, viewfs://
+from dmlc_tpu_torch.io import azure_filesys as _azure_filesys  # noqa: F401 azure://
 
 __all__ = ["BlockCacheReader", "BlockCacheWriter", "CachedInputSplit", "DEFAULT_CHUNK_BYTES",
            "FileInfo", "FileSystem", "IndexedRecordIOSplitter", "InputSplit", "InputSplitBase",

@@ -7,10 +7,15 @@ src/io/filesys.cc:8-25 (the recursive listing). :class:`MemoryFileSystem`
 serves ``mem://`` from a process-wide dict, for hermetic corpora.
 
 :func:`get_filesystem` dispatches on the URI's protocol through a locked
-factory map; :func:`register_filesystem` adds or replaces a member (the
-port registers ``file://`` and ``mem://``; the JAX package's cloud members
-are not ported). An unregistered protocol raises with the known list, in
-the JAX package's words.
+factory map; :func:`register_filesystem` adds or replaces a member. This
+module registers ``file://`` and ``mem://``; the cloud members register
+themselves when :mod:`dmlc_tpu_torch.io` imports them, as in the JAX
+package: ``http://`` and ``https://`` (:mod:`~dmlc_tpu_torch.io.http_filesys`),
+``s3://`` (:mod:`~dmlc_tpu_torch.io.s3_filesys`), ``gs://``
+(:mod:`~dmlc_tpu_torch.io.gcs_filesys`), ``hdfs://`` and ``viewfs://``
+(:mod:`~dmlc_tpu_torch.io.hdfs_filesys`) and ``azure://``
+(:mod:`~dmlc_tpu_torch.io.azure_filesys`). An unregistered protocol raises
+with the known list, in the JAX package's words.
 """
 
 from __future__ import annotations

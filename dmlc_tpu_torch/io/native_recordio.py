@@ -355,6 +355,7 @@ class NativeFeedRecordIOSplit(NativeRecordIOSplit):
         self._reader = None
         self._cursor_clear()
         self._feed_thread: Optional[threading.Thread] = None
+        self._feed_exc: Optional[BaseException] = None  # the feed thread's error
 
     def _make_split(self) -> RecordIOSplitter:
         return RecordIOSplitter(self.uri, self.part_index, self.num_parts,
@@ -373,6 +374,7 @@ class NativeFeedRecordIOSplit(NativeRecordIOSplit):
                 feeder.finish()
             except Exception as exc:  # noqa: BLE001
                 # a failed read must not look like the end of the stream
+                self._feed_exc = exc
                 feeder.fail(f"feed failed: {exc}")
             finally:
                 try:
@@ -402,15 +404,43 @@ class NativeFeedRecordIOSplit(NativeRecordIOSplit):
                             "be mixed within one epoch")
         return self._reader
 
+    def _raise_if_feed_failed(self) -> None:
+        # the error stays set until before_first: every pull after it raises
+        exc = self._feed_exc
+        if exc is not None:
+            raise DMLCError(f"feed failed: {exc}") from exc
+
+    def _pull_batch(self):
+        # as NativeFeedParser.next_block: no batch once the feed has failed
+        # (the native side frames the partial bytes it ended on as a last
+        # chunk)
+        self._raise_if_feed_failed()
+        try:
+            batch = super()._pull_batch()
+        except DMLCError:
+            self._raise_if_feed_failed()
+            raise
+        self._raise_if_feed_failed()
+        return batch
+
     def before_first(self) -> None:
+        self._stop_feed()
+        self._feed_exc = None  # cleared once the old feed thread has ended
         if self._reader is not None:
-            self._stop_feed()
-            self._reader.before_first()
-            self._start_feed()
+            if self._reader.error() is not None:
+                # a failed feeder cannot restart: the next epoch gets a new one
+                fmt = self._mode
+                self._reader.close()
+                self._reader = None
+                self._ensure_reader(fmt)
+            else:
+                self._reader.before_first()
+                self._start_feed()
         self._payload = self._offsets = None
         self._i = 0
         self._records_out = 0
 
     def close(self) -> None:
         self._stop_feed()
+        self._feed_exc = None  # a rebuilt reader starts a new feed
         super().close()

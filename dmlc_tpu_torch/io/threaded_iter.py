@@ -99,6 +99,13 @@ def _publish_stall_diagnostic(diag: dict) -> None:
         pipeline=_telemetry.current_scope() or "").set(diag)
 
 
+def _iterate(source):
+    """The items until the end of the stream (``source.next()`` until
+    None): both primitives' ``__iter__``."""
+    while (item := source.next()) is not None:
+        yield item
+
+
 class ThreadedIter(Generic[T]):
     """Bounded-queue prefetch iterator with recycling, epoch reset and an
     opt-in bounded producer restart (module docstring)."""
@@ -313,6 +320,8 @@ class ThreadedIter(Generic[T]):
             self._lock.notify_all()
         self._thread.join()
         self._destroyed = True
+
+    __iter__ = _iterate
 
     def _check_exc_locked(self) -> None:
         if self._exc is not None:
@@ -575,3 +584,5 @@ class OrderedWorkerPool(Generic[T]):
             threads = list(self._threads)
         for t in threads:
             t.join()
+
+    __iter__ = _iterate

@@ -1,10 +1,13 @@
 """Declarative parameter structs — analog of include/dmlc/parameter.h.
 
-Own copy of the JAX package's ``utils/params.py``, trimmed to what the
-text parsers' parameter structs use: typed fields with defaults, ranges,
-enums and aliases (DMLC_DECLARE_FIELD, parameter.h:265-298, 549-900), and
-``init`` from a string dict with the unknown-key policy
-(parameter.h:77-84, 140-165). The error texts are the JAX package's.
+Own copy of the JAX package's ``utils/params.py``: typed fields with
+defaults, ranges, enums and aliases (DMLC_DECLARE_FIELD,
+parameter.h:265-298, 549-900), ``init`` from a string dict with the
+unknown-key policy (parameter.h:77-84, 140-165), the JSON round trip
+(parameter.h:190-202), the generated docstring (``__DOC__``,
+parameter.h:214-218) and typed environment access (GetEnv / SetEnv,
+parameter.h:50-61). The error texts, the JSON and the docstring are the
+JAX package's, character for character.
 
 Usage::
 
@@ -18,7 +21,9 @@ Usage::
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Type
+import json
+import os
+from typing import Any, Dict, Iterable, List, Optional, Type
 
 from dmlc_tpu_torch.utils.check import DMLCError
 
@@ -98,7 +103,7 @@ class Parameter:
             if isinstance(value, Field):
                 value.name = name
                 fields[name] = value
-                delattr(cls, name)
+                delattr_safe(cls, name)
         cls.__fields__ = fields
         alias_map: Dict[str, str] = {}
         for name, f in fields.items():
@@ -136,8 +141,57 @@ class Parameter:
         return unknown
 
     def to_dict(self) -> Dict[str, Any]:
+        """Analog of __DICT__ (parameter.h:204-212)."""
         return {name: getattr(self, name) for name in self.__fields__}
+
+    def save_json(self) -> str:
+        """The fields as JSON, keys sorted (parameter.h:190-202)."""
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    def load_json(self, text: str, *, allow_unknown: bool = False) -> Dict[str, Any]:
+        return self.init(json.loads(text), allow_unknown=allow_unknown)
+
+    @classmethod
+    def doc(cls) -> str:
+        """The generated docstring — analog of __DOC__ (parameter.h:214-218)."""
+        lines: List[str] = [f"Parameters of {cls.__name__}:"]
+        for name, f in cls.__fields__.items():
+            default = "required" if f.default is ... else f"default={f.default!r}"
+            constraints = []
+            if f.lower_bound is not None:
+                constraints.append(f">={f.lower_bound!r}")
+            if f.upper_bound is not None:
+                constraints.append(f"<={f.upper_bound!r}")
+            if f.enum is not None:
+                constraints.append(f"in {f.enum!r}")
+            extra = (", " + ", ".join(constraints)) if constraints else ""
+            lines.append(f"  {name} ({f.type.__name__}, {default}{extra}): {f.help}")
+        return "\n".join(lines)
 
     def __repr__(self) -> str:  # pragma: no cover
         items = ", ".join(f"{k}={v!r}" for k, v in self.to_dict().items())
         return f"{type(self).__name__}({items})"
+
+
+def delattr_safe(cls, name):
+    """``delattr`` that lets a missing attribute be."""
+    try:
+        delattr(cls, name)
+    except AttributeError:
+        pass
+
+
+def get_env(key: str, type_: Type, default: Any):
+    """``key`` from the environment as ``type_``; unset or empty gives
+    ``default`` (GetEnv, parameter.h:50-61)."""
+    raw = os.environ.get(key)
+    if raw is None or raw == "":
+        return default
+    if type_ is bool:
+        return _parse_bool(raw)
+    return type_(raw)
+
+
+def set_env(key: str, value: Any) -> None:
+    """SetEnv (parameter.h:50-61)."""
+    os.environ[key] = str(value)

@@ -31,7 +31,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "dmlc_tpu", "ml_dtypes")
 # import too (the block cache, the snapshot store, the epoch planner, the ALS
 # example, the tiered artifact store, the chunk cache, RecordIO, the
 # filesystem registry and its streams, the native RecordIO engines, the
-# chunk-batch engine, the row iterators and the serializer)
+# chunk-batch engine, the row iterators, the serializer, the rest of utils,
+# the cloud filesystems, their fake and the host examples)
 SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot",
                     "dmlc_tpu_torch.ops.device_decode", "dmlc_tpu_torch.data.epoch",
                     "dmlc_tpu_torch.examples.train_als", "dmlc_tpu_torch.store.journal",
@@ -39,7 +40,14 @@ SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot
                     "dmlc_tpu_torch.io.recordio", "dmlc_tpu_torch.io.filesystem",
                     "dmlc_tpu_torch.io.stream", "dmlc_tpu_torch.io.native_recordio",
                     "dmlc_tpu_torch.data.batch_parser", "dmlc_tpu_torch.data.iterators",
-                    "dmlc_tpu_torch.utils.serializer")
+                    "dmlc_tpu_torch.utils.serializer", "dmlc_tpu_torch.utils.registry",
+                    "dmlc_tpu_torch.utils.config", "dmlc_tpu_torch.utils.concurrency",
+                    "dmlc_tpu_torch.utils.thread_group", "dmlc_tpu_torch.io.http_filesys",
+                    "dmlc_tpu_torch.io.s3_filesys", "dmlc_tpu_torch.io.gcs_filesys",
+                    "dmlc_tpu_torch.io.hdfs_filesys", "dmlc_tpu_torch.io.azure_filesys",
+                    "dmlc_tpu_torch.testing.fake_cloud",
+                    "dmlc_tpu_torch.examples.parameter_demo",
+                    "dmlc_tpu_torch.examples.checkpoint_resume")
 
 
 def _port_sources():

@@ -2,9 +2,8 @@
 
 Each package of the port exports, in its ``__all__``, every name the JAX
 package's ``__all__`` exports, and every exported name imports. The only
-names left out are those of the modules still to be ported and the
-port's deliberate absences, listed below so that the list shrinks as the
-port grows.
+names left out are the port's deliberate absences, listed below. Every
+filesystem protocol the JAX package registers is registered in the port.
 """
 
 import importlib
@@ -13,20 +12,12 @@ import pytest
 
 # every package of both; the JAX package's tracker/ and service/ have no
 # port package yet (still to port), and its io/*_filesys.py cloud members
-# export nothing through io's __all__
+# export nothing through io's __all__ (in either package)
 PACKAGES = ["", ".io", ".data", ".utils", ".ops", ".models", ".parallel", ".store"]
 
-# JAX names without a port counterpart yet, by package: the modules still
-# in the queue (utils/{registry,config,concurrency,thread_group}), and the
-# deliberate absences
+# JAX names without a port counterpart, by package: the deliberate absences
 EXEMPT = {
-    "": {"Registry"},                      # utils/registry.py, still to port
     ".io": {"FaultPlan", "inject", "maybe_fail"},  # io/faults.py: no fault seam, deliberately
-    ".utils": {"Registry",                 # utils/registry.py
-               "Config",                   # utils/config.py
-               "ConcurrentBlockingQueue", "Spinlock",  # utils/concurrency.py
-               "ManagedThread", "ShutdownToken", "ThreadGroup",  # utils/thread_group.py
-               "blocking_queue_thread", "timer_thread"},
     # the JAX BCOO array and the Pallas entry: the port's counterparts are
     # ops.sparse.block_to_bcoo_host and ops.ell_matvec.ell_matvec_cuda; the
     # plain ELL matvec, ops.sparse.ell_matvec, whose name in ops is K1's
@@ -84,6 +75,41 @@ def test_the_c10_names_import():
 
     assert __version__ == dmlc_tpu.__version__ == "0.1.0"
     assert Parameter is UtilsParameter
+
+
+def test_every_reference_protocol_is_registered():
+    """Every protocol the JAX package registers is registered in the port,
+    on ``import dmlc_tpu_torch.io`` alone (a process that cannot import
+    JAX), and an unknown protocol's error lists the same protocols."""
+    import os
+    import subprocess
+    import sys
+
+    from dmlc_tpu.io import filesystem as jax_fs
+    from dmlc_tpu.utils.check import DMLCError as JaxDMLCError
+    from dmlc_tpu_torch.io import filesystem as port_fs
+    from dmlc_tpu_torch.utils.check import DMLCError
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = ("import sys\n"
+              "for name in ('jax', 'jaxlib', 'dmlc_tpu'):\n"
+              "    sys.modules[name] = None\n"
+              "import dmlc_tpu_torch.io\n"
+              "from dmlc_tpu_torch.io.filesystem import _FS_FACTORIES\n"
+              "print(' '.join(sorted(_FS_FACTORIES)))\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=repo, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == 0, proc.stderr
+    with jax_fs._FS_LOCK:
+        jax_known = set(jax_fs._FS_FACTORIES)
+    assert set(proc.stdout.split()) == jax_known == {
+        "file://", "mem://", "http://", "https://", "s3://", "gs://", "hdfs://", "viewfs://",
+        "azure://"}
+    with pytest.raises(DMLCError) as got:
+        port_fs.get_filesystem("nofs://x/y")
+    with pytest.raises(JaxDMLCError) as want:
+        jax_fs.get_filesystem("nofs://x/y")
+    assert str(got.value) == str(want.value)
 
 
 def test_packages_cover_every_package_of_both():

@@ -19,6 +19,7 @@ packages:
 """
 
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -225,9 +226,15 @@ def test_create_parser_routes_match_reference(corpora, tmp_path, monkeypatch, ro
 
 def test_a_feed_thread_error_surfaces_with_its_cause(corpora):
     """The split under the feed thread fails once mid-stream: the consumer
-    gets the blocks before it, then a DMLCError chained to the original
+    gets blocks from before it, then a DMLCError chained to the original
     exception (classified retryable, as in JAX); before_first rebuilds the
-    failed feeder and the next epoch is whole."""
+    failed feeder and the next epoch is whole. The failing read waits
+    until the consumer holds a block, so at least one block comes before
+    the error. The port delivers no block once the feed has failed (the
+    native side parses the partial line the feed ended on as a last
+    record, which JAX delivers): its blocks are a prefix of JAX's and of
+    the local reader's, its error "feed failed", raised again by every
+    ``next_block`` until ``before_first``."""
     c = corpora["libsvm"]
     out = {}
     for pkg, mod, res in (("port", port_np, resilience), ("jax", jax_np, None)):
@@ -235,8 +242,9 @@ def test_a_feed_thread_error_surfaces_with_its_cause(corpora):
         p.FEED_CHUNK = 4096
         real = p._make_split
         state = {"armed": True}
+        held = threading.Event()  # the consumer holds its first block
 
-        def broken(real=real, state=state):
+        def broken(real=real, state=state, held=held):
             s = real()
             orig, calls = s._read, {"n": 0}
 
@@ -244,6 +252,7 @@ def test_a_feed_thread_error_surfaces_with_its_cause(corpora):
                 calls["n"] += 1
                 if state["armed"] and calls["n"] == 6:
                     state["armed"] = False
+                    held.wait(10)
                     raise ConnectionResetError("feed flake")
                 return orig(n)
 
@@ -255,17 +264,27 @@ def test_a_feed_thread_error_surfaces_with_its_cause(corpora):
         with pytest.raises(Exception) as err:
             while (b := p.next_block()) is not None:
                 got.append(_arrays(b))
+                held.set()
         assert type(err.value).__name__ == "DMLCError"
         assert isinstance(err.value.__cause__, ConnectionResetError)
         if res is not None:
             assert res.classify(err.value) == res.RETRYABLE
+            for _ in range(2):
+                with pytest.raises(DMLCError, match="^feed failed: feed flake$") as again:
+                    p.next_block()
+                assert isinstance(again.value.__cause__, ConnectionResetError)
         p.before_first()
         whole = [_arrays(b) for b in iter(p.next_block, None)]
         p.close()
         out[pkg] = (got, str(err.value), whole)
-    assert out["port"] == out["jax"]
+    got, msg, whole = out["port"]
+    assert len(got) >= 1
+    assert whole == out["jax"][2]
+    assert got == out["jax"][0][:len(got)]
+    assert msg == "feed failed: feed flake"
     local = port_np.NativeStreamParser(c["path"], {}, 0, 1, "libsvm", chunk_bytes=8192)
-    assert out["port"][2] == [_arrays(b) for b in iter(local.next_block, None)]
+    local_blocks = [_arrays(b) for b in iter(local.next_block, None)]
+    assert whole == local_blocks and got == local_blocks[:len(got)]
     local.close()
 
 

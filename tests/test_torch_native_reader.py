@@ -694,12 +694,20 @@ def test_deviceiter_does_not_swallow_an_emit_error():
 
 
 def test_parser_base_refuses_an_unknown_engine(tmp_path):
-    """Engine resolution lives in ``create_parser``; the parser base takes
-    ``auto`` or ``python`` only and refuses anything else with DMLCError."""
+    """Engine resolution lives in ``create_parser`` alone, as in JAX: the
+    parser base takes no ``engine`` at all (``engine="python"`` pins its
+    numpy scanner after the build), and ``create_parser`` refuses an
+    unknown engine with DMLCError, as JAX's does."""
     from dmlc_tpu_torch.data.parsers import LibSVMParser
     from dmlc_tpu_torch.io.input_split import LineSplitter
 
     f = _write(tmp_path, "e.libsvm", "1 0:1\n")
-    for engine in (None, "native", "native-batch", "numpy"):
-        with pytest.raises(DMLCError, match="unknown parse engine"):
+    for engine in ("auto", "python", "native", "numpy"):
+        with pytest.raises(TypeError, match="engine"):
             LibSVMParser(LineSplitter(f, 0, 1), engine=engine)
+    for engine in ("numpy", "fast"):
+        with pytest.raises(DMLCError, match=engine):
+            create_parser(f, 0, 1, "libsvm", engine=engine)
+        with pytest.raises(Exception, match=engine) as want:
+            jax_create_parser(f, 0, 1, "libsvm", engine=engine)
+        assert type(want.value).__name__ == "DMLCError"

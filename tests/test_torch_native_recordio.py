@@ -19,6 +19,7 @@ its index, local and under ``mem://``, through both packages:
 
 import io
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -249,12 +250,24 @@ def test_native_engine_enabled_matches_reference(monkeypatch):
             assert nr.native_engine_enabled(args) == jax_nr.native_engine_enabled(args)
 
 
+def _error(fn):
+    """``(class name, message, cause's class name)`` of what ``fn()``
+    raised, None if it did not."""
+    try:
+        fn()
+    except Exception as exc:  # noqa: BLE001 - compared by the callers
+        return type(exc).__name__, str(exc), type(exc.__cause__).__name__
+    return None
+
+
 def _failing_feed(mod, corpus):
-    """The feed split of ``mod`` whose fifth 4 KiB read fails; returns the
-    records it gave and the error that ended them."""
+    """The feed split of ``mod`` whose fifth 4 KiB read fails once the
+    consumer holds a record; returns the records it gave, the error that
+    ended them and what two more ``next_record`` calls raised."""
     split = mod.NativeFeedRecordIOSplit(corpus["mem"], 0, 1, chunk_bytes=16384)
     split.FEED_CHUNK = 4096
     real = split._make_split
+    held = threading.Event()
 
     def broken():
         s = real()
@@ -264,6 +277,7 @@ def _failing_feed(mod, corpus):
         def _read(n):
             calls["n"] += 1
             if calls["n"] == 5:
+                held.wait(10)
                 raise ConnectionResetError("feed flake")
             return orig(n)
 
@@ -272,20 +286,30 @@ def _failing_feed(mod, corpus):
 
     split._make_split = broken
     got = []
-    try:
+
+    def drain():
         while (rec := split.next_record()) is not None:
             got.append(bytes(rec))
-        err = None
-    except Exception as exc:  # noqa: BLE001 - compared below
-        err = (type(exc).__name__, str(exc))
+            held.set()
+
+    err = _error(drain)
+    again = [_error(split.next_record) for _ in range(2)]
     split.close()
-    return got, err
+    return got, err, again
 
 
 def test_feed_split_surfaces_a_failed_read(corpus):
     """A read error in the feed thread ends the stream as an error, not
-    as an early end: the records before it and the error as JAX's."""
+    as an early end. The port delivers no record once the feed has failed
+    and names the failure; JAX frames the partial bytes the feed ended on
+    as a last chunk and may raise its framing error instead. The port's
+    records (at least one: the failing read waits for the consumer) are
+    the corpus's and a prefix of JAX's, and every ``next_record`` after
+    the failure raises it again."""
     got, want = _failing_feed(nr, corpus), _failing_feed(jax_nr, corpus)
-    assert got == want
-    assert got[1] is not None and got[1][0] == "DMLCError"
+    assert len(got[0]) >= 1
+    assert got[1] == ("DMLCError", "feed failed: feed flake", "ConnectionResetError")
+    assert got[2] == [got[1], got[1]]
+    assert want[1] is not None and want[1][0] == "DMLCError"
+    assert got[0] == want[0][:len(got[0])]
     assert got[0] == corpus["records"][:len(got[0])]

@@ -33,7 +33,8 @@ from dmlc_tpu.utils.check import DMLCError as JaxDMLCError
 from dmlc_tpu_torch.data import (DenseBlock, DeviceIter, LibSVMParser, ParallelTextParser,
                                  ThreadedParser, create_parser)
 from dmlc_tpu_torch.data.parsers import (CSVParser, LibFMParser, LibSVMParserParam,
-                                         _CSV_SKELETON_CACHE, _csv_skeleton)
+                                         _CSV_SKELETON_CACHE, _csv_skeleton,
+                                         _pin_python_scanner)
 from dmlc_tpu_torch.io import LineSplitter, MmapLineSplit, create_mmap_text_split
 from dmlc_tpu_torch.utils import knobs
 from dmlc_tpu_torch.utils.check import DMLCError
@@ -133,8 +134,10 @@ def test_streams_equal_at_every_worker_count(tmp_path, fmt, data, args, engine):
     # the serial stream over the same mmap split: annotations and all
     cls = {"libsvm": LibSVMParser, "libfm": LibFMParser, "csv": CSVParser}[fmt]
     args_d = dict(kv.split("=", 1) for kv in f"format={fmt}{args}".split("&"))
-    mmap_serial = _stream(ThreadedParser(cls(create_mmap_text_split(path, chunk_bytes=2048),
-                                             args_d, engine=engine)))
+    serial = cls(create_mmap_text_split(path, chunk_bytes=2048), args_d)
+    if engine == "python":
+        _pin_python_scanner(serial)  # as create_parser(engine="python")
+    mmap_serial = _stream(ThreadedParser(serial))
     one = port(1)
     for workers in (2, 4):
         got = port(workers)
