@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``dmlc_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
+    python3 chip_smoke.py --only cloud|tracker [--repeat N]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -341,8 +342,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
     beside ``dmlc_tpu_torch/testing/fake_cloud.py`` in a child process
     (S3 with every SigV4 signature checked, GCS, WebHDFS, Azure with every
     Shared Key signature checked, plain HTTP, served from its memory on
-    127.0.0.1; killed in a ``finally``), the port pointed at it through
-    the environment: (a) phase 3's corpus read into memory, then uploaded
+    127.0.0.1, each server on a listen backlog of 256; killed in a
+    ``finally``), the port pointed at it through the environment. First a
+    burst of :data:`CLOUD_BURST` Range GETs opened at once against its
+    plain HTTP server: each done within :data:`CLOUD_BURST_LIMIT_S`, each
+    accepted by it (fault C15: on ``socketserver``'s backlog of 5 a burst
+    overflows the accept queue). Every urllib attempt of the phase is
+    timed (:class:`_AttemptLog`) and one of :data:`CLOUD_SLOW_S` or more
+    is printed on a line of its own. (a) phase 3's corpus read into memory, then uploaded
     through the port's multipart write stream
     (``open_stream("s3://bench/higgs.libsvm", "w")``, parts of 8 MiB; each
     part's wall time and the retries reported, a retry failing the
@@ -372,7 +379,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
     ``dmlc_tpu_torch.examples.checkpoint_resume`` on the card, its corpus
     on ``s3://``. Every epoch passes the K1 / ``dw`` (and K2) gate; the
     fake refusing a signature fails the phase. The phase prints its wall
-    time and fails past :data:`CLOUD_LIMIT_S`.
+    time, the client's attempts beside the connections each server of the
+    fake accepted and served, and fails past :data:`CLOUD_LIMIT_S`.
+20. the tracker (``run_tracker``): jobs launched by
+    ``dmlc_tpu_torch.tracker.submit.main(["--cluster", "tpu-pod",
+    "--num-workers", "2", "--host-ip", "127.0.0.1", "--", ...])``, each
+    under a deadline, two ranks of this script (``--parallel-child pod``)
+    sharing the card through gloo, each with a watchdog: the rabit
+    rendezvous, the heartbeat with ``metrics=True``,
+    ``init_from_env(backend="gloo")``, ``pod_identity``, ``sync_min`` of
+    its part's batches and one epoch of the data-parallel ELL
+    ``LinearLearner`` on phase 3's corpus, K1 and ``dw`` counted around
+    it. (a) The ranks' weights bit-equal and within 1e-5 of the card's
+    one-process learner on the same global batches; K1 and ``dw`` against
+    their plain versions on rank 0's first batch; the tracker's merged pod
+    table (``DMLC_METRICS_LOG_EVERY=0``) with both ranks; each rank's
+    rows/s and stall share. (b) Under ``DMLC_LIVENESS_TIMEOUT=1.0`` and
+    ``--local-num-attempt 3``, task 1's first life dies after the rabit
+    rendezvous: the tracker logs it lost, the relaunch recovers the same
+    rabit rank, and the weights are (a)'s bits. (c) ``python -m
+    dmlc_tpu_torch.examples.distributed_pod`` on the card, its
+    accuracies.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
@@ -387,12 +414,17 @@ launches the card queues behind a spin (``launch_queue``). Phase 16 runs
 after them (a window opened after a pipeline ran behind a spin can miss a
 device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-19, the windowed ones of phase
+the main paths of phases 3, 6, 7 and 11-20, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14 and
 11 (f)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
+
+``--only cloud|tracker`` builds, writes phase 3's corpus and runs phase 19
+or 20 alone ``--repeat`` times; ``cloud`` first runs the burst against a
+fake on a backlog of 5 and one on the default, in turns, as often. It
+prints no kernels line and no result line.
 """
 
 from __future__ import annotations
@@ -3453,6 +3485,8 @@ def parallel_child(argv: list) -> int:
         parallel_nccl_pair_child(*argv[1:])
     elif kind == "fs_pair":
         fs_pair_child(*argv[1:])
+    elif kind == "pod":
+        pod_child(*argv[1:])
     else:
         parallel_pair_child(*argv[1:])
     return 0
@@ -5875,6 +5909,9 @@ CLOUD_CUT_ROWS = 1 << 16   # (b)-(d): the corpus cut for the other protocols
 CLOUD_CKPT_AT = 3          # (d): batches of the cut before the checkpoint
 CLOUD_UPLOAD_PIECE = 8 << 20
 CLOUD_LIMIT_S = 60.0       # phase 19's wall time, the fake's start to its stop
+CLOUD_SLOW_S = 5.0         # an attempt (urlopen to its response's headers) this long is logged
+CLOUD_BURST = 64           # concurrent connections of the burst probe against one server
+CLOUD_BURST_LIMIT_S = 5.0  # the slowest of them, at most
 CLOUD_FAULTS = [  # (c): served at the n-th Range GET of an s3:// epoch
     {"proto": "s3", "action": "503", "at": 3},
     {"proto": "s3", "action": "429", "at": 7, "retry_after": "0.05"},
@@ -5886,16 +5923,17 @@ class _FakeCloudChild:
     """``dmlc_tpu_torch/testing/fake_cloud.py`` in a child process of its
     own (its own interpreter lock, standard library only, started with
     ``subprocess``: no fork after CUDA is up), serving S3, GCS, WebHDFS,
-    Azure and plain HTTP from its memory on 127.0.0.1; stopped by
-    :meth:`close`."""
+    Azure and plain HTTP from its memory on 127.0.0.1, each server on a
+    listen backlog of ``backlog`` (the fake's default when None); stopped
+    by :meth:`close`."""
 
-    def __init__(self, d: str):
+    def __init__(self, d: str, backlog=None):
         script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dmlc_tpu_torch",
                               "testing", "fake_cloud.py")
         self.err_path = os.path.join(d, "fake_cloud.err")
         self._err = open(self.err_path, "w")
-        self.proc = subprocess.Popen([sys.executable, script], stdout=subprocess.PIPE,
-                                     stderr=self._err, text=True)
+        argv = [sys.executable, script] + ([] if backlog is None else ["--backlog", str(backlog)])
+        self.proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=self._err, text=True)
         line = self.proc.stdout.readline()
         if not line:
             self.close()
@@ -5933,6 +5971,97 @@ class _FakeCloudChild:
         self.proc.wait(timeout=30)
         self.proc.stdout.close()
         self._err.close()
+
+
+class _AttemptLog:
+    """Every urllib attempt of phase 19, timed from the call of
+    ``urllib.request.urlopen`` (which every cloud member, the feed thread
+    and the fake's control calls make) to its response's headers, where a
+    connection that no server accepts waits; while the block is open.
+    Each attempt of :data:`CLOUD_SLOW_S` or more is printed on a line of
+    its own with its method, path and start time."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.attempts = 0
+        self.slow = []
+
+    def __enter__(self) -> "_AttemptLog":
+        import urllib.parse
+        import urllib.request
+
+        self._urlopen = urlopen = urllib.request.urlopen
+
+        def timed(req, *args, **kw):
+            start, t0 = time.time(), time.monotonic()
+            outcome = "ok"
+            try:
+                return urlopen(req, *args, **kw)
+            except BaseException as exc:
+                outcome = type(exc).__name__
+                raise
+            finally:
+                secs = time.monotonic() - t0
+                with self.lock:
+                    self.attempts += 1
+                if secs >= CLOUD_SLOW_S:
+                    url = req.full_url if hasattr(req, "full_url") else str(req)
+                    rec = {"phase": "cloud_slow_attempt",
+                           "method": req.get_method() if hasattr(req, "get_method") else "GET",
+                           "path": urllib.parse.urlsplit(url).path,
+                           "port": urllib.parse.urlsplit(url).port, "start_unix": start,
+                           "seconds": secs, "outcome": outcome}
+                    with self.lock:
+                        self.slow.append(rec)
+                    emit(rec)
+
+        urllib.request.urlopen = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import urllib.request
+
+        urllib.request.urlopen = self._urlopen
+
+
+def burst_probe(cloud: "_FakeCloudChild", n: int = CLOUD_BURST, timeout: float = 30.0) -> dict:
+    """``n`` Range GETs opened at once (a barrier) against the fake's plain
+    HTTP server: each one's seconds, the failures, and the server's
+    connections accepted and served over the burst."""
+    import threading
+    import urllib.request
+
+    cloud.put("http", "/burst.bin", bytes(range(256)) * 16)
+    url = f"http://127.0.0.1:{cloud.ports['http']}/burst.bin"
+    before = cloud.stats()["connections"]["http"]
+    barrier = threading.Barrier(n)
+
+    def one(_):
+        barrier.wait()
+        t0 = time.monotonic()
+        try:
+            req = urllib.request.Request(url, headers={"Range": "bytes=0-1023"})
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                ok = len(resp.read()) == 1024
+        except OSError:
+            ok = False
+        return time.monotonic() - t0, ok
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(n) as ex:
+        got = list(ex.map(one, range(n)))
+    wall = time.monotonic() - t0
+    after = cloud.stats()["connections"]["http"]
+    secs = sorted(t for t, _ in got)
+    return {"connections": n, "backlog": after["backlog"], "wall_s": wall,
+            "max_s": secs[-1], "median_s": statistics.median(secs),
+            "over_1s": sum(t > 1.0 for t in secs),
+            "over_slow_s": sum(t >= CLOUD_SLOW_S for t in secs),
+            "failed": sum(not ok for _, ok in got),
+            "accepted": after["accepted"] - before["accepted"],
+            "served": after["served"] - before["served"]}
 
 
 def _range_sweep(uri: str, piece: int = 1 << 20) -> dict:
@@ -6285,13 +6414,15 @@ def run_cloud(path: str, tmp: str, device) -> dict:
     os.makedirs(d)
     cloud = _FakeCloudChild(d)
     try:
-        with _env({**cloud.env, "AZURE_BLOCK_MB": "8"}):
-            out = {"s3": run_cloud_s3(path, cloud, d, device)}
+        with _env({**cloud.env, "AZURE_BLOCK_MB": "8"}), _AttemptLog() as log:
+            burst = burst_probe(cloud)
+            emit({"phase": "cloud_burst", **burst})
+            out = {"burst": burst, "s3": run_cloud_s3(path, cloud, d, device)}
             out["cut"] = run_cloud_cut(path, cloud, d, device)
             clean = out["cut"].pop("s3_leg")
             out["faults"] = run_cloud_faults(cloud, device, clean)
             out["checkpoint"] = run_cloud_checkpoint(device, clean)
-            auth = cloud.stats()["auth_failures"]
+            stats = cloud.stats()
     except BaseException:
         print(f"phase 19: fake cloud stderr: {cloud.stderr()}", file=sys.stderr)
         raise
@@ -6303,13 +6434,319 @@ def run_cloud(path: str, tmp: str, device) -> dict:
     for key in ("k1_launches", "dw_launches"):
         out[key] = sum(out[leg][key] for leg in legs)
     out["k2_launches"] = out["s3"]["k2_launches"]
+    auth, conns = stats["auth_failures"], stats["connections"]
+    # each attempt is at least one connection a server of the fake accepted
+    # (urllib follows WebHDFS's redirect inside one attempt); the stats
+    # call's own connection is accepted and not yet served
+    accepted = sum(c["accepted"] for c in conns.values())
+    out["attempts"] = {"client": log.attempts, "accepted": accepted,
+                       "served": sum(c["served"] for c in conns.values()),
+                       "slow": len(log.slow)}
     emit({"phase": "cloud_total", "wall_s": out["wall_s"], "auth_failures": auth,
           "k1_launches": out["k1_launches"], "dw_launches": out["dw_launches"],
-          "k2_launches": out["k2_launches"]})
+          "k2_launches": out["k2_launches"], "attempts": out["attempts"],
+          "connections": conns, "slow_attempts": log.slow})
+    if burst["failed"] or burst["max_s"] > CLOUD_BURST_LIMIT_S or burst["accepted"] != CLOUD_BURST:
+        raise AssertionError(f"phase 19: the burst of {CLOUD_BURST} connections: {burst}")
     if auth:
         raise AssertionError(f"phase 19: requests the fake refused as unsigned: {auth[:5]}")
     if out["wall_s"] > CLOUD_LIMIT_S:
         raise AssertionError(f"phase 19: {out['wall_s']:.2f} s, over its {CLOUD_LIMIT_S} s")
+    return out
+
+
+# ---------------- phase 20: the tracker ----------------
+
+POD = {"ranks": 2, "lr": 0.3,
+       "child_timeout": 240,   # a rank ends itself past this (a watchdog in the rank)
+       "group_timeout": 120,   # init_from_env's rendezvous and every collective
+       "job_timeout": 300,     # the whole submit; past it the phase fails
+       "liveness": "1.0", "attempts": 3, "example_timeout": 240}
+
+
+def pod_child(cfg_path: str) -> None:
+    """``chip_smoke.py --parallel-child pod CFG``: one rank of a phase 20
+    job, launched by the port's ``tpu-pod`` backend. The rabit rendezvous
+    (``WorkerClient.start``, or ``recover`` of the rank a first life
+    wrote), the heartbeat with ``metrics=True``, then
+    ``init_from_env(backend="gloo")`` (two ranks share the card),
+    ``pod_identity``, ``sync_min`` of the part's batches and one epoch of
+    the data-parallel ELL ``LinearLearner`` on this rank's part, K1 and
+    ``dw`` counted around it; rank 0 holds both kernels against their plain
+    versions on its first batch. With ``crash``, task 1's first life dies
+    hard after the rendezvous, before the group. A watchdog ends a rank
+    past ``child_timeout``: the launch joins its ranks with no deadline."""
+    import threading
+    from datetime import timedelta
+
+    import torch
+
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.parallel import init_from_env, make_mesh, pod_identity, sync_min
+    from dmlc_tpu_torch.parallel.distributed import exit_rank
+    from dmlc_tpu_torch.tracker.client import WorkerClient
+
+    cfg = json.load(open(cfg_path))
+    watchdog = threading.Timer(cfg["child_timeout"], os._exit, (124,))
+    watchdog.daemon = True
+    watchdog.start()
+    task_id = int(os.environ["DMLC_TASK_ID"])
+    attempt = int(os.environ.get("DMLC_NUM_ATTEMPT", "0"))
+    client = WorkerClient(os.environ["DMLC_TRACKER_URI"], int(os.environ["DMLC_TRACKER_PORT"]))
+    rank_file = os.path.join(cfg["out"], f"rabit_rank{task_id}")
+    if cfg["crash"] and task_id == 1 and attempt == 0:
+        client.start()
+        with open(rank_file, "w") as f:
+            f.write(str(client.rank))
+        client.start_heartbeat(0.2)
+        time.sleep(0.6)
+        os._exit(17)  # no shutdown, no group: the tracker must see the beats stop
+    if attempt > 0 and os.path.exists(rank_file):
+        time.sleep(1.6)  # silent past the liveness window
+        with open(rank_file) as f:
+            old = int(f.read())
+        assignment = client.recover(old)
+        recovered = assignment.rank == old
+    else:
+        assignment = client.start()
+        recovered = None
+    client.start_heartbeat(0.25, metrics=True)
+    t_group = time.monotonic()
+    init_from_env(backend="gloo", timeout=timedelta(seconds=cfg["group_timeout"]))
+    group_s = time.monotonic() - t_group
+    rank, world = pod_identity()
+    mesh = make_mesh()
+    probe = _par_ell(cfg["higgs"], None, rank, world, device=mesh.device)[1]
+    first = _first_batches(probe, 1)[0]
+    from dmlc_tpu_torch import create_parser
+
+    count = create_parser(cfg["higgs"], rank, world, "libsvm", threaded=False)
+    local = sum(len(b) for b in count) // BATCH
+    count.close()
+    steps = sync_min(local)
+    model, it = _par_ell(cfg["higgs"], mesh, rank, world)
+    checks = _k1_on_batch(model, first) if rank == 0 else {}
+    torch.cuda.synchronize()
+    k1.launches = k1.dw_launches = 0
+    t0 = time.monotonic()
+    loss, nb = model.fit_epoch(it, max_steps=steps)
+    wall = time.monotonic() - t0
+    launches, dw_launches = k1.launches, k1.dw_launches
+    stall = it.stall_seconds
+    it.close()
+    client.report_metrics()  # the epoch's stage seconds reach the tracker's table
+    rec = {"rank": rank, "task_id": task_id, "attempt": attempt,
+           "rabit_rank": assignment.rank, "recovered_same_rank": recovered,
+           "backend": torch.distributed.get_backend(), "group_s": group_s,
+           "local_batches": local, "steps": steps, "batches": nb, "loss": loss,
+           "epoch_s": wall, "rows_per_s": nb * BATCH / wall, "stall_share": stall / wall,
+           "k1_launches": launches, "dw_launches": dw_launches, "bits": _bits(model.params),
+           **checks}
+    torch.save([p.detach().cpu() for p in model.params],
+               os.path.join(cfg["out"], f"params{rank}.pt"))
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    client.stop_heartbeat()
+    client.shutdown()
+    exit_rank()
+
+
+class _LogTap:
+    """The records of the ``dmlc_tpu_torch`` loggers (the tracker's and
+    the launcher's) while the block is open, at INFO."""
+
+    def __init__(self):
+        import logging
+
+        class _Handler(logging.Handler):
+            def __init__(self, out):
+                super().__init__(logging.INFO)
+                self.out = out
+
+            def emit(self, record):
+                self.out.append((record.name, record.getMessage()))
+
+        self.records = []
+        self._handler = _Handler(self.records)
+
+    def __enter__(self) -> "_LogTap":
+        import logging
+
+        self._logger = logging.getLogger("dmlc_tpu_torch")
+        self._level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+
+    def messages(self, needle: str) -> list:
+        return [m for _, m in self.records if needle in m]
+
+
+def _pod_job(path: str, tmp: str, name: str, crash: bool) -> dict:
+    """One phase 20 job: ``dmlc_tpu_torch.tracker.submit.main`` with the
+    ``tpu-pod`` cluster, two ranks of :func:`pod_child`, under
+    :data:`POD`'s job deadline; returns the ranks' records, their
+    parameters, the job's wall time and the loggers' records."""
+    import threading
+
+    import torch
+
+    from dmlc_tpu_torch.tracker.submit import main as submit
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    cfg_path = os.path.join(out, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"higgs": path, "out": out, "crash": crash,
+                   "child_timeout": POD["child_timeout"],
+                   "group_timeout": POD["group_timeout"]}, f)
+    argv = ["--cluster", "tpu-pod", "--num-workers", str(POD["ranks"]),
+            "--host-ip", "127.0.0.1"]
+    env = {"DMLC_METRICS_LOG_EVERY": "0"}
+    if crash:
+        argv += ["--local-num-attempt", str(POD["attempts"])]
+        env["DMLC_LIVENESS_TIMEOUT"] = POD["liveness"]
+    argv += ["--", sys.executable, os.path.abspath(__file__), "--parallel-child", "pod",
+             cfg_path]
+    failure = []
+
+    def run():
+        try:
+            submit(argv)
+        except BaseException as exc:  # noqa: BLE001 - re-raised by the phase
+            failure.append(exc)
+
+    with _env(env), _LogTap() as tap:
+        t0 = time.monotonic()
+        job = threading.Thread(target=run, daemon=True)
+        job.start()
+        job.join(POD["job_timeout"])
+        wall = time.monotonic() - t0
+    if job.is_alive():
+        raise AssertionError(f"phase 20 {name}: the job ran past its {POD['job_timeout']} s "
+                             "(each rank ends itself at its watchdog)")
+    if failure:
+        raise AssertionError(f"phase 20 {name}: the job failed: {failure[0]!r}")
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(POD["ranks"])]
+    params = [torch.load(os.path.join(out, f"params{r}.pt")) for r in range(POD["ranks"])]
+    return {"ranks": ranks, "params": params, "wall_s": wall, "log": tap}
+
+
+def _pod_reference(path: str, steps: int, device) -> list:
+    """The card's one-process learner on the job's global batches (each
+    the two ranks' batches concatenated in rank order), ``steps`` steps:
+    its parameters."""
+    import torch
+
+    from dmlc_tpu_torch import LinearLearner
+    from dmlc_tpu_torch.ops.sparse import EllBatch
+
+    parts = [_first_batches(_par_ell(path, None, r, POD["ranks"], device)[1], steps)
+             for r in range(POD["ranks"])]
+    model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=POD["lr"], device=device)
+    for group in zip(*parts):
+        model.step(EllBatch(*(torch.cat(ts) for ts in zip(*group))))
+    return [p.detach().cpu() for p in model.params]
+
+
+def _pod_record(job: dict, leg: str) -> dict:
+    tracker = job["log"].messages("tracker listening on")
+    tables = job["log"].messages("@tracker pod telemetry")
+    return {"phase": "tracker_pod", "leg": leg, "wall_s": job["wall_s"],
+            "tracker": tracker[-1] if tracker else None,
+            "pod_table_ranks": max((int(m.split("(")[1].split(" ")[0]) for m in tables),
+                                   default=0),
+            "pod_table": tables[-1].split("\n", 1)[-1] if tables else None,
+            "ranks": [{k: v for k, v in r.items() if k != "bits"} for r in job["ranks"]],
+            "bits_equal_across_ranks": len({r["bits"] for r in job["ranks"]}) == 1}
+
+
+def run_example_pod(timeout: float) -> dict:
+    """Phase 20 (c): ``python -m dmlc_tpu_torch.examples.distributed_pod``
+    on the card in a session of its own (killed whole past ``timeout``);
+    its accuracies."""
+    import re
+    import signal
+
+    t0 = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m", "dmlc_tpu_torch.examples.distributed_pod"],
+                            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase 20 (c): the example ran past {timeout} s") from None
+    acc = [float(a) for a in re.findall(r"accuracy ([0-9.]+)", stdout)]
+    backends = re.findall(r"\] (\w+) group up", stdout)
+    out = {"phase": "tracker_example", "returncode": proc.returncode, "accuracies": acc,
+           "backends": backends, "finished": "pod job finished" in stdout,
+           "wall_s": time.monotonic() - t0}
+    emit(out)
+    if proc.returncode != 0 or not out["finished"] or len(acc) != POD["ranks"]:
+        raise AssertionError(f"phase 20 (c): the example failed: {out}; {stderr[-3000:]}")
+    if min(acc) <= 0.9 or len(set(acc)) != 1:
+        raise AssertionError(f"phase 20 (c): the example's accuracies {acc}")
+    return out
+
+
+def run_tracker(path: str, tmp: str, device) -> dict:
+    """Phase 20 (module docstring): (a) the tracker-launched job against the
+    card's one-process learner, (b) the recovery job against (a), (c) the
+    ported example."""
+    t0 = time.monotonic()
+    a = _pod_job(path, tmp, "pod_a", crash=False)
+    rec_a = _pod_record(a, "a")
+    steps = a["ranks"][0]["steps"]
+    ref = _pod_reference(path, steps, device)
+    rec_a["max_abs_diff_vs_one_process"] = max(
+        float((p - q).abs().max()) for p, q in zip(a["params"][0], ref))
+    emit(rec_a)
+    problems = []
+    if not rec_a["bits_equal_across_ranks"]:
+        problems.append("the ranks' weights differ")
+    if not rec_a["max_abs_diff_vs_one_process"] <= 1e-5:
+        problems.append("the weights are more than 1e-5 off the one-process learner's")
+    if rec_a["pod_table_ranks"] != POD["ranks"]:
+        problems.append("the tracker's pod table does not hold both ranks")
+    for r in a["ranks"]:
+        if r["batches"] != steps or r["backend"] != "gloo":
+            problems.append(f"rank {r['rank']}: {r['batches']} batches of {steps}, "
+                            f"backend {r['backend']}")
+        if r["k1_launches"] < steps or r["dw_launches"] < steps:
+            problems.append(f"rank {r['rank']}: K1 {r['k1_launches']}, dw {r['dw_launches']} "
+                            f"launches for {steps} steps")
+    if "k1_max_abs_err" not in a["ranks"][0]:
+        problems.append("rank 0 did not hold K1 and dw against their plain versions")
+    if problems:
+        raise AssertionError(f"phase 20 (a): {problems}: {rec_a}")
+
+    b = _pod_job(path, tmp, "pod_b", crash=True)
+    rec_b = _pod_record(b, "b")
+    rec_b["lost"] = b["log"].messages("missed heartbeats")
+    rec_b["relaunched"] = b["log"].messages("relaunching 1/")
+    rec_b["bits_equal_to_a"] = all(r["bits"] == a["ranks"][0]["bits"] for r in b["ranks"])
+    emit(rec_b)
+    r1 = next(r for r in b["ranks"] if r["task_id"] == 1)
+    if not (rec_b["lost"] and rec_b["relaunched"] and r1["attempt"] == 1
+            and r1["recovered_same_rank"] and rec_b["bits_equal_across_ranks"]
+            and rec_b["bits_equal_to_a"]):
+        raise AssertionError(f"phase 20 (b): the recovery: {rec_b}")
+
+    c = run_example_pod(POD["example_timeout"])
+    out = {"a": rec_a, "b": rec_b, "c": c, "wall_s": time.monotonic() - t0,
+           "k1_launches": sum(r["k1_launches"] for r in a["ranks"] + b["ranks"]),
+           "dw_launches": sum(r["dw_launches"] for r in a["ranks"] + b["ranks"]),
+           "k1_max_abs_err": a["ranks"][0]["k1_max_abs_err"],
+           "dw_max_abs_err": a["ranks"][0]["dw_max_abs_err"]}
+    emit({"phase": "tracker_total", "wall_s": out["wall_s"], "k1_launches": out["k1_launches"],
+          "dw_launches": out["dw_launches"]})
     return out
 
 
@@ -6329,6 +6766,44 @@ def producer_change(now: dict) -> dict:
     return out
 
 
+def run_only(which: str, repeat: int, seed: int) -> int:
+    """``--only cloud|tracker``: phase 1's builds, phase 3's corpus, then
+    phase 19 or 20 ``repeat`` times, each in a directory of its own. With
+    ``cloud`` it also runs the burst probe against a fake whose servers
+    keep ``socketserver``'s backlog of 5 and against one on the default,
+    ``repeat`` times each, in turns."""
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    emit({**build_all(), "phase": "environment", "gpu": smi_line()})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "higgs_shaped.libsvm")
+        write_higgs_corpus(path, HIGGS_ROWS, seed)
+        if which == "cloud":
+            for i in range(repeat):
+                for backlog in (5, None):
+                    d = os.path.join(tmp, f"burst{i}_{backlog}")
+                    os.makedirs(d)
+                    cloud = _FakeCloudChild(d, backlog=backlog)
+                    try:
+                        emit({"phase": "cloud_burst_ab", "run": i, **burst_probe(cloud)})
+                    finally:
+                        cloud.close()
+        for i in range(repeat):
+            d = os.path.join(tmp, f"only{i}")
+            os.makedirs(d)
+            t0 = time.monotonic()
+            failed = None
+            try:
+                (run_cloud if which == "cloud" else run_tracker)(path, d, dev)
+            except AssertionError as exc:
+                failed = str(exc)[:2000]
+            emit({"phase": f"only_{which}", "run": i, "wall_s": time.monotonic() - t0,
+                  "failed": failed})
+    print(smi_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6337,6 +6812,10 @@ def main() -> int:
                          "its K1, its K2 route (a one-segment K2) and its row scatter "
                          "beside this one's, in turns")
     ap.add_argument("--parallel-child", nargs="+", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=["cloud", "tracker"], default=None,
+                    help="build, write phase 3's corpus and run phase 19 or 20 alone "
+                         "(--repeat times); no kernels line and no result line")
+    ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args()
 
     import torch
@@ -6347,6 +6826,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.parallel_child:
         return parallel_child(args.parallel_child)
+    if args.only:
+        return run_only(args.only, args.repeat, args.seed)
     from dmlc_tpu_torch.ops import device_decode as dd
     from dmlc_tpu_torch.ops import ell_matvec as k1
 
@@ -6535,6 +7016,8 @@ def main() -> int:
         # phase 19: the cloud filesystems beside a fake cloud in a child
         # process, each leg's launches counted around its epochs
         cloud19 = run_cloud(path, tmp, dev)
+        # phase 20: the tracker, its ranks' launches counted around their epochs
+        pod20 = run_tracker(path, tmp, dev)
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -6550,12 +7033,12 @@ def main() -> int:
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
                      + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
                      + tune["k1_launches"] + store17["k1_launches"] + host18["k1_launches"]
-                     + cloud19["k1_launches"]),
+                     + cloud19["k1_launches"] + pod20["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
                            + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"],
                               store17["cachefile"]["k1_max_abs_err"],
                               host18["mem"]["k1_max_abs_err"],
-                              cloud19["s3"]["k1_max_abs_err"]]),
+                              cloud19["s3"]["k1_max_abs_err"], pod20["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -6568,13 +7051,13 @@ def main() -> int:
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
                      + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
                      + tune["dw_launches"] + store17["dw_launches"] + host18["dw_launches"]
-                     + cloud19["dw_launches"]),
+                     + cloud19["dw_launches"] + pod20["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
                             if r["dw_route"] == "cuda"]
                            + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"],
                               store17["cachefile"]["dw_max_abs_err"],
                               host18["mem"]["dw_max_abs_err"],
-                              cloud19["s3"]["dw_max_abs_err"]]),
+                              cloud19["s3"]["dw_max_abs_err"], pod20["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {

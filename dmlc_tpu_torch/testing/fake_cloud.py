@@ -36,7 +36,14 @@ which prints one JSON line (``{"env": {...}, "control": url}``) and serves
 until it is killed. The control server takes ``PUT /put?proto=&key=``
 (a body into a store), ``POST /faults`` (a JSON list of
 :meth:`add_fault` keywords), ``POST /clear_faults`` and ``GET /stats``
-(request counts, fired faults, auth failures, uploads).
+(request counts, fired faults, auth failures, uploads, and each server's
+connections accepted and served).
+
+Every server listens with a backlog of :data:`BACKLOG` (``--backlog`` as a
+child process, ``FakeCloud(backlog=)``): the standard library's servers
+keep ``socketserver``'s 5, and a burst of connections beyond it (the
+multipart upload's, the feeder's Range GETs) overflows the accept queue,
+which a client may then wait out to its whole attempt timeout.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ GCS_TOKEN = "fake-gcs-token"
 AZURE_ACCOUNT = "fakeaccount"
 AZURE_KEY = base64.b64encode(b"fake-azure-shared-key").decode()
 HDFS_USER = "fake-hdfs-user"
+BACKLOG = 256  # each server's listen backlog, as the rabit tracker's
 
 
 class _Fault:
@@ -528,10 +536,42 @@ class _Control(http.server.BaseHTTPRequestHandler):
         self._ok()
 
 
+class _Server(http.server.ThreadingHTTPServer):
+    """A threading HTTP server on a listen backlog of ``backlog``, counting
+    the connections it accepted and those it finished serving."""
+
+    daemon_threads = True
+
+    def __init__(self, address, handler, backlog: int = BACKLOG):
+        self.request_queue_size = int(backlog)  # read by server_activate's listen()
+        self.accepted = self.served = 0
+        self._count_lock = threading.Lock()
+        super().__init__(address, handler)
+
+    def get_request(self):
+        request = super().get_request()
+        with self._count_lock:
+            self.accepted += 1
+        return request
+
+    def process_request_thread(self, request, client_address):
+        try:
+            super().process_request_thread(request, client_address)
+        finally:
+            with self._count_lock:
+                self.served += 1
+
+    def connections(self) -> Dict[str, int]:
+        with self._count_lock:
+            return {"accepted": self.accepted, "served": self.served,
+                    "backlog": self.request_queue_size}
+
+
 class FakeCloud:
     """The five fakes, their stores and their faults (the module docstring)."""
 
-    def __init__(self):
+    def __init__(self, backlog: int = BACKLOG):
+        self.backlog = int(backlog)
         self.s3_secret, self.gcs_token = S3_SECRET_KEY, GCS_TOKEN
         self.azure_account, self.azure_key = AZURE_ACCOUNT, AZURE_KEY
         self.azure_sas_sig = "fake-sas-signature"
@@ -548,25 +588,24 @@ class FakeCloud:
         self.requests: Dict[str, int] = {}
         self.auth_failures: List[tuple] = []
         self.ports: Dict[str, int] = {}
-        self._servers: List[http.server.ThreadingHTTPServer] = []
+        self._servers: Dict[str, _Server] = {}
 
     # -- lifecycle --
-    def _serve(self, handler) -> int:
-        server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
-        server.daemon_threads = True
+    def _serve(self, name: str, handler) -> int:
+        server = _Server(("127.0.0.1", 0), handler, self.backlog)
         threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05},
                          daemon=True).start()
-        self._servers.append(server)
+        self._servers[name] = server
         return server.server_address[1]
 
     def start(self) -> "FakeCloud":
         for proto in PROTOCOLS:
-            self.ports[proto] = self._serve(type(f"_{proto}", (_Handler,),
-                                                 {"cloud": self, "proto": proto}))
+            self.ports[proto] = self._serve(proto, type(f"_{proto}", (_Handler,),
+                                                        {"cloud": self, "proto": proto}))
         return self
 
     def stop(self) -> None:
-        for server in self._servers:
+        for server in self._servers.values():
             server.shutdown()
             server.server_close()
         self._servers.clear()
@@ -647,17 +686,29 @@ class FakeCloud:
                     "auth_failures": [list(a) for a in self.auth_failures],
                     "uploads": {k: {"parts": sorted((n, len(b)) for n, b in v["parts"].items()),
                                     "done": v["done"]} for k, v in self.uploads.items()},
-                    "block_lists": list(self.block_lists)}
+                    "block_lists": list(self.block_lists),
+                    "connections": self.connections()}
+
+    def connections(self) -> Dict[str, Dict[str, int]]:
+        """Each server's connections accepted and served, and its backlog."""
+        return {name: server.connections() for name, server in self._servers.items()}
 
 
-def main() -> int:
-    cloud = FakeCloud().start()
-    control = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
-                                              type("_ctl", (_Control,), {"cloud": cloud}))
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Serve the fake cloud stores on 127.0.0.1.")
+    ap.add_argument("--backlog", type=int, default=BACKLOG,
+                    help="each server's listen backlog")
+    args = ap.parse_args(argv)
+    cloud = FakeCloud(backlog=args.backlog).start()
+    # the control server is counted with the others (it serves the puts)
+    cloud._serve("control", type("_ctl", (_Control,), {"cloud": cloud}))
+    control = cloud._servers["control"]
     print(json.dumps({"env": cloud.env(), "ports": cloud.ports,
                       "control": f"http://127.0.0.1:{control.server_address[1]}"}), flush=True)
     try:
-        control.serve_forever()
+        threading.Event().wait()
     finally:
         cloud.stop()
     return 0

@@ -32,7 +32,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "dmlc_tpu", "ml_dtypes")
 # example, the tiered artifact store, the chunk cache, RecordIO, the
 # filesystem registry and its streams, the native RecordIO engines, the
 # chunk-batch engine, the row iterators, the serializer, the rest of utils,
-# the cloud filesystems, their fake and the host examples)
+# the cloud filesystems, their fake, the host examples, the tracker and its
+# backends, and the pod example)
 SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot",
                     "dmlc_tpu_torch.ops.device_decode", "dmlc_tpu_torch.data.epoch",
                     "dmlc_tpu_torch.examples.train_als", "dmlc_tpu_torch.store.journal",
@@ -47,7 +48,15 @@ SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot
                     "dmlc_tpu_torch.io.hdfs_filesys", "dmlc_tpu_torch.io.azure_filesys",
                     "dmlc_tpu_torch.testing.fake_cloud",
                     "dmlc_tpu_torch.examples.parameter_demo",
-                    "dmlc_tpu_torch.examples.checkpoint_resume")
+                    "dmlc_tpu_torch.examples.checkpoint_resume",
+                    "dmlc_tpu_torch.tracker", "dmlc_tpu_torch.tracker.tracker",
+                    "dmlc_tpu_torch.tracker.client", "dmlc_tpu_torch.tracker.opts",
+                    "dmlc_tpu_torch.tracker.local", "dmlc_tpu_torch.tracker.submit",
+                    "dmlc_tpu_torch.tracker.tpu_pod", "dmlc_tpu_torch.tracker.ssh",
+                    "dmlc_tpu_torch.tracker.launcher", "dmlc_tpu_torch.tracker.mpi",
+                    "dmlc_tpu_torch.tracker.sge", "dmlc_tpu_torch.tracker.slurm",
+                    "dmlc_tpu_torch.tracker.kubernetes",
+                    "dmlc_tpu_torch.examples.distributed_pod")
 
 
 def _port_sources():
@@ -64,8 +73,9 @@ def _forbidden(name: str) -> bool:
 def test_no_forbidden_imports_in_sources():
     offenders = []
     sources = _port_sources()
-    for mod in SNAPSHOT_MODULES:  # the scan reaches the hand-picked modules
-        assert os.path.join(REPO, *mod.split(".")) + ".py" in sources, mod
+    for mod in SNAPSHOT_MODULES:  # the scan reaches the hand-picked modules (or packages)
+        path = os.path.join(REPO, *mod.split("."))
+        assert path + ".py" in sources or os.path.join(path, "__init__.py") in sources, mod
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
