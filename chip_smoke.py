@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``dmlc_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
-    python3 chip_smoke.py --only cloud|tracker [--repeat N]
+    python3 chip_smoke.py --only cloud|tracker|service [--repeat N]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -400,6 +400,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
     rabit rank, and the weights are (a)'s bits. (c) ``python -m
     dmlc_tpu_torch.examples.distributed_pod`` on the card, its
     accuracies.
+21. the data service (``run_service``): one dispatcher and two
+    ``ParseWorker``s over localhost TCP (``LocalFleet``) serving phase 3's
+    corpus in 4 parts, each leg on a thread of its own under a deadline
+    (:data:`SERVICE_LEG_LIMIT_S`). (a) ``ServiceParser`` -> ``DeviceIter
+    (ell)`` -> ``LinearLearner``: the delivered blocks and resume
+    annotations equal the local loop over ``create_parser(path, p, 4)``
+    (host digests, part by part); K1 and ``dw`` against their plain
+    versions on the phase's first batch; the first 20 step losses within
+    1e-4 of the same batches on the CPU; two epochs beside one of phase 3's
+    local reader in the same call (rows/s, stall share, batch digests equal
+    to the local reader's), the CSR frames' wire bytes; then the epoch again
+    with the worker streaming to it killed after batch 43: the bits of the
+    undisturbed epoch, ``service_failovers`` at least 1 and
+    ``service_giveups`` 0. (b) ``register_job(..., snapshot={"batch_size":
+    8192, "num_col": 29, "x_dtype": "bfloat16"})`` (29: the dense
+    learner's width, its sink column included) into ``DeviceIter(dense,
+    pack_aux=True, x_dtype="bfloat16", device_decode=True)`` with no
+    snapshot: one K2 launch a batch, the batches bit-equal to the same job
+    through ``device_decode=False``, a dense ``LinearLearner`` epoch under
+    log 2, the client's payload bytes beside (a)'s, and 20 steps behind a
+    spin. (c) ``dmlc_tpu_torch.examples.train_als``'s ``main([])`` at its
+    full size (phase 12 (a) runs it too): its service line (parts parsed at
+    most 2, giveups 0, the service-fed restore replayed bit for bit) and
+    the row scatter once a step.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
@@ -414,15 +438,15 @@ launches the card queues behind a spin (``launch_queue``). Phase 16 runs
 after them (a window opened after a pipeline ran behind a spin can miss a
 device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-20, the windowed ones of phase
-11's feature sharding among them; the row scatter's on phases 9-14 and
-11 (f)), the card's name and power limit as
+the main paths of phases 3, 6, 7 and 11-21, the windowed ones of phase
+11's feature sharding among them; the row scatter's on phases 9-14, 11 (f)
+and 21 (c)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
 
-``--only cloud|tracker`` builds, writes phase 3's corpus and runs phase 19
-or 20 alone ``--repeat`` times; ``cloud`` first runs the burst against a
+``--only cloud|tracker|service`` builds, writes phase 3's corpus and runs
+phase 19, 20 or 21 alone ``--repeat`` times; ``cloud`` first runs the burst against a
 fake on a backlog of 5 and one on the default, in turns, as often. It
 prints no kernels line and no result line.
 """
@@ -3547,9 +3571,9 @@ def run_block_cache_als(tmp: str, device) -> dict:
     launches = rs.launches
     lines = out_buf.getvalue().splitlines()
     epoch_len = cfg["users"] // cfg["batch"]
-    # steps of the main run: its fit, its eval pass (no scatter), and
-    # restore_check's two pipelines (an epoch, the warm epoch, its replay)
-    need = (cfg["epochs"] + 2) * epoch_len + (epoch_len - cfg["restore_at"])
+    # steps of the main run: its fit, its eval pass (no scatter),
+    # restore_check's two pipelines and the service leg's
+    need = als_main_steps(cfg)
 
     path = os.path.join(tmp, "als_bc.libsvm")
     cache = os.path.join(tmp, "als.blockcache")
@@ -6750,6 +6774,369 @@ def run_tracker(path: str, tmp: str, device) -> dict:
     return out
 
 
+SERVICE_PARTS = 4          # phase 21: the corpus's parts on the fleet
+SERVICE_WORKERS = 2        # parse workers of the fleet
+SERVICE_KILL_AT = 43       # (a): the batch (of 128) after which a worker is killed
+SERVICE_LEG_LIMIT_S = 240.0  # each leg's deadline: a hung socket fails the phase
+SERVICE_PARSER = {"format": "libsvm"}
+
+
+def _with_deadline(fn, seconds: float, what: str):
+    """``fn()`` on a thread of its own, joined for at most ``seconds``: a
+    leg that hangs (a socket nobody answers) fails the phase instead of
+    eating the run's time limit."""
+    import threading
+
+    box: dict = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            box["exc"] = exc
+
+    t = threading.Thread(target=run, daemon=True, name=f"phase21-{what}")
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        raise AssertionError(f"phase 21 {what}: not done within {seconds:.0f} s")
+    if "exc" in box:
+        raise box["exc"]
+    return box["out"]
+
+
+def _block_digest(parser) -> tuple:
+    """(blocks, rows, digest) of a parser's stream: every block's arrays and
+    its resume annotation, hashed in order on the host."""
+    import hashlib
+
+    h, blocks, rows = hashlib.blake2b(digest_size=16), 0, 0
+    while (blk := parser.next_block()) is not None:
+        for arr in (blk.offset, blk.label, blk.index, blk.value, blk.weight, blk.qid):
+            h.update(b"-" if arr is None else np.ascontiguousarray(arr).view(np.uint8))
+        h.update(json.dumps(blk.resume_state, sort_keys=True).encode())
+        blocks += 1
+        rows += len(blk)
+    parser.close()
+    return blocks, rows, h.hexdigest()
+
+
+class _Prefix:
+    """The next ``n`` blocks of a parser, as a parser."""
+
+    def __init__(self, src, n: int):
+        self.src, self.n = src, n
+
+    def next_block(self):
+        if self.n == 0:
+            return None
+        self.n -= 1
+        return self.src.next_block()
+
+    def close(self) -> None:
+        pass
+
+
+def _service_pipeline(address: str, device, job=None):
+    """Phase 3's ELL main path fed by the data service."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner
+    from dmlc_tpu_torch.service import DEFAULT_JOB, ServiceParser
+
+    model = LinearLearner(num_col=HIGGS_COLS, layout="ell", learning_rate=0.3, device=device)
+    it = DeviceIter(ServiceParser(address, job=job or DEFAULT_JOB),
+                    num_col=model.device_num_col(), batch_size=BATCH, layout="ell",
+                    max_nnz=HIGGS_COLS, drop_remainder=True, device=device)
+    return model, it
+
+
+class _PackedDigests(_Digests):
+    """Exact int64 mixes of each packed dense batch's bits, on the card."""
+
+    def add(self, batch) -> None:
+        import torch
+
+        bits = batch.packed.contiguous().view(torch.int16).to(torch.int64)
+        r = (bits * self._w[: bits.shape[1]]).sum(1)
+        self.row.append(r)
+        self.batch.append((r * self._w[2 * self._k + 2: 2 * self._k + 2 + bits.shape[0]]).sum())
+
+
+def _service_csr(path: str, fleet, device) -> dict:
+    """Phase 21 (a): the CSR frames into the ELL learner (module docstring)."""
+    import torch
+
+    from dmlc_tpu_torch import LinearLearner, create_parser
+    from dmlc_tpu_torch.io import resilience
+    from dmlc_tpu_torch.ops.sparse import EllBatch
+    from dmlc_tpu_torch.service import DEFAULT_JOB, ServiceParser
+    from dmlc_tpu_torch.utils import telemetry
+
+    # the delivered blocks and annotations against the local loop over the
+    # same parts, part by part (the stream cut by the local parts' counts)
+    local, served = [], []
+    for p in range(SERVICE_PARTS):
+        local.append(_block_digest(create_parser(path, p, SERVICE_PARTS)))
+    t0 = time.monotonic()
+    svc = ServiceParser(fleet.address)
+    for blocks, _, _ in local:
+        served.append(_block_digest(_Prefix(svc, blocks)))
+    tail = svc.next_block()
+    drain_s = time.monotonic() - t0
+    svc_bytes = svc.bytes_read
+    svc.close()
+    blocks_equal = local == served and tail is None
+    # the first 20 losses against the same batches stepped on the CPU
+    dev_model, it = _service_pipeline(fleet.address, device)
+    batch0 = next(it)
+    checks = _k1_on_batch(dev_model, batch0)
+    it.close()
+    dev_model, it = _service_pipeline(fleet.address, device)
+    cpu_model = LinearLearner(HIGGS_COLS, layout="ell", learning_rate=0.3, device="cpu")
+    pairs = []
+    for _, batch in zip(range(20), it):
+        a = dev_model.step(batch)
+        b = cpu_model.step(EllBatch(*(t.cpu() for t in batch)))
+        pairs.append((float(a), float(b)))
+    it.close()
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
+    # two service-fed epochs beside phase 3's local reader in this call
+    wire0 = telemetry.REGISTRY.counter(telemetry.SERVICE_WIRE_SENT_METRIC, job=DEFAULT_JOB).value
+    base = resilience.counters_snapshot()
+    model, it = _service_pipeline(fleet.address, device)
+    digs = [_Digests(device), _Digests(device)]
+    recs = [_store_epoch(model, it, f"service_{e}", digs[e]) for e in range(2)]
+    it.close()
+    wire_sent = telemetry.REGISTRY.counter(telemetry.SERVICE_WIRE_SENT_METRIC,
+                                           job=DEFAULT_JOB).value - wire0
+    clean = resilience.counters_delta(base)
+    lmodel, lit = _store_pipeline(path, device)
+    local_dig = _Digests(device)
+    local_rec = _store_epoch(lmodel, lit, "local_reader", local_dig)
+    lit.close()
+    # the same epoch again, the worker streaming to it killed after about a
+    # third of it (the owner of the part in flight, so the stream breaks)
+    base = resilience.counters_snapshot()
+    kmodel, kit = _service_pipeline(fleet.address, device)
+    kill_dig = _Digests(device)
+    killed = []
+
+    def kill(n):
+        if n == SERVICE_KILL_AT:
+            ids = [w.worker_id for w in fleet.workers]
+            owner = kit.source._owner or kit.source._last_located
+            index = ids.index(owner) if owner in ids else 0
+            killed.append((index, ids[index]))
+            fleet.kill_worker(index)
+
+    kill_rec = _store_epoch(kmodel, kit, "service_worker_killed", kill_dig, on_batch=kill)
+    kit.close()
+    chaos = resilience.counters_delta(base)
+    fleet.add_worker()  # back to two workers for (b)
+    torch.cuda.synchronize()
+    out = {"phase": "service_csr", "parts": SERVICE_PARTS, "workers": SERVICE_WORKERS,
+           "local_blocks": sum(r[0] for r in local),
+           "served_blocks": sum(r[0] for r in served), "rows": sum(r[1] for r in served),
+           "blocks_and_annotations_equal_local": blocks_equal, "drain_s": drain_s,
+           "client_payload_bytes": svc_bytes, "wire_bytes_sent_two_epochs": wire_sent,
+           "first_20_max_rel_diff_vs_cpu": rel, **checks, "epochs": recs,
+           "local_reader": _plain_pair(local_rec),
+           "rows_per_s_vs_local": recs[-1]["rows_per_s"] / local_rec["rows_per_s"],
+           "batches_equal_local_reader": _epochs_equal(digs[:1], [local_dig]),
+           "epochs_bit_equal": _epochs_equal(digs[:1], digs[1:]),
+           "counters": clean, "killed": kill_rec, "killed_worker": killed,
+           "killed_counters": chaos,
+           "killed_bits_equal": _epochs_equal([kill_dig], digs[:1])}
+    emit(out)
+    problems = []
+    if not blocks_equal:
+        problems.append("the served blocks differ from the local loop's")
+    if not rel <= 1e-4:
+        problems.append(f"the first 20 losses are {rel} off the CPU's")
+    for rec in recs + [kill_rec, local_rec]:
+        if rec["batches"] != HIGGS_ROWS // BATCH:
+            problems.append(f"{rec['leg']}: {rec['batches']} batches")
+        _launch_gate(rec, rec["leg"], phase=21)
+    if not (out["batches_equal_local_reader"] and out["epochs_bit_equal"]):
+        problems.append("the service-fed batches differ from the local reader's")
+    if not out["killed_bits_equal"]:
+        problems.append("the epoch with a worker killed differs from the undisturbed one")
+    if chaos.get("service_failovers", 0) < 1 or chaos.get("service_giveups", 0):
+        problems.append(f"the kill's counters: {chaos}")
+    if clean.get("service_giveups", 0) or clean.get("service_failovers", 0):
+        problems.append(f"the undisturbed epochs' counters: {clean}")
+    if problems:
+        raise AssertionError(f"phase 21 (a): {problems}: {out}")
+    out["k1_launches"] = sum(r["k1_launches"] for r in recs + [kill_rec, local_rec])
+    out["dw_launches"] = sum(r["dw_launches"] for r in recs + [kill_rec, local_rec])
+    return out
+
+
+def _snapshot_epoch(model, it, digests) -> dict:
+    """One epoch of packed dense batches stepped batch by batch and digested
+    on the card, timed to a synchronize; K2 counted around it."""
+    import torch
+
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    k2_0 = dd.launches
+    t0 = time.monotonic()
+    nb, loss = 0, None
+    for batch in it:
+        digests.add(batch)
+        loss = model.step(batch)
+        nb += 1
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    st = it.stats()
+    it.reset()
+    return {"batches": nb, "wall_s": secs, "rows_per_s": nb * BATCH / secs,
+            "loss": float(loss), "k2_launches": dd.launches - k2_0,
+            "device_decode_bytes": st["device_decode_bytes"]}
+
+
+def _service_snapshot(path: str, fleet, device) -> dict:
+    """Phase 21 (b): the snapshot frames through ``device_decode=True`` with
+    no snapshot (module docstring)."""
+    from dmlc_tpu_torch import DeviceIter, LinearLearner
+    from dmlc_tpu_torch.service import ServiceParser, register_job
+
+    num_col = HIGGS_COLS + 1  # the dense learner's width, its sink column included
+    geometry = {"batch_size": BATCH, "num_col": num_col, "x_dtype": "bfloat16"}
+    register_job(fleet.address, "snap", path, SERVICE_PARTS,
+                 parser=SERVICE_PARSER, snapshot=geometry)
+
+    def pipeline(decode: bool):
+        model = LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, device=device)
+        src = ServiceParser(fleet.address, job="snap")
+        it = DeviceIter(src, num_col=model.device_num_col(), batch_size=BATCH,
+                        layout="dense", pack_aux=True, x_dtype="bfloat16",
+                        device_decode=decode, drop_remainder=True, device=device)
+        return model, it, src
+
+    # the host route first: the workers pack each part's frames at its
+    # first snapshot request, so the span route's epoch is timed warm
+    hmodel, hit, _ = pipeline(False)
+    host_dig = _PackedDigests(device, k=num_col + 2)
+    host = _snapshot_epoch(hmodel, hit, host_dig)
+    hit.close()
+    model, it, src = pipeline(True)
+    span_dig = _PackedDigests(device, k=num_col + 2)
+    span = _snapshot_epoch(model, it, span_dig)
+    snap_bytes = src.bytes_read
+    it.close()
+    # the spin: steps fed by the span route enqueued behind a device spin
+    smodel, sit, _ = pipeline(True)
+    smodel.step(next(sit))
+    time.sleep(3.0)
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    k2_0 = dd.launches
+    spin = enqueue_behind_spin(lambda: smodel.step(next(sit)), group=10,
+                               spin_cycles=PIPELINE_SPIN_CYCLES)
+    spin["k2_launches"] = dd.launches - k2_0
+    sit.close()
+    out = {"phase": "service_snapshot", "geometry": geometry, "span_route": span,
+           "host_route": host, "bits_equal_host_route": _epochs_equal([span_dig], [host_dig]),
+           "client_payload_bytes": snap_bytes, "spin": spin}
+    emit(out)
+    problems = []
+    if span["k2_launches"] != span["batches"] or host["k2_launches"] != 0:
+        problems.append(f"K2 launched {span['k2_launches']} times for {span['batches']} "
+                        f"batches (host route {host['k2_launches']})")
+    if span["batches"] < HIGGS_ROWS // BATCH or span["batches"] != host["batches"]:
+        problems.append("the routes' batch counts")
+    if not out["bits_equal_host_route"]:
+        problems.append("the span route's batches differ from the host route's")
+    if not (np.isfinite(span["loss"]) and span["loss"] < np.log(2)):
+        problems.append(f"the dense epoch's loss {span['loss']}")
+    if not spin["no_host_sync"] or spin["k2_launches"] != spin["calls"]:
+        problems.append(f"the steps behind a spin: {spin}")
+    if problems:
+        raise AssertionError(f"phase 21 (b): {problems}: {out}")
+    out["k2_launches"] = span["k2_launches"] + spin["k2_launches"]
+    return out
+
+
+def _service_als() -> dict:
+    """Phase 21 (c): ``dmlc_tpu_torch.examples.train_als``'s ``main([])`` at
+    its full size, as a user runs it; the row scatter counted around it."""
+    import contextlib
+    import io
+
+    from dmlc_tpu_torch.examples import train_als
+    from dmlc_tpu_torch.ops import row_scatter as rs
+
+    cfg = train_als.config(dryrun=False, world=1)
+    buf = io.StringIO()
+    rs0 = rs.launches
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        train_als.main([])
+    launches = rs.launches - rs0
+    lines = buf.getvalue().splitlines()
+    epoch_len = cfg["users"] // cfg["batch"]
+    need = als_main_steps(cfg)
+    svc = [ln for ln in lines if ln.startswith("service-fed:")]
+    fields = dict(kv.split("=") for kv in svc[0].split()[1:] if "=" in kv) if svc else {}
+    out = {"phase": "service_als", "main_s": time.monotonic() - t0, "service_line": svc,
+           "row_scatter_launches": launches, "row_scatter_launches_needed": need,
+           "reduced": "none: examples/train_als.py's full run"}
+    emit(out)
+    problems = []
+    if not (lines and lines[-1] == "OK" and len(svc) == 1):
+        problems.append("the example did not print its service line and OK")
+    elif not (int(fields.get("parsed", 99)) <= 2 and fields.get("giveups") == "0"
+              and int(fields.get("tenant_blocks", 0)) > 0):
+        problems.append("parse-once or the giveups")
+    if f"checkpoint/restore byte-identical over {epoch_len - cfg['restore_at']} steps" \
+            not in lines:
+        problems.append("the local restore line")
+    if launches != need:
+        problems.append("the row scatter did not launch once a step")
+    if problems:
+        raise AssertionError(f"phase 21 (c): {problems}: {out}")
+    return out
+
+
+def als_main_steps(cfg: dict) -> int:
+    """The steps of ``train_als.main``: the local fit, restore_check's two
+    pipelines (an epoch, the warm epoch, its replay) and the service leg's
+    (an epoch, the warm epoch, its replay); the eval pass makes no scatter."""
+    epoch_len = cfg["users"] // cfg["batch"]
+    replay = epoch_len - cfg["restore_at"]
+    return (cfg["epochs"] + 2) * epoch_len + replay + 2 * epoch_len + replay
+
+
+def run_service(path: str, tmp: str, device) -> dict:
+    """Phase 21 (module docstring): the data service on the card's host,
+    (a) CSR frames into the ELL learner, (b) snapshot frames decoded by K2,
+    (c) the ALS example's two tenants; each leg under a deadline."""
+    from dmlc_tpu_torch.service import LocalFleet
+
+    t0 = time.monotonic()
+    fleet = LocalFleet(path, SERVICE_PARTS, num_workers=SERVICE_WORKERS, parser=SERVICE_PARSER)
+    try:
+        a = _with_deadline(lambda: _service_csr(path, fleet, device), SERVICE_LEG_LIMIT_S,
+                           "(a)")
+        b = _with_deadline(lambda: _service_snapshot(path, fleet, device), SERVICE_LEG_LIMIT_S,
+                           "(b)")
+    finally:
+        fleet.close()
+    c = _with_deadline(_service_als, SERVICE_LEG_LIMIT_S, "(c)")
+    out = {"a": a, "b": b, "c": c, "wall_s": time.monotonic() - t0,
+           "k1_launches": a["k1_launches"], "dw_launches": a["dw_launches"],
+           "k2_launches": b["k2_launches"], "row_scatter_launches": c["row_scatter_launches"],
+           "k1_max_abs_err": a["k1_max_abs_err"], "dw_max_abs_err": a["dw_max_abs_err"]}
+    emit({"phase": "service_total", "wall_s": out["wall_s"],
+          "csr_wire_bytes_sent_two_epochs": a["wire_bytes_sent_two_epochs"],
+          "csr_client_payload_bytes_one_epoch": a["client_payload_bytes"],
+          "snapshot_client_payload_bytes_one_epoch": b["client_payload_bytes"],
+          "k1_launches": out["k1_launches"], "dw_launches": out["dw_launches"],
+          "k2_launches": out["k2_launches"],
+          "row_scatter_launches": out["row_scatter_launches"]})
+    return out
+
+
 def producer_change(now: dict) -> dict:
     """Each phase's rows/s and stall share at the default convert width
     beside PR 11's (:data:`PR11_READER`, one producer thread) and the
@@ -6767,8 +7154,8 @@ def producer_change(now: dict) -> dict:
 
 
 def run_only(which: str, repeat: int, seed: int) -> int:
-    """``--only cloud|tracker``: phase 1's builds, phase 3's corpus, then
-    phase 19 or 20 ``repeat`` times, each in a directory of its own. With
+    """``--only cloud|tracker|service``: phase 1's builds, phase 3's corpus,
+    then phase 19, 20 or 21 ``repeat`` times, each in a directory of its own. With
     ``cloud`` it also runs the burst probe against a fake whose servers
     keep ``socketserver``'s backlog of 5 and against one on the default,
     ``repeat`` times each, in turns."""
@@ -6795,7 +7182,8 @@ def run_only(which: str, repeat: int, seed: int) -> int:
             t0 = time.monotonic()
             failed = None
             try:
-                (run_cloud if which == "cloud" else run_tracker)(path, d, dev)
+                {"cloud": run_cloud, "tracker": run_tracker,
+                 "service": run_service}[which](path, d, dev)
             except AssertionError as exc:
                 failed = str(exc)[:2000]
             emit({"phase": f"only_{which}", "run": i, "wall_s": time.monotonic() - t0,
@@ -6812,8 +7200,8 @@ def main() -> int:
                          "its K1, its K2 route (a one-segment K2) and its row scatter "
                          "beside this one's, in turns")
     ap.add_argument("--parallel-child", nargs="+", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=["cloud", "tracker"], default=None,
-                    help="build, write phase 3's corpus and run phase 19 or 20 alone "
+    ap.add_argument("--only", choices=["cloud", "tracker", "service"], default=None,
+                    help="build, write phase 3's corpus and run phase 19, 20 or 21 alone "
                          "(--repeat times); no kernels line and no result line")
     ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args()
@@ -7018,6 +7406,8 @@ def main() -> int:
         cloud19 = run_cloud(path, tmp, dev)
         # phase 20: the tracker, its ranks' launches counted around their epochs
         pod20 = run_tracker(path, tmp, dev)
+        # phase 21: the data service, each leg's launches counted around its epochs
+        svc21 = run_service(path, tmp, dev)
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -7033,12 +7423,13 @@ def main() -> int:
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
                      + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
                      + tune["k1_launches"] + store17["k1_launches"] + host18["k1_launches"]
-                     + cloud19["k1_launches"] + pod20["k1_launches"]),
+                     + cloud19["k1_launches"] + pod20["k1_launches"] + svc21["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
                            + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"],
                               store17["cachefile"]["k1_max_abs_err"],
                               host18["mem"]["k1_max_abs_err"],
-                              cloud19["s3"]["k1_max_abs_err"], pod20["k1_max_abs_err"]]),
+                              cloud19["s3"]["k1_max_abs_err"], pod20["k1_max_abs_err"],
+                              svc21["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -7051,13 +7442,14 @@ def main() -> int:
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
                      + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
                      + tune["dw_launches"] + store17["dw_launches"] + host18["dw_launches"]
-                     + cloud19["dw_launches"] + pod20["dw_launches"]),
+                     + cloud19["dw_launches"] + pod20["dw_launches"] + svc21["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
                             if r["dw_route"] == "cuda"]
                            + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"],
                               store17["cachefile"]["dw_max_abs_err"],
                               host18["mem"]["dw_max_abs_err"],
-                              cloud19["s3"]["dw_max_abs_err"], pod20["dw_max_abs_err"]]),
+                              cloud19["s3"]["dw_max_abs_err"], pod20["dw_max_abs_err"],
+                              svc21["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -7068,7 +7460,7 @@ def main() -> int:
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
                      + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]
                      + tune["k2_launches"] + store17["k2_launches"] + host18["k2_launches"]
-                     + cloud19["k2_launches"]),
+                     + cloud19["k2_launches"] + svc21["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -7082,7 +7474,8 @@ def main() -> int:
         + formats["libfm"]["linear_bcoo"]["row_scatter_launches"]
         + formats["libfm"]["fm_ell"]["row_scatter_launches"]
         + formats["xor"]["row_scatter_launches"]
-        + native["coo"]["row_scatter_launches"] + fs["launches"]["row_scatter"],
+        + native["coo"]["row_scatter_launches"] + fs["launches"]["row_scatter"]
+        + svc21["row_scatter_launches"],
         "max_abs_err": max([r["row_scatter"]["max_abs_diff_vs_plain"] for r in rs_rows]
                            + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
         "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],

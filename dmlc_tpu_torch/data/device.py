@@ -76,6 +76,14 @@ default 2) in stored or plan order:
   of kernel K2 (float slabs copied, an int8 slab dequantized, a bfloat16
   packed slab's label and weight widened to float32 in the same pass).
 
+The same flag acts on a data-service snapshot frame (a packed
+:class:`~dmlc_tpu_torch.data.row_block.DenseBlock` of exactly
+``batch_size`` rows carrying a ``device_span``, from
+:class:`~dmlc_tpu_torch.service.client.ServiceParser`), with or without a
+snapshot file, as long as no snapshot tee is writing: the frame's
+verbatim payload is staged as one u8 span and decoded on the device by
+one K2 launch, as a warm batch is. Any other block takes the host copy.
+
 **Counters and stage attribution.** ``stall_seconds`` is the consumer's
 time inside ``__next__`` (waiting for the pipeline, issuing copies, and in
 device-decode epochs the decode's dispatch, also counted alone in
@@ -318,7 +326,38 @@ def _require_bf16_exact(packed_col: torch.Tensor, src: np.ndarray, what: str) ->
         raise DMLCError(
             f"bfloat16 aux packing: this batch's {what}s are not bf16-exact — "
             f"packing would silently corrupt them. Keep the {what}s "
-            "float32-packable (pack_aux=False) or use x_dtype='float32'")
+            "float32-packable (pack_aux=False locally, or an f32 snapshot "
+            "geometry on the service) or use x_dtype='float32' "
+            "(docs/data.md pack_aux)")
+
+
+def pack_dense_batches(blocks, batch_size: int, num_col: int,
+                       dtype=None, drop_remainder: bool = False):
+    """Pack a RowBlock stream into fixed-geometry ``[B, num_col + 2]``
+    slabs (features | label | weight), the layout a packed dense batch
+    ships and the snapshot store persists, as CPU tensors. Yields
+    ``(packed, resume_annotation)`` per batch; the epoch tail is
+    row-padded to ``B`` (pad rows carry weight 0, masked downstream) unless
+    ``drop_remainder``. ``dtype`` None or float32 packs float32;
+    ``"bfloat16"`` (or ``torch.bfloat16``) rounds to nearest even, as
+    ``ml_dtypes`` does, and checks each batch's labels and weights for
+    losslessness. Used by the data service's snapshot frames (the worker
+    packs, :mod:`dmlc_tpu_torch.service.worker`)."""
+    B, nc = int(batch_size), int(num_col)
+    bf16 = dtype is not None and (dtype is torch.bfloat16 or str(dtype) == "bfloat16")
+    check(bf16 or dtype is None or np.dtype(dtype) == np.float32,
+          f"pack_dense_batches: dtype {dtype!r} is not float32 or bfloat16")
+    for block in rebatch_blocks(iter(blocks), B, drop_remainder=drop_remainder):
+        x, y, w = block_to_dense(block, nc,
+                                 pad_rows_to=(B if len(block) != B else None))
+        packed = torch.empty((B, nc + 2), dtype=torch.bfloat16 if bf16 else torch.float32)
+        packed[:, :nc] = torch.from_numpy(x)
+        packed[:, nc] = torch.from_numpy(y)
+        packed[:, nc + 1] = torch.from_numpy(w)
+        if bf16:
+            _require_bf16_exact(packed[:, nc], y, "label")
+            _require_bf16_exact(packed[:, nc + 1], w, "weight")
+        yield packed, getattr(block, "resume_state", None)
 
 
 def _as_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -334,9 +373,11 @@ class _Slot:
     """Pinned staging buffers and what the consumer needs to ship them:
     the batch ``kind``, its checkpoint annotation ``annot``, and for one u8
     span (a raw snapshot span, a bcoo batch) its ``layout`` and
-    ``nbytes``."""
+    ``nbytes``. ``raw`` is a dense slot's own u8 span buffer, made at the
+    first data-service snapshot frame it stages (the span route), and
+    ``use_raw`` says whether the batch staged now is in it."""
 
-    __slots__ = ("bufs", "event", "kind", "layout", "nbytes", "annot")
+    __slots__ = ("bufs", "event", "kind", "layout", "nbytes", "annot", "raw", "use_raw")
 
     def __init__(self, bufs: List[torch.Tensor]):
         self.bufs = bufs
@@ -345,6 +386,8 @@ class _Slot:
         self.layout = None
         self.nbytes = 0
         self.annot: Optional[dict] = None
+        self.raw: Optional[torch.Tensor] = None
+        self.use_raw = False
 
 
 class _Skipped:
@@ -568,7 +611,8 @@ class DeviceIter:
     ``snapshot_path``, stamped by ``create_parser(..., snapshot=)``, with its
     ``snapshot_signature``); ``snapshot_quant="int8"`` stores packed dense
     batches as int8 plus a per-column scale; ``device_decode=True`` decodes
-    warm batches on the device; ``snapshot_shuffle_seed`` serves warm
+    warm batches, and a data-service snapshot frame's span with or without
+    a snapshot, on the device; ``snapshot_shuffle_seed`` serves warm
     snapshot epochs in a seeded order (module docstring). ``prefetch`` and
     ``device_decode`` left at None read the environment knobs
     ``DMLC_TPU_PREFETCH`` (default 2) and ``DMLC_TPU_DEVICE_DECODE``
@@ -694,10 +738,8 @@ class DeviceIter:
         check(snapshot_quant is None or (snapshot is not None and self.pack_aux),
               "snapshot_quant='int8' applies to snapshotted packed dense "
               "batches (layout='dense' with pack_aux)")
-        # an explicit request needs a snapshot; the environment's arms the
-        # decode only where one is present, as in the JAX package
-        check(not device_decode or snapshot is not None,
-              "device_decode=True decodes warm snapshot batches: it needs snapshot=")
+        # without a snapshot the flag acts on the blocks that carry a
+        # device_span (a data-service snapshot frame's), as in the JAX package
         check(snapshot is None
               or (getattr(source, "plan_state", None) or {}).get("shuffle_seed") is None,
               "snapshot= cannot combine with a source-side epoch "
@@ -755,6 +797,9 @@ class DeviceIter:
         self.snapshot_write_seconds = 0.0
         # written by the serial stage (one thread at a time)
         self.source_wait_seconds = 0.0
+        # the trace context of the last source block that carried one (a
+        # data-service block's grant): the dispatch span joins it
+        self._last_trace_ctx: Optional[tuple] = None
         # the telemetry scope of everything this pipeline records; thread
         # primitives the parser chain built already take it now
         self.pipeline_label = pipeline_label or _telemetry.new_pipeline_label()
@@ -919,6 +964,9 @@ class DeviceIter:
             self._busy.add("parse", dt - read - cache_read)
             if blk is None:
                 return
+            ctx = getattr(blk, "trace_ctx", None)
+            if ctx is not None:
+                self._last_trace_ctx = ctx
             yield blk
 
     def _tracked_blocks(self, boundaries: deque, drop: int,
@@ -1020,6 +1068,10 @@ class DeviceIter:
                 self._pack_bcoo(slot, arrays)
             return
         if self.layout == "dense":
+            span = self._span_ready(arrays)
+            if span is not None:
+                self._pack_device_span(slot, *span)
+                return
             self._pack_dense(slot, arrays)
             return
         if self.max_nnz is None:
@@ -1027,6 +1079,30 @@ class DeviceIter:
             return
         for buf, arr in zip(slot.bufs, arrays):
             buf.copy_(torch.from_numpy(arr))
+
+    def _span_ready(self, parts):
+        """A dense batch's ``device_span`` when the batch is one full packed
+        :class:`DenseBlock` that carries one (a data-service snapshot
+        frame's) and ``device_decode`` is on with no snapshot tee, else None
+        (the JAX package's ``span_ready`` route: with a tee the shadow
+        writer needs the host arrays, so the block takes the copy)."""
+        if not self.device_decode or self.snapshot_path is not None or len(parts) != 1:
+            return None
+        part = parts[0]
+        if not (isinstance(part, DenseBlock) and part.packed and len(part) == self.batch_size):
+            return None
+        return part.device_span
+
+    def _pack_device_span(self, slot: _Slot, raw: np.ndarray, layout, kind: str) -> None:
+        """A snapshot frame's verbatim payload into the slot's own u8 span
+        buffer (grown when a frame needs more): the consumer ships it and
+        decodes it on the device with one K2 launch, as a warm snapshot
+        batch, with no host decode."""
+        if slot.raw is None or slot.raw.numel() < raw.size:
+            slot.raw = torch.empty(raw.size, dtype=torch.uint8, pin_memory=self._cuda)
+        slot.raw[: raw.size].numpy()[...] = raw
+        slot.use_raw = True
+        slot.kind, slot.layout, slot.nbytes = kind, layout, raw.size
 
     def _pack_dense(self, slot: _Slot, parts) -> None:
         """A dense batch's parts into its staging slot in one pass (the JAX
@@ -1180,6 +1256,7 @@ class DeviceIter:
                 return None
             t_pack = get_time()
             slot.kind, slot.layout, slot.annot = self._cold_kind(), None, annot
+            slot.use_raw = False
             self._pack(slot, arrays)
         t1 = get_time()
         busy = (t_acquire - t0) + (t1 - t_pack)
@@ -1231,6 +1308,15 @@ class DeviceIter:
             knobs.append(_autotune.Knob("snapshot_read_workers",
                                         lambda: self.snapshot_read_workers,
                                         self._apply_snapshot_read_workers))
+        if callable(getattr(self.source, "resize_pipeline_depth", None)):
+            # a service-fed pipeline: the read stage's relief knob is the
+            # client's pipelined fetch window (there is no local parse
+            # fan-out to widen)
+            knobs.append(_autotune.Knob(
+                "service_pipeline_depth",
+                lambda: int(getattr(self.source, "pipeline_depth", 0)
+                            or _knobs.resolve("service_pipeline_depth")),
+                self.source.resize_pipeline_depth))
         return knobs
 
     def _apply_prefetch(self, n: int) -> bool:
@@ -1407,7 +1493,10 @@ class DeviceIter:
         t0 = get_time()
         ctx = (torch.cuda.stream(self._copy_stream) if self._cuda
                else contextlib.nullcontext())
-        bufs = slot.bufs if slot.layout is None else [slot.bufs[0][: slot.nbytes]]
+        if slot.layout is None:
+            bufs = slot.bufs
+        else:
+            bufs = [(slot.raw if slot.use_raw else slot.bufs[0])[: slot.nbytes]]
         event = None
         with ctx, _telemetry.profiler_annotation("dmlc_tpu.dispatch", self._trace):
             out = [b.to(self.device, non_blocking=self._cuda, copy=True) for b in bufs]
@@ -1416,7 +1505,13 @@ class DeviceIter:
                 event.record(self._copy_stream)
         dt = get_time() - t0
         self._busy.add("dispatch", dt)
-        _telemetry.record_span("dispatch", t0, dt)
+        ctx = self._last_trace_ctx
+        if ctx is not None:
+            # the copy joins the (job, part) trace the source block carried:
+            # grant -> parse -> recv -> decode -> dispatch as one chain
+            _telemetry.record_span("dispatch", t0, dt, trace_id=ctx[0], parent_id=ctx[1])
+        else:
+            _telemetry.record_span("dispatch", t0, dt)
         nbytes = sum(b.numel() * b.element_size() for b in bufs)
         self.bytes_to_device += nbytes
         if slot.layout is not None and slot.kind not in _SPAN_KINDS:

@@ -256,14 +256,25 @@ def create_row_block_iter(
     page cache, which replays its build order. ``autotune`` re-tunes the
     load pass's parse fan-out (:class:`BasicRowIter`).
 
-    The JAX package's data service is not ported: a ``service`` argument
-    raises :class:`DMLCError`, as a ``#service=`` suffix does
-    (:class:`~dmlc_tpu_torch.io.uri.URISpec`).
+    ``service`` (or a ``#service=<host:port>`` URI suffix) streams the
+    blocks from a parse-worker fleet instead of parsing locally: the
+    drained parser is the :class:`~dmlc_tpu_torch.service.client.
+    ServiceParser`, and the dispatcher owns the dataset spec.
     """
     spec = URISpec(uri, part_index, num_parts)
+    if service is None:
+        service = spec.service
     if service is not None:
-        raise DMLCError(f"create_row_block_iter(service={service!r}): the JAX package's data "
-                        "service is not supported by dmlc_tpu_torch")
+        # the plan knobs go along so that the service branch refuses them
+        # (the dispatcher owns the plan) instead of serving unshuffled
+        # epochs the caller asked to shuffle
+        parser = create_parser(uri, part_index, num_parts, type_,
+                               index_dtype=index_dtype, service=service,
+                               service_job=service_job,
+                               shuffle_seed=shuffle_seed,
+                               shuffle_window=shuffle_window,
+                               pod_sharding=pod_sharding)
+        return BasicRowIter(parser, silent=silent, autotune=autotune)
     # the cache here is the page cache (DiskRowIter): strip it off the
     # parser's URI, so the split layer does not chunk-cache to the same
     # path; a #blockcache= suffix belongs to create_parser, which strips it

@@ -1738,7 +1738,8 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                   *, parse_workers: Optional[int] = None, engine: Optional[str] = None,
                   snapshot: Optional[str] = None, block_cache: Optional[str] = None,
                   shuffle_seed: Optional[int] = None, shuffle_window: int = 0,
-                  pod_sharding=False, **split_kw) -> Parser:
+                  pod_sharding=False, service: Optional[str] = None,
+                  service_job: Optional[str] = None, **split_kw) -> Parser:
     """Parser factory — analog of dmlc::Parser::Create (src/data.cc:62-85).
 
     The positional parameters are the JAX package's: ``type_`` is
@@ -1824,11 +1825,49 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     The signatures equal the JAX package's for the same corpus, format
     and arguments (the engine and worker knobs stay out of them), so a
     cache or a snapshot written by either package opens in the other.
+
+    ``service`` (else a ``#service=<host:port>`` fragment) names a data
+    service dispatcher: the blocks are parsed by its worker fleet and the
+    parser returned is the :class:`~dmlc_tpu_torch.service.client.
+    ServiceParser`, bound to the job ``service_job`` (else a ``?job=``
+    argument, else the default job). The dispatcher owns the dataset's
+    spec, partitioning and plan, so a client-side ``part_index`` /
+    ``num_parts``, ``shuffle_seed`` / ``shuffle_window`` / ``pod_sharding``
+    or ``snapshot=`` raises, with the JAX package's messages; every other
+    argument is ignored.
     """
     unknown = sorted(set(split_kw) - set(_SPLIT_KEYWORDS))
     if unknown:
         raise TypeError(f"create_parser() got unexpected keyword arguments {unknown}")
     spec = URISpec(uri, part_index, num_parts)
+    if service is None:
+        service = spec.service
+    if service is not None:
+        # the dispatcher owns partitioning: handing every rank the whole
+        # dataset would duplicate training data
+        check(part_index == 0 and num_parts == 1,
+              "create_parser(service=...): client-side part_index/"
+              "num_parts are not supported — the dispatcher owns the "
+              "dataset's partitioning (docs/service.md)")
+        # and the epoch plan: dropping the knobs would hand back unshuffled
+        # epochs the caller asked to shuffle
+        check(shuffle_seed is None and shuffle_window == 0
+              and not pod_sharding,
+              "create_parser(service=...): client-side shuffle_seed/"
+              "shuffle_window/pod_sharding are not supported — the "
+              "dispatcher owns the dataset's plan (Dispatcher(plan=...), "
+              "docs/service.md plan distribution)")
+        check(snapshot is None,
+              "create_parser(service=...): client-side snapshot= is not "
+              "supported — the dispatcher decides whether the fleet "
+              "ships device-layout snapshot frames "
+              "(Dispatcher(snapshot=...), docs/service.md)")
+        from dmlc_tpu_torch.service.client import ServiceParser
+        from dmlc_tpu_torch.service.dispatcher import DEFAULT_JOB
+
+        job = (service_job if service_job is not None
+               else spec.args.get("job", DEFAULT_JOB))
+        return ServiceParser(service, job=job)
     if type_ == "auto":
         type_ = spec.args.get("format", "libsvm")
     _format_entry(type_)

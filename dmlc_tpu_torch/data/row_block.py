@@ -83,6 +83,9 @@ class RowBlock:
         # the source's position just after this block, set by the parser
         # that emitted it (a checkpoint annotation); slices do not carry it
         self.resume_state: Optional[dict] = None
+        # the (trace_id, span_id) of the data-service grant that produced
+        # it (a service client sets it); DeviceIter's dispatch span joins it
+        self.trace_ctx: Optional[tuple] = None
         self.offset = np.asarray(offset, dtype=np.int64)
         self.label = np.asarray(label, dtype=np.float32)
         self.index = np.asarray(index)
@@ -198,9 +201,15 @@ class DenseBlock:
     entirely. The reference has no analog (its parsers always build CSR,
     src/data/row_block.h). ``packed``: ``x`` is ``[n, num_col + 2]`` with
     label and weight as its trailing columns, and ``label``/``weight`` are
-    views of them in ``x``'s dtype (``uint16`` bits for a bfloat16 slab)."""
+    views of them in ``x``'s dtype (``uint16`` bits for a bfloat16 slab).
+    ``device_span`` (a data-service snapshot frame's block) is
+    ``(u8 payload, span layout, stored kind)``: the frame's verbatim bytes,
+    which a ``device_decode=True`` :class:`~dmlc_tpu_torch.data.device.
+    DeviceIter` ships and decodes on the device; ``trace_ctx`` the
+    ``(trace_id, span_id)`` of the grant that produced the block."""
 
-    __slots__ = ("x", "label", "weight", "hold", "resume_state", "packed")
+    __slots__ = ("x", "label", "weight", "hold", "resume_state", "packed",
+                 "device_span", "trace_ctx")
 
     def __init__(self, x: np.ndarray, label: np.ndarray,
                  weight: Optional[np.ndarray] = None, hold=None, packed: bool = False):
@@ -210,6 +219,8 @@ class DenseBlock:
         self.hold = hold  # the native result owning the views
         self.packed = packed
         self.resume_state: Optional[dict] = None  # the parser's position after it
+        self.device_span = None
+        self.trace_ctx: Optional[tuple] = None
 
     def __len__(self) -> int:
         return len(self.label)
@@ -234,7 +245,7 @@ class CooBlock:
     to the port's in-bounds pad scheme."""
 
     __slots__ = ("coords", "values", "label", "weight", "n_rows", "nnz",
-                 "num_col", "hold", "resume_state", "row_ptr")
+                 "num_col", "hold", "resume_state", "row_ptr", "trace_ctx")
 
     def __init__(self, coords: np.ndarray, values: Optional[np.ndarray],
                  label: np.ndarray, weight: np.ndarray, n_rows: int, nnz: int,
@@ -249,6 +260,7 @@ class CooBlock:
         self.num_col = num_col
         self.hold = hold
         self.resume_state: Optional[dict] = None
+        self.trace_ctx: Optional[tuple] = None
 
     @property
     def shape(self):

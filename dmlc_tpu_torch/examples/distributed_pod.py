@@ -49,6 +49,14 @@ NUM_COL = 8
 ROWS = 2048
 
 
+
+def _say(line: str) -> None:
+    """One line of a rank's output in one write: the ranks share their
+    parent's stdout, and ``print`` writes the text and its newline apart,
+    so two ranks' lines could run together on an unbuffered stream."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
 def make_corpus(path: str) -> None:
     import numpy as np
 
@@ -93,7 +101,7 @@ def worker(device) -> None:
             f.write(str(client.rank))  # "checkpoint" the assigned rank
         client.start_heartbeat(0.2)
         time.sleep(0.6)
-        print(f"[worker {task_id}] simulating mid-job crash", flush=True)
+        _say(f"[worker {task_id}] simulating mid-job crash")
         os._exit(17)  # hard death: heartbeats stop, no shutdown sent
     if attempt > 0 and os.path.exists(rank_file):
         # a relaunched worker whose previous life checkpointed a rank
@@ -104,8 +112,7 @@ def worker(device) -> None:
         with open(rank_file) as f:
             old_rank = int(f.read())
         client.recover(old_rank)  # rank-stable rejoin
-        print(f"[worker {task_id}] recovered rabit rank {old_rank} "
-              f"(attempt {attempt})", flush=True)
+        _say(f"[worker {task_id}] recovered rabit rank {old_rank} (attempt {attempt})")
     else:
         client.start()
     # beat well inside the liveness window (1.0s in the demo): an interval
@@ -123,7 +130,7 @@ def worker(device) -> None:
     rank, world = pod_identity()
     import torch.distributed as dist
 
-    print(f"[worker {rank}/{world}] {dist.get_backend()} group up", flush=True)
+    _say(f"[worker {rank}/{world}] {dist.get_backend()} group up")
 
     from dmlc_tpu_torch import DeviceIter, LinearLearner, create_parser
     from dmlc_tpu_torch.parallel import make_mesh, sync_min
@@ -148,8 +155,7 @@ def worker(device) -> None:
     model.fit(it, epochs=5, steps_per_epoch=steps)
     acc = model.accuracy(it, max_steps=steps)
     it.close()
-    print(f"[worker {rank}/{world}] accuracy {float(acc):.3f} "
-          f"({steps} steps/epoch)", flush=True)
+    _say(f"[worker {rank}/{world}] accuracy {float(acc):.3f} ({steps} steps/epoch)")
     client.stop_heartbeat()
     client.shutdown()
     exit_rank()  # destroys the group and skips torch's teardown at exit

@@ -1,6 +1,7 @@
-"""End-to-end matrix factorization (ALS) on the warm, shuffled block cache.
+"""End-to-end matrix factorization (ALS) on the warm, shuffled block cache
+and fed by the data service.
 
-The port of the repository's ``examples/train_als.py``, its local leg:
+The port of the repository's ``examples/train_als.py``:
 
 1. the ratings corpus is plain libsvm (label = user id, features =
    ``item:rating`` pairs), parsed by the port's libsvm parser;
@@ -13,7 +14,12 @@ The port of the repository's ``examples/train_als.py``, its local leg:
    data axis into ``AlsLearner``, whose step solves the batch's users and
    scatters the item side's normal equations, solved once an epoch;
 4. a mid-training checkpoint of a warm epoch, restored into fresh objects,
-   replays the loss tail byte for byte.
+   replays the loss tail byte for byte;
+5. the same model trains fed by the data service
+   (:mod:`dmlc_tpu_torch.service`): the factorization job registers on a
+   ``LocalFleet`` beside a second tenant, over one ``share_dir``, so each
+   part parses once fleet-wide, the tenant drains warm, nothing gives up,
+   and a mid-train checkpoint on this path replays byte for byte.
 
     python -m dmlc_tpu_torch.examples.train_als [--dryrun] [--device cpu]
 
@@ -23,10 +29,7 @@ host without one. Under the DMLC_* contract (``dmlc-submit``, or
 ``dmlc_tpu_torch.parallel.launch.run_local``) ``pod_sharding=True``
 resolves each rank's shard from ``DMLC_TASK_ID`` / ``DMLC_NUM_WORKER``;
 the ranks' shards may differ by a block, and the example does not yet
-agree on a common step count over them, so it runs on one rank. The
-reference's service leg (the same model fed by the data service beside a
-second tenant) waits for the service (``LocalFleet`` / ``ServiceParser``),
-which is not ported; this example prints no service line.
+agree on a common step count over them, so it runs on one rank.
 """
 
 from __future__ import annotations
@@ -110,6 +113,86 @@ def restore_check(path, cache_dir, cfg, mesh, device=None) -> int:
     return len(replay)
 
 
+def service_leg(path, cfg, mesh, device=None) -> dict:
+    """Train the same model fed by the data service, beside a second tenant.
+
+    The factorization job and the tenant share one fleet over one
+    ``share_dir``: epoch 0 parses each part once on the workers, the
+    tenant's drain and every later epoch resolve to the shared artifacts,
+    and nothing gives up. A mid-train checkpoint on this path replays byte
+    for byte (a count replay: service blocks carry no seekable source
+    annotation, so the restore re-pulls and drops the prefix)."""
+    import numpy as np
+
+    from dmlc_tpu_torch.data import DeviceIter
+    from dmlc_tpu_torch.io import resilience
+    from dmlc_tpu_torch.models import AlsLearner
+    from dmlc_tpu_torch.models._loop import host_scalar
+    from dmlc_tpu_torch.service import LocalFleet, ServiceParser
+
+    pcfg = {"format": "libsvm"}
+    num_parts = 2
+    base = resilience.counters_snapshot()
+
+    def learner():
+        return AlsLearner(cfg["users"], cfg["items"], num_factors=cfg["factors"],
+                          reg=cfg["reg"], seed=0, mesh=mesh, device=device)
+
+    with tempfile.TemporaryDirectory(prefix="dmlc-als-share-") as share:
+        fleet = LocalFleet(None, 0, num_workers=2, parser=pcfg, share_dir=share)
+        try:
+            fleet.register_job("als", path, num_parts, parser=pcfg)
+
+            def train_pass(model, record=None, restore=None):
+                it = DeviceIter(ServiceParser(fleet.address, job="als"),
+                                num_col=model.device_num_col(), batch_size=cfg["batch"],
+                                layout="ell", max_nnz=cfg["per_row"], mesh=mesh,
+                                shardings=model.batch_shardings(), drop_remainder=True,
+                                device=device)
+                try:
+                    if restore is not None:
+                        it.load_state(restore)
+                    losses, ckpt = [], None
+                    for batch in it:
+                        losses.append(np.float32(host_scalar(model.step(batch))))
+                        if record is not None and ckpt is None and len(losses) == record:
+                            ckpt = (model.state_dict(), it.state_dict())
+                    model.finalize_items()
+                finally:
+                    it.close()
+                return losses, ckpt
+
+            model = learner()
+            train_pass(model)  # epoch 0: the workers parse each part once
+            # the second tenant joins after the parse: its whole drain
+            # resolves to the shared artifacts
+            fleet.register_job("tenant-b", path, num_parts, parser=pcfg)
+            tb = ServiceParser(fleet.address, job="tenant-b")
+            tenant_blocks = 0
+            while tb.next_block() is not None:
+                tenant_blocks += 1
+            tb.close()
+            # a warm epoch with a mid-train checkpoint, replayed from fresh objects
+            losses_a, ckpt = train_pass(model, record=cfg["restore_at"])
+            model2 = learner()
+            model2.load_state_dict(ckpt[0])
+            losses_b, _ = train_pass(model2, restore=ckpt[1])
+            tail = np.asarray(losses_a[cfg["restore_at"]:])
+            replay = np.asarray(losses_b)
+            assert tail.tobytes() == replay.tobytes(), (
+                f"service-fed restore diverged: {tail[:4]} vs {replay[:4]}")
+        finally:
+            fleet.close()
+    res = resilience.counters_delta(base)
+    assert res.get("service_giveups", 0) == 0, res
+    parsed = res.get("service_parts_parsed", 0)
+    shared = res.get("service_parts_shared", 0)
+    assert parsed <= num_parts, f"parse-once violated: {parsed} parses of {num_parts} parts"
+    return {"tenant_blocks": tenant_blocks, "parts_parsed": parsed,
+            "parts_shared": shared, "service_loss": float(losses_a[-1]),
+            "replayed_steps": len(replay)}
+
+
 def config(dryrun: bool, world: int) -> dict:
     """The run's configuration: the global batch divides over the ranks,
     and the users divide into whole batches, so ``drop_remainder`` loses
@@ -153,6 +236,13 @@ def main(argv=None) -> None:
         # ---- mid-train checkpoint/restore byte-identity, warm cache ----
         steps = restore_check(path, cache_dir, cfg, mesh, args.device)
         print(f"checkpoint/restore byte-identical over {steps} steps", flush=True)
+
+        # ---- service path: the ALS job and a second tenant on one fleet ----
+        svc = service_leg(path, cfg, mesh, args.device)
+        print(f"service-fed: loss={svc['service_loss']:.5f} "
+              f"tenant_blocks={svc['tenant_blocks']} "
+              f"parts parsed={svc['parts_parsed']} shared={svc['parts_shared']} "
+              f"giveups=0", flush=True)
     print("OK", flush=True)
 
 

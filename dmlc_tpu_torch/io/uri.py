@@ -8,8 +8,9 @@ split layer's chunk cache (``URISpec.cache_file``, with the
 :mod:`dmlc_tpu_torch.io.cached_split`), ``#blockcache=<path>`` the
 parse-once block cache and ``#snapshot=<path>`` the snapshot store (both
 qualified per part by :func:`dmlc_tpu_torch.data.parsers.create_parser`).
-The JAX package's ``#service=`` fragment names its data service, which is
-not ported, and is rejected.
+A ``#service=<host:port>`` fragment names a data-service dispatcher
+(:mod:`dmlc_tpu_torch.service`): ``URISpec.service`` carries its address,
+and a ``?job=`` argument the registered job a client binds to.
 """
 
 from __future__ import annotations
@@ -53,14 +54,15 @@ class URI:
 
 class URISpec:
     """URI sugar: ``real_uri?k=v&k2=v2#cache_file`` (uri_spec.h:42-75).
-    Exactly one of ``cache_file``, ``block_cache`` and ``snapshot`` is set
-    by a fragment (module docstring)."""
+    Exactly one of ``cache_file``, ``block_cache``, ``snapshot`` and
+    ``service`` is set by a fragment (module docstring)."""
 
     def __init__(self, uri: str, part_index: int = 0, num_parts: int = 1):
         name_cache = uri.split("#")
         self.cache_file: str | None = None
         self.block_cache: str | None = None
         self.snapshot: str | None = None
+        self.service: str | None = None
         if len(name_cache) > 2:
             raise DMLCError("only one `#` is allowed in file path for cachefile specification")
         if len(name_cache) == 2:
@@ -74,9 +76,11 @@ class URISpec:
                 if not self.snapshot:
                     raise DMLCError("empty path in `#snapshot=` URI suffix")
             elif cache.startswith("service="):
-                raise DMLCError(
-                    f"{uri!r}: the '#service=' fragment names the JAX package's "
-                    "data service, which dmlc_tpu_torch does not support")
+                addr = cache[len("service="):]
+                if not addr or ":" not in addr:
+                    raise DMLCError("`#service=` URI suffix needs a host:port "
+                                    "dispatcher address")
+                self.service = addr
             else:
                 if num_parts != 1:
                     cache = f"{cache}.split{num_parts}.part{part_index}"

@@ -469,14 +469,17 @@ def test_uri_fragments():
     assert (spec.uri, spec.args, spec.block_cache) == (
         "data.libsvm", {"format": "libsvm"}, "/tmp/c.bc")
     assert URISpec("data.libsvm").block_cache is None
-    # the chunk cache and snapshot fragments are the JAX package's
-    for uri in ("d#snapshot=/s", "d#cachefile", "d?format=csv#c.cache"):
+    # the chunk cache, snapshot and service fragments are the JAX package's
+    for uri in ("d#snapshot=/s", "d#cachefile", "d?format=csv#c.cache", "d#service=h:1",
+                "d?job=b#service=h:1"):
         for part, nparts in ((0, 1), (1, 3)):
             got, want = URISpec(uri, part, nparts), JaxURISpec(uri, part, nparts)
-            assert (got.uri, got.args, got.cache_file, got.block_cache, got.snapshot) == (
-                want.uri, want.args, want.cache_file, want.block_cache, want.snapshot)
+            assert (got.uri, got.args, got.cache_file, got.block_cache, got.snapshot,
+                    got.service) == (want.uri, want.args, want.cache_file, want.block_cache,
+                                     want.snapshot, want.service)
     assert URISpec("d#cachefile", 1, 3).cache_file == "cachefile.split3.part1"
-    for bad, match in (("d#service=h:1", "not support"), ("d#snapshot=", "empty path"),
+    assert URISpec("d#service=h:1").service == "h:1"
+    for bad, match in (("d#service=h", "host:port"), ("d#snapshot=", "empty path"),
                        ("d#blockcache=", "empty path"), ("d#a#b", "only one")):
         with pytest.raises(DMLCError, match=match):
             URISpec(bad)

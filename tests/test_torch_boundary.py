@@ -33,7 +33,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "dmlc_tpu", "ml_dtypes")
 # filesystem registry and its streams, the native RecordIO engines, the
 # chunk-batch engine, the row iterators, the serializer, the rest of utils,
 # the cloud filesystems, their fake, the host examples, the tracker and its
-# backends, and the pod example)
+# backends, the pod example, and the data service)
 SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot",
                     "dmlc_tpu_torch.ops.device_decode", "dmlc_tpu_torch.data.epoch",
                     "dmlc_tpu_torch.examples.train_als", "dmlc_tpu_torch.store.journal",
@@ -56,7 +56,11 @@ SNAPSHOT_MODULES = ("dmlc_tpu_torch.io.block_cache", "dmlc_tpu_torch.io.snapshot
                     "dmlc_tpu_torch.tracker.launcher", "dmlc_tpu_torch.tracker.mpi",
                     "dmlc_tpu_torch.tracker.sge", "dmlc_tpu_torch.tracker.slurm",
                     "dmlc_tpu_torch.tracker.kubernetes",
-                    "dmlc_tpu_torch.examples.distributed_pod")
+                    "dmlc_tpu_torch.examples.distributed_pod",
+                    "dmlc_tpu_torch.service", "dmlc_tpu_torch.service.frame",
+                    "dmlc_tpu_torch.service.dispatcher", "dmlc_tpu_torch.service.worker",
+                    "dmlc_tpu_torch.service.client", "dmlc_tpu_torch.service.fleet",
+                    "dmlc_tpu_torch.service.autoscale")
 
 
 def _port_sources():

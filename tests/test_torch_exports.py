@@ -10,11 +10,10 @@ import importlib
 
 import pytest
 
-# every package of both; the JAX package's service/ has no port package
-# yet (still to port), and its io/*_filesys.py cloud members export nothing
+# every package of both; the io/*_filesys.py cloud members export nothing
 # through io's __all__ (in either package)
 PACKAGES = ["", ".io", ".data", ".utils", ".ops", ".models", ".parallel", ".store",
-            ".tracker"]
+            ".tracker", ".service"]
 
 # JAX names without a port counterpart, by package: the deliberate absences
 EXEMPT = {
@@ -122,4 +121,4 @@ def test_packages_cover_every_package_of_both():
     jax_pkgs = {m.name for m in pkgutil.iter_modules(dmlc_tpu.__path__) if m.ispkg}
     port_pkgs = {m.name for m in pkgutil.iter_modules(dmlc_tpu_torch.__path__) if m.ispkg}
     assert {p[1:] for p in PACKAGES if p} == (jax_pkgs & port_pkgs) - {"native"}
-    assert jax_pkgs - port_pkgs == {"native", "service"}
+    assert jax_pkgs - port_pkgs == {"native"}

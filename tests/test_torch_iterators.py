@@ -10,7 +10,8 @@ package's, and the slice as a whole on the learner.
   several pages); a page cache is byte-identical across the packages and
   served by the other, with the source renamed away; a truncated page
   cache raises ``DMLCError``; ``create_row_block_iter``'s argument
-  checks raise as JAX's, and the data service raises in the port;
+  checks raise as JAX's (the data service's refusals of the plan knobs
+  among them);
 - the slice as a whole: a ``mem://`` corpus through ``create_parser``
   (the chunk feeder) into ``DeviceIter(device="cpu", layout="ell")`` and
   ``LinearLearner``, 20 steps within 1e-5 of the JAX learner on its own
@@ -311,10 +312,15 @@ def test_create_row_block_iter_checks_match_reference(tmp_path):
         with pytest.raises(DMLCError) as got:
             iterators.create_row_block_iter(path, silent=True, **kw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(DMLCError, match="data service"):
-        iterators.create_row_block_iter(path, service="127.0.0.1:1", silent=True)
-    with pytest.raises(DMLCError, match="service="):
-        iterators.create_row_block_iter(path + "#service=127.0.0.1:1", silent=True)
+    # the service branch refuses the plan knobs with the JAX messages (the
+    # dispatcher owns the plan), before any connection
+    for uri, kw in ((path, {"service": "127.0.0.1:1", "shuffle_seed": 3}),
+                    (path + "#service=127.0.0.1:1", {"pod_sharding": True})):
+        with pytest.raises(JaxDMLCError) as want:
+            jax_iters.create_row_block_iter(uri, silent=True, **kw)
+        with pytest.raises(DMLCError) as got:
+            iterators.create_row_block_iter(uri, silent=True, **kw)
+        assert str(got.value) == str(want.value)
     with pytest.raises(DMLCError, match="Cannot find any files"):
         iterators.create_row_block_iter(str(tmp_path / "none.libsvm"), silent=True)
     assert not os.path.exists(cache)

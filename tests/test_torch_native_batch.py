@@ -14,7 +14,7 @@ The cases of ``tests/test_native_batch.py``, each run through the port
   Python engine's cache byte for byte, and JAX's batch engine's; a batch-
   built cache serves warm, in either package; a warm block's span
   (``block_encoded``) is the cold block's and re-tees the same file (the
-  JAX test's service frame, whose service is not ported);
+  JAX test's service frame, held in ``test_torch_service_frame.py``);
 - ``simd_level`` as JAX's; cross-engine checkpoints; the fan-out and its
   stage seconds; the engine knob (env, URI argument, a typo, a config the
   engine cannot serve, the knob outside the cache signature);

@@ -21,8 +21,10 @@ version; a packed batch is compared as its slab and its ``x``, ``y`` and
 
 Also: a reset mid-epoch publishes nothing, a non-bf16-exact label refuses
 to pack, a crc mismatch removes the file and heals the epoch cold, byte for
-byte as the JAX package heals it (or raises with no restart budget), and a
-geometry change makes the next epoch cold.
+byte as the JAX package heals it (or raises with no restart budget), a
+geometry change makes the next epoch cold, and ``device_decode=True``
+without a snapshot is accepted as in JAX (fault C16) and gives the
+batches of the flag off.
 """
 
 import os
@@ -355,8 +357,11 @@ def test_geometry_change_runs_cold(tmp_path):
 
 def test_argument_checks(tmp_path):
     corpus = _corpus(tmp_path)
-    with pytest.raises(DMLCError, match="needs snapshot="):
-        _port_iter(corpus, None, device_decode=True)
+    # C16: no snapshot, the flag is accepted (as in JAX) and moves nothing
+    on = _port_iter(corpus, None, device_decode=True)
+    assert _drain(on) == _drain(_port_iter(corpus, None)) == _drain(
+        _jax_iter(corpus, None, device_decode=True))
+    assert on.stats()["device_decode_bytes"] == 0
     with pytest.raises(DMLCError, match="snapshot_quant"):
         _port_iter(corpus, str(tmp_path / "s"), layout="ell", max_nnz=3,
                    snapshot_quant="int8")

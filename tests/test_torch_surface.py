@@ -224,11 +224,12 @@ def test_c4_device_decode_knob_resolves_as_reference(tmp_path, monkeypatch, raw)
     it = DeviceIter(iter(()), num_col=3, batch_size=4, device="cpu",
                     snapshot=str(tmp_path / "s.snapshot"), snapshot_signature={})
     assert it.device_decode == jax_knobs.device_decode() == it.stats()["device_decode"]
-    # the environment's switch needs no snapshot; an explicit True does
+    # no snapshot is needed, by the environment's switch or an explicit
+    # True (C16: as in JAX, the flag then acts on blocks with a device_span)
     assert DeviceIter(iter(()), num_col=3, batch_size=4, device="cpu").device_decode == \
         jax_knobs.device_decode()
-    with pytest.raises(DMLCError, match="snapshot"):
-        DeviceIter(iter(()), num_col=3, batch_size=4, device="cpu", device_decode=True)
+    assert DeviceIter(iter(()), num_col=3, batch_size=4, device="cpu",
+                      device_decode=True).device_decode is True
 
 
 def _blocks(parser):

@@ -12,7 +12,10 @@ row, batch 16, reg 0.05, 1 KiB chunks), on the CPU:
 - ``python -m dmlc_tpu_torch.examples.train_als --dryrun --device cpu``
   exits 0 in a subprocess that cannot import ``jax``, prints the epoch,
   eval and restore lines (the restore replayed byte for byte over the 5
-  steps after batch 3) and ``OK``, and no service line;
+  steps after batch 3), the service line (the ALS job and a second tenant
+  on one ``LocalFleet``: 2 tenant blocks, each part parsed once and served
+  shared to the tenant, no give-up, the service-fed restore replayed bit
+  for bit) with the JAX example's fields, and ``OK``;
 - without ``--device`` the example runs on the card, and raises
   ``DMLCError`` on a host without one.
 """
@@ -102,8 +105,9 @@ def test_example_dryrun_runs_without_jax():
     assert "cache=cold" in lines[0] and "cache=warm" in lines[1] and "cache=warm" in lines[2]
     assert lines[3].startswith("eval mse (local path): ")
     assert lines[4] == "checkpoint/restore byte-identical over 5 steps"
-    assert lines[5:] == ["OK"]
-    assert not any("service" in ln for ln in lines)
+    assert lines[5].startswith("service-fed: loss=")
+    assert lines[5].split(" ", 2)[2] == "tenant_blocks=2 parts parsed=2 shared=2 giveups=0"
+    assert lines[6:] == ["OK"]
 
 
 def test_example_defaults_to_the_card():
