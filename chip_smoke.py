@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``dmlc_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
-    python3 chip_smoke.py --only cloud|tracker|service [--repeat N]
+    python3 chip_smoke.py --only cloud|tracker|service|faults [--repeat N]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -424,6 +424,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
     full size (phase 12 (a) runs it too): its service line (parts parsed at
     most 2, giveups 0, the service-fed restore replayed bit for bit) and
     the row scatter once a step.
+22. fault plans (``run_faults``), through the port's fault-injection seam
+    (``dmlc_tpu_torch.io.faults``, plans :data:`FAULT_PLANS`) against the
+    learners on the card, each leg printing its plan, ``fired()``, its
+    counter deltas, its K1 / ``dw`` / K2 launches, its wall time and its
+    bits against a clean run of the same leg in the same call. (a) Phase
+    3's corpus on the fake cloud's ``http://`` (a child process, as in
+    phase 19), an ELL epoch under ``read@2..3=http-503;read@9=reset``:
+    weights bit-equal to the clean epoch, ``retries`` equal to ``fired()``,
+    a resume, no give-up; K1 and ``dw`` against their plain versions on a
+    batch read under the plan; then ``read@1=http-403``: one firing,
+    ``fatal`` 1, no retry, ``DMLCError``. (b) K2's span route
+    (``device_decode=True``), ELL and packed bf16 dense, snapshots written
+    by a cold epoch (K2 against ``decode_batch_plain`` on a stored batch;
+    the clean warm epoch's bits equal the cold epoch's), under
+    ``snapshot_read@5=corrupt`` at 1 and 2 read workers: the clean warm
+    epoch's bits and weights, one ``snapshot_corruptions`` and one
+    ``pipeline_restarts``, one K2 launch a warm batch, every staging slot
+    free at the epoch's end and a further epoch on the same iterator;
+    under ``DMLC_RETRY_MAX_ATTEMPTS=1`` the plan raises, every slot is free
+    after ``reset`` and a further epoch runs. (c) Phase 12's planned block
+    cache, a fresh pipeline's warm epoch under ``cache_read@3=corrupt``:
+    the clean warm epoch's weights, one corruption and one rebuild. (d)
+    Phase 21 (a)'s fleet, a service-fed ELL epoch under
+    ``dispatch_rpc~locate@2..4=conn;worker_rpc~stream@1=torn``: the clean
+    epoch's weights and the pipeline's counters
+    :data:`FAULT_SERVICE_WANT` (the counts both packages' clients show in
+    ``tests/test_torch_faults.py``); then ``preempt~<worker 0's id>@1``: a
+    notice, a drain, the bits. (e) A child interpreter (``--parallel-child
+    faults_env``) with ``DMLC_FAULT_PLAN=read@1=http-503`` reads the first
+    2**16 rows over ``http://`` into the ELL learner (the depth cut for
+    time): one retry, the weights of this process's clean epoch on the
+    same rows. (f) The clean warm ELL epoch of (b) at 2 read workers
+    beside phase 6's last warm ELL epoch, rows/s, printed only.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
@@ -438,15 +471,15 @@ launches the card queues behind a spin (``launch_queue``). Phase 16 runs
 after them (a window opened after a pipeline ran behind a spin can miss a
 device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-21, the windowed ones of phase
+the main paths of phases 3, 6, 7 and 11-22, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14, 11 (f)
 and 21 (c)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
 
-``--only cloud|tracker|service`` builds, writes phase 3's corpus and runs
-phase 19, 20 or 21 alone ``--repeat`` times; ``cloud`` first runs the burst against a
+``--only cloud|tracker|service|faults`` builds, writes phase 3's corpus and
+runs phase 19, 20, 21 or 22 alone ``--repeat`` times; ``cloud`` first runs the burst against a
 fake on a backlog of 5 and one on the default, in turns, as often. It
 prints no kernels line and no result line.
 """
@@ -3511,6 +3544,8 @@ def parallel_child(argv: list) -> int:
         fs_pair_child(*argv[1:])
     elif kind == "pod":
         pod_child(*argv[1:])
+    elif kind == "faults_env":
+        faults_env_child(*argv[1:])
     else:
         parallel_pair_child(*argv[1:])
     return 0
@@ -6795,11 +6830,11 @@ def _with_deadline(fn, seconds: float, what: str):
         except BaseException as exc:  # noqa: BLE001 - re-raised below
             box["exc"] = exc
 
-    t = threading.Thread(target=run, daemon=True, name=f"phase21-{what}")
+    t = threading.Thread(target=run, daemon=True, name=what)
     t.start()
     t.join(seconds)
     if t.is_alive():
-        raise AssertionError(f"phase 21 {what}: not done within {seconds:.0f} s")
+        raise AssertionError(f"{what}: not done within {seconds:.0f} s")
     if "exc" in box:
         raise box["exc"]
     return box["out"]
@@ -7117,12 +7152,12 @@ def run_service(path: str, tmp: str, device) -> dict:
     fleet = LocalFleet(path, SERVICE_PARTS, num_workers=SERVICE_WORKERS, parser=SERVICE_PARSER)
     try:
         a = _with_deadline(lambda: _service_csr(path, fleet, device), SERVICE_LEG_LIMIT_S,
-                           "(a)")
+                           "phase 21 (a)")
         b = _with_deadline(lambda: _service_snapshot(path, fleet, device), SERVICE_LEG_LIMIT_S,
-                           "(b)")
+                           "phase 21 (b)")
     finally:
         fleet.close()
-    c = _with_deadline(_service_als, SERVICE_LEG_LIMIT_S, "(c)")
+    c = _with_deadline(_service_als, SERVICE_LEG_LIMIT_S, "phase 21 (c)")
     out = {"a": a, "b": b, "c": c, "wall_s": time.monotonic() - t0,
            "k1_launches": a["k1_launches"], "dw_launches": a["dw_launches"],
            "k2_launches": b["k2_launches"], "row_scatter_launches": c["row_scatter_launches"],
@@ -7134,6 +7169,524 @@ def run_service(path: str, tmp: str, device) -> dict:
           "k1_launches": out["k1_launches"], "dw_launches": out["dw_launches"],
           "k2_launches": out["k2_launches"],
           "row_scatter_launches": out["row_scatter_launches"]})
+    return out
+
+
+# ---------------- phase 22: fault plans ----------------
+
+FAULT_PLANS = {  # phase 22's plans, by leg (tests/test_torch_faults.py parses each)
+    "http": "read@2..3=http-503;read@9=reset",
+    "http_fatal": "read@1=http-403",
+    "span": "snapshot_read@5=corrupt",
+    "block_cache": "cache_read@3=corrupt",
+    # scoped to the client's locate and part streams, as the JAX package's
+    # tests scope them: the workers' heartbeats and polls also pass through
+    # dispatch_rpc, and a heartbeat's firing is swallowed without a retry
+    "service": "dispatch_rpc~locate@2..4=conn;worker_rpc~stream@1=torn",
+    "preempt": "preempt~{worker}@1",
+    "env": "read@1=http-503",
+}
+# (d)'s counts under FAULT_PLANS["service"]: both packages' clients count
+# these (tests/test_torch_faults.py)
+FAULT_SERVICE_WANT = {"control_plane_retries": 3, "service_retries": 1}
+FAULT_ENV_ROWS = 1 << 16        # (e): the rows the child reads, cut for time
+FAULT_READ_WORKERS = (1, 2)     # (b): snapshot_read_workers
+FAULT_LEG_LIMIT_S = 240.0       # each leg's deadline
+FAULT_DRAIN_WAIT_S = 10.0       # (d): the wait for the preempted worker's drain
+
+
+def _fault_line(leg: str, spec: str, fired: int, counters: dict, recs: list, wall_s: float,
+                **extra) -> dict:
+    """Phase 22's line for one leg: the plan, ``fired()``, the counter
+    deltas, the launches of its epochs and its wall time."""
+    out = {"phase": "faults", "leg": leg, "plan": spec, "fired": fired,
+           "counters": {k: v for k, v in counters.items() if v},
+           "k1_launches": sum(r.get("k1_launches", 0) for r in recs),
+           "dw_launches": sum(r.get("dw_launches", 0) for r in recs),
+           "k2_launches": sum(r.get("k2_launches", 0) for r in recs),
+           "wall_s": wall_s, **extra}
+    emit(out)
+    return out
+
+
+def run_faults_http(path: str, cloud: "_FakeCloudChild", device) -> dict:
+    """Phase 22 (a): phase 3's corpus on the fake's ``http://``, one ELL
+    epoch clean and one under :data:`FAULT_PLANS` ``"http"`` (bit-equal
+    weights, a retry per firing, a resume, no give-up; K1 and ``dw``
+    against their plain versions on a batch read under the plan); then an
+    epoch under ``"http_fatal"``: one firing, ``fatal`` 1, no retry, and the
+    epoch raises ``DMLCError``."""
+    import torch
+
+    from dmlc_tpu_torch.io import faults
+    from dmlc_tpu_torch.io import resilience as res
+    from dmlc_tpu_torch.utils.check import DMLCError
+
+    t0 = time.monotonic()
+    with open(path, "rb") as f:
+        cloud.put("http", "/faults/higgs.libsvm", f.read())
+    put_s = time.monotonic() - t0
+    uri = f"http://127.0.0.1:{cloud.ports['http']}/faults/higgs.libsvm"
+    clean, clean_dig, clean_losses, clean_w, parser = _one_epoch(uri, device, "http_clean")
+    with faults.inject(FAULT_PLANS["http"]):
+        model, it = _store_pipeline(uri, device)
+        checks = _k1_on_batch(model, next(it))
+        it.close()
+    spec = FAULT_PLANS["http"]
+    base = res.counters_snapshot()
+    t0 = time.monotonic()
+    with faults.inject(spec) as plan:
+        rec, dig, losses, w, _ = _one_epoch(uri, device, "http_faulted")
+    wall = time.monotonic() - t0
+    delta = res.counters_delta(base)
+    equal = (torch.equal(dig.batches(), clean_dig.batches())
+             and _same_losses(losses, clean_losses) and _same_weights(w, clean_w))
+    healed = _fault_line("a_http", spec, plan.fired(), delta, [rec], wall, parser=parser,
+                         put_s=put_s, clean=_plain_pair(clean), faulted=_plain_pair(rec),
+                         bits_equal_clean=equal, **checks)
+    spec = FAULT_PLANS["http_fatal"]
+    base = res.counters_snapshot()
+    t0 = time.monotonic()
+    raised, steps = None, 0
+    with faults.inject(spec) as fplan:
+        model, it = _store_pipeline(uri, device)
+        try:
+            for batch in it:
+                model.step(batch)
+                steps += 1
+        except DMLCError as exc:
+            raised = str(exc)[:300]
+        finally:
+            try:
+                it.close()
+            except DMLCError:
+                pass
+    fatal = res.counters_delta(base)
+    failed = _fault_line("a_http_fatal", spec, fplan.fired(), fatal, [], time.monotonic() - t0,
+                         raised=raised, steps_before=steps)
+    problems = []
+    for r in (clean, rec):
+        if r["batches"] != HIGGS_ROWS // BATCH:
+            problems.append(f"{r['leg']}: {r['batches']} batches")
+        _launch_gate(r, r["leg"], phase=22)
+    if not equal:
+        problems.append("the faulted epoch's bits differ from the clean epoch's")
+    if not (plan.fired() == 3 and delta["retries"] == plan.fired() and delta["resumes"] >= 1
+            and delta["giveups"] == 0 and delta["fatal"] == 0):
+        problems.append(f"the healed epoch's counters: fired {plan.fired()}, {healed['counters']}")
+    if not (raised is not None and fplan.fired() == 1 and fatal["fatal"] == 1
+            and fatal["retries"] == 0 and fatal["giveups"] == 0):
+        problems.append(f"the 403: raised {raised!r}, fired {fplan.fired()}, "
+                        f"{failed['counters']}")
+    if problems:
+        raise AssertionError(f"phase 22 (a): {problems}")
+    return {"healed": healed, "fatal": failed, "clean": clean,
+            "k1_launches": clean["k1_launches"] + rec["k1_launches"],
+            "dw_launches": clean["dw_launches"] + rec["dw_launches"],
+            "k1_max_abs_err": checks["k1_max_abs_err"],
+            "dw_max_abs_err": checks["dw_max_abs_err"]}
+
+
+def _slots_back(it) -> bool:
+    """Every staging slot of every ring the iterator made is free, once."""
+    return all(sorted(map(id, r._free)) == sorted(map(id, r._slots))
+               for r in it._rings.values())
+
+
+def _span_model(layout: str, device):
+    """A fresh learner for (b)'s layout and the digests of its batches."""
+    from dmlc_tpu_torch import LinearLearner
+
+    if layout == "ell":
+        return (LinearLearner(num_col=HIGGS_COLS, layout="ell", learning_rate=0.3,
+                              device=device), _Digests(device))
+    return (LinearLearner(HIGGS_COLS, layout="dense", learning_rate=0.3, device=device),
+            _PackedDigests(device))
+
+
+def _span_iter(path: str, snap: str, device, layout: str, workers: int, num_col: int):
+    """Phase 6's warm pipeline on K2's span route at ``workers`` read
+    workers: ELL, or packed bf16 dense."""
+    from dmlc_tpu_torch import DeviceIter, create_parser
+
+    kw = (dict(layout="ell", max_nnz=HIGGS_COLS) if layout == "ell"
+          else dict(layout="dense", pack_aux=True, x_dtype="bfloat16"))
+    return DeviceIter(create_parser(path, 0, 1, "libsvm", snapshot=snap), num_col=num_col,
+                      batch_size=BATCH, drop_remainder=True, device=device, device_decode=True,
+                      snapshot_read_workers=workers, **kw)
+
+
+def _span_epoch(model, it, leg: str, dig, may_raise: bool = False) -> dict:
+    """One epoch stepped and digested batch by batch, K2's launches read
+    after each batch; every staging slot checked free at the epoch's end
+    (or, after a raise, after ``reset``); then ``reset()``."""
+    import torch
+
+    from dmlc_tpu_torch.ops import device_decode as dd
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.utils.check import CacheCorruptionError
+
+    k1_0, dw_0 = k1.launches, k1.dw_launches
+    marks = [dd.launches]
+    t0 = time.monotonic()
+    nb, raised = 0, None
+    try:
+        for batch in it:
+            dig.add(batch)
+            model.step(batch)
+            nb += 1
+            marks.append(dd.launches)
+    except CacheCorruptionError as exc:
+        if not may_raise:
+            raise
+        raised = str(exc)[:300]
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    slots_at_end = _slots_back(it)
+    stats = it.stats()
+    it.reset()
+    per = np.diff(marks)
+    warm = int(per.sum())
+    return {"leg": leg, "batches": nb, "wall_s": secs, "rows_per_s": nb * BATCH / secs,
+            "k1_launches": k1.launches - k1_0, "dw_launches": k1.dw_launches - dw_0,
+            "k2_launches": warm, "warm_batches": warm,
+            # one K2 launch a warm batch: a prefix of ones, then the cold rest
+            "k2_once_a_warm_batch": bool(np.all(per[:warm] == 1) and np.all(per[warm:] == 0)),
+            "raised": raised, "slots_back": slots_at_end if raised is None else None,
+            "slots_back_after_reset": _slots_back(it),
+            "resilience": {k: v for k, v in stats["resilience"].items() if v}}
+
+
+def _k2_stored_check(snap: str, device, num_col: int) -> dict:
+    """K2 on the stored batch the one-worker plan meets (position 4)
+    against ``decode_batch_plain``, bit for bit (a comparison, outside the
+    counted epochs)."""
+    import torch
+
+    from dmlc_tpu_torch.io.snapshot import SnapshotReader
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    reader = SnapshotReader(snap)
+    try:
+        kind, span, layout = reader.batch_span(4)
+        dev_span = torch.from_numpy(np.array(span)).to(device)
+    finally:
+        reader.close()
+    got = batch_tensors(dd.decode_batch_cuda(dev_span, layout, kind, num_col))
+    want = batch_tensors(dd.decode_batch_plain(dev_span, layout, kind, num_col))
+    equal = len(got) == len(want) and all(same_bits(a, b) for a, b in zip(got, want))
+    if not equal:
+        raise AssertionError(f"phase 22 (b): K2 differs from decode_batch_plain on {snap}")
+    return {"kind": kind, "max_abs_err": 0.0}
+
+
+def run_faults_span(path: str, d: str, device) -> dict:
+    """Phase 22 (b): K2's span route (``device_decode=True``), ELL and
+    packed bf16 dense, under :data:`FAULT_PLANS` ``"span"`` at each of
+    :data:`FAULT_READ_WORKERS` read workers: healed to the clean warm
+    epoch's bits and weights, one corruption and one restart, one K2 launch
+    a warm batch, every staging slot back, and a further epoch on the same
+    iterator; under ``DMLC_RETRY_MAX_ATTEMPTS=1`` the plan raises, every
+    slot is back after ``reset`` and a further epoch runs."""
+    import torch
+
+    from dmlc_tpu_torch.io import faults
+
+    spec = FAULT_PLANS["span"]
+    out, problems = {}, []
+    for layout in ("ell", "dense_bf16"):
+        snap = os.path.join(d, f"{layout}.snapshot")
+        model, dig = _span_model(layout, device)
+        num_col = model.device_num_col()
+        it = _span_iter(path, snap, device, layout, FAULT_READ_WORKERS[-1], num_col)
+        build = _span_epoch(model, it, f"{layout}_build", dig)
+        k2_check = _k2_stored_check(snap, device, num_col)
+        cmodel, cdig = _span_model(layout, device)
+        clean = _span_epoch(cmodel, it, f"{layout}_clean_warm", cdig)
+        it.close()
+        clean_w = _weights(cmodel)
+        recs = [build, clean]
+        if clean["k2_launches"] != clean["batches"] or build["k2_launches"]:
+            problems.append(f"{layout}: K2 {build['k2_launches']} cold, "
+                            f"{clean['k2_launches']} for {clean['batches']} warm batches")
+        if not _epochs_equal([cdig], [dig]):
+            problems.append(f"{layout}: the warm batches differ from the cold epoch's")
+        legs = []
+        for workers in FAULT_READ_WORKERS:
+            for give_up in (False, True):
+                env = {"DMLC_RETRY_MAX_ATTEMPTS": "1"} if give_up else {}
+                with _env(env):
+                    it = _span_iter(path, snap, device, layout, workers, num_col)
+                    fmodel, fdig = _span_model(layout, device)
+                    t0 = time.monotonic()
+                    with faults.inject(spec) as plan:
+                        hit = _span_epoch(fmodel, it, f"{layout}_w{workers}_"
+                                          f"{'giveup' if give_up else 'heal'}", fdig,
+                                          may_raise=give_up)
+                    wall = time.monotonic() - t0
+                    amodel, adig = _span_model(layout, device)
+                    after = _span_epoch(amodel, it, f"{layout}_w{workers}_after", adig)
+                    it.close()
+                recs += [hit, after]
+                bits = (None if give_up else _epochs_equal([fdig], [cdig])
+                        and _same_weights(_weights(fmodel), clean_w))
+                legs.append(_fault_line(
+                    f"b_span_{hit['leg']}", spec, plan.fired(), hit["resilience"], [hit, after],
+                    wall, read_workers=workers, batches=hit["batches"],
+                    warm_batches=hit["warm_batches"],
+                    k2_once_a_warm_batch=hit["k2_once_a_warm_batch"], raised=hit["raised"],
+                    slots_back=hit["slots_back"],
+                    slots_back_after_reset=hit["slots_back_after_reset"],
+                    bits_equal_clean=bits, next_epoch_batches=after["batches"],
+                    next_epoch_slots_back=after["slots_back"],
+                    next_epoch_bits_equal=_epochs_equal([adig], [cdig])))
+                line = legs[-1]
+                want = ({"pipeline_giveups": 1, "snapshot_corruptions": 1} if give_up
+                        else {"pipeline_restarts": 1, "snapshot_corruptions": 1})
+                if (plan.fired() != 1 or hit["resilience"] != want
+                        or not hit["k2_once_a_warm_batch"] or hit["warm_batches"] < 1
+                        or not hit["slots_back_after_reset"]
+                        or after["batches"] != HIGGS_ROWS // BATCH
+                        or not after["slots_back"] or not line["next_epoch_bits_equal"]):
+                    problems.append(f"{line['leg']}: {line}")
+                if give_up and hit["raised"] is None:
+                    problems.append(f"{line['leg']}: the plan did not raise")
+                if not give_up and not (bits and hit["slots_back"]
+                                        and hit["batches"] == HIGGS_ROWS // BATCH):
+                    problems.append(f"{line['leg']}: healed bits {bits}, {line}")
+        if layout == "ell":
+            for r in recs:
+                _launch_gate(r, r["leg"], phase=22)
+        out[layout] = {"clean": clean, "legs": legs, "k2_check": k2_check,
+                       "k1_launches": sum(r["k1_launches"] for r in recs),
+                       "dw_launches": sum(r["dw_launches"] for r in recs),
+                       "k2_launches": sum(r["k2_launches"] for r in recs)}
+    torch.cuda.synchronize()
+    if problems:
+        raise AssertionError(f"phase 22 (b): {problems}")
+    out["clean_rows_per_s"] = out["ell"]["clean"]["rows_per_s"]
+    for key in ("k1_launches", "dw_launches", "k2_launches"):
+        out[key] = out["ell"][key] + out["dense_bf16"][key]
+    return out
+
+
+def run_faults_block_cache(path: str, d: str, device) -> dict:
+    """Phase 22 (c): phase 12's planned block cache (seed 1, window 4096)
+    built by one cold epoch; a fresh pipeline's warm epoch clean and one
+    under :data:`FAULT_PLANS` ``"block_cache"``: the same weights, one
+    corruption and one rebuild."""
+    from dmlc_tpu_torch.io import faults
+    from dmlc_tpu_torch.io import resilience as res
+
+    cache = os.path.join(d, "higgs.blockcache")
+    _, model, it = _bc_pipeline(path, cache, device)
+    build = _store_epoch(model, it, "bc_build", _Digests(device))
+    it.close()
+    _, cmodel, it = _bc_pipeline(path, cache, device)
+    cdig = _Digests(device)
+    clean = _store_epoch(cmodel, it, "bc_clean_warm", cdig)
+    it.close()
+    spec = FAULT_PLANS["block_cache"]
+    base = res.counters_snapshot()
+    t0 = time.monotonic()
+    with faults.inject(spec) as plan:
+        _, fmodel, it = _bc_pipeline(path, cache, device)
+        fdig = _Digests(device)
+        heal = _store_epoch(fmodel, it, "bc_heal", fdig)
+        it.close()
+    delta = res.counters_delta(base)
+    equal = _epochs_equal([fdig], [cdig]) and _same_weights(_weights(fmodel), _weights(cmodel))
+    line = _fault_line("c_block_cache", spec, plan.fired(), delta, [heal],
+                       time.monotonic() - t0, bits_equal_clean=equal,
+                       clean=_plain_pair(clean), faulted=_plain_pair(heal))
+    for r in (build, clean, heal):
+        _launch_gate(r, r["leg"], phase=22)
+    if not (equal and plan.fired() == 1 and delta["cache_corruptions"] == 1
+            and delta["cache_rebuilds"] == 1 and heal["batches"] == clean["batches"]):
+        raise AssertionError(f"phase 22 (c): {line}")
+    recs = (build, clean, heal)
+    return {"line": line, "k1_launches": sum(r["k1_launches"] for r in recs),
+            "dw_launches": sum(r["dw_launches"] for r in recs)}
+
+
+def run_faults_service(path: str, device) -> dict:
+    """Phase 22 (d): phase 21 (a)'s fleet; a clean service-fed ELL epoch,
+    one under :data:`FAULT_PLANS` ``"service"`` (the weights bit-equal, the
+    pipeline's counters :data:`FAULT_SERVICE_WANT`), and one under
+    ``"preempt"`` naming one worker (a notice, a drain, the bits)."""
+    from dmlc_tpu_torch.io import faults
+    from dmlc_tpu_torch.io import resilience as res
+    from dmlc_tpu_torch.service import LocalFleet
+
+    fleet = LocalFleet(path, SERVICE_PARTS, num_workers=SERVICE_WORKERS, parser=SERVICE_PARSER)
+
+    def epoch(leg: str, spec=None, wait_drain: bool = False):
+        model, it = _service_pipeline(fleet.address, device)
+        dig = _Digests(device)
+        base, scoped = res.counters_snapshot(), res.counters_snapshot(it.pipeline_label)
+        t0 = time.monotonic()
+        with (faults.inject(spec) if spec else contextlib.nullcontext()) as plan:
+            rec = _store_epoch(model, it, leg, dig)
+            deadline = time.monotonic() + FAULT_DRAIN_WAIT_S
+            while (wait_drain and res.counters_delta(base).get("worker_drains", 0) < 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+        wall = time.monotonic() - t0
+        pipeline = res.counters_delta(scoped, it.pipeline_label)
+        it.close()
+        return (rec, dig, _weights(model), res.counters_delta(base), pipeline,
+                plan.fired() if plan else 0, wall)
+
+    try:
+        clean, cdig, cw, _, _, _, _ = _with_deadline(lambda: epoch("service_clean"),
+                                                      FAULT_LEG_LIMIT_S, "phase 22 (d) clean")
+        spec = FAULT_PLANS["service"]
+        rec, dig, w, delta, pipeline, fired, wall = _with_deadline(
+            lambda: epoch("service_chaos", spec), FAULT_LEG_LIMIT_S, "phase 22 (d) chaos")
+        chaos = _fault_line("d_service", spec, fired, delta, [rec], wall,
+                            pipeline_counters={k: v for k, v in pipeline.items() if v},
+                            bits_equal_clean=_epochs_equal([dig], [cdig]) and _same_weights(w, cw),
+                            clean=_plain_pair(clean), faulted=_plain_pair(rec))
+        target = fleet.workers[0].worker_id
+        pspec = FAULT_PLANS["preempt"].format(worker=target)
+        prec, pdig, pw, pdelta, _, pfired, pwall = _with_deadline(
+            lambda: epoch("service_preempt", pspec, wait_drain=True), FAULT_LEG_LIMIT_S,
+            "phase 22 (d) preempt")
+        drain = _fault_line("d_preempt", pspec, pfired, pdelta, [prec], pwall,
+                            bits_equal_clean=_epochs_equal([pdig], [cdig])
+                            and _same_weights(pw, cw),
+                            draining=[w_.draining for w_ in fleet.workers])
+    finally:
+        fleet.close()
+    problems = []
+    for r in (clean, rec, prec):
+        if r["batches"] != HIGGS_ROWS // BATCH:
+            problems.append(f"{r['leg']}: {r['batches']} batches")
+        _launch_gate(r, r["leg"], phase=22)
+    if not chaos["bits_equal_clean"] or {
+            k: pipeline.get(k, 0) for k in FAULT_SERVICE_WANT} != FAULT_SERVICE_WANT:
+        problems.append(f"the chaos plan: {chaos}")
+    if not (drain["bits_equal_clean"] and pfired >= 1
+            and pdelta.get("preemption_notices", 0) >= 1
+            and pdelta.get("worker_drains", 0) >= 1):
+        problems.append(f"the preemption: {drain}")
+    if problems:
+        raise AssertionError(f"phase 22 (d): {problems}")
+    recs = (clean, rec, prec)
+    return {"chaos": chaos, "preempt": drain,
+            "k1_launches": sum(r["k1_launches"] for r in recs),
+            "dw_launches": sum(r["dw_launches"] for r in recs)}
+
+
+def faults_env_child(cfg_path: str) -> None:
+    """Phase 22 (e), in a process of its own started with
+    ``DMLC_FAULT_PLAN`` set: one epoch of the cut over ``http://`` into the
+    ELL learner; its plan, counters, launches and weights to ``out``."""
+    import torch
+
+    from dmlc_tpu_torch.io import faults
+    from dmlc_tpu_torch.io import resilience as res
+
+    cfg = json.load(open(cfg_path))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    base = res.counters_snapshot()
+    rec, _, _, w, parser = _one_epoch(cfg["uri"], dev, "env_child")
+    plan = faults.active_plan()
+    torch.save([t.cpu() for t in w], os.path.join(cfg["out"], "weights.pt"))
+    keep = ("leg", "batches", "wall_s", "rows_per_s", "k1_launches", "dw_launches")
+    with open(os.path.join(cfg["out"], "child.json"), "w") as f:
+        json.dump({"env": os.environ.get("DMLC_FAULT_PLAN"),
+                   "plan": None if plan is None else plan.spec,
+                   "fired": 0 if plan is None else plan.fired(), "parser": parser,
+                   "counters": res.counters_delta(base),
+                   "rec": {k: rec[k] for k in keep}}, f)
+
+
+def run_faults_env(path: str, cloud: "_FakeCloudChild", d: str, device) -> dict:
+    """Phase 22 (e): the first :data:`FAULT_ENV_ROWS` rows on ``http://``,
+    one ELL epoch in this process with no plan, then in a child interpreter
+    (``--parallel-child faults_env``) with ``DMLC_FAULT_PLAN`` set to
+    :data:`FAULT_PLANS` ``"env"``: its retry counted, its weights this
+    process's."""
+    import torch
+
+    cut = _cut_bytes(path, FAULT_ENV_ROWS)
+    cloud.put("http", "/faults/higgs_cut.libsvm", cut)
+    uri = f"http://127.0.0.1:{cloud.ports['http']}/faults/higgs_cut.libsvm"
+    rec, _, _, w, _ = _one_epoch(uri, device, "env_parent")
+    out = os.path.join(d, "env_child")
+    os.makedirs(out)
+    cfg = os.path.join(out, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"uri": uri, "out": out}, f)
+    spec = FAULT_PLANS["env"]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--parallel-child", "faults_env", cfg],
+        env={**os.environ, "DMLC_FAULT_PLAN": spec}, capture_output=True, text=True,
+        timeout=FAULT_LEG_LIMIT_S)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 22 (e): the child exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    child = json.load(open(os.path.join(out, "child.json")))
+    cw = [t.to(device) for t in torch.load(os.path.join(out, "weights.pt"))]
+    equal = _same_weights(tuple(cw), w)
+    line = _fault_line("e_env_child", spec, child["fired"], child["counters"], [child["rec"]],
+                       wall, child_plan=child["plan"], parser=child["parser"],
+                       rows=FAULT_ENV_ROWS, batches=child["rec"]["batches"],
+                       reduced=f"phase 3's corpus cut to its first {FAULT_ENV_ROWS} rows "
+                               "for the time limit",
+                       weights_equal_parent=equal, parent=_plain_pair(rec))
+    _launch_gate(child["rec"], "env_child", phase=22)
+    if not (equal and child["plan"] == spec and child["fired"] == 1
+            and child["counters"]["retries"] == 1 and child["counters"]["giveups"] == 0
+            and child["rec"]["batches"] == rec["batches"] == FAULT_ENV_ROWS // BATCH):
+        raise AssertionError(f"phase 22 (e): {line}")
+    return {"line": line, "k1_launches": rec["k1_launches"] + child["rec"]["k1_launches"],
+            "dw_launches": rec["dw_launches"] + child["rec"]["dw_launches"]}
+
+
+def run_faults(path: str, tmp: str, device, phase6_warm_rows_per_s=None) -> dict:
+    """Phase 22 (module docstring), in a directory of its own, the legs on
+    ``http://`` beside the fake cloud in a child process (killed in a
+    ``finally``); ``phase6_warm_rows_per_s`` is (f)'s comparison."""
+    import shutil
+
+    t0 = time.monotonic()
+    d = os.path.join(tmp, "faults22")
+    os.makedirs(d)
+    cloud = _FakeCloudChild(d)
+    try:
+        a = _with_deadline(lambda: run_faults_http(path, cloud, device), FAULT_LEG_LIMIT_S,
+                           "phase 22 (a)")
+        e = _with_deadline(lambda: run_faults_env(path, cloud, d, device), FAULT_LEG_LIMIT_S,
+                           "phase 22 (e)")
+    except BaseException:
+        print(f"phase 22: fake cloud stderr: {cloud.stderr()}", file=sys.stderr)
+        raise
+    finally:
+        cloud.close()
+    b = _with_deadline(lambda: run_faults_span(path, d, device), FAULT_LEG_LIMIT_S,
+                       "phase 22 (b)")
+    c = _with_deadline(lambda: run_faults_block_cache(path, d, device), FAULT_LEG_LIMIT_S,
+                       "phase 22 (c)")
+    svc = run_faults_service(path, device)
+    shutil.rmtree(d)
+    emit({"phase": "faults_seam_cost", "span_clean_warm_ell_rows_per_s": b["clean_rows_per_s"],
+          "span_clean_read_workers": FAULT_READ_WORKERS[-1],
+          "phase6_warm_ell_rows_per_s": phase6_warm_rows_per_s})
+    legs = (a, b, c, svc, e)
+    out = {"a": a, "b": b, "c": c, "d": svc, "e": e, "wall_s": time.monotonic() - t0,
+           "k1_launches": sum(x["k1_launches"] for x in legs),
+           "dw_launches": sum(x["dw_launches"] for x in legs),
+           "k2_launches": b["k2_launches"],
+           "k1_max_abs_err": a["k1_max_abs_err"], "dw_max_abs_err": a["dw_max_abs_err"],
+           "k2_max_abs_err": max(b[k]["k2_check"]["max_abs_err"] for k in ("ell", "dense_bf16"))}
+    emit({"phase": "faults_total", "wall_s": out["wall_s"], "k1_launches": out["k1_launches"],
+          "dw_launches": out["dw_launches"], "k2_launches": out["k2_launches"],
+          "reduced": "HIGGS (UCI 280) 11,000,000 rows cut to 1,048,576 for the time limit, "
+                     f"(e) to its first {FAULT_ENV_ROWS}; 28 features as published"})
     return out
 
 
@@ -7154,8 +7707,9 @@ def producer_change(now: dict) -> dict:
 
 
 def run_only(which: str, repeat: int, seed: int) -> int:
-    """``--only cloud|tracker|service``: phase 1's builds, phase 3's corpus,
-    then phase 19, 20 or 21 ``repeat`` times, each in a directory of its own. With
+    """``--only cloud|tracker|service|faults``: phase 1's builds, phase 3's
+    corpus, then phase 19, 20, 21 or 22 ``repeat`` times, each in a directory
+    of its own. With
     ``cloud`` it also runs the burst probe against a fake whose servers
     keep ``socketserver``'s backlog of 5 and against one on the default,
     ``repeat`` times each, in turns."""
@@ -7182,8 +7736,8 @@ def run_only(which: str, repeat: int, seed: int) -> int:
             t0 = time.monotonic()
             failed = None
             try:
-                {"cloud": run_cloud, "tracker": run_tracker,
-                 "service": run_service}[which](path, d, dev)
+                {"cloud": run_cloud, "tracker": run_tracker, "service": run_service,
+                 "faults": run_faults}[which](path, d, dev)
             except AssertionError as exc:
                 failed = str(exc)[:2000]
             emit({"phase": f"only_{which}", "run": i, "wall_s": time.monotonic() - t0,
@@ -7200,8 +7754,8 @@ def main() -> int:
                          "its K1, its K2 route (a one-segment K2) and its row scatter "
                          "beside this one's, in turns")
     ap.add_argument("--parallel-child", nargs="+", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=["cloud", "tracker", "service"], default=None,
-                    help="build, write phase 3's corpus and run phase 19, 20 or 21 alone "
+    ap.add_argument("--only", choices=["cloud", "tracker", "service", "faults"], default=None,
+                    help="build, write phase 3's corpus and run phase 19, 20, 21 or 22 alone "
                          "(--repeat times); no kernels line and no result line")
     ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args()
@@ -7408,6 +7962,9 @@ def main() -> int:
         pod20 = run_tracker(path, tmp, dev)
         # phase 21: the data service, each leg's launches counted around its epochs
         svc21 = run_service(path, tmp, dev)
+        # phase 22: fault plans against the learners, each leg's launches
+        # counted around its epochs (the child's in the child)
+        faults22 = run_faults(path, tmp, dev, warm_ell["epochs"][-1]["rows_per_s"])
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -7423,13 +7980,14 @@ def main() -> int:
                      + pools["convert"]["k1_launches"] + pools["read"]["k1_launches"]
                      + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
                      + tune["k1_launches"] + store17["k1_launches"] + host18["k1_launches"]
-                     + cloud19["k1_launches"] + pod20["k1_launches"] + svc21["k1_launches"]),
+                     + cloud19["k1_launches"] + pod20["k1_launches"] + svc21["k1_launches"]
+                     + faults22["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
                            + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"],
                               store17["cachefile"]["k1_max_abs_err"],
                               host18["mem"]["k1_max_abs_err"],
                               cloud19["s3"]["k1_max_abs_err"], pod20["k1_max_abs_err"],
-                              svc21["k1_max_abs_err"]]),
+                              svc21["k1_max_abs_err"], faults22["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -7442,14 +8000,15 @@ def main() -> int:
                      + pools["convert"]["dw_launches"] + pools["read"]["dw_launches"]
                      + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
                      + tune["dw_launches"] + store17["dw_launches"] + host18["dw_launches"]
-                     + cloud19["dw_launches"] + pod20["dw_launches"] + svc21["dw_launches"]),
+                     + cloud19["dw_launches"] + pod20["dw_launches"] + svc21["dw_launches"]
+                     + faults22["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
                             if r["dw_route"] == "cuda"]
                            + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"],
                               store17["cachefile"]["dw_max_abs_err"],
                               host18["mem"]["dw_max_abs_err"],
                               cloud19["s3"]["dw_max_abs_err"], pod20["dw_max_abs_err"],
-                              svc21["dw_max_abs_err"]]),
+                              svc21["dw_max_abs_err"], faults22["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -7460,8 +8019,9 @@ def main() -> int:
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
                      + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]
                      + tune["k2_launches"] + store17["k2_launches"] + host18["k2_launches"]
-                     + cloud19["k2_launches"] + svc21["k2_launches"]),
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]),
+                     + cloud19["k2_launches"] + svc21["k2_launches"] + faults22["k2_launches"]),
+        "max_abs_err": max([r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]]
+                           + [faults22["k2_max_abs_err"]]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}, {

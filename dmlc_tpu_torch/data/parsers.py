@@ -1909,13 +1909,17 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
             "the epoch plan (effective shuffle_seed=%s, shuffle_window=%s)",
             shuffle_seed, shuffle_window)
     # the engine is left out of the signature (every engine emits the same
-    # blocks from the same chunks); the split layer's config is in it
-    signature = _bc.source_signature(
-        spec.uri, part_index, num_parts, format=type_,
-        args={k: v for k, v in spec.args.items() if k != "engine"},
-        index_dtype=np.dtype(np.uint64).str,
-        chunk_bytes=int(split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES)),
-        split={k: v for k, v in sorted(split_kw.items()) if k != "chunk_bytes"})
+    # blocks from the same chunks); the split layer's config is in it. It
+    # is taken only for a block cache or a snapshot, as in the JAX
+    # package: of a remote source it costs a metadata request
+    signature = None
+    if bc_path is not None or snapshot is not None:
+        signature = _bc.source_signature(
+            spec.uri, part_index, num_parts, format=type_,
+            args={k: v for k, v in spec.args.items() if k != "engine"},
+            index_dtype=np.dtype(np.uint64).str,
+            chunk_bytes=int(split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES)),
+            split={k: v for k, v in sorted(split_kw.items()) if k != "chunk_bytes"})
 
     def build() -> Parser:
         return _build_uncached(uri, spec, type_, part_index, num_parts, threaded,

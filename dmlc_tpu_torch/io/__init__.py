@@ -1,15 +1,16 @@
 """Host I/O of the port: URIs, the filesystem registry (``file://``,
 ``mem://`` and the cloud members ``http://``, ``https://``, ``s3://``,
 ``gs://``, ``hdfs://``, ``viewfs://``, ``azure://``, registered on import)
-and its streams, the resilience rules, RecordIO, the split
-layer (splitters, the native RecordIO engines, the prefetch and shuffle
-decorators, the chunk cache), prefetch threads and the ordered worker
-pool, the segment container with the block cache, and the snapshot
-store."""
+and its streams, the resilience rules and the fault-injection seam,
+RecordIO, the split layer (splitters, the native RecordIO engines, the
+prefetch and shuffle decorators, the chunk cache), prefetch threads and
+the ordered worker pool, the segment container with the block cache, and
+the snapshot store."""
 
 from dmlc_tpu_torch.io.block_cache import (BlockCacheReader, BlockCacheWriter,
                                            open_block_cache, source_signature)
 from dmlc_tpu_torch.io.cached_split import CachedInputSplit
+from dmlc_tpu_torch.io.faults import FaultPlan, inject, maybe_fail
 from dmlc_tpu_torch.io.filesystem import (FileInfo, FileSystem, LocalFileSystem,
                                           MemoryFileSystem, get_filesystem)
 from dmlc_tpu_torch.io.input_split import (DEFAULT_CHUNK_BYTES, IndexedRecordIOSplitter,
@@ -31,11 +32,11 @@ from dmlc_tpu_torch.io import hdfs_filesys as _hdfs_filesys  # noqa: F401 hdfs:/
 from dmlc_tpu_torch.io import azure_filesys as _azure_filesys  # noqa: F401 azure://
 
 __all__ = ["BlockCacheReader", "BlockCacheWriter", "CachedInputSplit", "DEFAULT_CHUNK_BYTES",
-           "FileInfo", "FileSystem", "IndexedRecordIOSplitter", "InputSplit", "InputSplitBase",
-           "LineSplitter", "LocalFileSystem", "MemoryFileSystem", "MmapLineSplit",
+           "FaultPlan", "FileInfo", "FileSystem", "IndexedRecordIOSplitter", "InputSplit",
+           "InputSplitBase", "LineSplitter", "LocalFileSystem", "MemoryFileSystem", "MmapLineSplit",
            "RECORDIO_MAGIC", "RecordIOChunkReader", "RecordIOReader", "RecordIOSplitter",
            "RecordIOWriter", "ResilientStream", "RetryPolicy", "ShuffledInputSplit",
            "SingleFileSplit", "ThreadedInputSplit", "ThreadedIter", "URI", "URISpec",
            "classify", "create_input_split", "create_mmap_text_split", "default_policy",
-           "get_filesystem", "open_block_cache", "open_stream", "read_all", "read_index_file",
-           "source_signature", "write_all", "write_indexed_recordio"]
+           "get_filesystem", "inject", "maybe_fail", "open_block_cache", "open_stream",
+           "read_all", "read_index_file", "source_signature", "write_all", "write_indexed_recordio"]

@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dmlc_tpu_torch.io import faults as _faults
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io.filesystem import get_filesystem
 from dmlc_tpu_torch.io.uri import URI
@@ -438,7 +439,9 @@ class BlockCacheReader:
         checked first (``verify``); ``copy=True`` copies the arrays into
         process memory instead (no :attr:`hold` needed), so a permuted
         read's page faults land in the caller's timed read. Raises
-        :class:`CacheCorruptionError` on a crc mismatch."""
+        :class:`CacheCorruptionError` on a crc mismatch (or when a
+        ``cache_read`` fault is injected)."""
+        _faults.maybe_fail("cache_read", self.path)
         entry = self._blocks[i]
         if self.verify:
             # a memoryview slice does not copy the span, as an mmap slice would

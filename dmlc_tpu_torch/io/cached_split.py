@@ -22,8 +22,9 @@ CacheCorruptionError`): the cache is discarded, the stream goes on from
   under ``cache_corruptions`` / ``cache_rebuilds``. A headerless or
   foreign-headed file invalidates at open (``cache_invalidations``).
 
-The JAX module's fault-injection seam (``faults.maybe_fail``) is left
-out, as the port has no ``io/faults``.
+Every warm frame read first passes through the fault-injection seam
+(``faults.maybe_fail("cache_read", cache_file)``), so a ``cache_read``
+plan drives the same healing path as a damaged frame.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import struct
 import zlib
 from typing import Iterator, Optional
 
+from dmlc_tpu_torch.io import faults as _faults
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io.input_split import InputSplit, InputSplitBase, _Chunk
 from dmlc_tpu_torch.io.threaded_iter import ThreadedIter
@@ -171,6 +173,7 @@ class CachedInputSplit(InputSplit):
                     raise CacheCorruptionError(
                         f"{self.cache_file}: bad chunk-cache header")
                 while True:
+                    _faults.maybe_fail("cache_read", self.cache_file)
                     header = fi.read(_FRAME_LEN)
                     if not header:
                         return

@@ -1,7 +1,10 @@
 """The fault-tolerance rules of the I/O stack, and the resilience counters.
 
-Own copy of the JAX package's ``io/resilience.py`` but its
-fault-injection seam (``faults.maybe_fail``, no fault plans in the port):
+Own copy of the JAX package's ``io/resilience.py``. Every
+:meth:`RetryPolicy.call` attempt first passes through the fault-injection
+seam (:func:`dmlc_tpu_torch.io.faults.maybe_fail`, ops ``connect`` and the
+call's own), so a fault plan's errors take the classify, backoff and
+budget path of real ones:
 
 - :func:`classify` names an exception ``retryable`` (5xx / 429 / 408,
   a reset or refused connection, a timeout, a corrupt cache) or ``fatal``
@@ -48,6 +51,7 @@ import time
 import urllib.error
 from typing import Callable, Dict, Optional
 
+from dmlc_tpu_torch.io import faults as _faults
 from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError
 from dmlc_tpu_torch.utils.timer import get_time
@@ -260,7 +264,11 @@ class RetryPolicy:
     ):
         """Run ``fn`` under this budget.
 
-        Fatal-class errors surface immediately (one attempt); retryable ones sleep and retry until the budget or
+        Each attempt first passes through the fault-injection seam
+        (``faults.maybe_fail`` for the generic ``connect`` op and for
+        ``op``), so injected faults flow down the same classify/backoff
+        paths as real ones. Fatal-class errors surface immediately (one
+        attempt); retryable ones sleep and retry until the budget or
         deadline runs out, then raise a ``DMLCError`` chained to the last
         cause. ``resume_offset > 0`` marks retries as mid-stream resumes
         in the counters; ``on_retry`` runs before each re-attempt (e.g.
@@ -271,6 +279,8 @@ class RetryPolicy:
         while True:
             record_event("attempts")
             try:
+                _faults.maybe_fail("connect", what)
+                _faults.maybe_fail(op, what)
                 return fn()
             except (KeyboardInterrupt, SystemExit, GeneratorExit):
                 raise  # control-flow exceptions must never be rewrapped

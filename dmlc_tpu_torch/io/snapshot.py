@@ -22,7 +22,9 @@ A batch is ``(kind, arr0, arr1, ...)``: ``("dense_packed", xp)``,
 ``signature`` and the batch ``geometry``; a mismatch in either drops the
 file at open (:func:`open_snapshot`) instead of serving wrong batches.
 Every read verifies the batch's crc32 and raises
-:class:`~dmlc_tpu_torch.utils.check.CacheCorruptionError` on a mismatch.
+:class:`~dmlc_tpu_torch.utils.check.CacheCorruptionError` on a mismatch,
+and first passes through the fault-injection seam
+(``faults.maybe_fail("snapshot_read", path)``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from dmlc_tpu_torch.io import block_cache as _bc
+from dmlc_tpu_torch.io import faults as _faults
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
 from dmlc_tpu_torch.utils import knobs as _knobs
@@ -166,7 +169,8 @@ class SnapshotReader:
     def load_batch(self, i: int) -> tuple:
         """Batch ``i`` as ``(kind, arr0, arr1, ...)``: read-only views over
         the mmap in the stored shapes. Raises :class:`CacheCorruptionError`
-        on a crc mismatch."""
+        on a crc mismatch (or when a ``snapshot_read`` fault is injected)."""
+        _faults.maybe_fail("snapshot_read", self.path)
         self._verified(i).release()
         e = self._batches[i]
         segments = _bc.read_segments(self._mm, e["arrays"])
@@ -187,6 +191,7 @@ class SnapshotReader:
         with ``span`` the verbatim ``[pos, end)`` u8 view over the mmap and
         ``layout`` its :meth:`layout` — the device-decode tier's input.
         crc semantics as :meth:`load_batch`."""
+        _faults.maybe_fail("snapshot_read", self.path)
         span = np.asarray(self._verified(i))
         return self._batches[i]["kind"], span, self.layout(i)
 

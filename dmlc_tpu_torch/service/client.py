@@ -1,8 +1,8 @@
 """Data-service client: a drop-in RowBlock parser over the wire.
 
 The port's copy of the JAX package's ``service/client.py``, with its wire,
-JSON, journal records, counters and messages; the JAX package's fault-plan
-call here is left out (the port has no fault seam).
+JSON, journal records, counters, messages and its fault-plan seam (the
+``worker_rpc`` op, once per part-stream locate).
 
 :class:`ServiceParser` implements the :class:`~dmlc_tpu_torch.data.parsers.Parser`
 contract against a dispatcher address, so it feeds ``DeviceIter`` (and
@@ -78,6 +78,7 @@ from typing import Dict, Optional
 
 from dmlc_tpu_torch.data.parsers import Parser
 from dmlc_tpu_torch.data.row_block import DenseBlock, RowBlock
+from dmlc_tpu_torch.io import faults as _faults
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.service import dispatcher as _dispatch
 from dmlc_tpu_torch.service.dispatcher import DEFAULT_JOB
@@ -104,10 +105,10 @@ _LOCATE_POLL_S = 0.05
 
 
 def connect_worker(host: str, port: int, timeout: float) -> socket.socket:
-    """Open a data-plane connection to a parse worker. The one place the
-    client connects to a worker, so a test can break it where the JAX
-    package's ``worker_rpc`` fault-plan op fires (the port has no fault
-    seam)."""
+    """Open a data-plane connection to a parse worker: the one place a
+    part-stream connects to its owner. The ``worker_rpc`` fault-plan op
+    fires just before it (in ``ServiceParser._ensure_stream``), also when
+    a held connection is adopted instead."""
     return socket.create_connection((host, port), timeout=timeout)
 
 
@@ -369,6 +370,11 @@ class ServiceParser(Parser):
         self._pending_owner = str(owner["worker"])
         self._trace_ctx = _telemetry.trace_context_from_wire(
             owner.get("trace"))
+        # the worker_rpc fault-plan seam: it fires per part-stream whether
+        # the transport reconnects or reuses, so chaos plans see the same
+        # schedule either way
+        _faults.maybe_fail(
+            "worker_rpc", f"{owner['worker']} stream part {self._part}")
         held, self._held = self._held, None
         if held is not None:
             if held[1] == str(owner["worker"]):

@@ -1,8 +1,8 @@
 """Data-service dispatcher: multi-job split assignment + worker registry.
 
 The port's copy of the JAX package's ``service/dispatcher.py``, with its wire,
-JSON, journal records, counters and messages; the JAX package's fault-plan
-call here is left out (the port has no fault seam).
+JSON, journal records, counters, messages and its fault-plan seam (the
+``dispatch_rpc`` op in :func:`request`).
 
 The control plane of the disaggregated RowBlock service (tf.data
 service's dispatcher role, arXiv:2210.14826 §3): it owns a registry of
@@ -164,6 +164,7 @@ import threading
 from collections import deque
 from typing import Deque, Dict, List, Optional, Set, Tuple, Union
 
+from dmlc_tpu_torch.io import faults as _faults
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.store import journal as _journal_mod
 from dmlc_tpu_torch.store.journal import AppendJournal
@@ -1923,7 +1924,9 @@ def request(address: str, req: dict, timeout: float = 10.0) -> dict:
     in retryable ``ConnectionError`` HERE, so every caller — workers,
     clients, fleet bootstrap — heals through the shared
     :class:`~dmlc_tpu_torch.io.resilience.RetryPolicy` instead of re-deriving
-    the classification at call sites."""
+    the classification at call sites. The ``dispatch_rpc`` fault-plan op
+    fires on every round trip."""
+    _faults.maybe_fail("dispatch_rpc", f"{address} {req.get('cmd', '')}")
     if "trace" not in req:
         # propagate the caller's trace context (optional key — old
         # dispatchers ignore it); copy-on-write so retries and callers

@@ -1,8 +1,8 @@
 """Data-service parse worker: claim splits across jobs, parse, stream.
 
 The port's copy of the JAX package's ``service/worker.py``, with its wire,
-JSON, journal records, counters and messages; the JAX package's fault-plan
-call here is left out (the port has no fault seam).
+JSON, journal records, counters, messages and its fault-plan seam (the
+``preempt`` op, checked every heartbeat).
 
 One worker of the disaggregated ingest fleet (arXiv:2210.14826 §3.2):
 it polls the :class:`~dmlc_tpu_torch.service.dispatcher.Dispatcher` for
@@ -88,6 +88,7 @@ import socket
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from dmlc_tpu_torch.io import faults as _faults
 from dmlc_tpu_torch.io import resilience as _resilience
 from dmlc_tpu_torch.service import dispatcher as _dispatch
 from dmlc_tpu_torch.service.dispatcher import DEFAULT_JOB
@@ -504,17 +505,23 @@ class ParseWorker:
         return resp
 
     def _check_preemption(self) -> None:
-        """The preemption notice, checked every heartbeat: the
+        """The preemption-notice seam, checked every heartbeat: the
         ``DMLC_TPU_PREEMPTION_NOTICE`` env names a notice file (value
-        ``1`` means 'notice already served'). A notice counts
-        ``preemption_notices`` and begins the drain. (The JAX package's
-        ``preempt`` fault-plan op has no counterpart: the port has no
-        fault seam, and tests serve the notice through the file.)"""
+        ``1`` means 'notice already served'), and the ``preempt``
+        fault-plan op injects notices deterministically — ANY firing,
+        whatever its error class, is consumed as the notice. Either
+        counts ``preemption_notices`` and begins the drain."""
         if self._draining.is_set() or self._stop.is_set():
             return
         notice = os.environ.get("DMLC_TPU_PREEMPTION_NOTICE", "").strip()
         noticed = bool(notice) and (notice == "1" or os.path.exists(notice))
         why = f"preemption notice {notice!r}"
+        if not noticed:
+            try:
+                _faults.maybe_fail("preempt", self.worker_id)
+            except Exception as exc:  # noqa: BLE001 - the raise IS the notice
+                noticed = True
+                why = f"injected preemption notice ({exc})"
         if noticed:
             _resilience.record_event("preemption_notices")
             self.drain(reason=why)

@@ -15,7 +15,8 @@ threaded=True, parse_workers=1, chunk_bytes=4096, ...)``) as
   so the next epoch runs cold;
 - a corrupt block heals with the JAX package's counters, in sequential
   mode (re-parse from the source) and in plan mode (a silent rebuild),
-  the stream unchanged;
+  the stream unchanged; a ``cache_read@2=corrupt`` fault plan heals the
+  same way, with ``fired()`` and the counters of the JAX package's run;
 - ``DeviceIter(ell)`` over the planned cache: its states equal the JAX
   package's as JSON at every batch, ``stats()`` carries the plan's seed
   and epoch, and a mid-epoch state restores both ways to byte-equal
@@ -42,6 +43,7 @@ import torch
 from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data import epoch as jax_epoch
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
+from dmlc_tpu.io import faults as jax_faults
 from dmlc_tpu.io import resilience as jax_resilience
 from dmlc_tpu.io.uri import URISpec as JaxURISpec
 from dmlc_tpu.utils import knobs as jax_knobs
@@ -49,13 +51,14 @@ from dmlc_tpu.utils.check import DMLCError as JaxDMLCError
 from dmlc_tpu_torch.data import DeviceIter, create_parser
 from dmlc_tpu_torch.data.row_block import RowBlock
 from dmlc_tpu_torch.io import block_cache as bc
+from dmlc_tpu_torch.io import faults as port_faults
 from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.snapshot import SnapshotReader
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
 from dmlc_tpu_torch.io.uri import URISpec
 from dmlc_tpu_torch.store import STORE_DIRNAME
 from dmlc_tpu_torch.utils import knobs
-from dmlc_tpu_torch.utils.check import DMLCError
+from dmlc_tpu_torch.utils.check import CacheCorruptionError, DMLCError
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_block_cache import GOLDEN, _golden_blocks  # noqa: E402
@@ -253,6 +256,42 @@ def test_a_corrupt_block_heals_as_in_the_reference(tmp_path, kw):
         results.append((healed, delta, nxt))
     assert results[1] == results[0]
     assert results[1][1] == {"cache_corruptions": 1, "cache_rebuilds": 1}
+
+
+def test_fault_plan_corrupt_segment_heals(tmp_path):
+    """``cache_read@2=corrupt`` on a warm cache (``tests/test_block_cache.py``'s
+    case): the stream byte-identical through the heal, exactly one
+    corruption and one rebuild, and the next epoch warm and clean; the
+    port's stream, ``fired()`` and counters equal the JAX package's."""
+    path = _corpus(tmp_path, n=600)
+    results = []
+    for make, events, faults in ((_jax, jax_resilience, jax_faults),
+                                 (_port, resilience, port_faults)):
+        cache = str(tmp_path / f"{make.__name__}.bc")
+        parser = make(path, cache, chunk_bytes=2048)
+        want = _drain(parser)
+        parser.before_first()
+        assert parser.cache_state == "warm"
+        base = events.counters_snapshot()
+        with faults.inject("cache_read@2=corrupt") as plan:
+            healed = _drain(parser)
+        assert plan.fired() == 1
+        assert healed == want
+        delta = {k: v for k, v in events.counters_delta(base).items() if v}
+        assert delta == {"cache_corruptions": 1, "cache_rebuilds": 1}
+        parser.before_first()
+        assert parser.cache_state == "warm"
+        assert _drain(parser) == want
+        parser.close()
+        results.append((healed, plan.fired(), delta))
+    assert results[1] == results[0]
+
+
+def test_corrupt_error_class_in_fault_grammar():
+    err = port_faults.FaultPlan("cache_read@1=corrupt").check("cache_read", "/some/cache")
+    assert isinstance(err, CacheCorruptionError)
+    ref = jax_faults.FaultPlan("cache_read@1=corrupt").check("cache_read", "/some/cache")
+    assert str(err) == str(ref)
 
 
 # ---------------- DeviceIter over the planned cache ----------------

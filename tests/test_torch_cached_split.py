@@ -10,7 +10,9 @@ against the JAX package's.
   the stream unbroken, the cache rewritten to the same bytes), a torn
   tail heals the same way, and a headerless or foreign-headed file is
   invalidated at open (``cache_invalidations``), with the JAX package's
-  counts;
+  counts; ``cache_read`` fault plans heal the same way (also when the
+  split is reopened with another ``chunk_bytes``: the heal skips bytes,
+  not frames), with the JAX package's ``fired()`` and counters;
 - the cache is pinned in its store while a split serves it, and the
   ``create_parser(path#cache)`` chain gives the plain chain's blocks over
   two epochs, the second with the source gone.
@@ -25,10 +27,12 @@ import numpy as np
 import pytest
 
 from dmlc_tpu.io import create_input_split as jax_create_input_split
+from dmlc_tpu.io import faults as jax_faults
 from dmlc_tpu.io import resilience as jax_resilience
 from dmlc_tpu.store import manager as jax_mgr
 from dmlc_tpu_torch.data import create_parser
 from dmlc_tpu_torch.io import create_input_split
+from dmlc_tpu_torch.io import faults as port_faults
 from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.cached_split import CHUNK_CACHE_MAGIC, CachedInputSplit
 from dmlc_tpu_torch.io.recordio import RecordIOWriter
@@ -168,6 +172,48 @@ def test_damaged_cache_heals_with_reference_counters(tmp_path, damage):
     got, rewritten, counts = out["port"]
     assert got == want and rewritten == clean
     assert counts == {"cache_corruptions": 1, "cache_rebuilds": 1, "cache_invalidations": 0}
+
+
+FAULTS = {"jax": jax_faults, "port": port_faults}
+
+
+def _lines(path, n) -> str:
+    path.write_bytes(b"".join(b"line %d\n" % i for i in range(n)))
+    return str(path)
+
+
+def _plan_heal(tmp_path, n: int, at: int, rebuild_chunk: int) -> None:
+    """A chunk cache built at 2048-byte chunks, reopened at
+    ``rebuild_chunk`` under ``cache_read@<at>=corrupt``: the record stream
+    unbroken, one corruption counted, and the stream, ``fired()`` and the
+    counters equal to the JAX package's."""
+    out = {}
+    for pkg, factory in FACTORY.items():
+        d = tmp_path / pkg
+        d.mkdir()
+        path = _lines(d / "corpus.txt", n)
+        uri = f"{path}#{d / 'chunks.cache'}"
+        want = _drain(factory(uri, 0, 1, "text", chunk_bytes=2048))
+        base = RES[pkg].counters_snapshot()
+        with FAULTS[pkg].inject(f"cache_read@{at}=corrupt") as plan:
+            healed = _drain(factory(uri, 0, 1, "text", chunk_bytes=rebuild_chunk))
+        d_ = RES[pkg].counters_delta(base)
+        assert healed == want
+        assert d_["cache_corruptions"] == 1
+        out[pkg] = (healed, plan.fired(), {k: d_.get(k, 0) for k in (
+            "cache_corruptions", "cache_rebuilds", "cache_invalidations")})
+    assert out["port"] == out["jax"]
+    assert out["port"][1] == 1
+
+
+def test_fault_plan_injects_chunk_cache_corruption(tmp_path):
+    _plan_heal(tmp_path, 1000, 2, 2048)
+
+
+def test_heal_resumes_by_bytes_across_chunk_bytes_drift(tmp_path):
+    """The heal skips bytes, not frames: reopened with another chunk size,
+    the frame groupings differ and the byte stream does not."""
+    _plan_heal(tmp_path, 2000, 3, 8192)
 
 
 @pytest.mark.parametrize("head", [b"", b"0123456789abcdef", b"DMLCCHK0" + bytes(20)])

@@ -21,6 +21,8 @@ cache file of its own:
   without ``cold`` / ``seen``, ``block_cache``, ``blocks``, ``split``) to
   byte-equal remaining blocks, also when the cache of a plan state has
   been deleted (it is rebuilt);
+- a ``cache_read@3=corrupt`` plan in the middle of a planned warm epoch
+  heals by one rebuild with the stream unbroken, as in the JAX package;
 - ``pod_identity`` resolved from the DMLC_* contract in two gloo ranks
   spawned by ``run_local`` gives disjoint warm shards that union to the
   epoch.
@@ -38,9 +40,13 @@ import pytest
 from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data import epoch as jax_epoch
 from dmlc_tpu.data.row_block import RowBlock as JaxRowBlock
+from dmlc_tpu.io import faults as jax_faults
+from dmlc_tpu.io import resilience as jax_resilience
 from dmlc_tpu_torch.data import create_parser
 from dmlc_tpu_torch.data import epoch
 from dmlc_tpu_torch.data.row_block import RowBlock
+from dmlc_tpu_torch.io import faults as port_faults
+from dmlc_tpu_torch.io import resilience as port_resilience
 
 
 @pytest.fixture(autouse=True)
@@ -199,6 +205,36 @@ def test_planned_epochs_match_reference(tmp_path, kw):
     assert pp.stage_seconds()["cache_read"] > 0
     jp.close()
     pp.close()
+
+
+def test_corrupt_plan_block_heals_by_rebuild(tmp_path):
+    """``tests/test_epoch_plan.py``'s case through both packages: a plan
+    fault on the third block read of a fresh planned warm pipeline, one
+    corruption and one rebuild, the stream the clean pipeline gives; the
+    streams, ``fired()`` and counters equal."""
+    path = _corpus(tmp_path)
+    kw = dict(shuffle_seed=6, shuffle_window=8)
+    out = {}
+    for name, make, faults, res in (("jax", _jax, jax_faults, jax_resilience),
+                                     ("port", _port, port_faults, port_resilience)):
+        cache = str(tmp_path / f"{name}.bc")
+        build = make(path, cache, **kw)
+        _drain(build)
+        build.close()
+        clean = make(path, cache, **kw)
+        expect = _drain(clean)
+        clean.close()
+        before = res.counters_snapshot()
+        with faults.inject("cache_read@3=corrupt") as plan:
+            parser = make(path, cache, **kw)
+            healed = _drain(parser)
+            parser.close()
+        delta = res.counters_delta(before)
+        assert healed == expect, "stream unbroken through the rebuild"
+        assert delta.get("cache_corruptions") == 1
+        assert delta.get("cache_rebuilds") == 1
+        out[name] = (healed, plan.fired(), {k: v for k, v in delta.items() if v})
+    assert out["port"] == out["jax"]
 
 
 @pytest.mark.parametrize("num_hosts", [2, 3])

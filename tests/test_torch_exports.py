@@ -17,7 +17,6 @@ PACKAGES = ["", ".io", ".data", ".utils", ".ops", ".models", ".parallel", ".stor
 
 # JAX names without a port counterpart, by package: the deliberate absences
 EXEMPT = {
-    ".io": {"FaultPlan", "inject", "maybe_fail"},  # io/faults.py: no fault seam, deliberately
     # the JAX BCOO array and the Pallas entry: the port's counterparts are
     # ops.sparse.block_to_bcoo_host and ops.ell_matvec.ell_matvec_cuda; the
     # plain ELL matvec, ops.sparse.ell_matvec, whose name in ops is K1's

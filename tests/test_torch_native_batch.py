@@ -19,9 +19,11 @@ The cases of ``tests/test_native_batch.py``, each run through the port
   stage seconds; the engine knob (env, URI argument, a typo, a config the
   engine cannot serve, the knob outside the cache signature);
 - healing: a read that fails mid-stream on a filesystem whose streams
-  resume (a ``ResilientStream``, as the JAX test's HTTP source) and a
-  flipped byte in the warm cache (the JAX test's fault plan; the port
-  has none) give the clean epoch, with the counters.
+  resume (a ``ResilientStream``) and a flipped byte in the warm cache give
+  the clean epoch, with the counters; the JAX test's two fault plans
+  (``read@2..3=http-503`` over a local HTTP source, and
+  ``DMLC_FAULT_PLAN=cache_read@1=corrupt`` on a warm batch-built cache)
+  heal the same way in both packages, with equal ``fired()`` and counters.
 """
 
 import io as _pyio
@@ -33,12 +35,17 @@ import pytest
 
 from dmlc_tpu import native as jax_native
 from dmlc_tpu.data.parsers import create_parser as jax_create_parser
+from dmlc_tpu.io import faults as jax_faults
 from dmlc_tpu.io import filesystem as jax_fs
+from dmlc_tpu.io import http_filesys as jax_http
+from dmlc_tpu.io import resilience as jax_resilience
 from dmlc_tpu.store import manager as jax_mgr
 from dmlc_tpu_torch import native
 from dmlc_tpu_torch.data.batch_parser import NativeBatchParser
 from dmlc_tpu_torch.data.parsers import ParallelTextParser, create_parser
+from dmlc_tpu_torch.io import faults as port_faults
 from dmlc_tpu_torch.io import filesystem as fs_mod
+from dmlc_tpu_torch.io import http_filesys as port_http
 from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.block_cache import BlockCacheReader, BlockCacheWriter, write_segments
 from dmlc_tpu_torch.store import manager as port_mgr
@@ -507,6 +514,78 @@ def test_corrupt_warm_block_heals_byte_identical(tmp_path):
     _assert_same(healed, clean)
     snap = resilience.counters_snapshot()
     assert snap["cache_corruptions"] == 1 and snap["cache_rebuilds"] == 1
+
+
+def test_remote_read_fault_plan_heals_byte_identical(monkeypatch):
+    """The JAX test's plan, ``read@2..3=http-503``, through the batch engine
+    over a local HTTP source in both packages: the epoch equals a clean
+    Python-engine run, the two retries are counted, nothing gives up, and
+    the port's arrays, ``fired()`` and counters equal the JAX package's."""
+    import http.server
+    import threading
+
+    from test_resilience import _HttpFilesHandler
+
+    for mod in (jax_http, port_http):
+        monkeypatch.setattr(mod, "_BLOCK", 2048)
+    _HttpFilesHandler.files = {"/c.libsvm": _libsvm_text(n=400, d=4)}
+    _HttpFilesHandler.flaky_503 = _HttpFilesHandler.flaky_429 = 0
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _HttpFilesHandler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    out = {}
+    try:
+        uri = f"http://127.0.0.1:{server.server_address[1]}/c.libsvm"
+        for name, make, faults, res in (
+                ("jax", jax_create_parser, jax_faults, jax_resilience),
+                ("port", create_parser, port_faults, resilience)):
+            clean = _run(uri, "libsvm", "python", make=make)
+            res.reset_counters()
+            with faults.inject("read@2..3=http-503") as plan:
+                healed = _run(uri, "libsvm", "native-batch", make=make)
+            _assert_same(healed, clean)
+            snap = res.counters_snapshot()
+            assert plan.fired() == 2
+            assert snap["retries"] == 2 and snap["giveups"] == 0
+            out[name] = (healed, plan.fired(), snap["retries"], snap["resumes"])
+    finally:
+        server.shutdown()
+        server.server_close()
+    _assert_same(out["port"][0], out["jax"][0])
+    assert out["port"][1:] == out["jax"][1:]
+
+
+def test_fault_plan_heal_byte_identical(tmp_path, monkeypatch):
+    """The JAX test's env plan, ``DMLC_FAULT_PLAN=cache_read@1=corrupt``, on
+    a warm batch-built cache in both packages: healed to the clean stream
+    with one corruption and one rebuild, equal to the JAX package's."""
+    out = {}
+    for name, make, faults, res in (("jax", jax_create_parser, jax_faults, jax_resilience),
+                                    ("port", create_parser, port_faults, resilience)):
+        d = tmp_path / name
+        d.mkdir()
+        uri = _write(d, "fp.libsvm", _libsvm_text(n=400, d=4))
+        clean = _run(uri, "libsvm", "python", make=make)
+        res.reset_counters()
+        p = make(uri, 0, 1, "libsvm", threaded=True, parse_workers=1, engine="native-batch",
+                 chunk_bytes=2048, block_cache=str(d / "fp.bc"))
+        try:
+            while p.next_block() is not None:
+                pass
+            p.before_first()  # warm now
+            monkeypatch.setenv("DMLC_FAULT_PLAN", "cache_read@1=corrupt")
+            faults.reset()
+            healed = _drain_arrays(p)
+            fired = faults.active_plan().fired()
+        finally:
+            monkeypatch.delenv("DMLC_FAULT_PLAN")
+            faults.reset()
+            p.close()
+        _assert_same(healed, clean)
+        snap = res.counters_snapshot()
+        assert snap["cache_corruptions"] == 1 and snap["cache_rebuilds"] == 1
+        out[name] = (healed, fired, snap["cache_corruptions"], snap["cache_rebuilds"])
+    _assert_same(out["port"][0], out["jax"][0])
+    assert out["port"][1:] == out["jax"][1:] == (1, 1, 1)
 
 
 def test_batch_engine_over_memfs_matches_reference(tmp_path):

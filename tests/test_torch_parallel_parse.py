@@ -13,8 +13,11 @@ seek resume from a state of either package; the pending-chunk refusal;
 the csv skeleton cache under concurrent workers. Mirrors
 ``tests/test_parallel_parse.py``'s ``TestParityAB``,
 ``TestParallelResume``, ``TestMmapLineSplit``, ``TestTokenTableEdges``,
-``TestQidValidation`` and ``TestSkeletonCacheConcurrency``; its HTTP fault
-plan and ``restart_policy`` cases wait for those layers.
+``TestQidValidation`` and ``TestSkeletonCacheConcurrency``, and its
+``TestFaultPlanParity``: ``read@2..3=http-503`` over a local HTTP source
+at 4 workers heals below the pool, byte-identical to a clean one-worker
+epoch, with the JAX package's ``fired()`` and counters. Its
+``restart_policy`` cases are held in ``tests/test_torch_autotune.py``.
 """
 
 import json
@@ -26,6 +29,9 @@ import pytest
 
 from dmlc_tpu.data.parsers import ParallelTextParser as JaxParallelTextParser
 from dmlc_tpu.data.parsers import create_parser as jax_create_parser
+from dmlc_tpu.io import faults as jax_faults
+from dmlc_tpu.io import http_filesys as jax_http
+from dmlc_tpu.io import resilience as jax_resilience
 from dmlc_tpu.io.input_split import create_input_split
 from dmlc_tpu.io.input_split import create_mmap_text_split as jax_mmap_split
 from dmlc_tpu.utils import knobs as jax_knobs
@@ -36,6 +42,9 @@ from dmlc_tpu_torch.data.parsers import (CSVParser, LibFMParser, LibSVMParserPar
                                          _CSV_SKELETON_CACHE, _csv_skeleton,
                                          _pin_python_scanner)
 from dmlc_tpu_torch.io import LineSplitter, MmapLineSplit, create_mmap_text_split
+from dmlc_tpu_torch.io import faults as port_faults
+from dmlc_tpu_torch.io import http_filesys as port_http
+from dmlc_tpu_torch.io import resilience as port_resilience
 from dmlc_tpu_torch.utils import knobs
 from dmlc_tpu_torch.utils.check import DMLCError
 
@@ -343,6 +352,59 @@ def test_parse_error_raises_in_stream_order(tmp_path):
             before += 1
     one.close()
     assert delivered == before > 0
+
+
+# ---------------- a fault plan over HTTP ----------------
+
+@pytest.fixture()
+def http_corpus(monkeypatch):
+    import http.server
+
+    from test_resilience import _HttpFilesHandler
+
+    monkeypatch.setenv("DMLC_RETRY_BASE_MS", "1")
+    monkeypatch.setenv("DMLC_RETRY_MAX_MS", "5")
+    monkeypatch.delenv("DMLC_RETRY_MAX_ATTEMPTS", raising=False)
+    _HttpFilesHandler.files = {"/c.libsvm": _libsvm_text(n=400, d=4)}
+    _HttpFilesHandler.flaky_503 = _HttpFilesHandler.flaky_429 = 0
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _HttpFilesHandler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    yield f"http://127.0.0.1:{server.server_address[1]}/c.libsvm"
+    server.shutdown()
+    server.server_close()
+
+
+def test_fail_twice_then_succeed_byte_identical(http_corpus, monkeypatch):
+    """``tests/test_parallel_parse.py``'s plan case through both packages:
+    two 503s on the 2nd and 3rd block reads under 4 parse workers heal in
+    the stream below the pool (two retries, no give-up, no parse
+    restart), the blocks equal a clean one-worker epoch's."""
+    for mod in (jax_http, port_http):
+        monkeypatch.setattr(mod, "_BLOCK", 2048)
+    uri = http_corpus + "?engine=python"
+    out = {}
+    for name, make, faults, res in (("jax", jax_create_parser, jax_faults, jax_resilience),
+                                    ("port", create_parser, port_faults, port_resilience)):
+        def run(workers):
+            p = make(uri, 0, 1, "libsvm", threaded=True, parse_workers=workers,
+                     chunk_bytes=2048)
+            return [blk[:3] for blk in _stream(p)]
+
+        res.reset_counters()
+        clean = run(1)
+        assert res.counters_snapshot()["retries"] == 0
+        res.reset_counters()
+        with faults.inject("read@2..3=http-503") as plan:
+            faulted = run(4)
+        assert faulted == clean
+        snap = res.counters_snapshot()
+        assert plan.fired() == 2
+        assert snap["retries"] == 2
+        assert snap["giveups"] == 0
+        assert snap["parse_restarts"] == 0
+        assert snap["parse_giveups"] == 0
+        out[name] = (faulted, plan.fired(), snap["retries"], snap["resumes"])
+    assert out["port"] == out["jax"]
 
 
 # ---------------- the knob ----------------

@@ -11,8 +11,9 @@ other, since the control plane is JSON lines on TCP.
   either package;
 - the preemption notice file (``DMLC_TPU_PREEMPTION_NOTICE``) drains a
   worker of either package with ``preemption_notices`` 1 and
-  ``worker_drains`` 1 (the JAX package's ``preempt`` fault-plan op has no
-  port counterpart: the notice file is the port's way in);
+  ``worker_drains`` 1, and so does the ``preempt@1`` fault plan, consumed
+  by one heartbeat of either package's fleet while the other worker
+  serves the epoch;
 - a straggler (``straggle_seconds``) hedged: a speculative re-issue wins,
   the stream exact, on mixed fleets;
 - the reaper thread stopping on ``close``; ``worker_joins`` counted only
@@ -138,7 +139,8 @@ def test_preemption_notice_counters_match_reference(corpus, tmp_path, monkeypatc
     """One worker of two noticing preemption: the port's notice file read
     by worker 0's check against JAX's ``preempt@1`` fault plan (consumed
     by one heartbeat): the same counters, and the other worker serves
-    the whole epoch."""
+    the whole epoch. The plan against the plan is
+    ``test_preempt_fault_op_triggers_drain``."""
     from dmlc_tpu.io import faults as jax_faults
 
     keys = ("preemption_notices", "worker_drains", "service_giveups")
@@ -169,6 +171,42 @@ def test_preemption_notice_counters_match_reference(corpus, tmp_path, monkeypatc
                 fleet.close()
     assert out["port"] == out["jax"] == {"preemption_notices": 1, "worker_drains": 1,
                                          "service_giveups": 0}
+
+
+def test_preempt_fault_op_triggers_drain(corpus):
+    """``tests/test_service_elastic.py``'s chaos-grammar case in both
+    packages: ``preempt@1`` is consumed as a preemption notice by exactly
+    one worker's heartbeat, which drains instead of raising; the other
+    worker serves the whole epoch; ``fired()`` and the counters equal."""
+    from dmlc_tpu.io import faults as jax_faults
+    from dmlc_tpu_torch.io import faults as port_faults
+
+    faults = {"jax": jax_faults, "port": port_faults}
+    out = {}
+    for pkg in PKGS:
+        P = PKGS[pkg]
+        base = P.resilience.counters_snapshot()
+        with faults[pkg].inject("preempt@1") as plan:
+            fleet = P.LocalFleet(corpus, 3, num_workers=2, parser=PARSER_CFG,
+                                 poll_interval=0.02, heartbeat_interval=0.05,
+                                 liveness_timeout=5.0)
+            try:
+                # at least one: a drain that completes while its worker
+                # re-announces it counts twice now and then, in both
+                # packages (ROADMAP "Records")
+                _wait_for(lambda: P.resilience.counters_delta(base)["worker_drains"] >= 1,
+                          timeout=5.0, what="injected preemption drain")
+                assert plan.fired() == 1
+                delta = P.resilience.counters_delta(base)
+                assert delta["preemption_notices"] == 1
+                sp = P.ServiceParser(fleet.address)
+                assert drain_keys(sp) == local_keys(corpus)
+                assert P.resilience.counters_delta(base)["service_giveups"] == 0
+                out[pkg] = (plan.fired(), delta["preemption_notices"],
+                            sorted(w.draining for w in fleet.workers))
+            finally:
+                fleet.close()
+    assert out["port"] == out["jax"] == (1, 1, [False, True])
 
 
 @MIXED

@@ -7,15 +7,16 @@ resilience counters equal to the JAX run's.
   checkpoint taken before the kill restored into a fresh client, for every
   fleet x client pair; all workers dead gives up once;
 - a torn frame retried once on the same owner before ``report_lost``;
-- the faults the JAX package injects through its fault plan, reached from
-  the test side (the port has no fault seam): the port's
-  ``service.dispatcher.request`` refusing the client's first two
-  ``locate`` round trips (``ConnectionRefusedError``, as
-  ``dispatch_rpc~locate@1..2=conn``) and the client's first worker connect
-  torn (``ConnectionError``, as ``worker_rpc~stream@1=torn``), the
-  client's counters (its telemetry scope's) equal to those of JAX's
-  ``faults.inject`` runs (``control_plane_retries`` 2, ``service_retries``
-  1; where the failover lands is a race in both);
+- the JAX package's fault plans on the control and data planes, through
+  both packages' seams: ``dispatch_rpc~locate@1..2=conn`` heals through
+  the shared policy (``control_plane_retries`` 2, ``service_retries`` 0,
+  no dispatcher restart) and ``worker_rpc~stream@1=torn`` fails over
+  (``service_retries`` 1), the streams and ``fired()`` equal, the
+  ``conn`` and ``torn`` classes retryable in both; the same faults raised
+  from the test side too, by breaking the port's
+  ``service.dispatcher.request`` and ``service.client.connect_worker``.
+  The client's counters are its telemetry scope's (where the failover
+  lands is a race in both);
 - the dispatcher killed mid-epoch and restarted from its journal on the
   same address: the generation, ``dispatcher_restarts`` 1, the workers'
   re-registration and reclaim, no part parsed twice; a client riding
@@ -32,6 +33,7 @@ import pytest
 
 from dmlc_tpu.io import faults as jax_faults
 from dmlc_tpu.utils import telemetry as jax_telemetry
+from dmlc_tpu_torch.io import faults as port_faults
 from dmlc_tpu_torch.service import client as port_client_mod
 from dmlc_tpu_torch.service import dispatcher as port_dispatcher_mod
 from dmlc_tpu_torch.utils import telemetry as port_telemetry
@@ -151,7 +153,72 @@ def test_torn_frame_soft_retry_before_report_lost(corpus, monkeypatch, pkg):
         fleet.close()
 
 
-# ---------------- the JAX fault plan's faults, from the test side ----------------
+# ---------------- the fault plans through both seams ----------------
+
+FAULTS = {"jax": jax_faults, "port": port_faults}
+
+
+def test_fault_plan_conn_and_torn_error_classes():
+    described = {}
+    for pkg, faults in FAULTS.items():
+        res = PKGS[pkg].resilience
+        plan = faults.FaultPlan("dispatch_rpc@1=conn;worker_rpc@1=torn")
+        conn = plan.check("dispatch_rpc", "127.0.0.1:1 locate")
+        assert isinstance(conn, ConnectionRefusedError)
+        assert res.classify(conn) == res.RETRYABLE
+        torn = plan.check("worker_rpc", "rank0 stream part 2")
+        assert isinstance(torn, ConnectionError)
+        assert res.classify(torn) == res.RETRYABLE
+        assert plan.fired() == 2
+        described[pkg] = (type(conn).__name__, conn.errno, str(conn),
+                          type(torn).__name__, str(torn))
+    assert described["port"] == described["jax"]
+
+
+def _plan_run(pkg, corpus, plan: str) -> tuple:
+    fleet = PKGS[pkg].LocalFleet(corpus, 3, **FLEET_KW)
+    try:
+        with FAULTS[pkg].inject(plan) as p:
+            keys, counts = _client_drain(pkg, fleet.address)
+        return keys, p.fired(), counts
+    finally:
+        fleet.close()
+
+
+def test_fault_plan_dispatch_rpc_heals_through_policy(corpus):
+    """An injected dispatcher-unreachable burst on the client's locate
+    path (``~locate`` keeps the workers' ``next_split`` polls out of it)
+    heals through the shared policy with exact counters and the stream
+    of local parsing, in both packages."""
+    local = local_keys(corpus)
+    out = {}
+    for pkg in PKGS:
+        keys, fired, d = _plan_run(pkg, corpus, "dispatch_rpc~locate@1..2=conn")
+        assert keys == local
+        assert fired == 2
+        assert d["control_plane_retries"] == 2
+        assert d["dispatcher_restarts"] == 0
+        assert d["service_retries"] == 0  # absorbed below the stream
+        out[pkg] = (fired, d)
+    assert out["port"] == out["jax"]
+
+
+def test_fault_plan_worker_rpc_torn_storm(corpus):
+    """``worker_rpc=torn`` breaks the client's first part-stream connect;
+    the stream layer fails over and the epoch equals local parsing, one
+    ``service_retries``, in both packages."""
+    local = local_keys(corpus)
+    out = {}
+    for pkg in PKGS:
+        keys, fired, d = _plan_run(pkg, corpus, "worker_rpc~stream@1=torn")
+        assert keys == local
+        assert fired == 1
+        assert d["service_retries"] == 1
+        out[pkg] = (fired, d)
+    assert out["port"] == out["jax"]
+
+
+# ---------------- the same faults, from the test side ----------------
 
 def _client_drain(pkg, address) -> tuple:
     """The stream and the client's own counters (its scope's)."""

@@ -13,7 +13,9 @@ exports the same stage event names as the JAX run of the same pipeline,
 with every stage ``stats()["stages"]`` reports above 0, per-stage span sums
 within 10% of the busy seconds, and the stage sum at most
 ``wall_seconds``; ``DMLC_TPU_TRACE=1`` shows the profiler ranges; two
-concurrent iterators keep disjoint counters. The rest of the module
+concurrent iterators keep disjoint counters, under a flipped byte and
+under the JAX test's ``cache_read~a.blockcache@1=corrupt`` plan (as the
+JAX package's do). The rest of the module
 equals the JAX package's for the same inputs: the Prometheus text (and its
 parse, malformed lines refused), the decision log (trace id, extras, the
 bounded ring, the counts), the metrics history ring, the retirement of old
@@ -23,6 +25,7 @@ context and its wire form under each ``DMLC_TPU_TRACE_CONTEXT`` setting,
 ``component_snapshot`` and ``export_pod_trace``.
 """
 
+import functools
 import json
 import os
 import threading
@@ -34,6 +37,8 @@ import torch
 
 from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
+from dmlc_tpu.io import faults as jax_faults
+from dmlc_tpu.io import resilience as jax_resilience
 from dmlc_tpu.store import manager as jax_store
 from dmlc_tpu.utils import telemetry as jax_telemetry
 from dmlc_tpu.utils.timer import StageMeter as JaxStageMeter
@@ -42,6 +47,7 @@ from dmlc_tpu_torch.data.device import _adopt_pipeline_scope
 from dmlc_tpu_torch.data.parsers import Parser
 from dmlc_tpu_torch.data.row_block import RowBlock
 from dmlc_tpu_torch.io import block_cache as bc
+from dmlc_tpu_torch.io import faults as port_faults
 from dmlc_tpu_torch.io import resilience
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool, ThreadedIter
 from dmlc_tpu_torch.store import manager as port_store
@@ -489,6 +495,57 @@ def test_two_concurrent_iterators_keep_disjoint_counters(tmp_path):
     finally:
         for it in its.values():
             it.close()
+
+
+def test_two_concurrent_iterators_keep_disjoint_counters_under_a_fault_plan(tmp_path):
+    """``tests/test_telemetry.py``'s case in both packages: warm epochs of
+    two pipelines interleaved on one thread while
+    ``cache_read~a.blockcache@1=corrupt`` targets pipeline A's cache
+    only. A's ``stats()["resilience"]`` holds the corruption and the
+    rebuild, B's holds nothing, the process-wide counters hold both
+    pipelines; the two packages' books equal."""
+    out = {}
+    for pkg, make_parser, make_iter, faults, res in (
+            ("jax", jax_create_parser, JaxDeviceIter, jax_faults, jax_resilience),
+            ("port", create_parser, functools.partial(DeviceIter, device="cpu"), port_faults,
+             resilience)):
+        d = tmp_path / pkg
+        d.mkdir()
+        its = {}
+        for name, seed in (("a", 0), ("b", 1)):
+            parser = make_parser(_corpus(d, f"corpus_{name}.libsvm", seed=seed), 0, 1,
+                                 "libsvm", threaded=False,
+                                 block_cache=str(d / f"{name}.blockcache"), chunk_bytes=4096)
+            its[name] = make_iter(parser, num_col=NUM_COL, batch_size=128, layout="dense",
+                                  convert_workers=1, transfer_sample=0)
+        try:
+            for it in its.values():  # cold: publish both caches
+                for _ in it:
+                    pass
+            for it in its.values():
+                it.reset()
+            base = res.counters_snapshot()
+            with faults.inject("cache_read~a.blockcache@1=corrupt") as plan:
+                done = {"a": False, "b": False}
+                while not all(done.values()):
+                    for name, it in its.items():
+                        if not done[name]:
+                            try:
+                                next(it)
+                            except StopIteration:
+                                done[name] = True
+            res_a, res_b = its["a"].stats()["resilience"], its["b"].stats()["resilience"]
+            assert res_a["cache_corruptions"] == 1 and res_a["cache_rebuilds"] == 1
+            assert res_b["cache_corruptions"] == 0 and res_b["cache_rebuilds"] == 0
+            assert all(v == 0 for v in res_b.values()), res_b
+            assert res.counters_delta(base)["cache_corruptions"] == 1
+            out[pkg] = (plan.fired(), {k: v for k, v in res_a.items() if v},
+                        {k: v for k, v in res_b.items() if v})
+        finally:
+            for it in its.values():
+                it.close()
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == 1
 
 
 def test_stats_carries_the_pipeline_label(tmp_path):
