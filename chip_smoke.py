@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``dmlc_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
-    python3 chip_smoke.py --only cloud|tracker|service|faults [--repeat N]
+    python3 chip_smoke.py --only cloud|tracker|service|faults|surface [--repeat N]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -457,6 +457,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
     time): one retry, the weights of this process's clean epoch on the
     same rows. (f) The clean warm ELL epoch of (b) at 2 read workers
     beside phase 6's last warm ELL epoch, rows/s, printed only.
+23. the surface the earlier slices trimmed (``run_surface``), on phase 3's
+    corpus: (a) ``create_parser(index_dtype=np.uint32)`` and ``np.uint64``
+    on the numpy engine (``engine="python"``, whose blocks carry the
+    dtype) and on the fused reader (whose native ids stay ``uint64``, as
+    in the JAX package) -> ``DeviceIter(ell)`` -> ``LinearLearner``, the
+    first :data:`SURFACE_STEPS` steps of each: every batch's ELL tensors,
+    the losses and the weights bit-equal across the four legs, K1 and
+    ``dw`` launched a step on each, K1 and ``dw`` against their plain
+    versions on a batch of the ``uint32`` leg; (b) an ELL snapshot written
+    by a cold epoch, then warm epochs in turns at ``verify=True``, False,
+    False, True (``open_snapshot(verify=)`` -> ``SnapshotIter(raw=True)``
+    -> one K2 launch a batch, ``decode_batch``): the batches of every warm
+    epoch bit-equal to the cold epoch's, K2 launched once a batch, each
+    epoch's rows/s printed beside the card's name and power limit; (c)
+    ``segment_csr_matvec`` on CUDA tensors at HIGGS's batch (8,192 rows x
+    28 ids), through the row scatter's kernel: two runs bit-equal, equal to
+    ``row_scatter_add_ordered_plain`` bit for bit and to the CPU plain
+    version within 1e-5, its time (CUDA events behind a spin, the median
+    of 5) beside the plain route's (``index_add_``), ``torch.segment_reduce``'s
+    and its bytes bound. It adds no kernel.
     Then each phase's rows/s and stall share, every phase at the default
     ``convert_workers=2``, beside PR 11's (one producer thread,
     :data:`PR11_READER`) and the registry stack's before the reader
@@ -471,15 +491,15 @@ launches the card queues behind a spin (``launch_queue``). Phase 16 runs
 after them (a window opened after a pipeline ran behind a spin can miss a
 device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
-the main paths of phases 3, 6, 7 and 11-22, the windowed ones of phase
+the main paths of phases 3, 6, 7 and 11-23, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14, 11 (f)
 and 21 (c)), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
 
-``--only cloud|tracker|service|faults`` builds, writes phase 3's corpus and
-runs phase 19, 20, 21 or 22 alone ``--repeat`` times; ``cloud`` first runs the burst against a
+``--only cloud|tracker|service|faults|surface`` builds, writes phase 3's
+corpus and runs phase 19, 20, 21, 22 or 23 alone ``--repeat`` times; ``cloud`` first runs the burst against a
 fake on a backlog of 5 and one on the default, in turns, as often. It
 prints no kernels line and no result line.
 """
@@ -4819,17 +4839,31 @@ def run_read_pool(path: str, tmp: str, device) -> dict:
 
 def _spin_leg(path: str, device, convert_ahead: int) -> dict:
     """20 steps fed by ``DeviceIter(transfer_sample=1)`` enqueued behind a
-    spin, after the pool was let run ``convert_ahead`` batches ahead."""
+    spin, after the pool was let run ``convert_ahead`` batches ahead and its
+    workers parked (``settle_s``: at least 3 s)."""
     from dmlc_tpu_torch.ops import ell_matvec as k1
 
     model, it = _pool_pipeline(path, device, 2, transfer_sample=1,
                                convert_ahead=convert_ahead)
     model.step(next(it))
+    t0 = time.monotonic()
     time.sleep(3.0)
+    # then until the workers have parked on the full window (no convert
+    # finished for 0.5 s): on a slow host 3 s can leave them converting,
+    # and the pulls would share the interpreter lock with them, which is
+    # the busy leg's case, not this one's
+    last = None
+    while time.monotonic() - t0 < 30.0:
+        now = it.stats()["convert_seconds"]
+        if now == last:
+            break
+        last = now
+        time.sleep(0.5)
+    settle_s = time.monotonic() - t0
     samples0 = it.stats()["transfer_samples"]
     k1.launches = k1.dw_launches = 0
     spin = enqueue_behind_spin(lambda: model.step(next(it)))
-    out = {"convert_ahead": convert_ahead, **spin,
+    out = {"convert_ahead": convert_ahead, "settle_s": settle_s, **spin,
            "transfer_samples": it.stats()["transfer_samples"] - samples0,
            "k1_launches": k1.launches, "dw_launches": k1.dw_launches}
     it.close()
@@ -7690,6 +7724,193 @@ def run_faults(path: str, tmp: str, device, phase6_warm_rows_per_s=None) -> dict
     return out
 
 
+SURFACE_STEPS = 16             # phase 23 (a): steps a leg (the numpy engine's pace)
+SURFACE_LEGS = [("python", "uint32"), ("python", "uint64"), ("auto", "uint32"),
+                ("auto", "uint64")]  # phase 23 (a): (engine, index_dtype)
+SURFACE_VERIFY = (True, False, False, True)  # phase 23 (b): warm epochs in turns
+SEGMENT_RTOL = SEGMENT_ATOL = 1e-5
+
+
+def _surface_dtype_leg(path: str, device, engine: str, dtype: str) -> tuple:
+    """Phase 23 (a): one leg's first :data:`SURFACE_STEPS` ELL batches
+    (cloned), losses and weights, with its K1 / ``dw`` launches and the
+    dtype of its parser's first block."""
+    import torch
+
+    from dmlc_tpu_torch import create_parser
+    from dmlc_tpu_torch.ops import ell_matvec as k1
+    from dmlc_tpu_torch.ops.sparse import EllBatch
+
+    kw = {"index_dtype": getattr(np, dtype), "engine": engine}
+    probe = create_parser(path, 0, 1, "libsvm", **kw)
+    block_dtype = str(probe.next_block().index.dtype)
+    probe.close()
+    model, it = _store_pipeline(path, device, parser_kw=kw)
+    parser = type(it.source).__name__
+    k1_0, dw_0 = k1.launches, k1.dw_launches
+    batches, losses = [], []
+    t0 = time.monotonic()
+    for batch in it:
+        batches.append(EllBatch(*(t.clone() for t in batch)))
+        losses.append(model.step(batch))
+        if len(batches) == SURFACE_STEPS:
+            break
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    it.close()
+    rec = {"leg": f"{engine}_{dtype}", "parser": parser, "block_index_dtype": block_dtype,
+           "batches": len(batches), "wall_s": secs, "rows_per_s": len(batches) * BATCH / secs,
+           "k1_launches": k1.launches - k1_0, "dw_launches": k1.dw_launches - dw_0}
+    return rec, batches, torch.stack(losses), _weights(model), model
+
+
+def _surface_warm_epoch(snap: str, device, verify: bool, num_col: int) -> tuple:
+    """Phase 23 (b): one warm epoch of the snapshot at ``verify``: its
+    spans read (and, verified, crc-checked) and copied on two read
+    workers, each crossed to the card and decoded by one K2 launch."""
+    import torch
+
+    from dmlc_tpu_torch.io.snapshot import SnapshotIter, open_snapshot
+    from dmlc_tpu_torch.ops import device_decode as dd
+
+    reader = open_snapshot(snap, verify=verify)
+    if reader is None:
+        raise AssertionError(f"phase 23 (b): {snap} did not open")
+
+    def stage(pos, host_batch, resume, nbytes):
+        _, span, layout, kind = host_batch
+        return torch.from_numpy(np.array(span)), layout, kind
+
+    it = SnapshotIter(reader, raw=True, read_workers=2, stage=stage)
+    dig = _Digests(device)
+    k2_0, nb = dd.launches, 0
+    t0 = time.monotonic()
+    try:
+        while (item := it.next()) is not None:
+            host, layout, kind = item
+            dig.add(dd.decode_batch(host.to(device), layout, kind, num_col))
+            nb += 1
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+    finally:
+        it.destroy()
+        reader.close()
+    return ({"verify": verify, "batches": nb, "wall_s": secs, "rows_per_s": nb * BATCH / secs,
+             "k2_launches": dd.launches - k2_0}, dig)
+
+
+def _surface_segment(device, seed: int) -> dict:
+    """Phase 23 (c): ``segment_csr_matvec`` at HIGGS's batch on the card
+    against its plain versions, and its times (module docstring)."""
+    import torch
+
+    from dmlc_tpu_torch.ops import row_scatter as rs
+    from dmlc_tpu_torch.ops.sparse import segment_csr_matvec
+
+    b, k = BATCH, HIGGS_COLS
+    g = torch.Generator(device="cpu").manual_seed(seed + 23)
+    host = (torch.randn(k + 1, generator=g), torch.arange(k, dtype=torch.int32).repeat(b),
+            torch.randn(b * k, generator=g),
+            torch.arange(b, dtype=torch.int32).repeat_interleave(k))
+    w, index, value, rows = (t.to(device) for t in host)
+    rs0 = rs.launches
+    first = segment_csr_matvec(w, index, value, rows, b)
+    again = segment_csr_matvec(w, index, value, rows, b)
+    launched = rs.launches - rs0
+    ordered = rs.row_scatter_add_ordered_plain((b,), rows, w[index.long()] * value)
+    plain = segment_csr_matvec(*host, b)
+    torch.cuda.synchronize()
+    err = float((first.cpu() - plain).abs().max())
+    index_l, rows_l = index.long(), rows.long()
+    lengths = torch.full((b,), k, dtype=torch.int64, device=device)
+    ms = device_ms(lambda: segment_csr_matvec(w, index, value, rows, b))
+    plain_ms = device_ms(lambda: torch.zeros(b, device=device).index_add_(
+        0, rows_l, w[index_l] * value))
+    library_ms = device_ms(lambda: torch.segment_reduce(w[index_l] * value, "sum",
+                                                         lengths=lengths))
+    nbytes = (k + 1) * 4 + b * k * (4 + 4 + 4) + b * 4  # w, index, value, row ids; out
+    bound_ms, bound_by = bound(nbytes, 2 * b * k)
+    out = {"shape": f"{b}x{k}", "row_scatter_launches": launched,
+           "bits_equal_twice": bool(torch.equal(first, again)),
+           "bits_equal_ordered_plain": bool(torch.equal(first, ordered)),
+           "max_abs_err_vs_cpu": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "torch.segment_reduce",
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if not (out["bits_equal_twice"] and out["bits_equal_ordered_plain"] and launched == 2
+            and torch.allclose(first.cpu(), plain, rtol=SEGMENT_RTOL, atol=SEGMENT_ATOL)):
+        raise AssertionError(f"phase 23 (c): {out}")
+    return out
+
+
+def run_surface(path: str, tmp: str, device) -> dict:
+    """Phase 23 (module docstring), in a directory of its own."""
+    import shutil
+
+    import torch
+
+    t0 = time.monotonic()
+    d = os.path.join(tmp, "surface23")
+    os.makedirs(d)
+    # (a) the index dtype through the learner
+    legs, recs = {}, []
+    for engine, dtype in SURFACE_LEGS:
+        rec, batches, losses, weights, model = _surface_dtype_leg(path, device, engine, dtype)
+        legs[rec["leg"]] = (batches, losses, weights)
+        recs.append(rec)
+        _launch_gate(rec, rec["leg"], phase=23)
+        if rec["leg"] == "python_uint32":
+            checks = _k1_on_batch(model, batches[0])
+    ref_batches, ref_losses, ref_w = legs["python_uint64"]
+    equal = {leg: bool(len(b) == len(ref_batches) == SURFACE_STEPS
+                       and all(all(torch.equal(x, y) for x, y in zip(p, q))
+                               for p, q in zip(b, ref_batches))
+                       and torch.equal(losses, ref_losses) and _same_weights(w, ref_w))
+             for leg, (b, losses, w) in legs.items()}
+    a = {"legs": recs, "bits_equal_uint64": equal, **checks}
+    emit({"phase": "surface_index_dtype", **a})
+    if not all(equal.values()):
+        raise AssertionError(f"phase 23 (a): batches, losses or weights differ: {equal}")
+    if recs[0]["block_index_dtype"] != "uint32":
+        raise AssertionError(f"phase 23 (a): the numpy engine gave {recs[0]} blocks")
+    # (b) warm epochs of an ELL snapshot, verified and not
+    snap = os.path.join(d, "ell.snapshot")
+    model, it = _store_pipeline(path, device, parser_kw={"snapshot": snap})
+    cold_dig = _Digests(device)
+    cold = _store_epoch(model, it, "surface_cold", cold_dig)
+    it.close()
+    _launch_gate(cold, "cold", phase=23)
+    warm = []
+    for verify in SURFACE_VERIFY:
+        rec, dig = _surface_warm_epoch(snap, device, verify, model.device_num_col())
+        rec["bits_equal_cold"] = _epochs_equal([dig], [cold_dig])
+        warm.append(rec)
+    rates = {v: [r["rows_per_s"] for r in warm if r["verify"] == v] for v in (True, False)}
+    b = {"epochs": warm, "cold_rows_per_s": cold["rows_per_s"],
+         "verified_rows_per_s": statistics.median(rates[True]),
+         "unverified_rows_per_s": statistics.median(rates[False]), "gpu": smi_line()}
+    b["unverified_over_verified"] = b["unverified_rows_per_s"] / b["verified_rows_per_s"]
+    emit({"phase": "surface_unverified_warm", **b})
+    for r in warm:
+        if not (r["bits_equal_cold"] and r["batches"] == cold["batches"]
+                and r["k2_launches"] == r["batches"]):
+            raise AssertionError(f"phase 23 (b): {r}")
+    # (c) segment_csr_matvec
+    c = _surface_segment(device, 0)
+    emit({"phase": "surface_segment_csr_matvec", **c, "gpu": smi_line()})
+    shutil.rmtree(d)
+    out = {"a": a, "b": b, "c": c, "wall_s": time.monotonic() - t0,
+           "k1_launches": sum(r["k1_launches"] for r in recs) + cold["k1_launches"],
+           "dw_launches": sum(r["dw_launches"] for r in recs) + cold["dw_launches"],
+           "k2_launches": sum(r["k2_launches"] for r in warm),
+           "k1_max_abs_err": checks["k1_max_abs_err"],
+           "dw_max_abs_err": checks["dw_max_abs_err"]}
+    emit({"phase": "surface_total", "wall_s": out["wall_s"], "k1_launches": out["k1_launches"],
+          "dw_launches": out["dw_launches"], "k2_launches": out["k2_launches"],
+          "reduced": "HIGGS (UCI 280) 11,000,000 rows cut to 1,048,576 for the time limit, "
+                     f"(a) to its first {SURFACE_STEPS} batches a leg; 28 features as published"})
+    return out
+
+
 def producer_change(now: dict) -> dict:
     """Each phase's rows/s and stall share at the default convert width
     beside PR 11's (:data:`PR11_READER`, one producer thread) and the
@@ -7707,9 +7928,9 @@ def producer_change(now: dict) -> dict:
 
 
 def run_only(which: str, repeat: int, seed: int) -> int:
-    """``--only cloud|tracker|service|faults``: phase 1's builds, phase 3's
-    corpus, then phase 19, 20, 21 or 22 ``repeat`` times, each in a directory
-    of its own. With
+    """``--only cloud|tracker|service|faults|surface``: phase 1's builds,
+    phase 3's corpus, then phase 19, 20, 21, 22 or 23 ``repeat`` times, each
+    in a directory of its own. With
     ``cloud`` it also runs the burst probe against a fake whose servers
     keep ``socketserver``'s backlog of 5 and against one on the default,
     ``repeat`` times each, in turns."""
@@ -7737,7 +7958,7 @@ def run_only(which: str, repeat: int, seed: int) -> int:
             failed = None
             try:
                 {"cloud": run_cloud, "tracker": run_tracker, "service": run_service,
-                 "faults": run_faults}[which](path, d, dev)
+                 "faults": run_faults, "surface": run_surface}[which](path, d, dev)
             except AssertionError as exc:
                 failed = str(exc)[:2000]
             emit({"phase": f"only_{which}", "run": i, "wall_s": time.monotonic() - t0,
@@ -7754,9 +7975,10 @@ def main() -> int:
                          "its K1, its K2 route (a one-segment K2) and its row scatter "
                          "beside this one's, in turns")
     ap.add_argument("--parallel-child", nargs="+", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=["cloud", "tracker", "service", "faults"], default=None,
-                    help="build, write phase 3's corpus and run phase 19, 20, 21 or 22 alone "
-                         "(--repeat times); no kernels line and no result line")
+    ap.add_argument("--only", choices=["cloud", "tracker", "service", "faults", "surface"],
+                    default=None,
+                    help="build, write phase 3's corpus and run phase 19, 20, 21, 22 or 23 "
+                         "alone (--repeat times); no kernels line and no result line")
     ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args()
 
@@ -7965,6 +8187,9 @@ def main() -> int:
         # phase 22: fault plans against the learners, each leg's launches
         # counted around its epochs (the child's in the child)
         faults22 = run_faults(path, tmp, dev, warm_ell["epochs"][-1]["rows_per_s"])
+        # phase 23: the surface on the card, each leg's launches counted
+        # around its epochs
+        surf23 = run_surface(path, tmp, dev)
 
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     k1_main = k1_rows[0]
@@ -7981,13 +8206,14 @@ def main() -> int:
                      + pools["spin"]["k1_launches"] + fs["launches"]["k1"]
                      + tune["k1_launches"] + store17["k1_launches"] + host18["k1_launches"]
                      + cloud19["k1_launches"] + pod20["k1_launches"] + svc21["k1_launches"]
-                     + faults22["k1_launches"]),
+                     + faults22["k1_launches"] + surf23["k1_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
                            + [fs["kernels"]["max_abs_err"], tune["cold"]["k1_max_abs_err"],
                               store17["cachefile"]["k1_max_abs_err"],
                               host18["mem"]["k1_max_abs_err"],
                               cloud19["s3"]["k1_max_abs_err"], pod20["k1_max_abs_err"],
-                              svc21["k1_max_abs_err"], faults22["k1_max_abs_err"]]),
+                              svc21["k1_max_abs_err"], faults22["k1_max_abs_err"],
+                              surf23["k1_max_abs_err"]]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"]}, {
@@ -8001,14 +8227,15 @@ def main() -> int:
                      + pools["spin"]["dw_launches"] + fs["launches"]["dw"]
                      + tune["dw_launches"] + store17["dw_launches"] + host18["dw_launches"]
                      + cloud19["dw_launches"] + pod20["dw_launches"] + svc21["dw_launches"]
-                     + faults22["dw_launches"]),
+                     + faults22["dw_launches"] + surf23["dw_launches"]),
         "max_abs_err": max([r["dw_kernel_max_abs_err"] for r in k1_rows
                             if r["dw_route"] == "cuda"]
                            + [fs["kernels"]["dw_max_abs_err"], tune["cold"]["dw_max_abs_err"],
                               store17["cachefile"]["dw_max_abs_err"],
                               host18["mem"]["dw_max_abs_err"],
                               cloud19["s3"]["dw_max_abs_err"], pod20["dw_max_abs_err"],
-                              svc21["dw_max_abs_err"], faults22["dw_max_abs_err"]]),
+                              svc21["dw_max_abs_err"], faults22["dw_max_abs_err"],
+                              surf23["dw_max_abs_err"]]),
         "ms": k1_main["dw_ms"], "plain_ms": k1_main["dw_plain_ms"],
         "bound_ms": k1_main["dw_bound_ms"], "bound_by": k1_main["dw_bound_by"],
         "library_ms": k1_main["dw_library_ms"]}, {
@@ -8019,7 +8246,8 @@ def main() -> int:
                      + ckpt_k2 + bc_snap["k2_launches"] + formats["csv"]["k2_launches"]
                      + native["dense"]["k2_launches"] + pools["read"]["k2_launches"]
                      + tune["k2_launches"] + store17["k2_launches"] + host18["k2_launches"]
-                     + cloud19["k2_launches"] + svc21["k2_launches"] + faults22["k2_launches"]),
+                     + cloud19["k2_launches"] + svc21["k2_launches"] + faults22["k2_launches"]
+                     + surf23["k2_launches"]),
         "max_abs_err": max([r["max_abs_err"] for r in k2_rows["kinds"] + k2_rows["segments"]]
                            + [faults22["k2_max_abs_err"]]),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],

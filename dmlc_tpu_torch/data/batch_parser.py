@@ -80,7 +80,7 @@ class NativeBatchParser(TextParserBase):
               "native-batch engine emits the cache's uint64 index layout; "
               "pass index_dtype=uint64 or use engine='python'")
         check(native.available(), "native core unavailable")
-        super().__init__(source)
+        super().__init__(source, index_dtype)
         self.fmt_name = fmt_name
         self.param = {"libsvm": LibSVMParserParam, "csv": CSVParserParam,
                       "libfm": LibFMParserParam}[fmt_name]()
@@ -110,7 +110,7 @@ class NativeBatchParser(TextParserBase):
             raise DMLCError("native core unavailable")
         if out["rows"] == 0:
             return RowBlock(np.zeros(1, np.int64), np.empty(0, np.float32),
-                            np.empty(0, np.uint64))
+                            np.empty(0, self.index_dtype))
         owner = out["_owner"]
         block = RowBlock.from_segments(out["segments"], hold=owner)
         block.encoded = EncodedSegments(out["data"], out["arrays"], out["crc"], out["rows"],

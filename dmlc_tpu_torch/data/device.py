@@ -1041,14 +1041,14 @@ class DeviceIter:
         if self.layout == "dense":
             return block  # its parts are packed in one pass (_pack_dense)
         if self.layout == "bcoo":
-            # an id >= num_col becomes a value-0 slot (JAX's BCOO masks it)
-            masked = len(block.index) and int(block.index.max()) >= self.num_col
-            elide = (self.elide_unit_values and not masked
-                     and (block.value is None or bool((block.value == 1.0).all())))
-            return block_to_bcoo_host(block, self.num_col, pad_rows_to=pad,
-                                      pad_nnz_to=pad_nnz) + (
-                len(block.index), _row_major(block.index, block.offset[1:-1], self.num_col),
-                elide)
+            # an id >= num_col becomes a value-0 slot (JAX's BCOO masks it),
+            # and its block keeps its values
+            arrays = block_to_bcoo_host(block, self.num_col, pad_rows_to=pad,
+                                        unit_values_as_none=self.elide_unit_values,
+                                        pad_nnz_to=pad_nnz)
+            return arrays + (len(block.index),
+                             _row_major(block.index, block.offset[1:-1], self.num_col),
+                             arrays[1] is None)
         if len(block.index) and int(block.index.max()) >= self.num_col:
             # ell's pad index num_col addresses the sink: a larger index
             # would read outside the weight table (JAX's ell path gives NaN)
@@ -1165,7 +1165,7 @@ class DeviceIter:
         """A bcoo batch into the slot's u8 span (:func:`_bcoo_offsets`);
         elided values are not shipped."""
         coords, vals, label, weight, (rows, _), real_nnz, row_major, elide = arrays
-        nnz, isz = len(vals), coords.dtype.itemsize
+        nnz, isz = len(coords), coords.dtype.itemsize
         o_val, o_label, o_weight, nbytes = _bcoo_offsets(isz, nnz, rows, not elide)
         span = self._span(slot, nbytes)
         span[: 2 * nnz * isz].view(coords.dtype).reshape(2, nnz)[...] = coords.T

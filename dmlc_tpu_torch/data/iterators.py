@@ -158,7 +158,7 @@ class DiskRowIter(RowBlockIter):
                 if len(container) == 0:
                     return
                 pages.append(f.tell())
-                container.to_block().save(f)
+                container.save(f)
                 container = RowBlockContainer()
                 cur_bytes = 0
 

@@ -54,7 +54,7 @@ def list_partition_files(uri: str) -> Tuple[List[str], List[int]]:
     """A local URI (``;`` lists, directories) expanded to ``(paths,
     sizes)`` with the input split's matching rules."""
     check(isinstance(get_filesystem(uri), LocalFileSystem), "native reader requires local files")
-    lister = LineSplitter(uri, None)  # the listing only: no partition
+    lister = LineSplitter(get_filesystem(uri), uri)  # the listing only: no partition
     try:
         return ([info.path.name for info in lister.files],
                 [info.size for info in lister.files])
@@ -73,9 +73,6 @@ class NativeStreamParser(Parser):
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES):
         check(fmt_name in ("libsvm", "csv", "libfm"),
               f"native reader does not support format {fmt_name!r}")
-        check(np.dtype(index_dtype) == np.dtype(np.uint64),
-              f"index_dtype {np.dtype(index_dtype)}: dmlc_tpu_torch parses uint64 "
-              "indices only")
         # the input split's partition checks: num_parts=0 would divide by
         # zero in the native byte range, and an out-of-range part would
         # silently yield an empty stream
@@ -83,6 +80,9 @@ class NativeStreamParser(Parser):
         check(0 <= part_index < num_parts,
               f"part_index {part_index} out of range for {num_parts} parts")
         self.fmt_name = fmt_name
+        # the csv skeleton's type; the native libsvm and libfm ids stay
+        # uint64, as in the JAX package (dmlc_tpu/data/native_parser.py:78)
+        self.index_dtype = index_dtype
         self.chunk_bytes = chunk_bytes
         self.part_index = part_index
         self.num_parts = num_parts
@@ -226,7 +226,7 @@ class NativeStreamParser(Parser):
                             field=data["field"], hold=data["_owner"])
         if fmt == native.FMT_CSV_SPLIT:
             values, label, weight, n, owner = data
-            index, offset = _csv_skeleton(n, values.shape[1])
+            index, offset = _csv_skeleton(n, values.shape[1], self.index_dtype)
             if label is None:
                 label = np.zeros(n, np.float32)
             return RowBlock(offset=offset, label=label, index=index,
@@ -238,7 +238,7 @@ class NativeStreamParser(Parser):
                                       self.param.label_column, self.param.weight_column,
                                       owner)
         block = csv_cells_to_block(cells, n, ncol, self.param.label_column,
-                                   self.param.weight_column)
+                                   self.param.weight_column, self.index_dtype)
         block.hold = owner
         return block
 
@@ -342,7 +342,7 @@ def _native_eligible(uri: str, type_: str, threaded: bool, split_kw: Optional[Di
 
 
 def native_reader_eligible(uri: str, type_: str, threaded: bool,
-                           split_kw: Optional[Dict] = None) -> bool:
+                           split_kw: Dict) -> bool:
     """Whether ``create_parser`` can route ``uri`` to the fused reader: a
     plain local text file (:func:`_native_eligible`)."""
     return _native_eligible(uri, type_, threaded, split_kw, want_local=True)
@@ -377,7 +377,8 @@ class NativeFeedParser(NativeStreamParser):
         self._feed_exc: Optional[BaseException] = None  # the feed thread's error
 
     def _make_split(self) -> LineSplitter:
-        return LineSplitter(self.uri, self.part_index, self.num_parts)
+        return LineSplitter(get_filesystem(self.uri), self.uri, part_index=self.part_index,
+                            num_parts=self.num_parts)
 
     def _start_feed(self) -> None:
         feeder = self._reader
@@ -465,7 +466,7 @@ class NativeFeedParser(NativeStreamParser):
 
 
 def native_feed_eligible(uri: str, type_: str, threaded: bool,
-                         split_kw: Optional[Dict] = None) -> bool:
+                         split_kw: Dict) -> bool:
     """Whether ``create_parser`` can route ``uri`` to the chunk feeder: a
     plain text file on a registered filesystem other than the local one
     (:func:`_native_eligible`)."""

@@ -96,6 +96,12 @@ class Parser:
     def before_first(self) -> None:
         raise NotImplementedError
 
+    @property
+    def bytes_read(self) -> int:
+        """Source bytes consumed so far; 0 for a parser that reads none
+        (JAX's ``Parser.bytes_read``, ``dmlc_tpu/data/parsers.py:65``)."""
+        return 0
+
     def __iter__(self) -> Iterator[RowBlock]:
         while True:
             blk = self.next_block()
@@ -143,6 +149,11 @@ class TextParserBase(Parser):
     numpy engine (``create_parser(engine="python")`` pins numpy after the
     build, :func:`_pin_python_scanner`). A chunk the numpy engine cannot
     convert raises DMLCError, as the native one does.
+
+    ``index_dtype`` is the blocks' index (and libfm field) type, as in the
+    JAX package (``dmlc_tpu/data/parsers.py:136``): the numpy engine and
+    the csv skeleton emit it, while the native libsvm and libfm scanners
+    emit their ``uint64`` ids as they come, as JAX's do.
     """
 
     # per-chunk native scanner threads, 0 the native default; the fan-out
@@ -157,8 +168,9 @@ class TextParserBase(Parser):
     # whether the native engine has a dense scanner for this format
     _dense_scanner: bool = False
 
-    def __init__(self, source: InputSplit):
+    def __init__(self, source: InputSplit, index_dtype=np.uint64):
         self.source = source
+        self.index_dtype = index_dtype
         self._bytes = 0      # chunk bytes pulled, over the parser's life
         self._chunks_in = 0  # chunks pulled this epoch
         # None: not probed yet; False for the numpy engine
@@ -339,8 +351,8 @@ def _apply_indexing_mode(index: np.ndarray, mode: int) -> np.ndarray:
     return index
 
 
-def _empty_block() -> RowBlock:
-    return RowBlock(np.zeros(1, np.int64), np.empty(0, np.float32), np.empty(0, np.uint64))
+def _empty_block(index_dtype) -> RowBlock:
+    return RowBlock(np.zeros(1, np.int64), np.empty(0, np.float32), np.empty(0, index_dtype))
 
 
 # bytes.split() whitespace, as a byte-indexed lookup table
@@ -426,8 +438,9 @@ class LibSVMParser(TextParserBase):
 
     _dense_scanner = True
 
-    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None):
-        super().__init__(source)
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
+                 index_dtype=np.uint64):
+        super().__init__(source, index_dtype)
         self.param = LibSVMParserParam()
         self.param.init(dict(args or {}), allow_unknown=True)
         check(self.param.format == "libsvm", "LibSVMParser: format must be libsvm")
@@ -461,11 +474,11 @@ class LibSVMParser(TextParserBase):
             offset = np.concatenate([[0], np.cumsum(nnz)])
             if len(feats) == 0:
                 return RowBlock(offset=offset, label=labels,
-                                index=np.empty(0, np.uint64))
+                                index=np.empty(0, self.index_dtype))
             index = _apply_indexing_mode(feats[0::2].astype(np.int64),
                                          self.param.indexing_mode)
             return RowBlock(offset=offset, label=labels,
-                            index=index.astype(np.uint64, copy=False),
+                            index=index.astype(self.index_dtype, copy=False),
                             value=feats[1::2].astype(np.float32))
         self._fast_rejects += 1
         lines = _tokenize_lines(chunk)
@@ -489,7 +502,7 @@ class LibSVMParser(TextParserBase):
         if has_qid and len(qid_vals) != n:
             raise DMLCError("libsvm: qid must appear on every row or none")
         if n == 0:
-            return _empty_block()
+            return _empty_block(self.index_dtype)
         # labels (with optional :weight)
         label_arr = np.array(label_toks)
         if any(b":" in t for t in label_toks):
@@ -526,7 +539,7 @@ class LibSVMParser(TextParserBase):
         return RowBlock(
             offset=np.concatenate([[0], np.cumsum(nnz)]),
             label=labels,
-            index=index.astype(np.uint64, copy=False),
+            index=index.astype(self.index_dtype, copy=False),
             value=value,
             weight=weights,
             qid=np.array(qid_vals, np.int64) if has_qid else None,
@@ -540,8 +553,9 @@ class CSVParser(TextParserBase):
 
     _dense_scanner = True
 
-    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None):
-        super().__init__(source)
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
+                 index_dtype=np.uint64):
+        super().__init__(source, index_dtype)
         self.param = CSVParserParam()
         self.param.init(dict(args or {}), allow_unknown=True)
         check(self.param.format == "csv", "CSVParser: format must be csv")
@@ -559,13 +573,13 @@ class CSVParser(TextParserBase):
                                         nthread=self._parse_nthread)
         n, ncol = cells.shape
         if n == 0:
-            return _empty_block()
+            return _empty_block(self.index_dtype)
         if self._emit_dense is not None:
             return csv_cells_to_dense(cells, n, ncol, self._emit_dense,
                                       self.param.label_column, self.param.weight_column,
                                       owner)
         return csv_cells_to_block(cells, n, ncol, self.param.label_column,
-                                  self.param.weight_column)
+                                  self.param.weight_column, self.index_dtype)
 
     def parse_chunk_py(self, chunk: bytes) -> RowBlock:
         if chunk.startswith(b"\xef\xbb\xbf"):
@@ -575,7 +589,7 @@ class CSVParser(TextParserBase):
         rows = [r for r in norm.split(b"\n") if r]
         n = len(rows)
         if n == 0:
-            return _empty_block()
+            return _empty_block(self.index_dtype)
         ncol = rows[0].count(delim) + 1
         # one vectorized conversion of the whole chunk
         tokens = np.array(norm.replace(delim, b" ").split())
@@ -583,7 +597,7 @@ class CSVParser(TextParserBase):
             raise DMLCError(f"csv: ragged chunk - expected {n}x{ncol} cells, got {len(tokens)}")
         cells = tokens.astype(self._dtype).reshape(n, ncol)
         return csv_cells_to_block(cells, n, ncol, self.param.label_column,
-                                  self.param.weight_column)
+                                  self.param.weight_column, self.index_dtype)
 
 
 def csv_cells_to_dense(cells: np.ndarray, n: int, ncol: int, num_col: int,
@@ -612,15 +626,15 @@ _CSV_SKELETON_CACHE: dict = {}
 _CSV_SKELETON_LOCK = threading.Lock()
 
 
-def _csv_skeleton(n: int, k: int):
-    key = (n, k)
+def _csv_skeleton(n: int, k: int, index_dtype):
+    key = (n, k, np.dtype(index_dtype).str)
     with _CSV_SKELETON_LOCK:
         hit = _CSV_SKELETON_CACHE.get(key)
         if hit is not None:
             return hit
     # built outside the lock; concurrent builders of one key converge on
     # whichever insert wins
-    index = np.tile(np.arange(k, dtype=np.uint64), n)
+    index = np.tile(np.arange(k, dtype=index_dtype), n)
     # k == 0 (every column is label or weight) is legal: all offsets 0
     offset = np.arange(0, (n + 1) * k, k, dtype=np.int64) if k else np.zeros(n + 1, np.int64)
     index.flags.writeable = False
@@ -636,9 +650,10 @@ def _csv_skeleton(n: int, k: int):
 
 
 def csv_cells_to_block(cells: np.ndarray, n: int, ncol: int, label_column: int,
-                       weight_column: int) -> RowBlock:
-    """A cell matrix -> RowBlock with synthetic indices 0..k
-    (csv_parser.h:120-121), shared by the native and numpy engines."""
+                       weight_column: int, index_dtype) -> RowBlock:
+    """A cell matrix -> RowBlock with synthetic indices 0..k of
+    ``index_dtype`` (csv_parser.h:120-121), shared by the native and numpy
+    engines (JAX's ``csv_cells_to_block``, ``dmlc_tpu/data/parsers.py:708``)."""
     lc, wc = label_column, weight_column
     check(lc < ncol, f"csv: label_column {lc} >= num columns {ncol}")
     check(wc < ncol, f"csv: weight_column {wc} >= num columns {ncol}")
@@ -653,7 +668,7 @@ def csv_cells_to_block(cells: np.ndarray, n: int, ncol: int, label_column: int,
         values = np.ascontiguousarray(cells[:, feat_cols].astype(np.float32, copy=False))
     label = cells[:, lc].astype(np.float32) if lc >= 0 else np.zeros(n, np.float32)
     weight = cells[:, wc].astype(np.float32) if wc >= 0 else None
-    index, offset = _csv_skeleton(n, k)
+    index, offset = _csv_skeleton(n, k, index_dtype)
     return RowBlock(offset=offset, label=label, index=index,
                     value=values.reshape(-1), weight=weight)
 
@@ -661,8 +676,9 @@ def csv_cells_to_block(cells: np.ndarray, n: int, ncol: int, label_column: int,
 class LibFMParser(TextParserBase):
     """libfm ``label field:idx:val`` -> RowBlock (libfm_parser.h:85-143)."""
 
-    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None):
-        super().__init__(source)
+    def __init__(self, source: InputSplit, args: Dict[str, str] | None = None,
+                 index_dtype=np.uint64):
+        super().__init__(source, index_dtype)
         self.param = LibFMParserParam()
         self.param.init(dict(args or {}), allow_unknown=True)
         check(self.param.format == "libfm", "LibFMParser: format must be libfm")
@@ -686,7 +702,7 @@ class LibFMParser(TextParserBase):
             lines = _tokenize_lines(chunk)
             n = len(lines)
             if n == 0:
-                return _empty_block()
+                return _empty_block(self.index_dtype)
             nnz = np.array([len(toks) - 1 for toks in lines], np.int64)
             labels = np.array([toks[0] for toks in lines]).astype(np.float32)
             feat_toks = [t for toks in lines for t in toks[1:]]
@@ -711,8 +727,8 @@ class LibFMParser(TextParserBase):
             index = index - 1
             fields = fields - 1
         return RowBlock(offset=np.concatenate([[0], np.cumsum(nnz)]), label=labels,
-                        index=index.astype(np.uint64, copy=False), value=value,
-                        field=fields.astype(np.uint64, copy=False))
+                        index=index.astype(self.index_dtype, copy=False), value=value,
+                        field=fields.astype(self.index_dtype, copy=False))
 
 
 def annot_key(state: Optional[dict]) -> str:
@@ -754,14 +770,20 @@ class ParallelTextParser(Parser):
     and seeks (``kind="split"``) or replays a block count
     (``kind="blocks"``), and the next pull starts production where the
     base then stands.
+
+    ``max_ahead`` bounds the chunks in flight (JAX's keyword,
+    ``dmlc_tpu/data/parsers.py:998``; None: ``max(4, 2 * num_workers)``);
+    :attr:`stall_seconds` is the consumer's wait on the pool since
+    production last started (0 before it).
     """
 
     def __init__(self, base: TextParserBase, num_workers: int = 2,
+                 max_ahead: Optional[int] = None,
                  restart_policy: Optional[_resilience.RetryPolicy] = None):
         self.base = base
         self.num_workers = max(1, int(num_workers))
         # a couple of chunks in flight a worker rides out parse-time variance
-        self._ahead = max(4, 2 * self.num_workers)
+        self._ahead = int(max_ahead) if max_ahead is not None else max(4, 2 * self.num_workers)
         self._restart_policy = restart_policy
         base._parse_nthread = 1 if self.num_workers > 1 else 0
         self._pool: Optional[OrderedWorkerPool] = None
@@ -940,6 +962,10 @@ class ParallelTextParser(Parser):
                 "parse_span_seconds": span, "parse_parallelism_efficiency": eff}
 
     @property
+    def stall_seconds(self) -> float:
+        return self._pool.stall_seconds if self._pool is not None else 0.0
+
+    @property
     def bytes_read(self) -> int:
         return self.base.bytes_read
 
@@ -950,14 +976,32 @@ class ParallelTextParser(Parser):
 
 class ThreadedParser(ParallelTextParser):
     """Parse-ahead decorator — analog of ThreadedParser (parser.h:70-126):
-    the fan-out at one lane, under the JAX package's name. Like the JAX
-    class it reports no :meth:`parallel_stats`."""
+    the fan-out at one lane, under the JAX package's name, ``capacity``
+    blocks ahead (JAX's ``ThreadedParser(capacity=8)``,
+    ``dmlc_tpu/data/parsers.py:908``). Like the JAX class it reports no
+    :meth:`parallel_stats`."""
 
     # one lane, as the JAX class: no live width, so no autotuner parse knob
     resize_parse_workers = None
 
-    def __init__(self, base: TextParserBase):
-        super().__init__(base, num_workers=1)
+    def __init__(self, base: TextParserBase, capacity: int = 8):
+        super().__init__(base, num_workers=1, max_ahead=capacity)
+        self._stall_carried = 0.0
+
+    def _quiesce(self) -> None:
+        super()._quiesce()
+        self._stall_carried = 0.0
+
+    def before_first(self) -> None:
+        # the JAX class rewinds its one producer in place, so its stall
+        # clock runs on across epochs (a restore or a repartition resets it)
+        carried = self.stall_seconds
+        super().before_first()
+        self._stall_carried = carried
+
+    @property
+    def stall_seconds(self) -> float:
+        return self._stall_carried + super().stall_seconds
 
     def parallel_stats(self) -> Optional[dict]:
         return None
@@ -991,6 +1035,12 @@ class BlockCacheIter(Parser):
       on cold from the broken block, re-parsing and rewriting the whole
       cache; a plan-ordered one rebuilds the cache in one silent pass and
       goes on at the same plan position. The stream is unchanged.
+      ``verify=False`` (JAX's keyword, ``dmlc_tpu/data/parsers.py:1248``)
+      skips the crc32 of warm blocks, so a corrupt block is served as it
+      is read and nothing heals; an injected ``cache_read`` fault still
+      fires;
+    - the cache is bound to one partition: :meth:`reset_partition` raises,
+      with the JAX package's message.
 
     **The epoch plan** (``shuffle_seed``, ``shuffle_window``, ``host_id`` /
     ``num_hosts``): every warm epoch serves its blocks through an
@@ -1018,7 +1068,7 @@ class BlockCacheIter(Parser):
     """
 
     def __init__(self, base: Union[Parser, Callable[[], Parser]], cache_file: str,
-                 signature: Optional[dict] = None,
+                 signature: Optional[dict] = None, verify: bool = True,
                  shuffle_seed: Optional[int] = None, shuffle_window: int = 0,
                  host_id: int = 0, num_hosts: int = 1):
         check(num_hosts >= 1 and 0 <= host_id < num_hosts,
@@ -1027,6 +1077,7 @@ class BlockCacheIter(Parser):
         self._base: Optional[Parser] = None if callable(base) else base
         self.cache_file = cache_file
         self._signature = signature
+        self._verify = verify
         self._reader: Optional[_bc.BlockCacheReader] = None
         self._writer: Optional[_bc.BlockCacheWriter] = None
         self._mode = "cold"
@@ -1090,7 +1141,7 @@ class BlockCacheIter(Parser):
     # ---------------- the cache file ----------------
 
     def _open_reader(self) -> bool:
-        reader = _bc.open_block_cache(self.cache_file, self._signature)
+        reader = _bc.open_block_cache(self.cache_file, self._signature, verify=self._verify)
         if reader is None:
             self._mode = "cold"
             return False
@@ -1343,6 +1394,12 @@ class BlockCacheIter(Parser):
             return  # the finished cold pass published: serve warm
         self._shadow = True
         self.base.before_first()
+
+    def reset_partition(self, part_index: int, num_parts: int) -> None:
+        raise DMLCError(
+            "BlockCacheIter does not support reset_partition; the cache is "
+            "bound to one partition (use the partition-qualified "
+            ".splitN.partK cache per part)")
 
     # ---------------- checkpoints ----------------
 
@@ -1606,8 +1663,9 @@ def _parallel_chunk_source(uri: str, part_index: int, num_parts: int,
 
 def _make_text_parser(cls):
     """The registry entry of a text format, with the JAX package's
-    signature (``index_dtype`` is always ``np.uint64`` here):
-    ``parse_workers > 1`` under ``threaded`` builds the fan-out, else the
+    signature (``dmlc_tpu/data/parsers.py:1960``; ``index_dtype`` is the
+    blocks' index type): ``parse_workers > 1`` under ``threaded`` builds
+    the fan-out, else the
     one-lane chain over :func:`create_input_split` (a
     :class:`~dmlc_tpu_torch.io.ThreadedInputSplit` under a
     :class:`ThreadedParser`), or the bare parser over the bare split
@@ -1618,10 +1676,11 @@ def _make_text_parser(cls):
         workers = _knobs.resolve("parse_workers", parse_workers)
         if threaded and workers > 1:
             source = _parallel_chunk_source(uri, part_index, num_parts, **split_kw)
-            return ParallelTextParser(cls(source, args), num_workers=workers)
+            return ParallelTextParser(cls(source, args, index_dtype=index_dtype),
+                                      num_workers=workers)
         source = create_input_split(uri, part_index, num_parts, "text", threaded=threaded,
                                     **split_kw)
-        base = cls(source, args)
+        base = cls(source, args, index_dtype=index_dtype)
         return ThreadedParser(base) if threaded else base
     return factory
 
@@ -1658,8 +1717,8 @@ LEGACY_SHUFFLE_WINDOW = 4096
 
 
 def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
-                    num_parts: int, threaded: bool, parse_workers: Optional[int],
-                    engine: str, **split_kw) -> Parser:
+                    num_parts: int, index_dtype, threaded: bool,
+                    parse_workers: Optional[int], engine: str, **split_kw) -> Parser:
     """The JAX package's engine chain (``_create_parser_uncached``) over a
     resolved engine: ``auto`` or ``native`` take the fused native reader
     for a plain local corpus (unless ``DMLC_TPU_NO_NATIVE_READER`` is set),
@@ -1674,17 +1733,17 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
     if engine == "native-batch":
         from dmlc_tpu_torch.data import batch_parser as _bp
 
-        if _bp.batch_engine_eligible(type_, np.uint64, spec.args):
+        if _bp.batch_engine_eligible(type_, index_dtype, spec.args):
             return _bp.create_batch_parser(split_uri, spec.args, part_index, num_parts, type_,
-                                           threaded=threaded, parse_workers=parse_workers,
-                                           **split_kw)
+                                           index_dtype=index_dtype, threaded=threaded,
+                                           parse_workers=parse_workers, **split_kw)
         # the batch kernel cannot serve this configuration (format, dtype,
         # no native library): the Python engine, loudly, so the knob never
         # names a path that did not run
         get_logger().warning(
             "engine=native-batch unavailable for format=%r index_dtype=%s "
             "(toolchain/format/dtype); using the Python engine",
-            type_, np.dtype(np.uint64).str)
+            type_, np.dtype(index_dtype).str)
     if (engine in ("auto", "native")
             and os.environ.get("DMLC_TPU_NO_NATIVE_READER", "0") in ("", "0")):
         from dmlc_tpu_torch.data import native_parser as _native_parser
@@ -1694,7 +1753,7 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
             try:
                 return _native_parser.NativeStreamParser(
                     spec.uri, spec.args, part_index, num_parts, type_,
-                    chunk_bytes=chunk_bytes)
+                    index_dtype=index_dtype, chunk_bytes=chunk_bytes)
             except DMLCError:
                 pass  # e.g. a csv dtype the native scanner lacks: the registry stack
         elif _native_parser.native_feed_eligible(uri, type_, threaded, split_kw):
@@ -1702,7 +1761,7 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
             try:
                 return _native_parser.NativeFeedParser(
                     spec.uri, spec.args, part_index, num_parts, type_,
-                    chunk_bytes=chunk_bytes)
+                    index_dtype=index_dtype, chunk_bytes=chunk_bytes)
             except DMLCError:
                 pass  # the registry stack serves it
     if engine == "native":
@@ -1711,8 +1770,9 @@ def _build_uncached(uri: str, spec: URISpec, type_: str, part_index: int,
             "(URI/threading outside the fused reader's eligibility, "
             "DMLC_TPU_NO_NATIVE_READER, or toolchain); using the Python "
             "engine", uri, type_)
-    parser = _format_entry(type_).body(split_uri, spec.args, part_index, num_parts, np.uint64,
-                                       threaded, parse_workers=parse_workers, **split_kw)
+    parser = _format_entry(type_).body(split_uri, spec.args, part_index, num_parts,
+                                       index_dtype, threaded, parse_workers=parse_workers,
+                                       **split_kw)
     if engine == "python":
         _pin_python_scanner(parser)
     return parser
@@ -1746,8 +1806,12 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     ``libsvm``, ``csv``, ``libfm`` or another entry of
     :data:`PARSER_REGISTRY` (its factory builds the parser), and
     ``'auto'`` resolves from the URI's ``format=`` argument and defaults
-    to libsvm; ``index_dtype`` must be
-    ``np.uint64`` (the blocks' index type; another raises). URI arguments
+    to libsvm; ``index_dtype`` is the blocks' index type, passed down as
+    the JAX package passes it: the numpy engine and csv's synthetic ids
+    take it, the native libsvm and libfm scanners keep their ``uint64``
+    ids, and ``native-batch``, whose segments are ``uint64``, warns and
+    takes the registry stack for another type. It enters the cache and
+    snapshot signature. URI arguments
     (``?label_column=0&delimiter=;``, ``?indexing_mode=1``) flow into the
     format's parameter struct.
 
@@ -1871,9 +1935,6 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     if type_ == "auto":
         type_ = spec.args.get("format", "libsvm")
     _format_entry(type_)
-    if np.dtype(index_dtype) != np.dtype(np.uint64):
-        raise DMLCError(f"index_dtype {np.dtype(index_dtype)}: dmlc_tpu_torch "
-                        "parses uint64 indices only")
     engine = _knobs.parse_engine(engine if engine is not None else spec.args.get("engine"))
     bc_path = _resolve_block_cache(spec, part_index, num_parts, block_cache)
     if snapshot is None:
@@ -1917,13 +1978,13 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
         signature = _bc.source_signature(
             spec.uri, part_index, num_parts, format=type_,
             args={k: v for k, v in spec.args.items() if k != "engine"},
-            index_dtype=np.dtype(np.uint64).str,
+            index_dtype=np.dtype(index_dtype).str,
             chunk_bytes=int(split_kw.get("chunk_bytes", DEFAULT_CHUNK_BYTES)),
             split={k: v for k, v in sorted(split_kw.items()) if k != "chunk_bytes"})
 
     def build() -> Parser:
-        return _build_uncached(uri, spec, type_, part_index, num_parts, threaded,
-                               parse_workers, engine, **split_kw)
+        return _build_uncached(uri, spec, type_, part_index, num_parts, index_dtype,
+                               threaded, parse_workers, engine, **split_kw)
 
     if bc_path is None:
         check(shuffle_seed is None and shuffle_window == 0 and not pod_sharding,

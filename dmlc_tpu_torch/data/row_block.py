@@ -12,8 +12,10 @@ Layout (CSR):
     label   float32[n]
     weight  float32[n]   optional (None = unweighted)
     qid     int64[n]     optional query ids
-    field   uint64[nnz]  optional libfm field ids (data.h:102)
-    index   uint64[nnz]  feature ids
+    field   index[nnz]   optional libfm field ids (data.h:102)
+    index   uint32/uint64[nnz]  feature ids: the parser's ``index_dtype``
+                         where its engine takes it (the numpy engine, csv),
+                         else the native scanners' uint64
     value   float32[nnz] optional (None = binary features)
 
 :class:`DenseBlock` is a parsed batch already in the dense layout ``[n,
@@ -145,6 +147,18 @@ class RowBlock:
                 cost += arr.nbytes
         return cost
 
+    def to_dense(self, num_col: Optional[int] = None) -> np.ndarray:
+        """Densify to ``[n, num_col]`` float32 (JAX's ``RowBlock.to_dense``,
+        ``dmlc_tpu/data/row_block.py:152``); ids at or past ``num_col`` are
+        dropped, a binary feature reads 1."""
+        ncol = num_col if num_col is not None else self.num_col
+        out = np.zeros((len(self), ncol), dtype=np.float32)
+        rows = np.repeat(np.arange(len(self)), np.diff(self.offset))
+        vals = self.value if self.value is not None else np.ones(len(self.index), np.float32)
+        keep = self.index < ncol
+        out[rows[keep], self.index[keep]] = vals[keep]
+        return out
+
     # -- binary round trip (row_block.h:189-215), the JAX package's bytes --
 
     def save(self, stream: BinaryIO) -> None:
@@ -272,9 +286,14 @@ class CooBlock:
 
 
 class RowBlockContainer:
-    """Growable RowBlock accumulator; ``to_block`` concatenates once."""
+    """Growable RowBlock accumulator; ``to_block`` concatenates once.
+    ``index_dtype`` is the index and field type of the block it builds
+    (JAX's ``RowBlockContainer(index_dtype=)``,
+    ``dmlc_tpu/data/row_block.py:298``); ``max_index`` the largest id
+    pushed."""
 
-    def __init__(self):
+    def __init__(self, index_dtype=np.uint64):
+        self.index_dtype = index_dtype
         self._offsets: List[np.ndarray] = []
         self._labels: List[np.ndarray] = []
         self._indices: List[np.ndarray] = []
@@ -282,6 +301,7 @@ class RowBlockContainer:
         self._weights: List[Optional[np.ndarray]] = []
         self._qids: List[Optional[np.ndarray]] = []
         self._fields: List[Optional[np.ndarray]] = []
+        self.max_index = 0
 
     def push_block(self, block: RowBlock) -> None:
         if len(block) == 0:
@@ -293,23 +313,27 @@ class RowBlockContainer:
         self._weights.append(block.weight)
         self._qids.append(block.qid)
         self._fields.append(block.field)
+        if len(block.index):
+            self.max_index = max(self.max_index, int(block.index.max()))
 
     def push_row(self, label: float, index, value=None, weight=None, qid=None,
                  field=None) -> None:
-        index = np.asarray(index, dtype=np.uint64)
+        index = np.asarray(index, dtype=self.index_dtype)
         self._offsets.append(np.array([len(index)], dtype=np.int64))
         self._labels.append(np.array([label], dtype=np.float32))
         self._indices.append(index)
         self._values.append(None if value is None else np.asarray(value, np.float32))
         self._weights.append(None if weight is None else np.array([weight], np.float32))
         self._qids.append(None if qid is None else np.array([qid], np.int64))
-        self._fields.append(None if field is None else np.asarray(field, np.uint64))
+        self._fields.append(None if field is None else np.asarray(field, self.index_dtype))
+        if len(index):
+            self.max_index = max(self.max_index, int(index.max()))
 
     def __len__(self) -> int:
         return sum(len(lab) for lab in self._labels)
 
     def clear(self) -> None:
-        self.__init__()
+        self.__init__(self.index_dtype)
 
     @staticmethod
     def _cat_optional(parts: List[Optional[np.ndarray]], sizes: List[int], dtype):
@@ -328,14 +352,25 @@ class RowBlockContainer:
     def to_block(self) -> RowBlock:
         if not self._labels:
             return RowBlock(np.zeros(1, np.int64), np.empty(0, np.float32),
-                            np.empty(0, np.uint64))
+                            np.empty(0, self.index_dtype))
         row_counts = [len(lab) for lab in self._labels]
         nnz_counts = [len(i) for i in self._indices]
         offset = np.concatenate([[0], np.cumsum(np.concatenate(self._offsets))])
         label = np.concatenate(self._labels)
-        index = np.concatenate(self._indices).astype(np.uint64, copy=False)
+        index = np.concatenate(self._indices).astype(self.index_dtype, copy=False)
         value = self._cat_optional(self._values, nnz_counts, np.float32)
         weight = self._cat_optional(self._weights, row_counts, np.float32)
         qid = self._cat_optional(self._qids, row_counts, np.int64)
-        field = self._cat_optional(self._fields, nnz_counts, np.uint64)
+        field = self._cat_optional(self._fields, nnz_counts, self.index_dtype)
         return RowBlock(offset, label, index, value, weight, qid, field)
+
+    def save(self, stream: BinaryIO) -> None:
+        """Write the accumulated block in :meth:`RowBlock.save`'s bytes
+        (JAX's ``RowBlockContainer.save``, ``dmlc_tpu/data/row_block.py:375``)."""
+        self.to_block().save(stream)
+
+    @staticmethod
+    def load(stream: BinaryIO) -> RowBlock:
+        """Read one :meth:`save` record back as a :class:`RowBlock` (JAX's
+        ``RowBlockContainer.load``, ``dmlc_tpu/data/row_block.py:379``)."""
+        return RowBlock.load(stream)

@@ -120,14 +120,15 @@ def _host_bytes(arr) -> Tuple[bytes, str]:
     return arr.tobytes(), arr.dtype.str
 
 
-def write_segments(f, segments: Dict[str, object], names=SEGMENT_NAMES) -> tuple:
+def write_segments(f, segments: Dict[str, object], crc: int = 0,
+                   names=SEGMENT_NAMES) -> tuple:
     """Serialize the present ``names`` arrays (numpy arrays or CPU tensors)
     at ``f``'s current position: canonical order, each start padded to 64
-    bytes, one crc32 over padding and payload. Returns ``(end, crc,
-    arrays)`` with ``arrays`` mapping name -> ``[dtype_str, abs_offset,
-    nbytes]``."""
+    bytes, one crc32 over padding and payload, rolled on from ``crc``
+    (JAX's positions, ``dmlc_tpu/io/block_cache.py:111``). Returns ``(end,
+    crc, arrays)`` with ``arrays`` mapping name -> ``[dtype_str,
+    abs_offset, nbytes]``."""
     arrays: Dict[str, list] = {}
-    crc = 0
     for name in names:
         arr = segments.get(name)
         if arr is None:

@@ -170,16 +170,22 @@ def _match_files(fs: FileSystem, uri: str, recurse: bool) -> List[FileInfo]:
 class InputSplitBase(InputSplit):
     """The sharding engine — analog of InputSplitBase (input_split_base.cc).
     Subclasses define the record: :meth:`seek_record_begin`,
-    :meth:`find_last_record_begin` and :meth:`extract_next_record`."""
+    :meth:`find_last_record_begin` and :meth:`extract_next_record`.
+
+    The positions are the JAX package's (``dmlc_tpu/io/input_split.py:121``):
+    ``fs`` is the filesystem that serves every part of ``uri`` (the
+    factory passes ``get_filesystem(uri)``), and a split built without
+    ``part_index`` holds no partition until :meth:`reset_partition`, as
+    there. ``part_index`` / ``num_parts`` / ``chunk_bytes`` are keyword-only
+    shortcuts for :meth:`reset_partition` and :meth:`hint_chunk_size`."""
 
     is_text = False
     align_bytes = 1
 
-    def __init__(self, uri: str, part_index: Optional[int] = 0, num_parts: int = 1,
-                 chunk_bytes: int = DEFAULT_CHUNK_BYTES, recurse_directories: bool = False):
-        # one filesystem for the whole URI, the first part's (the JAX
-        # factory's get_filesystem(uri))
-        self.fs = get_filesystem(uri)
+    def __init__(self, fs: FileSystem, uri: str, recurse_directories: bool = False, *,
+                 part_index: Optional[int] = None, num_parts: int = 1,
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+        self.fs = fs
         self.files = _match_files(self.fs, uri, recurse_directories)
         self.file_offset = [0]
         for info in self.files:
@@ -356,6 +362,17 @@ class InputSplitBase(InputSplit):
     def hint_chunk_size(self, chunk_size: int) -> None:
         self._chunk_bytes = max(int(chunk_size), 4096)
 
+    def records_in_chunk(self, chunk) -> Iterator[memoryview]:
+        """The records inside a chunk already loaded (bytes or a view), in
+        order (JAX's ``InputSplitBase.records_in_chunk``,
+        ``dmlc_tpu/io/input_split.py:355``)."""
+        c = _Chunk(chunk)
+        while True:
+            rec = self.extract_next_record(c)
+            if rec is None:
+                return
+            yield rec
+
     # ---------------- checkpoint / resume ----------------
 
     @property
@@ -504,13 +521,14 @@ class MmapLineSplit(LineSplitter):
     which no chunk-pulling parser produces) is refused.
     """
 
-    def __init__(self, uri: str, part_index: Optional[int] = 0, num_parts: int = 1,
-                 chunk_bytes: int = DEFAULT_CHUNK_BYTES, recurse_directories: bool = False):
-        check(isinstance(get_filesystem(uri), LocalFileSystem),
-              "MmapLineSplit requires local files")
+    def __init__(self, fs: FileSystem, uri: str, recurse_directories: bool = False, *,
+                 part_index: Optional[int] = None, num_parts: int = 1,
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+        check(isinstance(fs, LocalFileSystem), "MmapLineSplit requires local files")
         self._maps: List[Optional[mmap.mmap]] = []
         self._views: List[Optional[memoryview]] = []
-        super().__init__(uri, part_index, num_parts, chunk_bytes, recurse_directories)
+        super().__init__(fs, uri, recurse_directories, part_index=part_index,
+                         num_parts=num_parts, chunk_bytes=chunk_bytes)
         self._maps = [None] * len(self.files)
         self._views = [None] * len(self.files)
 
@@ -618,16 +636,17 @@ class MmapLineSplit(LineSplitter):
         super().close()
 
 
-def create_mmap_text_split(uri: str, part_index: int = 0, num_parts: int = 1,
+def create_mmap_text_split(uri: str, part_index: int, num_parts: int,
                            chunk_bytes: int = DEFAULT_CHUNK_BYTES,
                            recurse_directories: bool = False) -> MmapLineSplit:
     """The zero-copy local text chunk source (the JAX package's factory of
-    the same name)."""
+    the same name and positions, ``dmlc_tpu/io/input_split.py:684``; a URI
+    that is not plain local files raises ``DMLCError``)."""
     check(num_parts >= 1, f"num_parts must be >= 1, got {num_parts}")
     check(0 <= part_index < num_parts,
           f"part_index {part_index} out of range for {num_parts} parts")
-    return MmapLineSplit(uri, part_index, num_parts, chunk_bytes=chunk_bytes,
-                         recurse_directories=recurse_directories)
+    return MmapLineSplit(get_filesystem(uri), uri, recurse_directories,
+                         part_index=part_index, num_parts=num_parts, chunk_bytes=chunk_bytes)
 
 
 class RecordIOSplitter(InputSplitBase):
@@ -790,10 +809,10 @@ class IndexedRecordIOSplitter(InputSplitBase):
     # to capture with every prefetched chunk (ThreadedInputSplit._produce)
     cheap_chunk_state = False
 
-    def __init__(self, uri: str, index_uri: str, part_index: Optional[int] = 0,
-                 num_parts: int = 1, batch_size: int = 256, shuffle: bool = False,
-                 seed: int = 0, chunk_bytes: int = DEFAULT_CHUNK_BYTES):
-        super().__init__(uri, None, chunk_bytes=chunk_bytes)
+    def __init__(self, fs: FileSystem, uri: str, index_uri: str, batch_size: int = 256,
+                 shuffle: bool = False, seed: int = 0, *, part_index: Optional[int] = None,
+                 num_parts: int = 1, chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+        super().__init__(fs, uri, chunk_bytes=chunk_bytes)
         index = URI(index_uri)
         with get_filesystem(index).open_for_read(index) as f:
             self.index = rio.read_index_file(f, self.file_offset[-1])
@@ -1211,15 +1230,18 @@ def create_input_split(
 
     def make_raw(part: Optional[int] = None) -> InputSplitBase:
         """The splitter, partitioned when ``part`` is given."""
+        fs = get_filesystem(uri)
         if type_ in ("text", "line"):
-            return LineSplitter(uri, part, num_parts, chunk_bytes, recurse_directories)
+            return LineSplitter(fs, uri, recurse_directories, part_index=part,
+                                num_parts=num_parts, chunk_bytes=chunk_bytes)
         if type_ == "recordio":
-            return RecordIOSplitter(uri, part, num_parts, chunk_bytes, recurse_directories)
+            return RecordIOSplitter(fs, uri, recurse_directories, part_index=part,
+                                    num_parts=num_parts, chunk_bytes=chunk_bytes)
         if type_ == "indexed_recordio":
             check(index_uri is not None, "indexed_recordio requires index_uri")
-            return IndexedRecordIOSplitter(uri, index_uri, part, num_parts,
-                                           batch_size=batch_size, shuffle=shuffle,
-                                           seed=seed, chunk_bytes=chunk_bytes)
+            return IndexedRecordIOSplitter(fs, uri, index_uri, batch_size, shuffle, seed,
+                                           part_index=part, num_parts=num_parts,
+                                           chunk_bytes=chunk_bytes)
         raise DMLCError(f"unknown input split type {type_!r}")
 
     if num_shuffle_parts > 0:

@@ -76,7 +76,7 @@ def native_recordio_eligible(uri: str, threaded: bool, *, index_uri=None,
 def _list_records(uri: str, recurse_directories: bool):
     """``(paths, sizes)`` with the Python engine's file matching (``;``
     lists, directories, regex basenames) and its 4-byte alignment check."""
-    lister = RecordIOSplitter(uri, None, recurse_directories=recurse_directories)
+    lister = RecordIOSplitter(get_filesystem(uri), uri, recurse_directories)
     try:
         return ([info.path.name for info in lister.files],
                 [info.size for info in lister.files])
@@ -358,8 +358,8 @@ class NativeFeedRecordIOSplit(NativeRecordIOSplit):
         self._feed_exc: Optional[BaseException] = None  # the feed thread's error
 
     def _make_split(self) -> RecordIOSplitter:
-        return RecordIOSplitter(self.uri, self.part_index, self.num_parts,
-                                recurse_directories=self.recurse_directories)
+        return RecordIOSplitter(get_filesystem(self.uri), self.uri, self.recurse_directories,
+                                part_index=self.part_index, num_parts=self.num_parts)
 
     def _start_feed(self) -> None:
         feeder = self._reader

@@ -153,28 +153,51 @@ def record_event(key: str, n: int = 1) -> None:
                                 pipeline=_telemetry.current_scope() or "").inc(n)
 
 
+class _Counters:
+    """The process-wide resilience counters, a facade over the metrics
+    registry (one counter under ``RESILIENCE_METRIC`` a key and pipeline
+    scope): the JAX package's ``COUNTERS`` object
+    (``dmlc_tpu/io/resilience.py:291``), which the module functions below
+    serve."""
+
+    def bump(self, key: str, n: int = 1) -> None:
+        record_event(key, n)
+
+    def snapshot(self, pipeline: Optional[str] = None) -> Dict[str, int]:
+        """The totals by event key: process-wide, or with ``pipeline=``
+        one pipeline's (``""``: the events recorded outside any scope)."""
+        label_filter = {} if pipeline is None else {"pipeline": pipeline}
+        out = {k: 0 for k in EVENT_KEYS}
+        for key, v in _telemetry.REGISTRY.sum_by(_telemetry.RESILIENCE_METRIC, "event",
+                                                 **label_filter).items():
+            if key:
+                out[key] = int(round(v))
+        return out
+
+    def delta(self, base: Dict[str, int], pipeline: Optional[str] = None) -> Dict[str, int]:
+        """The events counted since ``base``, a :meth:`snapshot` of the
+        same ``pipeline``."""
+        now = self.snapshot(pipeline)
+        return {k: v - base.get(k, 0) for k, v in now.items()}
+
+    def reset(self) -> None:
+        """Drop every resilience counter (tests)."""
+        _telemetry.REGISTRY.clear(_telemetry.RESILIENCE_METRIC)
+
+
+COUNTERS = _Counters()
+
+
 def counters_snapshot(pipeline: Optional[str] = None) -> Dict[str, int]:
-    """The totals by event key: process-wide, or with ``pipeline=`` one
-    pipeline's (``""``: the events recorded outside any scope)."""
-    label_filter = {} if pipeline is None else {"pipeline": pipeline}
-    out = {k: 0 for k in EVENT_KEYS}
-    for key, v in _telemetry.REGISTRY.sum_by(_telemetry.RESILIENCE_METRIC, "event",
-                                             **label_filter).items():
-        if key:
-            out[key] = int(round(v))
-    return out
+    return COUNTERS.snapshot(pipeline)
 
 
 def counters_delta(base: Dict[str, int], pipeline: Optional[str] = None) -> Dict[str, int]:
-    """The events counted since ``base``, a :func:`counters_snapshot` of
-    the same ``pipeline``."""
-    now = counters_snapshot(pipeline)
-    return {k: v - base.get(k, 0) for k, v in now.items()}
+    return COUNTERS.delta(base, pipeline)
 
 
 def reset_counters() -> None:
-    """Drop every resilience counter (tests)."""
-    _telemetry.REGISTRY.clear(_telemetry.RESILIENCE_METRIC)
+    COUNTERS.reset()
 
 
 # ---------------- retry policy ----------------

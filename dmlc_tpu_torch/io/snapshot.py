@@ -21,10 +21,12 @@ A batch is ``(kind, arr0, arr1, ...)``: ``("dense_packed", xp)``,
 ``("dense_packed_q8", q8, scale)``. Staleness is two-keyed: the source
 ``signature`` and the batch ``geometry``; a mismatch in either drops the
 file at open (:func:`open_snapshot`) instead of serving wrong batches.
-Every read verifies the batch's crc32 and raises
-:class:`~dmlc_tpu_torch.utils.check.CacheCorruptionError` on a mismatch,
-and first passes through the fault-injection seam
-(``faults.maybe_fail("snapshot_read", path)``).
+A reader opened with ``verify=True`` (the default) checks each batch's
+crc32 on every read and raises
+:class:`~dmlc_tpu_torch.utils.check.CacheCorruptionError` on a mismatch;
+``verify=False`` skips the crc, as the JAX package's reader does. Every
+read first passes through the fault-injection seam
+(``faults.maybe_fail("snapshot_read", path)``), verified or not.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from __future__ import annotations
 import json
 import os
 import zlib
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -51,6 +53,16 @@ SNAPSHOT_VERSION = 1
 # positional segment names: batch arrays are stored in tuple order
 MAX_BATCH_ARRAYS = 8
 SNAPSHOT_SEGMENT_NAMES = tuple(f"a{i}" for i in range(MAX_BATCH_ARRAYS))
+
+
+def quantize_int8(arr) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-column symmetric int8 quantization of a 2-D float batch,
+    ``(q8, scale)``: :func:`dmlc_tpu_torch.ops.device_decode.quantize_int8`
+    under the name the JAX package also gives it here
+    (``dmlc_tpu/io/snapshot.py:85``), imported when called."""
+    from dmlc_tpu_torch.ops.device_decode import quantize_int8 as _impl
+
+    return _impl(arr)
 
 
 class SnapshotWriter:
@@ -82,7 +94,7 @@ class SnapshotWriter:
               f"SnapshotWriter: batch carries {len(arrays)} arrays (max {MAX_BATCH_ARRAYS})")
         segments = {SNAPSHOT_SEGMENT_NAMES[i]: a.reshape(-1) for i, a in enumerate(arrays)}
         pos = _bc._pad_to(self._f, _bc._ALIGN)
-        end, crc, arr_meta = _bc.write_segments(self._f, segments, SNAPSHOT_SEGMENT_NAMES)
+        end, crc, arr_meta = _bc.write_segments(self._f, segments, names=SNAPSHOT_SEGMENT_NAMES)
         self._entries.append({
             "kind": str(kind), "pos": pos, "end": end, "rows": int(rows),
             "crc": crc, "resume": _bc._normalize(resume) if resume is not None else None,
@@ -111,16 +123,24 @@ class SnapshotWriter:
             except OSError:
                 pass
 
+    def close(self) -> None:
+        """Abort a writer that was not finished; a finished one is left as
+        it is (JAX's ``SnapshotWriter.close``, ``dmlc_tpu/io/snapshot.py:190``)."""
+        self.abort()
+
 
 class SnapshotReader:
     """mmap-backed reader: batches decode to zero-copy read-only numpy
     views in their stored shapes (bfloat16 segments as ``uint16`` words).
     Views alias the mmap, and :meth:`close` tolerates views still alive.
-    The reader pins the file in its store while it is open."""
+    The reader pins the file in its store while it is open. ``verify``
+    (JAX's keyword, ``dmlc_tpu/io/snapshot.py:206``) checks each batch's
+    crc32 on a read."""
 
     def __init__(self, path: str, signature: Optional[dict] = None,
-                 geometry: Optional[dict] = None):
+                 geometry: Optional[dict] = None, verify: bool = True):
         self.path = path
+        self.verify = verify
         self._store_pinned = False
         self._file, self._mm, footer = _bc.open_container(
             path, SNAPSHOT_MAGIC, SNAPSHOT_VERSION, f"snapshot {path}")
@@ -146,8 +166,20 @@ class SnapshotReader:
     def num_batches(self) -> int:
         return len(self._batches)
 
+    @property
+    def hold(self):
+        """The buffer owner the views keep alive (the mmap)."""
+        return self._mm
+
+    def kind(self, i: int) -> str:
+        """Batch ``i``'s kind (``ell``, ``dense``, ``dense_packed``, ...)."""
+        return self._batches[i]["kind"]
+
     def resume(self, i: int) -> Optional[dict]:
         return self._batches[i]["resume"]
+
+    def batch_rows(self, i: int) -> int:
+        return int(self._batches[i]["rows"])
 
     def batch_nbytes(self, i: int) -> int:
         e = self._batches[i]
@@ -158,20 +190,24 @@ class SnapshotReader:
         e = self._batches[i]
         return _bc.span_layout(e["arrays"], e.get("shapes"), base=int(e["pos"]))
 
-    def _verified(self, i: int) -> memoryview:
+    def _checked(self, i: int) -> memoryview:
+        """Batch ``i``'s ``[pos, end)`` bytes, its crc32 checked first under
+        ``verify``."""
         e = self._batches[i]
         span = memoryview(self._mm)[int(e["pos"]): int(e["end"])]
-        if zlib.crc32(span) & 0xFFFFFFFF != int(e["crc"]):
+        if self.verify and zlib.crc32(span) & 0xFFFFFFFF != int(e["crc"]):
             span.release()
             raise CacheCorruptionError(f"snapshot {self.path}: crc mismatch on batch {i}")
         return span
 
-    def load_batch(self, i: int) -> tuple:
+    def load_batch(self, i: int, copy: bool = False) -> tuple:
         """Batch ``i`` as ``(kind, arr0, arr1, ...)``: read-only views over
-        the mmap in the stored shapes. Raises :class:`CacheCorruptionError`
-        on a crc mismatch (or when a ``snapshot_read`` fault is injected)."""
+        the mmap in the stored shapes, or with ``copy=True`` arrays of the
+        process's own. Raises :class:`CacheCorruptionError` on a crc
+        mismatch under ``verify`` (or when a ``snapshot_read`` fault is
+        injected)."""
         _faults.maybe_fail("snapshot_read", self.path)
-        self._verified(i).release()
+        self._checked(i).release()
         e = self._batches[i]
         segments = _bc.read_segments(self._mm, e["arrays"])
         shapes = e.get("shapes") or {}
@@ -183,16 +219,19 @@ class SnapshotReader:
             shape = shapes.get(name)
             if shape is not None and len(shape) != 1:
                 arr = arr.reshape(shape)
-            out.append(arr)
+            out.append(np.array(arr) if copy else arr)
         return (e["kind"], *out)
 
-    def batch_span(self, i: int) -> tuple:
+    def batch_span(self, i: int, copy: bool = False) -> tuple:
         """Batch ``i`` as its raw container bytes: ``(kind, span, layout)``
-        with ``span`` the verbatim ``[pos, end)`` u8 view over the mmap and
-        ``layout`` its :meth:`layout` — the device-decode tier's input.
-        crc semantics as :meth:`load_batch`."""
+        with ``span`` the verbatim ``[pos, end)`` u8 view over the mmap (with
+        ``copy=True`` a copy of it) and ``layout`` its :meth:`layout` — the
+        device-decode tier's input. crc and fault semantics as
+        :meth:`load_batch`."""
         _faults.maybe_fail("snapshot_read", self.path)
-        span = np.asarray(self._verified(i))
+        span = np.asarray(self._checked(i))
+        if copy:
+            span = np.array(span)
         return self._batches[i]["kind"], span, self.layout(i)
 
     def close(self) -> None:
@@ -218,7 +257,8 @@ class SnapshotReader:
 
 
 def open_snapshot(path: str, signature: Optional[dict] = None,
-                  geometry: Optional[dict] = None) -> Optional[SnapshotReader]:
+                  geometry: Optional[dict] = None,
+                  verify: bool = True) -> Optional[SnapshotReader]:
     """Open a published snapshot, or None when it is missing or must be
     rebuilt (unreadable, wrong version, signature or geometry mismatch):
     a stale file is discarded through the store (a
@@ -230,7 +270,7 @@ def open_snapshot(path: str, signature: Optional[dict] = None,
         _bc._store_manager().note_missing(path)
         return None
     try:
-        return SnapshotReader(path, signature=signature, geometry=geometry)
+        return SnapshotReader(path, signature=signature, geometry=geometry, verify=verify)
     except DMLCError:
         _resilience.record_event("snapshot_invalidations")
         _bc._artifact_store(path).discard(path)

@@ -141,13 +141,14 @@ class FMLearner(TrainLoopMixin):
         for dst, src in zip(self.params, params):
             dst.copy_(src)
 
-    def _margin(self, batch):
+    def _margin(self, batch, params: Optional[FMParams] = None):
+        params = self.params if params is None else params
         if self.layout == "ell":
-            return _margin_ell(self.params, batch), batch.label, batch.weight
+            return _margin_ell(params, batch), batch.label, batch.weight
         x, label, weight = batch
         if self.layout == "bcoo":
-            return _margin_bcoo(self.params, x), label, weight
-        return _margin_dense(self.params, x), label, weight
+            return _margin_bcoo(params, x), label, weight
+        return _margin_dense(params, x), label, weight
 
     def _pred_from_margin(self, margin: torch.Tensor) -> torch.Tensor:
         return (margin > 0).to(torch.float32)
@@ -157,15 +158,35 @@ class FMLearner(TrainLoopMixin):
             return F.binary_cross_entropy_with_logits(margin, label, reduction="none")
         return 0.5 * (margin - label) ** 2
 
+    def _data_terms(self, params: FMParams, batch):
+        """This rank's ``(Σ per·w, Σ w)`` over ``batch`` at ``params``."""
+        margin, label, weight = self._margin(batch, params)
+        per = self._per_example(margin, label)
+        return (per * weight).sum(), weight.sum()
+
+    def _l2_term(self, w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return 0.5 * self.l2 * (torch.sum(w ** 2) + torch.sum(v ** 2))
+
+    def loss_fn(self, params: FMParams, batch) -> torch.Tensor:
+        """The scalar loss at ``params`` on ``batch``: the weighted mean
+        loss plus ``0.5 · l2 · (Σw² + Σv²)``, differentiable in ``params``
+        (JAX's ``FMLearner.loss_fn``, ``dmlc_tpu/models/fm.py:152``).
+        :meth:`step` computes the same terms with the same functions and
+        returns this value; on a mesh it takes the mean over the global
+        batch, and it adds the ``l2`` gradient after the reduction."""
+        num, den = self._data_terms(params, batch)
+        loss = num / torch.clamp(den, min=1.0)
+        if self.l2 > 0.0:
+            loss = loss + self._l2_term(params.w, params.v)
+        return loss
+
     def _step(self, batch) -> torch.Tensor:
         self.opt.zero_grad(set_to_none=True)
-        margin, label, weight = self._margin(batch)
-        per = self._per_example(margin, label)
-        loss = self._global_mean_backward((per * weight).sum(), weight.sum())
+        loss = self._global_mean_backward(*self._data_terms(self.params, batch))
         if self.l2 > 0.0:
             # once, after any reduction (the same on every rank)
             w, v = self.params.w.detach(), self.params.v.detach()
-            loss = loss + 0.5 * self.l2 * (torch.sum(w ** 2) + torch.sum(v ** 2))
+            loss = loss + self._l2_term(w, v)
             self.params.w.grad.add_(w, alpha=self.l2)
             self.params.v.grad.add_(v, alpha=self.l2)
         self.opt.step()

@@ -57,6 +57,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.models._loop import TrainLoopMixin
 from dmlc_tpu_torch.ops.ell_matvec import ell_matvec_auto
 from dmlc_tpu_torch.parallel.mesh import rank_device, shard_window
@@ -67,6 +68,20 @@ from dmlc_tpu_torch.utils.check import check
 class LinearParams(NamedTuple):
     weight: torch.Tensor  # [W] or [W, C]; the last row is the padding sink, pinned to 0
     bias: torch.Tensor    # scalar, or [C]
+
+
+def init_params(weight_dim: int, num_class: int = 1, dtype=torch.float32,
+                device=None) -> LinearParams:
+    """Zero parameters in the JAX package's shapes (``init_params``,
+    ``dmlc_tpu/models/linear.py:34``): a ``[weight_dim]`` weight and a
+    scalar bias, or with ``num_class > 1`` a ``[weight_dim, num_class]``
+    weight and a ``[num_class]`` bias, on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    if num_class > 1:
+        return LinearParams(weight=torch.zeros((weight_dim, num_class), dtype=dtype, device=dev),
+                            bias=torch.zeros(num_class, dtype=dtype, device=dev))
+    return LinearParams(weight=torch.zeros(weight_dim, dtype=dtype, device=dev),
+                        bias=torch.zeros((), dtype=dtype, device=dev))
 
 
 def _per_example(margin, label, objective: str) -> torch.Tensor:
@@ -172,8 +187,8 @@ class LinearLearner(TrainLoopMixin):
         self.params.weight.copy_(params.weight)
         self.params.bias.copy_(params.bias)
 
-    def _margin(self, batch):
-        w, b = self.params
+    def _margin(self, batch, params: Optional[LinearParams] = None):
+        w, b = self.params if params is None else params
         if self.layout == "ell":
             lo = self.shard_lo if self._sharded else None
             part, label, weight = ell_matvec_auto(w, batch, lo=lo), batch.label, batch.weight
@@ -194,21 +209,42 @@ class LinearLearner(TrainLoopMixin):
             return margin.argmax(dim=-1).to(torch.float32)
         return (margin > 0).to(torch.float32)
 
+    def _data_terms(self, params: LinearParams, batch):
+        """This rank's ``(Σ per·w, Σ w)`` over ``batch`` at ``params``."""
+        margin, label, weight = self._margin(batch, params)
+        per = _per_example(margin, label, self.objective)
+        return (per * weight).sum(), weight.sum()
+
+    def _l2_term(self, w: torch.Tensor) -> torch.Tensor:
+        """``0.5 · l2 · Σw²``; a shard's ``Σw²`` summed over the model axis.
+        The padding sink is pinned to 0, so it adds nothing."""
+        sq = (w ** 2).sum()
+        if self._sharded:
+            sq = self.mesh.all_reduce_(sq.reshape(1), self.model_axis)[0]
+        return 0.5 * self.l2 * sq
+
+    def loss_fn(self, params: LinearParams, batch) -> torch.Tensor:
+        """The scalar loss at ``params`` on ``batch``: the weighted mean
+        loss plus ``0.5 · l2 · Σw²``, differentiable in ``params`` (JAX's
+        ``LinearLearner.loss_fn``, ``dmlc_tpu/models/linear.py:178``, which
+        its step differentiates). :meth:`step` computes the same terms with
+        the same functions and returns this value; on a mesh it takes the
+        mean over the global batch, and it adds the ``l2`` gradient once,
+        after the data axis's reduction."""
+        num, den = self._data_terms(params, batch)
+        loss = num / torch.clamp(den, min=1.0)
+        if self.l2 > 0.0:
+            loss = loss + self._l2_term(params.weight)
+        return loss
+
     def _step(self, batch) -> torch.Tensor:
         self.opt.zero_grad(set_to_none=True)
-        margin, label, weight = self._margin(batch)
-        per = _per_example(margin, label, self.objective)
-        loss = self._global_mean_backward((per * weight).sum(), weight.sum())
+        loss = self._global_mean_backward(*self._data_terms(self.params, batch))
         if self.l2 > 0.0:
-            # once, after any reduction (the same on every rank); the
-            # padding sink is pinned to 0, so it adds nothing here. A
-            # shard's Σw² is summed over the model axis; its gradient is
-            # its own
+            # once, after any reduction (the same on every rank); a shard's
+            # gradient is its own
             w = self.params.weight.detach()
-            sq = (w ** 2).sum()
-            if self._sharded:
-                sq = self.mesh.all_reduce_(sq.reshape(1), self.model_axis)[0]
-            loss = loss + 0.5 * self.l2 * sq
+            loss = loss + self._l2_term(w)
             self.params.weight.grad.add_(w, alpha=self.l2)
         self.opt.step()
         if self._pins_sink:

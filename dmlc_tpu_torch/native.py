@@ -39,6 +39,7 @@ import weakref
 from typing import Optional
 
 import numpy as np
+import torch
 
 from dmlc_tpu_torch.ops._build import PKG_DIR, ensure_built
 from dmlc_tpu_torch.utils.check import DMLCError, get_logger
@@ -212,6 +213,8 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_char, ctypes.c_int32, ctypes.c_int32]
         lib.dmlc_simd_level.restype = ctypes.c_int
+        lib.dmlc_crc32.restype = ctypes.c_uint32
+        lib.dmlc_crc32.argtypes = [ctypes.c_char_p, ctypes.c_int64]
         lib.dmlc_recordio_extract.restype = ctypes.POINTER(_RecordBatchResult)
         lib.dmlc_recordio_extract.argtypes = [ctypes.c_char_p, ctypes.c_int64]
         lib.dmlc_feeder_create.restype = ctypes.c_void_p
@@ -453,6 +456,28 @@ _BATCH_SEGMENTS = (
 
 # dmlc_parse_batch format codes (the stream reader's FMT_* values)
 BATCH_FMT = {"libsvm": 0, "csv": 2, "libfm": 3}
+
+
+def bf16_dtype() -> torch.dtype:
+    """bfloat16, the dtype of a bfloat16 snapshot segment or repacked dense
+    batch: ``torch.bfloat16``, where the JAX package's ``bf16_dtype``
+    (``dmlc_tpu/native/__init__.py:520``) returns ``ml_dtypes``' numpy
+    dtype. numpy has no bfloat16 of its own and the card's machine has no
+    ``ml_dtypes``, so the port's host arrays hold bfloat16 as ``uint16``
+    bits and view them as this dtype once in torch."""
+    return torch.bfloat16
+
+
+def crc32(data) -> Optional[int]:
+    """zlib's crc32 of ``data`` (bytes-like) by ``native/src``'s
+    ``dmlc_crc32`` (the JAX package's ``crc32``,
+    ``dmlc_tpu/native/__init__.py:603``); None when the library is not
+    built."""
+    lib = _load()
+    if lib is None:
+        return None
+    data = data if isinstance(data, bytes) else bytes(data)
+    return int(lib.dmlc_crc32(data, len(data)))
 
 
 def simd_level() -> int:

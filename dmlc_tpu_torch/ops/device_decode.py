@@ -126,6 +126,15 @@ class PackedDenseBatch:
     def __len__(self) -> int:
         return 3
 
+    def tree_flatten(self):
+        """``((packed, aux), num_col)``: the tensors and the static width,
+        the JAX class's pytree split (``dmlc_tpu/data/device.py:337``)."""
+        return (self.packed, self.aux), self.num_col
+
+    @classmethod
+    def tree_unflatten(cls, num_col, children) -> "PackedDenseBatch":
+        return cls(children[0], num_col, *children[1:])
+
 
 def quantize_int8(arr) -> Tuple[np.ndarray, np.ndarray]:
     """Symmetric per-column int8 quantization of a 2-D float batch:

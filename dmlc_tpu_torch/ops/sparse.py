@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dmlc_tpu_torch._device import resolve_device
 from dmlc_tpu_torch.data.row_block import RowBlock
 from dmlc_tpu_torch.ops.row_scatter import gather_rows, row_scatter_add
 from dmlc_tpu_torch.utils.check import check
@@ -66,6 +67,16 @@ class EllBatch(NamedTuple):
     values: torch.Tensor | np.ndarray
     label: torch.Tensor | np.ndarray
     weight: torch.Tensor | np.ndarray
+
+    @property
+    def batch_size(self) -> int:
+        """B (JAX's ``EllBatch.batch_size``, ``dmlc_tpu/ops/sparse.py:45``)."""
+        return self.indices.shape[0]
+
+    @property
+    def max_nnz(self) -> int:
+        """K (JAX's ``EllBatch.max_nnz``, ``dmlc_tpu/ops/sparse.py:49``)."""
+        return self.indices.shape[1]
 
 
 def block_to_ell(
@@ -103,12 +114,17 @@ def block_to_ell(
 
 
 def block_to_dense(
-    block: RowBlock, num_col: int, pad_rows_to: Optional[int] = None,
+    block: RowBlock, num_col: int, pad_rows_to: Optional[int] = None, copy: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """CSR -> padded dense [B, D] (+ label, weight), batch-padded like ELL."""
+    """CSR -> padded dense [B, D] (+ label, weight), batch-padded like ELL.
+
+    With ``copy=False`` and dense-in-sparse float32 rows whose width is
+    ``num_col`` exactly, with no row padding, ``x`` is a view of the
+    block's values, not a copy (JAX's keyword, ``dmlc_tpu/ops/sparse.py:92``):
+    the caller must not write to it."""
     n = len(block)
     rows_out = int(pad_rows_to if pad_rows_to is not None else n)
-    x = np.zeros((rows_out, num_col), dtype=np.float32)
+    x = None
     if n:
         lens = np.diff(block.offset)
         vals = block.value if block.value is not None else np.ones(len(block.index), np.float32)
@@ -121,11 +137,18 @@ def block_to_dense(
             and bool((lens == k).all())
             and bool((block.index.reshape(n, k) == np.arange(k, dtype=block.index.dtype)).all())
         ):
-            x[:n, :k] = vals.reshape(n, k)
+            if not copy and k == num_col and rows_out == n and vals.dtype == np.float32:
+                x = vals.reshape(n, k)
+            else:
+                x = np.zeros((rows_out, num_col), dtype=np.float32)
+                x[:n, :k] = vals.reshape(n, k)
         else:
+            x = np.zeros((rows_out, num_col), dtype=np.float32)
             rows = np.repeat(np.arange(n), lens)
             keep = block.index < num_col
             x[rows[keep], block.index[keep].astype(np.int64)] = vals[keep]
+    if x is None:
+        x = np.zeros((rows_out, num_col), dtype=np.float32)
     label = np.zeros(rows_out, np.float32)
     label[:n] = block.label
     weight = np.zeros(rows_out, np.float32)
@@ -135,10 +158,11 @@ def block_to_dense(
 
 def block_to_bcoo_host(
     block: RowBlock, num_col: int, pad_rows_to: Optional[int] = None,
-    pad_nnz_to: Optional[int] = None,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]:
+    unit_values_as_none: bool = False, pad_nnz_to: Optional[int] = None,
+) -> Tuple[np.ndarray, Optional[np.ndarray], np.ndarray, np.ndarray, Tuple[int, int]]:
     """CSR -> host COO arrays ``(coords [nnz_out, 2], vals, label, weight,
-    shape)``, the JAX package's function but for its pad slots (module
+    shape)``, the JAX package's function with its positions
+    (``dmlc_tpu/ops/sparse.py:128``) but for its pad slots (module
     docstring).
 
     Coordinates are int32 while ``rows_out + 1`` and ``num_col + 1`` fit.
@@ -146,6 +170,10 @@ def block_to_bcoo_host(
     ``pad_nnz_to`` pads the nnz dimension with value-0 slots at
     ``(rows_out - 1, num_col - 1)``. An entry whose id is at or past
     ``num_col`` becomes such a slot in place (JAX's BCOO masks it).
+    ``unit_values_as_none`` returns ``vals`` None for a block whose values
+    are all ones (or absent): the consumer puts ones on the ``nnz`` real
+    entries and zeros on the pad slots. A block with an id at or past
+    ``num_col`` keeps its values, whose zero marks that slot.
     """
     n = len(block)
     nnz = len(block.index)
@@ -159,14 +187,34 @@ def block_to_bcoo_host(
     coords[:nnz, 1] = np.minimum(block.index, max(num_col - 1, 0))
     coords[nnz:, 0] = rows_out - 1   # in-bounds pad, value 0
     coords[nnz:, 1] = num_col - 1
-    vals = np.zeros(nnz_out, np.float32)
-    vals[:nnz] = block.value if block.value is not None else 1.0
-    vals[:nnz][block.index >= num_col] = 0.0  # masked, as BCOO masks it
+    masked = block.index >= num_col
+    vals: Optional[np.ndarray] = None
+    if not (unit_values_as_none and not masked.any()
+            and (block.value is None or bool((block.value == 1.0).all()))):
+        vals = np.zeros(nnz_out, np.float32)
+        vals[:nnz] = block.value if block.value is not None else 1.0
+        vals[:nnz][masked] = 0.0  # masked, as BCOO masks it
     label = np.zeros(rows_out, np.float32)
     label[:n] = block.label
     weight = np.zeros(rows_out, np.float32)
     weight[:n] = block.weight if block.weight is not None else 1.0
     return coords, vals, label, weight, (rows_out, num_col)
+
+
+def block_to_bcoo(block: RowBlock, num_col: int, device=None) -> torch.Tensor:
+    """CSR -> a ``torch.sparse_coo_tensor`` of shape ``[rows, num_col]`` on
+    ``device`` (None: the card), from :func:`block_to_bcoo_host`: the port's
+    counterpart of JAX's ``block_to_bcoo`` (``dmlc_tpu/ops/sparse.py:197``),
+    which returns a ``jax.experimental.sparse.BCOO``. It is marked coalesced
+    where the coordinates are strictly row-major, as a parsed block's are
+    when each row's ids ascend; an id at or past ``num_col`` is a value-0
+    entry (BCOO masks it), so its dense form equals JAX's ``todense()``."""
+    coords, vals, _, _, shape = block_to_bcoo_host(block, num_col)
+    keys = coords[:, 0].astype(np.int64) * max(num_col, 1) + coords[:, 1]
+    ordered = bool((keys[1:] > keys[:-1]).all()) and not (block.index >= num_col).any()
+    return torch.sparse_coo_tensor(
+        torch.from_numpy(coords.T.astype(np.int64)), torch.from_numpy(vals), shape,
+        device=resolve_device(device), is_coalesced=ordered, check_invariants=True)
 
 
 def csr_coords(cols: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
@@ -236,6 +284,52 @@ def ell_matvec(weights: torch.Tensor, batch: EllBatch,
         return (weights[idx.long()] * val).sum(dim=1)
     gathered = gather_rows(weights, idx)  # [B, K, C]
     return (gathered * val[..., None]).sum(dim=1)
+
+
+def ell_matmul(weights: torch.Tensor, batch: EllBatch) -> torch.Tensor:
+    """ELL rows times a dense ``[D+1, H]`` table -> ``[B, H]``: the 2-D
+    :func:`ell_matvec` under JAX's name (``dmlc_tpu/ops/sparse.py:221``),
+    its gradient a row scatter."""
+    check(weights.dim() == 2, f"ell_matmul: needs a [D+1, H] table, got {tuple(weights.shape)}")
+    return ell_matvec(weights, batch)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``out[r] = Σ_{row_ids[i] = r} src[i]`` over ``num_rows`` rows by the
+    row scatter (the same bits every run on the card); its gradient is the
+    gather ``g[row_ids]``. An id outside ``[0, num_rows)`` adds nothing and
+    gets no gradient, as ``jax.ops.segment_sum`` drops it."""
+
+    @staticmethod
+    def forward(ctx, src, row_ids, num_rows):
+        keep = (row_ids >= 0) & (row_ids < num_rows)
+        ctx.save_for_backward(row_ids, keep)
+        if not src.is_cuda and not bool(keep.all()):
+            # index_add_, the plain version, raises on such an id; the
+            # kernel skips it
+            src, row_ids = src[keep], row_ids[keep]
+        return row_scatter_add((num_rows, *src.shape[1:]), row_ids, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        row_ids, keep = ctx.saved_tensors
+        picked = g[torch.where(keep, row_ids, 0).long()]
+        mask = keep.reshape(-1, *([1] * (g.dim() - 1)))
+        return torch.where(mask, picked, torch.zeros((), dtype=g.dtype, device=g.device)), \
+            None, None
+
+
+def segment_csr_matvec(weights: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
+                       row_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """A COO matvec for rows whose nonzero counts vary too much for ELL:
+    ``out[r] = Σ_{row_ids[i] = r} w[index[i]]·value[i]`` over ``num_rows``
+    rows (JAX's ``segment_csr_matvec``, ``dmlc_tpu/ops/sparse.py:227``,
+    where XLA's ``segment_sum`` does the sum). On CUDA tensors the sum is
+    the row scatter's kernel (``csrc/row_scatter.cu``), the same bits on
+    every run; on CPU tensors its plain version, ``index_add_``. It is
+    differentiable in ``weights`` and ``value``."""
+    prod = gather_rows(weights, index) * value
+    return _SegmentSum.apply(prod, row_ids, int(num_rows))
 
 
 class _CooMatmul(torch.autograd.Function):

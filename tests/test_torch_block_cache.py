@@ -29,7 +29,12 @@ threaded=True, parse_workers=1, chunk_bytes=4096, ...)``) as
 - ``create_parser``'s checks and messages equal the JAX package's, and
   the ``#blockcache=`` fragment and the ``DMLC_TPU_BLOCK_CACHE`` directory
   resolve to the JAX package's paths;
-- the ``plan_read_workers`` knob and the ordered pool behind it.
+- the ``plan_read_workers`` knob and the ordered pool behind it;
+- ``BlockCacheIter(verify=False)``: warm epochs equal the verified ones,
+  a corrupt block is served as it is read (the JAX package's bytes, no
+  heal, no counter), and a ``cache_read`` fault still heals as in JAX;
+  ``reset_partition`` raises JAX's error; ``write_segments(crc=)`` rolls
+  the crc on from the seed as JAX's does.
 """
 
 import json
@@ -42,6 +47,8 @@ import torch
 
 from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data import epoch as jax_epoch
+from dmlc_tpu.data.parsers import BlockCacheIter as JaxBlockCacheIter
+from dmlc_tpu.io import block_cache as jax_bc
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
 from dmlc_tpu.io import faults as jax_faults
 from dmlc_tpu.io import resilience as jax_resilience
@@ -49,6 +56,7 @@ from dmlc_tpu.io.uri import URISpec as JaxURISpec
 from dmlc_tpu.utils import knobs as jax_knobs
 from dmlc_tpu.utils.check import DMLCError as JaxDMLCError
 from dmlc_tpu_torch.data import DeviceIter, create_parser
+from dmlc_tpu_torch.data.parsers import BlockCacheIter
 from dmlc_tpu_torch.data.row_block import RowBlock
 from dmlc_tpu_torch.io import block_cache as bc
 from dmlc_tpu_torch.io import faults as port_faults
@@ -628,3 +636,79 @@ def test_block_plan_state_goes_to_the_source_under_a_snapshot(tmp_path):
         assert got == rest
     assert streams[1] == streams[0]
     assert streams[1][1:] == ("cold", "warm")
+
+
+@pytest.mark.parametrize("kw", [{}, dict(shuffle_seed=3, shuffle_window=16)],
+                         ids=["sequential", "plan"])
+def test_unverified_warm_epochs_equal_verified_and_skip_the_heal(tmp_path, kw):
+    path = _corpus(tmp_path)
+    results = []
+    for make, cls, events, fault_mod in ((_jax, JaxBlockCacheIter, jax_resilience, jax_faults),
+                                         (_port, BlockCacheIter, resilience, port_faults)):
+        cache = str(tmp_path / f"{make.__name__}.bc")
+        p = make(path, cache, **kw)
+        _drain(p)  # the cold pass publishes
+        p.close()
+        p = make(path, cache, **kw)
+        clean = _drain(p)
+
+        def unverified():
+            return cls(lambda: make(path), cache, verify=False, **kw)
+
+        u = unverified()
+        assert u.cache_state == "warm" and _drain(u) == clean
+        u.close()
+        # a value byte: an offset byte would break a plan's row gather
+        r = bc.BlockCacheReader(cache)
+        pos = int(r._blocks[2]["arrays"]["value"][1]) + 8
+        r.close()
+        with open(cache, "r+b") as f:
+            f.seek(pos)
+            byte = f.read(1)
+            f.seek(pos)
+            f.write(bytes([byte[0] ^ 0x55]))
+        base = events.counters_snapshot()
+        u = unverified()
+        corrupt = _drain(u)
+        u.close()
+        assert _cache_events(events.counters_delta(base)) == {}
+        assert len(corrupt) == len(clean) and corrupt != clean  # served, not healed
+        p.close()
+        # a cache_read fault still fires without the crc, and heals
+        base = events.counters_snapshot()
+        with fault_mod.inject("cache_read@1=corrupt") as plan:
+            u = unverified()
+            healed = _drain(u)
+            u.close()
+            fired = plan.fired()
+        results.append((clean, corrupt, healed, fired,
+                        _cache_events(events.counters_delta(base))))
+    assert results[1] == results[0]
+
+
+def test_reset_partition_raises_as_in_the_reference(tmp_path):
+    path = _corpus(tmp_path, n=50)
+    p = _port(path, str(tmp_path / "p.bc"))
+    j = _jax(path, str(tmp_path / "j.bc"))
+    with pytest.raises(DMLCError) as got:
+        p.reset_partition(1, 2)
+    with pytest.raises(JaxDMLCError) as want:
+        j.reset_partition(1, 2)
+    assert str(got.value) == str(want.value)
+    p.close()
+    j.close()
+
+
+@pytest.mark.parametrize("seed", [0, 0xDEADBEEF])
+def test_write_segments_rolls_the_crc_from_a_seed(tmp_path, seed):
+    import io
+
+    segments = _golden_blocks()[0][0]
+    got_buf, want_buf = io.BytesIO(), io.BytesIO()
+    got_buf.write(b"x" * 3)
+    want_buf.write(b"x" * 3)
+    got = bc.write_segments(got_buf, segments, seed)
+    want = jax_bc.write_segments(want_buf, segments, seed)
+    assert got == want and got_buf.getvalue() == want_buf.getvalue()
+    assert (bc.write_segments(io.BytesIO(), segments, crc=seed)
+            == jax_bc.write_segments(io.BytesIO(), segments, crc=seed))

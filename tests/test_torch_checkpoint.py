@@ -33,6 +33,7 @@ from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
 from dmlc_tpu.io.input_split import create_input_split as jax_create_input_split
 from dmlc_tpu_torch.data import DeviceIter, create_parser
+from dmlc_tpu_torch.io.filesystem import get_filesystem
 from dmlc_tpu_torch.io.input_split import LineSplitter
 from dmlc_tpu_torch.io.snapshot import SnapshotReader
 
@@ -118,7 +119,7 @@ def test_split_states_equal_as_json(tmp_path, k):
     uri = _corpus(tmp_path)
     jax_split = jax_create_input_split(uri, 0, 1, "text", threaded=False, chunk_bytes=CHUNK)
     jax_threaded = jax_create_input_split(uri, 0, 1, "text", threaded=True, chunk_bytes=CHUNK)
-    port = LineSplitter(uri, 0, 1, chunk_bytes=CHUNK)
+    port = LineSplitter(get_filesystem(uri), uri, part_index=0, num_parts=1, chunk_bytes=CHUNK)
     n = 10 ** 9 if k == "last" else k
     pulled = 0
     while pulled < n:
@@ -153,7 +154,7 @@ def test_split_serves_a_pending_chunk_tail_first(tmp_path):
     rest = []
     while (c := jax_split.next_chunk()) is not None:
         rest.append(bytes(c))
-    port = LineSplitter(uri, 0, 1, chunk_bytes=CHUNK)
+    port = LineSplitter(get_filesystem(uri), uri, part_index=0, num_parts=1, chunk_bytes=CHUNK)
     port.load_state(state)
     got = []
     while (c := port.next_chunk()) is not None:

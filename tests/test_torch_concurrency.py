@@ -35,6 +35,7 @@ from dmlc_tpu.utils.check import DMLCError as JaxDMLCError
 from dmlc_tpu_torch.data import DeviceIter, create_parser
 from dmlc_tpu_torch.io import input_split as port_split
 from dmlc_tpu_torch.io import recordio as port_rio
+from dmlc_tpu_torch.io.filesystem import get_filesystem
 from dmlc_tpu_torch.io.threaded_iter import OrderedWorkerPool
 from dmlc_tpu_torch.utils import concurrency as port_conc
 from dmlc_tpu_torch.utils import thread_group as port_tg
@@ -258,7 +259,8 @@ def _drain(split) -> list:
 
 def test_split_byte_exact_state(tmp_path):
     uri = _corpus(tmp_path)
-    s = port_split.LineSplitter(uri, 0, 1, chunk_bytes=4096)
+    s = port_split.LineSplitter(get_filesystem(uri), uri, part_index=0, num_parts=1,
+                                  chunk_bytes=4096)
     j = jax_split.LineSplitter(jax_get_filesystem(uri), uri)
     j.reset_partition(0, 1)
     j.hint_chunk_size(4096)
@@ -271,7 +273,8 @@ def test_split_byte_exact_state(tmp_path):
     for split in (s, j):
         split.close()
     # each package's state resumes in the other
-    s2 = port_split.LineSplitter(uri, 0, 1, chunk_bytes=4096)
+    s2 = port_split.LineSplitter(get_filesystem(uri), uri, part_index=0, num_parts=1,
+                                  chunk_bytes=4096)
     s2.load_state(json.loads(json.dumps(jstate)))
     j2 = jax_split.LineSplitter(jax_get_filesystem(uri), uri)
     j2.reset_partition(0, 1)
@@ -315,8 +318,12 @@ def test_indexed_recordio_checkpoint(tmp_path):
     assert (tmp_path / "j.idx").read_text() == idx.read_text()
 
     def port_make(seed, shuffle):
-        return port_split.IndexedRecordIOSplitter(str(rec), str(idx), 0, 1, batch_size=4,
-                                                  shuffle=shuffle, seed=seed)
+        # the JAX package's call (tests/test_concurrency.py): fs first, then
+        # the partition
+        s = port_split.IndexedRecordIOSplitter(get_filesystem(str(rec)), str(rec), str(idx),
+                                               batch_size=4, shuffle=shuffle, seed=seed)
+        s.reset_partition(0, 1)
+        return s
 
     def jax_make(seed, shuffle):
         s = jax_split.IndexedRecordIOSplitter(jax_get_filesystem(str(rec)), str(rec), str(idx),
@@ -349,7 +356,7 @@ def test_split_checkpoint_at_file_join(tmp_path):
     uri = f"{a};{b}"
 
     def port_make():
-        return port_split.LineSplitter(uri, 0, 1)
+        return port_split.LineSplitter(get_filesystem(uri), uri, part_index=0, num_parts=1)
 
     def jax_make():
         s = jax_split.LineSplitter(jax_get_filesystem(str(a)), uri)

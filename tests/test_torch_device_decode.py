@@ -19,7 +19,8 @@
   16-byte-aligned outputs and a block prefix; it refuses layouts it does
   not take.
 - ``PackedDenseBatch`` with a pre-widened ``aux`` equals the lazy one, and
-  ``batch[0]`` widens nothing.
+  ``batch[0]`` widens nothing; ``tree_flatten`` / ``tree_unflatten``
+  round-trip it as the JAX class's do (the width as the static part).
 - A CPU span takes the plain version; the kernel routes refuse it.
 
 Every comparison is on bytes, never a tolerance.
@@ -359,3 +360,18 @@ def test_unaligned_span_views_are_copies():
     buf[1:] = torch.from_numpy(span.copy())
     got = _port_batch(dd.decode_batch(buf[1:], layout, kind, NC))
     assert [_bytes(g) for g in got] == [a.tobytes() for a in arrays]
+
+
+def test_packed_batch_tree_round_trip_matches_reference():
+    from dmlc_tpu.data.device import PackedDenseBatch as JaxPackedDenseBatch
+
+    kind, arrays = _kind_arrays("dense_packed", np.random.default_rng(7))
+    packed = torch.from_numpy(arrays[0].copy())
+    aux = torch.stack([packed[:, NC], packed[:, NC + 1]])
+    for batch in (dd.PackedDenseBatch(packed, NC), dd.PackedDenseBatch(packed, NC, aux)):
+        children, static = batch.tree_flatten()
+        again = dd.PackedDenseBatch.tree_unflatten(static, children)
+        assert static == NC and again.packed is packed and again.aux is batch.aux
+        assert [_bytes(t) for t in again] == [_bytes(t) for t in batch]
+    jchildren, jstatic = JaxPackedDenseBatch(jnp.asarray(arrays[0]), NC).tree_flatten()
+    assert jstatic == static and _bytes(children[0]) == np.asarray(jchildren[0]).tobytes()

@@ -17,13 +17,10 @@ PACKAGES = ["", ".io", ".data", ".utils", ".ops", ".models", ".parallel", ".stor
 
 # JAX names without a port counterpart, by package: the deliberate absences
 EXEMPT = {
-    # the JAX BCOO array and the Pallas entry: the port's counterparts are
-    # ops.sparse.block_to_bcoo_host and ops.ell_matvec.ell_matvec_cuda; the
-    # plain ELL matvec, ops.sparse.ell_matvec, whose name in ops is K1's
-    # module (ops.ell_matvec), and which is also JAX's ell_matmul on a 2-D
-    # table; and segment_csr_matvec, which no code of either package calls
-    ".ops": {"block_to_bcoo", "ell_matvec_pallas", "ell_matvec", "ell_matmul",
-             "segment_csr_matvec"},
+    # the Pallas entry, whose port counterpart is ops.ell_matvec.ell_matvec_cuda,
+    # and the plain ELL matvec, ops.sparse.ell_matvec, whose name in ops is
+    # K1's module (ops.ell_matvec)
+    ".ops": {"ell_matvec_pallas", "ell_matvec"},
 }
 
 

@@ -11,11 +11,15 @@ On the CPU (``device="cpu"``):
   trains to accuracy above 0.9 on each layout (a linear model cannot);
 - ``optimizer=`` takes a factory, the parameters round-trip through
   ``convert``, and ``device=None`` raises without a card.
+- ``loss_fn`` at the initial and the trained parameters gives the JAX
+  learner's loss and ``jax.grad`` within 1e-5 on each layout, and a step
+  returns ``loss_fn`` at the parameters before it, bit for bit.
 
 The libfm-format case (``tests/test_device.py``'s
 ``test_fm_libfm_format_end_to_end``) is in ``tests/test_torch_format_train.py``.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -138,3 +142,30 @@ def test_optimizer_factory_and_params_round_trip():
     if not torch.cuda.is_available():
         with pytest.raises(DMLCError, match="CUDA"):
             FMLearner(NUM_COL)
+
+
+@pytest.mark.parametrize("layout,l2", [("dense", 0.0), ("ell", 0.01), ("bcoo", 0.0)])
+def test_loss_fn_matches_reference_and_the_step(tmp_path, layout, l2):
+    uri = _corpus(tmp_path)
+    kw = dict(num_factors=4, layout=layout, learning_rate=0.05, init_scale=0.1, l2=l2)
+    jax_fm = JaxFMLearner(NUM_COL, seed=3, **kw)
+    port = FMLearner(NUM_COL, device="cpu", **kw)
+    port.set_params(convert.fm_params_from_jax(*(np.asarray(p) for p in jax_fm.params), "cpu"))
+    port_it, jax_it = _iters(uri, layout, port.device_num_col())
+    for step, (pb, jb) in enumerate(zip(port_it, jax_it)):
+        params = type(port.params)(*(t.detach().clone().requires_grad_(True)
+                                     for t in port.params))
+        loss = port.loss_fn(params, pb)
+        loss.backward()
+        jloss, jgrad = jax.value_and_grad(jax_fm.loss_fn)(jax_fm.params, jb)
+        np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=TOL, atol=TOL)
+        for name, g, w in zip(("w0", "w", "v"), params, jgrad):
+            np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), rtol=TOL, atol=TOL,
+                                       err_msg=name)
+        stepped = port.step(pb)
+        jax_fm.step(jb)
+        assert bool(stepped == loss.detach())
+        if step == 5:
+            break
+    port_it.close()
+    jax_it.close()

@@ -257,6 +257,7 @@ def test_libfm_fast_and_general_paths(tmp_path):
     _both(path, "libfm")
     p = LibFMParser.__new__(LibFMParser)
     p.param = LibFMParserParam()
+    p.index_dtype = np.uint64
     with pytest.raises((DMLCError, ValueError)):
         p.parse_chunk_py(b"1:2:3 4\n")  # a label colon: malformed
 

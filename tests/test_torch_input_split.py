@@ -16,7 +16,11 @@
   mapping warns as the JAX package does and sets the same plan and
   signature;
 - RecordIO: the writer's bytes, the index files, the readers, the head
-  scan and the chunk reader equal the JAX module's.
+  scan and the chunk reader equal the JAX module's;
+- the constructors take the JAX package's positions (``fs`` first, no
+  partition until ``reset_partition``), driven by the JAX tests' own
+  calls, and ``records_in_chunk`` splits a chunk into the JAX package's
+  records on the three splitter kinds.
 
 Everything runs on the CPU at a small size.
 """
@@ -31,14 +35,18 @@ import pytest
 
 from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.io import create_input_split as jax_create_input_split
+from dmlc_tpu.io import get_filesystem as jax_get_filesystem
+from dmlc_tpu.io import input_split as jax_split
 from dmlc_tpu.io import recordio as jax_rio
 from dmlc_tpu.io.input_split import ShuffledInputSplit as JaxShuffledInputSplit
 from dmlc_tpu.io.input_split import ThreadedInputSplit as JaxThreadedInputSplit
 from dmlc_tpu.store import manager as jax_mgr
 from dmlc_tpu_torch.data import create_parser
-from dmlc_tpu_torch.io import (IndexedRecordIOSplitter, LineSplitter, RecordIOSplitter,
-                               ShuffledInputSplit, SingleFileSplit, ThreadedInputSplit,
-                               create_input_split)
+from dmlc_tpu_torch.io import (IndexedRecordIOSplitter, LineSplitter, MmapLineSplit,
+                               RecordIOSplitter, ShuffledInputSplit, SingleFileSplit,
+                               ThreadedInputSplit, create_input_split)
+from dmlc_tpu_torch.io.filesystem import get_filesystem
+from dmlc_tpu_torch.io.input_split import create_mmap_text_split
 from dmlc_tpu_torch.io import recordio as rio
 from dmlc_tpu_torch.store import manager as port_mgr
 from dmlc_tpu_torch.utils.check import DMLCError
@@ -274,10 +282,11 @@ def test_file_matching_matches_reference(tmp_path):
 
 
 def test_splitters_stay_the_line_split_it_was(tmp_path):
-    """LineSplitter keeps its positional constructor and its kind="byte"
-    chunks and states; the recordio splitter refuses unaligned files."""
+    """LineSplitter takes the JAX package's ``(fs, uri)`` constructor and
+    keeps its kind="byte" chunks and states; the recordio splitter refuses
+    unaligned files."""
     path = _text(tmp_path)
-    a = LineSplitter(path, 1, 3, chunk_bytes=4096)
+    a = LineSplitter(get_filesystem(path), path, part_index=1, num_parts=3, chunk_bytes=4096)
     b = jax_create_input_split(path, 1, 3, "text", threaded=False, chunk_bytes=4096)
     assert [(bytes(c), a.state_dict()) for c in a.iter_chunks()] == [
         (bytes(c), b.state_dict()) for c in b.iter_chunks()]
@@ -285,7 +294,7 @@ def test_splitters_stay_the_line_split_it_was(tmp_path):
     odd = tmp_path / "odd.rec"
     odd.write_bytes(b"123")
     with pytest.raises(DMLCError, match="align"):
-        RecordIOSplitter(str(odd))
+        RecordIOSplitter(get_filesystem(str(odd)), str(odd))
 
 
 # ---------------- create_parser(**split_kw) ----------------
@@ -422,3 +431,119 @@ def test_recordio_writer_and_index_match_reference(tmp_path, seed):
         list(rio.RecordIOReader(io.BytesIO(data[:-4])))
     with pytest.raises(DMLCError):
         rio.read_index_file(io.BytesIO(b"0"), 10)
+
+
+# ---------------- the JAX package's constructor positions ----------------
+
+def test_mmap_resume_sweep_with_the_reference_calls(tmp_path):
+    """``tests/test_io.py``'s sweep, call for call: ``MmapLineSplit(fs,
+    path)`` and ``LineSplitter(fs, path)`` hold no partition until
+    ``reset_partition``; a state taken after k chunks of either restores
+    into a fresh ``MmapLineSplit`` to the rest of the stream, in both
+    packages alike."""
+    p = tmp_path / "resume.txt"
+    p.write_bytes(b"a 1\nbb 22\nccc 333\ndddd 4444\ntail-without-newline")
+    tails = {}
+    for pkg, fs_of, mmap_cls, line_cls in (
+            ("port", get_filesystem, MmapLineSplit, LineSplitter),
+            ("jax", jax_get_filesystem, jax_split.MmapLineSplit, jax_split.LineSplitter)):
+        fs = fs_of(str(p))
+        empty = mmap_cls(fs, str(p))
+        assert empty.next_chunk() is None  # no partition yet
+        empty.close()
+
+        def chunks_from(split):
+            out = []
+            while (c := split.next_chunk()) is not None:
+                out.append(bytes(c))
+            return out
+
+        base = mmap_cls(fs, str(p))
+        base._chunk_bytes = 8
+        base.reset_partition(0, 1)
+        full = chunks_from(base)
+        base.close()
+        got = []
+        for k in range(len(full) + 1):
+            for src_cls in (mmap_cls, line_cls):
+                src = src_cls(fs, str(p))
+                src._chunk_bytes = 8
+                src.reset_partition(0, 1)
+                for _ in range(k):
+                    src.next_chunk()
+                state = src.state_dict()
+                src.close()
+                r = mmap_cls(fs, str(p))
+                r._chunk_bytes = 8
+                r.reset_partition(0, 1)
+                r.load_state(state)
+                got.append(b"".join(chunks_from(r)))
+                r.close()
+        tails[pkg] = (full, got)
+    assert tails["port"] == tails["jax"]
+    with pytest.raises(DMLCError, match="local files"):
+        MmapLineSplit(get_filesystem("mem://b/x"), "mem://b/x")
+
+
+def test_indexed_splitter_with_the_reference_call(tmp_path):
+    """``tests/test_concurrency.py``'s call: ``IndexedRecordIOSplitter(fs,
+    uri, index_uri, batch_size=, shuffle=, seed=)`` then
+    ``reset_partition``; a state restores into a splitter of another seed."""
+    path, _ = _recordio(tmp_path, index=True)
+    out = {}
+    for pkg, fs_of, cls in (("port", get_filesystem, IndexedRecordIOSplitter),
+                            ("jax", jax_get_filesystem, jax_split.IndexedRecordIOSplitter)):
+        s = cls(fs_of(path), path, path + ".idx", batch_size=4, shuffle=True, seed=7)
+        s.reset_partition(0, 1)
+        first = [bytes(s.next_record()) for _ in range(9)]
+        state = s.state_dict()
+        rest = [bytes(r) for r in s.iter_records()]
+        s.close()
+        s2 = cls(fs_of(path), path, path + ".idx", 4, True, 999)  # positional, as JAX's
+        s2.reset_partition(0, 1)
+        s2.load_state(state)
+        assert [bytes(r) for r in s2.iter_records()] == rest
+        s2.close()
+        out[pkg] = (first, rest)
+    assert out["port"] == out["jax"]
+
+
+def test_create_mmap_text_split_positions(tmp_path):
+    """``create_mmap_text_split(uri, part_index, num_parts, chunk_bytes=)``
+    as ``tests/test_parallel_parse.py`` calls it; the positions are
+    required, as in JAX."""
+    path = _text(tmp_path)
+    for part, nparts in ((0, 1), (1, 3)):
+        a = create_mmap_text_split(path, part, nparts, chunk_bytes=4096)
+        b = jax_split.create_mmap_text_split(path, part, nparts, chunk_bytes=4096)
+        assert [bytes(c) for c in a.iter_chunks()] == [bytes(c) for c in b.iter_chunks()]
+        a.close()
+        b.close()
+    for make in (create_mmap_text_split, jax_split.create_mmap_text_split):
+        with pytest.raises(TypeError):
+            make(path)
+
+
+@pytest.mark.parametrize("kind", ["text", "recordio", "indexed"])
+def test_records_in_chunk_matches_reference(tmp_path, kind):
+    uri, _, kw = _source(tmp_path, kind)
+    got, want = [], []
+    for fs_of, mod, out in ((get_filesystem, None, got), (jax_get_filesystem, jax_split, want)):
+        if kind == "text":
+            cls = LineSplitter if mod is None else mod.LineSplitter
+            split = cls(fs_of(uri), uri)
+        elif kind == "recordio":
+            cls = RecordIOSplitter if mod is None else mod.RecordIOSplitter
+            split = cls(fs_of(uri), uri)
+        else:
+            cls = IndexedRecordIOSplitter if mod is None else mod.IndexedRecordIOSplitter
+            split = cls(fs_of(uri), uri, kw["index_uri"], batch_size=kw["batch_size"])
+        split.hint_chunk_size(4096)
+        split.reset_partition(0, 1)
+        while (c := split.next_chunk()) is not None:
+            chunk = bytes(c)
+            out.append([bytes(r) for r in split.records_in_chunk(chunk)])
+            # a memoryview chunk gives the same records
+            assert [bytes(r) for r in split.records_in_chunk(memoryview(chunk))] == out[-1]
+        split.close()
+    assert got == want and sum(len(c) for c in got) > 0

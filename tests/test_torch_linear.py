@@ -10,11 +10,16 @@
   in both packages.
 - A bfloat16 dense batch gives the reference's losses (rtol 1e-5) over
   three steps: the margin widens ``x`` to float32 first.
+- ``init_params`` gives the JAX package's zero shapes, and ``loss_fn`` at
+  the initial and the trained parameters gives JAX's loss and gradient
+  (``jax.grad`` of its ``loss_fn``) within 1e-5; the value a step returns
+  is ``loss_fn`` at the parameters before it, bit for bit.
 
 The port runs on ``device="cpu"`` here, where the ell margin takes the
 plain gather (kernel K1 runs on the card only).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,10 +30,12 @@ from dmlc_tpu.data import create_parser as jax_create_parser
 from dmlc_tpu.data.device import DeviceIter as JaxDeviceIter
 from dmlc_tpu.models import LinearLearner as JaxLinearLearner
 from dmlc_tpu.models.linear import LinearParams as JaxLinearParams
+from dmlc_tpu.models.linear import init_params as jax_init_params
 from dmlc_tpu.ops.sparse import EllBatch as JaxEllBatch
 from dmlc_tpu_torch import convert
 from dmlc_tpu_torch.data import DeviceIter, create_parser
 from dmlc_tpu_torch.models import LinearLearner
+from dmlc_tpu_torch.models.linear import init_params
 from dmlc_tpu_torch.ops.sparse import EllBatch
 
 TOL = 1e-5
@@ -183,3 +190,57 @@ def test_bf16_dense_margin_matches_reference():
     got = [float(port.step(tb)) for _ in range(3)]
     np.testing.assert_allclose(got, want, rtol=TOL)
     assert got[0] != got[2]  # the steps moved the weights
+
+
+@pytest.mark.parametrize("num_class", [1, 3])
+def test_init_params_match_reference(num_class):
+    got = init_params(NUM_COL + 1, num_class, device="cpu")
+    want = jax_init_params(NUM_COL + 1, num_class)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        assert not g.any() and g.device.type == "cpu"
+    assert init_params(4, dtype=torch.float64, device="cpu").weight.dtype == torch.float64
+
+
+@pytest.mark.parametrize("layout,objective,l2,num_class", [
+    ("ell", "logistic", 0.0, 1),
+    ("dense", "logistic", 0.01, 1),
+    ("ell", "softmax", 0.02, 3),
+])
+def test_loss_fn_matches_reference_and_the_step(layout, objective, l2, num_class):
+    rng = np.random.default_rng(17)
+    kw = dict(objective=objective, layout=layout, learning_rate=0.3, l2=l2,
+              num_class=num_class)
+    ref = JaxLinearLearner(NUM_COL, **kw)
+    port = LinearLearner(NUM_COL, device="cpu", **kw)
+    start = init_params(NUM_COL + 1, num_class, device="cpu")
+    start = type(start)(start.weight + 0.05, start.bias)  # off zero, sink aside
+    start.weight[-1] = 0.0
+    port.set_params(start)
+    ref.params = JaxLinearParams(*(jnp.asarray(t.numpy()) for t in start))
+    ref.opt_state = ref.opt.init(ref.params)
+
+    def pair(arrays):
+        if layout == "ell":
+            return (EllBatch(*(torch.from_numpy(a) for a in arrays)),
+                    JaxEllBatch(*(jnp.asarray(a) for a in arrays)))
+        return tuple(torch.from_numpy(a) for a in arrays), tuple(jnp.asarray(a) for a in arrays)
+
+    def check(tb, jb):
+        params = type(port.params)(*(t.detach().clone().requires_grad_(True)
+                                     for t in port.params))
+        loss = port.loss_fn(params, tb)
+        loss.backward()
+        jloss, jgrad = jax.value_and_grad(ref.loss_fn)(ref.params, jb)
+        np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=TOL, atol=TOL)
+        for g, w in zip(params, jgrad):
+            np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), rtol=TOL, atol=TOL)
+        return loss.detach()
+
+    batches = [pair(a) for a in _batches(rng, layout, objective, steps=10)]
+    for tb, jb in batches:
+        before = check(tb, jb)
+        stepped = port.step(tb)
+        ref.step(jb)
+        assert stepped.dtype == before.dtype and bool(stepped == before)
+    check(*batches[0])  # at the trained parameters

@@ -15,7 +15,8 @@ The cases of ``tests/test_native_batch.py``, each run through the port
   built cache serves warm, in either package; a warm block's span
   (``block_encoded``) is the cold block's and re-tees the same file (the
   JAX test's service frame, held in ``test_torch_service_frame.py``);
-- ``simd_level`` as JAX's; cross-engine checkpoints; the fan-out and its
+- ``simd_level`` and ``crc32`` (against ``zlib.crc32`` too) as JAX's,
+  and ``bf16_dtype`` is ``torch.bfloat16``; cross-engine checkpoints; the fan-out and its
   stage seconds; the engine knob (env, URI argument, a typo, a config the
   engine cannot serve, the knob outside the cache signature);
 - healing: a read that fails mid-stream on a filesystem whose streams
@@ -32,6 +33,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from dmlc_tpu import native as jax_native
 from dmlc_tpu.data.parsers import create_parser as jax_create_parser
@@ -385,9 +387,10 @@ def test_bad_engine_rejected_loudly(tmp_path, monkeypatch):
 
 
 def test_unsupported_config_falls_back_to_python(tmp_path, caplog):
-    """A config the batch kernel cannot serve (a csv of int32 values; the
-    port parses uint64 indices only, so JAX's uint32 case raises here)
-    takes the Python engine, loudly, as in JAX, and still serves."""
+    """A config the batch kernel cannot serve (a csv of int32 values, or
+    ``index_dtype=uint32``: its segments are uint64) takes the Python
+    engine, loudly, as in JAX, and still serves JAX's blocks, dtypes
+    included."""
     ints = "".join(f"{i % 2},{i},{3 * i}\n" for i in range(40)).encode()
     uri = _write(tmp_path, "dt.csv", ints) + "?dtype=int32"
     with caplog.at_level("WARNING", logger="dmlc_tpu_torch"):
@@ -403,9 +406,22 @@ def test_unsupported_config_falls_back_to_python(tmp_path, caplog):
     finally:
         p.close()
         want.close()
-    with pytest.raises(DMLCError, match="uint64"):
-        create_parser(uri, 0, 1, "csv", threaded=False, index_dtype=np.uint32,
-                      engine="native-batch")
+    caplog.clear()
+    with caplog.at_level("WARNING", logger="dmlc_tpu_torch"):
+        p = create_parser(uri, 0, 1, "csv", threaded=False, index_dtype=np.uint32,
+                          engine="native-batch", chunk_bytes=4096)
+    want = jax_create_parser(uri, 0, 1, "csv", threaded=False, index_dtype=np.uint32,
+                             engine="native-batch", chunk_bytes=4096)
+    try:
+        assert not isinstance(p, NativeBatchParser)
+        assert type(p).__name__ == type(want).__name__
+        assert "format='csv' index_dtype=<u4" in caplog.text
+        got = _drain_arrays(p)
+        _assert_same(got, _drain_arrays(want))
+        assert got["index"][0].dtype == np.uint32
+    finally:
+        p.close()
+        want.close()
 
 
 def test_engine_outside_cache_signature(tmp_path):
@@ -604,3 +620,18 @@ def test_batch_engine_over_memfs_matches_reference(tmp_path):
     finally:
         for mod in (fs_mod, jax_fs):
             mod.MemoryFileSystem.reset()
+
+
+@pytest.mark.parametrize("data", [b"", b"x", b"123456789", bytes(range(256)) * 41,
+                                  bytearray(b"dmlc" * 1000), memoryview(b"abc" * 77)])
+def test_crc32_matches_zlib_and_reference(data):
+    got = native.crc32(data)
+    assert got == jax_native.crc32(data) == zlib.crc32(bytes(data)) & 0xFFFFFFFF
+
+
+def test_crc32_without_the_library_and_bf16_dtype(monkeypatch):
+    monkeypatch.setattr(native, "_load", lambda: None)
+    assert native.crc32(b"abc") is None
+    assert native.bf16_dtype() is torch.bfloat16
+    assert torch.empty(0, dtype=native.bf16_dtype()).element_size() == (
+        jax_native.bf16_dtype().itemsize)

@@ -43,6 +43,7 @@ from dmlc_tpu_torch.data import DeviceIter, create_parser
 from dmlc_tpu_torch.data.native_parser import (NativeStreamParser, list_partition_files,
                                                native_reader_eligible)
 from dmlc_tpu_torch.data.row_block import CooBlock, DenseBlock, RowBlock
+from dmlc_tpu_torch.io.filesystem import get_filesystem
 from dmlc_tpu_torch.models import FMLearner, LinearLearner
 from dmlc_tpu_torch.ops.sparse import csr_coords, native_coo_to_port
 from dmlc_tpu_torch.utils.check import DMLCError
@@ -505,8 +506,8 @@ def test_create_parser_routes_where_jax_does(tmp_path, case, monkeypatch):
             == _csr_rows(list(iter(jax.next_block, None))))
     port.close()
     jax.close()
-    assert native_reader_eligible(f, fmt, True) == (fmt in ("libsvm", "csv", "libfm"))
-    assert not native_reader_eligible(f + "#blockcache=" + str(tmp_path / "bc"), fmt, True)
+    assert native_reader_eligible(f, fmt, True, {}) == (fmt in ("libsvm", "csv", "libfm"))
+    assert not native_reader_eligible(f + "#blockcache=" + str(tmp_path / "bc"), fmt, True, {})
 
 
 # ---------------- DeviceIter over the reader ----------------
@@ -704,7 +705,8 @@ def test_parser_base_refuses_an_unknown_engine(tmp_path):
     f = _write(tmp_path, "e.libsvm", "1 0:1\n")
     for engine in ("auto", "python", "native", "numpy"):
         with pytest.raises(TypeError, match="engine"):
-            LibSVMParser(LineSplitter(f, 0, 1), engine=engine)
+            LibSVMParser(LineSplitter(get_filesystem(f), f, part_index=0, num_parts=1),
+                         engine=engine)
     for engine in ("numpy", "fast"):
         with pytest.raises(DMLCError, match=engine):
             create_parser(f, 0, 1, "libsvm", engine=engine)

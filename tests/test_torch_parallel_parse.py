@@ -18,16 +18,24 @@ the csv skeleton cache under concurrent workers. Mirrors
 at 4 workers heals below the pool, byte-identical to a clean one-worker
 epoch, with the JAX package's ``fired()`` and counters. Its
 ``restart_policy`` cases are held in ``tests/test_torch_autotune.py``.
+``ThreadedParser(capacity=)`` and ``ParallelTextParser(max_ahead=)`` give
+the serial blocks at every window and the JAX package's window;
+``stall_seconds`` starts, runs on and resets where the JAX wrappers' does,
+and ``bytes_read`` counts the JAX package's bytes.
 """
 
 import json
+import os
 import sys
 import threading
 
 import numpy as np
 import pytest
 
+from dmlc_tpu.data.parsers import LibSVMParser as JaxLibSVMParser
 from dmlc_tpu.data.parsers import ParallelTextParser as JaxParallelTextParser
+from dmlc_tpu.data.parsers import Parser as JaxParser
+from dmlc_tpu.data.parsers import ThreadedParser as JaxThreadedParser
 from dmlc_tpu.data.parsers import create_parser as jax_create_parser
 from dmlc_tpu.io import faults as jax_faults
 from dmlc_tpu.io import http_filesys as jax_http
@@ -38,13 +46,14 @@ from dmlc_tpu.utils import knobs as jax_knobs
 from dmlc_tpu.utils.check import DMLCError as JaxDMLCError
 from dmlc_tpu_torch.data import (DenseBlock, DeviceIter, LibSVMParser, ParallelTextParser,
                                  ThreadedParser, create_parser)
-from dmlc_tpu_torch.data.parsers import (CSVParser, LibFMParser, LibSVMParserParam,
-                                         _CSV_SKELETON_CACHE, _csv_skeleton,
+from dmlc_tpu_torch.data.parsers import (CSVParser, LibFMParser, LibSVMParserParam, Parser,
+                                         ThreadedParser, _CSV_SKELETON_CACHE, _csv_skeleton,
                                          _pin_python_scanner)
 from dmlc_tpu_torch.io import LineSplitter, MmapLineSplit, create_mmap_text_split
 from dmlc_tpu_torch.io import faults as port_faults
 from dmlc_tpu_torch.io import http_filesys as port_http
 from dmlc_tpu_torch.io import resilience as port_resilience
+from dmlc_tpu_torch.io.filesystem import get_filesystem
 from dmlc_tpu_torch.utils import knobs
 from dmlc_tpu_torch.utils.check import DMLCError
 
@@ -143,7 +152,7 @@ def test_streams_equal_at_every_worker_count(tmp_path, fmt, data, args, engine):
     # the serial stream over the same mmap split: annotations and all
     cls = {"libsvm": LibSVMParser, "libfm": LibFMParser, "csv": CSVParser}[fmt]
     args_d = dict(kv.split("=", 1) for kv in f"format={fmt}{args}".split("&"))
-    serial = cls(create_mmap_text_split(path, chunk_bytes=2048), args_d)
+    serial = cls(create_mmap_text_split(path, 0, 1, chunk_bytes=2048), args_d)
     if engine == "python":
         _pin_python_scanner(serial)  # as create_parser(engine="python")
     mmap_serial = _stream(ThreadedParser(serial))
@@ -442,7 +451,8 @@ def test_mmap_bounds_and_records_equal_the_stream(tmp_path, nparts):
     path = _write(tmp_path, "m.libsvm", _libsvm_text(n=700, d=3))
     for part in range(nparts):
         a = create_mmap_text_split(path, part, nparts, chunk_bytes=4096)
-        b = LineSplitter(path, part, nparts, chunk_bytes=4096)
+        b = LineSplitter(get_filesystem(path), path, part_index=part, num_parts=nparts,
+                         chunk_bytes=4096)
         j = jax_mmap_split(path, part, nparts, chunk_bytes=4096)
         assert (a.offset_begin, a.offset_end) == (b.offset_begin, b.offset_end)
         assert (a.offset_begin, a.offset_end) == (j.offset_begin, j.offset_end)
@@ -463,7 +473,7 @@ def test_empty_after_adjustment_partition(tmp_path):
     for nparts in (3, 5):
         for part in range(nparts):
             a = create_mmap_text_split(path, part, nparts)
-            b = LineSplitter(path, part, nparts)
+            b = LineSplitter(get_filesystem(path), path, part_index=part, num_parts=nparts)
             ca = b"".join(bytes(c) for c in iter(a.next_chunk, None))
             cb = b"".join(bytes(c) for c in iter(b.next_chunk, None))
             assert ca.rstrip(b"\n") == cb.rstrip(b"\n"), (nparts, part)
@@ -501,7 +511,7 @@ def test_state_roundtrip_and_cross_split(tmp_path):
     assert b"".join(bytes(c) for c in iter(a2.next_chunk, None)) == rest
     # a stream state (with its read-ahead overflow) into the mmap split,
     # and the mmap state into the stream split
-    b = LineSplitter(path, 0, 1, chunk_bytes=4096)
+    b = LineSplitter(get_filesystem(path), path, part_index=0, num_parts=1, chunk_bytes=4096)
     b.next_chunk()
     stb = b.state_dict()
     assert stb["overflow"]
@@ -509,7 +519,7 @@ def test_state_roundtrip_and_cross_split(tmp_path):
     a3 = create_mmap_text_split(path, 0, 1, chunk_bytes=4096)
     a3.load_state(stb)
     assert b"".join(bytes(c) for c in iter(a3.next_chunk, None)) == rest_b
-    b2 = LineSplitter(path, 0, 1, chunk_bytes=4096)
+    b2 = LineSplitter(get_filesystem(path), path, part_index=0, num_parts=1, chunk_bytes=4096)
     b2.load_state(st)
     assert b"".join(bytes(c) for c in iter(b2.next_chunk, None)) == rest
     for s in (a, a2, a3, b, b2, j):
@@ -531,7 +541,7 @@ def test_refuses_pending_chunk_state(tmp_path):
 
 def test_chunk_views_outlive_close(tmp_path):
     path = _write(tmp_path, "v.libsvm", _libsvm_text(n=50, d=3))
-    a = create_mmap_text_split(path)
+    a = create_mmap_text_split(path, 0, 1)
     chunk = a.next_chunk()
     a.close()  # a live view leaves the unmap to the garbage collector
     assert bytes(chunk[:2]) == b"0 "
@@ -543,6 +553,7 @@ def test_chunk_views_outlive_close(tmp_path):
 def _svm():
     p = LibSVMParser.__new__(LibSVMParser)
     p.param = LibSVMParserParam()
+    p.index_dtype = np.uint64
     return p
 
 
@@ -595,7 +606,7 @@ def test_skeleton_cache_under_concurrent_workers():
             for rep in range(30):
                 for n in range(1, 24):
                     k = (tid + rep) % 7 + 1
-                    idx, off = _csv_skeleton(n, k)
+                    idx, off = _csv_skeleton(n, k, np.uint64)
                     assert len(idx) == n * k and off[-1] == n * k
                     assert idx.dtype == np.uint64 and not idx.flags.writeable
                     assert not off.flags.writeable
@@ -732,3 +743,66 @@ def test_c7_native_batch_warns_and_takes_the_registry_stack(tmp_path, monkeypatc
         port = create_parser(str(path), engine="native", threaded=False)
     assert isinstance(port, LibSVMParser)
     assert "engine=native unavailable for uri=" in caplog.text
+
+
+# ---------------- the wrappers' windows and clocks ----------------
+
+def _wrapped(pkg, wrapper, path, **kw):
+    """A wrapper of ``pkg`` over a bare libsvm parser on one mmap split."""
+    if pkg == "port":
+        base = LibSVMParser(create_mmap_text_split(path, 0, 1, chunk_bytes=1024))
+        cls = ThreadedParser if wrapper == "threaded" else ParallelTextParser
+    else:
+        base = JaxLibSVMParser(jax_mmap_split(path, 0, 1, chunk_bytes=1024))
+        cls = JaxThreadedParser if wrapper == "threaded" else JaxParallelTextParser
+    return cls(base, **kw)
+
+
+@pytest.mark.parametrize("window", [1, 2, 8])
+def test_capacity_and_max_ahead_match_reference(tmp_path, window):
+    path = _resume_uri(tmp_path)
+    serial = _stream(LibSVMParser(create_mmap_text_split(path, 0, 1, chunk_bytes=1024)))
+    for wrapper, kw in (("threaded", {"capacity": window}),
+                        ("parallel", {"num_workers": 3, "max_ahead": window})):
+        port, jax = _wrapped("port", wrapper, path, **kw), _wrapped("jax", wrapper, path, **kw)
+        assert port._ahead == window
+        assert (jax._capacity if wrapper == "threaded" else jax._ahead) == window
+        got = [(blk[1], blk[2]) for blk in _stream(port)]
+        assert got == [(blk[1], blk[2]) for blk in serial]
+        jax.close()
+    # a live resize sets the JAX window, max(4, 2 * workers)
+    port, jax = _wrapped("port", "parallel", path, max_ahead=1), _wrapped("jax", "parallel", path,
+                                                                          max_ahead=1)
+    port.resize_parse_workers(3)
+    jax.resize_parse_workers(3)
+    assert port._ahead == jax._ahead == 6
+    port.close()
+    jax.close()
+
+
+@pytest.mark.parametrize("wrapper", ["threaded", "parallel"])
+def test_stall_seconds_and_bytes_read_follow_reference(tmp_path, wrapper):
+    """The clock is 0.0 before the first pull; a threaded wrapper's runs on
+    across epochs and a fan-out's restarts with each; a restore resets
+    both. ``bytes_read`` is the split's bytes, as JAX's."""
+    path = _resume_uri(tmp_path)
+    seen = {}
+    for pkg in ("port", "jax"):
+        p = _wrapped(pkg, wrapper, path, **({} if wrapper == "threaded" else {"num_workers": 2}))
+        assert p.stall_seconds == 0.0 and p.bytes_read == 0
+        n = sum(1 for _ in iter(p.next_block, None))
+        first = p.stall_seconds
+        assert first >= 0.0
+        nbytes = p.bytes_read
+        p.before_first()
+        runs_on = p.stall_seconds == first  # no pull yet this epoch
+        sum(1 for _ in iter(p.next_block, None))
+        assert p.stall_seconds >= (first if wrapper == "threaded" else 0.0)
+        p.load_state({"kind": "blocks", "blocks": 0})
+        reset = p.stall_seconds
+        p.close()
+        seen[pkg] = (n, nbytes, runs_on, reset)
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][1] == os.path.getsize(path)
+    assert seen["port"][2] == (wrapper == "threaded") and seen["port"][3] == 0.0
+    assert Parser().bytes_read == JaxParser().bytes_read == 0

@@ -15,6 +15,7 @@ from dmlc_tpu_torch import native
 from dmlc_tpu_torch.data import LibSVMParser, create_parser
 from dmlc_tpu_torch.data.parsers import _pin_python_scanner
 from dmlc_tpu_torch.io import LineSplitter
+from dmlc_tpu_torch.io.filesystem import get_filesystem
 
 
 def _lines(rng, n, one_based=False):
@@ -126,7 +127,8 @@ def test_lines_longer_than_the_chunk(tmp_path, engine):
     path.write_text("\n".join(lines) + "\n")
     for num_parts in (1, 3):
         for part in range(num_parts):
-            split = LineSplitter(str(path), part, num_parts, chunk_bytes=4096)
+            split = LineSplitter(get_filesystem(str(path)), str(path), part_index=part,
+                                 num_parts=num_parts, chunk_bytes=4096)
             parser = LibSVMParser(split)
             if engine == "python":
                 _pin_python_scanner(parser)  # as create_parser(engine="python")

@@ -18,6 +18,7 @@ is ``bin/lint_retry.py``'s, loaded by path); ``test_repo_is_clean`` becomes
 the port's gate, scanning ``dmlc_tpu_torch/**/*.py`` outside
 ``io/resilience.py``. The JAX test of the same name runs the script over
 ``dmlc_tpu/`` and stays in the JAX suite. Every other JAX test has a twin.
+``COUNTERS``, the process-wide counter object, answers as the JAX one.
 """
 
 import http.server
@@ -720,3 +721,22 @@ class TestDeviceIterAcceptance:
         assert plan.fired() == 1
         snap = pkg.res.counters_snapshot()
         assert snap["fatal"] >= 1 and snap["retries"] == 0
+
+
+def test_counters_object_matches_reference():
+    for res in (port_res, jax_res):
+        res.COUNTERS.reset()
+        res.COUNTERS.bump("retries")
+        res.record_event("retries", 2)
+        base = res.COUNTERS.snapshot()
+        res.COUNTERS.bump("cache_rebuilds")
+        assert res.counters_snapshot() == res.COUNTERS.snapshot()
+        assert res.COUNTERS.delta(base) == res.counters_delta(base)
+    assert port_res.COUNTERS.snapshot() == jax_res.COUNTERS.snapshot()
+    assert port_res.COUNTERS.snapshot()["retries"] == 3
+    assert port_res.COUNTERS.delta(base) == jax_res.COUNTERS.delta(base)
+    assert port_res.COUNTERS.snapshot(pipeline="nope") == jax_res.COUNTERS.snapshot(
+        pipeline="nope")
+    for res in (port_res, jax_res):
+        res.reset_counters()
+        assert not any(res.COUNTERS.snapshot().values())

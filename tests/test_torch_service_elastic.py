@@ -87,6 +87,7 @@ def test_drain_mid_parse_reissues(corpus, disp_pkg, worker_pkg):
     D, W = PKGS[disp_pkg], PKGS[worker_pkg]
     want = local_keys(corpus, 2)
     base = D.resilience.counters_snapshot()
+    worker_base = W.resilience.counters_snapshot()
     disp = D.dispatcher.Dispatcher(corpus, 2, parser=PARSER_CFG, liveness_timeout=5.0)
     slow = W.worker.ParseWorker(disp.address, poll_interval=0.02, heartbeat_interval=0.1,
                                 straggle_seconds=0.5)
@@ -103,7 +104,9 @@ def test_drain_mid_parse_reissues(corpus, disp_pkg, worker_pkg):
         # off) while the worker re-announces it is counted again, in both
         # packages alike (the worker re-registers, then drains anew)
         assert d["worker_drains"] >= 1
-        assert W.resilience.counters_snapshot()["service_giveups"] == 0
+        # this test's give-ups: an earlier test in the same process may
+        # have counted some
+        assert W.resilience.counters_delta(worker_base)["service_giveups"] == 0
         assert sorted(fast.parts_parsed) == [0, 1]
     finally:
         if sp is not None:

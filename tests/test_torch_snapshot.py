@@ -9,6 +9,12 @@
   raises ``CacheCorruptionError``; an aborted writer leaves nothing.
 - ``source_signature`` and ``create_parser(snapshot=)``'s stamp equal the
   JAX package's for the same corpus.
+- ``verify=False`` (reader and ``open_snapshot``) and ``copy=True``
+  (``load_batch``, ``batch_span``) read what the verified views read; an
+  unverified reader serves a corrupt batch as it is, the bytes JAX's
+  unverified reader gives, and the ``snapshot_read`` fault seam fires all
+  the same. ``hold``, ``kind``, ``batch_rows``, ``SnapshotWriter.close``
+  and ``io.snapshot.quantize_int8`` answer as the JAX package's.
 """
 
 import json
@@ -24,6 +30,8 @@ from dmlc_tpu.io import block_cache as jax_bc
 from dmlc_tpu.io import snapshot as jax_snapshot
 from dmlc_tpu_torch.data import create_parser
 from dmlc_tpu_torch.io import block_cache
+from dmlc_tpu_torch.io import faults
+from dmlc_tpu_torch.io import snapshot as port_snapshot
 from dmlc_tpu_torch.io.snapshot import (
     SNAPSHOT_MAGIC,
     SnapshotIter,
@@ -274,3 +282,86 @@ def test_magic_and_header(tmp_path):
         data = f.read()
     assert data[:8] == SNAPSHOT_MAGIC and data[-8:] == SNAPSHOT_MAGIC
     assert block_cache.container_header(SNAPSHOT_MAGIC, 1) == data[:16]
+
+
+def _flip(path: str, pos: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+@pytest.mark.parametrize("copy", [False, True])
+def test_unverified_and_copied_reads_equal_verified(tmp_path, copy):
+    path = str(tmp_path / "v.snap")
+    _write(SnapshotWriter, path, _golden_batches(), {"pinned": "snapshot-v1"})
+    ref = SnapshotReader(path)
+    r = open_snapshot(path, signature={"pinned": "snapshot-v1"}, geometry=GEOM, verify=False)
+    j = jax_snapshot.open_snapshot(path, verify=False)
+    assert r.verify is False and ref.verify is True
+    for i in range(ref.num_batches):
+        want = ref.load_batch(i)
+        got = r.load_batch(i, copy=copy)
+        jgot = j.load_batch(i, copy=copy)
+        assert got[0] == want[0] == jgot[0]
+        for a, b, c in zip(got[1:], want[1:], jgot[1:]):
+            assert a.tobytes() == b.tobytes() == c.tobytes() and a.shape == b.shape
+            # a copy is the process's own, writable; a view stays read-only
+            assert a.flags.writeable == copy == c.flags.writeable
+        kind, span, layout = r.batch_span(i, copy=copy)
+        jkind, jspan, _ = j.batch_span(i, copy=copy)
+        assert kind == jkind and layout == ref.layout(i)
+        assert span.tobytes() == jspan.tobytes() == ref.batch_span(i)[1].tobytes()
+        assert span.flags.writeable == copy
+    for reader in (ref, r, j):
+        reader.close()
+
+
+def test_unverified_reader_serves_a_corrupt_batch_as_jax_does(tmp_path):
+    path = str(tmp_path / "c.snap")
+    _write(SnapshotWriter, path, _golden_batches(), {})
+    probe = SnapshotReader(path)
+    pos = int(probe._batches[1]["arrays"]["a0"][1]) + 1  # batch 1's first segment
+    probe.close()
+    _flip(path, pos)
+    verified, jverified = SnapshotReader(path), jax_snapshot.SnapshotReader(path)
+    r = SnapshotReader(path, verify=False)
+    j = jax_snapshot.SnapshotReader(path, verify=False)
+    for reader, err in ((verified, CacheCorruptionError), (jverified, Exception)):
+        with pytest.raises(err, match="crc"):
+            reader.load_batch(1)
+    got, want = r.load_batch(1), j.load_batch(1)
+    assert [a.tobytes() for a in got[1:]] == [a.tobytes() for a in want[1:]]
+    assert got[1].tobytes() != _golden_batches()[1][1][0].tobytes()  # no heal
+    assert r.batch_span(1)[1].tobytes() == j.batch_span(1)[1].tobytes()
+    # the fault seam fires on an unverified read too, as in JAX
+    with faults.inject("snapshot_read@1=corrupt"):
+        with pytest.raises(CacheCorruptionError):
+            r.load_batch(0)
+    for reader in (verified, jverified, r, j):
+        reader.close()
+
+
+def test_reader_accessors_and_writer_close_match_reference(tmp_path):
+    r, j = SnapshotReader(GOLDEN), jax_snapshot.SnapshotReader(GOLDEN)
+    assert r.hold is r._mm and j.hold is j._mm
+    for i in range(r.num_batches):
+        assert r.kind(i) == j.kind(i) == _golden_batches()[i][0]
+        assert r.batch_rows(i) == j.batch_rows(i) == _golden_batches()[i][2]
+    r.close()
+    j.close()
+    # close() aborts an unfinished writer and leaves a finished one published
+    for writer_cls in (SnapshotWriter, jax_snapshot.SnapshotWriter):
+        open_w = writer_cls(str(tmp_path / f"{writer_cls.__module__}.open"), geometry=GEOM)
+        open_w.add_batch("dense_packed", (np.zeros((4, 5), np.float32),), rows=4)
+        open_w.close()
+        assert not os.path.exists(open_w.tmp_path) and not os.path.exists(open_w.path)
+        done = writer_cls(str(tmp_path / f"{writer_cls.__module__}.done"), geometry=GEOM)
+        done.add_batch("dense_packed", (np.zeros((4, 5), np.float32),), rows=4)
+        done.finish()
+        done.close()
+        assert os.path.exists(done.path)
+    q, scale = port_snapshot.quantize_int8(np.arange(12, dtype=np.float32).reshape(3, 4) - 5)
+    jq, jscale = jax_snapshot.quantize_int8(np.arange(12, dtype=np.float32).reshape(3, 4) - 5)
+    assert q.tobytes() == np.asarray(jq).tobytes() and scale.tobytes() == np.asarray(jscale).tobytes()

@@ -11,7 +11,14 @@ function and its port:
 - K1's gradient, the plain ``ell_matvec_grads`` (the CPU route, and the
   reference of the ``dw`` kernel), against ``jax.grad`` through the Pallas
   custom VJP run in interpret mode: same tolerance;
-- the ``dw`` route by table width, and the kernels' refusal of CPU tensors.
+- the ``dw`` route by table width, and the kernels' refusal of CPU tensors;
+- the names the earlier slices left out: ``EllBatch.batch_size`` /
+  ``max_nnz``, ``block_to_dense(copy=False)``'s view,
+  ``block_to_bcoo_host(unit_values_as_none=)``, ``block_to_bcoo`` (dense
+  form equal to the JAX BCOO's ``todense()``), ``ell_matmul`` on a
+  ``[D+1, H]`` table and ``segment_csr_matvec`` (``tests/test_device.py``'s
+  cases, duplicate ids, rows with no entries, ids the JAX segment sum
+  drops, and the gradients) against the JAX functions: rtol 1e-5.
 
 The kernels themselves run only on the card (chip_smoke.py holds them
 against the plain versions there).
@@ -185,3 +192,137 @@ def test_kernels_refuse_cpu_tensors():
         ell_matvec_dw_cuda(idx, val, g, 5)
     with pytest.raises(DMLCError, match="CUDA"):
         ell_matvec_cuda(torch.zeros(5), idx, val)
+
+
+def _device_block(pkg_cls):
+    """``tests/test_device.py``'s block."""
+    return pkg_cls(offset=[0, 2, 3, 6], label=[1.0, 0.0, 1.0],
+                   index=np.array([0, 3, 1, 0, 2, 4], dtype=np.uint64),
+                   value=np.array([1.0, 2.0, 3.0, 4.0, 5.0, 6.0], dtype=np.float32),
+                   weight=np.array([1.0, 0.5, 2.0], dtype=np.float32))
+
+
+def test_ell_batch_properties_match_reference():
+    rng = np.random.default_rng(5)
+    port, ref = _pair(_csr(rng, 12, 9, 4))
+    got = sparse.block_to_ell(port, 9, max_nnz=4, pad_rows_to=16)
+    want = jsparse.block_to_ell(ref, 9, max_nnz=4, pad_rows_to=16)
+    assert (got.batch_size, got.max_nnz) == (want.batch_size, want.max_nnz) == (16, 4)
+    on_device = sparse.EllBatch(*(torch.from_numpy(a) for a in got))
+    assert (on_device.batch_size, on_device.max_nnz) == (16, 4)
+
+
+@pytest.mark.parametrize("num_col,pad", [(6, None), (6, 24), (8, None)])
+def test_block_to_dense_copy_false_views_as_reference(num_col, pad):
+    rng = np.random.default_rng(2)
+    n, k = 20, 6
+    arrays = (np.arange(0, n * k + 1, k, dtype=np.int64),
+              rng.integers(0, 2, size=n).astype(np.float32),
+              np.tile(np.arange(k, dtype=np.uint64), n),
+              rng.normal(size=n * k).astype(np.float32), None)
+    port, ref = _pair(arrays)
+    got = sparse.block_to_dense(port, num_col, pad_rows_to=pad, copy=False)
+    want = jsparse.block_to_dense(ref, num_col, pad_rows_to=pad, copy=False)
+    for g, w in zip(got, want):
+        _assert_bytes_equal(g, w)
+    # a view exactly where JAX gives one: full width, no row padding
+    assert np.shares_memory(got[0], port.value) == np.shares_memory(want[0], ref.value) == (
+        num_col == k and pad is None)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("pad_nnz", [None, 64])
+def test_block_to_bcoo_host_unit_values_as_none(binary, pad_nnz):
+    rng = np.random.default_rng(9)
+    offset, label, index, value, weight = _csr(rng, 20, 30, 5, binary=binary)
+    ones = np.ones_like(value) if value is not None else None
+    for vals in (value, ones):
+        port, ref = _pair((offset, label, index, vals, weight))
+        got = sparse.block_to_bcoo_host(port, 30, 24, True, pad_nnz)
+        want = jsparse.block_to_bcoo_host(ref, 30, 24, True, pad_nnz)
+        assert (got[1] is None) == (want[1] is None) == (vals is None or vals is ones)
+        nnz = len(index)
+        _assert_bytes_equal(got[0][:nnz], want[0][:nnz])
+        if got[1] is not None:
+            _assert_bytes_equal(got[1][:nnz], want[1][:nnz])
+    # an id past num_col keeps its values: its zero marks the masked slot
+    port, ref = _pair((offset, label, index, ones, weight))
+    coords, vals, _, _, _ = sparse.block_to_bcoo_host(port, 20, unit_values_as_none=True)
+    assert vals is not None and (vals[index >= 20] == 0).all() and (vals[index < 20] == 1).all()
+
+
+@pytest.mark.parametrize("unsorted", [False, True])
+def test_block_to_bcoo_dense_form_matches_reference(unsorted):
+    block, ref = _device_block(RowBlock), _device_block(JaxRowBlock)
+    if unsorted:  # row 2's ids out of order, and an id past num_col
+        for b in (block, ref):
+            b.index = np.array([0, 3, 1, 4, 2, 7], dtype=np.uint64)
+    got = sparse.block_to_bcoo(block, 5, device="cpu")
+    want = jsparse.block_to_bcoo(ref, 5)
+    assert got.is_sparse and tuple(got.shape) == tuple(want.shape) == (3, 5)
+    assert got.is_coalesced() == (not unsorted)
+    np.testing.assert_allclose(got.to_dense().numpy(), np.asarray(want.todense()), rtol=RTOL)
+    np.testing.assert_allclose(got.to_dense().numpy(), block.to_dense(5), rtol=RTOL)
+
+
+def test_ell_matmul_matches_reference():
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(30, 8)).astype(np.float32)
+    table[-1] = 0.0
+    port, ref = _pair(_csr(rng, 40, 29, 6))
+    ell = sparse.block_to_ell(port, 29, pad_rows_to=48)
+    jell = jsparse.block_to_ell(ref, 29, pad_rows_to=48)
+    got = sparse.ell_matmul(torch.from_numpy(table),
+                            sparse.EllBatch(*(torch.from_numpy(a) for a in ell)))
+    want = jsparse.ell_matmul(jnp.asarray(table), jell)
+    assert tuple(got.shape) == (48, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    with pytest.raises(DMLCError, match="table"):
+        sparse.ell_matmul(torch.from_numpy(table[:, 0]), sparse.EllBatch(
+            *(torch.from_numpy(a) for a in ell)))
+
+
+def _segment_case(name):
+    """``(weights [D], index, value, row_ids, num_rows)``."""
+    if name == "device":  # tests/test_device.py
+        blk = _device_block(RowBlock)
+        rows = np.repeat(np.arange(3), np.diff(blk.offset))
+        return (np.arange(1.0, 6.0, dtype=np.float32), blk.index.astype(np.int32), blk.value,
+                rows, 3)
+    rng = np.random.default_rng(4)
+    n = 300
+    index = rng.integers(0, 50, size=n)
+    value = rng.normal(size=n).astype(np.float32)
+    rows = np.sort(rng.integers(0, 40, size=n))
+    rows[rows % 7 == 3] = 5              # rows with no entries, one row of many
+    if name == "dropped":                # ids the segment sum drops
+        rows[:7] = -1
+        rows[-9:] = 40
+    return rng.normal(size=50).astype(np.float32), index, value, rows, 40
+
+
+@pytest.mark.parametrize("name", ["device", "duplicates", "dropped"])
+def test_segment_csr_matvec_matches_reference(name):
+    w, index, value, rows, num_rows = _segment_case(name)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    tv = torch.from_numpy(value).requires_grad_(True)
+    got = sparse.segment_csr_matvec(tw, torch.from_numpy(index.astype(np.int64)), tv,
+                                    torch.from_numpy(rows.astype(np.int64)), num_rows)
+
+    def f(jw, jv):
+        return jsparse.segment_csr_matvec(jw, jnp.asarray(index), jv, jnp.asarray(rows),
+                                          num_rows)
+
+    want = f(jnp.asarray(w), jnp.asarray(value))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    if name == "device":
+        blk = _device_block(RowBlock)
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   blk.to_dense(5) @ np.arange(1.0, 6.0, dtype=np.float32),
+                                   rtol=1e-6)
+    g = np.random.default_rng(8).normal(size=num_rows).astype(np.float32)
+    (got * torch.from_numpy(g)).sum().backward()
+    jgw, jgv = jax.grad(lambda a, b: jnp.sum(f(a, b) * g), argnums=(0, 1))(
+        jnp.asarray(w), jnp.asarray(value))
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jgw), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(jgv), rtol=RTOL, atol=ATOL)

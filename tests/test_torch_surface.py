@@ -17,8 +17,9 @@ the port had (each on the CPU, ``device="cpu"``):
   JAX package's knobs do (unset, valid, bad; an explicit argument wins);
 - C5: ``create_parser``'s positions are the JAX package's:
   ``create_parser(path, 0, 1, "libsvm", threaded=False)`` gives the bare
-  parser, whose blocks equal the threaded one's; another ``index_dtype``
-  raises.
+  parser, whose blocks equal the threaded one's; ``index_dtype=np.uint32``
+  gives the JAX package's blocks, dtypes included (C18), and a dtype numpy
+  cannot read raises JAX's error where JAX raises it.
 """
 
 import jax.numpy as jnp
@@ -255,7 +256,20 @@ def test_c5_create_parser_positions_match_reference(tmp_path, monkeypatch):
             np.testing.assert_array_equal(x, y)
     jax_rows = sum(len(b) for b in jax_create_parser(uri, 0, 1, "libsvm", threaded=False))
     assert sum(len(b[1]) for b in got) == jax_rows == 300
-    with pytest.raises(DMLCError, match="uint64"):
-        create_parser(uri, 0, 1, "libsvm", np.uint32)
+    for engine in ("auto", "python"):
+        got = create_parser(uri, 0, 1, "libsvm", np.uint32, False, engine=engine)
+        want = jax_create_parser(uri, 0, 1, "libsvm", np.uint32, False, engine=engine)
+        assert type(got).__name__ == type(want).__name__
+        for a, b in zip(_blocks(got), [(b.offset, b.label, b.index, b.value) for b in want]):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+                assert x.dtype == y.dtype
+    # the numpy engine casts to the dtype, so that is where JAX fails
+    with pytest.raises(DMLCError) as port_err:
+        create_parser(uri, 0, 1, "libsvm", "not-a-dtype", False, engine="python").next_block()
+    with pytest.raises(JaxDMLCError) as jax_err:
+        jax_create_parser(uri, 0, 1, "libsvm", "not-a-dtype", False,
+                          engine="python").next_block()
+    assert str(port_err.value) == str(jax_err.value)
     with pytest.raises(TypeError):
         create_parser(uri, 0, 1, "libsvm", np.uint64, True, "python")  # engine is keyword-only

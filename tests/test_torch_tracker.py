@@ -16,6 +16,9 @@ the two packages can meet, through both:
   launcher's environment equal JAX's;
 - the ``DMLC_NUM_ATTEMPT`` relaunch, a ``dmlc-submit --cluster local`` job
   of port workers, a worker dying mid-brokering, heartbeats and liveness;
+- ``pyproject.toml``'s ``dmlc-submit-torch`` console script names the
+  port's ``tracker.submit:main``, whose ``--help`` runs in a process that
+  cannot import jax and prints the JAX CLI's options;
 - pod telemetry: real worker processes ship snapshots of the port's
   registry; the merged table, ``pod_job_metrics`` and ``pod_decisions``
   equal the JAX tracker's for the same snapshots, sent by either client.
@@ -772,3 +775,27 @@ class TestLiveness:
 
         with pytest.raises(RuntimeError, match="not all ranks sent shutdown"):
             T.submit(1, 0, fun_submit, host_ip="127.0.0.1")
+
+
+def test_console_script_runs_help_without_jax():
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        scripts = [ln.split("=", 1) for ln in f if ln.startswith("dmlc-submit")]
+    entries = {k.strip(): v.strip().strip('"') for k, v in scripts}
+    assert entries == {"dmlc-submit": "dmlc_tpu.tracker.submit:main",
+                       "dmlc-submit-torch": "dmlc_tpu_torch.tracker.submit:main"}
+    out = {}
+    for name, entry in entries.items():
+        module, _, func = entry.partition(":")
+        block = "'jax', 'jaxlib', 'dmlc_tpu'" if name.endswith("-torch") else ""
+        script = ("import sys\n"
+                  f"for name in ({block}):\n"
+                  "    sys.modules[name] = None\n"
+                  f"import {module} as m\n"
+                  "sys.argv = ['dmlc-submit', '--help']\n"
+                  f"m.{func}()\n")
+        proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                              text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+        assert proc.returncode == 0, proc.stderr
+        out[name] = proc.stdout
+    assert "usage: dmlc-submit" in out["dmlc-submit-torch"] and "--cluster" in out["dmlc-submit"]
+    assert out["dmlc-submit-torch"] == out["dmlc-submit"]
