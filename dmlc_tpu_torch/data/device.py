@@ -109,8 +109,10 @@ stages of the same window, scaled down where the threads overlapped, and
 (``DMLC_TPU_TRANSFER_SAMPLE``, default 32) a wait on that batch's copy
 event (never on a compute stream). Every stage records spans and every
 counter is a registry counter under ``pipeline_label``
-(:mod:`dmlc_tpu_torch.utils.telemetry`); ``DMLC_TPU_TRACE=1`` adds
-``torch.profiler`` ranges, ``DMLC_TPU_TRACE=chrome:<path>`` (or
+(:mod:`dmlc_tpu_torch.utils.telemetry`); under a recording
+``torch.profiler`` the convert, dispatch and transfer work opens
+``dmlc_tpu.*`` ranges, and so does the consumer's wait on the producer in
+the refill (``dmlc_tpu.input_wait``); ``DMLC_TPU_TRACE=chrome:<path>`` (or
 :meth:`DeviceIter.dump_trace`) exports the spans. ``snapshot_write_seconds``
 is the cold epoch's shadow write. A warm epoch adds nothing to
 ``convert_seconds``.
@@ -234,6 +236,7 @@ import contextlib
 import functools
 import inspect
 import threading
+import time
 from collections import deque
 from typing import Iterator, List, Optional
 
@@ -805,7 +808,6 @@ class DeviceIter:
         self.pipeline_label = pipeline_label or _telemetry.new_pipeline_label()
         _adopt_pipeline_scope(source, self.pipeline_label)
         mode, path = _telemetry.trace_mode()
-        self._trace = mode == "annotate"
         self._trace_export = path if mode == "chrome" else None
         # the stages' busy seconds, added by the pipeline's threads, and
         # the consumer's wall split among them (module docstring)
@@ -817,6 +819,10 @@ class DeviceIter:
                                 metric=_telemetry.STAGE_WALL_METRIC, scope=self.pipeline_label)
         self._input_wait = _telemetry.REGISTRY.counter(_telemetry.INPUT_WAIT_METRIC,
                                                        pipeline=self.pipeline_label)
+        self._convert_cpu = _telemetry.REGISTRY.counter(_telemetry.CONVERT_CPU_METRIC,
+                                                        pipeline=self.pipeline_label)
+        # the serial stage's thread CPU seconds inside the source's pulls
+        self._source_cpu = 0.0
         self._res_base = _resilience.counters_snapshot(self.pipeline_label)
         self._transfer_samples = 0
         self._t_first: Optional[float] = None  # the first pull
@@ -945,7 +951,9 @@ class DeviceIter:
             s0 = stage_fn() if stage_fn is not None else None
             w0 = self.source.cache_write_seconds if has_writes else 0.0
             t0 = get_time()
+            c0 = time.thread_time()
             blk = self.source.next_block()
+            self._source_cpu += time.thread_time() - c0
             dt = get_time() - t0
             self.source_wait_seconds += dt
             read = cache_read = parse = 0.0
@@ -1217,20 +1225,24 @@ class DeviceIter:
         """The convert pool's serial stage: ``("skip", annotation)`` for
         each of the first ``skip`` batches (a count restore), then
         ``("convert", batch, annotation, bcoo nnz pad)`` in stream order.
-        Its time beyond the source's pulls (the rebatch) is convert busy."""
+        Its time beyond the source's pulls (the rebatch) is convert busy,
+        and its thread CPU time beyond theirs convert CPU."""
         inner = self._source_batches(drop, seeked)
         while True:
             b0 = self._busy.seconds()
             t0 = get_time()
+            c0, sc0 = time.thread_time(), self._source_cpu
             try:
                 block, annot, pad_nnz = next(inner)
             except StopIteration:
                 return
+            cpu = time.thread_time() - c0 - (self._source_cpu - sc0)
             dt = get_time() - t0
             b1 = self._busy.seconds()
             supply = sum(b1[k] - b0[k] for k in ("read", "parse", "cache_read"))
             residue = max(0.0, dt - supply)
             self._busy.add("convert", residue)
+            self._convert_cpu.inc(min(residue, max(0.0, cpu)))
             _telemetry.record_span("convert", t0, residue)
             if skip:
                 skip -= 1
@@ -1243,12 +1255,15 @@ class DeviceIter:
         :class:`_Skipped`; else the batch converted, a staging slot taken
         (None once the ring closed: the epoch is being torn down) and the
         batch packed into it. The convert and the pack are convert busy,
-        the wait for a slot is not."""
+        the wait for a slot is not. The thread CPU time over the whole
+        call, capped at that busy time, is convert CPU: the wait for a
+        slot blocks off the CPU."""
         if item[0] == "skip":
             return _Skipped(item[1])
         _, block, annot, pad_nnz = item
         t0 = get_time()
-        with _telemetry.profiler_annotation("dmlc_tpu.convert", self._trace):
+        c0 = time.thread_time()
+        with _telemetry.profiler_annotation("dmlc_tpu.convert"):
             arrays = self._convert(block, pad_nnz)
             t_acquire = get_time()
             slot = self._ring.acquire()
@@ -1258,9 +1273,11 @@ class DeviceIter:
             slot.kind, slot.layout, slot.annot = self._cold_kind(), None, annot
             slot.use_raw = False
             self._pack(slot, arrays)
+        c1 = time.thread_time()
         t1 = get_time()
         busy = (t_acquire - t0) + (t1 - t_pack)
         self._busy.add("convert", busy)
+        self._convert_cpu.inc(min(busy, c1 - c0))
         _telemetry.record_span("convert", t0, busy)
         return slot
 
@@ -1461,8 +1478,8 @@ class DeviceIter:
                         "skip_rows": 0}
         return _snapshot.SnapshotIter(
             reader, order=order, start=start, read_workers=workers,
-            on_read=lambda dt: self._busy.add("snapshot_read", dt), annotate=self._trace,
-            raw=self.device_decode, stage=functools.partial(self._stage_warm, plan_annot))
+            on_read=lambda dt: self._busy.add("snapshot_read", dt), raw=self.device_decode,
+            stage=functools.partial(self._stage_warm, plan_annot))
 
     # ---------------- device side (consumer thread) ----------------
 
@@ -1498,7 +1515,7 @@ class DeviceIter:
         else:
             bufs = [(slot.raw if slot.use_raw else slot.bufs[0])[: slot.nbytes]]
         event = None
-        with ctx, _telemetry.profiler_annotation("dmlc_tpu.dispatch", self._trace):
+        with ctx, _telemetry.profiler_annotation("dmlc_tpu.dispatch"):
             out = [b.to(self.device, non_blocking=self._cuda, copy=True) for b in bufs]
             if self._cuda:
                 event = torch.cuda.Event()
@@ -1577,7 +1594,8 @@ class DeviceIter:
         while len(self._inflight) < self.prefetch:
             t0 = get_time()
             try:
-                slot = self._host_iter().next()
+                with _telemetry.profiler_annotation("dmlc_tpu.input_wait"):
+                    slot = self._host_iter().next()
             except BaseException as exc:  # noqa: BLE001 - classified below
                 corrupt = self._snap_serving and isinstance(exc, CacheCorruptionError)
                 if corrupt:
@@ -1688,7 +1706,7 @@ class DeviceIter:
             # alone, never on a compute stream
             ts = get_time()
             if event is not None:
-                with _telemetry.profiler_annotation("dmlc_tpu.transfer", self._trace):
+                with _telemetry.profiler_annotation("dmlc_tpu.transfer"):
                     event.synchronize()
             dt = get_time() - ts
             self._attr.add("transfer", dt)
@@ -1927,7 +1945,12 @@ class DeviceIter:
         docstring). ``input_wait_seconds`` is the consumer's wait inside
         ``__next__`` for the batch it hands out and on the pool in the
         refill behind it, plus those landings;
-        ``host_stall_seconds`` its wait on the pool. ``staging_ring`` is
+        ``host_stall_seconds`` its wait on the pool. ``convert_cpu_seconds``
+        (the port's own) is the convert pool's thread CPU time, each
+        call's capped at the seconds it adds to ``convert_seconds``: the
+        difference is the
+        convert pool's time off the CPU (waiting for the interpreter lock,
+        or preempted). ``staging_ring`` is
         ``{"depth", "hits", "misses"}`` of the current ring (None before
         the first epoch); a miss is an acquire that waited for a free slot.
         ``shuffle_seed`` and ``epoch`` are the source's epoch plan (None
@@ -1966,6 +1989,7 @@ class DeviceIter:
                 "host_stall_seconds": self.host_stall_seconds,
                 "source_wait_seconds": self.source_wait_seconds,
                 "convert_seconds": busy["convert"],
+                "convert_cpu_seconds": self._convert_cpu.value,
                 # None: no snapshot armed; 'cold': converting and
                 # shadow-writing; 'warm': serving the stored batches
                 "snapshot_state": (None if self.snapshot_path is None

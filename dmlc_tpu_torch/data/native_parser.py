@@ -112,6 +112,7 @@ class NativeStreamParser(Parser):
         self._blocks_out = 0  # delivered blocks, for a count resume
         self._batch_rows = 0
         self._bytes_base = 0  # bytes read under earlier partitions
+        self._parse_busy_base = 0.0  # parse busy seconds of earlier readers
 
     def _init_source(self, uri: str) -> None:
         """Resolve the byte source: here local files, listed with the
@@ -300,16 +301,26 @@ class NativeStreamParser(Parser):
         ``parse_workers`` knob does not apply."""
         return native.default_nthread()
 
+    def _parse_busy_seconds(self) -> float:
+        live = self._reader.parse_busy_seconds if self._reader is not None else 0.0
+        return self._parse_busy_base + live
+
     def parallel_stats(self) -> dict:
-        """The fan-out sideband in :class:`ParallelTextParser`'s shape; the
-        native core reports no per-thread busy time, so the efficiency is
-        None."""
-        return {"parse_workers": self.parse_workers, "parse_busy_seconds": None,
+        """The fan-out sideband in :class:`ParallelTextParser`'s shape.
+        ``parse_busy_seconds`` is the native parse's busy thread-seconds
+        since the parser was built (each chunk's time times the threads it
+        fanned out to), across epochs and partitions as ``bytes_read``;
+        the native core keeps no span, so the span and the efficiency (the
+        autotuner's inputs) are None."""
+        return {"parse_workers": self.parse_workers,
+                "parse_busy_seconds": self._parse_busy_seconds(),
                 "parse_span_seconds": None, "parse_parallelism_efficiency": None,
                 "engine": "native"}
 
     def close(self) -> None:
         if self._reader is not None:
+            # a reader built after this one counts on from here
+            self._parse_busy_base = self._parse_busy_seconds()
             self._reader.close()
             self._reader = None
 
@@ -451,8 +462,7 @@ class NativeFeedParser(NativeStreamParser):
                 # an error is sticky in the native pipeline: a failed feeder
                 # cannot restart, so an epoch reset after a fault (a
                 # pipeline restart) gets a new one
-                self._reader.close()
-                self._reader = None
+                super().close()
                 self._ensure_reader()
             else:
                 self._reader.before_first()

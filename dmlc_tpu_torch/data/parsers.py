@@ -1092,8 +1092,6 @@ class BlockCacheIter(Parser):
         # publish), each also a cache_write span: DeviceIter leaves them out
         # of the parse span it records for the rest of a pull
         self.cache_write_seconds = 0.0
-        # DMLC_TPU_TRACE=1: the warm reads in profiler ranges
-        self._annotate = _telemetry.trace_mode()[0] == "annotate"
         self._seed = None if shuffle_seed is None else int(shuffle_seed)
         self._window = int(shuffle_window)
         self._host_id = int(host_id)
@@ -1206,7 +1204,7 @@ class BlockCacheIter(Parser):
                 continue
             t0 = get_time()
             try:
-                with _telemetry.profiler_annotation("dmlc_tpu.cache_read", self._annotate):
+                with _telemetry.profiler_annotation("dmlc_tpu.cache_read"):
                     segments = reader.load_segments(i)
             except CacheCorruptionError:
                 self._add_cache_read(t0)
@@ -1241,7 +1239,7 @@ class BlockCacheIter(Parser):
         bidx = plan.block_at(pos)
         t0 = get_time()
         try:
-            with _telemetry.profiler_annotation("dmlc_tpu.cache_read", self._annotate):
+            with _telemetry.profiler_annotation("dmlc_tpu.cache_read"):
                 rowperm = plan.row_order(bidx, reader.block_rows(bidx))
                 copy = rowperm is None and plan.permuted
                 segments = reader.load_segments(bidx, copy=copy)

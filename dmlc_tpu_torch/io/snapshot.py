@@ -290,8 +290,10 @@ class SnapshotIter:
     = (kind, *arrays)``, in order, or None at the end. ``raw=True`` is the
     device-decode feed: ``host_batch`` is ``("device_span", span, layout,
     kind)``, the batch's verbatim bytes. Each read is recorded as a
-    ``snapshot_read`` span and its seconds passed to ``on_read``;
-    ``annotate`` wraps it in a profiler range. ``stage``, the port's own,
+    ``snapshot_read`` span (and, under a recording torch profiler, a
+    ``dmlc_tpu.snapshot_read`` range, which ``annotate=False``, the JAX
+    package's keyword, leaves out) and its seconds passed to ``on_read``.
+    ``stage``, the port's own,
     runs on the reading thread as ``stage(pos, host_batch, resume,
     nbytes)``, ``pos`` the serving position, and its result is delivered
     in the item's place (``DeviceIter`` copies the batch into a pinned
@@ -307,7 +309,7 @@ class SnapshotIter:
 
     def __init__(self, reader: SnapshotReader, order: Optional[np.ndarray] = None,
                  start: int = 0, read_workers: Optional[int] = None,
-                 on_read: Optional[Callable[[float], None]] = None, annotate: bool = False,
+                 on_read: Optional[Callable[[float], None]] = None, annotate: bool = True,
                  raw: bool = False, stage: Optional[Callable] = None):
         self.reader = reader
         self._order = order

@@ -42,6 +42,7 @@ import torch
 
 from dmlc_tpu_torch.ops.sparse import EllBatch
 from dmlc_tpu_torch.parallel.mesh import Sharding
+from dmlc_tpu_torch.utils.telemetry import profiler_annotation
 from dmlc_tpu_torch.utils.timer import get_time
 
 
@@ -53,8 +54,10 @@ def host_scalar(x: torch.Tensor) -> float:
 
 class TrainLoopMixin:
     def step(self, batch) -> torch.Tensor:
-        """One update. Returns the loss as a DEVICE scalar — no host sync."""
-        return self._step(batch)
+        """One update. Returns the loss as a DEVICE scalar — no host sync.
+        Under a recording torch profiler it is the ``dmlc_tpu.step`` range."""
+        with profiler_annotation("dmlc_tpu.step"):
+            return self._step(batch)
 
     @torch.no_grad()
     def _accuracy(self, batch):

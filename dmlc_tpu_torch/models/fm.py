@@ -47,6 +47,7 @@ from dmlc_tpu_torch.ops.row_scatter import gather_rows
 from dmlc_tpu_torch.ops.sparse import coo_matmul
 from dmlc_tpu_torch.parallel.mesh import rank_device
 from dmlc_tpu_torch.utils.check import check
+from dmlc_tpu_torch.utils.telemetry import profiler_annotation
 
 
 class FMParams(NamedTuple):
@@ -181,20 +182,25 @@ class FMLearner(TrainLoopMixin):
         return loss
 
     def _step(self, batch) -> torch.Tensor:
-        self.opt.zero_grad(set_to_none=True)
-        loss = self._global_mean_backward(*self._data_terms(self.params, batch))
-        if self.l2 > 0.0:
-            # once, after any reduction (the same on every rank)
-            w, v = self.params.w.detach(), self.params.v.detach()
-            loss = loss + self._l2_term(w, v)
-            self.params.w.grad.add_(w, alpha=self.l2)
-            self.params.v.grad.add_(v, alpha=self.l2)
-        self.opt.step()
-        if self.layout != "bcoo":
-            with torch.no_grad():
-                # keep the padding sink inert; zero_() is a device fill
-                self.params.w[-1].zero_()
-                self.params.v[-1].zero_()
+        # three profiler ranges tile the step (``dmlc_tpu.step.*``)
+        with profiler_annotation("dmlc_tpu.step.forward"):
+            self.opt.zero_grad(set_to_none=True)
+            terms = self._data_terms(self.params, batch)
+        with profiler_annotation("dmlc_tpu.step.backward"):
+            loss = self._global_mean_backward(*terms)
+            if self.l2 > 0.0:
+                # once, after any reduction (the same on every rank)
+                w, v = self.params.w.detach(), self.params.v.detach()
+                loss = loss + self._l2_term(w, v)
+                self.params.w.grad.add_(w, alpha=self.l2)
+                self.params.v.grad.add_(v, alpha=self.l2)
+        with profiler_annotation("dmlc_tpu.step.optimizer"):
+            self.opt.step()
+            if self.layout != "bcoo":
+                with torch.no_grad():
+                    # keep the padding sink inert; zero_() is a device fill
+                    self.params.w[-1].zero_()
+                    self.params.v[-1].zero_()
         return loss.detach()
 
     @torch.no_grad()

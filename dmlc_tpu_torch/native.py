@@ -205,6 +205,9 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.dmlc_reader_before_first.argtypes = [ctypes.c_void_p]
         lib.dmlc_reader_bytes_read.restype = ctypes.c_int64
         lib.dmlc_reader_bytes_read.argtypes = [ctypes.c_void_p]
+        for name in ("dmlc_reader_parse_busy_ns", "dmlc_feeder_parse_busy_ns"):
+            getattr(lib, name).restype = ctypes.c_int64
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
         lib.dmlc_reader_error.restype = ctypes.c_char_p
         lib.dmlc_reader_error.argtypes = [ctypes.c_void_p]
         lib.dmlc_reader_destroy.argtypes = [ctypes.c_void_p]
@@ -702,6 +705,15 @@ class Reader:
     def bytes_read(self) -> int:
         return self._lib.dmlc_reader_bytes_read(self._h) if self._h is not None else 0
 
+    @property
+    def parse_busy_seconds(self) -> float:
+        """The parse's busy thread-seconds since the reader was built,
+        across :meth:`before_first`: each chunk's time times the threads it
+        fanned out to. 0 once closed."""
+        if self._h is None:
+            return 0.0
+        return self._lib.dmlc_reader_parse_busy_ns(self._h) / 1e9
+
     def close(self) -> None:
         if self._h is not None:
             self._lib.dmlc_reader_destroy(self._h)
@@ -798,6 +810,13 @@ class Feeder:
     @property
     def bytes_read(self) -> int:
         return self._lib.dmlc_feeder_bytes_read(self._h) if self._h is not None else 0
+
+    @property
+    def parse_busy_seconds(self) -> float:
+        """As :attr:`Reader.parse_busy_seconds`."""
+        if self._h is None:
+            return 0.0
+        return self._lib.dmlc_feeder_parse_busy_ns(self._h) / 1e9
 
     def close(self) -> None:
         if self._h is not None:

@@ -20,15 +20,23 @@ input pipeline uses:
   ``data/device.py``), so a trace and ``DeviceIter.stats()`` tell one
   story. :func:`export_chrome_trace` writes them as Chrome-trace JSON
   (Perfetto, ``chrome://tracing``).
-- **Trace mode** (``DMLC_TPU_TRACE``, :func:`trace_mode`): ``1`` wraps the
-  convert, dispatch, transfer, cache_read and snapshot_read work in
-  ``torch.profiler.record_function`` ranges (:func:`profiler_annotation`),
-  ``chrome:<path>`` makes a ``DeviceIter`` export the span rings there when
-  it closes. Torch's profiler records the CPU ranges of its own thread
-  only: the ranges opened on the pipeline's threads (convert, cache_read,
-  snapshot_read) show under ``torch.profiler.profile(...,
-  experimental_config=torch._C._profiler._ExperimentalConfig(
-  profile_all_threads=True))``.
+- **Profiler ranges** (:func:`profiler_annotation`): the convert,
+  dispatch, transfer, input_wait, cache_read and snapshot_read work, and
+  the learners' step (``dmlc_tpu.step``, which ``FMLearner`` tiles with
+  ``.forward``, ``.backward`` and ``.optimizer``), open
+  ``torch.profiler.record_function`` ranges named ``dmlc_tpu.*`` whenever
+  a torch profiler is recording, and nothing otherwise. Torch's profiler
+  records the CPU ranges of its own thread only: the ranges opened on the
+  pipeline's threads (convert, cache_read, snapshot_read) show under
+  ``torch.profiler.profile(..., experimental_config=
+  torch._C._profiler._ExperimentalConfig(profile_all_threads=True))``.
+  Profiler ranges are stamped on the profiler's clock, so they lie on the
+  device's timeline; the span rings are on ``time.monotonic``'s clock and
+  do not.
+- **Trace mode** (``DMLC_TPU_TRACE``, :func:`trace_mode`): parsed as the
+  JAX package parses it; ``chrome:<path>`` makes a ``DeviceIter`` export
+  the span rings there when it closes. ``1`` needs nothing of its own: the
+  ranges follow the profiler.
 - **Metrics registry** (:data:`REGISTRY`): counters, gauges, histograms and
   info blobs by ``(name, labels)``. The stage meters
   (:class:`~dmlc_tpu_torch.utils.timer.StageMeter`), the input-wait counter
@@ -64,6 +72,7 @@ from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _profiler_mod
 
 from dmlc_tpu_torch.utils import knobs as _knobs
 
@@ -81,6 +90,10 @@ STALL_METRIC = "pipeline_stall"
 # every second the consumer waited for input: the wait for a batch plus
 # the sampled transfer landings
 INPUT_WAIT_METRIC = "input_wait_seconds"
+# the port's own: the thread CPU seconds of the intervals that the convert
+# stage's busy seconds count (the rest of them is off-CPU: the wait for
+# the interpreter lock and preemption)
+CONVERT_CPU_METRIC = "convert_cpu_seconds"
 # the autotuner's mirrors: a gauge a knob and a steps counter, by pipeline
 AUTOTUNE_KNOB_METRIC = "autotune_knob"
 AUTOTUNE_STEP_METRIC = "autotune_steps"
@@ -439,7 +452,10 @@ def export_chrome_trace(path: str, pipeline: Optional[str] = None) -> int:
     return len(rows)
 
 
-# ---------------- trace mode ----------------
+# ---------------- trace mode and profiler ranges ----------------
+
+_NO_RANGE = contextlib.nullcontext()
+
 
 def trace_mode() -> Tuple[str, Optional[str]]:
     """``DMLC_TPU_TRACE``, as the JAX package reads it: ``1`` is
@@ -454,12 +470,15 @@ def trace_mode() -> Tuple[str, Optional[str]]:
 
 
 def profiler_annotation(name: str, enabled: bool = True):
-    """A ``torch.profiler.record_function`` range named ``name`` when
-    enabled, else a no-op. Callers read :func:`trace_mode` once, never a
-    batch."""
-    if not enabled:
-        return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    torch profiler is recording (the check is one module attribute read:
+    torch's own process-wide flag, set by every profiler session, those
+    that record all threads included), else a shared no-op. ``enabled`` is
+    the JAX package's switch: False opens nothing; the port's own callers
+    leave it, so their ranges follow the profiler alone."""
+    if enabled and _profiler_mod._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
 
 
 # ---------------- metrics registry ----------------

@@ -254,6 +254,9 @@ void* dmlc_reader_create(const char** paths, const int64_t* sizes,
 void* dmlc_reader_next(void* handle, int32_t* fmt_out);
 void dmlc_reader_before_first(void* handle);
 int64_t dmlc_reader_bytes_read(void* handle);
+// The parse's busy thread-nanoseconds (each chunk's time times the threads
+// it fanned out to), counted from creation across before_first.
+int64_t dmlc_reader_parse_busy_ns(void* handle);
 
 // ---------------- indexed recordio reader (reader.cc) ----------------
 //
@@ -319,6 +322,7 @@ void* dmlc_feeder_next(void* handle, int32_t* fmt_out);
 // Reset for a new epoch: the caller must re-feed from the start.
 void dmlc_feeder_before_first(void* handle);
 int64_t dmlc_feeder_bytes_read(void* handle);
+int64_t dmlc_feeder_parse_busy_ns(void* handle);
 const char* dmlc_feeder_error(void* handle);
 void dmlc_feeder_destroy(void* handle);
 

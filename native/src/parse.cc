@@ -43,11 +43,10 @@ struct CsrPart {
   std::string error;
 };
 
-// Clamp the thread count so small chunks don't pay thread spawn overhead:
-// one thread per 512 KB, at least one.
+// Clamp the thread count so small chunks don't pay thread spawn overhead
+// (parse_internal.h: one thread per 512 KB, at least one).
 static int clamp_threads(int nthread, size_t len) {
-  int by_size = static_cast<int>(len / (512 * 1024)) + 1;
-  return nthread < by_size ? nthread : by_size;
+  return parse_threads(nthread, len);
 }
 
 // Split [begin, end) into n ranges at line boundaries.

@@ -5,11 +5,21 @@
 #ifndef DMLC_TPU_NATIVE_PARSE_INTERNAL_H_
 #define DMLC_TPU_NATIVE_PARSE_INTERNAL_H_
 
+#include <cstddef>
 #include <cstdint>
 #include <string>
 #include <vector>
 
 namespace dmlc_tpu {
+
+// The threads a text scanner fans a chunk of `len` bytes out to: one per
+// 512 KB, at least one, at most `nthread`, so small chunks don't pay the
+// thread spawn.
+inline int parse_threads(int nthread, size_t len) {
+  int by_size = static_cast<int>(len / (512 * 1024)) + 1;
+  if (nthread < 1) nthread = 1;
+  return nthread < by_size ? nthread : by_size;
+}
 
 // One thread-range of the dense libsvm scanner. Rows are buffered with
 // stride num_col + 1 so the 1-based -> 0-based indexing decision (which

@@ -28,6 +28,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <random>
 #include <condition_variable>
 #include <cstdio>
@@ -344,6 +345,14 @@ class LineReader {
 
   int64_t bytes_read() const { return bytes_read_.load(std::memory_order_relaxed); }
 
+  // The parse's busy thread-nanoseconds since construction: each chunk's
+  // steady_clock time times the threads it fanned out to, those that finish
+  // first counted up to the join. before_first keeps counting, as
+  // bytes_read does.
+  int64_t parse_busy_ns() const {
+    return parse_busy_ns_.load(std::memory_order_relaxed);
+  }
+
   const char* error() const {
     // set_error is set-once, so the pointer stays stable after return
     std::lock_guard<std::mutex> lk(err_mu_);
@@ -600,6 +609,21 @@ class LineReader {
   }
 
   void* parse_chunk(const char* data, int64_t len) {
+    auto t0 = std::chrono::steady_clock::now();
+    void* res = parse_chunk_untimed(data, len);
+    note_parse(t0, is_text() ? dmlc_tpu::parse_threads(
+                                   nthread_, static_cast<size_t>(len))
+                             : 1);
+    return res;
+  }
+
+  void note_parse(std::chrono::steady_clock::time_point t0, int threads) {
+    int64_t ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                     std::chrono::steady_clock::now() - t0).count();
+    parse_busy_ns_.fetch_add(ns * threads, std::memory_order_relaxed);
+  }
+
+  void* parse_chunk_untimed(const char* data, int64_t len) {
     switch (format_) {
       case kFmtLibsvm:
         return dmlc_parse_libsvm(data, len, nthread_, indexing_mode_);
@@ -856,8 +880,11 @@ class LineReader {
 
   int process_dense_chunk(const char* cdata, int64_t clen) {
     std::vector<dmlc_tpu::DensePart> parts;
+    auto t0 = std::chrono::steady_clock::now();
     dmlc_tpu::parse_libsvm_dense_chunk(cdata, clen, nthread_, num_col_,
                                        &parts);
+    note_parse(t0,
+               dmlc_tpu::parse_threads(nthread_, static_cast<size_t>(clen)));
     for (auto& part : parts) {
       if (part.error.empty()) continue;
       if (part.needs_csr) {
@@ -1302,6 +1329,7 @@ class LineReader {
   bool stop_ = false;
   bool produce_done_ = false;
   std::atomic<int64_t> bytes_read_{0};
+  std::atomic<int64_t> parse_busy_ns_{0};
   mutable std::mutex err_mu_;
   std::string error_;
 };
@@ -1690,6 +1718,10 @@ int64_t dmlc_reader_bytes_read(void* handle) {
   return static_cast<LineReader*>(handle)->bytes_read();
 }
 
+int64_t dmlc_reader_parse_busy_ns(void* handle) {
+  return static_cast<LineReader*>(handle)->parse_busy_ns();
+}
+
 const char* dmlc_reader_error(void* handle) {
   return static_cast<LineReader*>(handle)->error();
 }
@@ -1742,6 +1774,10 @@ void dmlc_feeder_before_first(void* handle) {
 
 int64_t dmlc_feeder_bytes_read(void* handle) {
   return static_cast<LineReader*>(handle)->bytes_read();
+}
+
+int64_t dmlc_feeder_parse_busy_ns(void* handle) {
+  return static_cast<LineReader*>(handle)->parse_busy_ns();
 }
 
 const char* dmlc_feeder_error(void* handle) {

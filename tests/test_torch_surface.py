@@ -98,7 +98,8 @@ def _c1_stats(tmp_path, layout):
     assert list(got)[0] == "batches" and got["batches"] == got["batches_fed"] == 10
     # every JAX key, and beside them only the port's own counters
     assert set(want) <= set(got) and set(got) - set(want) == {
-        "batches_fed", "convert_seconds", "device_decode_seconds", "snapshot_read_seconds",
+        "batches_fed", "convert_cpu_seconds", "convert_seconds", "device_decode_seconds",
+        "snapshot_read_seconds",
         "snapshot_write_seconds", "source_wait_seconds"}
     assert {k: type(v) for k, v in got["store"].items()} == {
         k: type(v) for k, v in want["store"].items()}
