@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``dmlc_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
-    python3 chip_smoke.py --only cloud|tracker|service|faults|surface [--repeat N]
+    python3 chip_smoke.py --only cloud|tracker|service|faults|surface|adam [--repeat N]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -123,12 +123,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    decides ``dw_route``; with ``--parent DIR`` the parent commit's row
    scatter, built from ``DIR``, timed in turns with this one (P C C P)
    and bit for bit equal to it (accumulating, but where the parent turned
-   a row no entry hits from -0.0 into +0.0);
+   a row no entry hits from -0.0 into +0.0).
+   (b) The Adam update (``adam_ab``) on FM's three leaves at the KDD12
+   cell's table (54,686,453 rows of 1 + 8 floats, P = 492,178,078), at
+   phase 10's, and at phase 10's with every leaf one float off 16 bytes:
+   the kernel (``csrc/adam_step.cu``) bit for bit equal to
+   ``adam_step_ordered_plain_`` over 3 steps of sparse gradients, one
+   launch a step, no host sync; its device time beside its bytes bound
+   (28 bytes a parameter), the plain version's, and, timed only,
+   ``torch.optim.Adam(fused=True)``'s and the foreach update's;
 10. FM on phase 3's corpus (8 factors, Adam 0.05, batch 8192): 2 epochs on
    ell and dense, 1 on bcoo, accuracy above 0.9, the row scatter's
-   launches counted; 20 card steps run twice and bit-identical and within
-   1e-4 relative of the CPU; 20 steps enqueued behind device spins (four
-   groups of 5); the step's device time beside the linear ELL step's.
+   launches counted and the Adam kernel's (one a step); 20 card steps run
+   twice and bit-identical and within 1e-4 relative of the CPU; 20 steps
+   enqueued behind device spins (four groups of 5); the step's device
+   time beside the linear ELL step's.
 11. data parallelism through ``dmlc_tpu_torch.parallel``: (a) in a child
    process, a process group of one NCCL rank (``init_process_group`` is
    called here, as ``init_from_env`` skips a one-worker job) ->
@@ -493,13 +502,15 @@ device event). Then the
 run's total wall time, a ``{"kernels": [...]}`` line (launches counted on
 the main paths of phases 3, 6, 7 and 11-23, the windowed ones of phase
 11's feature sharding among them; the row scatter's on phases 9-14, 11 (f)
-and 21 (c)), the card's name and power limit as
+and 21 (c); the Adam kernel's on phase 10), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present.
 
 ``--only cloud|tracker|service|faults|surface`` builds, writes phase 3's
-corpus and runs phase 19, 20, 21, 22 or 23 alone ``--repeat`` times; ``cloud`` first runs the burst against a
+corpus and runs phase 19, 20, 21, 22 or 23 alone ``--repeat`` times;
+``--only adam`` builds, runs phase 9 (b) ``--repeat`` times, then phase
+10's ell leg; ``cloud`` first runs the burst against a
 fake on a backlog of 5 and one on the default, in turns, as often. It
 prints no kernels line and no result line.
 """
@@ -2432,6 +2443,128 @@ def row_scatter_ab(seed: int, parent=None) -> list:
     return rows
 
 
+# ---------------- phase 9 (b): the Adam update ----------------
+
+ADAM_SHAPES = [  # (name, W, F, offset): FM's leaves w0 [], w [W], V [W, F]
+    ("kdd12_fm", 54_686_453, 8, 0),       # the KDD12 cell's table: P = 492,178,078
+    ("higgs_fm", HIGGS_COLS + 1, 8, 0),    # phase 10's
+    ("higgs_fm_unaligned", HIGGS_COLS + 1, 8, 1),  # every leaf one float off 16 bytes
+]
+ADAM_MAIN = "kdd12_fm"
+ADAM_STEPS = 3  # steps the kernel is held to the ordered plain version over
+
+
+def _adam_leaves(w: int, f: int, offset: int, seed: int, dev) -> list:
+    """FM's three leaves (``[]``, ``[W]``, ``[W, F]``), each ``offset``
+    floats into a storage of its own, drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for shape in ((), (w,), (w, f)):
+        n = int(np.prod(shape)) if shape else 1
+        out.append(torch.randn(n + offset, generator=gen, device=dev)[offset:].view(shape))
+    return out
+
+
+def _adam_grads(leaves: list, seed: int) -> list:
+    """A gradient for each leaf, nine rows in ten zero (as an FM table's)."""
+    import torch
+
+    gen = torch.Generator(device=leaves[0].device).manual_seed(seed)
+    out = []
+    for p in leaves:
+        g = torch.empty_like(p).normal_(generator=gen)
+        if p.dim():
+            keep = torch.rand(p.shape[0], generator=gen, device=p.device) < 0.1
+            g.mul_(keep.view(-1, *([1] * (p.dim() - 1))))
+        out.append(g)
+    return out
+
+
+def _torch_adam_ms(leaves: list, grads: list, **kw) -> float:
+    """Device time of one ``torch.optim.Adam(**kw).step()`` over copies of
+    ``leaves`` holding ``grads``: timed only, never called by the port."""
+    import torch
+
+    ps = [p.detach().clone().requires_grad_(True) for p in leaves]
+    for p, g in zip(ps, grads):
+        p.grad = g
+    opt = torch.optim.Adam(ps, lr=0.05, **kw)
+    ms = device_ms(opt.step, iters=20)
+    del opt, ps
+    torch.cuda.empty_cache()
+    return ms
+
+
+def adam_ab(seed: int) -> list:
+    """The Adam update at ``ADAM_SHAPES``: the kernel (``csrc/adam_step.cu``,
+    through ``adam_step_``) held bit for bit to ``adam_step_ordered_plain_``
+    over ``ADAM_STEPS`` steps of sparse gradients (p, m and v each step), one
+    launch a step for the three leaves; its device time (CUDA events behind
+    a spin, the median of 5) beside its bytes bound (28 bytes a parameter),
+    the plain version's, ``torch.optim.Adam(fused=True)``'s (the library's
+    kernel, timed only) and the default foreach update's; and whether 20
+    steps enqueue behind a half-second spin."""
+    import torch
+
+    from dmlc_tpu_torch.ops import adam
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = []
+    for i, (name, w, f, offset) in enumerate(ADAM_SHAPES):
+        leaves = _adam_leaves(w, f, offset, seed + i, dev)
+        n = sum(p.numel() for p in leaves)
+        m, v = [torch.zeros_like(p) for p in leaves], [torch.zeros_like(p) for p in leaves]
+        ours = leaves + m + v
+        plain = [t.clone() for t in ours]
+        equal, launched = True, 0
+        for t in range(1, ADAM_STEPS + 1):
+            grads = _adam_grads(leaves, seed + 100 * i + t)
+            before = adam.launches
+            adam.adam_step_(leaves, grads, m, v, [float(t)] * 3, lr=0.05)
+            launched += adam.launches - before
+            adam.adam_step_ordered_plain_(plain[:3], grads, plain[3:6], plain[6:],
+                                          [float(t)] * 3, lr=0.05)
+            torch.cuda.synchronize()
+            equal = equal and all(same_bits(a, b) for a, b in zip(ours, plain))
+            del grads
+        max_abs_err = max(float((a - b).abs().max()) for a, b in zip(ours, plain))
+        del plain
+        torch.cuda.empty_cache()
+        grads = _adam_grads(leaves, seed + 100 * i)
+        steps = [float(ADAM_STEPS + 1)] * 3
+
+        def kernel():
+            adam.adam_step_(leaves, grads, m, v, steps, lr=0.05)
+
+        def plain_fn():
+            adam.adam_step_ordered_plain_(leaves, grads, m, v, steps, lr=0.05)
+        # 28 bytes and 13 operations a parameter (sqrt and div counted once)
+        bound_ms, bound_by = bound(28 * n, 13 * n)
+        ms = device_ms(kernel, iters=20)
+        spin = enqueue_behind_spin(kernel)
+        rec = {"phase": "adam_ab", "shape": name, "W": w, "F": f, "offset": offset,
+               "params": n, "equal_to_ordered_plain": equal, "max_abs_err": max_abs_err,
+               "launches_per_step": launched / ADAM_STEPS, "ms": ms,
+               "plain_ms": device_ms(plain_fn, iters=5),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "hbm_share": bound_ms / ms, "bytes_per_s": 28 * n / ms * 1e3,
+               "no_host_sync": spin["no_host_sync"], "spin_host_s": spin["host_s"]}
+        if offset == 0:
+            rec["library_ms"] = _torch_adam_ms(leaves, grads, fused=True)
+            rec["foreach_ms"] = _torch_adam_ms(leaves, grads, foreach=True)
+        emit(rec)
+        rows.append(rec)
+        del leaves, grads, m, v, ours
+        torch.cuda.empty_cache()
+        if not (equal and launched == ADAM_STEPS and spin["no_host_sync"]):
+            raise AssertionError(f"adam_step {name}: the kernel differs from its ordered "
+                                 f"plain version, launched otherwise than once a step, or "
+                                 f"waited for the device: {rec}")
+    return rows
+
+
 # ---------------- phase 9: ALS ----------------
 
 ALS = {"users": 4096, "items": 512, "factors": 16, "per_row": 32, "batch": 512,
@@ -2664,16 +2797,17 @@ def run_fm(path: str, device, layout: str, steps: int = 20) -> dict:
 
     from dmlc_tpu_torch import FMLearner
     from dmlc_tpu_torch.convert import fm_params_from_jax, fm_params_to_jax
+    from dmlc_tpu_torch.ops import adam
     from dmlc_tpu_torch.ops import row_scatter as rs
 
     model, it = _fm_pipeline(path, device, layout)
-    rs.launches = 0
+    rs.launches = adam.launches = 0
     t0 = time.monotonic()
     losses = []
     model.fit(it, epochs=FM_EPOCHS[layout], log_fn=lambda e, loss, nb, s: losses.append(loss))
     fit_s = time.monotonic() - t0
     acc = model.accuracy(it)
-    launches = rs.launches
+    launches, adam_launches = rs.launches, adam.launches
     nb = HIGGS_ROWS // BATCH * FM_EPOCHS[layout]
     batches = [b for _, b in zip(range(steps), it)]
     it.close()
@@ -2703,7 +2837,8 @@ def run_fm(path: str, device, layout: str, steps: int = 20) -> dict:
     dev_ms = device_ms(lambda: m_a.step(batch), iters=10)
     out = {"phase": "fm", "layout": layout, "epoch_losses": losses, "fit_s": fit_s,
            "rows_per_s": nb * BATCH / fit_s, "accuracy": acc, "steps": nb,
-           "row_scatter_launches": launches, "card_bit_identical_twice": repeatable,
+           "row_scatter_launches": launches, "adam_launches": adam_launches,
+           "card_bit_identical_twice": repeatable,
            "first_steps": len(batches), "max_rel_diff_vs_cpu": rel, "step_device_ms": dev_ms,
            "step_enqueue_behind_spin": spin}
     emit(out)
@@ -2721,6 +2856,9 @@ def run_fm(path: str, device, layout: str, steps: int = 20) -> dict:
     need = {"ell": 2, "bcoo": 3, "dense": 0}[layout] * nb
     if launches < need:
         problems.append(f"the row scatter launched {launches} times, the path needs {need}")
+    # FusedAdam: one launch a step for the three leaves
+    if adam_launches != nb:
+        problems.append(f"the Adam kernel launched {adam_launches} times for {nb} steps")
     if problems:
         raise AssertionError(f"fm {layout}: {problems}: {out}")
     return {**out, "row_scatter_launches_needed": need, "step_fn": lambda: m_a.step(batch)}
@@ -7930,7 +8068,9 @@ def producer_change(now: dict) -> dict:
 def run_only(which: str, repeat: int, seed: int) -> int:
     """``--only cloud|tracker|service|faults|surface``: phase 1's builds,
     phase 3's corpus, then phase 19, 20, 21, 22 or 23 ``repeat`` times, each
-    in a directory of its own. With
+    in a directory of its own. ``--only adam``: phase 1's builds, phase 9
+    (b)'s Adam A/B ``repeat`` times, then phase 3's corpus and phase 10's
+    FM ell path. With
     ``cloud`` it also runs the burst probe against a fake whose servers
     keep ``socketserver``'s backlog of 5 and against one on the default,
     ``repeat`` times each, in turns."""
@@ -7938,9 +8078,16 @@ def run_only(which: str, repeat: int, seed: int) -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     emit({**build_all(), "phase": "environment", "gpu": smi_line()})
+    if which == "adam":
+        for _ in range(repeat):
+            adam_ab(seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = os.path.join(tmp, "higgs_shaped.libsvm")
         write_higgs_corpus(path, HIGGS_ROWS, seed)
+        if which == "adam":
+            run_fm(path, dev, "ell")
+            print(smi_line(), flush=True)
+            return 0
         if which == "cloud":
             for i in range(repeat):
                 for backlog in (5, None):
@@ -7975,10 +8122,13 @@ def main() -> int:
                          "its K1, its K2 route (a one-segment K2) and its row scatter "
                          "beside this one's, in turns")
     ap.add_argument("--parallel-child", nargs="+", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=["cloud", "tracker", "service", "faults", "surface"],
+    ap.add_argument("--only", choices=["cloud", "tracker", "service", "faults", "surface",
+                                       "adam"],
                     default=None,
                     help="build, write phase 3's corpus and run phase 19, 20, 21, 22 or 23 "
-                         "alone (--repeat times); no kernels line and no result line")
+                         "alone (--repeat times), or phase 9 (b)'s Adam A/B (--repeat "
+                         "times) and phase 10's FM ell path; no kernels line and no "
+                         "result line")
     ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args()
 
@@ -8088,6 +8238,7 @@ def main() -> int:
                          "16 factors, 32 ratings a row, batch 512)"})
         als = run_als(ratings, dev)
         rs_rows = row_scatter_ab(args.seed, parent.get("row_scatter"))
+        adam_rows = adam_ab(args.seed)
         fm = {layout: run_fm(path, dev, layout) for layout in FM_EPOCHS}
         emit({"phase": "fm_vs_linear", "fm_step_device_ms": {
             k: v["step_device_ms"] for k, v in fm.items()}})
@@ -8195,6 +8346,7 @@ def main() -> int:
     k1_main = k1_rows[0]
     k2_main = next(r for r in k2_rows["kinds"] if r["kind"] == K2_MAIN)
     rs_main = next(r for r in rs_rows if r["shape"] == ROW_SCATTER_MAIN)
+    adam_main = next(r for r in adam_rows if r["shape"] == ADAM_MAIN)
     emit({"kernels": [{
         "name": "ell_matvec", "route": "cuda",
         "source": "dmlc_tpu_torch/csrc/ell_matvec.cu",
@@ -8268,7 +8420,15 @@ def main() -> int:
                            + [als["main_path_scatter_vs_plain"]["max_abs_err"]]),
         "ms": rs_main["row_scatter"]["ms"], "plain_ms": rs_main["plain_ms"],
         "bound_ms": rs_main["bound_ms"], "bound_by": rs_main["bound_by"],
-        "library_ms": rs_main["library_ms"]}]})
+        "library_ms": rs_main["library_ms"]}, {
+        "name": "adam_step", "route": "cuda",
+        "source": "dmlc_tpu_torch/csrc/adam_step.cu",
+        "replaces": "none: torch.optim.Adam's foreach update (optax.adam, left to XLA)",
+        "launches": sum(v["adam_launches"] for v in fm.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
+        "ms": adam_main["ms"], "plain_ms": adam_main["plain_ms"],
+        "bound_ms": adam_main["bound_ms"], "bound_by": adam_main["bound_by"],
+        "library_ms": adam_main["library_ms"]}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,14 @@ The PyTorch counterpart of the JAX package's ``models/fm.py``:
   ``x @ w`` and ``x @ V``, and for ``x² @ V²`` a second COO tensor on the
   same coordinates with squared values.
 
-Updates are ``torch.optim.Adam(lr=learning_rate)`` by default (β 0.9 /
-0.999, ε 1e-8: the JAX learner's ``optax.adam``), or what an
-``optimizer=`` factory builds. On dense and ell, the padding sink
-``w[-1]`` and ``V[-1]`` is pinned to 0 after every step with a device
-fill; bcoo batches need no sink (``weight_dim == num_col``).
+Updates are :class:`~dmlc_tpu_torch.ops.adam.FusedAdam` at
+``learning_rate`` by default: a ``torch.optim.Adam`` (β 0.9 / 0.999, ε
+1e-8; the update of the JAX learner's ``optax.adam`` and of torch's Adam)
+whose step is one pass over all three leaves, one kernel launch on the
+card (``csrc/adam_step.cu``). An ``optimizer=`` factory builds any other.
+On dense and ell, the padding sink ``w[-1]`` and ``V[-1]`` is pinned to 0
+after every step with a device fill; bcoo batches need no sink
+(``weight_dim == num_col``).
 
 With ``mesh=`` the dense and ell layouts train data-parallel as
 ``LinearLearner`` does (``_loop.TrainLoopMixin._global_mean_backward``:
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from dmlc_tpu_torch.models._loop import TrainLoopMixin
+from dmlc_tpu_torch.ops.adam import FusedAdam
 from dmlc_tpu_torch.ops.row_scatter import gather_rows
 from dmlc_tpu_torch.ops.sparse import coo_matmul
 from dmlc_tpu_torch.parallel.mesh import rank_device
@@ -92,7 +96,7 @@ class FMLearner(TrainLoopMixin):
 
     ``layout`` matches the DeviceIter layout ('dense', 'ell' or 'bcoo').
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer``; None
-    means Adam at ``learning_rate``. ``device=None`` means the CUDA device
+    means :class:`FusedAdam` at ``learning_rate``. ``device=None`` means the CUDA device
     and raises on a host without one; on a ``mesh``, the mesh's device.
     ``mesh`` trains data-parallel over ``data_axis``."""
 
@@ -127,7 +131,7 @@ class FMLearner(TrainLoopMixin):
         for t in self.params:
             t.requires_grad_(True)
         if optimizer is None:
-            self.opt = torch.optim.Adam(list(self.params), lr=learning_rate)
+            self.opt = FusedAdam(list(self.params), lr=learning_rate)
         else:
             self.opt = optimizer(list(self.params))
 

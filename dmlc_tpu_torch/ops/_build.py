@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 KERNEL_SOURCES = [os.path.join(CSRC_DIR, name)
                   for name in ("ell_matvec.cu", "ell_matvec_dw.cu", "widen_span.cu",
-                               "row_scatter.cu")]
+                               "row_scatter.cu", "adam_step.cu")]
 # included by the sources: a change rebuilds the library too
 KERNEL_HEADERS = [os.path.join(CSRC_DIR, "k1_tiles.cuh")]
 KERNEL_LIB = "libdmlc_torch_kernels.so"
@@ -43,6 +43,16 @@ _kernels: Optional[ctypes.CDLL] = None
 # and the compiler's resource report (-Xptxas -v), for chip_smoke.py
 kernel_build_seconds: Optional[float] = None
 kernel_build_log = ""
+
+
+
+class AdamLeaf(ctypes.Structure):
+    """``DmlcAdamLeaf`` of ``csrc/adam_step.cu``: one leaf of a launch."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p), ("m", ctypes.c_void_p),
+                ("v", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("bias2_sqrt", ctypes.c_float), ("step_size", ctypes.c_float)]
+
 
 CommandMaker = Callable[[str, str], Tuple[List[List[str]], Optional[List[str]]]]
 
@@ -166,6 +176,12 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmlc_row_scatter_f32.restype = ctypes.c_int
     lib.dmlc_row_scatter_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [
         ctypes.c_int, ctypes.c_void_p]
+    lib.dmlc_adam_max_leaves.restype = ctypes.c_int
+    lib.dmlc_adam_max_leaves.argtypes = []
+    # (leaves, count, beta1, 1 - beta1, beta2, 1 - beta2, eps, stream)
+    lib.dmlc_adam_step_f32.restype = ctypes.c_int
+    lib.dmlc_adam_step_f32.argtypes = [ctypes.POINTER(AdamLeaf), ctypes.c_int] + [
+        ctypes.c_float] * 5 + [ctypes.c_void_p]
     lib.dmlc_cuda_error_string.restype = ctypes.c_char_p
     lib.dmlc_cuda_error_string.argtypes = [ctypes.c_int]
     kernel_build_seconds, kernel_build_log = seconds, log
