@@ -5,12 +5,10 @@
 
 For each of ``--seeds``: one run of the cell (``harness.run``, a short
 window) and the numbers it compares. For each of ``--control-seeds``, at
-the cell's own sizes and without the program: the control, the reference
-computed in bfloat16 (its batches' values rounded to bfloat16 too), and
-two faults planted in the reference put in the program's place: half of
-each batch left out (weight 0, the mean over the rest) and one id of the
-first batch altered. A state left unchanged reads 1 by the norms'
-measure and needs no run. One JSON line a reading on standard output.
+the cell's own sizes and without the program: the control and the faults
+planted in the reference put in the program's place, as the
+configuration's learner defines them (``control_readings`` in
+``learners/<model>.py``). One JSON line a reading on standard output.
 
 Needs a CUDA card, as ``run.py`` does."""
 
@@ -22,58 +20,25 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 from portbench import harness, registry
-from portbench.reference import check as ref_check
-from portbench.reference import fm as ref_fm
 
 
 def _emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
 
-def _half(batch):
-    ids, vals, label, weight = batch
-    weight = weight.copy()
-    weight[len(weight) // 2:] = 0.0
-    return ids, vals, label, weight
-
-
-def _altered(batch, rng):
-    ids = batch[0].copy()
-    r, k = rng.integers(0, ids.shape[0]), rng.integers(0, ids.shape[1])
-    ids[r, k] = (ids[r, k] + 1) % ids.max()
-    return (ids,) + tuple(batch[1:])
-
-
-def _bf16_values(batch):
-    ids, vals, label, weight = batch
-    return ids, torch.from_numpy(vals).to(torch.bfloat16).float().numpy(), label, weight
-
-
 def control_readings(config: dict, seed: int, device, root: str) -> dict:
-    """``{side: readings}`` for the control and the planted faults."""
+    """``{side: readings}`` for the control and the planted faults, over
+    the followed batches of the seed's corpus as the reference parses them."""
     corpus = harness.corpus_path(root, config, seed)
-    registry.corpus_writer(config["format"]).write(corpus, config, seed)
+    registry.corpus_writer(harness.corpus_name(config)).write(corpus, config, seed)
     try:
         ref_batches = harness.reference_batches(config, corpus, list(range(harness.FOLLOWED)))
     finally:
         os.remove(corpus)
-    ref = ref_fm.follow(config, seed, ref_batches, device)
-    rng = np.random.default_rng([seed, 13])
-    sides = {
-        "control_bf16": ([_bf16_values(b) for b in ref_batches], torch.bfloat16),
-        "fault_half_batch": ([_half(b) for b in ref_batches], torch.float32),
-        "fault_altered_id": ([_altered(ref_batches[0], rng)] + ref_batches[1:], torch.float32),
-    }
-    out = {}
-    for side, (batches, dtype) in sides.items():
-        fed = ref_check.feed_gaps(batches, ref_batches)
-        fed.update(ref_check.step_gaps(ref_fm.follow(config, seed, batches, device, dtype), ref))
-        out[side] = fed
-    return out
+    return registry.learner(config["model"]).control_readings(config, seed, ref_batches, device)
 
 
 def main(argv=None) -> int:

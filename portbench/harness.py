@@ -1,10 +1,15 @@
 """One run of one cell: set-up, the measured window, the check against
 the reference, and the result.
 
-The system under test is ``dmlc_tpu_torch``'s training path:
-``create_parser(corpus)`` -> ``DeviceIter(layout="ell")`` ->
-``FMLearner.step``. The window is the loop of ``TrainLoopMixin.fit_epoch``
-driven from here: ``batch = next(it)``, ``loss = model.step(batch)``,
+The system under test is ``dmlc_tpu_torch``'s training path: a pipeline
+over a corpus written from the seed, opened by the cell's input route
+(``routes/<route>.py``, ``cold`` by default), feeding the learner that the
+configuration's ``model`` names (``learners/<model>.py``). The harness
+knows neither: it writes the corpus (``corpora/<corpus>.py``), has the
+learner built and the route open its pipeline, runs the followed steps
+and the window, and hands the check to the learner. The window is the loop
+of ``TrainLoopMixin.fit_epoch`` driven from here: ``batch = next(it)``,
+``loss = model.step(batch)``, the learner's ``epoch_end`` and
 ``it.reset()`` at each epoch's end, a CUDA event recorded after each step,
 and no host sync between the synchronise that opens the window and the
 one after the last step enqueued before ``seconds`` have passed.
@@ -29,8 +34,6 @@ import torch
 from portbench import registry
 from portbench import trace as trace_mod
 from portbench.reference import check as ref_check
-from portbench.reference import fm as ref_fm
-from portbench.reference import params as ref_params
 from portbench.reference import parse as ref_parse
 
 FOLLOWED = 3       # steps the reference follows, run before the window
@@ -100,62 +103,26 @@ def _host_batch(batch) -> tuple:
     return tuple(t.detach().cpu().numpy() for t in batch)
 
 
-def _chunked_sq_norm(t: torch.Tensor, rows: int = 1 << 22) -> float:
-    flat = t.detach().reshape(t.shape[0], -1) if t.dim() else t.detach().reshape(1, 1)
-    return sum(float(flat[i:i + rows].double().pow(2).sum()) for i in range(0, len(flat), rows))
-
-
-def _grad_norms(model) -> list:
-    """Each leaf's first gradient, as the optimizer holds it after one
-    Adam step: ``exp_avg / (1 - beta1)`` (0 where it holds none)."""
-    out = []
-    for p, group in ((p, g) for g in model.opt.param_groups for p in g["params"]):
-        state = model.opt.state.get(p, {})
-        if "exp_avg" not in state:
-            out.append(0.0)
-            continue
-        out.append(_chunked_sq_norm(state["exp_avg"]) ** 0.5 / (1 - group["betas"][0]))
-    return out
-
-
-def _change_norms(model, config: dict, seed: int, device) -> list:
-    """Each leaf's distance from the seed's initial parameters, ``V``'s
-    drawn again a chunk at a time."""
-    w0, w, v = model.params
-    sq_v = 0.0
-    for start, block in ref_params.v_chunks(config, seed, device):
-        sq_v += _chunked_sq_norm(v[start:start + len(block)] - block)
-        del block
-    return [abs(float(w0.detach())), _chunked_sq_norm(w) ** 0.5, sq_v ** 0.5]
-
-
 def corpus_path(root: str, config: dict, seed: int) -> str:
     return os.path.join(root, ".portbench_cache", "corpus",
                         f"{config['name']}.{seed}.{config['format']}")
 
 
-def build(config: dict, seed: int, device, corpus: str,
-          log: Callable[[str], None] = lambda what: None):
-    """The corpus, the learner with the seed's parameters, and the
-    pipeline over the corpus."""
-    from dmlc_tpu_torch import DeviceIter, FMLearner, create_parser
-    from dmlc_tpu_torch.models.fm import FMParams
+def corpus_name(config: dict) -> str:
+    """The corpus writer a configuration names: ``corpus``, else ``format``."""
+    return config.get("corpus", config["format"])
 
-    registry.corpus_writer(config["format"]).write(corpus, config, seed)
+
+def build(learner, route, writer, config: dict, seed: int, device, corpus: str,
+          cleanups: contextlib.ExitStack, log: Callable[[str], None] = lambda what: None):
+    """The corpus, the learner with the seed's parameters, and the
+    pipeline over the corpus; the route's cleanup joins ``cleanups``."""
+    writer.write(corpus, config, seed)
     log("the corpus")
-    log("the pipeline's imports")
-    model = FMLearner(config["num_col"], num_factors=config["num_factors"],
-                      objective=config["objective"], layout="ell",
-                      learning_rate=config["learning_rate"],
-                      init_scale=config["init_scale"], device=device)
-    log("the learner")
-    params = ref_params.full(config, seed, device)
-    model.set_params(FMParams(*params))
-    del params
-    log("the parameters")
-    it = DeviceIter(create_parser(f"{corpus}?format={config['format']}"),
-                    num_col=model.device_num_col(), batch_size=config["batch_size"],
-                    layout="ell", max_nnz=config["max_nnz"], device=device)
+    model = learner.build(config, seed, device, log=log)
+    it, cleanup = route.open_pipeline(config, corpus, learner, model, device)
+    cleanups.callback(cleanup)
+    log("the pipeline")
     return model, it
 
 
@@ -164,35 +131,45 @@ def run(config: dict, cell: dict, seed: int, seconds: float, traced: bool, devic
         fault: Optional[Callable] = None) -> tuple:
     """One run. Returns ``(Run, readings, limits)``. ``fault`` (tests) is
     called with ``(model, it)`` after set-up builds them and may wrap
-    either, to break the timed path."""
+    either, to break the timed path. The learner, the route and the corpus
+    writer are looked up first: a name with no file fails before any work."""
     device = torch.device(device)
+    learner = registry.learner(config["model"])
+    route = registry.route(cell.get("route", "cold"))
+    writer = registry.corpus_writer(corpus_name(config))
     corpus = corpus_path(root, config, seed)
-    try:
-        return _run(config, cell, seed, seconds, traced, device, corpus, t_start, log, fault)
-    finally:
-        with contextlib.suppress(FileNotFoundError):
-            os.remove(corpus)
+    with contextlib.ExitStack() as cleanups:
+        # each runs, the route's first, whether or not the run ended well
+        cleanups.callback(_remove, corpus)
+        return _run(learner, route, writer, config, cell, seed, seconds, traced, device,
+                    corpus, cleanups, t_start, log, fault)
 
 
-def _run(config, cell, seed, seconds, traced, device, corpus, t_start, log, fault):
+def _remove(path: str) -> None:
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(path)
+
+
+def _run(learner, route, writer, config, cell, seed, seconds, traced, device, corpus,
+         cleanups, t_start, log, fault):
     rec = Run(config=config, cell=cell)
     log(f"set-up: {time.perf_counter() - t_start:.3f} s before the corpus")
-    model, it = build(config, seed, device, corpus, log=lambda what: log(
-        f"set-up: {time.perf_counter() - t_start:.3f} s after {what}"))
+    model, it = build(learner, route, writer, config, seed, device, corpus, cleanups,
+                      log=lambda what: log(f"set-up: {time.perf_counter() - t_start:.3f} s "
+                                           f"after {what}"))
     if fault is not None:
         model, it = fault(model, it)
     batch_rows = config["batch_size"]
     # the followed steps, through the window's own calls; they warm up
-    # every shape the window uses and allocate Adam's state
+    # every shape the window uses and allocate the optimizer's state
     program = {"losses": []}
     fed = []
     for step in range(FOLLOWED):
         batch = next(it)
         fed.append(_host_batch(batch))
         program["losses"].append(float(model.step(batch)))
-        if step == 0:
-            program["grad_norms"] = _grad_norms(model)
-    program["change_norms"] = _change_norms(model, config, seed, device)
+        learner.after_step(model, step, program)
+    learner.after_followed(model, config, seed, device, program)
     log(f"set-up: {time.perf_counter() - t_start:.3f} s after the followed steps")
     pos = FOLLOWED
     sample_at = int(np.random.default_rng([seed, 11]).integers(0, SAMPLE_SPAN))
@@ -221,6 +198,7 @@ def _run(config, cell, seed, seconds, traced, device, corpus, t_start, log, faul
                     ended = True
             if ended:
                 with span("portbench.reset"):
+                    learner.epoch_end(model)
                     it.reset()
                 rec.epochs += 1
                 pos = 0
@@ -263,7 +241,8 @@ def _run(config, cell, seed, seconds, traced, device, corpus, t_start, log, faul
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    readings = reference_readings(config, seed, corpus, fed, positions, program, device)
+    readings = reference_readings(learner, config, seed, corpus, fed, positions, program,
+                                  device)
     return rec, readings, cell["limits"]
 
 
@@ -273,10 +252,13 @@ def reference_batches(config: dict, corpus: str, positions: list) -> list:
             for p in positions]
 
 
-def reference_readings(config, seed, corpus, fed, positions, program, device) -> dict:
-    """The gaps between the program's readings and the reference's."""
+def reference_readings(learner, config, seed, corpus, fed, positions, program,
+                       device) -> dict:
+    """The gaps between the program's readings and the reference's: the
+    feed's over every compared batch, then the learner's over the
+    followed ones."""
     ref_batches = reference_batches(config, corpus, positions)
-    ref = ref_fm.follow(config, seed, ref_batches[:FOLLOWED], device)
     out = ref_check.feed_gaps(fed, ref_batches)
-    out.update(ref_check.step_gaps(program, ref))
+    out.update(learner.reference_readings(config, seed, ref_batches[:FOLLOWED], program,
+                                          device))
     return out

@@ -1,5 +1,9 @@
 """The numbers that decide ``correct``, each the gap between the program's
-reading and the reference's, and the comparison with their limits.
+reading and the reference's, and the comparison with their limits. A cell
+compares every number its ``limits`` name with a limit that is not null;
+the learner's module (``learners/<model>.py``) says which numbers it
+reads. The harness reads the feed's two for every cell; the FM learner
+adds the three step gaps below.
 
 - ``feed_mismatch``: ids, labels and weights of the compared batches that
   differ from the reference's parse (each row's entries sorted by id and
@@ -19,8 +23,6 @@ from __future__ import annotations
 import statistics
 
 import numpy as np
-
-NAMES = ("feed_mismatch", "feed_value_gap", "loss_gap", "grad_norm_gap", "change_norm_gap")
 
 
 def _canonical(ids: np.ndarray, vals: np.ndarray):
@@ -64,10 +66,11 @@ def step_gaps(program: dict, reference: dict) -> dict:
 
 
 def compared(limits: dict) -> list:
-    """The numbers a cell compares: those whose limit is not null. A
-    number whose control and faults all read as its sound runs do has no
-    upper reading, and a cell leaves it uncompared (PERF.md names it)."""
-    return [name for name in NAMES if limits.get(name) is not None]
+    """The numbers a cell compares, in the order its ``limits`` give them:
+    those whose limit is not null. A number whose control and faults all
+    read as its sound runs do has no upper reading, and a cell leaves it
+    uncompared (PERF.md names it)."""
+    return [name for name, limit in limits.items() if limit is not None]
 
 
 def verdict(readings: dict, limits: dict) -> bool:

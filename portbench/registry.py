@@ -1,9 +1,14 @@
 """Find the benchmark's pieces by name.
 
-Every configuration, cell, corpus writer and metric is a file of its own:
-``configs/<name>.json``, ``workloads/<name>.json``, ``corpora/<format>.py``
-and ``metrics/<name>.py``. A later change adds a file and an entry in
-``BENCHMARK.json``; nothing here changes."""
+Every configuration, cell, learner, input route, corpus writer and metric
+is a file of its own: ``configs/<name>.json``, ``workloads/<name>.json``,
+``learners/<model>.py`` (a configuration's ``model``),
+``routes/<route>.py`` (a cell's ``route``), ``corpora/<corpus>.py`` (a
+configuration's ``corpus``, else its ``format``) and
+``metrics/<name>.py`` (a split ``<name>.<kind>`` falls back to
+``<name>``'s reader). A later change adds a file and an entry in
+``BENCHMARK.json``; nothing here changes. A name with no file fails with
+the name in the message."""
 
 from __future__ import annotations
 
@@ -38,19 +43,51 @@ def workload(name: str) -> dict:
 
 
 def _module(package: str, name: str) -> ModuleType:
-    return importlib.import_module(f"portbench.{package}.{_checked(name)}")
+    path = f"portbench.{package}.{_checked(name)}"
+    try:
+        return importlib.import_module(path)
+    except ModuleNotFoundError as exc:
+        if exc.name != path:
+            raise
+        raise LookupError(f"nothing named {name!r} in portbench/{package}/ "
+                          f"({name}.py is not there)") from None
 
 
-def corpus_writer(fmt: str) -> ModuleType:
-    """The writer of one text format: a module with ``write(path, config,
-    seed) -> dict``."""
-    return _module("corpora", fmt)
+def learner(model: str) -> ModuleType:
+    """The learner a configuration's ``model`` names (``learners/__init__.py``
+    gives its functions)."""
+    return _module("learners", model)
+
+
+def route(name: str) -> ModuleType:
+    """The input route a cell's ``route`` names: a module with
+    ``open_pipeline(...) -> (iterator, cleanup)`` (``routes/__init__.py``)."""
+    return _module("routes", name)
+
+
+def corpus_writer(name: str) -> ModuleType:
+    """The writer of one corpus: a module with ``write(path, config, seed)
+    -> dict``."""
+    return _module("corpora", name)
 
 
 def metric_reader(name: str) -> ModuleType:
     """The reader of one metric: a module with ``read(ctx) -> float | None``
-    (None: nothing to read in this run, and the metric is left out)."""
-    return _module("metrics", name.replace(".", "_"))
+    (None: nothing to read in this run, and the metric is left out). A
+    split of a quantity, ``<metric>.<kind>`` (the same reading in cells
+    that report other end-to-end metrics), is read by its own file where
+    there is one, else by ``<metric>``'s."""
+    try:
+        return _module("metrics", name.replace(".", "_"))
+    except LookupError:
+        if "." not in name:
+            raise
+        try:
+            return _module("metrics", name.split(".", 1)[0])
+        except LookupError:
+            raise LookupError(f"no reader for the metric {name!r} in portbench/metrics/ "
+                              f"(neither {name.replace('.', '_')}.py nor "
+                              f"{name.split('.', 1)[0]}.py)") from None
 
 
 def benchmark(root: str) -> dict:

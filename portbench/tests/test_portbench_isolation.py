@@ -27,9 +27,20 @@ def test_the_harness_loads_no_jax():
         "from portbench import registry\n"
         "b = registry.benchmark('.')\n"
         "[registry.metric_reader(m['name']) for m in b['end_to_end'] + b['per_layer']]\n"
-        "[registry.corpus_writer(registry.config(c['name'])['format']) for c in b['configs']]")
+        "cfgs = [registry.config(c['name']) for c in b['configs']]\n"
+        "[registry.corpus_writer(c.get('corpus', c['format'])) for c in cfgs]\n"
+        "[registry.learner(c['model']) for c in cfgs]\n"
+        "[registry.route(registry.workload(w['name']).get('route', 'cold')) "
+        "for w in b['workloads']]")
     assert not mods & {"jax", "jaxlib", "flax", "dmlc_tpu"}
     assert "dmlc_tpu_torch" in mods
+
+
+def test_the_pieces_import_the_program_only_when_they_build():
+    mods = _top_level_modules(
+        "import portbench.run, portbench.harness, portbench.calibrate\n"
+        "import portbench.learners.fm, portbench.routes.cold")
+    assert not mods & {"jax", "jaxlib", "flax", "dmlc_tpu", "dmlc_tpu_torch"}
 
 
 def test_the_reference_loads_nothing_of_the_program():
