@@ -8,11 +8,28 @@ largest id, so that every row of a corpus has one width."""
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
 
 CHUNK = 1 << 16
+TINY_NUM_COL = 600  # the table of a configuration cut to CPU size
+
+
+def tiny(config: dict, rows: int, batch: int) -> dict:
+    """``config`` cut to CPU size: its widths kept (factors, fields,
+    entries a row) and its table, corpus and batch cut down, each field's
+    values in proportion, at least one each."""
+    c = copy.deepcopy(config)
+    total = sum(f["cardinality"] for f in c["fields"])
+    off = len(c["dense"])
+    for f in c["fields"]:
+        f["cardinality"] = max(1, f["cardinality"] * TINY_NUM_COL // total)
+        f["offset"] = off
+        off += f["cardinality"]
+    c.update(num_col=off, corpus_rows=rows, batch_size=batch)
+    return c
 
 
 def id_digits(num_col: int) -> int:

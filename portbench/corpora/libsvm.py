@@ -10,6 +10,8 @@ import numpy as np
 
 from portbench.corpora import fixed_width as fw
 
+tiny = fw.tiny
+
 
 def write(path: str, config: dict, seed: int) -> dict:
     fields, dense = config["fields"], config["dense"]

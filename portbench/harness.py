@@ -14,6 +14,11 @@ of ``TrainLoopMixin.fit_epoch`` driven from here: ``batch = next(it)``,
 and no host sync between the synchronise that opens the window and the
 one after the last step enqueued before ``seconds`` have passed.
 
+The configuration's ``layout`` (``ell`` by default, or ``bcoo``) says what
+form the fed batches take, and so how the harness reads them back to the
+host, which of the reference's parses it compares them with, and which
+feed comparison it uses (:data:`LAYOUTS`).
+
 :func:`run` takes the device it is given; ``run.py`` refuses a machine
 without the cards a cell asks for, and the CPU serves the tests alone."""
 
@@ -26,7 +31,7 @@ import sys
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -99,8 +104,50 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _host_batch(batch) -> tuple:
+def _host_ell(batch) -> tuple:
     return tuple(t.detach().cpu().numpy() for t in batch)
+
+
+def _host_csr(batch) -> tuple:
+    """A ``bcoo`` batch ``(x, label, weight)`` as ragged CSR arrays
+    ``(offsets, ids, values, label, weight)``: ``x``'s entries (the program
+    builds it on its real entries alone) grouped by row, in their order
+    within each row."""
+    x, label, weight = batch
+    coords = x.detach()._indices().cpu().numpy()
+    vals = x.detach()._values().cpu().numpy()
+    order = np.argsort(coords[0], kind="stable")
+    offsets = np.zeros(x.shape[0] + 1, dtype=np.int64)
+    np.cumsum(np.bincount(coords[0], minlength=x.shape[0]), out=offsets[1:])
+    return (offsets, coords[1][order], vals[order], label.detach().cpu().numpy(),
+            weight.detach().cpu().numpy())
+
+
+def _parse_ell(config: dict, corpus: str, r0: int, r1: int) -> tuple:
+    return ref_parse.rows(corpus, config["format"], r0, r1, config["num_col"],
+                          config["max_nnz"])
+
+
+def _parse_csr(config: dict, corpus: str, r0: int, r1: int) -> tuple:
+    return ref_parse.csr_rows(corpus, config["format"], r0, r1)
+
+
+class Layout(NamedTuple):
+    """What the harness does with one batch layout: the fed batch's host
+    form, the reference's parse in the same form, and their comparison."""
+
+    host: Callable
+    parse: Callable
+    feed_gaps: Callable
+
+
+LAYOUTS = {"ell": Layout(_host_ell, _parse_ell, ref_check.feed_gaps),
+           "bcoo": Layout(_host_csr, _parse_csr, ref_check.feed_gaps_csr)}
+
+
+def layout(config: dict) -> Layout:
+    """The configuration's ``layout`` (``ell`` where it names none)."""
+    return LAYOUTS[config.get("layout", "ell")]
 
 
 def corpus_path(root: str, config: dict, seed: int) -> str:
@@ -160,13 +207,14 @@ def _run(learner, route, writer, config, cell, seed, seconds, traced, device, co
     if fault is not None:
         model, it = fault(model, it)
     batch_rows = config["batch_size"]
+    host_batch = layout(config).host
     # the followed steps, through the window's own calls; they warm up
     # every shape the window uses and allocate the optimizer's state
     program = {"losses": []}
     fed = []
     for step in range(FOLLOWED):
         batch = next(it)
-        fed.append(_host_batch(batch))
+        fed.append(host_batch(batch))
         program["losses"].append(float(model.step(batch)))
         learner.after_step(model, step, program)
     learner.after_followed(model, config, seed, device, program)
@@ -233,7 +281,7 @@ def _run(learner, route, writer, config, cell, seed, seconds, traced, device, co
     log(f"window {rec.window_s:.3f} s, {rec.steps} steps, {rec.epochs} epoch ends; step ms "
         + " ".join(f"p{q} {np.percentile(iv, q):.3f}" for q in (50, 90, 95, 97, 99))
         + f" max {iv.max():.3f}, {int((iv > 1.2 * np.median(iv)).sum())} over 1.2x median")
-    fed += [_host_batch(b) for _, b in held]
+    fed += [host_batch(b) for _, b in held]
     positions = list(range(FOLLOWED)) + [p for p, _ in held]
     # the program's state goes before the reference runs
     it.close()
@@ -247,9 +295,10 @@ def _run(learner, route, writer, config, cell, seed, seconds, traced, device, co
 
 
 def reference_batches(config: dict, corpus: str, positions: list) -> list:
-    b, k = config["batch_size"], config["max_nnz"]
-    return [ref_parse.rows(corpus, config["format"], p * b, (p + 1) * b, config["num_col"], k)
-            for p in positions]
+    """The reference's parse of the batches at ``positions``, in the form
+    of the configuration's layout."""
+    b, parse = config["batch_size"], layout(config).parse
+    return [parse(config, corpus, p * b, (p + 1) * b) for p in positions]
 
 
 def reference_readings(learner, config, seed, corpus, fed, positions, program,
@@ -258,7 +307,7 @@ def reference_readings(learner, config, seed, corpus, fed, positions, program,
     feed's over every compared batch, then the learner's over the
     followed ones."""
     ref_batches = reference_batches(config, corpus, positions)
-    out = ref_check.feed_gaps(fed, ref_batches)
+    out = layout(config).feed_gaps(fed, ref_batches)
     out.update(learner.reference_readings(config, seed, ref_batches[:FOLLOWED], program,
                                           device))
     return out

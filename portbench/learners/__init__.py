@@ -17,4 +17,12 @@ nothing else of it; each module gives:
   gaps between ``program`` and the reference over the followed batches;
 - ``control_readings(config, seed, ref_batches, device)``: ``{side:
   readings}`` for the control and the faults planted in the reference put
-  in the program's place (``calibrate.py``)."""
+  in the program's place (``calibrate.py``);
+- ``faults()``: ``{name: fn(model, it) -> (model, it)}``, the faults planted
+  in the program's timed path that must turn ``correct`` false (the tests
+  run each on every cell of the learner);
+- ``cpu_metrics``: the base names of the per-layer metrics that a CPU run
+  of its cells reports (the tests look for them).
+
+``ref_batches`` are the reference's parse in the form of the
+configuration's ``layout`` (``harness.LAYOUTS``)."""

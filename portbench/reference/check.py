@@ -7,7 +7,9 @@ adds the three step gaps below.
 
 - ``feed_mismatch``: ids, labels and weights of the compared batches that
   differ from the reference's parse (each row's entries sorted by id and
-  value: the FM sum does not depend on their order). Exact: limit 0.
+  value: the FM sum does not depend on their order). Exact: limit 0. In
+  ragged (CSR) batches a row whose length differs from the reference's
+  counts the larger row's entries.
 - ``feed_value_gap``: the largest ``|value - reference| / max(|reference|, 1)``.
 - ``loss_gap``: the largest ``|loss - reference| / |reference|`` over the
   followed steps.
@@ -40,6 +42,36 @@ def feed_gaps(program: list, reference: list) -> dict:
         pi, pv = _canonical(pi.astype(np.int64), pv.astype(np.float32))
         ri, rv = _canonical(ri.astype(np.int64), rv.astype(np.float32))
         mismatch += int((pi != ri).sum() + (pl != rl).sum() + (pw != rw).sum())
+        gap = np.abs(pv.astype(np.float64) - rv) / np.maximum(np.abs(rv), 1.0)
+        value_gap = max(value_gap, float(gap.max(initial=0.0)))
+    return {"feed_mismatch": mismatch, "feed_value_gap": value_gap}
+
+
+def _csr_canonical(offsets: np.ndarray, ids: np.ndarray, vals: np.ndarray):
+    """Each row's entries sorted by id and value, rows in order."""
+    row = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    order = np.lexsort((vals, ids, row))
+    return ids[order], vals[order]
+
+
+def feed_gaps_csr(program: list, reference: list) -> dict:
+    """``feed_mismatch`` and ``feed_value_gap`` over pairs of ragged
+    batches ``(offsets, ids, values, label, weight)``: rows of equal length
+    compared entry by entry, each row of another length counted whole."""
+    mismatch, value_gap = 0, 0.0
+    for (po, pi, pv, pl, pw), (ro, ri, rv, rl, rw) in zip(program, reference):
+        if len(po) != len(ro):
+            mismatch += max(pi.size, ri.size) + max(pl.size, rl.size)
+            continue
+        plen, rlen = np.diff(po), np.diff(ro)
+        same = plen == rlen
+        mismatch += int(np.maximum(plen, rlen)[~same].sum()
+                        + (pl != rl).sum() + (pw != rw).sum())
+        pi, pv = _csr_canonical(po, pi.astype(np.int64), pv.astype(np.float32))
+        ri, rv = _csr_canonical(ro, ri.astype(np.int64), rv.astype(np.float32))
+        pi, pv = pi[np.repeat(same, plen)], pv[np.repeat(same, plen)]
+        ri, rv = ri[np.repeat(same, rlen)], rv[np.repeat(same, rlen)]
+        mismatch += int((pi != ri).sum())
         gap = np.abs(pv.astype(np.float64) - rv) / np.maximum(np.abs(rv), 1.0)
         value_gap = max(value_gap, float(gap.max(initial=0.0)))
     return {"feed_mismatch": mismatch, "feed_value_gap": value_gap}

@@ -1,7 +1,9 @@
 """A whole run on the CPU at a tiny size, its result line, and the faults
-that must turn ``correct`` false: a step that leaves the state unchanged,
-half of each batch left out, an id altered where the feed makes it; and
-the control (the reference in bfloat16)."""
+that must turn ``correct`` false, each cell's learner's own (``faults()``
+in ``learners/<model>.py``; FM's: a step that leaves the state unchanged,
+half of each batch left out, an id altered where the feed makes it); and
+the control (the reference in bfloat16). Each cell is cut to CPU size by
+its corpus writer's ``tiny``."""
 
 import json
 import sys
@@ -22,9 +24,16 @@ BENCH = registry.benchmark(ROOT)
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
-def _run(tmp_path, name, fault=None, traced=False, seconds=0.5):
+def _learner(name):
+    return registry.learner(registry.config(registry.workload(name)["config"])["model"])
+
+
+FAULT_CASES = [(name, fault) for name in CELLS for fault in sorted(_learner(name).faults())]
+
+
+def _run(tmp_path, name, fault=None, traced=False, seconds=0.5, rows=640):
     cell = tiny.cell(name)
-    cfg = tiny.config(cell["config"])
+    cfg = tiny.config(cell["config"], rows=rows)
     rec, readings, limits = harness.run(cfg, cell, 2 ** 31 + 11, seconds, traced, "cpu",
                                         str(tmp_path), time.perf_counter(), fault=fault)
     return rec, readings, limits
@@ -39,7 +48,7 @@ def test_a_sound_run_is_correct(tmp_path, name):
     assert list(out)[-1] == "checks"
     # the cell's own names, a split <metric>.<kind> where it reports other end-to-end metrics
     bases = {m.split(".", 1)[0] for m in out["metrics"]}
-    assert {"stall_share", "step_mfu"} <= bases
+    assert set(_learner(name).cpu_metrics) <= bases
     # the CPU trace holds no device operation: no device metric is invented
     assert "step_device_ms" not in bases and "device_idle_share" not in bases
     untraced = run_mod.result_line(BENCH, name, rec, readings, limits, False, {})
@@ -47,46 +56,14 @@ def test_a_sound_run_is_correct(tmp_path, name):
     # a CPU run has no device memory peak to read
     assert set(untraced["metrics"]) == e2e - {"peak_device_gib"}
     assert not list((tmp_path / ".portbench_cache" / "corpus").iterdir())
+    # nor does a route leave a snapshot behind
+    snapshots = tmp_path / ".portbench_cache" / "snapshot"
+    assert not snapshots.exists() or not list(snapshots.iterdir())
 
 
-def _unchanged(model, it):
-    model.opt.step = lambda *a, **k: None
-    return model, it
-
-
-def _half_batch(model, it):
-    step = model.step
-
-    def half(batch):
-        weight = batch.weight.clone()
-        weight[len(weight) // 2:] = 0.0
-        return step(batch._replace(weight=weight))
-    model.step = half
-    return model, it
-
-
-class _AlteredFeed:
-    def __init__(self, it):
-        self.it = it
-
-    def __next__(self):
-        batch = next(self.it)
-        idx = batch.indices.clone()
-        idx[0, 0] = (idx[0, 0] + 1) % idx.max()
-        return batch._replace(indices=idx)
-
-    def __getattr__(self, name):
-        return getattr(self.it, name)
-
-
-FAULTS = {"unchanged_state": _unchanged, "half_batch": _half_batch,
-          "altered_id": lambda m, it: (m, _AlteredFeed(it))}
-
-
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name,fault", FAULT_CASES, ids=[f"{n}-{f}" for n, f in FAULT_CASES])
 def test_a_broken_timed_path_is_not_correct(tmp_path, name, fault):
-    _, readings, limits = _run(tmp_path, name, fault=FAULTS[fault])
+    _, readings, limits = _run(tmp_path, name, fault=_learner(name).faults()[fault])
     assert not check.verdict(readings, limits), readings
 
 
@@ -112,3 +89,27 @@ def test_a_module_loaded_after_the_window_withholds_the_result(monkeypatch, caps
 def test_forbidden_modules_are_named():
     assert "jax" not in harness.forbidden_modules()
     assert {"jax", "dmlc_tpu"} == set(harness.FORBIDDEN) - {"jaxlib", "flax"}
+
+
+WARM = [n for n in CELLS if registry.workload(n).get("route") == "warm"]
+
+
+@pytest.mark.parametrize("name", WARM)
+def test_the_warm_route_serves_the_window_from_its_snapshot(tmp_path, name):
+    rec, readings, limits = _run(tmp_path, name, seconds=1.0, rows=192)  # 3 batches an epoch
+    assert check.verdict(readings, limits), readings
+    # set-up parsed the one cold epoch; the window parsed nothing and
+    # decoded every batch from the snapshot's raw spans
+    assert rec.stats1["convert_seconds"] == rec.stats0["convert_seconds"]
+    assert rec.stats1["device_decode_bytes"] > rec.stats0["device_decode_bytes"]
+    assert rec.epochs >= 1
+    assert not list((tmp_path / ".portbench_cache" / "snapshot").iterdir())
+
+    def planted(model, it):
+        raise RuntimeError("planted")
+
+    failing = tmp_path / "failing"
+    with pytest.raises(RuntimeError, match="planted"):
+        _run(failing, name, fault=planted)
+    # the snapshot goes with a run that fails, too
+    assert not list((failing / ".portbench_cache" / "snapshot").iterdir())

@@ -89,6 +89,10 @@ def write(path, config, seed):
         for y, row in zip(label, ids):
             f.write(f"{y} " + " ".join(f"{i}:0.5" for i in row) + "\\n")
     return {"rows": n}
+
+
+def tiny(config, rows, batch):
+    return dict(config, corpus_rows=rows, batch_size=batch)
 """
 
 # a route that does work in set-up (the corpus turned into an .npz) and
@@ -181,18 +185,45 @@ def epoch_end(model):
     model.events.append("epoch_end")
 
 
-def reference_readings(config, seed, ref_batches, program, device):
-    w, gap = np.zeros(config["num_col"]), 0.0
-    for got, (ids, vals, label, weight) in zip(program["losses"], ref_batches):
+def _losses(config, ref_batches, dtype):
+    w, out = np.zeros(config["num_col"], dtype), []
+    for ids, vals, label, weight in ref_batches:
+        vals, label, weight = (a.astype(dtype) for a in (vals, label, weight))
         p = 1 / (1 + np.exp(-(w[ids] * vals).sum(1)))
         loss = -(weight * (label * np.log(p) + (1 - label) * np.log(1 - p))).sum()
         loss /= weight.sum()
         np.add.at(w, ids.reshape(-1),
                   -config["learning_rate"] * (((p - label) * weight / weight.sum())[:, None]
                                               * vals).reshape(-1))
-        gap = max(gap, abs(got - loss) / abs(loss))
+        out.append(float(loss))
+    return out
+
+
+def _gap(got, ref):
+    return max(abs(g - r) / abs(r) for g, r in zip(got, ref))
+
+
+def reference_readings(config, seed, ref_batches, program, device):
     assert program["steps_after"] == [0, 1, 2] and program["followed"]
-    return {"loss_gap": gap}
+    return {"loss_gap": _gap(program["losses"], _losses(config, ref_batches, np.float64))}
+
+
+def control_readings(config, seed, ref_batches, device):
+    ref = _losses(config, ref_batches, np.float64)
+    return {"control_float32": {"feed_mismatch": 0, "feed_value_gap": 0.0,
+                                "loss_gap": _gap(_losses(config, ref_batches, np.float32), ref)}}
+
+
+cpu_metrics = ()
+
+
+def _unchanged(model, it):
+    model.lr = 0.0
+    return model, it
+
+
+def faults():
+    return {"unchanged_state": _unchanged}
 """
 
 STUB_PROBE = """
@@ -297,6 +328,14 @@ def test_added_files_are_picked_up_without_edits(tmp_path):
     # a run that fails after set-up still cleans up after its route and its corpus
     assert seen["failed_run_events"] == ["open", "cleanup"]
     assert not list((tmp_path / ".portbench_cache" / "corpus").iterdir())
+
+    # the harness's tests take the new cell as it is: its sound run, the
+    # learner's one fault and its control
+    out = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                          "portbench/tests/test_portbench_harness.py", "-k", "stub_lr"],
+                         cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:]
+    assert "3 passed" in out.stdout, out.stdout[-3000:]
 
 
 @pytest.mark.parametrize("key", ["model", "route", "corpus"])

@@ -35,7 +35,8 @@ def summarize(path: str, top: int = 10) -> dict:
     """The window's device time: ``window_s``, ``busy_s`` (the union of
     every device operation), ``step_s`` (kernels and fills, summed),
     ``copy_s``, ``by_ranges`` (``{(enclosing range names...): seconds of
-    kernels and fills}``), ``device_ops`` (the ``top`` names by time) and
+    kernels and fills}``), ``by_name`` (``{device operation name: [seconds,
+    count]}``), ``device_ops`` (the ``top`` names by time) and
     ``idle_gaps`` (the ``top`` longest, each named by the benchmark span
     the host was in at its middle). Seconds throughout."""
     with open(path) as f:
@@ -71,11 +72,12 @@ def summarize(path: str, top: int = 10) -> dict:
                 stack.append((ts - neg_dur, what))
             else:
                 stack_of[what] = tuple(name for _, name in stack)
-    by_ranges, by_name = defaultdict(float), defaultdict(float)
+    by_ranges, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
     step_s = copy_s = 0.0
     for a, b, name, cat, corr in device:
         dt = (b - a) / 1e6
         by_name[name] += dt
+        count[name] += 1
         if cat in STEP_CATS:
             step_s += dt
             by_ranges[stack_of.get(corr, ())] += dt
@@ -98,8 +100,16 @@ def summarize(path: str, top: int = 10) -> dict:
             "busy_s": sum(b - a for a, b in busy) / 1e6,
             "step_s": step_s, "copy_s": copy_s,
             "by_ranges": dict(by_ranges),
+            "by_name": {n: [s, count[n]] for n, s in by_name.items()},
             "device_ops": [[n, s] for n, s in sorted(by_name.items(), key=lambda x: -x[1])[:top]],
             "idle_gaps": [[host_was_in((a + b) / 2), (b - a) / 1e6] for a, b in gaps[:top]]}
+
+
+def kernels_named(summary: dict, fragment: str) -> tuple:
+    """``(seconds, launches)`` of the device operations whose name holds
+    ``fragment``."""
+    hits = [v for n, v in summary["by_name"].items() if fragment in n]
+    return sum(s for s, _ in hits), sum(c for _, c in hits)
 
 
 def seconds_under(summary: dict, fragment: str) -> float:

@@ -61,3 +61,11 @@ def step_row_scatter_bytes(num_col: int, factors: int, batch: int, k: int) -> in
     rows = num_col + 1
     return (row_scatter_bytes(batch, k, rows, 1)
             + row_scatter_bytes(batch, k, rows, factors))
+
+
+def widen_span_bytes(batch: int, k: int) -> int:
+    """Kernel K2 decoding one warm ELL batch: its float32 values ``[B, K]``
+    read from the raw span and written once (the int32 ids, the label and
+    the weight are views of the span, which the kernel does not touch):
+    ``2 * B * K * 4``."""
+    return 2 * batch * k * F32
