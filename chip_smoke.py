@@ -131,7 +131,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``adam_step_ordered_plain_`` over 3 steps of sparse gradients, one
    launch a step, no host sync; its device time beside its bytes bound
    (28 bytes a parameter), the plain version's, and, timed only,
-   ``torch.optim.Adam(fused=True)``'s and the foreach update's;
+   ``torch.optim.Adam(fused=True)``'s and the foreach update's.
+   (c) The Adam update with row marks (``adam_rows_ab``) at the KDD12 and
+   Criteo cells' tables with a batch's ids (8192 × 10 and 8192 × 39):
+   the mark equal to its plain version, the masked launch bit for bit
+   equal to the full one over 3 steps of other ids; the full launch's
+   device time beside its 28-byte bound, the mark's, and mark + masked
+   launch beside the 24-byte bound;
 10. FM on phase 3's corpus (8 factors, Adam 0.05, batch 8192): 2 epochs on
    ell and dense, 1 on bcoo, accuracy above 0.9, the row scatter's
    launches counted and the Adam kernel's (one a step); 20 card steps run
@@ -509,8 +515,8 @@ CUDA device is present.
 
 ``--only cloud|tracker|service|faults|surface`` builds, writes phase 3's
 corpus and runs phase 19, 20, 21, 22 or 23 alone ``--repeat`` times;
-``--only adam`` builds, runs phase 9 (b) ``--repeat`` times, then phase
-10's ell leg; ``cloud`` first runs the burst against a
+``--only adam`` builds, runs phase 9 (b) and (c) ``--repeat`` times, then
+phase 10's ell leg; ``cloud`` first runs the burst against a
 fake on a backlog of 5 and one on the default, in turns, as often. It
 prints no kernels line and no result line.
 """
@@ -2562,6 +2568,105 @@ def adam_ab(seed: int) -> list:
             raise AssertionError(f"adam_step {name}: the kernel differs from its ordered "
                                  f"plain version, launched otherwise than once a step, or "
                                  f"waited for the device: {rec}")
+    return rows
+
+
+ADAM_ROWS_SHAPES = [  # (name, W, F, ids a step): a cell's table and batch
+    ("kdd12_fm", 54_686_453, 8, 8192 * 10),       # P = 492,178,078
+    ("criteo1tb_fm", 187_767_413, 8, 8192 * 39),  # P = 1,689,906,718
+]
+
+
+def _marked_grads(leaves: list, n_ids: int, gen) -> tuple:
+    """A batch's int32 ids (uniform over the rows) and FM's gradients for
+    them: ``w0``'s drawn, ``w``'s and ``V``'s drawn on the rows the ids
+    name and +0.0 on every other row, as the row scatter leaves them."""
+    import torch
+
+    dev = leaves[0].device
+    ids = torch.randint(0, leaves[1].shape[0], (n_ids,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    grads = [torch.randn((), generator=gen, device=dev)]
+    for p in leaves[1:]:
+        g = torch.zeros_like(p)
+        g[ids.long()] = torch.randn((n_ids, *p.shape[1:]), generator=gen, device=dev)
+        grads.append(g)
+    return ids, grads
+
+
+def adam_rows_ab(seed: int) -> list:
+    """The Adam update with row marks (``FusedAdam.step(rows=)``'s launches:
+    ``mark_rows_cuda_`` then the masked ``adam_step_``) beside the full read,
+    at ``ADAM_ROWS_SHAPES``: the mark equal to ``mark_rows_plain``, the
+    masked launch bit for bit equal to the full one over ``ADAM_STEPS``
+    steps of other ids (p, m and v each step); the device time (CUDA events
+    around 50 launches behind a spin, the median of 5) of the full launch
+    beside its 28-byte bound, of the mark alone, and of the mark and the
+    masked launch beside the 24-byte bound; the share of rows read; and
+    whether 20 marked updates enqueue behind a half-second spin."""
+    import torch
+
+    from dmlc_tpu_torch.ops import adam
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = []
+    for i, (name, w, f, n_ids) in enumerate(ADAM_ROWS_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(seed + 200 + i)
+        leaves = _adam_leaves(w, f, 0, seed + 200 + i, dev)
+        n = sum(p.numel() for p in leaves)
+        full = [p.clone() for p in leaves]
+        m, v, m_full, v_full = ([torch.zeros_like(p) for p in leaves] for _ in range(4))
+        bitmap = torch.empty((w + 31) // 32, dtype=torch.int32, device=dev)
+        tally = torch.zeros(1, dtype=torch.int64, device=dev)
+        masks = [None, bitmap, bitmap]
+        equal = mark_equal = True
+        for t in range(1, ADAM_STEPS + 1):
+            ids, grads = _marked_grads(leaves, n_ids, gen)
+            adam.mark_rows_cuda_(bitmap, ids, w, tally)
+            adam.adam_step_(leaves, grads, m, v, [float(t)] * 3, lr=0.05, masks=masks)
+            adam.adam_step_(full, grads, m_full, v_full, [float(t)] * 3, lr=0.05)
+            torch.cuda.synchronize()
+            mark_equal = mark_equal and same_bits(bitmap, adam.mark_rows_plain(ids, w)[0])
+            equal = equal and all(same_bits(a, b) for a, b in zip(leaves + m + v,
+                                                                  full + m_full + v_full))
+            del grads
+        read_share = int(tally) / (w * ADAM_STEPS)
+        del full, m_full, v_full
+        torch.cuda.empty_cache()
+        ids, grads = _marked_grads(leaves, n_ids, gen)
+        steps = [float(ADAM_STEPS + 1)] * 3
+
+        def full_fn():
+            adam.adam_step_(leaves, grads, m, v, steps, lr=0.05)
+
+        def mark_fn():
+            adam.mark_rows_cuda_(bitmap, ids, w, tally)
+
+        def masked_fn():
+            mark_fn()
+            adam.adam_step_(leaves, grads, m, v, steps, lr=0.05, masks=masks)
+        bound28_ms, _ = bound(28 * n, 13 * n)
+        bound24_ms, bound_by = bound(24 * n, 13 * n)
+        full_ms = device_ms(full_fn)
+        masked_ms = device_ms(masked_fn)
+        mark_ms = device_ms(mark_fn)
+        spin = enqueue_behind_spin(masked_fn)
+        rec = {"phase": "adam_rows_ab", "shape": name, "W": w, "F": f, "ids": n_ids,
+               "params": n, "masked_equal_to_full": equal, "mark_equal_to_plain": mark_equal,
+               "rows_read_share": read_share, "full_ms": full_ms,
+               "full_hbm_share_28": bound28_ms / full_ms, "masked_ms": masked_ms,
+               "mark_ms": mark_ms, "bound24_ms": bound24_ms, "bound_by": bound_by,
+               "masked_hbm_share_24": bound24_ms / masked_ms,
+               "saved_ms": full_ms - masked_ms,
+               "no_host_sync": spin["no_host_sync"], "spin_host_s": spin["host_s"]}
+        emit(rec)
+        rows.append(rec)
+        del leaves, grads, m, v, bitmap
+        torch.cuda.empty_cache()
+        if not (equal and mark_equal and spin["no_host_sync"]):
+            raise AssertionError(f"adam_step {name} with row marks: the masked launch differs "
+                                 f"from the full one, the mark from its plain version, or a "
+                                 f"marked update waited for the device: {rec}")
     return rows
 
 
@@ -8069,8 +8174,8 @@ def run_only(which: str, repeat: int, seed: int) -> int:
     """``--only cloud|tracker|service|faults|surface``: phase 1's builds,
     phase 3's corpus, then phase 19, 20, 21, 22 or 23 ``repeat`` times, each
     in a directory of its own. ``--only adam``: phase 1's builds, phase 9
-    (b)'s Adam A/B ``repeat`` times, then phase 3's corpus and phase 10's
-    FM ell path. With
+    (b)'s and (c)'s Adam A/Bs ``repeat`` times, then phase 3's corpus and
+    phase 10's FM ell path. With
     ``cloud`` it also runs the burst probe against a fake whose servers
     keep ``socketserver``'s backlog of 5 and against one on the default,
     ``repeat`` times each, in turns."""
@@ -8081,6 +8186,7 @@ def run_only(which: str, repeat: int, seed: int) -> int:
     if which == "adam":
         for _ in range(repeat):
             adam_ab(seed)
+            adam_rows_ab(seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = os.path.join(tmp, "higgs_shaped.libsvm")
         write_higgs_corpus(path, HIGGS_ROWS, seed)
@@ -8239,6 +8345,7 @@ def main() -> int:
         als = run_als(ratings, dev)
         rs_rows = row_scatter_ab(args.seed, parent.get("row_scatter"))
         adam_rows = adam_ab(args.seed)
+        adam_rows_ab(args.seed)
         fm = {layout: run_fm(path, dev, layout) for layout in FM_EPOCHS}
         emit({"phase": "fm_vs_linear", "fm_step_device_ms": {
             k: v["step_device_ms"] for k, v in fm.items()}})

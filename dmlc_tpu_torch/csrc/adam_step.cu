@@ -20,7 +20,7 @@
 // So the design moves one pass's bytes and keeps every intermediate in
 // registers:
 //
-// - each thread holds kUnroll float4s of each of the four streams in
+// - each thread holds kUnrollFull float4s of each of the four streams in
 //   flight (16-byte loads, neighbouring threads on neighbouring
 //   addresses), then writes its p, m and v back;
 // - loads and stores carry streaming hints (__ldcs / __stcs): a step moves
@@ -30,6 +30,22 @@
 //   pointers and lengths. A leaf whose four pointers are not all 16-byte
 //   aligned goes a float a thread; the n % 4 floats after a leaf's last
 //   float4 (a 0-d leaf's one) are taken by its first block.
+//
+// Reading the gradient only where it can be non-zero. An FM step's
+// gradient is +0.0 on every row its batch did not hit (the row scatter
+// writes +0.0 there), and a Criteo batch hits 0.17% of the table's rows.
+// Adam with g = +0.0 is still a full update (m and v decay, p moves), so a
+// leaf may come with a mask, one bit a row of `width` floats, of the rows
+// whose gradient may be non-zero: a float4 (or a float) loads g only if a
+// row it covers is marked and takes +0.0 otherwise, which gives the same
+// bits as reading the +0.0. That drops the gradient read, 24 bytes a
+// parameter instead of 28, plus the mask's one bit a row. The masked path
+// is its own instantiation (adam_step_kernel<true>), taken when any leaf
+// of the launch has a mask, so the full path's code stays as it was; a
+// leaf without a mask in a masked launch is a block-uniform branch.
+// dmlc_adam_mark_rows builds a mask from a step's ids: one memset of the
+// words, then one atomicOr a id (integer atomics: the same words in any
+// order), and adds the number of bits it newly set to a device tally.
 //
 // Every operation is rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn,
 // __fdiv_rn, __fsqrt_rn), so no multiply-add is contracted and the result
@@ -48,10 +64,18 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // float4s of each stream a thread holds in flight
-// a block's float4s, or its floats in a leaf that is not 16-byte aligned
-constexpr int64_t kBlockUnits = int64_t{kThreads} * kUnroll;
+// float4s of each stream a thread holds in flight: 4 on the full path (80
+// registers, 3 blocks an SM); 2 on the masked one, whose mask words take
+// registers of their own (at 4: 104 registers, 2 blocks an SM, 86-87% of
+// the 24-byte bound on an H100; at 2: 64 registers, 4 blocks, 88.6-88.7%)
+constexpr int kUnrollFull = 4;
+constexpr int kUnrollMasked = 2;
 constexpr int kMaxLeaves = 8;
+
+// a block's float4s, or its floats in a leaf that is not 16-byte aligned
+constexpr int64_t block_units(bool masked) {
+  return int64_t{kThreads} * (masked ? kUnrollMasked : kUnrollFull);
+}
 
 }  // namespace
 
@@ -64,6 +88,11 @@ struct DmlcAdamLeaf {
   int64_t n;
   float bias2_sqrt;  // sqrt(1 - b2^t)
   float step_size;   // lr / (1 - b1^t)
+  // one bit a row (row r: bit r % 32 of word r / 32) of the rows whose
+  // gradient may be non-zero; g is +0.0 on every other row and is not read
+  // there. Null: every row is read.
+  const uint32_t* mask;
+  int64_t width;  // floats in a row; n is a multiple of it
 };
 
 namespace {
@@ -78,6 +107,9 @@ struct Leaf {
   float bias2_sqrt;
   float step_size;
   int vec;  // all four pointers 16-byte aligned
+  const uint32_t* mask;
+  int64_t width;
+  int shift;  // log2(width) for a width that is a power of two, else -1
 };
 
 struct Args {
@@ -94,7 +126,28 @@ __device__ __forceinline__ void update(float& p, float g, float& m, float& v, fl
   p = __fsub_rn(p, __fmul_rn(__fdiv_rn(m, d), step_size));
 }
 
+// Whether a row in [r0, r1] is marked (r1 - r0 < 4, so the rows lie in
+// one word or two), from the word that holds r0 and, where r1 lies in the
+// next word, that word.
+__device__ __forceinline__ bool any_marked(uint32_t lo, uint32_t hi, int64_t r0, int64_t r1) {
+  if ((r0 >> 5) == (r1 >> 5)) return ((lo >> (r0 & 31)) & ((2u << (r1 - r0)) - 1u)) != 0;
+  return (lo >> (r0 & 31)) != 0 || (hi & ((2u << (r1 & 31)) - 1u)) != 0;
+}
+
+__device__ __forceinline__ bool any_marked(const uint32_t* __restrict__ mask, int64_t r0,
+                                           int64_t r1) {
+  const uint32_t lo = __ldg(mask + (r0 >> 5));
+  return any_marked(lo, (r1 >> 5) != (r0 >> 5) ? __ldg(mask + (r1 >> 5)) : 0u, r0, r1);
+}
+
+__device__ __forceinline__ int64_t row_of(int64_t j, int64_t width, int shift) {
+  return shift >= 0 ? j >> shift : j / width;
+}
+
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads) adam_step_kernel(const Args a) {
+  constexpr int kUnroll = kMasked ? kUnrollMasked : kUnrollFull;
+  constexpr int64_t kBlockUnits = int64_t{kThreads} * kUnroll;  // block_units(kMasked)
   // the leaf this block belongs to, read with constant indices only
   Leaf f = a.leaf[0];
 #pragma unroll
@@ -108,6 +161,13 @@ __global__ void __launch_bounds__(kThreads) adam_step_kernel(const Args a) {
   const int64_t b = static_cast<int64_t>(blockIdx.x) - f.block0;
   const float b1 = a.b1, c1 = a.c1, b2 = a.b2, c2 = a.c2, eps = a.eps;
   const float s2 = f.bias2_sqrt, step = f.step_size;
+  // whether floats [lo, hi] of the leaf need their gradient loaded: always
+  // on the full path; on the masked one where a row they cover is marked
+  const uint32_t* __restrict__ mask = kMasked ? f.mask : nullptr;
+  const auto read_g = [&](int64_t lo, int64_t hi) {
+    return !kMasked || mask == nullptr ||
+           any_marked(mask, row_of(lo, f.width, f.shift), row_of(hi, f.width, f.shift));
+  };
   if (f.vec) {
     const int64_t nv = f.n >> 2;
     float4* __restrict__ p4 = reinterpret_cast<float4*>(p);
@@ -116,14 +176,43 @@ __global__ void __launch_bounds__(kThreads) adam_step_kernel(const Args a) {
     float4* __restrict__ v4 = reinterpret_cast<float4*>(v);
     const int64_t first = b * kBlockUnits + threadIdx.x;
     float4 rp[kUnroll], rg[kUnroll], rm[kUnroll], rv[kUnroll];
+    // masked: the mask words of each float4's rows are loaded first, and g
+    // (where a row is marked) after p, m and v, so that the wait for the
+    // words overlaps the streams' loads instead of holding them back
+    const bool masked = kMasked && mask != nullptr;
+    uint32_t lo[kUnroll], hi[kUnroll];
+    if (masked) {
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int64_t i = first + int64_t{k} * kThreads;
+        if (i < nv) {
+          const int64_t r0 = row_of(i << 2, f.width, f.shift);
+          const int64_t r1 = row_of((i << 2) + 3, f.width, f.shift);
+          lo[k] = __ldg(mask + (r0 >> 5));
+          hi[k] = (r1 >> 5) != (r0 >> 5) ? __ldg(mask + (r1 >> 5)) : 0u;
+        }
+      }
+    }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int64_t i = first + int64_t{k} * kThreads;
       if (i < nv) {
         rp[k] = __ldcs(p4 + i);
-        rg[k] = __ldcs(g4 + i);
+        if (!masked) rg[k] = __ldcs(g4 + i);
         rm[k] = __ldcs(m4 + i);
         rv[k] = __ldcs(v4 + i);
+      }
+    }
+    if (masked) {
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int64_t i = first + int64_t{k} * kThreads;
+        if (i < nv) {
+          const int64_t r0 = row_of(i << 2, f.width, f.shift);
+          const int64_t r1 = row_of((i << 2) + 3, f.width, f.shift);
+          rg[k] = any_marked(lo[k], hi[k], r0, r1) ? __ldcs(g4 + i)
+                                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
     }
 #pragma unroll
@@ -143,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) adam_step_kernel(const Args a) {
     if (b == 0 && threadIdx.x < (f.n & 3)) {
       const int64_t i = (nv << 2) + threadIdx.x;
       float pi = __ldcs(p + i), mi = __ldcs(m + i), vi = __ldcs(v + i);
-      update(pi, __ldcs(g + i), mi, vi, b1, c1, b2, c2, eps, s2, step);
+      update(pi, read_g(i, i) ? __ldcs(g + i) : 0.f, mi, vi, b1, c1, b2, c2, eps, s2, step);
       __stcs(p + i, pi);
       __stcs(m + i, mi);
       __stcs(v + i, vi);
@@ -157,7 +246,7 @@ __global__ void __launch_bounds__(kThreads) adam_step_kernel(const Args a) {
     const int64_t i = first + int64_t{k} * kThreads;
     if (i < f.n) {
       rp[k] = __ldcs(p + i);
-      rg[k] = __ldcs(g + i);
+      rg[k] = read_g(i, i) ? __ldcs(g + i) : 0.f;
       rm[k] = __ldcs(m + i);
       rv[k] = __ldcs(v + i);
     }
@@ -174,14 +263,44 @@ __global__ void __launch_bounds__(kThreads) adam_step_kernel(const Args a) {
   }
 }
 
+// mask[r / 32] |= 1 << (r % 32) for each id r in [0, rows); the bits no
+// earlier id had set are added to *tally (a bit is new to exactly one id)
+template <typename Id>
+__global__ void __launch_bounds__(kThreads)
+    mark_rows_kernel(const Id* __restrict__ ids, int64_t n, int64_t rows, uint32_t* mask,
+                     unsigned long long* tally) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  uint32_t fresh = 0;
+  if (i < n) {
+    const int64_t r = static_cast<int64_t>(ids[i]);
+    if (r >= 0 && r < rows) {
+      const uint32_t bit = 1u << (r & 31);
+      // a read from L2 first: a row that thousands of ids name (a field of
+      // a few values) is set by the first of them, and the rest skip the
+      // atomic instead of queueing on one word
+      if ((__ldcg(mask + (r >> 5)) & bit) == 0) fresh = ~atomicOr(mask + (r >> 5), bit) & bit;
+    }
+  }
+  const unsigned count = __reduce_add_sync(0xffffffffu, __popc(fresh));
+  if ((threadIdx.x & 31) == 0 && count != 0) {
+    atomicAdd(tally, static_cast<unsigned long long>(count));
+  }
+}
+
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
+int log2_exact(int64_t x) {
+  int s = 0;
+  while ((int64_t{1} << s) < x) ++s;
+  return (int64_t{1} << s) == x ? s : -1;
+}
 
 }  // namespace
 
 extern "C" int dmlc_adam_max_leaves() { return kMaxLeaves; }
 
 // One launch for leaves[0..count): each leaf's n > 0 floats updated in
-// place on `stream`.
+// place on `stream`; the masked instantiation when a leaf has a mask.
 extern "C" int dmlc_adam_step_f32(const DmlcAdamLeaf* leaves, int count, float beta1,
                                   float one_minus_beta1, float beta2, float one_minus_beta2,
                                   float eps, void* stream) {
@@ -192,6 +311,9 @@ extern "C" int dmlc_adam_step_f32(const DmlcAdamLeaf* leaves, int count, float b
   a.b2 = beta2;
   a.c2 = one_minus_beta2;
   a.eps = eps;
+  bool masked = false;
+  for (int i = 0; i < count; ++i) masked = masked || leaves[i].mask != nullptr;
+  const int64_t units_a_block = block_units(masked);
   int64_t blocks = 0;
   for (int i = 0; i < kMaxLeaves; ++i) {
     Leaf& f = a.leaf[i];
@@ -201,7 +323,9 @@ extern "C" int dmlc_adam_step_f32(const DmlcAdamLeaf* leaves, int count, float b
       continue;
     }
     const DmlcAdamLeaf& in = leaves[i];
-    if (in.n < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (in.n < 1 || (in.mask != nullptr && (in.width < 1 || in.n % in.width != 0))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     f.p = in.p;
     f.g = in.g;
     f.m = in.m;
@@ -210,12 +334,42 @@ extern "C" int dmlc_adam_step_f32(const DmlcAdamLeaf* leaves, int count, float b
     f.bias2_sqrt = in.bias2_sqrt;
     f.step_size = in.step_size;
     f.vec = aligned16(in.p) && aligned16(in.g) && aligned16(in.m) && aligned16(in.v);
+    f.mask = in.mask;
+    f.width = in.mask != nullptr ? in.width : 1;
+    f.shift = log2_exact(f.width);
     const int64_t units = f.vec ? (in.n >> 2) : in.n;
     f.block0 = blocks;
-    blocks += units > 0 ? (units + kBlockUnits - 1) / kBlockUnits : 1;
+    blocks += units > 0 ? (units + units_a_block - 1) / units_a_block : 1;
   }
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  adam_step_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (masked) {
+    adam_step_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a);
+  } else {
+    adam_step_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mask of the rows in [0, rows) that ids[0..n) name (int32 ids when
+// id_bytes is 4, int64 when 8; ids outside [0, rows) mark nothing) into
+// mask[0 .. ceil(rows / 32)), which is zeroed first, on `stream`; adds the
+// number of rows marked to *tally.
+extern "C" int dmlc_adam_mark_rows(const void* ids, int64_t n, int id_bytes, int64_t rows,
+                                   uint32_t* mask, unsigned long long* tally, void* stream) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (n < 0 || rows < 1 || (id_bytes != 4 && id_bytes != 8) || blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = cudaMemsetAsync(mask, 0, ((rows + 31) / 32) * sizeof(uint32_t), s);
+  if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
+  if (id_bytes == 4) {
+    mark_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(ids), n, rows, mask, tally);
+  } else {
+    mark_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        static_cast<const int64_t*>(ids), n, rows, mask, tally);
+  }
   return static_cast<int>(cudaGetLastError());
 }

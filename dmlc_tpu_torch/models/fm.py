@@ -19,6 +19,12 @@ Updates are :class:`~dmlc_tpu_torch.ops.adam.FusedAdam` at
 1e-8; the update of the JAX learner's ``optax.adam`` and of torch's Adam)
 whose step is one pass over all three leaves, one kernel launch on the
 card (``csrc/adam_step.cu``). An ``optimizer=`` factory builds any other.
+On ell batches the step hands that Adam the batch's ids as the rows of
+``w`` and ``V`` whose gradient may be non-zero (the gathers' scatter
+writes +0.0 on every other row), so the kernel reads the gradient there
+only: the same bits. Not where another term reaches every row (``l2``, a
+mesh's all-reduce of other ranks' rows), on the dense and bcoo layouts
+(matmul gradients), or with another optimizer.
 On dense and ell, the padding sink ``w[-1]`` and ``V[-1]`` is pinned to 0
 after every step with a device fill; bcoo batches need no sink
 (``weight_dim == num_col``).
@@ -199,13 +205,22 @@ class FMLearner(TrainLoopMixin):
                 self.params.w.grad.add_(w, alpha=self.l2)
                 self.params.v.grad.add_(v, alpha=self.l2)
         with profiler_annotation("dmlc_tpu.step.optimizer"):
-            self.opt.step()
+            self.opt.step(**self._grad_rows(batch))
             if self.layout != "bcoo":
                 with torch.no_grad():
                     # keep the padding sink inert; zero_() is a device fill
                     self.params.w[-1].zero_()
                     self.params.v[-1].zero_()
         return loss.detach()
+
+    def _grad_rows(self, batch) -> dict:
+        """``{"rows": ...}`` for :class:`FusedAdam`'s step where the batch's
+        ids name every row of ``w`` and ``V`` whose gradient may be non-zero
+        (ell, no mesh, no ``l2``, the default optimizer); else nothing."""
+        if (self.layout != "ell" or self.mesh is not None or self.l2 != 0.0
+                or type(self.opt) is not FusedAdam):
+            return {}
+        return {"rows": {self.params.w: batch.indices, self.params.v: batch.indices}}
 
     @torch.no_grad()
     def predict(self, batch) -> torch.Tensor:

@@ -33,22 +33,38 @@ parameter and one more tensor of the parameters' size. The JAX learner's
   ``Optimizer.step#FusedAdam.step``. The bias corrections come from the
   CPU step count, as in torch with ``capturable=False``: nothing is read
   back from the card.
+- **Row marks.** ``FusedAdam.step(rows={param: ids})`` names, for a
+  parameter, the rows (first dimension) whose gradient may be non-zero;
+  the caller promises +0.0 on every other row, as the row scatter of a
+  gather's gradient leaves it. On the card each distinct id tensor is
+  marked once into a bitmap of one bit a row (:func:`mark_rows_cuda_`,
+  ``dmlc_adam_mark_rows``: one launch, counted in :data:`mark_launches`),
+  and the kernel loads g only where a covered row is marked, taking +0.0
+  elsewhere: the same bits, 24 bytes a parameter instead of 28. Adam's
+  update stays dense (m and v decay on every row, as in ``optax.adam``).
+  The plain version reads the whole gradient, which gives the same bits,
+  so the CPU route takes no mark. Each leaf stepped adds one to the
+  registry counter ``adam_leaf_updates`` labelled ``path`` ``rows`` (the
+  leaf came with ids) or ``full``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 import torch
 
 from dmlc_tpu_torch.ops import _build
+from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import DMLCError, check
 
 # kernel launches since the last reset (chip_smoke.py zeroes it before a
-# path and reads it after, to show the path's updates took the kernel)
+# path and reads it after, to show the path's updates took the kernel);
+# the row mark's launches are counted apart
 launches = 0
+mark_launches = 0
 
 # options of torch.optim.Adam that FusedAdam does not compute, and the
 # value each must hold
@@ -117,28 +133,48 @@ def adam_step_ordered_plain_(params, grads, exp_avgs, exp_avg_sqs, steps, *, lr:
 
 
 def adam_step_(params, grads, exp_avgs, exp_avg_sqs, steps, *, lr: float,
-               betas=(0.9, 0.999), eps: float = 1e-8) -> None:
+               betas=(0.9, 0.999), eps: float = 1e-8,
+               masks: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
     """Adam's update of each leaf in place (``steps[i]`` is leaf i's step
     count, this step included): the plain version for CPU tensors; for
     CUDA tensors the kernel, launched on the current stream over every
     non-empty leaf, up to ``dmlc_adam_max_leaves()`` leaves a launch. The
     kernel takes contiguous float32 tensors on one device and raises on
-    anything else."""
+    anything else.
+
+    ``masks[i]``, where given and not None, is leaf i's row mark (int32
+    words, bit ``r % 32`` of word ``r // 32`` for row ``r``, as
+    :func:`mark_rows_cuda_` writes them): the kernel reads the gradient
+    only on marked rows and takes +0.0 on the others. The caller promises
+    the gradient is +0.0 there, so the bits are those of the full read,
+    which the CPU route makes."""
     global launches
     if not (params and params[0].is_cuda):
         adam_step_ordered_plain_(params, grads, exp_avgs, exp_avg_sqs, steps, lr=lr,
                                  betas=betas, eps=eps)
         return
     _check_leaves(params, grads, exp_avgs, exp_avg_sqs, steps)
+    masks = [None] * len(params) if masks is None else masks
+    check(len(masks) == len(params), "adam_step_: the lists differ in length")
     dev = params[0].device
     leaves = []
-    for p, g, m, v, t in zip(params, grads, exp_avgs, exp_avg_sqs, steps):
+    for p, g, m, v, t, mask in zip(params, grads, exp_avgs, exp_avg_sqs, steps, masks):
         check(p.device == dev, "adam_step_: tensors must share one device")
         check(all(x.is_contiguous() for x in (p, g, m, v)),
               "adam_step_: the kernel needs contiguous parameters, gradients and moments")
-        if p.numel():
-            leaves.append(_build.AdamLeaf(p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                                          v.data_ptr(), p.numel(), *_bias_terms(t, lr, betas)))
+        if not p.numel():
+            continue
+        mask_ptr, width = None, 1
+        if mask is not None:
+            check(p.dim() >= 1, "adam_step_: a row mark needs a leaf with rows")
+            check(mask.device == dev and mask.dtype == torch.int32 and mask.is_contiguous()
+                  and mask.numel() >= _mask_words(p.shape[0]),
+                  f"adam_step_: a {tuple(p.shape)} leaf's row mark must be "
+                  f"{_mask_words(p.shape[0])} contiguous int32 words on its device")
+            mask_ptr, width = mask.data_ptr(), p.numel() // p.shape[0]
+        leaves.append(_build.AdamLeaf(p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                                      v.data_ptr(), p.numel(), *_bias_terms(t, lr, betas),
+                                      mask_ptr, width))
     if not leaves:
         return
     lib = _build.load_kernels()
@@ -156,6 +192,67 @@ def adam_step_(params, grads, exp_avgs, exp_avg_sqs, steps, *, lr: float,
             launches += 1
 
 
+def _mask_words(rows: int) -> int:
+    return (rows + 31) // 32
+
+
+def mark_rows_plain(ids: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int]:
+    """The row mark of ``ids`` over ``rows`` rows in plain PyTorch: the
+    int32 words (bit ``r % 32`` of word ``r // 32`` set for each id ``r``
+    in ``[0, rows)``; ids outside mark nothing) and the number of rows
+    marked."""
+    r = ids.reshape(-1).to(torch.int64)
+    r = torch.unique(r[(r >= 0) & (r < rows)])
+    bits = torch.zeros(_mask_words(rows) * 32, dtype=torch.int64, device=ids.device)
+    bits[r] = 1
+    words = (bits.view(-1, 32) << torch.arange(32, device=ids.device)).sum(dim=1)
+    # the low 32 bits as int32 (two's complement), as the kernel's words
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32), int(r.numel())
+
+
+def mark_rows_cuda_(mask: torch.Tensor, ids: torch.Tensor, rows: int,
+                    tally: torch.Tensor) -> torch.Tensor:
+    """Launch ``dmlc_adam_mark_rows`` on the current stream: the first
+    ``ceil(rows / 32)`` int32 words of ``mask`` zeroed, then the bit of each
+    id in ``[0, rows)`` set (:func:`mark_rows_plain`'s words); the rows
+    marked added to the int64 ``tally``. Integer ``ids`` of any shape, all
+    on one CUDA device; no sync, no allocation but an id copy for ids that
+    are neither int32 nor int64 or not contiguous."""
+    global mark_launches
+    check(mask.is_cuda and mask.device == ids.device == tally.device,
+          "mark_rows_cuda_: mask, ids and tally must share one CUDA device")
+    check(mask.dtype == torch.int32 and mask.is_contiguous()
+          and mask.numel() >= _mask_words(rows) and rows >= 1,
+          f"mark_rows_cuda_: needs {_mask_words(rows)} contiguous int32 words for {rows} rows")
+    check(tally.dtype == torch.int64 and tally.numel() == 1,
+          "mark_rows_cuda_: the tally is one int64")
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int64)
+    ids = ids.contiguous()
+    lib = _build.load_kernels()
+    with torch.cuda.device(mask.device):
+        rc = lib.dmlc_adam_mark_rows(ids.data_ptr(), ids.numel(), ids.element_size(), rows,
+                                     mask.data_ptr(), tally.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise DMLCError("adam row mark launch failed: " + lib.dmlc_cuda_error_string(rc).decode())
+    mark_launches += 1
+    return mask
+
+
+def _check_rows(rows: dict, params: list) -> None:
+    known = {id(p) for p in params}
+    for p, ids in rows.items():
+        check(id(p) in known, "FusedAdam.step: rows names a tensor that is not a parameter")
+        check(p.dim() >= 1, "FusedAdam.step: rows needs a parameter with rows, not a 0-d one")
+        check(isinstance(ids, torch.Tensor) and not ids.is_floating_point()
+              and not ids.is_complex() and ids.dtype != torch.bool,
+              "FusedAdam.step: rows must map a parameter to an integer id tensor")
+        check(ids.device == p.device,
+              f"FusedAdam.step: ids on {ids.device} for a parameter on {p.device}")
+
+
 def _refuse(options: dict) -> None:
     bad = [k for k, ok in _REFUSED.items() if options.get(k, ok) not in (ok, False)]
     check(not bad, f"FusedAdam: {', '.join(bad)} is not supported")
@@ -167,7 +264,12 @@ class FusedAdam(torch.optim.Adam):
     ``maximize``, ``weight_decay``, ``capturable``, ``differentiable`` and
     ``fused`` raise, here and in a group that :meth:`add_param_group` or
     :meth:`load_state_dict` brings. A parameter whose ``grad`` is None is
-    skipped."""
+    skipped.
+
+    :meth:`step`'s ``rows`` takes the row marks (the module's note); their
+    bitmaps and the device tally are this optimizer's own buffers, made at
+    the first marked step on the card and reused, and not part of its
+    state dict."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0, amsgrad: bool = False, *, foreach=None,
@@ -176,19 +278,68 @@ class FusedAdam(torch.optim.Adam):
         _refuse({"amsgrad": amsgrad, "maximize": maximize, "weight_decay": weight_decay,
                  "capturable": capturable, "differentiable": differentiable, "fused": fused})
         super().__init__(params, lr=lr, betas=betas, eps=eps, foreach=foreach)
+        self._bitmaps: list = []  # one int32 tensor a distinct id tensor of a step
+        self._tally: Optional[torch.Tensor] = None  # rows marked, on the card
+        self._rows_offered = 0
+
+    def _mark(self, rows: dict) -> Dict[int, torch.Tensor]:
+        """Each distinct CUDA id tensor of ``rows`` marked once into a bitmap
+        over the most rows of the parameters it serves; ``{id(param):
+        bitmap}``. CPU parameters take none."""
+        served: Dict[int, tuple] = {}
+        for p, ids in rows.items():
+            if p.is_cuda:
+                served.setdefault(id(ids), (ids, []))[1].append(p)
+        out = {}
+        for slot, (ids, params) in enumerate(served.values()):
+            n_rows = max(p.shape[0] for p in params)
+            if self._tally is None:
+                self._tally = torch.zeros(1, dtype=torch.int64, device=ids.device)
+            check(self._tally.device == ids.device, "FusedAdam.step: rows on one CUDA device")
+            if slot == len(self._bitmaps):
+                self._bitmaps.append(None)
+            bitmap = self._bitmaps[slot]
+            if (bitmap is None or bitmap.device != ids.device
+                    or bitmap.numel() < _mask_words(n_rows)):
+                bitmap = torch.empty(_mask_words(n_rows), dtype=torch.int32, device=ids.device)
+                self._bitmaps[slot] = bitmap
+            mark_rows_cuda_(bitmap, ids, n_rows, self._tally)
+            self._rows_offered += n_rows
+            out.update((id(p), bitmap) for p in params)
+        return out
+
+    def grad_rows_read(self) -> Tuple[int, int]:
+        """``(rows marked, rows offered)`` over every marked step since
+        construction: the rows whose gradient the kernel read, and the rows
+        of the bitmaps (an id tensor serving several parameters counted
+        once). Reads the device tally, so it synchronises."""
+        marked = 0 if self._tally is None else int(self._tally.item())
+        return marked, self._rows_offered
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, *, rows: Optional[Dict[torch.Tensor, torch.Tensor]] = None):
+        """One update of every parameter with a gradient. ``rows`` maps a
+        parameter to an integer id tensor on its device naming every row
+        (first dimension) whose gradient may be non-zero; the gradient must
+        be +0.0 on every other row. Ids outside ``[0, rows)`` mark nothing.
+        A 0-d parameter, a tensor that is not a parameter, ids that are
+        not integers or that lie on another device raise."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        rows = rows or {}
+        _check_rows(rows, [p for group in self.param_groups for p in group["params"]])
+        bitmaps = self._mark(rows)
+        named = {id(p) for p in rows}
+        counts = {"rows": 0, "full": 0}
         for group in self.param_groups:
             _refuse(group)
-            leaves = ([], [], [], [], [])
+            leaves = ([], [], [], [], [], [])
             for p in group["params"]:
                 if p.grad is None:
                     continue
+                counts["rows" if id(p) in named else "full"] += 1
                 state = self.state[p]
                 if not state:
                     state["step"] = torch.tensor(0.0, dtype=torch.float32)
@@ -197,7 +348,11 @@ class FusedAdam(torch.optim.Adam):
                         p, memory_format=torch.preserve_format)
                 state["step"] += 1
                 for out, x in zip(leaves, (p, p.grad, state["exp_avg"], state["exp_avg_sq"],
-                                           float(state["step"]))):
+                                           float(state["step"]), bitmaps.get(id(p)))):
                     out.append(x)
-            adam_step_(*leaves, lr=float(group["lr"]), betas=group["betas"], eps=group["eps"])
+            adam_step_(*leaves[:5], lr=float(group["lr"]), betas=group["betas"],
+                       eps=group["eps"], masks=leaves[5])
+        for path, n in counts.items():
+            if n:
+                _telemetry.REGISTRY.counter(_telemetry.ADAM_LEAF_METRIC, path=path).inc(n)
         return loss

@@ -6,9 +6,14 @@ transcription of the kernel's arithmetic, and within float32 rounding of a
 float64 transcription and of ``torch.optim.Adam`` over 20 steps of sparse
 gradients; ``FusedAdam``'s face as a ``torch.optim.Adam`` (state layout,
 state dicts both ways, refused options, parameters without a gradient,
-the profiler range). On a card (marker ``cuda``; skipped without one):
-the kernel bit for bit against the ordered plain version, and one launch
-a step. Run those on a machine with a card:
+the profiler range); the row marks (``step(rows=...)``: the same bits as
+``step()`` on the CPU, the refused arguments, the ``adam_leaf_updates``
+counter, the plain mark's words). On a card (marker ``cuda``; skipped
+without one): the kernel bit for bit against the ordered plain version,
+the masked launch against the full one and the plain version, the mark
+kernel against its plain version, ``FMLearner(ell)`` with and without
+its row marks, and one Adam launch a step. Run those on a machine with a
+card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_adam.py -m cuda
 """
@@ -24,6 +29,8 @@ from dmlc_tpu_torch import FMLearner
 from dmlc_tpu_torch.ops import _build
 from dmlc_tpu_torch.ops import adam
 from dmlc_tpu_torch.ops.adam import FusedAdam
+from dmlc_tpu_torch.ops.sparse import EllBatch
+from dmlc_tpu_torch.utils import telemetry
 from dmlc_tpu_torch.utils.check import DMLCError
 
 LR, BETAS, EPS = 0.05, (0.9, 0.999), 1e-8
@@ -227,10 +234,96 @@ def test_the_plain_version_refuses_what_the_kernel_refuses():
 
 
 def test_leaf_struct_mirrors_the_kernel_interface():
-    assert ctypes.sizeof(_build.AdamLeaf) == 48
+    assert ctypes.sizeof(_build.AdamLeaf) == 64
     assert [name for name, _ in _build.AdamLeaf._fields_] == [
-        "p", "g", "m", "v", "n", "bias2_sqrt", "step_size"]
+        "p", "g", "m", "v", "n", "bias2_sqrt", "step_size", "mask", "width"]
+    assert _build.AdamLeaf.mask.offset == 48 and _build.AdamLeaf.width.offset == 56
     assert any(src.endswith("adam_step.cu") for src in _build.KERNEL_SOURCES)
+
+
+# ---- row marks ----
+
+def _marked_grads(shape, steps: int, seed: int, dev="cpu") -> list:
+    """``steps`` pairs ``(ids, g)``: int32 ids (duplicates, the last row,
+    ids outside the rows) and a gradient that is +0.0 on every row no id
+    in range names."""
+    rng = np.random.default_rng(seed)
+    rows = shape[0]
+    out = []
+    for _ in range(steps):
+        ids = rng.integers(0, rows, size=max(rows // 8, 1))
+        ids = np.concatenate([ids, ids[:3], [rows - 1, -1, rows, rows + 7]]).astype(np.int32)
+        hit = np.zeros(rows, bool)
+        hit[ids[(ids >= 0) & (ids < rows)]] = True
+        g = rng.normal(size=shape).astype(np.float32)
+        g[~hit] = 0.0
+        out.append((torch.from_numpy(ids).to(dev), torch.from_numpy(g).to(dev)))
+    return out
+
+
+@pytest.mark.parametrize("shape", [(W,), (W, 3), (W, 8)])
+def test_step_with_rows_equals_step_on_the_cpu(shape):
+    start = torch.from_numpy(_start(shape, 8))
+    ps = [start.clone().requires_grad_(True) for _ in range(2)]
+    opts = [FusedAdam([p], lr=LR) for p in ps]
+    for ids, g in _marked_grads(shape, 3, 8):
+        for p in ps:
+            p.grad = g.clone()
+        opts[0].step(rows={ps[0]: ids})
+        opts[1].step()
+    assert torch.equal(ps[0].view(torch.int32), ps[1].view(torch.int32))
+    for key in ("exp_avg", "exp_avg_sq"):
+        assert torch.equal(opts[0].state[ps[0]][key], opts[1].state[ps[1]][key])
+    assert opts[0].grad_rows_read() == (0, 0)  # the CPU reads the whole gradient
+
+
+@pytest.mark.parametrize("bad", ["0-d leaf", "float ids", "bool ids", "another device",
+                                 "not a parameter"])
+def test_bad_rows_raise(bad):
+    w0, w = torch.zeros((), requires_grad=True), torch.zeros(6, requires_grad=True)
+    opt = FusedAdam([w0, w], lr=LR)
+    w0.grad, w.grad = torch.ones(()), torch.ones(6)
+    ids = torch.tensor([1, 2])
+    rows = {"0-d leaf": {w0: ids},
+            "float ids": {w: ids.float()},
+            "bool ids": {w: ids > 1},
+            "another device": {w: ids.to("meta")},
+            "not a parameter": {torch.zeros(6): ids}}[bad]
+    with pytest.raises(DMLCError, match="rows|ids"):
+        opt.step(rows=rows)
+    assert not opt.state  # nothing stepped
+
+
+def test_adam_leaf_updates_counts_rows_and_full():
+    def count():
+        return telemetry.REGISTRY.sum_by(telemetry.ADAM_LEAF_METRIC, "path")
+
+    before = count()
+    leaves = [torch.zeros((), requires_grad=True), torch.zeros(6, requires_grad=True),
+              torch.zeros((6, 2), requires_grad=True), torch.zeros(3, requires_grad=True)]
+    opt = FusedAdam(leaves, lr=LR)
+    for p in leaves[:3]:
+        p.grad = torch.ones_like(p)
+    ids = torch.tensor([0, 4])
+    for _ in range(2):
+        opt.step(rows={leaves[1]: ids, leaves[2]: ids})
+    opt.step()
+    after = count()
+    # a step: one update a leaf with a gradient (the fourth has none)
+    assert after.get("rows", 0) - before.get("rows", 0) == 4
+    assert after.get("full", 0) - before.get("full", 0) == 2 + 3
+
+
+@pytest.mark.parametrize("ids,rows", [
+    ([], 5), ([0], 1), ([3, 3, 3], 4), ([31, 32, 33, 63, 64], 65), ([-1, 7, 8, 100], 8),
+    ([5, 0, 5, 1], 40)])
+def test_plain_mark_sets_one_bit_a_named_row(ids, rows):
+    words, marked = adam.mark_rows_plain(torch.tensor(ids, dtype=torch.int32), rows)
+    assert words.dtype == torch.int32 and words.numel() == (rows + 31) // 32
+    want = sorted({i for i in ids if 0 <= i < rows})
+    bits = words.numpy().view(np.uint32)
+    got = [r for r in range(rows) if (int(bits[r // 32]) >> (r % 32)) & 1]
+    assert got == want and marked == len(want)
 
 
 # ---- on a card ----
@@ -278,10 +371,127 @@ def test_fused_adam_launches_once_a_step(card):
     for p in leaves:
         p.requires_grad_(True)
     opt = FusedAdam(leaves, lr=LR)
-    adam.launches = 0
+    adam.launches = adam.mark_launches = 0
     for step in range(3):
         for p in leaves:
             p.grad = torch.ones_like(p)
         opt.step()
         assert adam.launches == step + 1
     assert opt.state[leaves[1]]["step"].device.type == "cpu"
+    # with rows: still one Adam launch a step, and one mark a shared id tensor
+    ids = torch.arange(0, W, 7, device=card)
+    for step in range(3):
+        for p in leaves:
+            p.grad = torch.zeros_like(p)
+        opt.step(rows={leaves[1]: ids, leaves[2]: ids})
+        assert adam.launches == 3 + step + 1
+        assert adam.mark_launches == step + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", [[], [0], [3, 3, 3], [31, 32, 33, 63, 64, W - 1],
+                                 [-1, 7, W, W + 100, 2 ** 31 - 1], list(range(0, W, 3))])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_mark_kernel_equals_plain(card, ids, dtype):
+    ids = torch.tensor(ids, dtype=dtype, device=card)
+    mask = torch.full((W // 32 + 2,), -1, dtype=torch.int32, device=card)  # stale words
+    tally = torch.full((1,), 5, dtype=torch.int64, device=card)
+    adam.mark_rows_cuda_(mask, ids, W, tally)
+    want, marked = adam.mark_rows_plain(ids, W)
+    words = (W + 31) // 32
+    assert torch.equal(mask[:words], want)
+    assert int(tally) == 5 + marked
+    assert torch.equal(mask[words:], torch.full_like(mask[words:], -1))  # past its words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [
+    ((W,), 0), ((W,), 1), ((W, 3), 0), ((W, 3), 2), ((W, 8), 0), ((W, 8), 3),
+    ((1, 1), 0), ((2, 3), 0), (((1 << 20) + 3, 8), 0)])
+def test_masked_kernel_equals_full_and_plain_bit_for_bit(card, shape, offset):
+    """Widths 1, 3 and 8; n % 4 != 0; leaves one float off 16 bytes; ids
+    with duplicates, the last row (the padding sink), ids outside the rows
+    and none at all; three steps with other ids, so a row marked in one
+    step and not in the next takes +0.0 there."""
+    masked = _leaf(shape, offset, 1, card)
+    full, plain = masked.clone(), masked.clone()
+    moments = [[torch.zeros_like(masked), torch.zeros_like(masked)] for _ in range(3)]
+    mask = torch.empty((shape[0] + 31) // 32, dtype=torch.int32, device=card)
+    tally = torch.zeros(1, dtype=torch.int64, device=card)
+    steps = _marked_grads(shape, 3, 6, card) + [(torch.zeros(0, dtype=torch.int32, device=card),
+                                                 torch.zeros(shape, device=card))]
+    for t, (ids, g) in enumerate(steps, 1):
+        g = _leaf(shape, offset, 0, card).copy_(g)
+        adam.mark_rows_cuda_(mask, ids, shape[0], tally)
+        adam.adam_step_([masked], [g], *([x] for x in moments[0]), [float(t)], lr=LR,
+                        masks=[mask])
+        adam.adam_step_([full], [g], *([x] for x in moments[1]), [float(t)], lr=LR)
+        adam.adam_step_ordered_plain_([plain], [g], *([x] for x in moments[2]), [float(t)],
+                                      lr=LR)
+        torch.cuda.synchronize()
+        for got, want in ((masked, full), (masked, plain)):
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), t
+        for i in range(2):
+            assert torch.equal(moments[0][i].view(torch.int32), moments[1][i].view(torch.int32))
+            assert torch.equal(moments[0][i].view(torch.int32), moments[2][i].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_masked_kernel_does_not_read_an_unmarked_row(card):
+    """Width 8, two float4s a row: NaN on every unmarked row of g reaches
+    nothing, as the +0.0 the kernel takes there."""
+    shape = (W, 8)
+    p = _leaf(shape, 0, 1, card)
+    want = p.clone()
+    m, v, m2, v2 = (torch.zeros_like(p) for _ in range(4))
+    ids, g = _marked_grads(shape, 1, 9, card)[0]
+    words, _ = adam.mark_rows_plain(ids, W)
+    poisoned = torch.where(g == 0, torch.full_like(g, float("nan")), g)
+    adam.adam_step_([p], [poisoned], [m], [v], [1.0], lr=LR, masks=[words])
+    adam.adam_step_([want], [g], [m2], [v2], [1.0], lr=LR)
+    torch.cuda.synchronize()
+    assert torch.equal(p.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(m.view(torch.int32), m2.view(torch.int32))
+
+
+def _ell_batches(num_col: int, steps: int, seed: int, dev) -> list:
+    """``steps`` ELL batches of 64 rows of up to 6 ids in ``[0, num_col)``,
+    padded with the sink ``num_col``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        idx = rng.integers(0, num_col, size=(64, 6)).astype(np.int32)
+        val = rng.normal(size=(64, 6)).astype(np.float32)
+        pad = rng.random((64, 6)) < 0.3
+        idx[pad], val[pad] = num_col, 0.0
+        label = (rng.random(64) < 0.5).astype(np.float32)
+        out.append(EllBatch(*(torch.from_numpy(a).to(dev)
+                              for a in (idx, val, label, np.ones(64, np.float32)))))
+    return out
+
+
+@pytest.mark.cuda
+def test_fm_ell_with_row_marks_equals_the_full_read(card):
+    def count():
+        return telemetry.REGISTRY.sum_by(telemetry.ADAM_LEAF_METRIC, "path")
+
+    kw = dict(num_factors=8, layout="ell", learning_rate=0.05, seed=3, device=card)
+    marked, full = FMLearner(W, **kw), FMLearner(W, **kw)
+    # the same learner, its optimizer stepped without the rows
+    full.opt.register_step_pre_hook(lambda opt, args, kwargs: (args, {}))
+    before, marks = count(), adam.mark_launches
+    for batch in _ell_batches(W, 3, 4, card):
+        marked.step(batch)
+        full.step(batch)
+    torch.cuda.synchronize()
+    after = count()
+    assert after.get("rows", 0) - before.get("rows", 0) == 2 * 3
+    assert adam.mark_launches - marks == 3
+    for a, b in zip(marked.params, full.params):
+        assert torch.equal(a.detach().view(torch.int32), b.detach().view(torch.int32))
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(marked.opt.state[a][key].view(torch.int32),
+                               full.opt.state[b][key].view(torch.int32))
+    read, offered = marked.opt.grad_rows_read()
+    assert offered == 3 * (W + 1) and 0 < read <= 3 * (64 * 6 + 1)
+    assert full.opt.grad_rows_read() == (0, 0)

@@ -14,6 +14,9 @@ On the CPU (``device="cpu"``):
 - ``loss_fn`` at the initial and the trained parameters gives the JAX
   learner's loss and ``jax.grad`` within 1e-5 on each layout, and a step
   returns ``loss_fn`` at the parameters before it, bit for bit.
+- the step hands ``FusedAdam`` the batch's ids as the rows of ``w`` and
+  ``V`` only on ell with ``l2`` 0, no mesh and the default optimizer; an
+  ``optimizer=`` factory's optimizer (SGD) still steps.
 
 The libfm-format case (``tests/test_device.py``'s
 ``test_fm_libfm_format_end_to_end``) is in ``tests/test_torch_format_train.py``.
@@ -30,6 +33,7 @@ from dmlc_tpu.models.fm import FMLearner as JaxFMLearner
 from dmlc_tpu_torch import convert
 from dmlc_tpu_torch.data import DeviceIter, create_parser
 from dmlc_tpu_torch.models import FMLearner
+from dmlc_tpu_torch.parallel.mesh import make_mesh
 from dmlc_tpu_torch.utils.check import DMLCError
 
 TOL = 1e-5
@@ -169,3 +173,34 @@ def test_loss_fn_matches_reference_and_the_step(tmp_path, layout, l2):
             break
     port_it.close()
     jax_it.close()
+
+
+@pytest.mark.parametrize("case", ["ell", "ell_l2", "ell_mesh", "dense", "bcoo", "factory"])
+def test_step_hands_adam_the_rows_only_where_they_hold(tmp_path, case):
+    layout = case.split("_")[0] if case != "factory" else "ell"
+    kw = dict(num_factors=4, layout=layout, learning_rate=0.05, device="cpu",
+              l2=0.01 if case == "ell_l2" else 0.0)
+    if case == "ell_mesh":
+        kw["mesh"] = make_mesh(devices="cpu")
+    if case == "factory":
+        kw["optimizer"] = lambda params: torch.optim.SGD(params, lr=0.2)
+    model = FMLearner(NUM_COL, **kw)
+    seen = []
+    model.opt.register_step_pre_hook(lambda opt, args, kwargs: seen.append(kwargs))
+    it, jax_it = _iters(_corpus(tmp_path), layout, model.device_num_col())
+    jax_it.close()
+    start = [t.detach().clone() for t in model.params]
+    batches = [b for _, b in zip(range(2), it)]
+    it.close()
+    for batch in batches:
+        model.step(batch)
+    assert len(seen) == 2
+    for kwargs, batch in zip(seen, batches):
+        if case == "ell":
+            assert list(kwargs) == ["rows"]
+            rows = kwargs["rows"]
+            assert [id(p) for p in rows] == [id(model.params.w), id(model.params.v)]
+            assert all(ids is batch.indices for ids in rows.values())
+        else:
+            assert kwargs == {}
+    assert not torch.equal(model.params.v.detach(), start[2])  # every case stepped
