@@ -45,7 +45,7 @@
 // leaf without a mask in a masked launch is a block-uniform branch.
 // dmlc_adam_mark_rows builds a mask from a step's ids: one memset of the
 // words, then one atomicOr a id (integer atomics: the same words in any
-// order), and adds the number of bits it newly set to a device tally.
+// order).
 //
 // Every operation is rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn,
 // __fdiv_rn, __fsqrt_rn), so no multiply-add is contracted and the result
@@ -263,28 +263,19 @@ __global__ void __launch_bounds__(kThreads) adam_step_kernel(const Args a) {
   }
 }
 
-// mask[r / 32] |= 1 << (r % 32) for each id r in [0, rows); the bits no
-// earlier id had set are added to *tally (a bit is new to exactly one id)
+// mask[r / 32] |= 1 << (r % 32) for each id r in [0, rows)
 template <typename Id>
 __global__ void __launch_bounds__(kThreads)
-    mark_rows_kernel(const Id* __restrict__ ids, int64_t n, int64_t rows, uint32_t* mask,
-                     unsigned long long* tally) {
+    mark_rows_kernel(const Id* __restrict__ ids, int64_t n, int64_t rows, uint32_t* mask) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  uint32_t fresh = 0;
-  if (i < n) {
-    const int64_t r = static_cast<int64_t>(ids[i]);
-    if (r >= 0 && r < rows) {
-      const uint32_t bit = 1u << (r & 31);
-      // a read from L2 first: a row that thousands of ids name (a field of
-      // a few values) is set by the first of them, and the rest skip the
-      // atomic instead of queueing on one word
-      if ((__ldcg(mask + (r >> 5)) & bit) == 0) fresh = ~atomicOr(mask + (r >> 5), bit) & bit;
-    }
-  }
-  const unsigned count = __reduce_add_sync(0xffffffffu, __popc(fresh));
-  if ((threadIdx.x & 31) == 0 && count != 0) {
-    atomicAdd(tally, static_cast<unsigned long long>(count));
-  }
+  if (i >= n) return;
+  const int64_t r = static_cast<int64_t>(ids[i]);
+  if (r < 0 || r >= rows) return;
+  const uint32_t bit = 1u << (r & 31);
+  // a read from L2 first: a row that thousands of ids name (a field of a
+  // few values) is set by the first of them, and the rest skip the atomic
+  // instead of queueing on one word
+  if ((__ldcg(mask + (r >> 5)) & bit) == 0) atomicOr(mask + (r >> 5), bit);
 }
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
@@ -353,10 +344,9 @@ extern "C" int dmlc_adam_step_f32(const DmlcAdamLeaf* leaves, int count, float b
 
 // The mask of the rows in [0, rows) that ids[0..n) name (int32 ids when
 // id_bytes is 4, int64 when 8; ids outside [0, rows) mark nothing) into
-// mask[0 .. ceil(rows / 32)), which is zeroed first, on `stream`; adds the
-// number of rows marked to *tally.
+// mask[0 .. ceil(rows / 32)), which is zeroed first, on `stream`.
 extern "C" int dmlc_adam_mark_rows(const void* ids, int64_t n, int id_bytes, int64_t rows,
-                                   uint32_t* mask, unsigned long long* tally, void* stream) {
+                                   uint32_t* mask, void* stream) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   if (n < 0 || rows < 1 || (id_bytes != 4 && id_bytes != 8) || blocks > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -366,10 +356,10 @@ extern "C" int dmlc_adam_mark_rows(const void* ids, int64_t n, int id_bytes, int
   if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
   if (id_bytes == 4) {
     mark_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const int32_t*>(ids), n, rows, mask, tally);
+        static_cast<const int32_t*>(ids), n, rows, mask);
   } else {
     mark_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const int64_t*>(ids), n, rows, mask, tally);
+        static_cast<const int64_t*>(ids), n, rows, mask);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,8 @@
 // once a row) for one multiply-add. Two launches, no float atomics:
 //
 // - Narrow tables (W <= kLaneBinsMax, the main path's 29 words), when idx
-//   and val start 16-byte aligned and K <= 64: the forward's tile machinery
-//   (k1_tiles.cuh). Each warp walks 32-row tiles that lane 0 copies into
+//   and val start 16-byte aligned and K <= 64: the tile machinery of
+//   k1_tiles.cuh. Each warp walks 32-row tiles that lane 0 copies into
 //   the warp's shared memory with cp.async.bulk, double-buffered on two
 //   mbarriers, and lane r takes row r: it reads g[row] once and adds each
 //   of the row's products val * g to its own bin of that index. Every lane

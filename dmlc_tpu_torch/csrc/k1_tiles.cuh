@@ -1,7 +1,8 @@
 // Shared by the K1 kernels (ell_matvec.cu, ell_matvec_dw.cu): mbarriers,
-// one-dimensional bulk copies (cp.async.bulk) into shared memory, the copy
-// of one row tile of an ELL batch, the order in which a lane walks its
-// part of a row, and the SM count (row_scatter.cu takes that too).
+// one-dimensional bulk copies (cp.async.bulk) into shared memory (the
+// forward's table staging, dw's tiles), the copy of one row tile of an
+// ELL batch (dw's tile route), the order in which a lane walks its part of
+// a row, and the SM count (row_scatter.cu takes that too).
 
 #pragma once
 
@@ -86,10 +87,14 @@ __device__ __forceinline__ T load(const T* p) {
   }
 }
 
-// The group (see for_row_groups) at which a lane alone on its row starts,
-// wrapping around: spreads a warp's lanes over the shared-memory banks
-// where the row stride alone would not (ell_matvec.cu's header). A function
-// of K and the lane alone.
+// The group (see for_row_groups) at which a lane alone on its row of a
+// staged tile starts, wrapping around: spreads a warp's lanes over the
+// shared-memory banks where the row stride alone would not. Lane r's row
+// starts r * K words into the tile; read in k order, K = 28 would put 4
+// lanes on one bank. A 16-byte vector read serves 8 lanes a pass, and 8
+// rows of 7 vectors fall in 8 distinct bank groups; where K's stride does
+// collide (an even number of groups), lane r starts its row at group r. A
+// function of K and the lane alone.
 __device__ __forceinline__ int first_group(int num_k, int lane) {
   const int n = (num_k & 3) == 0 ? num_k >> 2 : num_k;
   return (n & 1) == 0 ? lane % n : 0;

@@ -183,12 +183,12 @@ def load_kernels() -> ctypes.CDLL:
     lib.dmlc_adam_step_f32.restype = ctypes.c_int
     lib.dmlc_adam_step_f32.argtypes = [ctypes.POINTER(AdamLeaf), ctypes.c_int] + [
         ctypes.c_float] * 5 + [ctypes.c_void_p]
-    # (ids, n, id bytes, rows, mask, tally, stream), called with the GIL held
-    # as dmlc_decode_span is: a step's launch that returns in microseconds,
+    # (ids, n, id bytes, rows, mask, stream), called with the GIL held as
+    # dmlc_decode_span is: a step's launch that returns in microseconds,
     # where a GIL given up goes to a convert worker for longer than that
     lib.dmlc_adam_mark_rows = ctypes.PYFUNCTYPE(
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)(("dmlc_adam_mark_rows", lib))
+        ctypes.c_void_p, ctypes.c_void_p)(("dmlc_adam_mark_rows", lib))
     lib.dmlc_cuda_error_string.restype = ctypes.c_char_p
     lib.dmlc_cuda_error_string.argtypes = [ctypes.c_int]
     kernel_build_seconds, kernel_build_log = seconds, log

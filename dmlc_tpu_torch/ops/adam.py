@@ -43,9 +43,7 @@ parameter and one more tensor of the parameters' size. The JAX learner's
   elsewhere: the same bits, 24 bytes a parameter instead of 28. Adam's
   update stays dense (m and v decay on every row, as in ``optax.adam``).
   The plain version reads the whole gradient, which gives the same bits,
-  so the CPU route takes no mark. Each leaf stepped adds one to the
-  registry counter ``adam_leaf_updates`` labelled ``path`` ``rows`` (the
-  leaf came with ids) or ``full``.
+  so the CPU route takes no mark.
 """
 
 from __future__ import annotations
@@ -57,7 +55,6 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.ops import _build
-from dmlc_tpu_torch.utils import telemetry as _telemetry
 from dmlc_tpu_torch.utils.check import DMLCError, check
 
 # kernel launches since the last reset (chip_smoke.py zeroes it before a
@@ -211,30 +208,26 @@ def mark_rows_plain(ids: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int]:
     return words.to(torch.int32), int(r.numel())
 
 
-def mark_rows_cuda_(mask: torch.Tensor, ids: torch.Tensor, rows: int,
-                    tally: torch.Tensor) -> torch.Tensor:
+def mark_rows_cuda_(mask: torch.Tensor, ids: torch.Tensor, rows: int) -> torch.Tensor:
     """Launch ``dmlc_adam_mark_rows`` on the current stream: the first
     ``ceil(rows / 32)`` int32 words of ``mask`` zeroed, then the bit of each
-    id in ``[0, rows)`` set (:func:`mark_rows_plain`'s words); the rows
-    marked added to the int64 ``tally``. Integer ``ids`` of any shape, all
-    on one CUDA device; no sync, no allocation but an id copy for ids that
-    are neither int32 nor int64 or not contiguous."""
+    id in ``[0, rows)`` set (:func:`mark_rows_plain`'s words). Integer
+    ``ids`` of any shape on ``mask``'s CUDA device; no sync, no allocation
+    but an id copy for ids that are neither int32 nor int64 or not
+    contiguous."""
     global mark_launches
-    check(mask.is_cuda and mask.device == ids.device == tally.device,
-          "mark_rows_cuda_: mask, ids and tally must share one CUDA device")
+    check(mask.is_cuda and mask.device == ids.device,
+          "mark_rows_cuda_: mask and ids must share one CUDA device")
     check(mask.dtype == torch.int32 and mask.is_contiguous()
           and mask.numel() >= _mask_words(rows) and rows >= 1,
           f"mark_rows_cuda_: needs {_mask_words(rows)} contiguous int32 words for {rows} rows")
-    check(tally.dtype == torch.int64 and tally.numel() == 1,
-          "mark_rows_cuda_: the tally is one int64")
     if ids.dtype not in (torch.int32, torch.int64):
         ids = ids.to(torch.int64)
     ids = ids.contiguous()
     lib = _build.load_kernels()
     with torch.cuda.device(mask.device):
         rc = lib.dmlc_adam_mark_rows(ids.data_ptr(), ids.numel(), ids.element_size(), rows,
-                                     mask.data_ptr(), tally.data_ptr(),
-                                     torch.cuda.current_stream().cuda_stream)
+                                     mask.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise DMLCError("adam row mark launch failed: " + lib.dmlc_cuda_error_string(rc).decode())
     mark_launches += 1
@@ -267,9 +260,8 @@ class FusedAdam(torch.optim.Adam):
     skipped.
 
     :meth:`step`'s ``rows`` takes the row marks (the module's note); their
-    bitmaps and the device tally are this optimizer's own buffers, made at
-    the first marked step on the card and reused, and not part of its
-    state dict."""
+    bitmaps are this optimizer's own buffers, made at the first marked step
+    on the card and reused, and not part of its state dict."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0, amsgrad: bool = False, *, foreach=None,
@@ -279,8 +271,6 @@ class FusedAdam(torch.optim.Adam):
                  "capturable": capturable, "differentiable": differentiable, "fused": fused})
         super().__init__(params, lr=lr, betas=betas, eps=eps, foreach=foreach)
         self._bitmaps: list = []  # one int32 tensor a distinct id tensor of a step
-        self._tally: Optional[torch.Tensor] = None  # rows marked, on the card
-        self._rows_offered = 0
 
     def _mark(self, rows: dict) -> Dict[int, torch.Tensor]:
         """Each distinct CUDA id tensor of ``rows`` marked once into a bitmap
@@ -293,9 +283,6 @@ class FusedAdam(torch.optim.Adam):
         out = {}
         for slot, (ids, params) in enumerate(served.values()):
             n_rows = max(p.shape[0] for p in params)
-            if self._tally is None:
-                self._tally = torch.zeros(1, dtype=torch.int64, device=ids.device)
-            check(self._tally.device == ids.device, "FusedAdam.step: rows on one CUDA device")
             if slot == len(self._bitmaps):
                 self._bitmaps.append(None)
             bitmap = self._bitmaps[slot]
@@ -303,18 +290,9 @@ class FusedAdam(torch.optim.Adam):
                     or bitmap.numel() < _mask_words(n_rows)):
                 bitmap = torch.empty(_mask_words(n_rows), dtype=torch.int32, device=ids.device)
                 self._bitmaps[slot] = bitmap
-            mark_rows_cuda_(bitmap, ids, n_rows, self._tally)
-            self._rows_offered += n_rows
+            mark_rows_cuda_(bitmap, ids, n_rows)
             out.update((id(p), bitmap) for p in params)
         return out
-
-    def grad_rows_read(self) -> Tuple[int, int]:
-        """``(rows marked, rows offered)`` over every marked step since
-        construction: the rows whose gradient the kernel read, and the rows
-        of the bitmaps (an id tensor serving several parameters counted
-        once). Reads the device tally, so it synchronises."""
-        marked = 0 if self._tally is None else int(self._tally.item())
-        return marked, self._rows_offered
 
     @torch.no_grad()
     def step(self, closure=None, *, rows: Optional[Dict[torch.Tensor, torch.Tensor]] = None):
@@ -331,15 +309,12 @@ class FusedAdam(torch.optim.Adam):
         rows = rows or {}
         _check_rows(rows, [p for group in self.param_groups for p in group["params"]])
         bitmaps = self._mark(rows)
-        named = {id(p) for p in rows}
-        counts = {"rows": 0, "full": 0}
         for group in self.param_groups:
             _refuse(group)
             leaves = ([], [], [], [], [], [])
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                counts["rows" if id(p) in named else "full"] += 1
                 state = self.state[p]
                 if not state:
                     state["step"] = torch.tensor(0.0, dtype=torch.float32)
@@ -352,7 +327,4 @@ class FusedAdam(torch.optim.Adam):
                     out.append(x)
             adam_step_(*leaves[:5], lr=float(group["lr"]), betas=group["betas"],
                        eps=group["eps"], masks=leaves[5])
-        for path, n in counts.items():
-            if n:
-                _telemetry.REGISTRY.counter(_telemetry.ADAM_LEAF_METRIC, path=path).inc(n)
         return loss

@@ -6,8 +6,9 @@ and its routes.
 - :func:`ell_matvec_cuda` launches the hand-written CUDA kernel
   (``dmlc_tpu_torch/csrc/ell_matvec.cu``), which replaces the TPU kernel
   ``ell_matvec_pallas`` (``dmlc_tpu/ops/pallas_sparse.py``). It is bound by
-  bytes: ``w`` staged in shared memory, double-buffered bulk tile copies,
-  rows packed across a warp's lanes (the source's header has the design).
+  bytes: a tile of rows a warp, the rows packed across its lanes, and
+  ``w`` staged in shared memory up to 16 KB (the source's header has the
+  design).
   Every launch adds one to :data:`launches`.
 - :func:`ell_matvec_dw_cuda` launches the hand-written gradient kernel
   (``csrc/ell_matvec_dw.cu``), which replaces the scatter-add of the JAX

@@ -94,9 +94,6 @@ INPUT_WAIT_METRIC = "input_wait_seconds"
 # stage's busy seconds count (the rest of them is off-CPU: the wait for
 # the interpreter lock and preemption)
 CONVERT_CPU_METRIC = "convert_cpu_seconds"
-# FusedAdam's leaves stepped, labeled path "rows" (the step named the rows
-# whose gradient may be non-zero) or "full"
-ADAM_LEAF_METRIC = "adam_leaf_updates"
 # the autotuner's mirrors: a gauge a knob and a steps counter, by pipeline
 AUTOTUNE_KNOB_METRIC = "autotune_knob"
 AUTOTUNE_STEP_METRIC = "autotune_steps"

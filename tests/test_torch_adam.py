@@ -7,13 +7,13 @@ float64 transcription and of ``torch.optim.Adam`` over 20 steps of sparse
 gradients; ``FusedAdam``'s face as a ``torch.optim.Adam`` (state layout,
 state dicts both ways, refused options, parameters without a gradient,
 the profiler range); the row marks (``step(rows=...)``: the same bits as
-``step()`` on the CPU, the refused arguments, the ``adam_leaf_updates``
-counter, the plain mark's words). On a card (marker ``cuda``; skipped
-without one): the kernel bit for bit against the ordered plain version,
-the masked launch against the full one and the plain version, the mark
-kernel against its plain version, ``FMLearner(ell)`` with and without
-its row marks, and one Adam launch a step. Run those on a machine with a
-card:
+``step()`` on the CPU, also with one id tensor serving two leaves, the
+refused arguments, the plain mark's words). On a card (marker ``cuda``;
+skipped without one): the kernel bit for bit against the ordered plain
+version, the masked launch against the full one and the plain version, the
+mark kernel against its plain version, ``FMLearner(ell)`` with and without
+its row marks (its bitmap against the plain mark's), and one Adam launch a
+step. Run those on a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_adam.py -m cuda
 """
@@ -30,7 +30,6 @@ from dmlc_tpu_torch.ops import _build
 from dmlc_tpu_torch.ops import adam
 from dmlc_tpu_torch.ops.adam import FusedAdam
 from dmlc_tpu_torch.ops.sparse import EllBatch
-from dmlc_tpu_torch.utils import telemetry
 from dmlc_tpu_torch.utils.check import DMLCError
 
 LR, BETAS, EPS = 0.05, (0.9, 0.999), 1e-8
@@ -261,20 +260,27 @@ def _marked_grads(shape, steps: int, seed: int, dev="cpu") -> list:
     return out
 
 
-@pytest.mark.parametrize("shape", [(W,), (W, 3), (W, 8)])
+@pytest.mark.parametrize("shape", [(W,), (W, 3), (W, 8), ((W,), (W, 8))])
 def test_step_with_rows_equals_step_on_the_cpu(shape):
-    start = torch.from_numpy(_start(shape, 8))
-    ps = [start.clone().requires_grad_(True) for _ in range(2)]
-    opts = [FusedAdam([p], lr=LR) for p in ps]
-    for ids, g in _marked_grads(shape, 3, 8):
-        for p in ps:
-            p.grad = g.clone()
-        opts[0].step(rows={ps[0]: ids})
+    """One leaf, or two (a pair of shapes) that share one id tensor, as
+    FM's ``w`` and ``V`` share the batch's ids."""
+    shapes = [shape] if isinstance(shape[0], int) else list(shape)
+    widths = [int(np.prod(shape[1:])) for shape in shapes]
+    drawn = shapes[0] if len(shapes) == 1 else (W, sum(widths))
+    runs = [[torch.from_numpy(_start(shape, 8)).requires_grad_(True) for shape in shapes]
+            for _ in range(2)]
+    opts = [FusedAdam(ps, lr=LR) for ps in runs]
+    for ids, g in _marked_grads(drawn, 3, 8):
+        parts = g.reshape(W, -1).split(widths, dim=1)
+        for ps in runs:
+            for p, part in zip(ps, parts):
+                p.grad = part.reshape(p.shape).clone()
+        opts[0].step(rows={p: ids for p in runs[0]})
         opts[1].step()
-    assert torch.equal(ps[0].view(torch.int32), ps[1].view(torch.int32))
-    for key in ("exp_avg", "exp_avg_sq"):
-        assert torch.equal(opts[0].state[ps[0]][key], opts[1].state[ps[1]][key])
-    assert opts[0].grad_rows_read() == (0, 0)  # the CPU reads the whole gradient
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opts[0].state[a][key], opts[1].state[b][key])
 
 
 @pytest.mark.parametrize("bad", ["0-d leaf", "float ids", "bool ids", "another device",
@@ -292,26 +298,6 @@ def test_bad_rows_raise(bad):
     with pytest.raises(DMLCError, match="rows|ids"):
         opt.step(rows=rows)
     assert not opt.state  # nothing stepped
-
-
-def test_adam_leaf_updates_counts_rows_and_full():
-    def count():
-        return telemetry.REGISTRY.sum_by(telemetry.ADAM_LEAF_METRIC, "path")
-
-    before = count()
-    leaves = [torch.zeros((), requires_grad=True), torch.zeros(6, requires_grad=True),
-              torch.zeros((6, 2), requires_grad=True), torch.zeros(3, requires_grad=True)]
-    opt = FusedAdam(leaves, lr=LR)
-    for p in leaves[:3]:
-        p.grad = torch.ones_like(p)
-    ids = torch.tensor([0, 4])
-    for _ in range(2):
-        opt.step(rows={leaves[1]: ids, leaves[2]: ids})
-    opt.step()
-    after = count()
-    # a step: one update a leaf with a gradient (the fourth has none)
-    assert after.get("rows", 0) - before.get("rows", 0) == 4
-    assert after.get("full", 0) - before.get("full", 0) == 2 + 3
 
 
 @pytest.mark.parametrize("ids,rows", [
@@ -395,12 +381,10 @@ def test_fused_adam_launches_once_a_step(card):
 def test_mark_kernel_equals_plain(card, ids, dtype):
     ids = torch.tensor(ids, dtype=dtype, device=card)
     mask = torch.full((W // 32 + 2,), -1, dtype=torch.int32, device=card)  # stale words
-    tally = torch.full((1,), 5, dtype=torch.int64, device=card)
-    adam.mark_rows_cuda_(mask, ids, W, tally)
-    want, marked = adam.mark_rows_plain(ids, W)
+    adam.mark_rows_cuda_(mask, ids, W)
+    want, _ = adam.mark_rows_plain(ids, W)
     words = (W + 31) // 32
     assert torch.equal(mask[:words], want)
-    assert int(tally) == 5 + marked
     assert torch.equal(mask[words:], torch.full_like(mask[words:], -1))  # past its words
 
 
@@ -417,12 +401,11 @@ def test_masked_kernel_equals_full_and_plain_bit_for_bit(card, shape, offset):
     full, plain = masked.clone(), masked.clone()
     moments = [[torch.zeros_like(masked), torch.zeros_like(masked)] for _ in range(3)]
     mask = torch.empty((shape[0] + 31) // 32, dtype=torch.int32, device=card)
-    tally = torch.zeros(1, dtype=torch.int64, device=card)
     steps = _marked_grads(shape, 3, 6, card) + [(torch.zeros(0, dtype=torch.int32, device=card),
                                                  torch.zeros(shape, device=card))]
     for t, (ids, g) in enumerate(steps, 1):
         g = _leaf(shape, offset, 0, card).copy_(g)
-        adam.mark_rows_cuda_(mask, ids, shape[0], tally)
+        adam.mark_rows_cuda_(mask, ids, shape[0])
         adam.adam_step_([masked], [g], *([x] for x in moments[0]), [float(t)], lr=LR,
                         masks=[mask])
         adam.adam_step_([full], [g], *([x] for x in moments[1]), [float(t)], lr=LR)
@@ -472,26 +455,22 @@ def _ell_batches(num_col: int, steps: int, seed: int, dev) -> list:
 
 @pytest.mark.cuda
 def test_fm_ell_with_row_marks_equals_the_full_read(card):
-    def count():
-        return telemetry.REGISTRY.sum_by(telemetry.ADAM_LEAF_METRIC, "path")
-
     kw = dict(num_factors=8, layout="ell", learning_rate=0.05, seed=3, device=card)
     marked, full = FMLearner(W, **kw), FMLearner(W, **kw)
     # the same learner, its optimizer stepped without the rows
     full.opt.register_step_pre_hook(lambda opt, args, kwargs: (args, {}))
-    before, marks = count(), adam.mark_launches
+    marks = adam.mark_launches
     for batch in _ell_batches(W, 3, 4, card):
         marked.step(batch)
         full.step(batch)
     torch.cuda.synchronize()
-    after = count()
-    assert after.get("rows", 0) - before.get("rows", 0) == 2 * 3
+    # one mark a step for w and V together, none without the rows
     assert adam.mark_launches - marks == 3
+    # the bitmap of the last step: the rows its batch names, the sink's too
+    words, _ = adam.mark_rows_plain(batch.indices, W + 1)
+    assert torch.equal(marked.opt._bitmaps[0][:words.numel()], words)
     for a, b in zip(marked.params, full.params):
         assert torch.equal(a.detach().view(torch.int32), b.detach().view(torch.int32))
         for key in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(marked.opt.state[a][key].view(torch.int32),
                                full.opt.state[b][key].view(torch.int32))
-    read, offered = marked.opt.grad_rows_read()
-    assert offered == 3 * (W + 1) and 0 < read <= 3 * (64 * 6 + 1)
-    assert full.opt.grad_rows_read() == (0, 0)
