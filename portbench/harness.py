@@ -63,6 +63,7 @@ class Run:
     stats1: dict = field(default_factory=dict)
     trace: Optional[dict] = None
     failed: int = 0
+    hit_rows: Optional[float] = None  # :func:`hit_rows` of the checked batches
 
 
 def forbidden_modules() -> list:
@@ -97,6 +98,35 @@ class _HostClock:
 
     def intervals_ms(self):
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+class _HostLoad:
+    """What the host did in the window, for the log: the main thread's and
+    the process's CPU seconds, the cyclic collector's pauses, and how far
+    the launches ran ahead of the card when the window closed (the final
+    synchronise's wait: tens of milliseconds where the card sets the pace,
+    a few where the host does)."""
+
+    def __init__(self):
+        self.gc_s, self.gc_max, self.gc_n, self._gc_t = 0.0, 0.0, 0, None
+        self.thread0, self.process0 = time.thread_time(), time.process_time()
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc_t = time.perf_counter()
+        elif self._gc_t is not None:
+            dt = time.perf_counter() - self._gc_t
+            self.gc_s, self.gc_max, self.gc_n = self.gc_s + dt, max(self.gc_max, dt), self.gc_n + 1
+
+    def close(self, t0: float, t_sent: float, t_end: float) -> str:
+        gc.callbacks.remove(self._on_gc)
+        span = max(t_end - t0, 1e-9)
+        return (f"main thread CPU {100 * (time.thread_time() - self.thread0) / span:.1f}%, "
+                     f"process CPU {100 * (time.process_time() - self.process0) / span:.1f}% "
+                     f"of one core; {self.gc_n} collections, {1e3 * self.gc_s:.1f} ms, longest "
+                     f"{1e3 * self.gc_max:.1f} ms; last launch {1e3 * (t_end - t_sent):.1f} ms "
+                     f"before the card finished")
 
 
 def _sync(device):
@@ -234,6 +264,7 @@ def _run(learner, route, writer, config, cell, seed, seconds, traced, device, co
     held, losses = [], []
     _sync(device)
     rec.setup_s = time.perf_counter() - t_start
+    host = _HostLoad()
     t0 = time.perf_counter()
     with span(trace_mod.WINDOW):
         clock.mark()
@@ -260,8 +291,10 @@ def _run(learner, route, writer, config, cell, seed, seconds, traced, device, co
             pos += 1
             if time.perf_counter() - t0 >= seconds:
                 break
+        t_sent = time.perf_counter()
         _sync(device)
     rec.window_s = time.perf_counter() - t0
+    host_line = host.close(t0, t_sent, t0 + rec.window_s)
     rec.rows = rec.steps * batch_rows
     rec.stats1 = it.stats()
     rec.intervals_ms = clock.intervals_ms()
@@ -281,6 +314,8 @@ def _run(learner, route, writer, config, cell, seed, seconds, traced, device, co
     log(f"window {rec.window_s:.3f} s, {rec.steps} steps, {rec.epochs} epoch ends; step ms "
         + " ".join(f"p{q} {np.percentile(iv, q):.3f}" for q in (50, 90, 95, 97, 99))
         + f" max {iv.max():.3f}, {int((iv > 1.2 * np.median(iv)).sum())} over 1.2x median")
+    in_next = rec.stats1.get("stall_seconds", 0) - rec.stats0.get("stall_seconds", 0)
+    log(f"window host: {host_line}; in next() {100 * in_next / rec.window_s:.1f}%")
     fed += [host_batch(b) for _, b in held]
     positions = list(range(FOLLOWED)) + [p for p, _ in held]
     # the program's state goes before the reference runs
@@ -289,8 +324,10 @@ def _run(learner, route, writer, config, cell, seed, seconds, traced, device, co
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    readings = reference_readings(learner, config, seed, corpus, fed, positions, program,
-                                  device)
+    ref_batches = reference_batches(config, corpus, positions)
+    rec.hit_rows = hit_rows(ref_batches, config["num_col"])
+    log(f"hit rows {rec.hit_rows} a batch, the mean over {len(ref_batches)} checked batches")
+    readings = reference_readings(learner, config, seed, ref_batches, fed, program, device)
     return rec, readings, cell["limits"]
 
 
@@ -301,12 +338,24 @@ def reference_batches(config: dict, corpus: str, positions: list) -> list:
     return [parse(config, corpus, p * b, (p + 1) * b) for p in positions]
 
 
-def reference_readings(learner, config, seed, corpus, fed, positions, program,
-                       device) -> dict:
+def hit_rows(ref_batches: list, num_col: int) -> float:
+    """The rows a step's row scatter has to write, from the traffic alone:
+    the mean over ``ref_batches`` (the reference's parse, padded or CSR;
+    the ids are the fourth array from the end in both) of the number of
+    distinct ids in ``[0, num_col]``. The padding sink ``num_col`` counts
+    where a padded batch names it, since the scatter writes it too."""
+    counts = []
+    for batch in ref_batches:
+        ids = batch[-4].ravel()
+        counts.append(len(np.unique(ids[(ids >= 0) & (ids <= num_col)])))
+    return float(np.mean(counts))
+
+
+def reference_readings(learner, config, seed, ref_batches, fed, program, device) -> dict:
     """The gaps between the program's readings and the reference's: the
-    feed's over every compared batch, then the learner's over the
+    feed's over every compared batch (``ref_batches``, the reference's
+    parse of the batches ``fed`` holds), then the learner's over the
     followed ones."""
-    ref_batches = reference_batches(config, corpus, positions)
     out = layout(config).feed_gaps(fed, ref_batches)
     out.update(learner.reference_readings(config, seed, ref_batches[:FOLLOWED], program,
                                           device))

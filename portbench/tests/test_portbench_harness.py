@@ -2,15 +2,19 @@
 that must turn ``correct`` false, each cell's learner's own (``faults()``
 in ``learners/<model>.py``; FM's: a step that leaves the state unchanged,
 half of each batch left out, an id altered where the feed makes it); and
-the control (the reference in bfloat16). Each cell is cut to CPU size by
-its corpus writer's ``tiny``."""
+the control (the reference in bfloat16); and the rows a batch hits,
+counted from the reference's parse of the checked batches whatever the
+program feeds. Each cell is cut to CPU size by its corpus writer's
+``tiny``."""
 
 import json
 import sys
 import time
 import types
 
+import numpy as np
 import pytest
+import torch
 
 from portbench import calibrate, harness, registry
 from portbench import run as run_mod
@@ -65,6 +69,57 @@ def test_a_sound_run_is_correct(tmp_path, name):
 def test_a_broken_timed_path_is_not_correct(tmp_path, name, fault):
     _, readings, limits = _run(tmp_path, name, fault=_learner(name).faults()[fault])
     assert not check.verdict(readings, limits), readings
+
+
+# the cells whose learner can alter an id where its feed makes it (FM's)
+ALTERED_ID = [name for name in CELLS if "altered_id" in _learner(name).faults()]
+
+
+class _OneIdFeed:
+    """Every id of each padded batch made 0 where the feed makes it."""
+
+    def __init__(self, it):
+        self.it = it
+
+    def __next__(self):
+        batch = next(self.it)
+        return batch._replace(indices=torch.zeros_like(batch.indices))
+
+    def __getattr__(self, name):
+        return getattr(self.it, name)
+
+
+@pytest.mark.parametrize("name", ALTERED_ID)
+def test_hit_rows_come_from_the_reference_parse_of_the_checked_batches(tmp_path, monkeypatch,
+                                                                       name):
+    parses = []
+    real = harness.reference_batches
+
+    def spy(config, corpus, positions):
+        batches = real(config, corpus, positions)
+        parses.append((list(positions), batches, config["num_col"]))
+        return batches
+
+    monkeypatch.setattr(harness, "reference_batches", spy)
+    faults = {"altered_id": _learner(name).faults()["altered_id"],
+              "one_id": lambda model, it: (model, _OneIdFeed(it))}
+    sound, _, _ = _run(tmp_path / "sound", name, seconds=1.0)
+    runs = [sound]
+    for fault, plant in faults.items():
+        rec, readings, limits = _run(tmp_path / fault, name, seconds=1.0, fault=plant)
+        assert not check.verdict(readings, limits), (fault, readings)
+        runs.append(rec)
+    # one parse a run, shared by the check and the count: the followed
+    # batches, then the window's sampled one and its first after a restart
+    assert len(parses) == len(runs)
+    for rec, (positions, batches, num_col) in zip(runs, parses):
+        assert positions[:harness.FOLLOWED] == list(range(harness.FOLLOWED))
+        assert len(positions) > harness.FOLLOWED and len(batches) == len(positions)
+        distinct = [len({int(i) for i in b[-4].ravel() if 0 <= i <= num_col}) for b in batches]
+        assert rec.hit_rows == np.mean(distinct) > 1
+    # ids altered in the program's feed leave the traffic's count as it was
+    assert all(positions == parses[0][0] for positions, _, _ in parses)
+    assert all(rec.hit_rows == sound.hit_rows for rec in runs)
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -1,6 +1,8 @@
 """The reference FM and Adam against ``FMLearner`` on the CPU at a tiny
 size (this file imports both; the reference module imports nothing of the
-program), and the frozen byte counts against hand-worked values."""
+program), the frozen byte counts against hand-worked values, the rows a
+batch hits as counted from the reference's parse, and the row scatter's
+roofline read from them."""
 
 import numpy as np
 import pytest
@@ -9,8 +11,8 @@ import torch
 from dmlc_tpu_torch import FMLearner
 from dmlc_tpu_torch.models.fm import FMParams
 from dmlc_tpu_torch.ops.sparse import EllBatch
-from portbench import yardstick
-from portbench.reference import check, fm as ref_fm, params as ref_params
+from portbench import harness, registry, yardstick
+from portbench.reference import check, fm as ref_fm, params as ref_params, parse
 
 import tiny
 
@@ -80,10 +82,13 @@ def test_the_byte_counts():
     assert yardstick.batch_bytes(4, 3) == 4 * 3 * 8 + 4 * 8
     # 6 x 4 B x P plus the batch
     assert yardstick.step_bytes(9, 2, 4, 3) == 6 * 4 * 31 + 128
-    # one scatter: b*k*(8 + 4*n_row) + rows*n_row*4
-    assert yardstick.row_scatter_bytes(4, 3, 10, 2) == 12 * 16 + 80
-    # an FM step's two: n_row 1 and n_row F into num_col + 1 rows
-    assert yardstick.step_row_scatter_bytes(9, 2, 4, 3) == (12 * 12 + 40) + (12 * 16 + 80)
+    # one scatter: b*k entries of an id and n_row words read, 5 hit rows
+    # of n_row words written: b*k*(4 + 4*n_row) + hit_rows*n_row*4
+    assert yardstick.row_scatter_bytes(4, 3, 5, 2) == 12 * 12 + 5 * 2 * 4
+    # an FM step's two over the same ids and hit rows: n_row 1 and n_row F
+    assert yardstick.step_row_scatter_bytes(2, 4, 3, 5) == (12 * 8 + 5 * 4) + (12 * 12 + 5 * 2 * 4)
+    # a fractional mean of hit rows counts as it is
+    assert yardstick.row_scatter_bytes(4, 3, 2.5, 1) == 12 * 8 + 10.0
     assert yardstick.least_seconds(3.35e12, 1) == 1.0
     assert yardstick.least_seconds(1, 67e12) == 1.0
 
@@ -114,3 +119,54 @@ def test_leaf_gap_is_taken_against_the_larger_norm():
     assert gaps["change_norm_gap"] == 1.0
     prog["change_norms"][1] = 1.0
     assert check.step_gaps(prog, ref)["change_norm_gap"] == 0.0
+
+
+# rows 0-2 of a libsvm corpus over num_col 10, K 3: ids repeated within a
+# row and across rows, short rows padded to the sink 10, an id 11 past the
+# table; a batch of rows [0, 4) or [2, 4) also holds a row past the end
+HIT_CORPUS = "1 3:1 5:1 3:1\n0 5:1 9:1\n1 0:1 11:1\n"
+
+
+@pytest.mark.parametrize("form,want", [
+    # padded: {0, 3, 5, 9, 10} over [0, 4) (the row past the end all sink),
+    # {0, 10} over [2, 4)
+    ("ell", (5 + 2) / 2),
+    # CSR: no padding, so no sink: {0, 3, 5, 9} and {0}
+    ("csr", (4 + 1) / 2),
+])
+def test_hit_rows_are_the_distinct_ids_in_the_table(tmp_path, form, want):
+    path = tmp_path / "hits.libsvm"
+    path.write_text(HIT_CORPUS)
+    num_col = 10
+    spans = [(0, 4), (2, 4)]
+    if form == "ell":
+        batches = [parse.rows(str(path), "libsvm", r0, r1, num_col, 3) for r0, r1 in spans]
+        assert batches[0][0][3].tolist() == [num_col] * 3  # the row past the end
+    else:
+        batches = [parse.csr_rows(str(path), "libsvm", r0, r1) for r0, r1 in spans]
+    assert harness.hit_rows(batches, num_col) == want
+    # one batch alone, and ids below 0 count for nothing
+    assert harness.hit_rows(batches[1:], num_col) == (2 if form == "ell" else 1)
+    ids = np.array([[-1, 4, 4], [10, 11, 4]])
+    assert harness.hit_rows([(ids, ids * 0.5, np.ones(2), np.ones(2))], num_col) == 2
+
+
+def test_the_row_scatter_roofline_reads_the_hit_rows_over_the_scatter_time():
+    reader = registry.metric_reader("row_scatter_roofline")
+    cfg = {"num_col": 10 ** 6, "num_factors": 8, "batch_size": 4, "max_nnz": 3}
+    run = harness.Run(config=cfg, cell={}, steps=10, hit_rows=5.0)
+    assert reader.read(run) is None  # no trace
+    spent = 2e-3
+    run.trace = {"by_ranges": {("portbench.step", "_GatherRowsBackward"): spent / 2,
+                               ("portbench.step", "_GatherRowsBackward", "aten::sort"): spent / 2,
+                               ("portbench.step", "Optimizer.step#FusedAdam.step"): 1.0}}
+    # (12 ids and words read + 5 rows written) for w and V: 708 bytes a step,
+    # whatever the table's 10**6 rows
+    need = (12 * (4 + 4) + 5 * 4) + (12 * (4 + 4 * 8) + 5 * 8 * 4)
+    assert need == 708 == yardstick.step_row_scatter_bytes(8, 4, 3, 5.0)
+    assert reader.read(run) == pytest.approx(100.0 * 10 * need / yardstick.HBM_BYTES_PER_S / spent)
+    assert registry.metric_reader("row_scatter_roofline.host_paced") is reader
+    run.hit_rows = None  # a run the harness did not count
+    assert reader.read(run) is None
+    run.hit_rows, run.trace = 5.0, {"by_ranges": {("Optimizer.step#FusedAdam.step",): 1.0}}
+    assert reader.read(run) is None  # no time under the gather's backward

@@ -47,20 +47,24 @@ def least_seconds(nbytes: int, ops: int) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S)
 
 
-def row_scatter_bytes(batch: int, k: int, rows: int, n_row: int) -> int:
-    """One row scatter of ``batch * k`` entries of ``n_row`` words into a
-    ``[rows, n_row]`` table written whole: each entry's id (4 B), its sort
-    permutation (4 B) and its ``n_row`` source words read once, and the
-    table written once: ``b*k*(8 + 4*n_row) + rows*n_row*4``."""
-    return batch * k * (8 + F32 * n_row) + rows * n_row * F32
+def row_scatter_bytes(batch: int, k: int, hit_rows: float, n_row: int) -> float:
+    """The least bytes of one row scatter of ``batch * k`` entries of
+    ``n_row`` words: each entry's int32 id and its ``n_row`` float32 source
+    words read once, and each of the ``hit_rows`` distinct rows the entries
+    name written once with its sum: ``b*k*(4 + 4*n_row) + hit_rows*n_row*4``.
+    The rows no entry names are not counted: the gradient table they lie in
+    is an intermediate (as in :func:`step_bytes`), and zeroing it whole is
+    one way of building it, not work the scatter needs. Nor is a sort
+    permutation: it is one way of grouping the entries by row."""
+    return batch * k * (F32 + F32 * n_row) + hit_rows * n_row * F32
 
 
-def step_row_scatter_bytes(num_col: int, factors: int, batch: int, k: int) -> int:
-    """An FM step's two row scatters: ``w``'s gradient (one word a row)
-    and ``V``'s (``factors`` words), each into the ``num_col + 1`` rows."""
-    rows = num_col + 1
-    return (row_scatter_bytes(batch, k, rows, 1)
-            + row_scatter_bytes(batch, k, rows, factors))
+def step_row_scatter_bytes(factors: int, batch: int, k: int, hit_rows: float) -> float:
+    """An FM step's two row scatters over the same ids: ``w``'s gradient
+    (one word a row) and ``V``'s (``factors`` words), each writing the
+    ``hit_rows`` rows the batch names."""
+    return (row_scatter_bytes(batch, k, hit_rows, 1)
+            + row_scatter_bytes(batch, k, hit_rows, factors))
 
 
 def widen_span_bytes(batch: int, k: int) -> int:
